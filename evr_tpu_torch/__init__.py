@@ -1,0 +1,34 @@
+"""evr_tpu_torch — the evr_tpu retrieval system on PyTorch and CUDA.
+
+The port of ``evr_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100. It keeps
+``evr_tpu``'s module layout and names, so each module's counterpart is easy to
+find, and its parameter layout (nested dicts, ``[in, out]`` kernels, an HWIO
+patch kernel), so weights carry across leaf by leaf
+(``models.convert.params_from_numpy``). It imports neither JAX nor anything of
+``evr_tpu``.
+
+- ``evr_tpu_torch.models``     CLIP towers, the model registry, weight carry-over
+- ``evr_tpu_torch.tokenizer``  CLIP byte-level BPE tokenizer
+- ``evr_tpu_torch.ops``        the fused block kernels (CUDA C++), top-k, staging
+- ``evr_tpu_torch.index``      the frame index and the embedding engine
+- ``evr_tpu_torch.query``      frame metadata, event formatting, strategies
+- ``evr_tpu_torch.serving``    the HTTP API
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with no
+card and no explicit CPU request they raise. Subpackages import lazily.
+"""
+
+import importlib
+
+__version__ = "0.1.0"
+
+_SUBPACKAGES = ("models", "tokenizer", "ops", "index", "query", "serving", "utils")
+
+
+def __getattr__(name):
+    if name in _SUBPACKAGES:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = list(_SUBPACKAGES)

@@ -1,0 +1,182 @@
+"""EmbeddingEngine — model registry + batched device encoding (PyTorch).
+
+Counterpart of ``evr_tpu/index/engine.py``: staged uint8 frames go through
+``encode_staged_u8`` (folded normalisation, CLS-only final block), text
+through ``encode_text(eot_fast_final=True)``; batches are padded to
+``batch_size``; text features are cached per (model, query); models can be
+registered and switched at run time.
+
+On the card the compute dtype is bfloat16 and every residual block but the
+last runs through the hand-written kernels K1 and K2; on the CPU it is
+float32 and the blocks take the plain composition. The MoE towers, mesh
+sharding, int8 weights, orbax/.pt checkpoints, the classifier head, the
+exact-PIL host preprocessing and the native pipelined stager are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import pathlib
+from typing import Callable
+
+import numpy as np
+import torch
+
+from evr_tpu_torch.models.clip import encode_staged_u8, encode_text, init_clip_params
+from evr_tpu_torch.models.convert import params_from_numpy
+from evr_tpu_torch.models.variants import get_model_config
+from evr_tpu_torch.ops.preprocess import stage_image_fast
+from evr_tpu_torch.tokenizer import get_default_tokenizer
+from evr_tpu_torch.utils.device import resolve_device
+
+IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+PARAMS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class EmbeddingEngine:
+    """Batched CLIP encoder with runtime model switching."""
+
+    def __init__(
+        self,
+        model_name: str = "ViT-B/32",
+        params=None,
+        batch_size: int = 256,
+        rng_seed: int = 0,
+        params_dtype: str = "float32",
+        device=None,
+    ):
+        """``params``: a nested dict of numpy arrays or tensors in the JAX
+        package's layout; None draws random weights from ``rng_seed``.
+        ``device``: None means the card (raises without one); pass "cpu" to
+        run on the CPU. ``params_dtype``: "float32" or "bfloat16" serving
+        weights (int8 is not ported yet)."""
+        if params_dtype not in PARAMS_DTYPES:
+            raise NotImplementedError(
+                f"params_dtype {params_dtype!r} is not ported to evr_tpu_torch yet "
+                f"(supported: {sorted(PARAMS_DTYPES)})"
+            )
+        self.device = resolve_device(device)
+        self.model_name = model_name
+        self.cfg = get_model_config(model_name)
+        self.compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        self.batch_size = batch_size
+        self.tokenizer = get_default_tokenizer()
+        self.params_dtype = params_dtype
+        if params is None:
+            params = init_clip_params(np.random.default_rng(rng_seed), self.cfg)
+        self.models: dict[str, dict] = {
+            "original": {"clip": self._cast_params(params), "classifier": None}
+        }
+        self.active_model = "original"
+        self._text_cache: dict[tuple[str, str], np.ndarray] = {}
+
+    def _cast_params(self, params):
+        return params_from_numpy(params, self.device, PARAMS_DTYPES[self.params_dtype])
+
+    # -- model registry ---------------------------------------------------
+    def register_model(self, name: str, clip_params, classifier=None) -> None:
+        self.models[name] = {"clip": self._cast_params(clip_params), "classifier": classifier}
+
+    def set_active_model(self, name: str) -> bool:
+        if name not in self.models:
+            return False
+        self.active_model = name
+        return True
+
+    def available_models(self) -> list[str]:
+        return list(self.models)
+
+    @property
+    def params(self):
+        return self.models[self.active_model]["clip"]
+
+    # -- text ------------------------------------------------------------
+    def encode_texts(self, texts, normalise: bool = True) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        tokens = self.tokenizer(texts, context_length=self.cfg.text.context_length)
+        with torch.inference_mode():
+            out = encode_text(
+                self.params, self.cfg, torch.from_numpy(tokens).to(self.device),
+                dtype=self.compute_dtype, eot_fast_final=True,
+            ).cpu().numpy()
+        if normalise:
+            out = out / np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
+        return out
+
+    def get_text_features(self, query: str) -> np.ndarray:
+        """Cached single-query text features."""
+        key = (self.active_model, query)
+        if key not in self._text_cache:
+            self._text_cache[key] = self.encode_texts([query])[0]
+        return self._text_cache[key]
+
+    def clear_text_cache(self) -> None:
+        self._text_cache.clear()
+
+    # -- images ----------------------------------------------------------
+    def _pad_batch(self, arr: np.ndarray) -> tuple[np.ndarray, int]:
+        n = len(arr)
+        if n == self.batch_size:
+            return arr, n
+        pad = np.zeros((self.batch_size - n,) + arr.shape[1:], dtype=arr.dtype)
+        return np.concatenate([arr, pad], axis=0), n
+
+    def encode_staged_images(self, staged_u8: np.ndarray, normalise: bool = False) -> np.ndarray:
+        """uint8 [N, S, S, 3] (already resized/cropped) → [N, D] embeddings,
+        in batches padded to ``batch_size``."""
+        staged_u8 = np.asarray(staged_u8)
+        outs = []
+        with torch.inference_mode():
+            for i in range(0, len(staged_u8), self.batch_size):
+                batch, n = self._pad_batch(staged_u8[i : i + self.batch_size])
+                x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
+                emb = encode_staged_u8(self.params, self.cfg, x, dtype=self.compute_dtype)
+                outs.append(emb.cpu().numpy()[:n])
+        out = (
+            np.concatenate(outs, axis=0)
+            if outs
+            else np.zeros((0, self.cfg.embed_dim), np.float32)
+        )
+        if normalise:
+            out = out / np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
+        return out
+
+    def embed_folder(
+        self,
+        folder,
+        normalise: bool = True,
+        progress: Callable[[int, int], None] | None = None,
+    ) -> tuple[np.ndarray, list[str]]:
+        """Embed every image in a folder, sorted by filename (the order that
+        aligns index rows with metadata frames). Unreadable frames are
+        skipped. Returns (embeddings, frame_names)."""
+        folder = pathlib.Path(folder)
+        candidates = sorted(
+            p.name for p in folder.iterdir() if p.suffix.lower() in IMAGE_EXTENSIONS
+        )
+        size = self.cfg.vision.image_size
+        names: list[str] = []
+        embs = []
+        staged_buf: list[np.ndarray] = []
+        for pos, name in enumerate(candidates):
+            try:
+                staged_buf.append(stage_image_fast(folder / name, size))
+            except OSError:
+                continue
+            names.append(name)
+            if len(staged_buf) == self.batch_size:
+                embs.append(self.encode_staged_images(np.stack(staged_buf)))
+                staged_buf.clear()
+            if progress:
+                progress(pos + 1, len(candidates))
+        if staged_buf:
+            embs.append(self.encode_staged_images(np.stack(staged_buf)))
+        emb = (
+            np.concatenate(embs, axis=0)
+            if embs
+            else np.zeros((0, self.cfg.embed_dim), np.float32)
+        )
+        if normalise:
+            emb = emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
+        return emb.astype(np.float32), names

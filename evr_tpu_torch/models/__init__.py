@@ -1,0 +1,26 @@
+from .clip import (
+    CLIPConfig,
+    TextConfig,
+    VisionConfig,
+    clip_forward,
+    encode_image,
+    encode_staged_u8,
+    encode_text,
+    init_clip_params,
+)
+from .convert import params_from_numpy
+from .variants import MODEL_REGISTRY, get_model_config
+
+__all__ = [
+    "CLIPConfig",
+    "TextConfig",
+    "VisionConfig",
+    "clip_forward",
+    "encode_image",
+    "encode_staged_u8",
+    "encode_text",
+    "init_clip_params",
+    "params_from_numpy",
+    "MODEL_REGISTRY",
+    "get_model_config",
+]

@@ -1,0 +1,29 @@
+"""Carry weights across from the JAX package's layout.
+
+``evr_tpu`` keeps params as nested dicts (and lists of blocks) of arrays:
+linear kernels ``[in, out]``, the patch-embedding conv kernel HWIO. The port
+uses the same layout, so carrying weights across is a leaf-by-leaf copy; no
+transposes. A JAX params tree becomes numpy with ``jax.tree.map(np.asarray,
+params)`` on the caller's side.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
+    """Nested dict/list of numpy arrays → the same structure of tensors on
+    ``device``. ``dtype`` (optional) casts the floating-point leaves."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree
+    else:
+        t = torch.from_numpy(np.array(tree, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)

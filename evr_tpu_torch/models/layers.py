@@ -1,0 +1,142 @@
+"""Transformer building blocks for the CLIP towers (PyTorch).
+
+Counterpart of ``evr_tpu/models/layers.py``: functions of a params dict
+(``evr_tpu``'s layout, kernels ``[in, out]``) and a tensor. Numerics follow
+OpenAI CLIP: pre-LN residual blocks, quickGELU, LayerNorm eps 1e-5 with the
+statistics always in fp32 whatever the compute dtype.
+
+``block_apply(attn_impl="auto")`` routes CUDA tensors of towers up to width
+1280 through the hand-written kernels K1 and K2 (``ops.block_fused``); other
+tensors take the plain composition below, as the JAX package does off the
+TPU. ``attn_impl="plain"`` runs the kernels' plain PyTorch versions instead,
+on any device: the reference the kernel path is held to on the card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from evr_tpu_torch.ops.block_fused import fused_block_apply, plain_block_apply
+
+Params = dict[str, Any]
+
+LN_EPS = 1e-5
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x) — OpenAI CLIP's activation."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU — OpenCLIP's laion-trained towers."""
+    return torch.nn.functional.gelu(x, approximate="none")
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu}
+
+
+def layer_norm(x: torch.Tensor, p: Params, eps: float = LN_EPS) -> torch.Tensor:
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
+    y = x @ p["kernel"].to(x.dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def attention(x: torch.Tensor, p: Params, n_heads: int, causal: bool = False) -> torch.Tensor:
+    """Multi-head self-attention over [B, T, W]: the XLA-path math of the
+    JAX package, fp32 scores and softmax, causal fill -1e9."""
+    B, T, W = x.shape
+    d = W // n_heads
+    q, k, v = (
+        t.reshape(B, T, n_heads, d).transpose(1, 2)
+        for t in linear(x, p["qkv"]).split(W, dim=-1)
+    )
+    logits = (q @ k.transpose(-1, -2)).float() * (1.0 / math.sqrt(d))
+    if causal:
+        mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+        logits = torch.where(mask, logits, torch.tensor(-1e9, device=x.device))
+    weights = torch.softmax(logits, dim=-1).to(x.dtype)
+    o = (weights @ v).transpose(1, 2).reshape(B, T, W)
+    return linear(o, p["out"])
+
+
+def final_block_cls(
+    x: torch.Tensor, p: Params, n_heads: int, activation: str = "quick_gelu"
+) -> torch.Tensor:
+    """Final vision block computed for the CLS row only → [B, W]: K/V over
+    every token, Q, the scores, out-proj and MLP on row 0 (pooling reads
+    nothing else). Plain PyTorch on every device, as in the JAX package."""
+    return _final_block_row(x, p, n_heads, None, activation)
+
+
+def final_block_eot(
+    x: torch.Tensor, p: Params, n_heads: int, eot_pos: torch.Tensor,
+    activation: str = "quick_gelu",
+) -> torch.Tensor:
+    """Final causal text block computed for the EOT row only → [B, W]; the
+    row attends to positions ≤ eot_pos (mask fill -1e9)."""
+    return _final_block_row(x, p, n_heads, eot_pos, activation)
+
+
+def _final_block_row(x, p, n_heads, row_idx, activation):
+    B, T, W = x.shape
+    d = W // n_heads
+    ap = p["attn"]
+    y = layer_norm(x, p["ln_1"])
+
+    def pick(a):
+        if row_idx is None:
+            return a[:, 0]
+        return a[torch.arange(B, device=a.device), row_idx]
+
+    # project Q on the pooled row only, K/V on every row
+    kern = ap["qkv"]["kernel"].to(y.dtype)
+    bias = ap["qkv"]["bias"].to(y.dtype)
+    kv = y @ kern[:, W:] + bias[W:]
+    k, v = kv[..., :W], kv[..., W:]
+    q = pick(y) @ kern[:, :W] + bias[:W]
+    q = q.reshape(B, n_heads, d)
+    k = k.reshape(B, T, n_heads, d)
+    v = v.reshape(B, T, n_heads, d)
+    logits = torch.einsum("bhd,bthd->bht", q, k).float() * (1.0 / math.sqrt(d))
+    if row_idx is not None:
+        valid = torch.arange(T, device=x.device)[None, :] <= row_idx[:, None]
+        logits = torch.where(valid[:, None, :], logits, torch.tensor(-1e9, device=x.device))
+    w = torch.softmax(logits, dim=-1).to(x.dtype)
+    o = torch.einsum("bht,bthd->bhd", w, v).reshape(B, W)
+    xc = pick(x) + linear(o, ap["out"])
+    h = ACTIVATIONS[activation](linear(layer_norm(xc, p["ln_2"]), p["mlp"]["fc"]))
+    return xc + linear(h, p["mlp"]["proj"])
+
+
+def block_apply(
+    x: torch.Tensor,
+    p: Params,
+    n_heads: int,
+    causal: bool = False,
+    attn_impl: str = "auto",
+    activation: str = "quick_gelu",
+) -> torch.Tensor:
+    """One pre-LN residual block. ``attn_impl``: "auto" (kernels K1 → K2 for
+    a CUDA tensor of width ≤ 1280, the plain composition otherwise), "xla"
+    (the plain composition), or "plain" (the kernels' plain versions)."""
+    if attn_impl == "auto" and x.shape[2] <= 1280 and x.is_cuda:
+        return fused_block_apply(x, p, n_heads, activation, causal)
+    if attn_impl == "plain":
+        return plain_block_apply(x, p, n_heads, activation, causal)
+    x = x + attention(layer_norm(x, p["ln_1"]), p["attn"], n_heads, causal)
+    h = ACTIVATIONS[activation](linear(layer_norm(x, p["ln_2"]), p["mlp"]["fc"]))
+    return x + linear(h, p["mlp"]["proj"])

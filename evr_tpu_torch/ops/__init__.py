@@ -1,0 +1,11 @@
+from .preprocess import CLIP_MEAN, CLIP_STD, stage_array_fast, stage_image_fast
+from .topk import cosine_topk, merge_topk
+
+__all__ = [
+    "CLIP_MEAN",
+    "CLIP_STD",
+    "stage_array_fast",
+    "stage_image_fast",
+    "cosine_topk",
+    "merge_topk",
+]

@@ -1,0 +1,226 @@
+"""Fused pre-LN transformer-block halves: hand-written CUDA kernels K1, K2.
+
+Counterpart of ``evr_tpu/ops/block_fused.py``: each residual block runs as two
+fused halves,
+
+- K1 ``fused_attn_block``: x + out(MHA(LN1 x)), source ``csrc/block_attn.cu``;
+- K2 ``fused_mlp_block``: x + proj(act(fc(LN2 x))), source ``csrc/block_mlp.cu``.
+
+Each wrapper takes x's dtype (bfloat16 or float32) as the compute dtype and
+casts the LayerNorm parameters, kernels and biases to it, as the reference
+wrapper does. A CUDA tensor launches the kernel (or raises); a CPU tensor
+takes the plain PyTorch version beside it, which has the same rounding points
+and is also the comparison the chip smoke run holds each kernel to. Every
+kernel launch adds one to the wrapper's ``launches`` count.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import build
+
+LN_EPS = 1e-5
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ACT_CODES = {"quick_gelu": 0, "gelu": 1}
+
+
+# -- plain versions --------------------------------------------------------
+
+
+def _ln32(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + LN_EPS)
+    return y * scale.float() + bias.float()
+
+
+def erf_as(x: torch.Tensor) -> torch.Tensor:
+    """erf via Abramowitz-Stegun 7.1.26 (|err| <= 1.5e-7), the formula the
+    kernels use for exact GELU."""
+    a1, a2, a3, a4, a5 = 0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429
+    ax = x.abs()
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    return torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def _activate(h: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "quick_gelu":
+        return h * torch.sigmoid(1.702 * h)
+    if activation == "gelu":
+        return 0.5 * h * (1.0 + erf_as(h * 0.7071067811865476))
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+def fused_attn_block_plain(
+    x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, n_heads: int,
+    causal: bool = False,
+) -> torch.Tensor:
+    """K1's function in plain PyTorch, parameters already in x's dtype."""
+    dt = x.dtype
+    B, T, W = x.shape
+    d = W // n_heads
+    x32 = x.float()
+    y = _ln32(x32, ln_scale, ln_bias).to(dt)
+    qkv = (y.float() @ qkv_kernel.float() + qkv_bias.float()).to(dt)
+    q, k, v = (
+        t.reshape(B, T, n_heads, d).transpose(1, 2) for t in qkv.split(W, dim=-1)
+    )
+    q = q * torch.tensor(1.0 / math.sqrt(d), dtype=dt, device=x.device)
+    s = q.float() @ k.float().transpose(-1, -2)
+    if causal:
+        mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+        s = torch.where(mask, s, torch.tensor(-1e30, device=x.device))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(-1, keepdim=True)
+    o = ((p.to(dt).float() @ v.float()) / denom).to(dt)
+    o = o.transpose(1, 2).reshape(B, T, W)
+    proj = o.float() @ out_kernel.float() + out_bias.float()
+    return (x32 + proj).to(dt)
+
+
+def fused_mlp_block_plain(
+    x, ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_bias,
+    activation: str = "quick_gelu",
+) -> torch.Tensor:
+    """K2's function in plain PyTorch, parameters already in x's dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    y = _ln32(x32, ln_scale, ln_bias).to(dt)
+    h = _activate(y.float() @ fc_kernel.float() + fc_bias.float(), activation).to(dt)
+    o = h.float() @ proj_kernel.float() + proj_bias.float()
+    return x32.to(dt) + o.to(dt)
+
+
+# -- wrappers --------------------------------------------------------------
+
+
+def _check_cuda(x: torch.Tensor, params, shapes, what: str) -> None:
+    """Everything the kernel reads through a raw pointer: x's dtype and
+    layout, and each parameter's device and exact shape."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {x.dtype} not supported (float32 or bfloat16)")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous")
+    for p, shape in zip(params, shapes):
+        if p.device != x.device:
+            raise ValueError(f"{what}: parameter on {p.device}, x on {x.device}")
+        if tuple(p.shape) != shape:
+            raise ValueError(f"{what}: parameter of shape {tuple(p.shape)}, expected {shape}")
+
+
+def _raise_rc(rc: int, what: str, shape) -> None:
+    if rc == -1:
+        raise ValueError(f"{what}: the CUDA kernel does not take shape {tuple(shape)}")
+    if rc == -2:
+        raise ValueError(
+            f"{what}: shape {tuple(shape)} needs more shared memory than a block has"
+        )
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error code {rc}")
+
+
+def fused_attn_block(
+    x: torch.Tensor,  # [B, T, W]
+    ln_scale, ln_bias,
+    qkv_kernel,  # [W, 3W]
+    qkv_bias,
+    out_kernel,  # [W, W]
+    out_bias,
+    n_heads: int,
+    causal: bool = False,
+) -> torch.Tensor:
+    """x + out(attention(LN(x))), kernel K1 on a CUDA tensor."""
+    dt = x.dtype
+    params = [
+        p.to(dt).contiguous()
+        for p in (ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias)
+    ]
+    if not x.is_cuda:
+        return fused_attn_block_plain(x, *params, n_heads=n_heads, causal=causal)
+    if x.dim() != 3 or x.shape[2] % n_heads:
+        raise ValueError(f"fused_attn_block: x of shape {tuple(x.shape)} with {n_heads} heads")
+    B, T, W = x.shape
+    _check_cuda(x, params, [(W,), (W,), (W, 3 * W), (3 * W,), (W, W), (W,)], "fused_attn_block")
+    lib = build.load("block_attn")
+    o = torch.empty_like(x)
+    out = torch.empty_like(x)
+    d = W // n_heads
+    rc = lib.evr_fused_attn_block(
+        _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in params),
+        o.data_ptr(), out.data_ptr(), B, T, W, n_heads, int(causal),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_rc(rc, "fused_attn_block", x.shape)
+    fused_attn_block.launches += 1
+    return out
+
+
+def fused_mlp_block(
+    x: torch.Tensor,  # [..., W]
+    ln_scale, ln_bias,
+    fc_kernel,  # [W, 4W]
+    fc_bias,
+    proj_kernel,  # [4W, W]
+    proj_bias,
+    activation: str = "quick_gelu",
+) -> torch.Tensor:
+    """x + proj(act(fc(LN(x)))), kernel K2 on a CUDA tensor."""
+    dt = x.dtype
+    params = [
+        p.to(dt).contiguous()
+        for p in (ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_bias)
+    ]
+    if not x.is_cuda:
+        return fused_mlp_block_plain(x, *params, activation=activation)
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
+    W, hid = x.shape[-1], params[2].shape[-1]
+    _check_cuda(x, params, [(W,), (W,), (W, hid), (hid,), (hid, W), (W,)], "fused_mlp_block")
+    rows = x.numel() // W
+    lib = build.load("block_mlp")
+    h = torch.empty((rows, hid), dtype=dt, device=x.device)
+    out = torch.empty_like(x)
+    rc = lib.evr_fused_mlp_block(
+        _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in params),
+        h.data_ptr(), out.data_ptr(), rows, W, hid, _ACT_CODES[activation],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_rc(rc, "fused_mlp_block", x.shape)
+    fused_mlp_block.launches += 1
+    return out
+
+
+fused_attn_block.launches = 0
+fused_mlp_block.launches = 0
+
+
+def block_half_params(p) -> tuple[tuple, tuple]:
+    """A block's params (``layers.init_block`` layout) as the argument
+    tuples of the attention half and the MLP half."""
+    a, m = p["attn"], p["mlp"]
+    return (
+        (p["ln_1"]["scale"], p["ln_1"]["bias"], a["qkv"]["kernel"], a["qkv"]["bias"],
+         a["out"]["kernel"], a["out"]["bias"]),
+        (p["ln_2"]["scale"], p["ln_2"]["bias"], m["fc"]["kernel"], m["fc"]["bias"],
+         m["proj"]["kernel"], m["proj"]["bias"]),
+    )
+
+
+def fused_block_apply(x, p, n_heads: int, activation: str = "quick_gelu", causal: bool = False):
+    """One whole residual block as K1 then K2."""
+    attn, mlp = block_half_params(p)
+    x = fused_attn_block(x, *attn, n_heads=n_heads, causal=causal)
+    return fused_mlp_block(x, *mlp, activation=activation)
+
+
+def plain_block_apply(x, p, n_heads: int, activation: str = "quick_gelu", causal: bool = False):
+    """``fused_block_apply`` through the plain versions, on any device."""
+    attn, mlp = block_half_params(p)
+    dt = x.dtype
+    x = fused_attn_block_plain(x, *(t.to(dt) for t in attn), n_heads=n_heads, causal=causal)
+    return fused_mlp_block_plain(x, *(t.to(dt) for t in mlp), activation=activation)

@@ -1,0 +1,51 @@
+"""CLI entry: ``python -m evr_tpu_torch.serving --data-root data --port 5000``."""
+
+import argparse
+
+
+def main():
+    parser = argparse.ArgumentParser(description="evr_tpu_torch serving API")
+    parser.add_argument("--data-root", default="data")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=5000)
+    parser.add_argument("--model", default="ViT-B/32")
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device for the towers and the index (default cuda; "
+        "fails without a card unless cpu is given)",
+    )
+    parser.add_argument(
+        "--index-dtype", choices=["float32", "bfloat16", "int8"], default="float32",
+        help="device index storage dtype",
+    )
+    parser.add_argument(
+        "--params-dtype", choices=["float32", "bfloat16"], default="float32",
+        help="serving weight format (int8 is not ported yet)",
+    )
+    parser.add_argument("--batch-size", type=int, default=256)
+    args = parser.parse_args()
+
+    from werkzeug.serving import run_simple
+
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.utils import get_logger
+
+    from .app import create_app
+    from .context import ServingContext
+
+    engine = EmbeddingEngine(
+        args.model, device=args.device, params_dtype=args.params_dtype,
+        batch_size=args.batch_size,
+    )
+    ctx = ServingContext(args.data_root, engine=engine, index_dtype=args.index_dtype)
+    loaded = ctx.boot()
+    get_logger("evr_tpu_torch.serving").info(
+        "serving %d videos (%d frames) from %s on %s:%d, device %s",
+        len(loaded), sum(i.total_frames for i in ctx._indexes.values()),
+        args.data_root, args.host, args.port, engine.device,
+    )
+    run_simple(args.host, args.port, create_app(ctx), threaded=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,58 @@
+"""The PyTorch port stands alone: every module of ``evr_tpu_torch`` and
+``chip_smoke`` imports in a process where JAX and the ``evr_tpu`` package
+cannot be imported, and no file of the port names either of them."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_GUARDED_IMPORT = r"""
+import importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "evr_tpu"):
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+for name in list(sys.modules):
+    if name.split(".")[0] in ("jax", "jaxlib", "evr_tpu"):
+        del sys.modules[name]
+import evr_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(evr_tpu_torch.__path__, "evr_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_evr_tpu():
+    out = subprocess.run(
+        [sys.executable, "-c", _GUARDED_IMPORT], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+
+
+def _port_files():
+    files = sorted((ROOT / "evr_tpu_torch").rglob("*.py"))
+    files += sorted((ROOT / "evr_tpu_torch").rglob("*.cu*"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_port_files_name_neither_jax_nor_evr_tpu_modules():
+    bad = re.compile(r"^\s*(import jax|from jax\b)|\bevr_tpu\.", re.M)
+    offenders = [
+        f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+        for p in _port_files()
+        for m in [bad.search(p.read_text())]
+        if m
+    ]
+    assert not offenders, offenders
