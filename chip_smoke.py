@@ -8,19 +8,25 @@ package. Phases, each fatal on failure:
 1. the card: name and power limit (``nvidia-smi``); TF32 off for matmuls and
    cuDNN, so fp32 comparisons are full fp32;
 2. build: every kernel of the main path compiled from ``ops/csrc``;
-3. kernel parity: K1 (``fused_attn_block``) and K2 (``fused_mlp_block``)
+3. kernel parity: K1 (``fused_attn_block``), K2 (``fused_mlp_block``), K3a
+   and K3b (``fused_attn_block_q``, ``fused_mlp_block_q``: the int8 halves)
    against their plain PyTorch versions at the ViT-B/32 main-path shapes,
    vision (B=256, T=50, W=768, H=12) and text (B=16, T=77, W=512, H=8,
-   causal), in bfloat16 and float32;
-4. main path: ``EmbeddingEngine("ViT-B/32", device="cuda")`` with seeded
-   random weights embeds 1,024 synthetic frames of four videos at batch 256,
-   the data root is written, ``ServingContext`` boots from it and
-   ``create_app`` answers /api/search requests; the launch counts of K1 and
-   K2 over that run, and the kernel path's embeddings and top-10 rankings
-   against the plain versions' on the same frames and queries;
-5. times: each kernel, its plain version and a PyTorch library composition of
-   the same half, by CUDA events at the vision shape; encode frames/s and
-   the p50 of a text query.
+   causal), in bfloat16 and float32; K4 (``fused_topk``) against its plain
+   version on 1,048,576 index rows of 512 in int8, bf16 and fp32;
+4. main path, bf16 weights: ``EmbeddingEngine("ViT-B/32", device="cuda")``
+   with seeded random weights embeds 1,024 synthetic frames of four videos
+   at batch 256, the data root is written, ``ServingContext`` boots from it
+   and ``create_app`` answers /api/search requests; the launch counts of K1
+   and K2 over that run, and the kernel path's embeddings and top-10
+   rankings against the plain versions' on the same frames and queries;
+5. main path, int8: the same with ``params_dtype="int8"`` (K3) and an int8
+   index searched by K4 (``index_dtype="int8", search_impl="pallas"``); the
+   launch counts of K3a, K3b and K4 and the calls of ``cosine_topk`` (none);
+   then ``auto_params_dtype`` gates a float32 engine over that data root;
+6. times: each kernel, its plain version and a PyTorch library computation
+   of the same function, by CUDA events at the main-path shapes; encode
+   frames/s and the p50 of a text query, bf16 and int8.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -38,6 +44,8 @@ import tempfile
 import time
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, same sheet
+H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, same sheet
 H100_BYTES_PER_S = 3.35e12
 
 VISION = dict(B=256, T=50, W=768, H=12, causal=False)
@@ -55,6 +63,26 @@ EMBED_MIN_COS = 0.999  # kernel-path vs plain-path frame embeddings, per row
 # SERVED_RANK_NOISE is about twice that.
 ONE_VECTOR_RANK_NOISE = 2.5e-3
 SERVED_RANK_NOISE = 4e-3
+# K3 against its plain version. Both share every rounding point; a LayerNorm
+# or head output that differs in its last bit (sums in another order) can
+# move one activation across a quantisation step, which changes an output by
+# one int8 step of that product: up to 3.5e-3 in fp32 in a probe run on an
+# H100 (7.8e-3 / 1.6e-2 in bf16, one and two bf16 steps below 4). The limits
+# are about three times that in fp32 and BF16_TOL in bf16.
+INT8_FP32_TOL = 1e-2
+INT8_MIN_COS = 0.99999  # per output row; the probe's worst was 0.999998
+# The int8 main path's kernel-vs-plain ranking bands, chosen as the bf16
+# ones were: about twice the largest score difference between the int8
+# kernel path and the int8 plain path, which this script measured on an
+# H100 as 2.05e-3 under one query vector (text queries; 4.7e-4 for frame
+# queries) and 3.83e-3 with each path's own text vectors.
+INT8_ONE_VECTOR_RANK_NOISE = 4e-3
+INT8_SERVED_RANK_NOISE = 8e-3
+# K4 on an index of TOPK_ROWS x TOPK_DIM: rows must be equal; scores within
+# 1e-5 (fp32 rows) or 1e-3 (int8/bf16), though the plain version sums in the
+# kernel's order and so should agree to the bit.
+TOPK_ROWS, TOPK_DIM = 1 << 20, 512
+TOPK_SCORE_TOL = {"float32": 1e-5, "bfloat16": 1e-3, "int8": 1e-3}
 MODEL = "ViT-B/32"
 N_FRAMES, N_VIDEOS, BATCH = 1024, 4, 256
 N_FRAME_QUERIES = 8
@@ -209,6 +237,94 @@ def phase_parity(torch):
     return worst
 
 
+def quantized_block(p):
+    """A block's params with its four linears quantized (``models.quant``)."""
+    from evr_tpu_torch.models.quant import quantize_linear_params
+
+    return {**p,
+            "attn": {n: quantize_linear_params(v) for n, v in p["attn"].items()},
+            "mlp": {n: quantize_linear_params(v) for n, v in p["mlp"].items()}}
+
+
+def phase_parity_int8(torch):
+    """K3a and K3b against their plain versions, bf16 and fp32, both
+    shapes, quickGELU; exact GELU at the vision width."""
+    from evr_tpu_torch.ops import block_fused as bf
+
+    dev = torch.device("cuda")
+    worst = {"fused_attn_block_q": 0.0, "fused_mlp_block_q": 0.0}
+    for shape_name, s in (("vision", VISION), ("text", TEXT)):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        attn, mlp = bf.quant_block_half_params(quantized_block(block_params(torch, s["W"], gen, dev)))
+        x32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev)
+        cases = [("fused_attn_block_q", bf.fused_attn_block_q, bf.fused_attn_block_q_plain,
+                  dict(n_heads=s["H"], causal=s["causal"]), attn),
+                 ("fused_mlp_block_q", bf.fused_mlp_block_q, bf.fused_mlp_block_q_plain,
+                  dict(activation="quick_gelu"), mlp)]
+        if shape_name == "vision":
+            cases.append(("fused_mlp_block_q", bf.fused_mlp_block_q, bf.fused_mlp_block_q_plain,
+                          dict(activation="gelu"), mlp))
+        for dt in (torch.bfloat16, torch.float32):
+            x = x32.to(dt)
+            for name, kern, plain, kw, args in cases:
+                got = kern(x, *args, **kw)
+                torch.cuda.synchronize()
+                ref = plain(x, *bf.cast_quant_args(dt, args), **kw)
+                err, cos, finite = compare(torch, got, ref)
+                tag = f"{name} {kw.get('activation', '')} {shape_name} {str(dt).split('.')[-1]}"
+                log(f"parity {tag}: max_abs_err={err:.3e} min_row_cos={cos:.7f}")
+                check(finite, f"{tag}: non-finite output")
+                tol = INT8_FP32_TOL if dt == torch.float32 else BF16_TOL
+                check(err <= tol, f"{tag}: max abs err {err} > {tol}")
+                check(cos >= INT8_MIN_COS, f"{tag}: row cosine {cos} < {INT8_MIN_COS}")
+                if shape_name == "vision" and dt == torch.bfloat16:
+                    worst[name] = max(worst[name], err)
+    return worst
+
+
+def topk_index(torch, dtype: str):
+    """(index, row scales) of TOPK_ROWS seeded unit rows with a block of 64
+    duplicated rows (ties), stored as ``FrameIndex`` stores ``dtype``."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    emb = torch.randn((TOPK_ROWS, TOPK_DIM), generator=gen, device="cuda")
+    emb[5000:5064] = emb[5000]
+    emb = emb / emb.norm(dim=1, keepdim=True)
+    if dtype == "int8":
+        scales = (emb.abs().amax(1) / 127.0).clamp_min(1e-12)
+        return torch.clamp(torch.round(emb / scales[:, None]), -127, 127).to(torch.int8), scales
+    return emb.to(getattr(torch, dtype)), None
+
+
+def phase_parity_topk(torch):
+    """K4 against its plain version: Q in {1, 5, 32}, k in {1, 30, 300}, a
+    row range that starts past 0 and ends before the last tile, a query on
+    the tied block."""
+    from evr_tpu_torch.ops.retrieval import fused_topk, fused_topk_plain
+
+    worst, start, end = 0.0, 17, TOPK_ROWS - 4099
+    for dtype in ("int8", "bfloat16", "float32"):
+        index, scales = topk_index(torch, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        for nq in (1, 5, 32):
+            q = torch.randn((nq, TOPK_DIM), generator=gen, device="cuda")
+            q[0] = index[5000].float()
+            for k in (1, 30, 300):
+                got_s, got_r = fused_topk(index, q, start, end, k, scales)
+                torch.cuda.synchronize()
+                ref_s, ref_r = fused_topk_plain(index, q, start, end, k, scales)
+                err = (got_s - ref_s).abs().max().item()
+                same = bool(torch.equal(got_r, ref_r))
+                tag = f"fused_topk {dtype} Q={nq} k={k}"
+                log(f"parity {tag}: rows equal {same}, max_abs_err={err:.3e}")
+                check(same, f"{tag}: rows differ from the plain version")
+                check(err <= TOPK_SCORE_TOL[dtype], f"{tag}: score err {err}")
+                tied = got_r[0][(got_r[0] >= 5000) & (got_r[0] < 5064)]
+                check(bool(torch.equal(tied, tied.sort().values)), f"{tag}: ties not lowest row first")
+                worst = max(worst, err)
+        del index, scales
+    return worst
+
+
 # -- 4. main path ------------------------------------------------------------
 
 
@@ -260,7 +376,11 @@ def write_video(path: pathlib.Path, n_frames: int) -> None:
     writer.release()
 
 
-def write_data_root(root: pathlib.Path, names, embeddings_per_video):
+def write_data_root(root: pathlib.Path, names, embeddings_per_video, frames_per_video):
+    """The JAX package's data-root layout: per video an .npy of embeddings,
+    metadata JSON, the frames as JPEGs (the int8 gate samples them), a
+    small video file, and the registry entry."""
+    import cv2
     import numpy as np
 
     from evr_tpu_torch.config import DataRootConfig
@@ -268,10 +388,12 @@ def write_data_root(root: pathlib.Path, names, embeddings_per_video):
 
     cfg = DataRootConfig(root).ensure()
     registry = VideoRegistry(cfg.mapping_path)
-    for name, emb in zip(names, embeddings_per_video):
+    for name, emb, frames in zip(names, embeddings_per_video, frames_per_video):
         np.save(cfg.embedding_dir / f"{name}_embeddings.npy", emb)
         frames_dir = cfg.frames_dir / name
         frames_dir.mkdir(parents=True, exist_ok=True)
+        for i, f in enumerate(frames):
+            cv2.imwrite(str(frames_dir / f"{i}.jpg"), np.ascontiguousarray(f[:, :, ::-1]))
         video = cfg.video_dir / f"{name}.mp4"
         write_video(video, len(emb))
         records = [
@@ -294,73 +416,67 @@ def write_data_root(root: pathlib.Path, names, embeddings_per_video):
     return cfg
 
 
-def phase_main_path(torch):
-    import dataclasses
-
+def serve_counted(torch, engine, frames, root: pathlib.Path, counted, **ctx_kwargs):
+    """The main path once, through the entry points a user calls: encode the
+    frames, write the data root, boot ``ServingContext`` from it and answer
+    the /api/search requests. Every count in ``counted`` (objects with a
+    ``launches`` attribute) is set to 0 just before and read just after.
+    Returns (embeddings, context, encode seconds, request ms, launches)."""
     import numpy as np
     from werkzeug.test import Client
 
-    from evr_tpu_torch.index import EmbeddingEngine
-    from evr_tpu_torch.models.clip import encode_staged_u8, encode_text
-    from evr_tpu_torch.ops import block_fused as bf
     from evr_tpu_torch.serving import ServingContext, create_app
 
-    t0 = time.perf_counter()
-    engine = EmbeddingEngine(MODEL, device="cuda", batch_size=BATCH, rng_seed=0)
-    log(f"engine: {MODEL} random weights (seed 0), {engine.compute_dtype}, "
-        f"set up in {time.perf_counter() - t0:.1f} s")
-    size = engine.cfg.vision.image_size
-    frames = synthetic_frames(torch, N_FRAMES, size, engine.cfg.vision.patch_size)
     engine.encode_staged_images(frames[:BATCH])  # first call: kernel libraries load
     torch.cuda.synchronize()
-
-    bf.fused_attn_block.launches = 0
-    bf.fused_mlp_block.launches = 0
+    for fn in counted:
+        fn.launches = 0
     t0 = time.perf_counter()
     emb = engine.encode_staged_images(frames)
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
     check(emb.shape == (N_FRAMES, engine.cfg.embed_dim), f"embedding shape {emb.shape}")
     check(bool(np.isfinite(emb).all()), "non-finite frame embeddings")
-    n_batches = -(-N_FRAMES // BATCH)
-
     names = [f"video{v}" for v in range(N_VIDEOS)]
     per = N_FRAMES // N_VIDEOS
+    cfg = write_data_root(root, names, [emb[v * per:(v + 1) * per] for v in range(N_VIDEOS)],
+                          [frames[v * per:(v + 1) * per] for v in range(N_VIDEOS)])
+    ctx = ServingContext(cfg, engine=engine, **ctx_kwargs)
+    loaded = ctx.boot()
+    check(loaded == names, f"boot loaded {loaded}")
+    client = Client(create_app(ctx))
+    check(client.get("/health").status_code == 200, "/health")
+    check(client.get("/api/videos").status_code == 200, "/api/videos")
     request_ms = []
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = write_data_root(pathlib.Path(tmp), names, [emb[v * per:(v + 1) * per] for v in range(N_VIDEOS)])
-        ctx = ServingContext(cfg, engine=engine)
-        loaded = ctx.boot()
-        check(loaded == names, f"boot loaded {loaded}")
-        client = Client(create_app(ctx))
-        check(client.get("/health").status_code == 200, "/health")
-        check(client.get("/api/videos").status_code == 200, "/api/videos")
-        for i, q in enumerate(QUERIES):
-            body = {"query": q, "search_type": "text", "top_k": 10, "adaptive_threshold": -1.0,
-                    "search_method": "text_clip" if i % 2 == 0 else "text_adaptive"}
-            if i == len(QUERIES) - 1:
-                body["videoId"] = "video-2"
-            t1 = time.perf_counter()
-            resp = client.post("/api/search", json=body)
-            request_ms.append((time.perf_counter() - t1) * 1e3)
-            check(resp.status_code == 200, f"/api/search {q!r}: HTTP {resp.status_code}")
-            events = json.loads(resp.get_data(as_text=True))["events"]
-            check(len(events) > 0, f"/api/search {q!r}: no events")
-            check(all(math.isfinite(e["clip_similarity"]) for e in events), "non-finite score")
-            log(f"search {body['search_method']:13s} {q!r}: HTTP 200, {len(events)} events, "
-                f"top {events[0]['videoId']}/{events[0]['id']} "
-                f"score {events[0]['clip_similarity']:.4f}, {request_ms[-1]:.1f} ms")
-    launches = {"fused_attn_block": bf.fused_attn_block.launches,
-                "fused_mlp_block": bf.fused_mlp_block.launches}
-    n_text = len(QUERIES)
-    n_blocks = engine.cfg.vision.layers - 1  # the last block is the pooled-row one
-    expected = n_blocks * n_batches + (engine.cfg.text.layers - 1) * n_text
-    log(f"launches over the main path: {launches} (expected {expected} each: "
-        f"11 per encode batch per tower, {n_batches} frame batches, {n_text} text encodes)")
-    for name, n in launches.items():
-        check(n == expected > 0, f"{name}: {n} launches, expected {expected}")
+    for i, q in enumerate(QUERIES):
+        body = {"query": q, "search_type": "text", "top_k": 10, "adaptive_threshold": -1.0,
+                "search_method": "text_clip" if i % 2 == 0 else "text_adaptive"}
+        if i == len(QUERIES) - 1:
+            body["videoId"] = "video-2"
+        t1 = time.perf_counter()
+        resp = client.post("/api/search", json=body)
+        request_ms.append((time.perf_counter() - t1) * 1e3)
+        check(resp.status_code == 200, f"/api/search {q!r}: HTTP {resp.status_code}")
+        events = json.loads(resp.get_data(as_text=True))["events"]
+        check(len(events) > 0, f"/api/search {q!r}: no events")
+        check(all(math.isfinite(e["clip_similarity"]) for e in events), "non-finite score")
+        log(f"search {body['search_method']:13s} {q!r}: HTTP 200, {len(events)} events, "
+            f"top {events[0]['videoId']}/{events[0]['id']} "
+            f"score {events[0]['clip_similarity']:.4f}, {request_ms[-1]:.1f} ms")
+    launches = {fn.__name__: fn.launches for fn in counted}
+    return emb, ctx, encode_s, request_ms, launches
 
-    # kernel path against the plain versions on the card, same frames
+
+def check_against_plain(torch, engine, frames, emb, one_noise: float, served_noise: float,
+                        what: str) -> None:
+    """The kernel path's embeddings and top-10 rankings against the plain
+    versions' (``attn_impl="plain"``) on the same frames and queries."""
+    import dataclasses
+
+    import numpy as np
+
+    from evr_tpu_torch.models.clip import encode_staged_u8, encode_text
+
     plain_cfg = dataclasses.replace(engine.cfg, attn_impl="plain")
     with torch.inference_mode():
         ref = []
@@ -371,9 +487,8 @@ def phase_main_path(torch):
     got_n = emb / np.linalg.norm(emb, axis=1, keepdims=True)
     ref_n = ref / np.linalg.norm(ref, axis=1, keepdims=True)
     cos = (got_n * ref_n).sum(1)
-    log(f"frame embeddings, kernel path vs plain path: min row cos {cos.min():.6f}")
-    check(cos.min() >= EMBED_MIN_COS, f"embedding cosine {cos.min()} < {EMBED_MIN_COS}")
-    # the text tower: kernel path against plain path, same queries
+    log(f"{what}: frame embeddings, kernel path vs plain path: min row cos {cos.min():.6f}")
+    check(cos.min() >= EMBED_MIN_COS, f"{what}: embedding cosine {cos.min()} < {EMBED_MIN_COS}")
     tokens = torch.from_numpy(engine.tokenizer(list(QUERIES))).cuda()
     with torch.inference_mode():
         txt_ref = encode_text(engine.params, plain_cfg, tokens, dtype=engine.compute_dtype,
@@ -381,75 +496,201 @@ def phase_main_path(torch):
     txt_ref /= np.linalg.norm(txt_ref, axis=1, keepdims=True)
     txt = engine.encode_texts(list(QUERIES))
     tcos = (txt * txt_ref).sum(1)
-    log(f"text embeddings, kernel path vs plain path: min row cos {tcos.min():.6f}")
-    check(tcos.min() >= EMBED_MIN_COS, f"text embedding cosine {tcos.min()} < {EMBED_MIN_COS}")
+    log(f"{what}: text embeddings, kernel path vs plain path: min row cos {tcos.min():.6f}")
+    check(tcos.min() >= EMBED_MIN_COS, f"{what}: text embedding cosine {tcos.min()} < {EMBED_MIN_COS}")
 
     # rankings: the frame paths under the plain path's text vectors and
     # under its vectors of a few frames; then the served ranking, each text
     # query through each path's own towers
     picks = np.linspace(0, N_FRAMES - 1, N_FRAME_QUERIES).astype(int)
     cases = (
-        ("text queries, one query vector", txt_ref, txt_ref, ONE_VECTOR_RANK_NOISE),
-        ("frame queries, one query vector", ref_n[picks], ref_n[picks], ONE_VECTOR_RANK_NOISE),
-        ("text queries, each path's own", txt, txt_ref, SERVED_RANK_NOISE),
+        ("text queries, one query vector", txt_ref, txt_ref, one_noise),
+        ("frame queries, one query vector", ref_n[picks], ref_n[picks], one_noise),
+        ("text queries, each path's own", txt, txt_ref, served_noise),
     )
     for kind, got_q, ref_q, noise in cases:
         bad, overlaps, band, diff = rank_check(got_n, ref_n, got_q, ref_q, noise)
-        log(f"top-10 rankings, {kind}, kernel vs plain path: overlap {overlaps}, "
+        log(f"{what}: top-10 rankings, {kind}, kernel vs plain path: overlap {overlaps}, "
             f"frames within {noise} of the 10th score {band}, largest score "
             f"difference {diff:.2e}, violations {bad}")
-        check(bad == 0, f"{kind}: {bad} top-10 swaps wider than {noise}")
+        check(bad == 0, f"{what}, {kind}: {bad} top-10 swaps wider than {noise}")
     # the check must reject frame embeddings off by the row-cosine tolerance
     # (0.999): seeded noise of that size on the kernel path's frames
     noise = np.random.default_rng(0).standard_normal(got_n.shape).astype(np.float32)
     off = got_n + noise * math.sqrt((1 / EMBED_MIN_COS**2 - 1) / got_n.shape[1])
     off /= np.linalg.norm(off, axis=1, keepdims=True)
-    bad_off = sum(rank_check(off, ref_n, q, q, ONE_VECTOR_RANK_NOISE)[0] for q in (txt_ref, ref_n[picks]))
-    log(f"the one-vector ranking checks on frame embeddings off by row cosine "
+    bad_off = sum(rank_check(off, ref_n, q, q, one_noise)[0] for q in (txt_ref, ref_n[picks]))
+    log(f"{what}: the one-vector ranking checks on frame embeddings off by row cosine "
         f"{float((off * got_n).sum(1).mean()):.5f}: {bad_off} violations")
-    check(bad_off > 0, "the ranking check passes embeddings off by row cosine 0.999")
+    check(bad_off > 0, f"{what}: the ranking check passes embeddings off by row cosine 0.999")
 
-    # text-query latency: encode + search of a fresh query, no result cache
+
+def text_query_p50_ms(engine, ctx) -> float:
+    """Encode + search of a fresh query (no result cache), p50 of 20."""
     lat = []
     for i in range(20):
         t1 = time.perf_counter()
         vec = engine.encode_texts([f"query number {i} about a scene"])
         ctx.index.search(vec, 10)
         lat.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(lat)
+
+
+def phase_main_path(torch, frames):
+    """bf16 weights through K1 and K2, an fp32 index searched by cosine_topk."""
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.ops import block_fused as bf
+
+    t0 = time.perf_counter()
+    engine = EmbeddingEngine(MODEL, device="cuda", batch_size=BATCH, rng_seed=0)
+    log(f"engine: {MODEL} random weights (seed 0), {engine.compute_dtype}, "
+        f"set up in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        emb, ctx, encode_s, request_ms, launches = serve_counted(
+            torch, engine, frames, pathlib.Path(tmp), [bf.fused_attn_block, bf.fused_mlp_block])
+        n_batches, n_text = -(-N_FRAMES // BATCH), len(QUERIES)
+        n_blocks = engine.cfg.vision.layers - 1  # the last block is the pooled-row one
+        expected = n_blocks * n_batches + (engine.cfg.text.layers - 1) * n_text
+        log(f"launches over the bf16 main path: {launches} (expected {expected} each: "
+            f"11 per encode batch per tower, {n_batches} frame batches, {n_text} text encodes)")
+        for name, n in launches.items():
+            check(n == expected > 0, f"{name}: {n} launches, expected {expected}")
+        check_against_plain(torch, engine, frames, emb, ONE_VECTOR_RANK_NOISE, SERVED_RANK_NOISE,
+                            "bf16")
+        p50 = text_query_p50_ms(engine, ctx)
     return {
         "launches": launches,
         "encode_frames_per_s": N_FRAMES / encode_s,
-        "text_query_p50_ms": statistics.median(lat),
+        "text_query_p50_ms": p50,
         "request_p50_ms": statistics.median(request_ms),
     }
+
+
+def phase_main_path_int8(torch, frames):
+    """int8 weights through K3a and K3b, an int8 index searched by K4; then
+    the boot gate (``--params-dtype auto``) over the same data root."""
+    from evr_tpu_torch.index import EmbeddingEngine, store
+    from evr_tpu_torch.models.quant_gate import auto_params_dtype
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.ops.retrieval import fused_topk
+
+    engine = EmbeddingEngine(MODEL, device="cuda", batch_size=BATCH, rng_seed=0,
+                             params_dtype="int8")
+    log(f"engine: {MODEL} random weights (seed 0), int8 block linears, {engine.compute_dtype}")
+    # independent counts beside the kernels': index searches, and calls of
+    # the GEMM-and-sort search that the fused path must not make
+    searches, xla_search = counting(store.FrameIndex._search_raw_locked), counting(store.cosine_topk)
+    store.FrameIndex._search_raw_locked, store.cosine_topk = searches, xla_search
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            emb, ctx, encode_s, request_ms, launches = serve_counted(
+                torch, engine, frames, pathlib.Path(tmp),
+                [bf.fused_attn_block_q, bf.fused_mlp_block_q, fused_topk, searches, xla_search],
+                index_dtype="int8", search_impl="pallas")
+            n_batches, n_text = -(-N_FRAMES // BATCH), len(QUERIES)
+            expected = (engine.cfg.vision.layers - 1) * n_batches + (engine.cfg.text.layers - 1) * n_text
+            log(f"launches over the int8 main path: {launches} (expected {expected} of each K3 "
+                f"half, {n_text} index searches, each one fused_topk launch, no cosine_topk)")
+            for name in ("fused_attn_block_q", "fused_mlp_block_q"):
+                check(launches[name] == expected > 0, f"{name}: {launches[name]} launches, expected {expected}")
+            check(launches["_search_raw_locked"] == n_text, f"{launches['_search_raw_locked']} index searches")
+            check(launches["fused_topk"] == n_text, f"fused_topk: {launches['fused_topk']} launches")
+            check(launches["cosine_topk"] == 0, f"cosine_topk ran {launches['cosine_topk']} times")
+            check(ctx.index._device_index.dtype == torch.int8, "the served index is not int8")
+            check_against_plain(torch, engine, frames, emb, INT8_ONE_VECTOR_RANK_NOISE,
+                                INT8_SERVED_RANK_NOISE, "int8")
+            p50 = text_query_p50_ms(engine, ctx)
+            root = ctx.data_root
+            del engine, ctx
+
+            # --params-dtype auto: a float32 engine, gated over the data root
+            gated = EmbeddingEngine(MODEL, device="cuda", batch_size=BATCH, rng_seed=0)
+            report = auto_params_dtype(gated, root)
+            log(f"int8 gate (auto_params_dtype) on random weights: {json.dumps(report.as_dict())} "
+                f"-> serving {gated.params_dtype}")
+            check(gated.params_dtype == ("int8" if report.passed else "bfloat16"),
+                  f"gate passed={report.passed} but the engine serves {gated.params_dtype}")
+            check(report.n_frames == min(256, N_FRAMES), f"the gate sampled {report.n_frames} frames")
+    finally:
+        store.FrameIndex._search_raw_locked = searches.__wrapped__
+        store.cosine_topk = xla_search.__wrapped__
+    launches = {k: v for k, v in launches.items() if k not in ("_search_raw_locked", "cosine_topk")}
+    return {
+        "launches": launches,
+        "encode_frames_per_s": N_FRAMES / encode_s,
+        "text_query_p50_ms": p50,
+        "request_p50_ms": statistics.median(request_ms),
+        "gate": report.as_dict(),
+    }
+
+
+def counting(fn):
+    """``fn`` with a ``launches`` count of its calls."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        wrapper.launches += 1
+        return fn(*args, **kwargs)
+
+    wrapper.launches = 0
+    return wrapper
 
 
 # -- 5. times ----------------------------------------------------------------
 
 
-def half_costs(name: str, s: dict, elt: int):
-    """(operations, bytes) one call must do: each input read once, each
-    output written once."""
+def half_bound_ms(name: str, s: dict, elt: int) -> tuple[float, float, str]:
+    """(operations time, bytes time, description) of one call at the card's
+    peaks: each input read once, each output written once. The int8 halves
+    count their GEMMs at the int8 rate and the attention at the bf16 rate."""
     rows, W = s["B"] * s["T"], s["W"]
-    if name == "fused_attn_block":
-        flops = 2 * rows * W * 3 * W + 4 * s["B"] * s["T"] * s["T"] * W + 2 * rows * W * W
-        weights = 4 * W * W + 6 * W
+    attn_flops = 4 * s["B"] * s["T"] * s["T"] * W
+    if name in ("fused_attn_block", "fused_attn_block_q"):
+        gemm = 2 * rows * W * 3 * W + 2 * rows * W * W
+        weights, vectors, attn = 4 * W * W, 4 * W, attn_flops
     else:
-        flops = 2 * 2 * rows * W * 4 * W
-        weights = 8 * W * W + 7 * W
-    return flops, (2 * rows * W + weights) * elt
+        gemm = 2 * 2 * rows * W * 4 * W
+        weights, vectors, attn = 8 * W * W, 5 * W, 0
+    if name.endswith("_q"):  # int8 kernels; fp32 scales and biases
+        t_ops = gemm / H100_INT8_OPS + attn / H100_BF16_FLOPS
+        nbytes = 2 * rows * W * elt + weights + 2 * vectors * 4 + 2 * W * elt
+    else:
+        t_ops = (gemm + attn) / H100_BF16_FLOPS
+        nbytes = (2 * rows * W + weights + vectors + 2 * W) * elt
+    desc = f"{gemm / 1e9:.2f} G GEMM ops, {attn / 1e9:.2f} GFLOP attention, {nbytes / 1e6:.1f} MB"
+    return t_ops * 1e3, nbytes / H100_BYTES_PER_S * 1e3, desc
+
+
+def time_case(torch, name, tag, kern, plain, lib, t_ops, t_bytes, desc, counted):
+    """Kernel, plain version and library yardstick by CUDA events, in the
+    order plain, kernel, kernel, plain so the pairs share a clock; the
+    timing launches are taken back out of the main-path counts."""
+    saved = [c.launches for c in counted]
+    p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kern, kern, plain))
+    lib_ms = cuda_ms(torch, lib)
+    for c, n in zip(counted, saved):
+        c.launches = n
+    rec = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log(f"time {name} {tag}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+        f"library {lib_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {desc})")
+    return rec
 
 
 def phase_times(torch):
     import torch.nn.functional as F
 
     from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.ops.int8 import quantize_rows
 
     dev = torch.device("cuda")
+    counted = (bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_q, bf.fused_mlp_block_q)
     out = {}
     for shape_name, s in (("vision", VISION), ("text", TEXT)):
         gen = torch.Generator(device=dev).manual_seed(2)
-        attn_args, mlp_args = bf.block_half_params(block_params(torch, s["W"], gen, dev))
+        fp = block_params(torch, s["W"], gen, dev)
+        attn_args, mlp_args = bf.block_half_params(fp)
         dt = torch.bfloat16
         x = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev).to(dt)
         a = [t.to(dt) for t in attn_args]
@@ -457,6 +698,9 @@ def phase_times(torch):
         B, T, W, H = s["B"], s["T"], s["W"], s["H"]
         qkv_t, out_t = a[2].t().contiguous(), a[4].t().contiguous()
         fc_t, pr_t = m[2].t().contiguous(), m[4].t().contiguous()
+        qa, qm = bf.quant_block_half_params(quantized_block(fp))
+        qa_args = bf.cast_quant_args(dt, qa)
+        qm_args = bf.cast_quant_args(dt, qm)
 
         def lib_attn():
             y = F.layer_norm(x, (W,), a[0], a[1], 1e-5)
@@ -468,32 +712,70 @@ def phase_times(torch):
             h = F.linear(F.layer_norm(x, (W,), m[0], m[1], 1e-5), fc_t, m[3])
             return x + F.linear(h * torch.sigmoid(1.702 * h), pr_t, m[5])
 
+        # int8 yardsticks: the library's int8 GEMM (torch._int_mm, weights
+        # column-major as its int8 path takes them) around the same
+        # per-token quantisation and dequantisation
+        def int_mm(y32, kq_cm, ks, b):
+            yq, ys = quantize_rows(y32)
+            return torch._int_mm(yq, kq_cm).float() * ys * ks + b
+
+        qkv_cm, outq_cm = (qa_args[i].t().contiguous().t() for i in (2, 5))
+        fc_cm, prq_cm = (qm_args[i].t().contiguous().t() for i in (2, 5))
+
+        def lib_attn_q():
+            y = F.layer_norm(x.float(), (W,), qa_args[0].float(), qa_args[1].float(), 1e-5)
+            qkv = int_mm(y.view(-1, W), qkv_cm, qa_args[3], qa_args[4]).to(dt)
+            q, k, v = qkv.view(B, T, 3, H, W // H).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=s["causal"])
+            o = o.transpose(1, 2).reshape(-1, W).float()
+            return (x.view(-1, W).float() + int_mm(o, outq_cm, qa_args[6], qa_args[7])).to(dt)
+
+        def lib_mlp_q():
+            y = F.layer_norm(x.float(), (W,), qm_args[0].float(), qm_args[1].float(), 1e-5)
+            h = int_mm(y.view(-1, W), fc_cm, qm_args[3], qm_args[4])
+            o = int_mm(h * torch.sigmoid(1.702 * h), prq_cm, qm_args[6], qm_args[7])
+            return (x.view(-1, W).float() + o).to(dt)
+
         cases = (
             ("fused_attn_block", lambda: bf.fused_attn_block(x, *a, n_heads=H, causal=s["causal"]),
              lambda: bf.fused_attn_block_plain(x, *a, n_heads=H, causal=s["causal"]), lib_attn),
             ("fused_mlp_block", lambda: bf.fused_mlp_block(x, *m),
              lambda: bf.fused_mlp_block_plain(x, *m), lib_mlp),
+            ("fused_attn_block_q",
+             lambda: bf.fused_attn_block_q(x, *qa, n_heads=H, causal=s["causal"]),
+             lambda: bf.fused_attn_block_q_plain(x, *qa_args, n_heads=H, causal=s["causal"]),
+             lib_attn_q),
+            ("fused_mlp_block_q", lambda: bf.fused_mlp_block_q(x, *qm),
+             lambda: bf.fused_mlp_block_q_plain(x, *qm_args), lib_mlp_q),
         )
-        saved = (bf.fused_attn_block.launches, bf.fused_mlp_block.launches)
         for name, kern, plain, lib in cases:
-            # parent order plain, kernel, kernel, plain: the pairs share a clock
-            p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kern, kern, plain))
-            lib_ms = cuda_ms(torch, lib)
-            flops, nbytes = half_costs(name, s, 2)
-            t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-            rec = {
-                "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            }
-            out[(name, shape_name)] = rec
-            log(f"time {name} {shape_name} bf16: kernel {k1:.4f}/{k2:.4f} ms, plain "
-                f"{p1:.4f}/{p2:.4f} ms, library {lib_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-                f"({rec['bound_by']}: {rec['gflop']:.2f} GFLOP, {rec['mbytes']:.1f} MB)")
-        # timing launches are not main-path launches
-        bf.fused_attn_block.launches, bf.fused_mlp_block.launches = saved
+            t_ops, t_bytes, desc = half_bound_ms(name, s, 2)
+            out[(name, shape_name)] = time_case(torch, name, f"{shape_name} bf16", kern, plain, lib,
+                                                t_ops, t_bytes, desc, counted)
     return out
+
+
+def phase_times_topk(torch):
+    """K4 at the serving shape of one text query: Q = 1, k = 30 over
+    TOPK_ROWS int8 rows (the row scales applied)."""
+    from evr_tpu_torch.ops.retrieval import fused_topk, fused_topk_plain
+
+    index, scales = topk_index(torch, "int8")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((1, TOPK_DIM), generator=gen, device="cuda")
+    k, n, d = 30, TOPK_ROWS, TOPK_DIM
+    rows_bf16 = (index.float() * scales[:, None]).to(torch.bfloat16)
+    q_bf16 = (q / q.norm()).to(torch.bfloat16)
+    nbytes = n * d + 4 * n + 4 * d + k * (4 + 8)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 2 * n * d / H100_FP32_FLOPS * 1e3
+    desc = f"{nbytes / 1e6:.1f} MB, {2 * n * d / 1e9:.2f} GFLOP fp32"
+    rec = time_case(
+        torch, "fused_topk", f"int8 {n} x {d}, Q=1, k={k}",
+        lambda: fused_topk(index, q, 0, n, k, scales),
+        lambda: fused_topk_plain(index, q, 0, n, k, scales),
+        lambda: torch.topk(q_bf16 @ rows_bf16.T, k), t_ops, t_bytes, desc, (fused_topk,))
+    return rec
 
 
 # -- main --------------------------------------------------------------------
@@ -509,7 +791,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 2
     try:
-        import evr_tpu_torch  # noqa: F401
+        from evr_tpu_torch.models import get_model_config
     except ImportError as e:
         print(f"chip_smoke: the evr_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
@@ -520,24 +802,35 @@ def main() -> int:
     try:
         phase_build()
         worst = phase_parity(torch)
-        main = phase_main_path(torch)
+        worst.update(phase_parity_int8(torch))
+        worst["fused_topk"] = phase_parity_topk(torch)
+        vis = get_model_config(MODEL).vision
+        frames = synthetic_frames(torch, N_FRAMES, vis.image_size, vis.patch_size)
+        main = phase_main_path(torch, frames)
+        main_q = phase_main_path_int8(torch, frames)
         times = phase_times(torch)
+        times[("fused_topk", "vision")] = phase_times_topk(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"main path: encode {main['encode_frames_per_s']:.1f} frames/s "
-        f"(bf16, batch {BATCH}, {N_FRAMES} frames), text query p50 "
-        f"{main['text_query_p50_ms']:.2f} ms, /api/search p50 {main['request_p50_ms']:.2f} ms")
-    sources = {"fused_attn_block": ("evr_tpu_torch/ops/csrc/block_attn.cu",
-                                    "evr_tpu/ops/block_fused.py:340"),
-               "fused_mlp_block": ("evr_tpu_torch/ops/csrc/block_mlp.cu",
-                                   "evr_tpu/ops/block_fused.py:1038")}
+    for tag, m in (("bf16", main), ("int8", main_q)):
+        log(f"main path {tag}: encode {m['encode_frames_per_s']:.1f} frames/s "
+            f"(batch {BATCH}, {N_FRAMES} frames), text query p50 "
+            f"{m['text_query_p50_ms']:.2f} ms, /api/search p50 {m['request_p50_ms']:.2f} ms")
+    launches = {**main["launches"], **main_q["launches"]}
+    sources = {
+        "fused_attn_block": ("evr_tpu_torch/ops/csrc/block_attn.cu", "evr_tpu/ops/block_fused.py:340"),
+        "fused_mlp_block": ("evr_tpu_torch/ops/csrc/block_mlp.cu", "evr_tpu/ops/block_fused.py:1038"),
+        "fused_attn_block_q": ("evr_tpu_torch/ops/csrc/block_quant.cu", "evr_tpu/ops/block_fused.py:865"),
+        "fused_mlp_block_q": ("evr_tpu_torch/ops/csrc/block_quant.cu", "evr_tpu/ops/block_fused.py:894"),
+        "fused_topk": ("evr_tpu_torch/ops/csrc/topk_fused.cu", "evr_tpu/ops/retrieval_pallas.py:142"),
+    }
     kernels = []
     for name, (src, replaces) in sources.items():
         t = times[(name, "vision")]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": main["launches"][name], "max_abs_err": worst[name],
+            "launches": launches[name], "max_abs_err": worst[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

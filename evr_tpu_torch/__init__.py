@@ -7,9 +7,11 @@ patch kernel), so weights carry across leaf by leaf
 (``models.convert.params_from_numpy``). It imports neither JAX nor anything of
 ``evr_tpu``.
 
-- ``evr_tpu_torch.models``     CLIP towers, the model registry, weight carry-over
+- ``evr_tpu_torch.models``     CLIP towers, the model registry, weight carry-over,
+                               int8 weights and their serving gate
 - ``evr_tpu_torch.tokenizer``  CLIP byte-level BPE tokenizer
-- ``evr_tpu_torch.ops``        the fused block kernels (CUDA C++), top-k, staging
+- ``evr_tpu_torch.ops``        the fused block and top-k kernels (CUDA C++),
+                               top-k, staging
 - ``evr_tpu_torch.index``      the frame index and the embedding engine
 - ``evr_tpu_torch.query``      frame metadata, event formatting, strategies
 - ``evr_tpu_torch.serving``    the HTTP API

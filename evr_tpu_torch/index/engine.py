@@ -7,9 +7,9 @@ through ``encode_text(eot_fast_final=True)``; batches are padded to
 registered and switched at run time.
 
 On the card the compute dtype is bfloat16 and every residual block but the
-last runs through the hand-written kernels K1 and K2; on the CPU it is
-float32 and the blocks take the plain composition. The MoE towers, mesh
-sharding, int8 weights, orbax/.pt checkpoints, the classifier head, the
+last runs through the hand-written kernels K1 and K2 (K3 with int8 weights);
+on the CPU it is float32 and the blocks take the plain composition. The MoE
+towers, mesh sharding, orbax/.pt checkpoints, the classifier head, the
 exact-PIL host preprocessing and the native pipelined stager are not ported
 yet.
 """
@@ -24,13 +24,14 @@ import torch
 
 from evr_tpu_torch.models.clip import encode_staged_u8, encode_text, init_clip_params
 from evr_tpu_torch.models.convert import params_from_numpy
+from evr_tpu_torch.models.quant import quantize_clip_params
 from evr_tpu_torch.models.variants import get_model_config
 from evr_tpu_torch.ops.preprocess import stage_image_fast
 from evr_tpu_torch.tokenizer import get_default_tokenizer
 from evr_tpu_torch.utils.device import resolve_device
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
-PARAMS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+PARAMS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": None}
 
 
 class EmbeddingEngine:
@@ -48,12 +49,11 @@ class EmbeddingEngine:
         """``params``: a nested dict of numpy arrays or tensors in the JAX
         package's layout; None draws random weights from ``rng_seed``.
         ``device``: None means the card (raises without one); pass "cpu" to
-        run on the CPU. ``params_dtype``: "float32" or "bfloat16" serving
-        weights (int8 is not ported yet)."""
+        run on the CPU. ``params_dtype``: "float32", "bfloat16" or "int8"
+        serving weights (``_cast_params``)."""
         if params_dtype not in PARAMS_DTYPES:
-            raise NotImplementedError(
-                f"params_dtype {params_dtype!r} is not ported to evr_tpu_torch yet "
-                f"(supported: {sorted(PARAMS_DTYPES)})"
+            raise ValueError(
+                f"unknown params_dtype {params_dtype!r} (supported: {sorted(PARAMS_DTYPES)})"
             )
         self.device = resolve_device(device)
         self.model_name = model_name
@@ -71,7 +71,14 @@ class EmbeddingEngine:
         self._text_cache: dict[tuple[str, str], np.ndarray] = {}
 
     def _cast_params(self, params):
-        return params_from_numpy(params, self.device, PARAMS_DTYPES[self.params_dtype])
+        """The engine's serving weight format applied to a CLIP params tree:
+        ``float32`` and ``bfloat16`` cast every floating leaf; ``int8``
+        quantizes the block linears from fp32 (``models.quant``) and leaves
+        every other leaf in the dtype it had."""
+        params = params_from_numpy(params, self.device, PARAMS_DTYPES[self.params_dtype])
+        if self.params_dtype == "int8":
+            return quantize_clip_params(params)
+        return params
 
     # -- model registry ---------------------------------------------------
     def register_model(self, name: str, clip_params, classifier=None) -> None:
@@ -85,6 +92,23 @@ class EmbeddingEngine:
 
     def available_models(self) -> list[str]:
         return list(self.models)
+
+    def set_params_dtype(self, params_dtype: str) -> None:
+        """Re-cast every registered model's weights in place (fp32/bf16 →
+        int8 promotion after the boot gate passes —
+        ``models.quant_gate.auto_params_dtype``). int8 cannot widen back to
+        a float format (quantization discards precision) and raises."""
+        if params_dtype not in PARAMS_DTYPES:
+            raise ValueError(f"unknown params_dtype {params_dtype!r}")
+        if self.params_dtype == "int8" and params_dtype != "int8":
+            raise ValueError(
+                f"cannot widen int8 weights back to {params_dtype}; "
+                "rebuild the engine from the checkpoint"
+            )
+        self.params_dtype = params_dtype
+        for slot in self.models.values():
+            slot["clip"] = self._cast_params(slot["clip"])
+        self._text_cache.clear()
 
     @property
     def params(self):

@@ -3,14 +3,16 @@
 Counterpart of ``evr_tpu/index/store.py`` (exact search only): every video
 lives in ONE (N_padded, D) tensor on the device, each video owning a
 contiguous row interval, so a search over any video (or all of them) is a
-row-range-masked GEMM + top-k (``ops.topk.cosine_topk``). Row → (video,
-frame) resolution is host-side bookkeeping.
+row-range-masked score + top-k: ``search_impl="xla"`` (the default) is one
+GEMM and a sort (``ops.topk.cosine_topk``), ``"pallas"`` the fused streaming
+kernel K4 (``ops.retrieval.fused_topk``), which takes any padded row count.
+Row → (video, frame) resolution is host-side bookkeeping.
 
 Storage: float32 (exact), bfloat16, or int8 with symmetric per-row scales
 applied after the GEMM. ``save``/``load`` write the JAX package's layout
 (``embedding/{video}_embeddings.npy`` + ``metadata/{video}_frames.json``), so
-each package loads the other's index. The IVF / IVF-PQ tiers, the Pallas
-top-k and mesh sharding are not ported yet.
+each package loads the other's index. The IVF / IVF-PQ tiers (ROADMAP item
+A16) and mesh sharding are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,11 +26,12 @@ import numpy as np
 import torch
 
 from evr_tpu_torch.config import DataRootConfig
+from evr_tpu_torch.ops.retrieval import fused_topk
 from evr_tpu_torch.ops.topk import cosine_topk
 from evr_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
-PAD_MULTIPLE = 1024  # device rows are allocated in multiples of this
+_SEARCH_IMPLS = ("xla", "pallas")
 
 
 @dataclass
@@ -54,13 +57,28 @@ class FrameIndex:
     def __init__(
         self,
         embed_dim: int = 512,
+        pad_multiple: int = 1024,
         device_dtype: str = "float32",
+        search_impl: str = "xla",
         device=None,
     ):
+        """``pad_multiple``: device rows are allocated in multiples of this.
+        ``search_impl``: "xla" (GEMM + sort, ``cosine_topk``) or "pallas"
+        (the fused streaming kernel K4, ``fused_topk``); both give the same
+        top-k."""
         if device_dtype not in _DTYPES:
             raise ValueError(f"unknown device_dtype {device_dtype!r}")
+        if search_impl in ("ivf", "ivfpq"):
+            raise NotImplementedError(
+                f"search_impl={search_impl!r}: the IVF / IVF-PQ tiers are not ported "
+                "yet (ROADMAP item A16)"
+            )
+        if search_impl not in _SEARCH_IMPLS:
+            raise ValueError(f"unknown search_impl {search_impl!r}")
         self.embed_dim = embed_dim
+        self.pad_multiple = pad_multiple
         self.device_dtype = device_dtype
+        self.search_impl = search_impl
         self.device = resolve_device(device)
         self._videos: dict[str, VideoEntry] = {}
         self._embeddings: dict[str, np.ndarray] = {}
@@ -154,7 +172,7 @@ class FrameIndex:
     # -- device build -----------------------------------------------------
     def _padded_rows(self, n: int) -> int:
         # 25% headroom so uploads append in place
-        m = PAD_MULTIPLE
+        m = self.pad_multiple
         n = int(n * 1.25)
         return max(m, ((n + m - 1) // m) * m)
 
@@ -214,10 +232,9 @@ class FrameIndex:
         start, end = self._range_for(video_name)
         k = max(1, min(top_k, end - start))
         q = torch.from_numpy(np.atleast_2d(np.asarray(queries, np.float32))).to(self.device)
+        topk = fused_topk if self.search_impl == "pallas" else cosine_topk
         with torch.inference_mode():
-            scores, rows = cosine_topk(
-                self._device_index, q, start, end, k, row_scales=self._row_scales
-            )
+            scores, rows = topk(self._device_index, q, start, end, k, row_scales=self._row_scales)
         return scores.cpu().numpy(), rows.cpu().numpy()
 
     def resolve_row(self, row: int) -> tuple[str, str, int]:

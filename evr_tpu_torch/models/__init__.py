@@ -9,6 +9,7 @@ from .clip import (
     init_clip_params,
 )
 from .convert import params_from_numpy
+from .quant import quantize_clip_params, quantized_linear
 from .variants import MODEL_REGISTRY, get_model_config
 
 __all__ = [
@@ -21,6 +22,8 @@ __all__ = [
     "encode_text",
     "init_clip_params",
     "params_from_numpy",
+    "quantize_clip_params",
+    "quantized_linear",
     "MODEL_REGISTRY",
     "get_model_config",
 ]

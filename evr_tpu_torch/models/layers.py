@@ -6,10 +6,12 @@ OpenAI CLIP: pre-LN residual blocks, quickGELU, LayerNorm eps 1e-5 with the
 statistics always in fp32 whatever the compute dtype.
 
 ``block_apply(attn_impl="auto")`` routes CUDA tensors of towers up to width
-1280 through the hand-written kernels K1 and K2 (``ops.block_fused``); other
-tensors take the plain composition below, as the JAX package does off the
-TPU. ``attn_impl="plain"`` runs the kernels' plain PyTorch versions instead,
-on any device: the reference the kernel path is held to on the card.
+1280 through the hand-written kernels K1 and K2, or K3 on int8 params
+(``ops.block_fused``); other tensors take the plain composition below, as the
+JAX package does off the TPU. ``attn_impl="plain"`` runs the kernels' plain
+PyTorch versions instead, on any device: the reference the kernel path is
+held to on the card. ``linear`` dispatches on the int8 layout of
+``models.quant`` (``kernel_q``) to ``quantized_linear``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,13 @@ from typing import Any
 
 import torch
 
-from evr_tpu_torch.ops.block_fused import fused_block_apply, plain_block_apply
+from evr_tpu_torch.ops.block_fused import (
+    fused_block_apply,
+    fused_quant_block_apply,
+    plain_block_apply,
+)
+
+from .quant import quantized_linear
 
 Params = dict[str, Any]
 
@@ -49,6 +57,8 @@ def layer_norm(x: torch.Tensor, p: Params, eps: float = LN_EPS) -> torch.Tensor:
 
 
 def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
+    if "kernel_q" in p:  # int8 weights (models.quant)
+        return quantized_linear(x, p)
     y = x @ p["kernel"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
@@ -102,12 +112,19 @@ def _final_block_row(x, p, n_heads, row_idx, activation):
             return a[:, 0]
         return a[torch.arange(B, device=a.device), row_idx]
 
-    # project Q on the pooled row only, K/V on every row
-    kern = ap["qkv"]["kernel"].to(y.dtype)
-    bias = ap["qkv"]["bias"].to(y.dtype)
-    kv = y @ kern[:, W:] + bias[W:]
-    k, v = kv[..., :W], kv[..., W:]
-    q = pick(y) @ kern[:, :W] + bias[:W]
+    if "kernel_q" in ap["qkv"]:
+        # int8 weights: the full QKV through the quantized linear, then the
+        # pooled row's Q sliced out (rounds unlike the float branch below)
+        qkv = linear(y, ap["qkv"])
+        q = pick(qkv[..., :W])
+        k, v = qkv[..., W : 2 * W], qkv[..., 2 * W :]
+    else:
+        # project Q on the pooled row only, K/V on every row
+        kern = ap["qkv"]["kernel"].to(y.dtype)
+        bias = ap["qkv"]["bias"].to(y.dtype)
+        kv = y @ kern[:, W:] + bias[W:]
+        k, v = kv[..., :W], kv[..., W:]
+        q = pick(y) @ kern[:, :W] + bias[:W]
     q = q.reshape(B, n_heads, d)
     k = k.reshape(B, T, n_heads, d)
     v = v.reshape(B, T, n_heads, d)
@@ -130,10 +147,13 @@ def block_apply(
     attn_impl: str = "auto",
     activation: str = "quick_gelu",
 ) -> torch.Tensor:
-    """One pre-LN residual block. ``attn_impl``: "auto" (kernels K1 → K2 for
-    a CUDA tensor of width ≤ 1280, the plain composition otherwise), "xla"
-    (the plain composition), or "plain" (the kernels' plain versions)."""
+    """One pre-LN residual block. ``attn_impl``: "auto" (kernels K1 → K2, or
+    K3a → K3b on int8 params, for a CUDA tensor of width ≤ 1280; the plain
+    composition otherwise), "xla" (the plain composition), or "plain" (the
+    kernels' plain versions)."""
     if attn_impl == "auto" and x.shape[2] <= 1280 and x.is_cuda:
+        if "kernel_q" in p["attn"]["qkv"]:
+            return fused_quant_block_apply(x, p, n_heads, activation, causal)
         return fused_block_apply(x, p, n_heads, activation, causal)
     if attn_impl == "plain":
         return plain_block_apply(x, p, n_heads, activation, causal)

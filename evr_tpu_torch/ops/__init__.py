@@ -1,4 +1,5 @@
 from .preprocess import CLIP_MEAN, CLIP_STD, stage_array_fast, stage_image_fast
+from .retrieval import fused_topk
 from .topk import cosine_topk, merge_topk
 
 __all__ = [
@@ -7,5 +8,6 @@ __all__ = [
     "stage_array_fast",
     "stage_image_fast",
     "cosine_topk",
+    "fused_topk",
     "merge_topk",
 ]

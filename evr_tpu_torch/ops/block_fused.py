@@ -1,17 +1,22 @@
-"""Fused pre-LN transformer-block halves: hand-written CUDA kernels K1, K2.
+"""Fused pre-LN transformer-block halves: hand-written CUDA kernels K1–K3.
 
 Counterpart of ``evr_tpu/ops/block_fused.py``: each residual block runs as two
 fused halves,
 
 - K1 ``fused_attn_block``: x + out(MHA(LN1 x)), source ``csrc/block_attn.cu``;
-- K2 ``fused_mlp_block``: x + proj(act(fc(LN2 x))), source ``csrc/block_mlp.cu``.
+- K2 ``fused_mlp_block``: x + proj(act(fc(LN2 x))), source ``csrc/block_mlp.cu``;
+- K3 ``fused_quant_block_apply``, the same two halves over int8 weights
+  (``models.quant`` layout: ``kernel_q``/``kernel_scale``): K3a
+  ``fused_attn_block_q`` and K3b ``fused_mlp_block_q``, source
+  ``csrc/block_quant.cu``.
 
 Each wrapper takes x's dtype (bfloat16 or float32) as the compute dtype and
-casts the LayerNorm parameters, kernels and biases to it, as the reference
-wrapper does. A CUDA tensor launches the kernel (or raises); a CPU tensor
-takes the plain PyTorch version beside it, which has the same rounding points
-and is also the comparison the chip smoke run holds each kernel to. Every
-kernel launch adds one to the wrapper's ``launches`` count.
+casts the LayerNorm parameters (and, for K1/K2, the kernels and biases) to
+it, as the reference wrapper does; K3 keeps its int8 kernels and reads its
+scales and biases in fp32. A CUDA tensor launches the kernel (or raises); a
+CPU tensor takes the plain PyTorch version beside it, which has the same
+rounding points and is also the comparison the chip smoke run holds each
+kernel to. Every kernel launch adds one to the wrapper's ``launches`` count.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import math
 import torch
 
 from . import build
+from .int8 import dequant_dot
 
 LN_EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,30 +61,40 @@ def _activate(h: torch.Tensor, activation: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {activation!r}")
 
 
+def _attend(qkv: torch.Tensor, n_heads: int, causal: bool) -> torch.Tensor:
+    """Multi-head attention over the rounded qkv [B, T, 3W] of the fused
+    kernels: q scaled in qkv's dtype, fp32 scores and softmax (causal fill
+    −1e30), P rounded for P·V, the fp32 sum divided after P·V and the head
+    output rounded. Returns o [B, T, W] in qkv's dtype."""
+    dt = qkv.dtype
+    B, T, W3 = qkv.shape
+    W = W3 // 3
+    d = W // n_heads
+    q, k, v = (
+        t.reshape(B, T, n_heads, d).transpose(1, 2) for t in qkv.split(W, dim=-1)
+    )
+    q = q * torch.tensor(1.0 / math.sqrt(d), dtype=dt, device=qkv.device)
+    s = q.float() @ k.float().transpose(-1, -2)
+    if causal:
+        mask = torch.ones(T, T, dtype=torch.bool, device=qkv.device).tril()
+        s = torch.where(mask, s, torch.tensor(-1e30, device=qkv.device))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(-1, keepdim=True)
+    o = ((p.to(dt).float() @ v.float()) / denom).to(dt)
+    return o.transpose(1, 2).reshape(B, T, W)
+
+
 def fused_attn_block_plain(
     x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, n_heads: int,
     causal: bool = False,
 ) -> torch.Tensor:
     """K1's function in plain PyTorch, parameters already in x's dtype."""
     dt = x.dtype
-    B, T, W = x.shape
-    d = W // n_heads
     x32 = x.float()
     y = _ln32(x32, ln_scale, ln_bias).to(dt)
     qkv = (y.float() @ qkv_kernel.float() + qkv_bias.float()).to(dt)
-    q, k, v = (
-        t.reshape(B, T, n_heads, d).transpose(1, 2) for t in qkv.split(W, dim=-1)
-    )
-    q = q * torch.tensor(1.0 / math.sqrt(d), dtype=dt, device=x.device)
-    s = q.float() @ k.float().transpose(-1, -2)
-    if causal:
-        mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-        s = torch.where(mask, s, torch.tensor(-1e30, device=x.device))
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    denom = p.sum(-1, keepdim=True)
-    o = ((p.to(dt).float() @ v.float()) / denom).to(dt)
-    o = o.transpose(1, 2).reshape(B, T, W)
+    o = _attend(qkv, n_heads, causal)
     proj = o.float() @ out_kernel.float() + out_bias.float()
     return (x32 + proj).to(dt)
 
@@ -96,21 +112,58 @@ def fused_mlp_block_plain(
     return x32.to(dt) + o.to(dt)
 
 
+def fused_attn_block_q_plain(
+    x, ln_scale, ln_bias, qkv_kq, qkv_ks, qkv_bias, out_kq, out_ks, out_bias,
+    n_heads: int, causal: bool = False,
+) -> torch.Tensor:
+    """K3a's function in plain PyTorch, LN parameters already in x's dtype.
+
+    The TPU kernel's rounding points (``_attn_block_kernel_q``): the fp32 LN
+    output is quantised as it is, not rounded first; qkv is dequantised in
+    fp32 and rounded to x's dtype; the head outputs, rounded, are quantised
+    per token across all heads for the out-projection; one fp32 residual
+    rounding."""
+    dt = x.dtype
+    x32 = x.float()
+    y = _ln32(x32, ln_scale, ln_bias)
+    qkv = dequant_dot(y, qkv_kq, qkv_ks, qkv_bias).to(dt)
+    o = _attend(qkv, n_heads, causal)
+    proj = dequant_dot(o.float(), out_kq, out_ks, out_bias)
+    return (x32 + proj).to(dt)
+
+
+def fused_mlp_block_q_plain(
+    x, ln_scale, ln_bias, fc_kq, fc_ks, fc_bias, proj_kq, proj_ks, proj_bias,
+    activation: str = "quick_gelu",
+) -> torch.Tensor:
+    """K3b's function in plain PyTorch (``_mlp_block_kernel_q``): the hidden
+    activation stays fp32 and is quantised per token over all 4W columns;
+    one fp32 residual rounding."""
+    x32 = x.float()
+    y = _ln32(x32, ln_scale, ln_bias)
+    h = _activate(dequant_dot(y, fc_kq, fc_ks, fc_bias), activation)
+    o = dequant_dot(h, proj_kq, proj_ks, proj_bias)
+    return (x32 + o).to(x.dtype)
+
+
 # -- wrappers --------------------------------------------------------------
 
 
-def _check_cuda(x: torch.Tensor, params, shapes, what: str) -> None:
+def _check_cuda(x: torch.Tensor, params, shapes, what: str, dtypes=None) -> None:
     """Everything the kernel reads through a raw pointer: x's dtype and
-    layout, and each parameter's device and exact shape."""
+    layout, and each parameter's device, exact shape and (where ``dtypes``
+    is given) dtype."""
     if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{what}: dtype {x.dtype} not supported (float32 or bfloat16)")
+        raise ValueError(f"{what}: dtype {x.dtype} not supported (float32 or bfloat16)")
     if not x.is_contiguous():
         raise ValueError(f"{what}: x must be contiguous")
-    for p, shape in zip(params, shapes):
+    for i, (p, shape) in enumerate(zip(params, shapes)):
         if p.device != x.device:
             raise ValueError(f"{what}: parameter on {p.device}, x on {x.device}")
         if tuple(p.shape) != shape:
             raise ValueError(f"{what}: parameter of shape {tuple(p.shape)}, expected {shape}")
+        if dtypes is not None and p.dtype != dtypes[i]:
+            raise ValueError(f"{what}: parameter of dtype {p.dtype}, expected {dtypes[i]}")
 
 
 def _raise_rc(rc: int, what: str, shape) -> None:
@@ -195,8 +248,107 @@ def fused_mlp_block(
     return out
 
 
+def cast_quant_args(dt, args) -> list:
+    """A K3 half's arguments (LN scale, LN bias, then kernel_q, kernel_scale
+    and bias of two linears) as its kernel and plain version read them: LN
+    parameters cast to x's dtype, int8 kernels as they are, scales and
+    biases in fp32 (``evr_tpu/ops/block_fused.py:882-884``)."""
+    ln_scale, ln_bias, *lins = args
+    out = [ln_scale.to(dt).contiguous(), ln_bias.to(dt).contiguous()]
+    for kq, ks, b in (lins[:3], lins[3:]):
+        out += [kq.contiguous(), ks.float().contiguous(), b.float().contiguous()]
+    return out
+
+
+_I8, _F32 = torch.int8, torch.float32
+
+
+def fused_attn_block_q(
+    x: torch.Tensor,  # [B, T, W]
+    ln_scale, ln_bias,
+    qkv_kq, qkv_ks, qkv_bias,  # int8 [W, 3W], fp32 [3W], [3W]
+    out_kq, out_ks, out_bias,  # int8 [W, W], fp32 [W], [W]
+    n_heads: int,
+    causal: bool = False,
+) -> torch.Tensor:
+    """x + out(attention(LN(x))) over int8 weights, kernel K3a on a CUDA
+    tensor."""
+    dt = x.dtype
+    params = cast_quant_args(
+        dt, (ln_scale, ln_bias, qkv_kq, qkv_ks, qkv_bias, out_kq, out_ks, out_bias)
+    )
+    if not x.is_cuda:
+        return fused_attn_block_q_plain(x, *params, n_heads=n_heads, causal=causal)
+    if x.dim() != 3 or x.shape[2] % n_heads:
+        raise ValueError(f"fused_attn_block_q: x of shape {tuple(x.shape)} with {n_heads} heads")
+    B, T, W = x.shape
+    _check_cuda(
+        x, params, [(W,), (W,), (W, 3 * W), (3 * W,), (3 * W,), (W, W), (W,), (W,)],
+        "fused_attn_block_q", [dt, dt, _I8, _F32, _F32, _I8, _F32, _F32],
+    )
+    rows = B * T
+    lib = build.load("block_quant")
+    a_q = torch.empty((rows, W), dtype=torch.int8, device=x.device)
+    a_scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((rows, 3 * W), dtype=dt, device=x.device)
+    o = torch.empty_like(x)
+    out = torch.empty_like(x)
+    rc = lib.evr_fused_attn_block_q(
+        _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in params),
+        a_q.data_ptr(), a_scale.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
+        B, T, W, n_heads, int(causal), 1.0 / math.sqrt(W // n_heads),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_rc(rc, "fused_attn_block_q", x.shape)
+    fused_attn_block_q.launches += 1
+    return out
+
+
+def fused_mlp_block_q(
+    x: torch.Tensor,  # [..., W]
+    ln_scale, ln_bias,
+    fc_kq, fc_ks, fc_bias,  # int8 [W, 4W], fp32 [4W], [4W]
+    proj_kq, proj_ks, proj_bias,  # int8 [4W, W], fp32 [W], [W]
+    activation: str = "quick_gelu",
+) -> torch.Tensor:
+    """x + proj(act(fc(LN(x)))) over int8 weights, kernel K3b on a CUDA
+    tensor."""
+    dt = x.dtype
+    params = cast_quant_args(
+        dt, (ln_scale, ln_bias, fc_kq, fc_ks, fc_bias, proj_kq, proj_ks, proj_bias)
+    )
+    if not x.is_cuda:
+        return fused_mlp_block_q_plain(x, *params, activation=activation)
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
+    W, hid = x.shape[-1], params[2].shape[-1]
+    _check_cuda(
+        x, params, [(W,), (W,), (W, hid), (hid,), (hid,), (hid, W), (W,), (W,)],
+        "fused_mlp_block_q", [dt, dt, _I8, _F32, _F32, _I8, _F32, _F32],
+    )
+    rows = x.numel() // W
+    lib = build.load("block_quant")
+    dev = x.device
+    y_q = torch.empty((rows, W), dtype=torch.int8, device=dev)
+    h = torch.empty((rows, hid), dtype=torch.float32, device=dev)
+    h_q = torch.empty((rows, hid), dtype=torch.int8, device=dev)
+    scales = torch.empty((2, rows), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    rc = lib.evr_fused_mlp_block_q(
+        _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in params),
+        y_q.data_ptr(), scales[0].data_ptr(), h.data_ptr(), h_q.data_ptr(),
+        scales[1].data_ptr(), out.data_ptr(), rows, W, hid, _ACT_CODES[activation],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_rc(rc, "fused_mlp_block_q", x.shape)
+    fused_mlp_block_q.launches += 1
+    return out
+
+
 fused_attn_block.launches = 0
 fused_mlp_block.launches = 0
+fused_attn_block_q.launches = 0
+fused_mlp_block_q.launches = 0
 
 
 def block_half_params(p) -> tuple[tuple, tuple]:
@@ -211,6 +363,20 @@ def block_half_params(p) -> tuple[tuple, tuple]:
     )
 
 
+def quant_block_half_params(p) -> tuple[tuple, tuple]:
+    """An int8 block's params (``models.quant`` layout) as the argument
+    tuples of K3's attention half and MLP half."""
+    a, m = p["attn"], p["mlp"]
+
+    def lin(q):
+        return q["kernel_q"], q["kernel_scale"], q["bias"]
+
+    return (
+        (p["ln_1"]["scale"], p["ln_1"]["bias"], *lin(a["qkv"]), *lin(a["out"])),
+        (p["ln_2"]["scale"], p["ln_2"]["bias"], *lin(m["fc"]), *lin(m["proj"])),
+    )
+
+
 def fused_block_apply(x, p, n_heads: int, activation: str = "quick_gelu", causal: bool = False):
     """One whole residual block as K1 then K2."""
     attn, mlp = block_half_params(p)
@@ -218,9 +384,25 @@ def fused_block_apply(x, p, n_heads: int, activation: str = "quick_gelu", causal
     return fused_mlp_block(x, *mlp, activation=activation)
 
 
+def fused_quant_block_apply(
+    x, p, n_heads: int, activation: str = "quick_gelu", causal: bool = False
+):
+    """One whole residual block over int8 weights as K3a then K3b."""
+    attn, mlp = quant_block_half_params(p)
+    x = fused_attn_block_q(x, *attn, n_heads=n_heads, causal=causal)
+    return fused_mlp_block_q(x, *mlp, activation=activation)
+
+
 def plain_block_apply(x, p, n_heads: int, activation: str = "quick_gelu", causal: bool = False):
-    """``fused_block_apply`` through the plain versions, on any device."""
-    attn, mlp = block_half_params(p)
+    """``fused_block_apply`` (or, on int8 params, ``fused_quant_block_apply``)
+    through the plain versions, on any device."""
     dt = x.dtype
+    if "kernel_q" in p["attn"]["qkv"]:
+        attn, mlp = quant_block_half_params(p)
+        x = fused_attn_block_q_plain(
+            x, *cast_quant_args(dt, attn), n_heads=n_heads, causal=causal
+        )
+        return fused_mlp_block_q_plain(x, *cast_quant_args(dt, mlp), activation=activation)
+    attn, mlp = block_half_params(p)
     x = fused_attn_block_plain(x, *(t.to(dt) for t in attn), n_heads=n_heads, causal=causal)
     return fused_mlp_block_plain(x, *(t.to(dt) for t in mlp), activation=activation)

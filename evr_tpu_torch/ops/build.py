@@ -20,7 +20,7 @@ import time
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "build"
-KERNEL_SOURCES = ("block_attn", "block_mlp")
+KERNEL_SOURCES = ("block_attn", "block_mlp", "block_quant", "topk_fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
@@ -107,6 +107,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "block_mlp":
         fn = lib.evr_fused_mlp_block
         fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+    elif name == "block_quant":
+        fn = lib.evr_fused_attn_block_q
+        fn.argtypes = [i] + [p] * 14 + [i, i, i, i, i, f, p]
+        fn.restype = i
+        fn = lib.evr_fused_mlp_block_q
+        fn.argtypes = [i] + [p] * 15 + [i, i, i, i, p]
+        fn.restype = i
+    elif name == "topk_fused":
+        fn = lib.evr_fused_topk
+        fn.argtypes = [i, p, p, p, i, i, i, i, i, i, p, p, p]
         fn.restype = i
     else:
         raise KeyError(f"unknown kernel library {name!r}")

@@ -18,16 +18,16 @@
 // Design: two launches. (1) attn_core_kernel, one block per (head, sequence):
 // the LN statistics of the sequence, then the head's 3d QKV columns as a
 // shared-memory tiled GEMM whose A operand is normalised on the fly from x,
-// then the whole T x T score tile, the softmax and P.V in shared memory (the
-// TPU kernel's sequence packing is a tile-fill device of its 128-wide MXU and
-// is not carried over). Writes the head output o [B, T, W] in the element
-// type. (2) the shared row-tiled GEMM for o @ out_kernel + bias + x. Every
-// product runs on the tensor cores (bf16 WMMA, fp32 accumulation), which is
-// what an operation-bound half needs; the o round trip through device memory
-// (2 x 19.7 MB at the vision shape) and x being read once per head are the
-// costs this simple first version accepts.
+// then the whole T x T score tile, the softmax and P.V in shared memory
+// (attn_core.cuh, shared with K3a; the TPU kernel's sequence packing is a
+// tile-fill device of its 128-wide MXU and is not carried over). Writes the
+// head output o [B, T, W] in the element type. (2) the shared row-tiled GEMM
+// for o @ out_kernel + bias + x. Every product runs on the tensor cores (bf16
+// WMMA, fp32 accumulation), which is what an operation-bound half needs; the
+// o round trip through device memory (2 x 19.7 MB at the vision shape) and x
+// being read once per head are the costs this simple first version accepts.
 
-#include "common.cuh"
+#include "attn_core.cuh"
 
 namespace evr {
 
@@ -35,22 +35,17 @@ constexpr int kAttnKC = 32;  // K step of the QKV GEMM
 
 template <typename T, int TP, int D>
 struct AttnLayout {
+  using A = AttnTiles<T, TP, D>;
   static constexpr int N3 = 3 * D;
   static constexpr int LDA = kAttnKC + 8, LDB = N3 + 8, LDC = N3 + 4;
-  static constexpr int LDQ = D + 8, LDS = TP + 4, LDP = TP + 8, LDO = D + 4;
   static constexpr size_t stats = align128(sizeof(float) * 3 * TP);
-  static constexpr size_t qkv = align128(sizeof(T) * 3 * TP * LDQ);
   static constexpr size_t stage = align128(sizeof(T) * TP * LDA) + align128(sizeof(T) * kAttnKC * LDB);
   static constexpr size_t accum = align128(sizeof(float) * TP * LDC);
-  static constexpr size_t scores = align128(sizeof(float) * TP * LDS);
-  static constexpr size_t probs = align128(sizeof(T) * TP * LDP);
-  static constexpr size_t pv = align128(sizeof(float) * TP * LDO);
-  static constexpr size_t attn = scores + probs + pv;
   // the staging tiles, the QKV accumulator and the attention tiles are live
   // one after another, so they share one region
   static constexpr size_t shared_region =
-      stage > accum ? (stage > attn ? stage : attn) : (accum > attn ? accum : attn);
-  static constexpr size_t bytes = stats + qkv + shared_region;
+      stage > accum ? (stage > A::attn ? stage : A::attn) : (accum > A::attn ? accum : A::attn);
+  static constexpr size_t bytes = stats + A::qkv + shared_region;
 };
 
 template <typename T, int TP, int D>
@@ -59,21 +54,18 @@ __global__ void __launch_bounds__(kThreads) attn_core_kernel(
     const T* __restrict__ qkv_k, const T* __restrict__ qkv_b, T* __restrict__ o,
     int T_, int W, int causal, float scale) {
   using L = AttnLayout<T, TP, D>;
-  constexpr int N3 = L::N3, KC = kAttnKC;
+  constexpr int N3 = L::N3, KC = kAttnKC, LDQ = L::A::LDQ;
   extern __shared__ __align__(128) unsigned char smem[];
   float* s_mean = reinterpret_cast<float*>(smem);
   float* s_rstd = s_mean + TP;
   float* s_denom = s_rstd + TP;
   T* sq = reinterpret_cast<T*>(smem + L::stats);
-  T* sk = sq + TP * L::LDQ;
-  T* sv = sk + TP * L::LDQ;
-  unsigned char* region = smem + L::stats + L::qkv;
+  T* sk = sq + TP * LDQ;
+  T* sv = sk + TP * LDQ;
+  unsigned char* region = smem + L::stats + L::A::qkv;
   T* sa = reinterpret_cast<T*>(region);
   T* sb = reinterpret_cast<T*>(region + align128(sizeof(T) * TP * L::LDA));
   float* sc = reinterpret_cast<float*>(region);
-  float* ss = reinterpret_cast<float*>(region);
-  T* sp = reinterpret_cast<T*>(region + L::scores);
-  float* so = reinterpret_cast<float*>(region + L::scores + L::probs);
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -142,66 +134,13 @@ __global__ void __launch_bounds__(kThreads) attn_core_kernel(
       if (s == 0) v = v * scale;  // rounded to T by the store below
     }
     T* dst = s == 0 ? sq : (s == 1 ? sk : sv);
-    dst[r * L::LDQ + c] = from_f<T>(v);
+    dst[r * LDQ + c] = from_f<T>(v);
   }
   __syncthreads();
 
-  // 3. scores q @ k^T, fp32
-  for (int t = warp; t < (TP / 16) * (TP / 16); t += kWarps) {
-    const int tr = t / (TP / 16), tc = t % (TP / 16);
-    typename Tile<T>::Acc a;
-    Tile<T>::zero(a);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16)
-      Tile<T>::template mma<true>(a, sq + tr * 16 * L::LDQ + kk, L::LDQ, sk + tc * 16 * L::LDQ + kk,
-                                  L::LDQ);
-    Tile<T>::store(ss + tr * 16 * L::LDS + tc * 16, L::LDS, a);
-  }
-  __syncthreads();
-
-  // 4. softmax numerators, one warp per row; padded keys get exactly 0
-  for (int r = warp; r < TP; r += kWarps) {
-    float m = -INFINITY;
-    if (r < T_)
-      for (int j = lane; j < T_; j += 32) {
-        const float s = (causal && j > r) ? -1e30f : ss[r * L::LDS + j];
-        m = fmaxf(m, s);
-      }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < TP; j += 32) {
-      float p = 0.f;
-      if (r < T_ && j < T_) {
-        const float s = (causal && j > r) ? -1e30f : ss[r * L::LDS + j];
-        p = expf(s - m);
-      }
-      sum += p;
-      sp[r * L::LDP + j] = from_f<T>(p);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) s_denom[r] = sum;
-  }
-  __syncthreads();
-
-  // 5. P @ v, fp32
-  for (int t = warp; t < (TP / 16) * (D / 16); t += kWarps) {
-    const int tr = t / (D / 16), tc = t % (D / 16);
-    typename Tile<T>::Acc a;
-    Tile<T>::zero(a);
-#pragma unroll
-    for (int kk = 0; kk < TP; kk += 16)
-      Tile<T>::template mma<false>(a, sp + tr * 16 * L::LDP + kk, L::LDP, sv + kk * L::LDQ + tc * 16,
-                                   L::LDQ);
-    Tile<T>::store(so + tr * 16 * L::LDO + tc * 16, L::LDO, a);
-  }
-  __syncthreads();
-
-  // 6. divide after P.V, round, write the head's columns
-  T* ob = o + static_cast<size_t>(b) * T_ * W + h * D;
-  for (int i = tid; i < T_ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    ob[static_cast<size_t>(r) * W + c] = from_f<T>(so[r * L::LDO + c] / s_denom[r]);
-  }
+  // 3-6. scores, softmax, P.v, the head output
+  attend_head<T, TP, D>(sq, sk, sv, region, s_denom, T_, causal,
+                        o + static_cast<size_t>(b) * T_ * W + h * D, W);
 }
 
 template <typename T, int TP, int D>

@@ -19,8 +19,16 @@ def main():
         help="device index storage dtype",
     )
     parser.add_argument(
-        "--params-dtype", choices=["float32", "bfloat16"], default="float32",
-        help="serving weight format (int8 is not ported yet)",
+        "--params-dtype", choices=["float32", "bfloat16", "int8", "auto"], default="float32",
+        help="serving weight format: int8 quantizes the block linears (kernel K3 "
+        "on the card); auto runs the rank-agreement gate over the ingested corpus "
+        "at boot (models/quant_gate.py) and serves int8 only when it passes "
+        "(bfloat16 otherwise)",
+    )
+    parser.add_argument(
+        "--search-impl", choices=["xla", "pallas"], default="xla",
+        help="index search: xla (GEMM + sort) or pallas (the fused streaming "
+        "top-k kernel K4)",
     )
     parser.add_argument("--batch-size", type=int, default=256)
     args = parser.parse_args()
@@ -28,21 +36,29 @@ def main():
     from werkzeug.serving import run_simple
 
     from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.models.quant_gate import auto_params_dtype
     from evr_tpu_torch.utils import get_logger
 
     from .app import create_app
     from .context import ServingContext
 
+    log = get_logger("evr_tpu_torch.serving")
     engine = EmbeddingEngine(
-        args.model, device=args.device, params_dtype=args.params_dtype,
+        args.model, device=args.device,
+        params_dtype="float32" if args.params_dtype == "auto" else args.params_dtype,
         batch_size=args.batch_size,
     )
-    ctx = ServingContext(args.data_root, engine=engine, index_dtype=args.index_dtype)
+    ctx = ServingContext(
+        args.data_root, engine=engine, index_dtype=args.index_dtype,
+        search_impl=args.search_impl,
+    )
     loaded = ctx.boot()
-    get_logger("evr_tpu_torch.serving").info(
-        "serving %d videos (%d frames) from %s on %s:%d, device %s",
+    if args.params_dtype == "auto":
+        auto_params_dtype(engine, ctx.data_root, log=log)
+    log.info(
+        "serving %d videos (%d frames) from %s on %s:%d, device %s, %s weights",
         len(loaded), sum(i.total_frames for i in ctx._indexes.values()),
-        args.data_root, args.host, args.port, engine.device,
+        args.data_root, args.host, args.port, engine.device, engine.params_dtype,
     )
     run_simple(args.host, args.port, create_app(ctx), threaded=True)
 

@@ -46,7 +46,10 @@ class ServingContext:
         data_root: DataRootConfig | str = "data",
         engine: EmbeddingEngine | None = None,
         index_dtype: str = "float32",
+        search_impl: str = "xla",
     ):
+        """``index_dtype`` and ``search_impl``: see ``FrameIndex``; applied
+        to every per-model index."""
         self.data_root = (
             data_root
             if isinstance(data_root, DataRootConfig)
@@ -61,6 +64,7 @@ class ServingContext:
         self.registry = VideoRegistry(self.data_root.mapping_path)
         self.search_cache = TTLCache(default_ttl=3600.0)
         self.index_dtype = index_dtype
+        self.search_impl = search_impl
 
     def resolve_path(self, p: str) -> pathlib.Path:
         """Registry paths may be data-root-relative or absolute."""
@@ -91,6 +95,7 @@ class ServingContext:
             self._indexes[model] = FrameIndex(
                 embed_dim=self.engine.cfg.embed_dim,
                 device_dtype=self.index_dtype,
+                search_impl=self.search_impl,
                 device=self.engine.device,
             )
         return self._indexes[model]

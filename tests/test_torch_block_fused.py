@@ -112,7 +112,7 @@ def test_kernel_inputs_are_checked_before_launch():
     short_bias = params[:3] + [torch.zeros(W)] + params[4:]
     with pytest.raises(ValueError, match=r"expected \(384,\)"):
         tbf._check_cuda(x, short_bias, shapes, "k1")
-    with pytest.raises(TypeError, match="not supported"):
+    with pytest.raises(ValueError, match="not supported"):
         tbf._check_cuda(x.half(), params, shapes, "k1")
     with pytest.raises(ValueError, match="contiguous"):
         tbf._check_cuda(x.transpose(0, 1), params, shapes, "k1")

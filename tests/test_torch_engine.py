@@ -39,8 +39,9 @@ def test_engine_needs_a_card_unless_cpu_is_asked():
 def test_engine_defaults(engines):
     _, t, _ = engines
     assert t.device == torch.device("cpu") and t.compute_dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TEngine("ViT-Tiny-Test", device="cpu", params_dtype="int8")
+    with pytest.raises(ValueError, match="unknown params_dtype"):
+        TEngine("ViT-Tiny-Test", device="cpu", params_dtype="float16")
+    assert TEngine("ViT-Tiny-Test", device="cpu", params_dtype="int8").params_dtype == "int8"
 
 
 @pytest.mark.parametrize("n", [3, 4, 9])  # padded last batch, exact batch, several
