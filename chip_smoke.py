@@ -7,13 +7,17 @@ package. Phases, each fatal on failure:
 
 1. the card: name and power limit (``nvidia-smi``); TF32 off for matmuls and
    cuDNN, so fp32 comparisons are full fp32;
-2. build: every kernel of the main path compiled from ``ops/csrc``;
+2. build: every kernel of the main paths compiled from ``ops/csrc``;
 3. kernel parity: K1 (``fused_attn_block``), K2 (``fused_mlp_block``), K3a
    and K3b (``fused_attn_block_q``, ``fused_mlp_block_q``: the int8 halves)
    against their plain PyTorch versions at the ViT-B/32 main-path shapes,
    vision (B=256, T=50, W=768, H=12) and text (B=16, T=77, W=512, H=8,
-   causal), in bfloat16 and float32; K4 (``fused_topk``) against its plain
-   version on 1,048,576 index rows of 512 in int8, bf16 and fp32;
+   causal), in bfloat16 and float32, and K1, K2, K3a and K3b at the
+   ViT-L/14@336px training shape (B=32, T=577, W=1024, H=16); K4 (``fused_topk``) against
+   its plain version on 1,048,576 index rows of 512 in int8, bf16 and fp32;
+   K5a and K5b (``fused_attn_block_bwd``, ``fused_mlp_block_bwd``: the block
+   backward) against theirs at the training shape and at ViT-L/14's causal
+   text shape (B=16, T=77, W=768, H=12), bf16 and fp32, every output;
 4. main path, bf16 weights: ``EmbeddingEngine("ViT-B/32", device="cuda")``
    with seeded random weights embeds 1,024 synthetic frames of four videos
    at batch 256, the data root is written, ``ServingContext`` boots from it
@@ -24,7 +28,17 @@ package. Phases, each fatal on failure:
    index searched by K4 (``index_dtype="int8", search_impl="pallas"``); the
    launch counts of K3a, K3b and K4 and the calls of ``cosine_topk`` (none);
    then ``auto_params_dtype`` gates a float32 engine over that data root;
-6. times: each kernel, its plain version and a PyTorch library computation
+6. main path, training: ``python -m evr_tpu_torch.tools.finetune`` (its
+   ``main``) fine-tunes ViT-L/14@336px at full width from seeded random
+   weights on a synthetic caption set (96 train and 32 val images, batch
+   32, bf16, one epoch: 3 steps and 1 validation batch); the launch counts
+   of K1, K2, K5a and K5b (and none of the plain backward), finite losses,
+   frozen leaves bit-unchanged and trainable ones moved in the final
+   checkpoint; then one step from the same params and batch through the
+   kernels and through their plain versions (``attn_impl="plain_grad"``),
+   held together within bands that a gradient perturbed to cosine 0.99
+   fails; the step time;
+7. times: each kernel, its plain version and a PyTorch library computation
    of the same function, by CUDA events at the main-path shapes; encode
    frames/s and the p50 of a text query, bf16 and int8.
 
@@ -50,6 +64,10 @@ H100_BYTES_PER_S = 3.35e12
 
 VISION = dict(B=256, T=50, W=768, H=12, causal=False)
 TEXT = dict(B=16, T=77, W=512, H=8, causal=True)
+# ViT-L/14@336px at the training batch: its vision tower, which trains through
+# K1/K2 and K5a/K5b, and its (causal) text tower
+VITL = dict(B=32, T=577, W=1024, H=16, causal=False)
+VITL_TEXT = dict(B=16, T=77, W=768, H=12, causal=True)
 FP32_TOL = 2e-4  # max abs, fp32 kernel vs plain version (accumulation order only)
 BF16_TOL = 3e-2  # max abs on unit-variance activations: about 2 bf16 ulps below 4
 BF16_MIN_COS = 0.9999  # per output row, bf16
@@ -83,6 +101,39 @@ INT8_SERVED_RANK_NOISE = 8e-3
 # kernel's order and so should agree to the bit.
 TOPK_ROWS, TOPK_DIM = 1 << 20, 512
 TOPK_SCORE_TOL = {"float32": 1e-5, "bfloat16": 1e-3, "int8": 1e-3}
+# K5a/K5b against their plain versions (cotangents of 0.01 x unit scale).
+# fp32: only the order of sums differs; the largest error relative to the
+# output's largest entry was 6.4e-6 (K5b's dW_proj at the ViT-L/14@336px
+# vision shape, where each weight gradient sums 18,464 rows) in this
+# script's run on an H100 80GB HBM3 (700 W). bf16: both round at the same
+# points, so an output differs where a sum in another order rounds the
+# other way: dx by one bf16 step (6.6e-3 of its largest entry), a parameter
+# gradient by up to 8.1e-4 of its largest entry; every output's cosine was
+# at least 0.999999 (per dx row, per gradient leaf). Each band is about
+# twice the measurement.
+BWD_FP32_REL = 1.5e-5
+BWD_BF16_DX_REL = 1.6e-2  # two bf16 steps
+BWD_BF16_GRAD_REL = 2e-3
+BWD_MIN_COS = 0.999998
+BWD_OUTPUTS = {
+    "fused_attn_block_bwd": ("dx", "ln_1.scale", "ln_1.bias", "qkv.kernel", "qkv.bias",
+                             "out.kernel", "out.bias"),
+    "fused_mlp_block_bwd": ("dx", "ln_2.scale", "ln_2.bias", "fc.kernel", "fc.bias",
+                            "proj.kernel", "proj.bias"),
+}
+TRAIN_MODEL, TRAIN_BATCH, N_TRAIN, N_VAL = "ViT-L/14@336px", 32, 96, 32
+# One step from the same params and batch through the kernels (K1/K2,
+# K5b/K5a on the vision tower) and through attn_impl="plain_grad" (their
+# plain versions there, the composition on the text tower in both): bands on
+# the relative differences of the loss and the gradient norm and on the
+# least gradient-leaf cosine. This script measured on an H100 80GB HBM3
+# (700 W), two runs alike: fp32 6.4e-8, 1.3e-7 and 0.9999998 over all 434
+# trainable leaves; bf16 9.3e-5, 1.6e-3 and 0.99839 over the vision blocks'
+# 286 leaves (0.9875 for the classifier's fc1, whose gradient is a
+# near-cancelling sum over the batch). Each band is about twice the
+# measurement; a gradient perturbed to cosine 0.99 must fail the leaf check.
+STEP_FP32_BANDS = (1.5e-7, 3e-7, 0.9999995)
+STEP_BF16_BANDS = (2e-4, 3e-3, 0.9968)
 MODEL = "ViT-B/32"
 N_FRAMES, N_VIDEOS, BATCH = 1024, 4, 256
 N_FRAME_QUERIES = 8
@@ -195,7 +246,7 @@ def phase_parity(torch):
 
     dev = torch.device("cuda")
     worst = {"fused_attn_block": 0.0, "fused_mlp_block": 0.0}
-    for shape_name, s in (("vision", VISION), ("text", TEXT)):
+    for shape_name, s in (("vision", VISION), ("text", TEXT), ("vitl", VITL)):
         gen = torch.Generator(device=dev).manual_seed(1)
         attn_args, mlp_args = bf.block_half_params(block_params(torch, s["W"], gen, dev))
         x32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev)
@@ -237,6 +288,66 @@ def phase_parity(torch):
     return worst
 
 
+def bwd_compare(torch, got, ref, is_dx: bool):
+    """(max abs err, err relative to ref's largest entry, cosine): per row
+    (the least) for dx, over the whole leaf for a parameter gradient."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs().max().item()
+    rel = err / max(r.abs().max().item(), 1e-30)
+    if is_dx:
+        cos = torch.nn.functional.cosine_similarity(
+            g.reshape(-1, g.shape[-1]), r.reshape(-1, r.shape[-1]), dim=-1).min().item()
+    else:
+        cos = torch.nn.functional.cosine_similarity(g.reshape(1, -1), r.reshape(1, -1)).item()
+    return err, rel, cos, bool(torch.isfinite(g).all().item())
+
+
+def phase_parity_bwd(torch):
+    """K5a and K5b against their plain versions at ViT-L/14@336px's training
+    shapes, vision and causal text, bf16 and fp32, quickGELU; exact GELU
+    for K5b at the vision shape. Every output is checked."""
+    from evr_tpu_torch.ops import block_fused as bf
+
+    dev = torch.device("cuda")
+    worst = {"fused_attn_block_bwd": 0.0, "fused_mlp_block_bwd": 0.0}
+    for shape_name, s in (("vitl", VITL), ("vitl-text", VITL_TEXT)):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        attn_args, mlp_args = bf.block_half_params(block_params(torch, s["W"], gen, dev))
+        x32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev)
+        g32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev) * 0.01
+        cases = [("fused_attn_block_bwd", bf.fused_attn_block_bwd, bf.fused_attn_block_bwd_plain,
+                  dict(n_heads=s["H"], causal=s["causal"]), attn_args),
+                 ("fused_mlp_block_bwd", bf.fused_mlp_block_bwd, bf.fused_mlp_block_bwd_plain,
+                  dict(activation="quick_gelu"), mlp_args)]
+        if shape_name == "vitl":
+            cases.append(("fused_mlp_block_bwd", bf.fused_mlp_block_bwd, bf.fused_mlp_block_bwd_plain,
+                          dict(activation="gelu"), mlp_args))
+        for dt in (torch.bfloat16, torch.float32):
+            x, g = x32.to(dt), g32.to(dt)
+            for name, kern, plain, kw, args in cases:
+                got = kern(x, g, *args, **kw)
+                torch.cuda.synchronize()
+                ref = plain(x, g, *[a.to(dt) for a in args], **kw)
+                tag = f"{name} {kw.get('activation', '')} {shape_name} {str(dt).split('.')[-1]}"
+                for out_name, u, v in zip(BWD_OUTPUTS[name], got, ref):
+                    is_dx = out_name == "dx"
+                    err, rel, cos, finite = bwd_compare(torch, u, v, is_dx)
+                    log(f"parity {tag} {out_name}: max_abs_err={err:.3e} rel={rel:.3e} "
+                        f"{'min_row_cos' if is_dx else 'leaf_cos'}={cos:.7f}")
+                    check(finite, f"{tag} {out_name}: non-finite output")
+                    check(u.dtype == (dt if is_dx else torch.float32), f"{tag} {out_name}: dtype {u.dtype}")
+                    if dt == torch.float32:
+                        check(rel <= BWD_FP32_REL, f"{tag} {out_name}: relative err {rel} > {BWD_FP32_REL}")
+                    else:
+                        tol = BWD_BF16_DX_REL if is_dx else BWD_BF16_GRAD_REL
+                        check(rel <= tol, f"{tag} {out_name}: relative err {rel} > {tol}")
+                        check(cos >= BWD_MIN_COS, f"{tag} {out_name}: cosine {cos} < {BWD_MIN_COS}")
+                        if shape_name == "vitl":
+                            worst[name] = max(worst[name], err)
+                del got, ref
+    return worst
+
+
 def quantized_block(p):
     """A block's params with its four linears quantized (``models.quant``)."""
     from evr_tpu_torch.models.quant import quantize_linear_params
@@ -247,13 +358,14 @@ def quantized_block(p):
 
 
 def phase_parity_int8(torch):
-    """K3a and K3b against their plain versions, bf16 and fp32, both
-    shapes, quickGELU; exact GELU at the vision width."""
+    """K3a and K3b against their plain versions, bf16 and fp32, at the
+    serving shapes and at T = 577 (ViT-L/14@336px's vision tower), quickGELU;
+    exact GELU at the vision width."""
     from evr_tpu_torch.ops import block_fused as bf
 
     dev = torch.device("cuda")
     worst = {"fused_attn_block_q": 0.0, "fused_mlp_block_q": 0.0}
-    for shape_name, s in (("vision", VISION), ("text", TEXT)):
+    for shape_name, s in (("vision", VISION), ("text", TEXT), ("vitl", VITL)):
         gen = torch.Generator(device=dev).manual_seed(1)
         attn, mlp = bf.quant_block_half_params(quantized_block(block_params(torch, s["W"], gen, dev)))
         x32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev)
@@ -637,7 +749,208 @@ def counting(fn):
     return wrapper
 
 
-# -- 5. times ----------------------------------------------------------------
+# -- 6. training -------------------------------------------------------------
+
+
+def write_caption_set(root: pathlib.Path, size: int, patch: int):
+    """A synthetic caption set in the reference trainer's layout: JPEGs of
+    size² (seeded scenes, as ``synthetic_frames``) and two JSONs keyed by
+    relative path with caption and category. Returns (train json, val json)."""
+    import cv2
+    import numpy as np
+    import torch
+
+    frames = synthetic_frames(torch, N_TRAIN + N_VAL, size, patch)
+    cats = ["Violence", "NonViolence", "Sensitive content"]
+    rng = np.random.default_rng(11)
+    meta = []
+    for i, f in enumerate(frames):
+        cv2.imwrite(str(root / f"img{i}.jpg"), np.ascontiguousarray(f[:, :, ::-1]))
+        words = rng.choice(["a", "red", "car", "crowd", "street", "dog", "boat", "sign", "night",
+                            "people", "running", "park", "fight", "water"], size=6)
+        meta.append((f"img{i}.jpg", {"caption": " ".join(words), "category": cats[i % 3]}))
+    paths = []
+    for name, part in (("train.json", meta[:N_TRAIN]), ("val.json", meta[N_TRAIN:])):
+        (root / name).write_text(json.dumps(dict(part)))
+        paths.append(root / name)
+    return paths
+
+
+def leaf_cosines(torch, grads_k, grads_p) -> dict:
+    """Cosine of each gradient leaf between two steps (leaves zero in both
+    are left out)."""
+    out = {}
+    for k in grads_k:
+        a, b = grads_k[k].float().flatten(), grads_p[k].float().flatten()
+        if a.norm().item() == 0.0 and b.norm().item() == 0.0:
+            continue
+        out[k] = torch.nn.functional.cosine_similarity(a[None], b[None]).item()
+    return out
+
+
+def vision_block_leaf(key: str) -> bool:
+    return key.startswith("clip/visual/blocks/")
+
+
+def step_compare(torch, tag, m_k, m_p, grads_k, grads_p, check_leaves):
+    """A kernel step against a plain step: the loss and the gradient norm
+    (relative differences), the least cosine of the leaves ``check_leaves``
+    selects, and that least cosine once the kernel's gradients are
+    perturbed to cosine 0.99. Prints the worst leaves of each group."""
+    from evr_tpu_torch.training.finetune import global_norm
+
+    loss_k, loss_p = m_k["total_loss"].item(), m_p["total_loss"].item()
+    norm_k, norm_p = global_norm(grads_k.values()).item(), global_norm(grads_p.values()).item()
+    check(math.isfinite(loss_k) and math.isfinite(norm_k), f"{tag}: non-finite kernel step")
+    cos = leaf_cosines(torch, grads_k, grads_p)
+    checked = {k: c for k, c in cos.items() if check_leaves(k)}
+    for group, sel in (("vision blocks", vision_block_leaf),
+                       ("other leaves", lambda k: not vision_block_leaf(k))):
+        worst = sorted((c, k) for k, c in cos.items() if sel(k))[:3]
+        log(f"{tag}: {group}: least leaf cosines {[(k, round(c, 7)) for c, k in worst]}")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    off = {}
+    for k in checked:
+        g = grads_k[k].float()
+        noise = torch.randn(g.shape, generator=gen, device=g.device)
+        noise -= (noise.flatten() @ g.flatten()) / max(g.norm().item() ** 2, 1e-30) * g
+        off[k] = g + noise * (g.norm() * math.tan(math.acos(0.99)) / max(noise.norm().item(), 1e-30))
+    out = {"loss_rel": abs(loss_k - loss_p) / abs(loss_p), "norm_rel": abs(norm_k - norm_p) / norm_p,
+           "least_leaf_cos": min(checked.values()), "leaves": len(checked),
+           "perturbed_least_cos": min(leaf_cosines(torch, off, {k: grads_p[k] for k in off}).values())}
+    log(f"{tag}: loss {loss_k:.6f} / {loss_p:.6f}, grad norm {norm_k:.6f} / {norm_p:.6f}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def step_check(tag, got, bands) -> None:
+    """The bands (loss rel, grad norm rel, least leaf cosine); the leaf
+    band must reject the gradients perturbed to cosine 0.99."""
+    check(got["loss_rel"] <= bands[0], f"{tag}: losses apart by {got['loss_rel']} > {bands[0]}")
+    check(got["norm_rel"] <= bands[1], f"{tag}: gradient norms apart by {got['norm_rel']} > {bands[1]}")
+    check(got["least_leaf_cos"] >= bands[2], f"{tag}: leaf cosine {got['least_leaf_cos']} < {bands[2]}")
+    check(got["perturbed_least_cos"] < bands[2],
+          f"{tag}: the leaf check passes gradients perturbed to cosine 0.99")
+
+
+def phase_train(torch):
+    """The training path through ``tools.finetune.main`` (counted), the
+    checkpoint against the initial weights, the kernel step against the
+    plain step, and the time of a step."""
+    import dataclasses
+
+    import numpy as np
+
+    from evr_tpu_torch.models import get_model_config, init_clip_params, params_from_numpy
+    from evr_tpu_torch.models.classifier import ClassifierConfig, init_classifier_params
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.tools import finetune as cli
+    from evr_tpu_torch.training import (
+        CaptionDataset, TrainConfig, TrainState, make_grad_fn, make_optimizer, make_train_step,
+        param_group_labels,
+    )
+    from evr_tpu_torch.training.finetune import flat_leaves
+
+    cfg = get_model_config(TRAIN_MODEL)
+    seed = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        train_json, val_json = write_caption_set(root, cfg.vision.image_size, cfg.vision.patch_size)
+        plain_attn, plain_mlp = counting(bf.fused_attn_block_bwd_plain), counting(bf.fused_mlp_block_bwd_plain)
+        bf.fused_attn_block_bwd_plain, bf.fused_mlp_block_bwd_plain = plain_attn, plain_mlp
+        counted = [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_bwd,
+                   bf.fused_mlp_block_bwd, plain_attn, plain_mlp]
+        try:
+            for fn in counted:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            result = cli.main([
+                "--train-json", str(train_json), "--val-json", str(val_json), "--data-dir", str(root),
+                "--model", TRAIN_MODEL, "--batch-size", str(TRAIN_BATCH), "--epochs", "1",
+                "--seed", str(seed), "--save-dir", str(root / "ckpt"), "--device", "cuda",
+            ])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+        finally:
+            bf.fused_attn_block_bwd_plain = plain_attn.__wrapped__
+            bf.fused_mlp_block_bwd_plain = plain_mlp.__wrapped__
+        blocks = cfg.vision.layers
+        steps, val_batches = N_TRAIN // TRAIN_BATCH, N_VAL // TRAIN_BATCH
+        log(f"training launches: {launches} (expected K1 = K2 = {blocks} x {steps + val_batches}, "
+            f"K5a = K5b = {blocks} x {steps}, plain backward 0); fit {fit_s:.1f} s")
+        check(launches["fused_attn_block"] == launches["fused_mlp_block"] == blocks * (steps + val_batches),
+              f"K1/K2 launches {launches}")
+        check(launches["fused_attn_block_bwd"] == launches["fused_mlp_block_bwd"] == blocks * steps,
+              f"K5 launches {launches}")
+        check(launches["fused_attn_block_bwd_plain"] == launches["fused_mlp_block_bwd_plain"] == 0,
+              f"plain backward ran: {launches}")
+        row = result["history"][0]
+        log(f"training epoch: {json.dumps({k: v for k, v in row.items()})}")
+        check(row["train_batches"] == steps and row["val_batches"] == val_batches, f"batches {row}")
+        for key in ("train_total_loss", "train_grad_norm", "val_total_loss", "train_contrastive_loss"):
+            check(math.isfinite(row[key]), f"{key} = {row[key]}")
+        saves = dict(result["checkpoint_seconds"])
+        ckpt = root / "ckpt" / "final_checkpoint.pt"
+        log(f"checkpoint saves: {json.dumps(saves)} s, final {ckpt.stat().st_size / 1e9:.2f} GB")
+
+        # frozen leaves bit-unchanged, trainable ones moved
+        init = {"clip": init_clip_params(seed, cfg),
+                "classifier": init_classifier_params(seed + 1, ClassifierConfig(embed_dim=cfg.embed_dim))}
+        final = torch.load(ckpt, map_location="cpu", weights_only=True)["params"]
+        labels = flat_leaves(param_group_labels(final, 8))
+        want, got = flat_leaves(init), flat_leaves(final)
+        frozen = [k for k in labels if labels[k] == "frozen"]
+        stale = [k for k in labels if labels[k] != "frozen" and torch.equal(got[k], torch.from_numpy(np.asarray(want[k])))]
+        moved = [k for k in frozen if not torch.equal(got[k], torch.from_numpy(np.asarray(want[k])))]
+        log(f"final checkpoint: {len(frozen)} frozen leaves, {len(moved)} of them moved; "
+            f"{len(labels) - len(frozen)} trainable leaves, {len(stale)} of them unmoved")
+        check(len(frozen) == 16 and not moved, f"frozen leaves moved: {moved}")
+        check(not stale, f"trainable leaves did not move: {stale[:5]}")
+        del final, got
+
+        # one step from the same params and batch: kernels against plain
+        params = params_from_numpy(init, "cuda")
+        batch = next(iter(CaptionDataset(train_json, root).batches(TRAIN_BATCH, cfg.vision.image_size, seed=seed)))
+    cls_cfg = ClassifierConfig(embed_dim=cfg.embed_dim)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="plain_grad")
+    compared = {}
+    for dtype in ("float32", "bfloat16"):
+        tc = TrainConfig(seed=seed, batch_size=TRAIN_BATCH, epochs=1, compute_dtype=dtype)
+        fn_k, fn_p = make_grad_fn(cfg, cls_cfg, tc), make_grad_fn(plain_cfg, cls_cfg, tc)
+        m_k, grads_k = fn_k(params, batch, torch.Generator(device="cuda").manual_seed(1))
+        m_p, grads_p = fn_p(params, batch, torch.Generator(device="cuda").manual_seed(1))
+        # fp32: every leaf; bf16: the vision blocks' leaves, which the kernels
+        # compute (a leaf elsewhere whose gradient is a near-cancelling sum
+        # over the batch, such as the classifier's, moves with bf16 noise)
+        compared[dtype] = step_compare(
+            torch, f"kernel step vs plain step, {dtype}", m_k, m_p, grads_k, grads_p,
+            (lambda k: True) if dtype == "float32" else vision_block_leaf)
+        del grads_k, grads_p
+    for dtype, bands in (("float32", STEP_FP32_BANDS), ("bfloat16", STEP_BF16_BANDS)):
+        step_check(f"kernel step vs plain step, {dtype}", compared[dtype], bands)
+
+    # the time of a step (bf16): forward, backward and the optimizer
+    opt = make_optimizer(tc, params, N_TRAIN // TRAIN_BATCH)
+    step, _ = make_train_step(cfg, cls_cfg, tc, opt)
+    state = TrainState(params=params, opt_state=opt.init(params), step=0)
+    step(state, batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    log(f"train step ({TRAIN_MODEL}, batch {TRAIN_BATCH}, bf16): {[round(t, 4) for t in times]} s, "
+        f"median {step_s:.4f} s = {TRAIN_BATCH / step_s:.2f} samples/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return {"launches": launches, "step_s": step_s, "samples_per_s": TRAIN_BATCH / step_s,
+            "checkpoint_s": saves, "compared": compared}
+
+
+# -- 7. times ----------------------------------------------------------------
 
 
 def half_bound_ms(name: str, s: dict, elt: int) -> tuple[float, float, str]:
@@ -646,6 +959,14 @@ def half_bound_ms(name: str, s: dict, elt: int) -> tuple[float, float, str]:
     count their GEMMs at the int8 rate and the attention at the bf16 rate."""
     rows, W = s["B"] * s["T"], s["W"]
     attn_flops = 4 * s["B"] * s["T"] * s["T"] * W
+    if name.endswith("_bwd"):  # the backward halves: x and g in, dx and fp32 grads out
+        if name == "fused_attn_block_bwd":  # QKV recompute, do, dW_out, dW_qkv, dy; 6 T^2 products
+            gemm, attn, n_par = 22 * rows * W * W, 3 * attn_flops, 4 * W * W + 6 * W
+        else:  # fc recompute, dW_proj, dh, dW_fc, dy
+            gemm, attn, n_par = 40 * rows * W * W, 0, 8 * W * W + 7 * W
+        nbytes = 3 * rows * W * elt + n_par * elt + n_par * 4
+        desc = f"{gemm / 1e9:.2f} GFLOP GEMM, {attn / 1e9:.2f} GFLOP attention, {nbytes / 1e6:.1f} MB"
+        return (gemm + attn) / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3, desc
     if name in ("fused_attn_block", "fused_attn_block_q"):
         gemm = 2 * rows * W * 3 * W + 2 * rows * W * W
         weights, vectors, attn = 4 * W * W, 4 * W, attn_flops
@@ -755,6 +1076,63 @@ def phase_times(torch):
     return out
 
 
+def phase_times_train(torch):
+    """K1, K2, K5a and K5b at the ViT-L/14@336px training shape (bf16). The
+    yardsticks: the forward composition of ``phase_times`` for K1/K2, and
+    its forward and backward under torch.autograd for K5a/K5b (the kernels
+    recompute their half's forward too)."""
+    import torch.nn.functional as F
+
+    from evr_tpu_torch.ops import block_fused as bf
+
+    dev = torch.device("cuda")
+    s = VITL
+    B, T, W, H = s["B"], s["T"], s["W"], s["H"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    attn_args, mlp_args = bf.block_half_params(block_params(torch, W, gen, dev))
+    dt = torch.bfloat16
+    x = unit_activations(torch, (B, T, W), gen, dev).to(dt)
+    g = (unit_activations(torch, (B, T, W), gen, dev) * 0.01).to(dt)
+    a = [t.to(dt) for t in attn_args]
+    m = [t.to(dt) for t in mlp_args]
+    la = [a[0], a[1], a[2].t().contiguous(), a[3], a[4].t().contiguous(), a[5]]
+    lm = [m[0], m[1], m[2].t().contiguous(), m[3], m[4].t().contiguous(), m[5]]
+
+    def lib_attn(xr, p):
+        y = F.layer_norm(xr, (W,), p[0], p[1], 1e-5)
+        q, k, v = F.linear(y, p[2], p[3]).view(B, T, 3, H, W // H).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v)
+        return xr + F.linear(o.transpose(1, 2).reshape(B, T, W), p[4], p[5])
+
+    def lib_mlp(xr, p):
+        h = F.linear(F.layer_norm(xr, (W,), p[0], p[1], 1e-5), p[2], p[3])
+        return xr + F.linear(h * torch.sigmoid(1.702 * h), p[4], p[5])
+
+    def fwd_bwd(fn, p):
+        def run():
+            leaves = [t.detach().requires_grad_() for t in (x, *p)]
+            return torch.autograd.grad(fn(leaves[0], leaves[1:]), leaves, g)
+        return run
+
+    counted = (bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd)
+    cases = (
+        ("fused_attn_block", lambda: bf.fused_attn_block(x, *a, n_heads=H),
+         lambda: bf.fused_attn_block_plain(x, *a, n_heads=H), lambda: lib_attn(x, la)),
+        ("fused_mlp_block", lambda: bf.fused_mlp_block(x, *m),
+         lambda: bf.fused_mlp_block_plain(x, *m), lambda: lib_mlp(x, lm)),
+        ("fused_attn_block_bwd", lambda: bf.fused_attn_block_bwd(x, g, *a, n_heads=H),
+         lambda: bf.fused_attn_block_bwd_plain(x, g, *a, n_heads=H), fwd_bwd(lib_attn, la)),
+        ("fused_mlp_block_bwd", lambda: bf.fused_mlp_block_bwd(x, g, *m),
+         lambda: bf.fused_mlp_block_bwd_plain(x, g, *m), fwd_bwd(lib_mlp, lm)),
+    )
+    out = {}
+    for name, kern, plain, lib in cases:
+        t_ops, t_bytes, desc = half_bound_ms(name, s, 2)
+        out[(name, "vitl")] = time_case(torch, name, "vitl bf16", kern, plain, lib, t_ops, t_bytes,
+                                        desc, counted)
+    return out
+
+
 def phase_times_topk(torch):
     """K4 at the serving shape of one text query: Q = 1, k = 30 over
     TOPK_ROWS int8 rows (the row scales applied)."""
@@ -804,12 +1182,15 @@ def main() -> int:
         worst = phase_parity(torch)
         worst.update(phase_parity_int8(torch))
         worst["fused_topk"] = phase_parity_topk(torch)
+        worst.update(phase_parity_bwd(torch))
         vis = get_model_config(MODEL).vision
         frames = synthetic_frames(torch, N_FRAMES, vis.image_size, vis.patch_size)
         main = phase_main_path(torch, frames)
         main_q = phase_main_path_int8(torch, frames)
+        train = phase_train(torch)
         times = phase_times(torch)
         times[("fused_topk", "vision")] = phase_times_topk(torch)
+        times.update(phase_times_train(torch))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -817,17 +1198,23 @@ def main() -> int:
         log(f"main path {tag}: encode {m['encode_frames_per_s']:.1f} frames/s "
             f"(batch {BATCH}, {N_FRAMES} frames), text query p50 "
             f"{m['text_query_p50_ms']:.2f} ms, /api/search p50 {m['request_p50_ms']:.2f} ms")
+    log(f"main path training: {TRAIN_MODEL}, batch {TRAIN_BATCH}, bf16: step {train['step_s']:.4f} s, "
+        f"{train['samples_per_s']:.2f} samples/s; checkpoint saves {json.dumps(train['checkpoint_s'])} s; "
+        f"kernel vs plain step: {json.dumps(train['compared'])}")
     launches = {**main["launches"], **main_q["launches"]}
+    launches.update({k: train["launches"][k] for k in ("fused_attn_block_bwd", "fused_mlp_block_bwd")})
     sources = {
         "fused_attn_block": ("evr_tpu_torch/ops/csrc/block_attn.cu", "evr_tpu/ops/block_fused.py:340"),
         "fused_mlp_block": ("evr_tpu_torch/ops/csrc/block_mlp.cu", "evr_tpu/ops/block_fused.py:1038"),
         "fused_attn_block_q": ("evr_tpu_torch/ops/csrc/block_quant.cu", "evr_tpu/ops/block_fused.py:865"),
         "fused_mlp_block_q": ("evr_tpu_torch/ops/csrc/block_quant.cu", "evr_tpu/ops/block_fused.py:894"),
         "fused_topk": ("evr_tpu_torch/ops/csrc/topk_fused.cu", "evr_tpu/ops/retrieval_pallas.py:142"),
+        "fused_attn_block_bwd": ("evr_tpu_torch/ops/csrc/block_attn_bwd.cu", "evr_tpu/ops/block_fused.py:618"),
+        "fused_mlp_block_bwd": ("evr_tpu_torch/ops/csrc/block_mlp_bwd.cu", "evr_tpu/ops/block_fused.py:698"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        t = times[(name, "vision")]
+        t = times[(name, "vitl" if name.endswith("_bwd") else "vision")]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": worst[name],

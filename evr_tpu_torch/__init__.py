@@ -10,11 +10,15 @@ patch kernel), so weights carry across leaf by leaf
 - ``evr_tpu_torch.models``     CLIP towers, the model registry, weight carry-over,
                                int8 weights and their serving gate
 - ``evr_tpu_torch.tokenizer``  CLIP byte-level BPE tokenizer
-- ``evr_tpu_torch.ops``        the fused block and top-k kernels (CUDA C++),
-                               top-k, staging
+- ``evr_tpu_torch.ops``        the fused block (forward and backward) and top-k
+                               kernels (CUDA C++), top-k, staging
 - ``evr_tpu_torch.index``      the frame index and the embedding engine
 - ``evr_tpu_torch.query``      frame metadata, event formatting, strategies
 - ``evr_tpu_torch.serving``    the HTTP API
+- ``evr_tpu_torch.training``   contrastive fine-tuning (``Trainer``), its
+                               losses, optimizer groups and caption data
+- ``evr_tpu_torch.parallel``   the contrastive losses (single device)
+- ``evr_tpu_torch.tools``      command-line tools (``tools.finetune``)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with no
 card and no explicit CPU request they raise. Subpackages import lazily.
@@ -24,7 +28,10 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("models", "tokenizer", "ops", "index", "query", "serving", "utils")
+_SUBPACKAGES = (
+    "models", "tokenizer", "ops", "index", "query", "serving", "utils", "training", "parallel",
+    "tools",
+)
 
 
 def __getattr__(name):

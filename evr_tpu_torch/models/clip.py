@@ -60,7 +60,7 @@ class CLIPConfig:
     embed_dim: int = 512
     vision: VisionConfig = VisionConfig()
     text: TextConfig = TextConfig()
-    # "auto" | "xla" | "plain" — see layers.block_apply
+    # "auto" | "auto_grad" | "xla" | "plain" | "plain_grad" — see layers.block_apply
     attn_impl: str = "auto"
     # "quick_gelu" (OpenAI CLIP) | "gelu" (OpenCLIP laion towers)
     activation: str = "quick_gelu"

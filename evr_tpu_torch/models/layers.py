@@ -8,9 +8,14 @@ statistics always in fp32 whatever the compute dtype.
 ``block_apply(attn_impl="auto")`` routes CUDA tensors of towers up to width
 1280 through the hand-written kernels K1 and K2, or K3 on int8 params
 (``ops.block_fused``); other tensors take the plain composition below, as the
-JAX package does off the TPU. ``attn_impl="plain"`` runs the kernels' plain
-PyTorch versions instead, on any device: the reference the kernel path is
-held to on the card. ``linear`` dispatches on the int8 layout of
+JAX package does off the TPU. Under grad mode the float route goes through
+``ops.block_fused.FusedBlockFunction``, whose backward is K5b then K5a.
+``attn_impl="auto_grad"`` is the training resolution of the JAX package
+(``layers.py:338-344``): "auto" when T >= 512, the plain composition
+otherwise. ``attn_impl="plain"`` runs the kernels' plain PyTorch versions
+(forward and backward) instead, on any device: the reference the kernel path
+is held to on the card; ``"plain_grad"`` is that reference for a training
+step (the plain versions where "auto_grad" runs kernels). ``linear`` dispatches on the int8 layout of
 ``models.quant`` (``kernel_q``) to ``quantized_linear``.
 """
 
@@ -149,8 +154,16 @@ def block_apply(
 ) -> torch.Tensor:
     """One pre-LN residual block. ``attn_impl``: "auto" (kernels K1 → K2, or
     K3a → K3b on int8 params, for a CUDA tensor of width ≤ 1280; the plain
-    composition otherwise), "xla" (the plain composition), or "plain" (the
-    kernels' plain versions)."""
+    composition otherwise), "auto_grad" ("auto" at T ≥ 512, else "xla"),
+    "xla" (the plain composition), "plain" (the kernels' plain versions), or
+    "plain_grad" ("plain" at T ≥ 512, else "xla": a training step with each
+    kernel of "auto_grad" replaced by its plain version).
+    A differentiable call on the kernel route runs K5b → K5a backward
+    (``FusedBlockFunction``); int8 params are inference only and their
+    kernels refuse inputs that require grad."""
+    if attn_impl in ("auto_grad", "plain_grad"):
+        # the fused backward only where the JAX trainer takes it (T ≥ 512)
+        attn_impl = attn_impl.removesuffix("_grad") if x.shape[1] >= 512 else "xla"
     if attn_impl == "auto" and x.shape[2] <= 1280 and x.is_cuda:
         if "kernel_q" in p["attn"]["qkv"]:
             return fused_quant_block_apply(x, p, n_heads, activation, causal)

@@ -1,4 +1,4 @@
-"""Fused pre-LN transformer-block halves: hand-written CUDA kernels K1–K3.
+"""Fused pre-LN transformer-block halves: hand-written CUDA kernels K1–K3, K5.
 
 Counterpart of ``evr_tpu/ops/block_fused.py``: each residual block runs as two
 fused halves,
@@ -8,15 +8,23 @@ fused halves,
 - K3 ``fused_quant_block_apply``, the same two halves over int8 weights
   (``models.quant`` layout: ``kernel_q``/``kernel_scale``): K3a
   ``fused_attn_block_q`` and K3b ``fused_mlp_block_q``, source
-  ``csrc/block_quant.cu``.
+  ``csrc/block_quant.cu``; inference only, as in the JAX package;
+- K5, the backward of the two float halves: K5a ``fused_attn_block_bwd``
+  (``csrc/block_attn_bwd.cu``) and K5b ``fused_mlp_block_bwd``
+  (``csrc/block_mlp_bwd.cu``), each recomputing its half from x and giving
+  dx and the fp32 parameter gradients; ``FusedBlockFunction`` composes them
+  as the JAX custom VJP ``fused_block_apply`` does.
 
 Each wrapper takes x's dtype (bfloat16 or float32) as the compute dtype and
-casts the LayerNorm parameters (and, for K1/K2, the kernels and biases) to
+casts the LayerNorm parameters (and, for K1/K2/K5, the kernels and biases) to
 it, as the reference wrapper does; K3 keeps its int8 kernels and reads its
 scales and biases in fp32. A CUDA tensor launches the kernel (or raises); a
 CPU tensor takes the plain PyTorch version beside it, which has the same
 rounding points and is also the comparison the chip smoke run holds each
 kernel to. Every kernel launch adds one to the wrapper's ``launches`` count.
+The forward wrappers return tensors outside autograd, so under grad mode
+they refuse inputs that require grad: differentiable blocks go through
+``FusedBlockFunction`` (``fused_block_apply``).
 """
 
 from __future__ import annotations
@@ -36,11 +44,18 @@ _ACT_CODES = {"quick_gelu": 0, "gelu": 1}
 # -- plain versions --------------------------------------------------------
 
 
-def _ln32(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def _ln_fwd_stats(x32: torch.Tensor, scale, bias):
+    """LN in fp32 over the last dim, as the kernels compute it: (xhat, inv,
+    y32) with inv = rsqrt(var + eps)."""
     mean = x32.mean(-1, keepdim=True)
-    var = (x32 - mean).square().mean(-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + LN_EPS)
-    return y * scale.float() + bias.float()
+    xc = x32 - mean
+    inv = torch.rsqrt(xc.square().mean(-1, keepdim=True) + LN_EPS)
+    xhat = xc * inv
+    return xhat, inv, xhat * scale.float() + bias.float()
+
+
+def _ln32(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    return _ln_fwd_stats(x32, scale, bias)[2]
 
 
 def erf_as(x: torch.Tensor) -> torch.Tensor:
@@ -146,6 +161,120 @@ def fused_mlp_block_q_plain(
     return (x32 + o).to(x.dtype)
 
 
+def _ln_bwd(dy, xhat, inv, scale, g32):
+    """LN's backward in fp32 over rows [R, W]: (dx_total fp32, dscale,
+    dbias), dx_total = g + dx_ln."""
+    dxhat = dy * scale.float()
+    dx_ln = inv * (
+        dxhat
+        - dxhat.mean(-1, keepdim=True)
+        - xhat * (dxhat * xhat).mean(-1, keepdim=True)
+    )
+    return g32 + dx_ln, (dy * xhat).sum(0), dy.sum(0)
+
+
+def fused_attn_block_bwd_plain(
+    x, g, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, n_heads: int,
+    causal: bool = False,
+):
+    """K5a's function in plain PyTorch, parameters already in x's dtype.
+
+    The rounding points of ``_attn_block_bwd_kernel``: LN1, qkv and the
+    per-head softmax are recomputed from x (pn normalised in fp32, rounded
+    for o and dv); do = g·W_outᵀ in fp32, rounded per head; o = round(
+    round(pn)·v) feeds dW_out; ds = pn ∘ (dpn − rowsum(dpn ∘ pn)); dq =
+    round(ds)·k·scale and dk = round(ds)ᵀ·(scaled q) in fp32; the qkv bias
+    gradient sums the fp32 dqkv, dW_qkv and dy use it rounded; dx = g +
+    dx_ln rounded once. Returns (dx, dln_scale, dln_bias, dqkv_kernel,
+    dqkv_bias, dout_kernel, dout_bias), the gradients in fp32."""
+    dt = x.dtype
+    B, T, W = x.shape
+    d = W // n_heads
+    scale = 1.0 / math.sqrt(d)
+    x32 = x.reshape(-1, W).float()
+    g32 = g.reshape(-1, W).float()
+    gd = g32.to(dt).float()
+    xhat, inv, y32 = _ln_fwd_stats(x32, ln_scale, ln_bias)
+    y = y32.to(dt).float()
+    qkv = (y @ qkv_kernel.float() + qkv_bias.float()).to(dt)
+
+    def heads(t):  # [B*T, W] -> [B, H, T, d]
+        return t.reshape(B, T, n_heads, d).transpose(1, 2)
+
+    q, k, v = (heads(t) for t in qkv.split(W, dim=-1))
+    q = (q * torch.tensor(scale, dtype=dt, device=x.device)).float()
+    k, v = k.float(), v.float()
+    s = q @ k.transpose(-1, -2)
+    if causal:
+        mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+        s = torch.where(mask, s, torch.tensor(-1e30, device=x.device))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    pn = e / e.sum(-1, keepdim=True)
+    pn_dt = pn.to(dt).float()
+    o = (pn_dt @ v).to(dt).float()
+    do_h = heads((gd @ out_kernel.float().T).to(dt).float())
+    dv = pn_dt.transpose(-1, -2) @ do_h
+    dpn = do_h @ v.transpose(-1, -2)
+    ds = pn * (dpn - (dpn * pn).sum(-1, keepdim=True))
+    ds_dt = ds.to(dt).float()
+    dq = (ds_dt @ k) * scale
+    dk = ds_dt.transpose(-1, -2) @ q
+
+    def rows(t):  # [B, H, T, d] -> [B*T, W]
+        return t.transpose(1, 2).reshape(B * T, W)
+
+    o = rows(o)
+    dqkv = torch.cat([rows(dq), rows(dk), rows(dv)], dim=-1)
+    dqkv_dt = dqkv.to(dt).float()
+    dy = dqkv_dt @ qkv_kernel.float().T
+    dx, dls, dlb = _ln_bwd(dy, xhat, inv, ln_scale, g32)
+    return (
+        dx.to(dt).reshape(x.shape), dls, dlb, y.T @ dqkv_dt, dqkv.sum(0),
+        o.T @ gd, g32.sum(0),
+    )
+
+
+def _activate_grad(h_pre: torch.Tensor, activation: str):
+    """(act(h_pre), act'(h_pre)) in fp32, as ``_mlp_block_bwd_kernel``."""
+    if activation == "quick_gelu":
+        sig = torch.sigmoid(1.702 * h_pre)
+        return h_pre * sig, sig * (1.0 + 1.702 * h_pre * (1.0 - sig))
+    if activation == "gelu":
+        erf_v = erf_as(h_pre * 0.7071067811865476)
+        pdf = 0.3989422804014327 * torch.exp(-0.5 * h_pre * h_pre)
+        return 0.5 * h_pre * (1.0 + erf_v), 0.5 * (1.0 + erf_v) + h_pre * pdf
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+def fused_mlp_block_bwd_plain(
+    x, g, ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_bias,
+    activation: str = "quick_gelu",
+):
+    """K5b's function in plain PyTorch, parameters already in x's dtype.
+
+    The rounding points of ``_mlp_block_bwd_kernel``: LN2 and fc recomputed
+    from x, h_pre and the activation and its derivative in fp32; h rounded
+    for dW_proj; dh_pre = (g·W_projᵀ) ∘ act' in fp32, rounded for dW_fc and
+    dy, summed in fp32 for b_fc; dx = g + dx_ln rounded once. Returns (dx,
+    dln_scale, dln_bias, dfc_kernel, dfc_bias, dproj_kernel, dproj_bias)."""
+    dt = x.dtype
+    W = x.shape[-1]
+    x32 = x.reshape(-1, W).float()
+    g32 = g.reshape(-1, W).float()
+    gd = g32.to(dt).float()
+    xhat, inv, y32 = _ln_fwd_stats(x32, ln_scale, ln_bias)
+    y = y32.to(dt).float()
+    h_act, dact = _activate_grad(y @ fc_kernel.float() + fc_bias.float(), activation)
+    h = h_act.to(dt).float()
+    dh_pre = (gd @ proj_kernel.float().T) * dact
+    dhp = dh_pre.to(dt).float()
+    dy = dhp @ fc_kernel.float().T
+    dx, dls, dlb = _ln_bwd(dy, xhat, inv, ln_scale, g32)
+    return (
+        dx.to(dt).reshape(x.shape), dls, dlb, y.T @ dhp, dh_pre.sum(0), h.T @ gd, g32.sum(0),
+    )
+
+
 # -- wrappers --------------------------------------------------------------
 
 
@@ -169,12 +298,23 @@ def _check_cuda(x: torch.Tensor, params, shapes, what: str, dtypes=None) -> None
 def _raise_rc(rc: int, what: str, shape) -> None:
     if rc == -1:
         raise ValueError(f"{what}: the CUDA kernel does not take shape {tuple(shape)}")
-    if rc == -2:
-        raise ValueError(
-            f"{what}: shape {tuple(shape)} needs more shared memory than a block has"
-        )
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error code {rc}")
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """A kernel wrapper's result is written through raw pointers and has no
+    autograd history: under grad mode, an input that requires grad would
+    silently get none. Raise instead."""
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{what}: an input requires grad, but the kernel's result carries no "
+            "autograd history; run the block through FusedBlockFunction "
+            "(ops.block_fused.fused_block_apply, or models.layers.block_apply) or "
+            "under torch.no_grad()"
+        )
 
 
 def fused_attn_block(
@@ -187,12 +327,12 @@ def fused_attn_block(
     n_heads: int,
     causal: bool = False,
 ) -> torch.Tensor:
-    """x + out(attention(LN(x))), kernel K1 on a CUDA tensor."""
+    """x + out(attention(LN(x))), kernel K1 on a CUDA tensor (head dim 64,
+    any T)."""
+    raw = (ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias)
+    refuse_grad("fused_attn_block", x, *raw)
     dt = x.dtype
-    params = [
-        p.to(dt).contiguous()
-        for p in (ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias)
-    ]
+    params = [p.to(dt).contiguous() for p in raw]
     if not x.is_cuda:
         return fused_attn_block_plain(x, *params, n_heads=n_heads, causal=causal)
     if x.dim() != 3 or x.shape[2] % n_heads:
@@ -200,12 +340,13 @@ def fused_attn_block(
     B, T, W = x.shape
     _check_cuda(x, params, [(W,), (W,), (W, 3 * W), (3 * W,), (W, W), (W,)], "fused_attn_block")
     lib = build.load("block_attn")
+    qkv = torch.empty((B * T, 3 * W), dtype=dt, device=x.device)
     o = torch.empty_like(x)
     out = torch.empty_like(x)
     d = W // n_heads
     rc = lib.evr_fused_attn_block(
         _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in params),
-        o.data_ptr(), out.data_ptr(), B, T, W, n_heads, int(causal),
+        qkv.data_ptr(), o.data_ptr(), out.data_ptr(), B, T, W, n_heads, int(causal),
         1.0 / math.sqrt(d), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_rc(rc, "fused_attn_block", x.shape)
@@ -223,11 +364,10 @@ def fused_mlp_block(
     activation: str = "quick_gelu",
 ) -> torch.Tensor:
     """x + proj(act(fc(LN(x)))), kernel K2 on a CUDA tensor."""
+    raw = (ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_bias)
+    refuse_grad("fused_mlp_block", x, *raw)
     dt = x.dtype
-    params = [
-        p.to(dt).contiguous()
-        for p in (ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_bias)
-    ]
+    params = [p.to(dt).contiguous() for p in raw]
     if not x.is_cuda:
         return fused_mlp_block_plain(x, *params, activation=activation)
     if activation not in _ACT_CODES:
@@ -272,7 +412,9 @@ def fused_attn_block_q(
     causal: bool = False,
 ) -> torch.Tensor:
     """x + out(attention(LN(x))) over int8 weights, kernel K3a on a CUDA
-    tensor."""
+    tensor (head dim 64, any T)."""
+    refuse_grad("fused_attn_block_q", x, ln_scale, ln_bias, qkv_kq, qkv_ks, qkv_bias,
+                out_kq, out_ks, out_bias)
     dt = x.dtype
     params = cast_quant_args(
         dt, (ln_scale, ln_bias, qkv_kq, qkv_ks, qkv_bias, out_kq, out_ks, out_bias)
@@ -313,6 +455,8 @@ def fused_mlp_block_q(
 ) -> torch.Tensor:
     """x + proj(act(fc(LN(x)))) over int8 weights, kernel K3b on a CUDA
     tensor."""
+    refuse_grad("fused_mlp_block_q", x, ln_scale, ln_bias, fc_kq, fc_ks, fc_bias,
+                proj_kq, proj_ks, proj_bias)
     dt = x.dtype
     params = cast_quant_args(
         dt, (ln_scale, ln_bias, fc_kq, fc_ks, fc_bias, proj_kq, proj_ks, proj_bias)
@@ -345,10 +489,107 @@ def fused_mlp_block_q(
     return out
 
 
+def _check_bwd(x, g, what: str) -> None:
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous() or g.device != x.device:
+        raise ValueError(
+            f"{what}: the cotangent must be a contiguous {x.dtype} tensor of x's shape "
+            f"{tuple(x.shape)} on {x.device}; got {g.dtype} {tuple(g.shape)} on {g.device}"
+        )
+
+
+def fused_attn_block_bwd(
+    x: torch.Tensor,  # [B, T, W] the forward input
+    g: torch.Tensor,  # [B, T, W] the output's cotangent
+    ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias,
+    n_heads: int,
+    causal: bool = False,
+):
+    """Backward of x + out(attention(LN(x))), kernel K5a on a CUDA tensor.
+    Returns (dx, dln_scale, dln_bias, dqkv_kernel, dqkv_bias, dout_kernel,
+    dout_bias): dx in x's dtype, the gradients in fp32."""
+    dt = x.dtype
+    params = [
+        p.to(dt).contiguous()
+        for p in (ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias)
+    ]
+    if not x.is_cuda:
+        return fused_attn_block_bwd_plain(x, g, *params, n_heads=n_heads, causal=causal)
+    if x.dim() != 3 or x.shape[2] % n_heads:
+        raise ValueError(f"fused_attn_block_bwd: x of shape {tuple(x.shape)} with {n_heads} heads")
+    B, T, W = x.shape
+    _check_cuda(x, params, [(W,), (W,), (W, 3 * W), (3 * W,), (W, W), (W,)], "fused_attn_block_bwd")
+    _check_bwd(x, g, "fused_attn_block_bwd")
+    lib = build.load("block_attn_bwd")
+    dev, M = x.device, B * T
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def elt(*shape):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    dx = torch.empty_like(x)
+    grads = [f32(W), f32(W), f32(W, 3 * W), f32(3 * W), f32(W, W), f32(W)]
+    scratch = [elt(M, W), f32(M), f32(M), elt(M, 3 * W), elt(M, W), elt(M, W),
+               f32(3, B, n_heads, T), f32(M, 3 * W), f32(M, W), f32(-(-M // 128) * 3 * W)]
+    rc = lib.evr_fused_attn_block_bwd(
+        _DTYPE_CODES[dt], x.data_ptr(), g.data_ptr(), *(p.data_ptr() for p in params[:5]),
+        dx.data_ptr(), *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
+        B, T, W, n_heads, int(causal), 1.0 / math.sqrt(W // n_heads),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_rc(rc, "fused_attn_block_bwd", x.shape)
+    fused_attn_block_bwd.launches += 1
+    return (dx, *grads)
+
+
+def fused_mlp_block_bwd(
+    x: torch.Tensor,  # [..., W] the forward input
+    g: torch.Tensor,  # [..., W] the output's cotangent
+    ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_bias,
+    activation: str = "quick_gelu",
+):
+    """Backward of x + proj(act(fc(LN(x)))), kernel K5b on a CUDA tensor.
+    Returns (dx, dln_scale, dln_bias, dfc_kernel, dfc_bias, dproj_kernel,
+    dproj_bias): dx in x's dtype, the gradients in fp32."""
+    dt = x.dtype
+    params = [
+        p.to(dt).contiguous()
+        for p in (ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_bias)
+    ]
+    if not x.is_cuda:
+        return fused_mlp_block_bwd_plain(x, g, *params, activation=activation)
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
+    W, hid = x.shape[-1], params[2].shape[-1]
+    _check_cuda(x, params, [(W,), (W,), (W, hid), (hid,), (hid, W), (W,)], "fused_mlp_block_bwd")
+    _check_bwd(x, g, "fused_mlp_block_bwd")
+    lib = build.load("block_mlp_bwd")
+    dev, M = x.device, x.numel() // W
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dx = torch.empty_like(x)
+    grads = [f32(W), f32(W), f32(W, hid), f32(hid), f32(hid, W), f32(W)]
+    scratch = [torch.empty((M, W), dtype=dt, device=dev), f32(M), f32(M), f32(M, hid),
+               torch.empty((M, hid), dtype=dt, device=dev), f32(M, W), f32(-(-M // 128) * hid)]
+    rc = lib.evr_fused_mlp_block_bwd(
+        _DTYPE_CODES[dt], x.data_ptr(), g.data_ptr(), *(p.data_ptr() for p in params[:5]),
+        dx.data_ptr(), *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
+        M, W, hid, _ACT_CODES[activation], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_rc(rc, "fused_mlp_block_bwd", x.shape)
+    fused_mlp_block_bwd.launches += 1
+    return (dx, *grads)
+
+
 fused_attn_block.launches = 0
 fused_mlp_block.launches = 0
 fused_attn_block_q.launches = 0
 fused_mlp_block_q.launches = 0
+fused_attn_block_bwd.launches = 0
+fused_mlp_block_bwd.launches = 0
 
 
 def block_half_params(p) -> tuple[tuple, tuple]:
@@ -377,11 +618,80 @@ def quant_block_half_params(p) -> tuple[tuple, tuple]:
     )
 
 
-def fused_block_apply(x, p, n_heads: int, activation: str = "quick_gelu", causal: bool = False):
-    """One whole residual block as K1 then K2."""
+def _block_forward(x, attn, mlp, n_heads, activation, causal, impl):
+    """(x_mid, out) of one block: K1 then K2 (``impl="kernel"``) or their
+    plain versions (``impl="plain"``)."""
+    if impl == "kernel":
+        x_mid = fused_attn_block(x, *attn, n_heads=n_heads, causal=causal)
+        return x_mid, fused_mlp_block(x_mid, *mlp, activation=activation)
+    if impl != "plain":
+        raise ValueError(f"unknown impl {impl!r}")
+    dt = x.dtype
+    x_mid = fused_attn_block_plain(x, *(t.to(dt) for t in attn), n_heads=n_heads, causal=causal)
+    return x_mid, fused_mlp_block_plain(x_mid, *(t.to(dt) for t in mlp), activation=activation)
+
+
+def _block_backward(x, x_mid, g, attn, mlp, n_heads, activation, causal, impl):
+    """(dx, attention-half grads, MLP-half grads): K5b from x_mid, then K5a
+    from x (``impl="kernel"``), or their plain versions."""
+    if impl == "kernel":
+        dmid, *dmlp = fused_mlp_block_bwd(x_mid, g, *mlp, activation=activation)
+        dx, *dattn = fused_attn_block_bwd(x, dmid, *attn, n_heads=n_heads, causal=causal)
+        return dx, dattn, dmlp
+    dt = x.dtype
+    dmid, *dmlp = fused_mlp_block_bwd_plain(x_mid, g, *(t.to(dt) for t in mlp), activation=activation)
+    dx, *dattn = fused_attn_block_bwd_plain(
+        x, dmid, *(t.to(dt) for t in attn), n_heads=n_heads, causal=causal
+    )
+    return dx, dattn, dmlp
+
+
+class FusedBlockFunction(torch.autograd.Function):
+    """One residual block with the backward of the JAX custom VJP
+    ``fused_block_apply`` (``_fused_block_fwd``/``_fused_block_bwd``).
+
+    Forward: the attention half, then the MLP half; only x and the mid-block
+    residual x_mid are saved (with the parameters). Backward: the MLP half's
+    backward from x_mid, then the attention half's from x, each recomputing
+    its half's internals; the fp32 gradients are cast to the parameters'
+    dtypes. ``impl="kernel"`` runs K1, K2, K5b and K5a (their plain versions
+    on a CPU tensor); ``impl="plain"`` runs the plain versions on any device,
+    the reference the kernel path is held to on the card. There is no
+    fallback between the two.
+
+    ``apply(x, n_heads, activation, causal, impl, *params)`` with the twelve
+    parameters in ``block_half_params`` order."""
+
+    @staticmethod
+    def forward(ctx, x, n_heads, activation, causal, impl, *params):
+        x_mid, out = _block_forward(x, params[:6], params[6:], n_heads, activation, causal, impl)
+        ctx.save_for_backward(x, x_mid, *params)
+        ctx.block = (n_heads, activation, causal, impl)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, x_mid, *params = ctx.saved_tensors
+        dx, dattn, dmlp = _block_backward(
+            x, x_mid, g.to(x.dtype).contiguous(), params[:6], params[6:], *ctx.block
+        )
+        grads = [gr.to(p.dtype) for gr, p in zip((*dattn, *dmlp), params)]
+        return (dx, None, None, None, None, *grads)
+
+
+def fused_block_apply(
+    x, p, n_heads: int, activation: str = "quick_gelu", causal: bool = False,
+    impl: str = "kernel",
+):
+    """One whole residual block as K1 then K2 (``impl="kernel"``) or their
+    plain versions (``impl="plain"``). Under grad mode, when x or a parameter
+    requires grad, through ``FusedBlockFunction`` (backward K5b then K5a, or
+    their plain versions); otherwise forward only, as the JAX package runs
+    a frozen prefix."""
     attn, mlp = block_half_params(p)
-    x = fused_attn_block(x, *attn, n_heads=n_heads, causal=causal)
-    return fused_mlp_block(x, *mlp, activation=activation)
+    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in (*attn, *mlp))):
+        return FusedBlockFunction.apply(x, n_heads, activation, causal, impl, *attn, *mlp)
+    return _block_forward(x, attn, mlp, n_heads, activation, causal, impl)[1]
 
 
 def fused_quant_block_apply(
@@ -395,14 +705,13 @@ def fused_quant_block_apply(
 
 def plain_block_apply(x, p, n_heads: int, activation: str = "quick_gelu", causal: bool = False):
     """``fused_block_apply`` (or, on int8 params, ``fused_quant_block_apply``)
-    through the plain versions, on any device."""
-    dt = x.dtype
+    through the plain versions, on any device; differentiable on float
+    params (``FusedBlockFunction`` with the plain backward)."""
     if "kernel_q" in p["attn"]["qkv"]:
+        dt = x.dtype
         attn, mlp = quant_block_half_params(p)
         x = fused_attn_block_q_plain(
             x, *cast_quant_args(dt, attn), n_heads=n_heads, causal=causal
         )
         return fused_mlp_block_q_plain(x, *cast_quant_args(dt, mlp), activation=activation)
-    attn, mlp = block_half_params(p)
-    x = fused_attn_block_plain(x, *(t.to(dt) for t in attn), n_heads=n_heads, causal=causal)
-    return fused_mlp_block_plain(x, *(t.to(dt) for t in mlp), activation=activation)
+    return fused_block_apply(x, p, n_heads, activation, causal, impl="plain")

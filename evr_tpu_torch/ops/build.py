@@ -20,7 +20,9 @@ import time
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "build"
-KERNEL_SOURCES = ("block_attn", "block_mlp", "block_quant", "topk_fused")
+KERNEL_SOURCES = (
+    "block_attn", "block_mlp", "block_quant", "topk_fused", "block_attn_bwd", "block_mlp_bwd",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
@@ -102,7 +104,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "block_attn":
         fn = lib.evr_fused_attn_block
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+        fn.argtypes = [i] + [p] * 10 + [i] * 5 + [f, p]
         fn.restype = i
     elif name == "block_mlp":
         fn = lib.evr_fused_mlp_block
@@ -118,6 +120,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "topk_fused":
         fn = lib.evr_fused_topk
         fn.argtypes = [i, p, p, p, i, i, i, i, i, i, p, p, p]
+        fn.restype = i
+    elif name == "block_attn_bwd":
+        fn = lib.evr_fused_attn_block_bwd
+        fn.argtypes = [i] + [p] * 24 + [i] * 5 + [f, p]
+        fn.restype = i
+    elif name == "block_mlp_bwd":
+        fn = lib.evr_fused_mlp_block_bwd
+        fn.argtypes = [i] + [p] * 21 + [i] * 4 + [p]
         fn.restype = i
     else:
         raise KeyError(f"unknown kernel library {name!r}")

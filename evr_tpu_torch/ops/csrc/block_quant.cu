@@ -13,9 +13,10 @@
 //   1e-12) with IEEE division, q = round-half-even(y / scale), no clipping;
 // - dequantisation (acc * x_scale) * kernel_scale + bias in fp32, each step
 //   rounded on its own (__fmul_rn/__fadd_rn, no contraction into FMAs);
-// - qkv rounded to the element type; q scaled in it; P rounded for P.v; the
-//   head output divided after P.v and rounded (attn_core.cuh); the rounded
-//   head outputs quantised per token across ALL heads for the out-proj;
+// - qkv rounded to the element type; q scaled in it; the row max over the
+//   whole row, P rounded for P.v; the head output divided after P.v and
+//   rounded (K1's attention, flash.cuh); the rounded head outputs quantised
+//   per token across ALL heads for the out-proj;
 // - in the MLP half the hidden activation stays fp32 and is quantised per
 //   token over all 4W columns;
 // - one residual rounding in both halves: (x32 + proj) rounded once.
@@ -34,11 +35,11 @@
 // (2) igemm_kernel: int8 x int8 -> int32 on the tensor cores (WMMA s8
 // 16x16x16), one 64x128 output tile per block, K in 64-byte steps through
 // shared memory panels, dequantisation and the half's epilogue fused.
-// K3a then runs (3) attn_qkv_kernel, one block per (head, sequence), on the
-// rounded qkv rows; (4) quant_rows_kernel on the head outputs; (5)
-// igemm_kernel with the residual epilogue. K3b runs (1), (2) with the
-// activation epilogue writing fp32 h, quant_rows_kernel on h, and (2) with
-// the residual epilogue. The per-token quantisation of the out-proj and of
+// K3a then runs (3) K1's flash_fwd_kernel (flash.cuh: 64-row query tiles,
+// two passes over the key blocks, any T) on the rounded qkv rows; (4)
+// quant_rows_kernel on the head outputs; (5) igemm_kernel with the residual
+// epilogue. K3b runs (1), (2) with the activation epilogue writing fp32 h,
+// quant_rows_kernel on h, and (2) with the residual epilogue. The per-token quantisation of the out-proj and of
 // proj needs a whole row (W, 4W columns) before any of its products, which
 // is why qkv, o and h make a round trip through device memory here; h goes
 // as fp32 and int8, never as bf16. The TPU kernel's sequence packing is a
@@ -47,7 +48,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "attn_core.cuh"
+#include "flash.cuh"
 
 namespace evr {
 
@@ -179,56 +180,6 @@ int launch_igemm(const int8_t* a, const float* a_scale, const int8_t* w, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-// -- K3a attention on the rounded qkv rows -----------------------------------
-
-template <typename T, int TP, int D>
-constexpr size_t attn_qkv_smem() {
-  return align128(sizeof(float) * TP) + AttnTiles<T, TP, D>::qkv + AttnTiles<T, TP, D>::attn;
-}
-
-// One block per (head, sequence): q (scaled by 1/sqrt(D) in the element
-// type), k and v of the head from qkv [B*T, 3W], then attend_head.
-template <typename T, int TP, int D>
-__global__ void __launch_bounds__(kThreads) attn_qkv_kernel(const T* __restrict__ qkv,
-                                                            T* __restrict__ o, int T_, int W,
-                                                            int causal, float scale) {
-  using A = AttnTiles<T, TP, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* s_denom = reinterpret_cast<float*>(smem);
-  T* sq = reinterpret_cast<T*>(smem + align128(sizeof(float) * TP));
-  T* sk = sq + TP * A::LDQ;
-  T* sv = sk + TP * A::LDQ;
-  unsigned char* region = smem + align128(sizeof(float) * TP) + A::qkv;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const T* src = qkv + static_cast<size_t>(b) * T_ * 3 * W;
-  for (int i = threadIdx.x; i < TP * 3 * D; i += kThreads) {
-    const int r = i / (3 * D), j = i % (3 * D), s = j / D, c = j % D;
-    float v = 0.f;
-    if (r < T_) {
-      v = to_f(src[static_cast<size_t>(r) * 3 * W + s * W + h * D + c]);
-      if (s == 0) v = v * scale;  // rounded to T by the store below
-    }
-    T* dst = s == 0 ? sq : (s == 1 ? sk : sv);
-    dst[r * A::LDQ + c] = from_f<T>(v);
-  }
-  __syncthreads();
-  attend_head<T, TP, D>(sq, sk, sv, region, s_denom, T_, causal,
-                        o + static_cast<size_t>(b) * T_ * W + h * D, W);
-}
-
-template <typename T, int TP, int D>
-int launch_attn_qkv(const T* qkv, T* o, int B, int T_, int W, int H, int causal, float scale,
-                    cudaStream_t stream) {
-  constexpr size_t smem = attn_qkv_smem<T, TP, D>();
-  if (smem > 227 * 1024) return -2;
-  auto kernel = attn_qkv_kernel<T, TP, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(H, B), kThreads, smem, stream>>>(qkv, o, T_, W, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // -- the two halves -------------------------------------------------------------
 
 #define EVR_TRY(call)         \
@@ -242,22 +193,13 @@ int attn_block_q(const T* x, const T* ln_s, const T* ln_b, const int8_t* qkv_kq,
                  const float* qkv_b, const int8_t* out_kq, const float* out_ks, const float* out_b,
                  int8_t* a_q, float* a_scale, T* qkv, T* o, T* out, int B, int T_, int W, int H,
                  int causal, float scale, cudaStream_t stream) {
-  if (B < 1 || T_ < 1 || T_ > 128 || W % H != 0 || W / H != 64 || W % kQBN != 0 || W % kQBK != 0)
+  if (B < 1 || T_ < 1 || W % H != 0 || W / H != kFD || W % kQBN != 0 || W % kQBK != 0)
     return -1;
   const int M = B * T_;
   EVR_TRY((launch_quant_rows<T, true>(x, ln_s, ln_b, a_q, a_scale, M, W, stream)));
   EVR_TRY((launch_igemm<T, kQStore>(a_q, a_scale, qkv_kq, qkv_ks, qkv_b, nullptr, qkv, M, 3 * W, W,
                                     stream)));
-  int rc;
-  if (T_ <= 32)
-    rc = launch_attn_qkv<T, 32, 64>(qkv, o, B, T_, W, H, causal, scale, stream);
-  else if (T_ <= 64)
-    rc = launch_attn_qkv<T, 64, 64>(qkv, o, B, T_, W, H, causal, scale, stream);
-  else if (T_ <= 80)
-    rc = launch_attn_qkv<T, 80, 64>(qkv, o, B, T_, W, H, causal, scale, stream);
-  else
-    rc = launch_attn_qkv<T, 128, 64>(qkv, o, B, T_, W, H, causal, scale, stream);
-  if (rc != 0) return rc;
+  EVR_TRY((launch_flash_fwd<T>(qkv, o, B, T_, W, H, causal, scale, stream)));
   EVR_TRY((launch_quant_rows<T, false>(o, nullptr, nullptr, a_q, a_scale, M, W, stream)));
   return launch_igemm<T, kQResidual>(a_q, a_scale, out_kq, out_ks, out_b, x, out, M, W, W, stream);
 }
@@ -284,8 +226,8 @@ int mlp_block_q(const T* x, const T* ln_s, const T* ln_b, const int8_t* fc_kq, c
 
 // Plain C entry points for ctypes. dtype 0 = float32, 1 = bfloat16; act 0 =
 // quickGELU, 1 = exact GELU. Return 0, -1 for a shape the kernels do not
-// take, -2 when the shape needs more shared memory than a block has, or a
-// CUDA error code.
+// take (head dim other than 64, W not a multiple of 128), or a CUDA error
+// code.
 extern "C" int evr_fused_attn_block_q(int dtype, const void* x, const void* ln_s, const void* ln_b,
                                       const void* qkv_kq, const void* qkv_ks, const void* qkv_b,
                                       const void* out_kq, const void* out_ks, const void* out_b,

@@ -1,7 +1,8 @@
 // Shared pieces of the fused transformer-block kernels (block_attn.cu,
-// block_mlp.cu): element-type helpers, a warp-level 16x16x16 tile product
-// with fp32 accumulation, and a row-tiled GEMM with a LayerNorm prologue and
-// the residual/activation epilogues the two block halves need.
+// block_mlp.cu, block_quant.cu, block_attn_bwd.cu, block_mlp_bwd.cu):
+// element-type helpers, a warp-level 16x16x16 tile product with fp32
+// accumulation, and a row-tiled GEMM with a LayerNorm prologue and the
+// residual/activation epilogues the two block halves need.
 //
 // Element types: __nv_bfloat16 (the serving dtype; tile products run on the
 // tensor cores through WMMA) and float (tile products run as fp32 FMAs on the
@@ -13,6 +14,7 @@
 #include <mma.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace evr {
 
@@ -83,9 +85,11 @@ __device__ __forceinline__ float quick_gelu(float x) {
 }
 
 // -- warp-level 16x16x16 tile product, fp32 accumulator ---------------------
-// A is row-major with leading dimension lda. B is row-major (ldb), or, with
-// BT, the transpose of a row-major matrix (element (k, n) at b[n*ldb + k]).
-// Pointers into shared memory must be 32-byte aligned for the bf16 path.
+// A is row-major with leading dimension lda, or, with AT, the transpose of a
+// row-major matrix (element (m, k) at a[k*lda + m]). B is row-major (ldb), or,
+// with BT, the transpose of a row-major matrix (element (k, n) at
+// b[n*ldb + k]). Pointers into shared memory must be 32-byte aligned for the
+// bf16 path.
 template <typename T>
 struct Tile;
 
@@ -93,20 +97,16 @@ template <>
 struct Tile<bf16> {
   using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
   __device__ static void zero(Acc& c) { nvcuda::wmma::fill_fragment(c, 0.f); }
-  template <bool BT>
+  template <bool BT, bool AT = false>
   __device__ static void mma(Acc& c, const bf16* a, int lda, const bf16* b, int ldb) {
     using namespace nvcuda::wmma;
-    fragment<matrix_a, 16, 16, 16, bf16, row_major> fa;
+    using LA = typename std::conditional<AT, col_major, row_major>::type;
+    using LB = typename std::conditional<BT, col_major, row_major>::type;
+    fragment<matrix_a, 16, 16, 16, bf16, LA> fa;
+    fragment<matrix_b, 16, 16, 16, bf16, LB> fb;
     load_matrix_sync(fa, a, lda);
-    if constexpr (BT) {
-      fragment<matrix_b, 16, 16, 16, bf16, col_major> fb;
-      load_matrix_sync(fb, b, ldb);
-      mma_sync(c, fa, fb, c);
-    } else {
-      fragment<matrix_b, 16, 16, 16, bf16, row_major> fb;
-      load_matrix_sync(fb, b, ldb);
-      mma_sync(c, fa, fb, c);
-    }
+    load_matrix_sync(fb, b, ldb);
+    mma_sync(c, fa, fb, c);
   }
   __device__ static void store(float* out, int ldc, const Acc& c) {
     nvcuda::wmma::store_matrix_sync(out, c, ldc, nvcuda::wmma::mem_row_major);
@@ -124,12 +124,12 @@ struct Tile<float> {
 #pragma unroll
     for (int j = 0; j < 8; ++j) c.v[j] = 0.f;
   }
-  template <bool BT>
+  template <bool BT, bool AT = false>
   __device__ static void mma(Acc& c, const float* a, int lda, const float* b, int ldb) {
     const int lane = threadIdx.x & 31, r = lane >> 1, c0 = (lane & 1) * 8;
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
-      const float av = a[r * lda + k];
+      const float av = AT ? a[k * lda + r] : a[r * lda + k];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float bv = BT ? b[(c0 + j) * ldb + k] : b[k * ldb + c0 + j];
@@ -151,7 +151,7 @@ __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128
 // tile per block, K walked in 32-wide steps through shared memory; 8 warps as
 // 2 x 4, each owning a 32x32 quarter (2 x 2 tiles).
 enum Prologue { kPlain = 0, kLayerNorm = 1 };
-enum Epilogue { kResidualOnce = 0, kQuickGelu = 1, kGelu = 2, kResidualTwice = 3 };
+enum Epilogue { kResidualOnce = 0, kQuickGelu = 1, kGelu = 2, kResidualTwice = 3, kRound = 4 };
 
 constexpr int kGemmBM = 64, kGemmBN = 128, kGemmBK = 32;
 
@@ -247,6 +247,8 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
       out[o] = from_f<T>(to_f(res[o]) + v);  // fp32 sum, one rounding
     } else if constexpr (EPI == kResidualTwice) {
       out[o] = from_f<T>(to_f(res[o]) + rnd<T>(v));  // sum of two T values
+    } else if constexpr (EPI == kRound) {
+      out[o] = from_f<T>(v);  // the fp32 sum plus bias, rounded once
     } else if constexpr (EPI == kQuickGelu) {
       out[o] = from_f<T>(quick_gelu(v));
     } else {

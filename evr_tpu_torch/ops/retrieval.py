@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .block_fused import refuse_grad
 from .topk import _ordered_topk
 
 TILE_ROWS = 1024
@@ -131,6 +132,7 @@ def fused_topk(
     """(scores [Q, k] float32, rows [Q, k] int64) of the top-k rows in
     ``[start, end)``, kernel K4 on a CUDA index. Any row count is taken: the
     kernel masks the ragged last tile itself."""
+    refuse_grad("fused_topk", index, queries, row_scales)
     if not index.is_cuda:
         return fused_topk_plain(index, queries, start, end, k, row_scales)
     _check_args(index, k, start, end, row_scales)

@@ -1,0 +1,150 @@
+"""Fine-tune CLI on one device.
+
+``python -m evr_tpu_torch.tools.finetune --train-json a.json b.json
+--data-dir images/ --model ViT-L/14@336px --epochs 10`` runs the reference
+trainer's shape (``Backend/clip_finetune_correct.py``): combined caption
+datasets, CLIP + 3-class head, InfoNCE + CE, early stopping, best/final
+checkpoints and ``history.json`` under ``--save-dir``. The towers start from
+seeded random weights (``--seed``); ``--device`` defaults to ``cuda`` and
+``--device cpu`` runs on the CPU.
+
+The flags of the JAX package's CLI that the port does not honour yet are
+accepted by the parser and refused when set, naming the ROADMAP item they
+wait for: ``--init-checkpoint`` (A3, loading OpenAI/HF checkpoints),
+``--fsdp`` and ``--expert-parallel`` (A15, distributed training),
+``--moe-*``, ``--lora-rank``/``--lora-alpha``, ``--optimizer muon`` and
+``--muon-lr-scale``, ``--gradcache-chunks``, ``--remat`` and
+``--patch-drop`` (A14, the trainer variants and levers). ``--no-mesh`` is
+accepted: the port has no mesh.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+
+# flag (argparse dest) → (default, ROADMAP item): refused when set otherwise
+UNPORTED_FLAGS = {
+    "init_checkpoint": (None, "A3"),
+    "fsdp": (False, "A15"),
+    "expert_parallel": (0, "A15"),
+    "moe_experts": (0, "A14"),
+    "moe_router_k": (2, "A14"),
+    "moe_every": (2, "A14"),
+    "moe_capacity": (1.25, "A14"),
+    "moe_aux_weight": (1e-2, "A14"),
+    "lora_rank": (0, "A14"),
+    "lora_alpha": (16.0, "A14"),
+    "optimizer": ("adamw", "A14"),
+    "muon_lr_scale": (10.0, "A14"),
+    "gradcache_chunks": (0, "A14"),
+    "remat": (False, "A14"),
+    "patch_drop": (0.0, "A14"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="contrastive CLIP fine-tune (PyTorch)")
+    parser.add_argument("--train-json", nargs="+", required=True)
+    parser.add_argument("--val-json", nargs="*", default=[])
+    parser.add_argument("--data-dir", required=True)
+    parser.add_argument("--model", default="ViT-B/32")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; fails without a card unless cpu is given)")
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--epochs", type=int, default=10)
+    parser.add_argument("--lr", type=float, default=1e-5)
+    parser.add_argument("--freeze-layers", type=int, default=8)
+    parser.add_argument("--save-dir", default="checkpoints")
+    parser.add_argument("--num-classes", type=int, default=3)
+    parser.add_argument("--no-mesh", action="store_true", help="single-device run (always, here)")
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--loss", choices=["infonce", "siglip"], default="infonce",
+                        help="contrastive objective: InfoNCE or SigLIP pairwise sigmoid")
+    parser.add_argument("--warmup-steps", type=int, default=0,
+                        help="linear LR warmup steps before the cosine schedule")
+    parser.add_argument("--adam-mu-dtype", choices=["float32", "bfloat16"], default="float32",
+                        help="AdamW first-moment storage dtype (update math stays fp32)")
+    parser.add_argument("--ema-decay", type=float, default=0.0,
+                        help="EMA weight averaging decay (e.g. 0.999), saved as payload['ema']")
+    parser.add_argument("--save-every-steps", type=int, default=0,
+                        help="mid-epoch autosave every N batches + SIGTERM autosave; "
+                        "resume with --resume-from autosave")
+    parser.add_argument("--resume-from", default=None,
+                        help="checkpoint name under --save-dir (e.g. autosave)")
+    # accepted for the JAX CLI's command lines, refused when set (UNPORTED_FLAGS)
+    parser.add_argument("--init-checkpoint", default=None)
+    parser.add_argument("--patch-drop", type=float, default=0.0)
+    parser.add_argument("--gradcache-chunks", type=int, default=0)
+    parser.add_argument("--remat", action="store_true")
+    parser.add_argument("--lora-rank", type=int, default=0)
+    parser.add_argument("--lora-alpha", type=float, default=16.0)
+    parser.add_argument("--optimizer", choices=["adamw", "muon"], default="adamw")
+    parser.add_argument("--muon-lr-scale", type=float, default=10.0)
+    parser.add_argument("--fsdp", action="store_true")
+    parser.add_argument("--moe-experts", type=int, default=0)
+    parser.add_argument("--moe-router-k", type=int, default=2)
+    parser.add_argument("--moe-every", type=int, default=2)
+    parser.add_argument("--moe-capacity", type=float, default=1.25)
+    parser.add_argument("--moe-aux-weight", type=float, default=1e-2)
+    parser.add_argument("--expert-parallel", type=int, default=0, metavar="E")
+    return parser
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    for dest, (default, item) in UNPORTED_FLAGS.items():
+        if getattr(args, dest) != default:
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"{flag} is not ported yet (ROADMAP item {item})")
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+
+    from evr_tpu_torch.models import get_model_config, init_clip_params
+    from evr_tpu_torch.models.classifier import ClassifierConfig, init_classifier_params
+    from evr_tpu_torch.training import CaptionDataset, TrainConfig, Trainer
+    from evr_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = get_model_config(args.model)
+    clip_params = init_clip_params(args.seed, cfg)
+    cls_params = init_classifier_params(
+        args.seed + 1, ClassifierConfig(embed_dim=cfg.embed_dim, num_classes=args.num_classes)
+    )
+    train_ds = CaptionDataset(args.train_json, args.data_dir)
+    val_ds = CaptionDataset(args.val_json, args.data_dir) if args.val_json else None
+    if val_ds is None:
+        train_ds, val_ds = train_ds.split(0.2, args.seed)
+    print(f"train={len(train_ds)} val={len(val_ds)} categories={train_ds.category_counts()}")
+    steps_per_epoch = max(1, len(train_ds) // args.batch_size)
+    tc = TrainConfig(
+        seed=args.seed, batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
+        freeze_layers=args.freeze_layers, save_dir=args.save_dir, ema_decay=args.ema_decay,
+        warmup_steps=args.warmup_steps, adam_mu_dtype=args.adam_mu_dtype,
+        contrastive_loss=args.loss, save_every_steps=args.save_every_steps,
+    )
+    trainer = Trainer(
+        cfg, clip_params, tc, classifier_params=cls_params,
+        cls_cfg=ClassifierConfig(embed_dim=cfg.embed_dim, num_classes=args.num_classes),
+        steps_per_epoch=steps_per_epoch, device=device,
+    )
+    if args.save_every_steps:
+        trainer.install_preemption_autosave()
+    size = cfg.vision.image_size
+    result = trainer.fit(
+        lambda e: train_ds.batches(args.batch_size, size, epoch=e, seed=args.seed),
+        lambda e: val_ds.batches(args.batch_size, size, shuffle=False),
+        resume_from=args.resume_from,
+    )
+    out = pathlib.Path(args.save_dir) / "history.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=2))
+    print(f"best val loss {result['best_val_loss']:.4f} @ epoch {result['best_epoch']}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,591 @@
+"""Contrastive fine-tuning on one device (PyTorch).
+
+Counterpart of ``evr_tpu/training/finetune.py`` (parity target: the
+production trainer ``Backend/clip_finetune_correct.py``): CLIP + 3-class
+head, freeze-prefix 8, symmetric InfoNCE (weight 1.0) + classification CE
+(weight 0.2), AdamW betas (0.9, 0.98) eps 1e-6 wd 0.01 in four groups
+(visual ×1, text ×0.5, classifier ×5, other ×1), a cosine schedule stepped
+per epoch down to lr/10 with optional linear warmup, global-norm clipping at
+1.0 over the trainable leaves, a finite-update guard, early stopping, best /
+final checkpoints and resume.
+
+The optimizer is written out to follow optax as the JAX trainer chains it,
+``apply_if_finite(chain(clip_by_global_norm, multi_transform({group:
+adamw})), max_consecutive_nonfinite)``:
+
+- the learning rate is evaluated at the optimizer's count before it
+  increments; a skipped (non-finite) step does not advance the count, and
+  the update is applied anyway once more than ``max_consecutive_nonfinite``
+  steps in a row were skipped;
+- decoupled weight decay on every trainable leaf, biases, LayerNorm
+  parameters and ``logit_scale`` included;
+- frozen leaves (``requires_grad=False``, the JAX trainer's stop_gradient)
+  get no update, no decay and no moments, and never enter the norm;
+- ``adam_mu_dtype="bfloat16"`` stores mu in bf16 (the update runs in fp32).
+
+Where the JAX step donates its buffers, the port updates the params and the
+moments in place. The vision tower of ViT-L/14@336px (T = 577) runs its
+blocks through the fused kernels K1/K2 forward and K5b/K5a backward
+(``attn_impl="auto_grad"``, as the JAX trainer pins); shorter towers take the
+plain composition under autograd. Levers the port does not honour yet raise
+``NotImplementedError`` naming their ROADMAP item (``check_supported``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import pathlib
+import time
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from evr_tpu_torch.models.classifier import ClassifierConfig, classifier_forward
+from evr_tpu_torch.models.clip import CLIPConfig, encode_image, encode_text
+from evr_tpu_torch.models.convert import params_from_numpy
+from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
+from evr_tpu_torch.utils.device import resolve_device
+
+from .losses import combined_clip_loss
+from .partition import iter_paths, map_with_paths, param_group_labels
+
+
+@dataclass
+class TrainConfig:
+    seed: int = 42
+    batch_size: int = 32
+    epochs: int = 10
+    lr: float = 1e-5
+    weight_decay: float = 0.01
+    betas: tuple[float, float] = (0.9, 0.98)
+    eps: float = 1e-6
+    grad_clip: float = 1.0
+    early_stopping: int = 5
+    freeze_layers: int = 8
+    contrastive_weight: float = 1.0
+    classification_weight: float = 0.2
+    label_smoothing: float = 0.0
+    text_lr_scale: float = 0.5
+    classifier_lr_scale: float = 5.0
+    eta_min_ratio: float = 0.1  # CosineAnnealingLR eta_min = lr * ratio
+    compute_dtype: str = "bfloat16"
+    save_dir: str = "checkpoints"
+    # a non-finite gradient skips the update (optax.apply_if_finite)
+    skip_nonfinite_updates: bool = True
+    max_consecutive_nonfinite: int = 5
+    grad_accumulation_steps: int = 1
+    optimizer: str = "adamw"
+    muon_lr_scale: float = 10.0
+    muon_momentum: float = 0.95
+    muon_ns_steps: int = 5
+    contrastive_loss: str = "infonce"  # or "siglip"
+    # autosave a resumable mid-epoch checkpoint every N train batches (0: off)
+    save_every_steps: int = 0
+    patch_drop: float = 0.0
+    remat: bool = False
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: tuple[str, ...] = ("attn.qkv", "attn.out", "mlp.fc", "mlp.proj")
+    moe: Any = None
+    ema_decay: float = 0.0  # 0 disables; else ema = d·ema + (1−d)·params per update
+    adam_mu_dtype: str = "float32"  # or "bfloat16": mu stored in bf16
+    warmup_steps: int = 0
+    gradcache_chunks: int = 0
+
+
+# TrainConfig fields the port does not honour yet: (the value it takes, the
+# ROADMAP item the lever waits for). Any other value raises.
+UNPORTED_FIELDS = {
+    "grad_accumulation_steps": ((1,), "A14"),
+    "optimizer": (("adamw",), "A14"),
+    "muon_lr_scale": ((10.0,), "A14"),
+    "muon_momentum": ((0.95,), "A14"),
+    "muon_ns_steps": ((5,), "A14"),
+    "patch_drop": ((0.0,), "A14"),
+    "remat": ((False,), "A14"),
+    "lora_rank": ((0,), "A14"),
+    "lora_alpha": ((16.0,), "A14"),
+    "lora_targets": ((("attn.qkv", "attn.out", "mlp.fc", "mlp.proj"),), "A14"),
+    "moe": ((None,), "A14"),
+    "gradcache_chunks": ((0, 1), "A14"),
+}
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for a field set
+    to a value the port does not honour yet."""
+    for name, (allowed, item) in UNPORTED_FIELDS.items():
+        value = getattr(cfg, name)
+        if value not in allowed:
+            raise NotImplementedError(
+                f"TrainConfig.{name}={value!r} is not ported yet (ROADMAP item {item}); "
+                f"the port takes {' or '.join(repr(a) for a in allowed)}"
+            )
+    if cfg.adam_mu_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"adam_mu_dtype {cfg.adam_mu_dtype!r}")
+    if cfg.contrastive_loss not in ("infonce", "siglip"):
+        raise ValueError(f"contrastive_loss {cfg.contrastive_loss!r}")
+
+
+@dataclass
+class TrainState:
+    params: Any
+    opt_state: dict
+    step: int
+    ema_params: Any = None
+
+
+def _path_key(path) -> str:
+    return "/".join(path)
+
+
+def flat_leaves(tree) -> dict[str, torch.Tensor]:
+    """{"clip/visual/blocks/0/attn/qkv/kernel": tensor, ...} in tree order."""
+    return {_path_key(p): leaf for p, leaf in iter_paths(tree)}
+
+
+# -- the optimizer -------------------------------------------------------------
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def schedule_lr(cfg: TrainConfig, steps_per_epoch: int, peak_lr: float, count: int) -> torch.Tensor:
+    """The JAX trainer's schedule at optimizer count ``count`` as a float32
+    scalar: torch CosineAnnealingLR(T_max=epochs, eta_min=lr·ratio) stepped
+    per epoch, after ``warmup_steps`` of linear warmup from 0
+    (``optax.join_schedules`` hands the cosine the count past the warmup)."""
+    if cfg.warmup_steps > 0:
+        if count < cfg.warmup_steps:
+            frac = 1.0 - _f32(count) / cfg.warmup_steps
+            return (0.0 - peak_lr) * frac + peak_lr
+        count -= cfg.warmup_steps
+    eta_min = peak_lr * cfg.eta_min_ratio
+    epoch = torch.tensor(min(count // max(1, steps_per_epoch), cfg.epochs), dtype=torch.int32)
+    return eta_min + 0.5 * (peak_lr - eta_min) * (1.0 + torch.cos(math.pi * epoch / cfg.epochs))
+
+
+class GroupedAdamW:
+    """AdamW in four learning-rate groups over the trainable leaves, with
+    clipping by global norm and the finite-update guard (see the module
+    docstring for the optax chain it follows). ``labels`` maps a leaf's path
+    key to its group: "visual", "text", "classifier", "other" or "frozen"."""
+
+    def __init__(self, cfg: TrainConfig, labels: dict[str, str], steps_per_epoch: int = 1):
+        self.cfg = cfg
+        self.labels = labels
+        self.steps_per_epoch = steps_per_epoch
+        self.group_scales = {
+            "visual": 1.0, "text": cfg.text_lr_scale,
+            "classifier": cfg.classifier_lr_scale, "other": 1.0,
+        }
+        self.mu_dtype = torch.bfloat16 if cfg.adam_mu_dtype == "bfloat16" else None
+
+    def trainable(self, flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        return {k: v for k, v in flat.items() if self.labels[k] != "frozen"}
+
+    def init(self, params) -> dict:
+        train = self.trainable(flat_leaves(params))
+        return {
+            "count": 0,  # the inner AdamW / schedule count
+            "notfinite_count": 0,
+            "last_finite": True,
+            "total_notfinite": 0,
+            "mu": {k: torch.zeros_like(v, dtype=self.mu_dtype or v.dtype) for k, v in train.items()},
+            "nu": {k: torch.zeros_like(v) for k, v in train.items()},
+        }
+
+    def learning_rates(self, count: int) -> dict[str, torch.Tensor]:
+        """Each group's learning rate at optimizer count ``count``."""
+        return {
+            g: schedule_lr(self.cfg, self.steps_per_epoch, self.cfg.lr * s, count)
+            for g, s in self.group_scales.items()
+        }
+
+    @torch.no_grad()
+    def apply(self, params, grads: dict[str, torch.Tensor], state: dict) -> bool:
+        """One update of ``params`` (in place) from ``grads`` (path key →
+        gradient of every trainable leaf). Returns whether it was applied."""
+        cfg = self.cfg
+        flat = self.trainable(flat_leaves(params))
+        g = [grads[k] for k in flat]
+        if cfg.skip_nonfinite_updates:
+            finite = bool(torch.stack([torch.isfinite(t).all() for t in g]).all().item())
+            state["notfinite_count"] = 0 if finite else state["notfinite_count"] + 1
+            state["last_finite"] = finite
+            state["total_notfinite"] += 0 if finite else 1
+            if not (finite or state["notfinite_count"] > cfg.max_consecutive_nonfinite):
+                return False
+        if cfg.grad_clip > 0:
+            norm = global_norm(g)
+            if not bool(norm < cfg.grad_clip):
+                g = [(t / norm) * cfg.grad_clip for t in g]
+        count = state["count"]
+        lrs = self.learning_rates(count)
+        b1, b2 = cfg.betas
+        c1 = 1.0 - _f32(b1) ** (count + 1)
+        c2 = 1.0 - _f32(b2) ** (count + 1)
+        for (key, p), grad in zip(flat.items(), g):
+            dev = p.device
+            # as the JAX trainer's compiled step computes it: b1, a weak scalar,
+            # takes mu's dtype (bf16 for a bf16 mu); the product and the sum
+            # with (1 - b1) g are fp32
+            mu_old = state["mu"][key]
+            b1_t = torch.tensor(b1, dtype=mu_old.dtype, device=dev).float()
+            mu = (1 - b1) * grad + b1_t * mu_old.float()
+            nu = (1 - b2) * (grad * grad) + b2 * state["nu"][key]
+            u = (mu / c1.to(dev, mu.dtype)) / (torch.sqrt(nu / c2.to(dev)) + cfg.eps)
+            u = u + cfg.weight_decay * p
+            p.add_(u * (-lrs[self.labels[key]]).to(dev))
+            state["mu"][key] = mu.to(self.mu_dtype or mu.dtype)
+            state["nu"][key] = nu
+        state["count"] = count + 1
+        return True
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (optax.global_norm)."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def make_optimizer(cfg: TrainConfig, params, steps_per_epoch: int = 1) -> GroupedAdamW:
+    check_supported(cfg)
+    labels = flat_leaves(param_group_labels(params, cfg.freeze_layers))
+    return GroupedAdamW(cfg, labels, steps_per_epoch)
+
+
+# -- the step -------------------------------------------------------------------
+
+
+def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: TrainConfig):
+    """``fn(params, batch, generator, train=True) -> (metrics, grads)``:
+    the loss of one batch and, with ``train``, the gradient of every
+    trainable leaf (path key → tensor; zeros for a leaf the loss does not
+    reach). Frozen leaves (``param_group_labels``) are set not to require
+    grad before the forward, so they get none and their blocks' backward
+    skips their products. ``batch``: uint8 images [B, S, S, 3], int tokens
+    [B, 77] and int labels [B], numpy or tensors."""
+    check_supported(cfg)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    if model_cfg.attn_impl == "auto":
+        model_cfg = dataclasses.replace(model_cfg, attn_impl="auto_grad")
+
+    def forward(params, batch, generator, train):
+        clip_p = params["clip"]
+        dev = clip_p["logit_scale"].device
+        images = torch.as_tensor(batch["images"], device=dev)
+        mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev)
+        std = torch.tensor(CLIP_STD, dtype=torch.float32, device=dev)
+        x = (images.float() / 255.0 - mean) / std
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        img = encode_image(clip_p, model_cfg, x, dtype=dtype)
+        txt = encode_text(clip_p, model_cfg, tokens, dtype=dtype)
+        img_n = img / img.norm(dim=-1, keepdim=True)
+        txt_n = txt / txt.norm(dim=-1, keepdim=True)
+        cls_logits = labels = None
+        if cls_cfg is not None and params.get("classifier") is not None:
+            cls_logits = classifier_forward(
+                params["classifier"], cls_cfg, img_n, deterministic=not train,
+                generator=generator,
+            )
+        if batch.get("labels") is not None:
+            labels = torch.as_tensor(batch["labels"], device=dev).long()
+        return combined_clip_loss(
+            img_n, txt_n, clip_p["logit_scale"],
+            class_logits=cls_logits, class_labels=labels,
+            contrastive_weight=cfg.contrastive_weight,
+            classification_weight=cfg.classification_weight,
+            label_smoothing=cfg.label_smoothing,
+            contrastive_impl=cfg.contrastive_loss,
+            logit_bias=clip_p.get("logit_bias"),
+        )
+
+    def fn(params, batch, generator=None, train: bool = True):
+        if not train:
+            with torch.no_grad():
+                _, metrics = forward(params, batch, generator, False)
+            return {k: v.detach() for k, v in metrics.items()}, None
+        labels = flat_leaves(param_group_labels(params, cfg.freeze_layers))
+        flat = flat_leaves(params)
+        for k, leaf in flat.items():
+            leaf.requires_grad_(labels[k] != "frozen")
+        train_keys = [k for k in flat if labels[k] != "frozen"]
+        with torch.enable_grad():
+            loss, metrics = forward(params, batch, generator, True)
+            grads = torch.autograd.grad(loss, [flat[k] for k in train_keys], allow_unused=True)
+        grads = {
+            k: torch.zeros_like(flat[k]) if gr is None else gr
+            for k, gr in zip(train_keys, grads)
+        }
+        return {k: v.detach() for k, v in metrics.items()}, grads
+
+    return fn
+
+
+def make_train_step(
+    model_cfg: CLIPConfig,
+    cls_cfg: ClassifierConfig | None,
+    cfg: TrainConfig,
+    optimizer: GroupedAdamW,
+) -> tuple[Callable, Callable]:
+    """``(step, eval_step)``: ``step(state, batch, generator) -> (state,
+    metrics)`` runs the loss, its gradients and one optimizer update (params
+    and moments updated in place) and adds ``grad_norm``, the raw norm over
+    the trainable leaves before clipping; ``eval_step(state, batch) ->
+    metrics`` is the deterministic forward (no dropout)."""
+    grad_fn = make_grad_fn(model_cfg, cls_cfg, cfg)
+
+    def step(state: TrainState, batch, generator=None):
+        metrics, grads = grad_fn(state.params, batch, generator, True)
+        metrics["grad_norm"] = global_norm(grads.values())
+        optimizer.apply(state.params, grads, state.opt_state)
+        if cfg.ema_decay > 0.0 and state.ema_params is not None:
+            d = _f32(cfg.ema_decay)
+            with torch.no_grad():
+                for e, p in zip(flat_leaves(state.ema_params).values(),
+                                flat_leaves(state.params).values()):
+                    dd = d.to(e.device)
+                    e.copy_((e.float() * dd + p.float() * (1.0 - dd)).to(e.dtype))
+        state.step += 1
+        return state, metrics
+
+    def eval_step(state: TrainState, batch):
+        return grad_fn(state.params, batch, None, False)[0]
+
+    return step, eval_step
+
+
+# -- the trainer ----------------------------------------------------------------
+
+
+class PreemptionStop(Exception):
+    """Raised inside the train loop after a SIGTERM-triggered autosave."""
+
+
+def _to_device(tree, device):
+    """A params tree (numpy arrays or tensors) as fresh tensors on
+    ``device``, never aliases of the caller's: the step updates in place."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_device(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device).clone()
+    return params_from_numpy(tree, device)
+
+
+def _detached(tree):
+    return map_with_paths(tree, lambda _, t: t.detach() if isinstance(t, torch.Tensor) else t)
+
+
+class Trainer:
+    """End-to-end fine-tune loop on one device: epochs, validation, early
+    stopping, best/final checkpoints, resume (epoch-level and mid-epoch
+    autosave). Runs on ``cuda`` unless ``device="cpu"`` is asked for."""
+
+    def __init__(
+        self,
+        model_cfg: CLIPConfig,
+        clip_params,
+        cfg: TrainConfig | None = None,
+        classifier_params=None,
+        cls_cfg: ClassifierConfig | None = None,
+        steps_per_epoch: int = 1,
+        log_fn: Callable[[str], None] = print,
+        device=None,
+    ):
+        self.cfg = cfg or TrainConfig()
+        check_supported(self.cfg)
+        self.device = resolve_device(device)
+        self.model_cfg = model_cfg
+        self.cls_cfg = cls_cfg or (
+            ClassifierConfig(embed_dim=model_cfg.embed_dim)
+            if classifier_params is not None else None
+        )
+        self.log = log_fn
+        params = {"clip": clip_params}
+        if classifier_params is not None:
+            params["classifier"] = classifier_params
+        params = _to_device(params, self.device)
+        if self.cfg.contrastive_loss == "siglip" and "logit_bias" not in params["clip"]:
+            # SigLIP's learnable bias, init -10 (arxiv 2303.15343 §3)
+            params["clip"]["logit_bias"] = torch.tensor(-10.0, device=self.device)
+        self.optimizer = make_optimizer(self.cfg, params, steps_per_epoch)
+        self.state = TrainState(
+            params=params,
+            opt_state=self.optimizer.init(params),
+            step=0,
+            ema_params=_to_device(params, self.device) if self.cfg.ema_decay > 0.0 else None,
+        )
+        self.train_step, self.eval_step = make_train_step(
+            model_cfg, self.cls_cfg, self.cfg, self.optimizer
+        )
+        self.generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        self.history: list[dict] = []
+        self.checkpoint_seconds: list[tuple[str, float]] = []
+        self._preempted = False
+
+    def install_preemption_autosave(self, signals=None) -> None:
+        """SIGTERM sets a flag the train loop checks per batch: the next
+        batch boundary writes a resumable 'autosave' checkpoint and fit()
+        returns with ``preempted=True``."""
+        import signal as _signal
+
+        for s in signals or (_signal.SIGTERM,):
+            _signal.signal(s, lambda signum, frame: setattr(self, "_preempted", True))
+
+    # -- checkpointing ----------------------------------------------------
+    def checkpoint_path(self, name: str) -> pathlib.Path:
+        return pathlib.Path(self.cfg.save_dir).absolute() / f"{name}.pt"
+
+    def save_checkpoint(self, name: str, epoch: int, metrics: dict, extra: dict | None = None) -> None:
+        """One torch file ``<save_dir>/<name>.pt`` with the JAX trainer's
+        payload keys: params, opt_state, step, epoch, metrics (and ema).
+        Written to a temporary name, then renamed."""
+        t0 = time.perf_counter()
+        path = self.checkpoint_path(name)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        payload = {
+            "params": _detached(self.state.params),
+            "opt_state": self.state.opt_state,
+            "step": int(self.state.step),
+            "epoch": int(epoch),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            **(extra or {}),
+        }
+        if self.state.ema_params is not None:
+            payload["ema"] = self.state.ema_params
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        seconds = time.perf_counter() - t0
+        self.checkpoint_seconds.append((name, seconds))
+        self.log(f"checkpoint {name}: {path.stat().st_size / 1e9:.2f} GB in {seconds:.1f} s")
+
+    def restore_checkpoint(self, name: str) -> dict:
+        """Full-state restore: params, optimizer moments and counts, step,
+        and the EMA (restarted from the params when the file has none)."""
+        payload = torch.load(self.checkpoint_path(name), map_location=self.device, weights_only=True)
+        ema = None
+        if self.cfg.ema_decay > 0.0:
+            ema = _to_device(payload.get("ema", payload["params"]), self.device)
+        self.state = TrainState(
+            params=payload["params"], opt_state=payload["opt_state"],
+            step=int(payload["step"]), ema_params=ema,
+        )
+        return payload
+
+    # -- loops ------------------------------------------------------------
+    def _autosave(self, epoch: int, batches_done: int) -> None:
+        self.save_checkpoint("autosave", epoch, {}, extra={"batches_done": batches_done})
+
+    def _run_epoch(self, batches, train: bool = True, epoch: int | None = None,
+                   skip_batches: int = 0) -> dict:
+        """``skip_batches`` fast-forwards a deterministic epoch iterator to
+        resume mid-epoch from an autosave (the skipped batches are never
+        staged)."""
+        import itertools
+
+        from .data import prefetch_batches
+
+        it = iter(batches)
+        if skip_batches:
+            it = itertools.islice(it, skip_batches, None)
+        agg: dict[str, list[float]] = {}
+        n = 0
+        for batch in prefetch_batches(it):
+            if train:
+                self.state, metrics = self.train_step(self.state, batch, self.generator)
+            else:
+                metrics = self.eval_step(self.state, batch)
+            for k, v in metrics.items():
+                agg.setdefault(k, []).append(float(v))
+            n += 1
+            if train and epoch is not None:
+                done = skip_batches + n
+                if self._preempted:
+                    self._autosave(epoch, done)
+                    raise PreemptionStop
+                if self.cfg.save_every_steps and done % self.cfg.save_every_steps == 0:
+                    self._autosave(epoch, done)
+        return {k: float(np.mean(v)) for k, v in agg.items()} | {"batches": n}
+
+    def plot_history(self, out_path) -> None:
+        """Loss/accuracy curves PNG (matplotlib, imported here)."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        epochs = [r["epoch"] for r in self.history]
+        fig, axes = plt.subplots(1, 2, figsize=(10, 4))
+        for ax, keys, ylabel in (
+            (axes[0], ("train_total_loss", "val_total_loss"), "loss"),
+            (axes[1], ("train_classification_accuracy", "val_classification_accuracy"),
+             "classification accuracy"),
+        ):
+            for key, label in zip(keys, ("train", "val")):
+                vals = [r.get(key) for r in self.history]
+                if any(v is not None for v in vals):
+                    ax.plot(epochs, vals, label=label)
+            ax.set_xlabel("epoch")
+            ax.set_ylabel(ylabel)
+            ax.legend()
+        fig.tight_layout()
+        fig.savefig(out_path, dpi=110)
+        plt.close(fig)
+
+    def fit(self, train_batches_fn, val_batches_fn=None, resume_from: str | None = None) -> dict:
+        """``train_batches_fn(epoch) -> iterator of batches`` (and likewise
+        for validation). ``resume_from`` restores a saved checkpoint and
+        continues from its epoch + 1, or inside its epoch after a mid-epoch
+        autosave. Returns the best validation loss, its epoch, the history
+        and the seconds of each checkpoint save."""
+        best_val, best_epoch, patience = math.inf, -1, 0
+        start_epoch, resume_skip = 0, 0
+        if resume_from is not None:
+            payload = self.restore_checkpoint(resume_from)
+            resume_skip = int(payload.get("batches_done", 0))
+            if resume_skip > 0:  # mid-epoch autosave: re-enter the same epoch
+                start_epoch = int(payload.get("epoch", 0))
+                self.log(f"resumed from {resume_from} mid-epoch {start_epoch} "
+                         f"(skipping {resume_skip} consumed batches)")
+            else:
+                start_epoch = int(payload.get("epoch", -1)) + 1
+                self.log(f"resumed from {resume_from} at epoch {start_epoch}")
+        for epoch in range(start_epoch, self.cfg.epochs):
+            t0 = time.time()
+            try:
+                train_metrics = self._run_epoch(
+                    train_batches_fn(epoch), train=True, epoch=epoch,
+                    skip_batches=resume_skip if epoch == start_epoch else 0,
+                )
+            except PreemptionStop:
+                self.log("preempted — mid-epoch state autosaved to 'autosave'")
+                return {"preempted": True, "best_val_loss": best_val, "best_epoch": best_epoch,
+                        "history": self.history, "checkpoint_seconds": self.checkpoint_seconds}
+            row = {"epoch": epoch, **{f"train_{k}": v for k, v in train_metrics.items()}}
+            if val_batches_fn is not None:
+                val_metrics = self._run_epoch(val_batches_fn(epoch), train=False)
+                row |= {f"val_{k}": v for k, v in val_metrics.items()}
+                val_loss = val_metrics.get("total_loss", math.inf)
+                if val_loss < best_val:
+                    best_val, best_epoch, patience = val_loss, epoch, 0
+                    self.save_checkpoint("best_model", epoch, val_metrics)
+                else:
+                    patience += 1
+            row["seconds"] = time.time() - t0
+            self.history.append(row)
+            self.log(f"[epoch {epoch}] " + " ".join(
+                f"{k}={v:.4g}" for k, v in row.items() if k != "epoch"))
+            if val_batches_fn is not None and patience >= self.cfg.early_stopping:
+                self.log(f"early stopping at epoch {epoch} (best epoch {best_epoch})")
+                break
+        self.save_checkpoint("final_checkpoint", len(self.history) - 1, {})
+        return {"best_val_loss": best_val, "best_epoch": best_epoch, "history": self.history,
+                "checkpoint_seconds": self.checkpoint_seconds}

@@ -1,0 +1,62 @@
+"""Training losses (PyTorch).
+
+Counterpart of ``evr_tpu/training/losses.py`` over one device's batch (the
+``axis`` variants wait for ROADMAP item A15): ``total = contrastive_weight *
+(CE_i2t + CE_t2i)/2 + classification_weight * CE_cls`` with diagonal
+contrastive targets (or the SigLIP pairwise loss), the classifier reading
+the L2-normalised image features, optional label smoothing.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from evr_tpu_torch.parallel.contrastive import infonce_loss_single, siglip_loss_single
+
+
+def softmax_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0
+) -> torch.Tensor:
+    """Per-example CE with optional label smoothing; fp32 internally."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    logp = F.log_softmax(logits, dim=-1)
+    onehot = F.one_hot(labels.long(), n).float()
+    if label_smoothing > 0.0:
+        onehot = onehot * (1.0 - label_smoothing) + label_smoothing / n
+    return -(onehot * logp).sum(-1)
+
+
+def combined_clip_loss(
+    image_features: torch.Tensor,  # [b, D] L2-normalised
+    text_features: torch.Tensor,  # [b, D] L2-normalised
+    logit_scale: torch.Tensor,
+    class_logits: torch.Tensor | None = None,
+    class_labels: torch.Tensor | None = None,
+    contrastive_weight: float = 1.0,
+    classification_weight: float = 0.2,
+    label_smoothing: float = 0.0,
+    contrastive_impl: str = "infonce",
+    logit_bias: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Joint contrastive + classification loss → (total, metrics)."""
+    if contrastive_impl == "siglip":
+        bias = (
+            torch.tensor(-10.0, device=image_features.device) if logit_bias is None else logit_bias
+        )
+        contrastive = siglip_loss_single(image_features, text_features, logit_scale, bias)
+    elif contrastive_impl == "infonce":
+        contrastive = infonce_loss_single(image_features, text_features, logit_scale)
+    else:
+        raise ValueError(f"unknown contrastive_impl {contrastive_impl!r}")
+    metrics = {"contrastive_loss": contrastive}
+    total = contrastive_weight * contrastive
+    if class_logits is not None and class_labels is not None:
+        cls = softmax_cross_entropy(class_logits, class_labels, label_smoothing).mean()
+        acc = (class_logits.argmax(-1) == class_labels).float().mean()
+        metrics["classification_loss"] = cls
+        metrics["classification_accuracy"] = acc
+        total = total + classification_weight * cls
+    metrics["total_loss"] = total
+    return total, metrics
