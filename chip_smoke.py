@@ -40,7 +40,20 @@ package. Phases, each fatal on failure:
    fails; the step time;
 7. times: each kernel, its plain version and a PyTorch library computation
    of the same function, by CUDA events at the main-path shapes; encode
-   frames/s and the p50 of a text query, bf16 and int8.
+   frames/s and the p50 of a text query, bf16 and int8;
+8. the ANN tiers: K7 (``adc_list_scores``) against its plain version, bit
+   for bit (phase 3); the bf16 data root of phase 4 served under
+   ``search_impl="ivf"`` at a full probe (served events equal to the exact
+   path's) and ``"ivfpq"`` with the int8 host store (the top-1 of perturbed
+   corpus frames equal to the exact path's), each /api/search p50; then
+   ``IVFPQIndex.build_device`` over 4,194,304 seeded clustered unit rows of
+   512 (2,048 lists, S = 64, K = 256), built twice (identical codes),
+   searched by 8 queries at nprobe 32 with ``adc_impl="pallas"`` (K7) and
+   ``"xla"`` (same rows), recall@10 with and without an int8 re-rank of 50,
+   the query p50 of both, K7's launches over those searches against the
+   count expected, K7 on the search's own probed blocks, and K7's times;
+   then ``tools.index_tool`` ``build --streamed --host-store`` and
+   ``query`` over a 262,144-row ``.npy``, its rows equal to a direct search.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -134,6 +147,29 @@ TRAIN_MODEL, TRAIN_BATCH, N_TRAIN, N_VAL = "ViT-L/14@336px", 32, 96, 32
 # measurement; a gradient perturbed to cosine 0.99 must fail the leaf check.
 STEP_FP32_BANDS = (1.5e-7, 3e-7, 0.9999995)
 STEP_BF16_BANDS = (2e-4, 3e-3, 0.9968)
+# K7 against its plain version: both sum each row over s in order, so they
+# should agree to the bit; the band is 1e-6 of the output's largest entry.
+ADC_REL_TOL = 1e-6
+# The large IVF-PQ tier: ANN_ROWS unit rows of ANN_DIM (4,194,304 x 512 fp32,
+# 8 GB: about 1,165 hours of video at one frame a second), ANN_CENTRES seeded
+# centres with ANN_NOISE per dimension, 2,048 lists (capacity 1.5 x 2,048 =
+# 3,072 rows), searched by ANN_B queries (corpus rows perturbed by a noise
+# vector of norm ANN_QUERY_PERTURB) at nprobe ANN_NPROBE, timed over
+# ANN_TIMED searches per impl.
+ANN_ROWS, ANN_DIM, ANN_CENTRES, ANN_NOISE = 1 << 22, 512, 8192, 0.05
+ANN_LISTS, ANN_CAPACITY, ANN_B, ANN_NPROBE, ANN_TIMED = 2048, 3072, 8, 32, 20
+ANN_QUERY_PERTURB = 0.3
+TOOL_ROWS = 1 << 18  # the .npy that tools.index_tool builds from
+# Serving under the ANN tiers: at a full probe IVF scores the same rows as
+# the exact path, in another order of sums (fp32): a served frame may differ
+# only within ANN_FULL_PROBE_NOISE of the exact 10th score. IVF-PQ's top-1
+# on corpus frames perturbed by noise of norm ANN_FRAME_PERTURB is the exact
+# path's, or scored by the exact path within ANN_INT8_NOISE of its top-1
+# (the int8 host store re-ranks: one quantisation step of a unit row moves a
+# score by up to about 4e-3).
+ANN_FULL_PROBE_NOISE = 1e-5
+ANN_FRAME_PERTURB = 0.05
+ANN_INT8_NOISE = 4e-3
 MODEL = "ViT-B/32"
 N_FRAMES, N_VIDEOS, BATCH = 1024, 4, 256
 N_FRAME_QUERIES = 8
@@ -648,8 +684,10 @@ def text_query_p50_ms(engine, ctx) -> float:
     return statistics.median(lat)
 
 
-def phase_main_path(torch, frames):
-    """bf16 weights through K1 and K2, an fp32 index searched by cosine_topk."""
+def phase_main_path(torch, frames, then=None):
+    """bf16 weights through K1 and K2, an fp32 index searched by cosine_topk;
+    ``then(engine, data_root)`` runs next, over the same engine and data
+    root."""
     from evr_tpu_torch.index import EmbeddingEngine
     from evr_tpu_torch.ops import block_fused as bf
 
@@ -670,11 +708,13 @@ def phase_main_path(torch, frames):
         check_against_plain(torch, engine, frames, emb, ONE_VECTOR_RANK_NOISE, SERVED_RANK_NOISE,
                             "bf16")
         p50 = text_query_p50_ms(engine, ctx)
+        after = then(engine, ctx.data_root.root) if then else None
     return {
         "launches": launches,
         "encode_frames_per_s": N_FRAMES / encode_s,
         "text_query_p50_ms": p50,
         "request_p50_ms": statistics.median(request_ms),
+        "then": after,
     }
 
 
@@ -1156,6 +1196,353 @@ def phase_times_topk(torch):
     return rec
 
 
+# -- 8. the ANN tiers --------------------------------------------------------
+
+
+def adc_case(torch, p: int, c: int, s: int, k: int, b: int, seed: int):
+    """Seeded codes [p, c, s] uint8 and tables [b, s, k] fp32 on the card,
+    the tables' entries at 1/sqrt(s) (a unit query's ADC table scale)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    blocks = torch.randint(0, k, (p, c, s), generator=gen, device="cuda", dtype=torch.uint8)
+    tables = torch.randn((b, s, k), generator=gen, device="cuda") / math.sqrt(s)
+    return blocks, tables
+
+
+def adc_compare(torch, blocks, tables, nprobe: int, tag: str) -> float:
+    """K7 against its plain version on the same inputs: expected bit-equal
+    (the same order of sums), held to ADC_REL_TOL of the output's scale."""
+    from evr_tpu_torch.ops.adc import adc_list_scores, adc_list_scores_plain
+
+    got = adc_list_scores(blocks, tables, nprobe)
+    torch.cuda.synchronize()
+    ref = adc_list_scores_plain(blocks, tables, nprobe)
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    same = bool(torch.equal(got, ref))
+    log(f"parity adc_list_scores {tag}: bit-equal {same}, max_abs_err={err:.3e} "
+        f"(output scale {scale:.3f})")
+    check(bool(torch.isfinite(got).all().item()), f"adc_list_scores {tag}: non-finite scores")
+    check(err <= ADC_REL_TOL * scale, f"adc_list_scores {tag}: err {err} above {ADC_REL_TOL} x {scale}")
+    return err
+
+
+def phase_parity_adc(torch) -> float:
+    """K7 against its plain version: the IVF-PQ probe shape of phase 9 (P =
+    B x nprobe = 256 lists of C = 3,072 rows, S = 64, K = 256), a ragged C
+    with several probes per query, and an S that takes the scalar code loads."""
+    worst = 0.0
+    for tag, (p, c, s, k, b) in (
+        ("P=256 C=3072 S=64 K=256 B=8", (ANN_B * ANN_NPROBE, ANN_CAPACITY, 64, 256, ANN_B)),
+        ("P=24 C=1000 S=64 K=256 B=3", (24, 1000, 64, 256, 3)),
+        ("P=6 C=517 S=20 K=100 B=2", (6, 517, 20, 100, 2)),
+    ):
+        blocks, tables = adc_case(torch, p, c, s, k, b, seed=p + c)
+        worst = max(worst, adc_compare(torch, blocks, tables, p // b, tag))
+    return worst
+
+
+def clustered_unit_rows(torch, n: int, d: int, centres: int, seed: int):
+    """[n, d] fp32 unit rows on the card: seeded centres plus per-row noise
+    of ANN_NOISE per dimension, written slab by slab."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cents = torch.randn((centres, d), generator=gen, device="cuda")
+    cents /= cents.norm(dim=1, keepdim=True)
+    x = torch.empty((n, d), dtype=torch.float32, device="cuda")
+    step = 1 << 20
+    for lo in range(0, n, step):
+        m = min(step, n - lo)
+        pick = torch.randint(0, centres, (m,), generator=gen, device="cuda")
+        rows = cents[pick] + ANN_NOISE * torch.randn((m, d), generator=gen, device="cuda")
+        x[lo:lo + m] = rows / rows.norm(dim=1, keepdim=True)
+    return x
+
+
+def perturbed(torch, x, rows, scale: float, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = x[rows] + scale * torch.randn((len(rows), x.shape[1]), generator=gen, device="cuda")
+    return (q / q.norm(dim=1, keepdim=True)).cpu().numpy()
+
+
+def served_events(client, queries) -> tuple[list, list]:
+    """/api/search (text_clip, top 10) for each query: the events' (video,
+    id, score) lists and the request times in ms."""
+    out, ms = [], []
+    for q in queries:
+        body = {"query": q, "search_type": "text", "search_method": "text_clip", "top_k": 10}
+        t1 = time.perf_counter()
+        resp = client.post("/api/search", json=body)
+        ms.append((time.perf_counter() - t1) * 1e3)
+        check(resp.status_code == 200, f"/api/search {q!r}: HTTP {resp.status_code}")
+        events = json.loads(resp.get_data(as_text=True))["events"]
+        check(len(events) > 0, f"/api/search {q!r}: no events")
+        check(all(math.isfinite(e["clip_similarity"]) for e in events), "non-finite score")
+        out.append([(e["videoId"], e["id"], e["clip_similarity"]) for e in events])
+    return out, ms
+
+
+def phase_ann_serving(torch, engine, root: pathlib.Path):
+    """The bf16 phase's data root served under ``search_impl="ivf"`` (full
+    probe) and ``"ivfpq"`` with the int8 host store, beside the exact path:
+    IVF's served top-10 equals the exact path's (a frame may cross the cut
+    only within ANN_FULL_PROBE_NOISE of the exact 10th score); IVF-PQ's top-1
+    on perturbed corpus frames equals the exact path's. Returns the
+    /api/search p50 of each tier."""
+    import numpy as np
+    from werkzeug.test import Client
+
+    from evr_tpu_torch.serving import ServingContext, create_app
+
+    t0 = time.perf_counter()
+    exact = ServingContext(root, engine=engine)
+    exact.boot()
+    exact_events, _ = served_events(Client(create_app(exact)), QUERIES)
+    emb = np.concatenate([exact.index.get_embeddings(v) for v in exact.index.videos]).astype(np.float32)
+    picks = np.linspace(0, len(emb) - 1, 16).astype(int)
+    noise = np.random.default_rng(5).standard_normal((len(picks), emb.shape[1])).astype(np.float32)
+    frame_q = emb[picks] + ANN_FRAME_PERTURB * noise / math.sqrt(emb.shape[1])
+    frame_q /= np.linalg.norm(frame_q, axis=1, keepdims=True)
+    exact_top1 = exact.index.search_raw(frame_q, 1)[1][:, 0]
+    n_lists = int(round(len(emb) ** 0.5))
+    out = {}
+    for impl, kw in (("ivf", {}), ("ivfpq", {"ivfpq_host_store": True})):
+        ctx = ServingContext(root, engine=engine, search_impl=impl, ivf_clusters=n_lists,
+                             ivf_nprobe=n_lists, **kw)
+        check(ctx.boot() == exact.video_names(), f"{impl}: boot")
+        events, ms = served_events(Client(create_app(ctx)), QUERIES)
+        ann = ctx.index._ivf
+        check(ann is not None and ctx.index.search_impl == impl, f"{impl}: no ANN index was built")
+        top1 = ctx.index.search_raw(frame_q, 1)[1][:, 0]
+        if impl == "ivf":
+            bad = 0
+            for got, ref in zip(events, exact_events):
+                cut = ref[min(9, len(ref) - 1)][2]
+                ref_score = {(v, i): sc for v, i, sc in ref}
+                got_score = {(v, i): sc for v, i, sc in got}
+                for key in set(ref_score) ^ set(got_score):
+                    sc = ref_score.get(key, got_score.get(key))
+                    bad += int(abs(sc - cut) > ANN_FULL_PROBE_NOISE)
+                for key in set(ref_score) & set(got_score):
+                    bad += int(abs(ref_score[key] - got_score[key]) > ANN_FULL_PROBE_NOISE)
+            log(f"ann serving ivf ({ann.n_clusters} lists, nprobe {ctx.index.ivf_nprobe}, pool "
+                f"{ann._overflow_size} rows): served events vs exact: {bad} differences beyond "
+                f"{ANN_FULL_PROBE_NOISE}")
+            check(bad == 0, f"ivf at a full probe: {bad} served events differ from the exact path's")
+        agree = int((top1 == exact_top1).sum())
+        # exact scores of each query's exact top-1 and of the tier's top-1
+        exact_sc = frame_q @ emb.T
+        gap = exact_sc[np.arange(len(picks)), exact_top1] - exact_sc[np.arange(len(picks)), top1]
+        log(f"ann serving {impl}: top-1 of {len(picks)} perturbed frames equal to the exact "
+            f"path's: {agree}, the others {gap[top1 != exact_top1].tolist()} below the exact top-1 "
+            f"score; /api/search p50 {statistics.median(ms):.2f} ms")
+        if impl == "ivfpq":
+            check(ann._originals is None and ann._originals_int8 is not None,
+                  "ivfpq host store: fp32 originals kept or no int8 store")
+        band = ANN_INT8_NOISE if impl == "ivfpq" else ANN_FULL_PROBE_NOISE
+        check(bool((gap <= band).all()), f"{impl}: a top-1 scored {gap.max()} below the exact top-1")
+        out[impl] = statistics.median(ms)
+    log(f"ann serving: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_ann_large(torch):
+    """The large IVF-PQ tier with K7: ANN_ROWS seeded clustered unit rows of
+    512 on the card, ``IVFPQIndex.build_device`` (packed, 2,048 lists, S =
+    64, K = 256), built twice from the same seed (identical codes); ANN_B
+    perturbed corpus rows searched at nprobe = ANN_NPROBE with K7 and with
+    the gather-sum (identical rows, scores within 1e-4 / 1e-5); recall@10
+    against the exact top-10, with and without an int8 host re-rank of 50;
+    one full probe through K7; the query p50 of both; K7's launches over the
+    phase's searches."""
+    import numpy as np
+
+    from evr_tpu_torch.index import IVFPQIndex
+    from evr_tpu_torch.index.ivf import chunk_rows, probe_lists
+    from evr_tpu_torch.index.pq import adc_tables
+    from evr_tpu_torch.ops.adc import adc_list_scores
+    from evr_tpu_torch.ops.topk import cosine_topk
+
+    t0 = time.perf_counter()
+    x = clustered_unit_rows(torch, ANN_ROWS, ANN_DIM, ANN_CENTRES, seed=11)
+    torch.cuda.synchronize()
+    log(f"ann large: {ANN_ROWS} x {ANN_DIM} fp32 rows ({x.numel() * 4 / 1e9:.2f} GB) made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    kw = dict(n_clusters=ANN_LISTS, n_subspaces=64, n_centroids=256, capacity_factor=1.5)
+    builds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = IVFPQIndex().build_device(x, **kw)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0, idx))
+    (build_s, idx), (build2_s, idx2) = builds
+    same = bool(torch.equal(idx.codes_lists, idx2.codes_lists)) and bool(
+        torch.equal(idx.id_lists, idx2.id_lists)) and bool(torch.equal(idx.centroids, idx2.centroids))
+    del idx2, builds
+    o = int(idx.overflow.shape[0])
+    log(f"ann large build: {build_s:.2f} s and {build2_s:.2f} s; capacity {idx._capacity}, pool "
+        f"{o} rows ({o / ANN_ROWS:.4%}), codes {idx.codes_lists.numel() / 1e6:.1f} MB; "
+        f"second build identical: {same}")
+    check(same, "a second build with the same seed gave other codes, ids or centroids")
+    check(idx._capacity == ANN_CAPACITY, f"capacity {idx._capacity}, expected {ANN_CAPACITY}")
+
+    qrows = (torch.arange(ANN_B, device="cuda") * 2 + 1) * (ANN_ROWS // (2 * ANN_B))
+    q = perturbed(torch, x, qrows, ANN_QUERY_PERTURB / math.sqrt(ANN_DIM), seed=12)
+    _, exact_rows = cosine_topk(x, torch.from_numpy(q).cuda(), 0, ANN_ROWS, 10)
+    exact_rows = exact_rows.cpu().numpy()
+    sc, scl = [], []
+    for lo in range(0, ANN_ROWS, 1 << 20):
+        r8, s8 = quantize_host_rows(torch, x[lo:lo + (1 << 20)])
+        sc.append(r8)
+        scl.append(s8)
+    idx.attach_host_store(np.concatenate(sc), np.concatenate(scl))
+    del sc, scl
+
+    def recall(rows):
+        return float(np.mean([len(set(r) & set(e)) / 10 for r, e in zip(rows, exact_rows)]))
+
+    chunk = chunk_rows(ANN_B * idx._capacity * 64)  # probes per K7 launch (ivfpq.py)
+    per_search = -(-ANN_NPROBE // chunk)
+    adc_list_scores.launches = 0
+    results = {}
+    for impl in ("pallas", "xla"):
+        for rerank in (None, 50):
+            results[(impl, rerank)] = idx.search(q, 10, nprobe=ANN_NPROBE, rerank=rerank, adc_impl=impl)
+    # a full probe: every list, ceil(lists / chunk) launches, the gathered
+    # codes bounded by the chunk
+    t1 = time.perf_counter()
+    sf, rf = idx.search(q, 10, nprobe=ANN_LISTS, adc_impl="pallas")
+    full_ms = (time.perf_counter() - t1) * 1e3
+    check(bool(np.isfinite(sf).all()) and bool((rf >= 0).all()) and bool((np.diff(sf, axis=1) <= 0).all()),
+          "ann large: the full-probe search returned non-finite, missing or unsorted results")
+    lat = {}
+    for impl in ("pallas", "xla"):
+        ts = []
+        for _ in range(ANN_TIMED):
+            t1 = time.perf_counter()
+            idx.search(q, 10, nprobe=ANN_NPROBE, adc_impl=impl)
+            ts.append((time.perf_counter() - t1) * 1e3)
+        lat[impl] = statistics.median(ts)
+    launches = adc_list_scores.launches
+    expected = (2 + ANN_TIMED) * per_search + -(-ANN_LISTS // chunk)
+    (sp, rp), (sx, rx) = results[("pallas", None)], results[("xla", None)]
+    err = float(np.abs(sp - sx).max())
+    log(f"ann large search B={ANN_B} nprobe={ANN_NPROBE} top 10: K7 vs gather-sum rows equal "
+        f"{np.array_equal(rp, rx)}, max score difference {err:.3e}; recall@10 {recall(rp):.4f} "
+        f"(re-rank 50: {recall(results[('pallas', 50)][1]):.4f}); query p50 K7 {lat['pallas']:.3f} ms, "
+        f"gather-sum {lat['xla']:.3f} ms; a full probe of {ANN_LISTS} lists {full_ms:.1f} ms, "
+        f"recall@10 {recall(rf):.4f}; K7 launches {launches} (expected {expected}: {per_search} a "
+        f"search at nprobe {ANN_NPROBE}, {2 + ANN_TIMED} such searches, {-(-ANN_LISTS // chunk)} "
+        f"for the full probe)")
+    check(np.array_equal(rp, rx), "ann large: the pallas (K7) and xla searches returned other rows")
+    check(bool(np.allclose(sp, sx, rtol=1e-4, atol=1e-5)), f"ann large: scores differ by {err}")
+    check(np.array_equal(results[("pallas", 50)][1], results[("xla", 50)][1]),
+          "ann large: re-ranked rows differ between the two impls")
+    check(launches == expected > 0, f"adc_list_scores: {launches} launches, expected {expected}")
+
+    # K7 against its plain version at the path's own inputs: the probed
+    # blocks and the tables of this search
+    with torch.no_grad():
+        qt = torch.from_numpy(q).cuda()
+        cids = probe_lists(qt, idx.centroids, ANN_NPROBE)[2]
+        blocks = idx.codes_lists.view(idx.n_clusters, idx._capacity, 64)[cids].reshape(
+            -1, idx._capacity, 64)
+        tables = adc_tables(qt, idx.codebooks)
+    err_path = adc_compare(torch, blocks, tables, ANN_NPROBE, "on the search's probed blocks")
+    del x, idx
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "build2_s": build2_s, "pool": o, "launches": launches,
+            "recall": recall(rp), "recall_rerank": recall(results[("pallas", 50)][1]),
+            "p50_pallas": lat["pallas"], "p50_xla": lat["xla"], "max_abs_err": err_path,
+            "blocks": blocks, "tables": tables}
+
+
+def quantize_host_rows(torch, rows):
+    """(int8 rows, fp32 scales) on the host: the int8 re-rank store."""
+    scale = (rows.abs().amax(dim=1) / 127.0).clamp_min(1e-12)
+    q = torch.clamp(torch.round(rows / scale[:, None]), -127, 127).to(torch.int8)
+    return q.cpu().numpy(), scale.cpu().numpy()
+
+
+def phase_times_adc(torch, blocks, tables):
+    """K7 at the path's shape (P = 256, C = 3,072, S = 64, K = 256, B = 8),
+    its plain version, and a library expression of the same function: each
+    block's query table expanded over C, gathered at the codes, summed."""
+    from evr_tpu_torch.ops.adc import adc_list_scores, adc_list_scores_plain
+
+    p, c, s = blocks.shape
+    b, _, k = tables.shape
+    nprobe = p // b
+    owner = torch.arange(p, device="cuda") // nprobe
+
+    def library():
+        t = tables[owner][:, None].expand(p, c, s, k)
+        return torch.gather(t, 3, blocks.long()[..., None])[..., 0].sum(dim=2)
+
+    nbytes = p * c * s + b * s * k * 4 + p * c * 4
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = p * c * s / H100_FP32_FLOPS * 1e3
+    desc = f"{nbytes / 1e6:.1f} MB, {p * c * s / 1e6:.1f} M fp32 adds"
+    return time_case(
+        torch, "adc_list_scores", f"P={p} C={c} S={s} K={k} B={b}",
+        lambda: adc_list_scores(blocks, tables, nprobe),
+        lambda: adc_list_scores_plain(blocks, tables, nprobe), library, t_ops, t_bytes, desc,
+        (adc_list_scores,))
+
+
+def phase_index_tool(torch):
+    """``tools.index_tool.main``: ``build --type ivfpq --streamed`` (the
+    paired layout) with the int8 host store over a TOOL_ROWS-row .npy, then
+    ``query`` with a re-rank; its JSON lines against a direct search of the
+    same index."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from evr_tpu_torch.index import IVFPQIndex
+    from evr_tpu_torch.tools import index_tool
+
+    x = clustered_unit_rows(torch, TOOL_ROWS, ANN_DIM, 1024, seed=21)
+    q = perturbed(torch, x, torch.arange(0, TOOL_ROWS, TOOL_ROWS // 8, device="cuda"),
+                  ANN_QUERY_PERTURB / math.sqrt(ANN_DIM), seed=22)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        np.save(tmp / "emb.npy", x.cpu().numpy())
+        np.save(tmp / "q.npy", q)
+        del x
+        runs = {}
+        for name, argv in (
+            ("build", ["build", "--embeddings", str(tmp / "emb.npy"), "--type", "ivfpq",
+                       "--streamed", "--out", str(tmp / "idx.npz"), "--host-store",
+                       str(tmp / "store"), "--device", "cuda"]),
+            ("query", ["query", "--index", str(tmp / "idx.npz"), "--type", "ivfpq",
+                       "--query-embeddings", str(tmp / "q.npy"), "--top-k", "10", "--nprobe", "32",
+                       "--rerank", "50", "--host-store", str(tmp / "store"), "--device", "cuda"]),
+        ):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                index_tool.main(argv)
+            runs[name] = ([json.loads(line) for line in buf.getvalue().splitlines()],
+                          time.perf_counter() - t0)
+        built = runs["build"][0][-1]
+        check(built["streamed"] and built["rows"] == TOOL_ROWS, f"index_tool build: {built}")
+        lines = runs["query"][0]
+        check(len(lines) == len(q) + 1 and lines[-1]["queries"] == len(q),
+              f"index_tool query printed {len(lines)} lines")
+        idx = IVFPQIndex.load(tmp / "idx.npz", device="cuda")
+        check(idx._paired, "index_tool --streamed did not give the paired layout")
+        idx.attach_host_store(np.load(tmp / "store.rows.npy"), np.load(tmp / "store.scales.npy"))
+        _, rows = idx.search(q, 10, nprobe=32, rerank=50)
+        for qi, line in enumerate(lines[:-1]):
+            check([h["row"] for h in line["hits"]] == [int(r) for r in rows[qi] if r >= 0],
+                  f"index_tool query {qi}: rows differ from a direct search")
+    log(f"index_tool: build {json.dumps(built)} in {runs['build'][1]:.2f} s; query of {len(q)} "
+        f"in {runs['query'][1]:.2f} s ({lines[-1]['batch_ms']} ms search), rows equal to a direct "
+        f"search")
+    return {"build_s": runs["build"][1], "query_s": runs["query"][1]}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -1173,6 +1560,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the evr_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
+    start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1183,14 +1571,22 @@ def main() -> int:
         worst.update(phase_parity_int8(torch))
         worst["fused_topk"] = phase_parity_topk(torch)
         worst.update(phase_parity_bwd(torch))
+        worst["adc_list_scores"] = phase_parity_adc(torch)
         vis = get_model_config(MODEL).vision
         frames = synthetic_frames(torch, N_FRAMES, vis.image_size, vis.patch_size)
-        main = phase_main_path(torch, frames)
+        t0 = time.perf_counter()
+        main = phase_main_path(torch, frames, then=lambda e, r: phase_ann_serving(torch, e, r))
         main_q = phase_main_path_int8(torch, frames)
         train = phase_train(torch)
         times = phase_times(torch)
         times[("fused_topk", "vision")] = phase_times_topk(torch)
         times.update(phase_times_train(torch))
+        t1 = time.perf_counter()
+        ann = phase_ann_large(torch)
+        worst["adc_list_scores"] = max(worst["adc_list_scores"], ann["max_abs_err"])
+        times[("adc_list_scores", "vision")] = phase_times_adc(torch, ann.pop("blocks"), ann.pop("tables"))
+        tool = phase_index_tool(torch)
+        ann_s = time.perf_counter() - t1
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1201,8 +1597,17 @@ def main() -> int:
     log(f"main path training: {TRAIN_MODEL}, batch {TRAIN_BATCH}, bf16: step {train['step_s']:.4f} s, "
         f"{train['samples_per_s']:.2f} samples/s; checkpoint saves {json.dumps(train['checkpoint_s'])} s; "
         f"kernel vs plain step: {json.dumps(train['compared'])}")
+    log(f"ann tiers: /api/search p50 ivf {main['then']['ivf']:.2f} ms, ivfpq (host store) "
+        f"{main['then']['ivfpq']:.2f} ms; large IVF-PQ ({ANN_ROWS} x {ANN_DIM}, {ANN_LISTS} lists): "
+        f"build {ann['build_s']:.2f} s, pool {ann['pool']} rows, recall@10 {ann['recall']:.4f} "
+        f"(re-rank 50: {ann['recall_rerank']:.4f}), query p50 K7 {ann['p50_pallas']:.3f} ms / "
+        f"gather-sum {ann['p50_xla']:.3f} ms at nprobe {ANN_NPROBE}, B {ANN_B}; index_tool build "
+        f"{tool['build_s']:.2f} s, query {tool['query_s']:.2f} s; the large tier and the tool took "
+        f"{ann_s:.1f} s; everything after the parity phases {time.perf_counter() - t0:.1f} s, "
+        f"the whole script {time.perf_counter() - start:.1f} s")
     launches = {**main["launches"], **main_q["launches"]}
     launches.update({k: train["launches"][k] for k in ("fused_attn_block_bwd", "fused_mlp_block_bwd")})
+    launches["adc_list_scores"] = ann["launches"]
     sources = {
         "fused_attn_block": ("evr_tpu_torch/ops/csrc/block_attn.cu", "evr_tpu/ops/block_fused.py:340"),
         "fused_mlp_block": ("evr_tpu_torch/ops/csrc/block_mlp.cu", "evr_tpu/ops/block_fused.py:1038"),
@@ -1211,6 +1616,7 @@ def main() -> int:
         "fused_topk": ("evr_tpu_torch/ops/csrc/topk_fused.cu", "evr_tpu/ops/retrieval_pallas.py:142"),
         "fused_attn_block_bwd": ("evr_tpu_torch/ops/csrc/block_attn_bwd.cu", "evr_tpu/ops/block_fused.py:618"),
         "fused_mlp_block_bwd": ("evr_tpu_torch/ops/csrc/block_mlp_bwd.cu", "evr_tpu/ops/block_fused.py:698"),
+        "adc_list_scores": ("evr_tpu_torch/ops/csrc/adc_list.cu", "evr_tpu/ops/adc_pallas.py:137"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -1,18 +1,25 @@
 """Device-resident L2-normalised frame index + durable per-video registry.
 
-Counterpart of ``evr_tpu/index/store.py`` (exact search only): every video
-lives in ONE (N_padded, D) tensor on the device, each video owning a
-contiguous row interval, so a search over any video (or all of them) is a
-row-range-masked score + top-k: ``search_impl="xla"`` (the default) is one
-GEMM and a sort (``ops.topk.cosine_topk``), ``"pallas"`` the fused streaming
-kernel K4 (``ops.retrieval.fused_topk``), which takes any padded row count.
-Row → (video, frame) resolution is host-side bookkeeping.
+Counterpart of ``evr_tpu/index/store.py`` without a mesh: every video lives
+in ONE (N_padded, D) tensor on the device, each video owning a contiguous row
+interval, so a search over any video (or all of them) is a row-range-masked
+score + top-k: ``search_impl="xla"`` (the default) is one GEMM and a sort
+(``ops.topk.cosine_topk``), ``"pallas"`` the fused streaming kernel K4
+(``ops.retrieval.fused_topk``), which takes any padded row count. Row →
+(video, frame) resolution is host-side bookkeeping.
+
+The approximate tiers: ``search_impl="ivf"`` builds an ``IVFIndex`` and
+``"ivfpq"`` an ``IVFPQIndex`` over the corpus, and a global (unscoped) search
+probes ``ivf_nprobe`` of their lists; video-scoped searches stay exact. The
+``ivfpq`` tier is built by ``IVFPQIndex.build`` (the unpacked layout, which
+reaches no kernel: K7 serves only the packed layout's ``adc_impl="pallas"``)
+and always re-ranks ``max(50, 4k)`` candidates exactly.
 
 Storage: float32 (exact), bfloat16, or int8 with symmetric per-row scales
 applied after the GEMM. ``save``/``load`` write the JAX package's layout
 (``embedding/{video}_embeddings.npy`` + ``metadata/{video}_frames.json``), so
-each package loads the other's index. The IVF / IVF-PQ tiers (ROADMAP item
-A16) and mesh sharding are not ported yet.
+each package loads the other's index. Mesh sharding (ROADMAP item A15) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -26,12 +33,15 @@ import numpy as np
 import torch
 
 from evr_tpu_torch.config import DataRootConfig
+from evr_tpu_torch.index.ivf import IVFIndex
+from evr_tpu_torch.index.ivfpq import IVFPQIndex, quantize_host_store
 from evr_tpu_torch.ops.retrieval import fused_topk
 from evr_tpu_torch.ops.topk import cosine_topk
 from evr_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
-_SEARCH_IMPLS = ("xla", "pallas")
+_SEARCH_IMPLS = ("xla", "pallas", "ivf", "ivfpq")
+_ANN_IMPLS = ("ivf", "ivfpq")
 
 
 @dataclass
@@ -60,25 +70,47 @@ class FrameIndex:
         pad_multiple: int = 1024,
         device_dtype: str = "float32",
         search_impl: str = "xla",
+        ivf_nprobe: int = 32,
+        ivf_clusters: int | None = None,
+        ivfpq_host_store: bool = False,
+        mesh=None,
         device=None,
     ):
         """``pad_multiple``: device rows are allocated in multiples of this.
         ``search_impl``: "xla" (GEMM + sort, ``cosine_topk``) or "pallas"
-        (the fused streaming kernel K4, ``fused_topk``); both give the same
-        top-k."""
+        (the fused streaming kernel K4, ``fused_topk``), both exact and
+        giving the same top-k; or the approximate tiers "ivf" (inverted
+        lists; ``ivf_nprobe`` of ``ivf_clusters`` lists probed, ~√N lists by
+        default; ``ivf_nprobe = ivf_clusters`` is brute force) and "ivfpq"
+        (the same probing over residual PQ codes with an exact re-rank of
+        max(50, 4k) candidates; float32/bfloat16 storage only).
+        ``ivfpq_host_store`` (ivfpq only): the re-rank rows live in host
+        memory as int8 with per-row scales and the device keeps only the PQ
+        codes; appended rows join the store with their ids. ``mesh``:
+        sharding is not ported (ROADMAP item A15) and raises."""
         if device_dtype not in _DTYPES:
             raise ValueError(f"unknown device_dtype {device_dtype!r}")
-        if search_impl in ("ivf", "ivfpq"):
-            raise NotImplementedError(
-                f"search_impl={search_impl!r}: the IVF / IVF-PQ tiers are not ported "
-                "yet (ROADMAP item A16)"
-            )
         if search_impl not in _SEARCH_IMPLS:
             raise ValueError(f"unknown search_impl {search_impl!r}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "FrameIndex(mesh=...): mesh sharding, and with it the sharded IVF / "
+                "IVF-PQ tiers, is not ported yet (ROADMAP item A15)"
+            )
+        if search_impl == "ivfpq" and device_dtype == "int8":
+            # PQ already compresses to S bytes a row; int8 originals buy nothing
+            raise ValueError("search_impl='ivfpq' supports float32/bfloat16 storage only")
+        if ivfpq_host_store and search_impl != "ivfpq":
+            raise ValueError("ivfpq_host_store requires search_impl='ivfpq'")
         self.embed_dim = embed_dim
         self.pad_multiple = pad_multiple
         self.device_dtype = device_dtype
         self.search_impl = search_impl
+        self.ivf_nprobe = ivf_nprobe
+        self.ivf_clusters = ivf_clusters
+        self.ivfpq_host_store = ivfpq_host_store
+        self._ivf = None
+        self._ivf_built_rows = 0
         self.device = resolve_device(device)
         self._videos: dict[str, VideoEntry] = {}
         self._embeddings: dict[str, np.ndarray] = {}
@@ -117,20 +149,37 @@ class FrameIndex:
 
     def _try_append(self, name: str, emb: np.ndarray, frame_names: list[str]) -> bool:
         """A NEW video whose rows fit the allocated padding is written into
-        the device tensor in place, with no O(total) rebuild. Replacements,
-        an int8 index and a full index rebuild instead (returns False)."""
+        the device tensor in place, with no O(total) rebuild; under the ANN
+        tiers its rows are appended to the built index (and to the int8 host
+        store) until the corpus outgrows the build by half. Replacements, an
+        int8 index and a full index rebuild instead (returns False)."""
+        ann = self.search_impl in _ANN_IMPLS
         if (
             self._dirty
             or self._device_index is None
             or name in self._videos
             or self._row_scales is not None
+            or (ann and self._ivf is None)
         ):
             return False
         n = len(emb)
         if self._total + n > self._device_index.shape[0]:
             return False
+        # centroids and codebooks do not move on append: past 1.5x the rows
+        # they were trained on, rebuild so the lists re-balance
+        if ann and self._total + n > 1.5 * self._ivf_built_rows:
+            return False
         norms = np.linalg.norm(emb, axis=1, keepdims=True)
         rows = (emb / np.maximum(norms, 1e-12)).astype(np.float32)
+        if ann:
+            if self.ivfpq_host_store:
+                # the host re-rank rows stay in lockstep with the appended ids
+                quant, scales = quantize_host_store(rows)
+                self._ivf._originals_int8 = np.concatenate([self._ivf._originals_int8, quant])
+                self._ivf._originals_int8_scales = np.concatenate(
+                    [self._ivf._originals_int8_scales, scales]
+                )
+            self._ivf.append(rows)
         self._device_index[self._total : self._total + n] = torch.from_numpy(rows).to(
             self.device
         ).to(self._device_index.dtype)
@@ -193,6 +242,9 @@ class FrameIndex:
         full = np.zeros((self._padded_rows(total), self.embed_dim), dtype=np.float32)
         if mats:
             full[:total] = np.concatenate(mats, axis=0)
+        self._ivf = None
+        if self.search_impl in _ANN_IMPLS and total > 1:
+            self._build_ann(full[:total])
         self._row_scales = None
         if self.device_dtype == "int8":
             max_abs = np.maximum(np.abs(full).max(axis=1), 1e-12)
@@ -207,6 +259,37 @@ class FrameIndex:
         self._total = total
         self._dirty = False
         self.version += 1
+
+    def _build_ann(self, rows: np.ndarray) -> None:
+        """The IVF or IVF-PQ index over the corpus's normalised rows, as the
+        JAX package sizes it: ~√N lists unless ``ivf_clusters`` is given,
+        capacity factor 1.3, 6 k-means iterations; int8 IVF storage through
+        ``build_device``; IVF-PQ with the largest subspace count ≤ 64 that
+        divides D and the fp32 originals (or the int8 host store) for its
+        re-rank."""
+        total = rows.shape[0]
+        k = min(self.ivf_clusters or max(1, int(round(total**0.5))), total)
+        if self.search_impl == "ivf" and self.device_dtype == "int8":
+            self._ivf = IVFIndex().build_device(
+                torch.from_numpy(rows).to(self.device), n_clusters=k, capacity_factor=1.3,
+                iters=6, dtype="int8",
+            )
+        elif self.search_impl == "ivf":
+            self._ivf = IVFIndex().build(
+                rows, n_clusters=k, capacity_factor=1.3, iters=6,
+                dtype="bfloat16" if self.device_dtype == "bfloat16" else "float32",
+                device=self.device,
+            )
+        else:
+            sub = next(s for s in (64, 32, 16, 8, 4, 2, 1) if self.embed_dim % s == 0)
+            self._ivf = IVFPQIndex().build(
+                rows, n_clusters=k, n_subspaces=sub, n_centroids=min(256, total),
+                capacity_factor=1.3, coarse_iters=6, pq_iters=6,
+                keep_originals=not self.ivfpq_host_store, device=self.device,
+            )
+            if self.ivfpq_host_store:
+                self._ivf.attach_host_store(*quantize_host_store(rows))
+        self._ivf_built_rows = total
 
     def _ensure_built(self):
         with self._lock:
@@ -231,6 +314,21 @@ class FrameIndex:
         self._ensure_built()
         start, end = self._range_for(video_name)
         k = max(1, min(top_k, end - start))
+        if self._ivf is not None and video_name is None:
+            # the ANN tiers answer global searches; results are padded to k
+            # with (-inf, -1) where fewer candidates are reachable
+            q_np = np.atleast_2d(np.asarray(queries, np.float32))
+            if self.search_impl == "ivfpq":
+                # codes are lossy: always re-rank 4x the ask exactly
+                scores, rows = self._ivf.search(q_np, k, nprobe=self.ivf_nprobe,
+                                                rerank=max(50, 4 * k))
+            else:
+                scores, rows = self._ivf.search(q_np, k, nprobe=self.ivf_nprobe)
+            if scores.shape[1] < k:
+                pad = ((0, 0), (0, k - scores.shape[1]))
+                scores = np.pad(scores, pad, constant_values=-np.inf)
+                rows = np.pad(rows, pad, constant_values=-1)
+            return scores, rows
         q = torch.from_numpy(np.atleast_2d(np.asarray(queries, np.float32))).to(self.device)
         topk = fused_topk if self.search_impl == "pallas" else cosine_topk
         with torch.inference_mode():

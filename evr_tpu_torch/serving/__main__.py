@@ -26,9 +26,23 @@ def main():
         "(bfloat16 otherwise)",
     )
     parser.add_argument(
-        "--search-impl", choices=["xla", "pallas"], default="xla",
-        help="index search: xla (GEMM + sort) or pallas (the fused streaming "
-        "top-k kernel K4)",
+        "--search-impl", choices=["xla", "pallas", "ivf", "ivfpq"], default="xla",
+        help="index search: xla (GEMM + sort, exact), pallas (the fused streaming "
+        "top-k kernel K4, exact), ivf (approximate list probing) or ivfpq (probed "
+        "PQ codes with an exact re-rank)",
+    )
+    parser.add_argument(
+        "--ivf-nprobe", type=int, default=32,
+        help="lists probed per query under ivf/ivfpq (nprobe = clusters is exact)",
+    )
+    parser.add_argument(
+        "--ivf-clusters", type=int, default=None,
+        help="inverted-list count under ivf/ivfpq (default ~sqrt(N))",
+    )
+    parser.add_argument(
+        "--ivfpq-host-store", action="store_true",
+        help="ivfpq: the device holds only the PQ codes; the re-rank rows live in "
+        "host memory as int8",
     )
     parser.add_argument("--batch-size", type=int, default=256)
     args = parser.parse_args()
@@ -50,7 +64,8 @@ def main():
     )
     ctx = ServingContext(
         args.data_root, engine=engine, index_dtype=args.index_dtype,
-        search_impl=args.search_impl,
+        search_impl=args.search_impl, ivf_nprobe=args.ivf_nprobe,
+        ivf_clusters=args.ivf_clusters, ivfpq_host_store=args.ivfpq_host_store,
     )
     loaded = ctx.boot()
     if args.params_dtype == "auto":

@@ -47,9 +47,15 @@ class ServingContext:
         engine: EmbeddingEngine | None = None,
         index_dtype: str = "float32",
         search_impl: str = "xla",
+        ivf_nprobe: int = 32,
+        ivf_clusters: int | None = None,
+        ivfpq_host_store: bool = False,
+        mesh=None,
     ):
-        """``index_dtype`` and ``search_impl``: see ``FrameIndex``; applied
-        to every per-model index."""
+        """``index_dtype``, ``search_impl``, ``ivf_nprobe``, ``ivf_clusters``,
+        ``ivfpq_host_store`` and ``mesh``: see ``FrameIndex``; applied to
+        every per-model index. An invalid combination raises here, at boot,
+        not at the first request."""
         self.data_root = (
             data_root
             if isinstance(data_root, DataRootConfig)
@@ -65,6 +71,16 @@ class ServingContext:
         self.search_cache = TTLCache(default_ttl=3600.0)
         self.index_dtype = index_dtype
         self.search_impl = search_impl
+        self.ivf_nprobe = ivf_nprobe
+        self.ivf_clusters = ivf_clusters
+        self.ivfpq_host_store = ivfpq_host_store
+        # per-model indexes build lazily: fail fast on an invalid tier combo
+        self._index_kwargs = dict(
+            device_dtype=index_dtype, search_impl=search_impl, ivf_nprobe=ivf_nprobe,
+            ivf_clusters=ivf_clusters, ivfpq_host_store=ivfpq_host_store, mesh=mesh,
+            device=self.engine.device,
+        )
+        FrameIndex(embed_dim=1, **self._index_kwargs)
 
     def resolve_path(self, p: str) -> pathlib.Path:
         """Registry paths may be data-root-relative or absolute."""
@@ -93,10 +109,7 @@ class ServingContext:
     def index_for(self, model: str) -> FrameIndex:
         if model not in self._indexes:
             self._indexes[model] = FrameIndex(
-                embed_dim=self.engine.cfg.embed_dim,
-                device_dtype=self.index_dtype,
-                search_impl=self.search_impl,
-                device=self.engine.device,
+                embed_dim=self.engine.cfg.embed_dim, **self._index_kwargs
             )
         return self._indexes[model]
 

@@ -153,4 +153,4 @@ def test_cli_serves_int8_and_the_fused_search():
     assert out.returncode == 0, out.stderr
     text = " ".join(out.stdout.split())
     assert "--params-dtype {float32,bfloat16,int8,auto}" in text
-    assert "--search-impl {xla,pallas}" in text
+    assert "--search-impl {xla,pallas,ivf,ivfpq}" in text
