@@ -53,7 +53,19 @@ package. Phases, each fatal on failure:
    the query p50 of both, K7's launches over those searches against the
    count expected, K7 on the search's own probed blocks, and K7's times;
    then ``tools.index_tool`` ``build --streamed --host-store`` and
-   ``query`` over a 262,144-row ``.npy``, its rows equal to a direct search.
+   ``query`` over a 262,144-row ``.npy``, its rows equal to a direct search;
+9. the flash route: K6 (``flash_attention``: K6a ``flash_attention_full``,
+   K6b ``flash_attention_blocked``) against its plain version at ViT-H-14's
+   vision (B=256, H=16, T=257, d=80) and causal text (B=16, T=77, d=64)
+   shapes, ViT-B/32's vision shape (T=50) and the padded route of an
+   explicit ``block_q`` (B=32, T=257), bf16 and fp32 (phase 3); then
+   ``EmbeddingEngine(cfg=get_model_config("ViT-H-14", attn_impl="flash"))``
+   with seeded random weights serves the path of phase 4 (K6a 31 launches
+   per encode batch, K6b 23 per text encode, K1 and K2 none; embeddings and
+   rankings against ``attn_impl="flash_plain"``); the same weights train
+   three ``make_train_step`` steps (batch 32, bf16, ``freeze_layers=8``): K6
+   in every block's forward, the plain recompute backward, frozen leaves
+   unchanged, a K6 step against a plain step within bands; K6's times.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -170,6 +182,36 @@ TOOL_ROWS = 1 << 18  # the .npy that tools.index_tool builds from
 ANN_FULL_PROBE_NOISE = 1e-5
 ANN_FRAME_PERTURB = 0.05
 ANN_INT8_NOISE = 4e-3
+# K6 (``ops.attention``) at the flash route's shapes: ViT-H-14's vision
+# tower (K6a, head dim 80), ViT-B/32's vision tower under "flash" (K6a, the
+# shape the TPU kernel packs four sequences to a tile), ViT-H-14's causal text
+# tower (K6b) and the padded non-causal route that an explicit block_q takes
+# (K6b). Inputs of unit variance; tolerances as for K1 (FP32_TOL, BF16_TOL,
+# BF16_MIN_COS).
+FLASH_SHAPES = {
+    "vith-vision": dict(B=256, H=16, T=257, d=80, causal=False, block_q=None),
+    "vitb-vision": dict(B=256, H=12, T=50, d=64, causal=False, block_q=None),
+    "vith-text": dict(B=16, H=16, T=77, d=64, causal=True, block_q=None),
+    "vith-vision-block_q": dict(B=32, H=16, T=257, d=80, causal=False, block_q=128),
+}
+# the shape each K6 route is timed and reported at: the ViT-H-14 main path's
+FLASH_MAIN_SHAPE = {"flash_attention_full": "vith-vision", "flash_attention_blocked": "vith-text"}
+# The flash route's main path: ViT-H-14 served and trained under
+# attn_impl="flash" (FLASH_TRAIN_STEPS steps of make_train_step at batch
+# TRAIN_BATCH). Its bands against the same path with K6's plain version,
+# chosen as the bf16 ones were: about twice the largest difference this
+# script measured on an H100 80GB HBM3 (700 W). Served scores differed by
+# 1.27e-3 under one query vector (1.5e-4 for frame queries) and 1.74e-3 with
+# each path's own text vectors, so the ViT-B/32 bands fit. A K6 step and a
+# plain step from the same params and batch: fp32 0, 0 and a least leaf
+# cosine of 0.9999998 over all 674 trainable leaves (STEP_FP32_BANDS fit);
+# bf16 2.0e-4, 7.8e-3 and 0.99694 over the 662 block leaves of both towers.
+# A gradient perturbed to cosine 0.99 must fail the leaf band.
+FLASH_MODEL, FLASH_TRAIN_STEPS = "ViT-H-14", 3
+FLASH_ONE_VECTOR_RANK_NOISE = ONE_VECTOR_RANK_NOISE
+FLASH_SERVED_RANK_NOISE = SERVED_RANK_NOISE
+FLASH_STEP_FP32_BANDS = STEP_FP32_BANDS
+FLASH_STEP_BF16_BANDS = (4e-4, 1.6e-2, 0.9939)
 MODEL = "ViT-B/32"
 N_FRAMES, N_VIDEOS, BATCH = 1024, 4, 256
 N_FRAME_QUERIES = 8
@@ -473,6 +515,52 @@ def phase_parity_topk(torch):
     return worst
 
 
+def flash_route(s: dict) -> str:
+    from evr_tpu_torch.ops.attention import whole_sequence_route
+
+    full = whole_sequence_route(s["T"], s["causal"], s["block_q"])
+    return "flash_attention_full" if full else "flash_attention_blocked"
+
+
+def flash_inputs(torch, s: dict, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (s["B"], s["H"], s["T"], s["d"])
+    return [unit_activations(torch, shape, gen, "cuda") for _ in range(3)]
+
+
+def phase_parity_flash(torch):
+    """K6 (``flash_attention``) against its plain version at FLASH_SHAPES,
+    bf16 and fp32, each through the route the JAX rule picks (one launch of
+    that route's kernel per call)."""
+    from evr_tpu_torch.ops import attention as fa
+
+    worst = {"flash_attention_full": 0.0, "flash_attention_blocked": 0.0}
+    for tag, s in FLASH_SHAPES.items():
+        route = flash_route(s)
+        q32, k32, v32 = flash_inputs(torch, s, seed=8)
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dt) for t in (q32, k32, v32))
+            before = getattr(fa, route).launches
+            got = fa.flash_attention(q, k, v, causal=s["causal"], block_q=s["block_q"])
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_plain(q, k, v, s["causal"])
+            err, cos, finite = compare(torch, got, ref)
+            name = f"{route} {tag} {str(dt).split('.')[-1]}"
+            log(f"parity {name}: max_abs_err={err:.3e} min_row_cos={cos:.7f} "
+                f"(max |o| {ref.float().abs().max().item():.3f})")
+            check(getattr(fa, route).launches == before + 1, f"{name}: not one launch of {route}")
+            check(got.dtype == dt and got.shape == q.shape, f"{name}: {got.dtype} {tuple(got.shape)}")
+            check(finite, f"{name}: non-finite output")
+            if dt == torch.float32:
+                check(err <= FP32_TOL, f"{name}: max abs err {err} > {FP32_TOL}")
+            else:
+                check(err <= BF16_TOL, f"{name}: max abs err {err} > {BF16_TOL}")
+                check(cos >= BF16_MIN_COS, f"{name}: row cosine {cos} < {BF16_MIN_COS}")
+                worst[route] = max(worst[route], err)
+            del got, ref
+    return worst
+
+
 # -- 4. main path ------------------------------------------------------------
 
 
@@ -616,16 +704,18 @@ def serve_counted(torch, engine, frames, root: pathlib.Path, counted, **ctx_kwar
 
 
 def check_against_plain(torch, engine, frames, emb, one_noise: float, served_noise: float,
-                        what: str) -> None:
+                        what: str, plain_impl: str = "plain") -> dict:
     """The kernel path's embeddings and top-10 rankings against the plain
-    versions' (``attn_impl="plain"``) on the same frames and queries."""
+    versions' (``attn_impl=plain_impl``: "plain", or "flash_plain" for the
+    flash route) on the same frames and queries. Returns the least row
+    cosines and the largest score difference of each ranking case."""
     import dataclasses
 
     import numpy as np
 
     from evr_tpu_torch.models.clip import encode_staged_u8, encode_text
 
-    plain_cfg = dataclasses.replace(engine.cfg, attn_impl="plain")
+    plain_cfg = dataclasses.replace(engine.cfg, attn_impl=plain_impl)
     with torch.inference_mode():
         ref = []
         for i in range(0, N_FRAMES, BATCH):
@@ -650,6 +740,7 @@ def check_against_plain(torch, engine, frames, emb, one_noise: float, served_noi
     # rankings: the frame paths under the plain path's text vectors and
     # under its vectors of a few frames; then the served ranking, each text
     # query through each path's own towers
+    out = {"frame_cos": float(cos.min()), "text_cos": float(tcos.min())}
     picks = np.linspace(0, N_FRAMES - 1, N_FRAME_QUERIES).astype(int)
     cases = (
         ("text queries, one query vector", txt_ref, txt_ref, one_noise),
@@ -661,6 +752,7 @@ def check_against_plain(torch, engine, frames, emb, one_noise: float, served_noi
         log(f"{what}: top-10 rankings, {kind}, kernel vs plain path: overlap {overlaps}, "
             f"frames within {noise} of the 10th score {band}, largest score "
             f"difference {diff:.2e}, violations {bad}")
+        out[kind] = diff
         check(bad == 0, f"{what}, {kind}: {bad} top-10 swaps wider than {noise}")
     # the check must reject frame embeddings off by the row-cosine tolerance
     # (0.999): seeded noise of that size on the kernel path's frames
@@ -671,6 +763,7 @@ def check_against_plain(torch, engine, frames, emb, one_noise: float, served_noi
     log(f"{what}: the one-vector ranking checks on frame embeddings off by row cosine "
         f"{float((off * got_n).sum(1).mean()):.5f}: {bad_off} violations")
     check(bad_off > 0, f"{what}: the ranking check passes embeddings off by row cosine 0.999")
+    return out
 
 
 def text_query_p50_ms(engine, ctx) -> float:
@@ -1196,6 +1289,37 @@ def phase_times_topk(torch):
     return rec
 
 
+def phase_times_flash(torch):
+    """K6 at each FLASH_SHAPES shape (bf16): the route's kernel, its plain
+    version, and ``F.scaled_dot_product_attention`` (which the port never
+    calls) as the library yardstick. The bound counts q, k, v and o once
+    each, and 4·d operations per (query, key) pair the mask keeps."""
+    import torch.nn.functional as F
+
+    from evr_tpu_torch.ops import attention as fa
+
+    counted = (fa.flash_attention_full, fa.flash_attention_blocked)
+    out = {}
+    for tag, s in FLASH_SHAPES.items():
+        route = flash_route(s)
+        q, k, v = (t.to(torch.bfloat16) for t in flash_inputs(torch, s, seed=9))
+        B, H, T, d = s["B"], s["H"], s["T"], s["d"]
+        pairs = T * (T + 1) // 2 if s["causal"] else T * T
+        flops = 4 * B * H * pairs * d
+        nbytes = 4 * B * H * T * d * 2
+        desc = f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB"
+        if route == "flash_attention_full":
+            kern = lambda: fa.flash_attention_full(q, k, v)  # noqa: E731
+        else:
+            kern = lambda: fa.flash_attention_blocked(q, k, v, s["causal"])  # noqa: E731
+        out[(route, tag)] = time_case(
+            torch, route, f"{tag} bf16 B={B} H={H} T={T} d={d}", kern,
+            lambda: fa.flash_attention_plain(q, k, v, s["causal"]),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=s["causal"]),
+            flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3, desc, counted)
+    return out
+
+
 # -- 8. the ANN tiers --------------------------------------------------------
 
 
@@ -1543,6 +1667,186 @@ def phase_index_tool(torch):
     return {"build_s": runs["build"][1], "query_s": runs["query"][1]}
 
 
+# -- 9. the flash route: ViT-H-14 ---------------------------------------------
+
+
+def flash_params():
+    """ViT-H-14 under ``attn_impl="flash"`` and its seeded random weights
+    (numpy, drawn once for every ViT-H-14 phase)."""
+    import numpy as np
+
+    from evr_tpu_torch.models import get_model_config, init_clip_params
+
+    cfg = get_model_config(FLASH_MODEL, attn_impl="flash")
+    t0 = time.perf_counter()
+    params = init_clip_params(np.random.default_rng(0), cfg)
+
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(count(v) for v in tree)
+        return int(np.asarray(tree).size)
+
+    log(f"{FLASH_MODEL} (attn_impl=\"flash\"): {count(params) / 1e6:.1f} M random parameters "
+        f"(seed 0) drawn in {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def phase_main_path_flash(torch, cfg, np_params):
+    """The flash route served: ``EmbeddingEngine(cfg=...)`` with the seeded
+    ViT-H-14 weights encodes N_FRAMES synthetic 224² frames at batch BATCH,
+    the data root is written, ``ServingContext(engine=...)`` boots and
+    answers /api/search; K6a's and K6b's launches against the counts
+    expected (every full block of both towers), K1's and K2's (none), and
+    the embeddings and rankings against the same path with K6's plain
+    version (``attn_impl="flash_plain"``)."""
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.ops import attention as fa
+    from evr_tpu_torch.ops import block_fused as bf
+
+    vis = cfg.vision
+    frames = synthetic_frames(torch, N_FRAMES, vis.image_size, vis.patch_size)
+    t0 = time.perf_counter()
+    engine = EmbeddingEngine(FLASH_MODEL, params=np_params, cfg=cfg, device="cuda", batch_size=BATCH)
+    log(f"engine: {FLASH_MODEL}, attn_impl={engine.cfg.attn_impl!r}, {engine.compute_dtype}, "
+        f"set up in {time.perf_counter() - t0:.1f} s")
+    counted = [fa.flash_attention_full, fa.flash_attention_blocked, bf.fused_attn_block,
+               bf.fused_mlp_block]
+    with tempfile.TemporaryDirectory() as tmp:
+        emb, ctx, encode_s, request_ms, launches = serve_counted(
+            torch, engine, frames, pathlib.Path(tmp), counted)
+        n_batches, n_text = -(-N_FRAMES // BATCH), len(QUERIES)
+        expected = {"flash_attention_full": (vis.layers - 1) * n_batches,
+                    "flash_attention_blocked": (cfg.text.layers - 1) * n_text,
+                    "fused_attn_block": 0, "fused_mlp_block": 0}
+        log(f"launches over the {FLASH_MODEL} flash path: {launches} (expected {expected}: "
+            f"{vis.layers - 1} full vision blocks per encode batch, {n_batches} batches; "
+            f"{cfg.text.layers - 1} full text blocks per text encode, {n_text} encodes)")
+        for name, n in expected.items():
+            check(launches[name] == n, f"{name}: {launches[name]} launches, expected {n}")
+        diffs = check_against_plain(torch, engine, frames, emb, FLASH_ONE_VECTOR_RANK_NOISE,
+                                    FLASH_SERVED_RANK_NOISE, f"{FLASH_MODEL} flash", "flash_plain")
+        p50 = text_query_p50_ms(engine, ctx)
+        del ctx
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": launches, "encode_frames_per_s": N_FRAMES / encode_s,
+            "text_query_p50_ms": p50, "request_p50_ms": statistics.median(request_ms),
+            "against_plain": diffs}
+
+
+def block_leaf(key: str) -> bool:
+    return key.startswith(("clip/visual/blocks/", "clip/text/blocks/"))
+
+
+def phase_train_flash(torch, cfg, np_params):
+    """The flash route trained: FLASH_TRAIN_STEPS steps of ``make_train_step``
+    (the step ``Trainer`` runs) on ViT-H-14 at full width, batch 32, bf16,
+    ``freeze_layers=8``, InfoNCE + 0.2 × CE, on a synthetic caption set. K6
+    launches in the forward of every block (K6a in the vision tower, K6b in
+    the causal text tower); the backward is the plain recompute
+    (``xla_attention``) with no kernel and no plain forward; finite losses;
+    frozen leaves bit-unchanged and trainable ones moved. Then one step from
+    the same params and batch through K6 and through its plain version
+    (``attn_impl="flash_plain"``), fp32 and bf16, held within bands that a
+    gradient perturbed to cosine 0.99 fails; the step time."""
+    import dataclasses
+
+    import numpy as np
+
+    from evr_tpu_torch.models import params_from_numpy
+    from evr_tpu_torch.models.classifier import ClassifierConfig, init_classifier_params
+    from evr_tpu_torch.ops import attention as fa
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.training import (
+        CaptionDataset, TrainConfig, TrainState, make_grad_fn, make_optimizer, make_train_step,
+        param_group_labels,
+    )
+    from evr_tpu_torch.training.finetune import flat_leaves
+
+    cls_cfg = ClassifierConfig(embed_dim=cfg.embed_dim)
+    init = {"clip": np_params, "classifier": init_classifier_params(1, cls_cfg)}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        train_json, _ = write_caption_set(root, cfg.vision.image_size, cfg.vision.patch_size)
+        batches = list(CaptionDataset(train_json, root).batches(
+            TRAIN_BATCH, cfg.vision.image_size, seed=0))[:FLASH_TRAIN_STEPS]
+    check(len(batches) == FLASH_TRAIN_STEPS, f"{len(batches)} caption batches")
+    tc = TrainConfig(seed=0, batch_size=TRAIN_BATCH, epochs=1, compute_dtype="bfloat16",
+                     freeze_layers=8)
+    params = params_from_numpy(init, "cuda")
+    opt = make_optimizer(tc, params, len(batches))
+    step, _ = make_train_step(cfg, cls_cfg, tc, opt)
+    state = TrainState(params=params, opt_state=opt.init(params), step=0)
+    recompute, plain_fwd = counting(fa.xla_attention), counting(fa.flash_attention_plain)
+    fa.xla_attention, fa.flash_attention_plain = recompute, plain_fwd
+    counted = [fa.flash_attention_full, fa.flash_attention_blocked, bf.fused_attn_block,
+               bf.fused_mlp_block, bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd, recompute,
+               plain_fwd]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for fn in counted:
+            fn.launches = 0
+        times, losses = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(metrics["total_loss"].item())
+        launches = {fn.__name__: fn.launches for fn in counted}
+    finally:
+        fa.xla_attention, fa.flash_attention_plain = recompute.__wrapped__, plain_fwd.__wrapped__
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = len(batches)
+    blocks = cfg.vision.layers + cfg.text.layers
+    expected = {"flash_attention_full": cfg.vision.layers * n, "flash_attention_blocked": cfg.text.layers * n,
+                "xla_attention": blocks * n}
+    log(f"{FLASH_MODEL} flash training launches over {n} steps: {launches} (expected {expected}, "
+        f"every other count 0); losses {[round(v, 6) for v in losses]}")
+    for name, count in launches.items():
+        check(count == expected.get(name, 0), f"{name}: {count} launches, expected {expected.get(name, 0)}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
+
+    labels = flat_leaves(param_group_labels(state.params, tc.freeze_layers))
+    want, got = flat_leaves(init), flat_leaves(state.params)
+    frozen = [k for k in labels if labels[k] == "frozen"]
+    moved = [k for k in frozen if not torch.equal(got[k].cpu(), torch.from_numpy(np.asarray(want[k])))]
+    stale = [k for k in labels if labels[k] != "frozen"
+             and torch.equal(got[k].cpu(), torch.from_numpy(np.asarray(want[k])))]
+    log(f"{FLASH_MODEL} flash training: {len(frozen)} frozen leaves, {len(moved)} of them moved; "
+        f"{len(labels) - len(frozen)} trainable leaves, {len(stale)} of them unmoved")
+    check(len(frozen) == 16 and not moved, f"frozen leaves moved: {moved}")
+    check(not stale, f"trainable leaves did not move: {stale[:5]}")
+    del state, params, opt, got
+    torch.cuda.empty_cache()
+
+    # one step from the same params and batch: K6 against its plain version
+    params = params_from_numpy(init, "cuda")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="flash_plain")
+    compared = {}
+    for dtype in ("float32", "bfloat16"):
+        tcd = dataclasses.replace(tc, compute_dtype=dtype)
+        fn_k, fn_p = make_grad_fn(cfg, cls_cfg, tcd), make_grad_fn(plain_cfg, cls_cfg, tcd)
+        m_k, grads_k = fn_k(params, batches[0], torch.Generator(device="cuda").manual_seed(1))
+        m_p, grads_p = fn_p(params, batches[0], torch.Generator(device="cuda").manual_seed(1))
+        compared[dtype] = step_compare(
+            torch, f"{FLASH_MODEL} K6 step vs plain step, {dtype}", m_k, m_p, grads_k, grads_p,
+            (lambda k: True) if dtype == "float32" else block_leaf)
+        del grads_k, grads_p
+    del params
+    torch.cuda.empty_cache()
+    for dtype, bands in (("float32", FLASH_STEP_FP32_BANDS), ("bfloat16", FLASH_STEP_BF16_BANDS)):
+        step_check(f"{FLASH_MODEL} K6 step vs plain step, {dtype}", compared[dtype], bands)
+    step_s = statistics.median(times)
+    log(f"{FLASH_MODEL} flash train step (batch {TRAIN_BATCH}, bf16): {[round(t, 4) for t in times]} s, "
+        f"median {step_s:.4f} s = {TRAIN_BATCH / step_s:.2f} samples/s; peak memory {peak:.1f} GiB")
+    return {"launches": launches, "step_s": step_s, "samples_per_s": TRAIN_BATCH / step_s,
+            "peak_gib": peak, "compared": compared}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -1572,6 +1876,7 @@ def main() -> int:
         worst["fused_topk"] = phase_parity_topk(torch)
         worst.update(phase_parity_bwd(torch))
         worst["adc_list_scores"] = phase_parity_adc(torch)
+        worst.update(phase_parity_flash(torch))
         vis = get_model_config(MODEL).vision
         frames = synthetic_frames(torch, N_FRAMES, vis.image_size, vis.patch_size)
         t0 = time.perf_counter()
@@ -1587,6 +1892,13 @@ def main() -> int:
         times[("adc_list_scores", "vision")] = phase_times_adc(torch, ann.pop("blocks"), ann.pop("tables"))
         tool = phase_index_tool(torch)
         ann_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        flash_cfg, flash_np = flash_params()
+        main_f = phase_main_path_flash(torch, flash_cfg, flash_np)
+        train_f = phase_train_flash(torch, flash_cfg, flash_np)
+        del flash_np
+        times.update(phase_times_flash(torch))
+        flash_s = time.perf_counter() - t2
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1603,11 +1915,19 @@ def main() -> int:
         f"(re-rank 50: {ann['recall_rerank']:.4f}), query p50 K7 {ann['p50_pallas']:.3f} ms / "
         f"gather-sum {ann['p50_xla']:.3f} ms at nprobe {ANN_NPROBE}, B {ANN_B}; index_tool build "
         f"{tool['build_s']:.2f} s, query {tool['query_s']:.2f} s; the large tier and the tool took "
-        f"{ann_s:.1f} s; everything after the parity phases {time.perf_counter() - t0:.1f} s, "
+        f"{ann_s:.1f} s")
+    log(f"flash route, {FLASH_MODEL}: encode {main_f['encode_frames_per_s']:.1f} frames/s (batch {BATCH}, "
+        f"{N_FRAMES} frames), text query p50 {main_f['text_query_p50_ms']:.2f} ms, /api/search p50 "
+        f"{main_f['request_p50_ms']:.2f} ms; against K6's plain version {json.dumps(main_f['against_plain'])}; "
+        f"train step (batch {TRAIN_BATCH}, bf16) {train_f['step_s']:.4f} s, {train_f['samples_per_s']:.2f} "
+        f"samples/s, peak {train_f['peak_gib']:.1f} GiB; K6 step vs plain step {json.dumps(train_f['compared'])}; "
+        f"the flash phases took {flash_s:.1f} s")
+    log(f"everything after the parity phases {time.perf_counter() - t0:.1f} s, "
         f"the whole script {time.perf_counter() - start:.1f} s")
     launches = {**main["launches"], **main_q["launches"]}
     launches.update({k: train["launches"][k] for k in ("fused_attn_block_bwd", "fused_mlp_block_bwd")})
     launches["adc_list_scores"] = ann["launches"]
+    launches.update({k: main_f["launches"][k] for k in FLASH_MAIN_SHAPE})
     sources = {
         "fused_attn_block": ("evr_tpu_torch/ops/csrc/block_attn.cu", "evr_tpu/ops/block_fused.py:340"),
         "fused_mlp_block": ("evr_tpu_torch/ops/csrc/block_mlp.cu", "evr_tpu/ops/block_fused.py:1038"),
@@ -1617,10 +1937,13 @@ def main() -> int:
         "fused_attn_block_bwd": ("evr_tpu_torch/ops/csrc/block_attn_bwd.cu", "evr_tpu/ops/block_fused.py:618"),
         "fused_mlp_block_bwd": ("evr_tpu_torch/ops/csrc/block_mlp_bwd.cu", "evr_tpu/ops/block_fused.py:698"),
         "adc_list_scores": ("evr_tpu_torch/ops/csrc/adc_list.cu", "evr_tpu/ops/adc_pallas.py:137"),
+        "flash_attention_full": ("evr_tpu_torch/ops/csrc/flash_attn.cu", "evr_tpu/ops/attention.py:188"),
+        "flash_attention_blocked": ("evr_tpu_torch/ops/csrc/flash_attn.cu", "evr_tpu/ops/attention.py:224"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        t = times[(name, "vitl" if name.endswith("_bwd") else "vision")]
+        shape = FLASH_MAIN_SHAPE.get(name, "vitl" if name.endswith("_bwd") else "vision")
+        t = times[(name, shape)]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": worst[name],

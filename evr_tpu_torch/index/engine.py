@@ -7,7 +7,8 @@ through ``encode_text(eot_fast_final=True)``; batches are padded to
 registered and switched at run time.
 
 On the card the compute dtype is bfloat16 and every residual block but the
-last runs through the hand-written kernels K1 and K2 (K3 with int8 weights);
+last runs through the hand-written kernels K1 and K2 (K3 with int8 weights),
+or, under a ``cfg`` with ``attn_impl="flash"``, through K6 for its attention;
 on the CPU it is float32 and the blocks take the plain composition. The MoE
 towers, mesh sharding, orbax/.pt checkpoints, the classifier head, the
 exact-PIL host preprocessing and the native pipelined stager are not ported
@@ -22,7 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from evr_tpu_torch.models.clip import encode_staged_u8, encode_text, init_clip_params
+from evr_tpu_torch.models.clip import CLIPConfig, encode_staged_u8, encode_text, init_clip_params
 from evr_tpu_torch.models.convert import params_from_numpy
 from evr_tpu_torch.models.quant import quantize_clip_params
 from evr_tpu_torch.models.variants import get_model_config
@@ -41,6 +42,7 @@ class EmbeddingEngine:
         self,
         model_name: str = "ViT-B/32",
         params=None,
+        cfg: CLIPConfig | None = None,
         batch_size: int = 256,
         rng_seed: int = 0,
         params_dtype: str = "float32",
@@ -48,6 +50,8 @@ class EmbeddingEngine:
     ):
         """``params``: a nested dict of numpy arrays or tensors in the JAX
         package's layout; None draws random weights from ``rng_seed``.
+        ``cfg``: the model's configuration, ``get_model_config(model_name)``
+        when None (pass one to serve another route, e.g. ``attn_impl="flash"``).
         ``device``: None means the card (raises without one); pass "cpu" to
         run on the CPU. ``params_dtype``: "float32", "bfloat16" or "int8"
         serving weights (``_cast_params``)."""
@@ -57,7 +61,7 @@ class EmbeddingEngine:
             )
         self.device = resolve_device(device)
         self.model_name = model_name
-        self.cfg = get_model_config(model_name)
+        self.cfg = cfg or get_model_config(model_name)
         self.compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.batch_size = batch_size
         self.tokenizer = get_default_tokenizer()

@@ -60,7 +60,9 @@ class CLIPConfig:
     embed_dim: int = 512
     vision: VisionConfig = VisionConfig()
     text: TextConfig = TextConfig()
-    # "auto" | "auto_grad" | "xla" | "plain" | "plain_grad" — see layers.block_apply
+    # "auto" | "auto_grad" | "xla" | "flash" | "plain" | "plain_grad" | "flash_plain"
+    # — see layers.block_apply; "flash" runs every full block's attention
+    # through kernel K6 (ops.attention), the pooled-row final blocks stay plain
     attn_impl: str = "auto"
     # "quick_gelu" (OpenAI CLIP) | "gelu" (OpenCLIP laion towers)
     activation: str = "quick_gelu"

@@ -7,16 +7,23 @@ statistics always in fp32 whatever the compute dtype.
 
 ``block_apply(attn_impl="auto")`` routes CUDA tensors of towers up to width
 1280 through the hand-written kernels K1 and K2, or K3 on int8 params
-(``ops.block_fused``); other tensors take the plain composition below, as the
-JAX package does off the TPU. Under grad mode the float route goes through
-``ops.block_fused.FusedBlockFunction``, whose backward is K5b then K5a.
-``attn_impl="auto_grad"`` is the training resolution of the JAX package
-(``layers.py:338-344``): "auto" when T >= 512, the plain composition
-otherwise. ``attn_impl="plain"`` runs the kernels' plain PyTorch versions
-(forward and backward) instead, on any device: the reference the kernel path
-is held to on the card; ``"plain_grad"`` is that reference for a training
-step (the plain versions where "auto_grad" runs kernels). ``linear`` dispatches on the int8 layout of
-``models.quant`` (``kernel_q``) to ``quantized_linear``.
+(``ops.block_fused``); a block the fused route does not take runs the
+composition below, whose attention follows ``attention(impl=...)`` as in the
+JAX package (``layers.py:78-122, 317-365``): "xla" (the plain math), "flash"
+(kernel K6, ``ops.attention.flash_attention``, at any width) or "auto"
+("flash" on a CUDA tensor at T >= 256, "xla" otherwise; so a tower wider than
+1280 reaches K6 under "auto"). Under grad mode the fused route goes through
+``ops.block_fused.FusedBlockFunction``, whose backward is K5b then K5a, and
+K6 through ``ops.attention.FlashAttentionFunction``, whose backward is the
+plain recompute. ``attn_impl="auto_grad"`` is the training resolution of the
+JAX package (``layers.py:338-344``): "auto" when T >= 512, "xla" otherwise.
+``attn_impl="plain"`` runs K1's and K2's plain PyTorch versions (forward and
+backward) on any device: the reference the fused route is held to on the
+card; ``"plain_grad"`` is that reference for a training step (the plain
+versions where "auto_grad" runs kernels), and ``"flash_plain"`` the
+reference of "flash" (K6's plain version). An ``attn_impl`` outside
+``ATTN_IMPLS`` raises ``ValueError``. ``linear`` dispatches on the int8
+layout of ``models.quant`` (``kernel_q``) to ``quantized_linear``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Any
 
 import torch
 
+from evr_tpu_torch.ops.attention import flash_attention, xla_attention
 from evr_tpu_torch.ops.block_fused import (
     fused_block_apply,
     fused_quant_block_apply,
@@ -37,6 +45,8 @@ from .quant import quantized_linear
 Params = dict[str, Any]
 
 LN_EPS = 1e-5
+ATTN_IMPLS = ("auto", "auto_grad", "xla", "flash", "plain", "plain_grad", "flash_plain")
+FUSED_MAX_WIDTH = 1280  # the widest tower the fused block route takes, as in the JAX package
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -70,22 +80,30 @@ def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
     return y
 
 
-def attention(x: torch.Tensor, p: Params, n_heads: int, causal: bool = False) -> torch.Tensor:
-    """Multi-head self-attention over [B, T, W]: the XLA-path math of the
-    JAX package, fp32 scores and softmax, causal fill -1e9."""
+def attention(
+    x: torch.Tensor, p: Params, n_heads: int, causal: bool = False, impl: str = "xla"
+) -> torch.Tensor:
+    """Multi-head self-attention over [B, T, W]. ``impl``: "xla" (the
+    XLA-path math of the JAX package: fp32 scores and softmax, causal fill
+    -1e9), "flash" (K6 on a CUDA tensor, its plain version on a CPU one),
+    "auto" ("flash" on a CUDA tensor at T >= 256, else "xla") or
+    "flash_plain" (K6's plain version on any device)."""
     B, T, W = x.shape
     d = W // n_heads
+    if impl == "auto":
+        impl = "flash" if T >= 256 and x.is_cuda else "xla"
     q, k, v = (
         t.reshape(B, T, n_heads, d).transpose(1, 2)
         for t in linear(x, p["qkv"]).split(W, dim=-1)
     )
-    logits = (q @ k.transpose(-1, -2)).float() * (1.0 / math.sqrt(d))
-    if causal:
-        mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-        logits = torch.where(mask, logits, torch.tensor(-1e9, device=x.device))
-    weights = torch.softmax(logits, dim=-1).to(x.dtype)
-    o = (weights @ v).transpose(1, 2).reshape(B, T, W)
-    return linear(o, p["out"])
+    if impl in ("flash", "flash_plain"):
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                            impl="kernel" if impl == "flash" else "plain")
+    elif impl == "xla":
+        o = xla_attention(q, k, v, causal)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return linear(o.transpose(1, 2).reshape(B, T, W), p["out"])
 
 
 def final_block_cls(
@@ -153,23 +171,29 @@ def block_apply(
     activation: str = "quick_gelu",
 ) -> torch.Tensor:
     """One pre-LN residual block. ``attn_impl``: "auto" (kernels K1 → K2, or
-    K3a → K3b on int8 params, for a CUDA tensor of width ≤ 1280; the plain
-    composition otherwise), "auto_grad" ("auto" at T ≥ 512, else "xla"),
-    "xla" (the plain composition), "plain" (the kernels' plain versions), or
-    "plain_grad" ("plain" at T ≥ 512, else "xla": a training step with each
-    kernel of "auto_grad" replaced by its plain version).
-    A differentiable call on the kernel route runs K5b → K5a backward
-    (``FusedBlockFunction``); int8 params are inference only and their
+    K3a → K3b on int8 params, for a CUDA tensor of width ≤ 1280; otherwise the
+    composition with ``attention(impl="auto")``), "auto_grad" ("auto" at
+    T ≥ 512, else "xla"), "xla" (the plain composition), "flash" (the
+    composition with K6 at any width), "plain" (K1's and K2's plain
+    versions, the reference of the fused route), "plain_grad" ("plain" at
+    T ≥ 512, else "xla": a training step with each kernel of "auto_grad"
+    replaced by its plain version) or "flash_plain" ("flash" with K6's plain
+    version).
+    A differentiable call on the fused route runs K5b → K5a backward
+    (``FusedBlockFunction``), on K6 the plain recompute
+    (``FlashAttentionFunction``); int8 params are inference only and their
     kernels refuse inputs that require grad."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r} (supported: {ATTN_IMPLS})")
     if attn_impl in ("auto_grad", "plain_grad"):
         # the fused backward only where the JAX trainer takes it (T ≥ 512)
         attn_impl = attn_impl.removesuffix("_grad") if x.shape[1] >= 512 else "xla"
-    if attn_impl == "auto" and x.shape[2] <= 1280 and x.is_cuda:
+    if attn_impl == "auto" and x.shape[2] <= FUSED_MAX_WIDTH and x.is_cuda:
         if "kernel_q" in p["attn"]["qkv"]:
             return fused_quant_block_apply(x, p, n_heads, activation, causal)
         return fused_block_apply(x, p, n_heads, activation, causal)
     if attn_impl == "plain":
         return plain_block_apply(x, p, n_heads, activation, causal)
-    x = x + attention(layer_norm(x, p["ln_1"]), p["attn"], n_heads, causal)
+    x = x + attention(layer_norm(x, p["ln_1"]), p["attn"], n_heads, causal, attn_impl)
     h = ACTIVATIONS[activation](linear(layer_norm(x, p["ln_2"]), p["mlp"]["fc"]))
     return x + linear(h, p["mlp"]["proj"])

@@ -1,3 +1,4 @@
+from .attention import flash_attention
 from .preprocess import CLIP_MEAN, CLIP_STD, stage_array_fast, stage_image_fast
 from .retrieval import fused_topk
 from .topk import cosine_topk, merge_topk
@@ -8,6 +9,7 @@ __all__ = [
     "stage_array_fast",
     "stage_image_fast",
     "cosine_topk",
+    "flash_attention",
     "fused_topk",
     "merge_topk",
 ]

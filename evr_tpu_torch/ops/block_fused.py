@@ -76,28 +76,35 @@ def _activate(h: torch.Tensor, activation: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {activation!r}")
 
 
+def attend_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Multi-head attention over q, k, v [B, H, T, d] at the fused kernels'
+    rounding points: q scaled in its dtype (the scale rounded to it first),
+    fp32 scores and softmax (causal fill −1e30), P rounded for P·V, the fp32
+    sum divided after P·V and the output rounded. Returns [B, H, T, d] in
+    q's dtype."""
+    dt = q.dtype
+    T, d = q.shape[-2:]
+    q = q * torch.tensor(1.0 / math.sqrt(d), dtype=dt, device=q.device)
+    s = q.float() @ k.float().transpose(-1, -2)
+    if causal:
+        mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(-1, keepdim=True)
+    return ((p.to(dt).float() @ v.float()) / denom).to(dt)
+
+
 def _attend(qkv: torch.Tensor, n_heads: int, causal: bool) -> torch.Tensor:
-    """Multi-head attention over the rounded qkv [B, T, 3W] of the fused
-    kernels: q scaled in qkv's dtype, fp32 scores and softmax (causal fill
-    −1e30), P rounded for P·V, the fp32 sum divided after P·V and the head
-    output rounded. Returns o [B, T, W] in qkv's dtype."""
-    dt = qkv.dtype
+    """``attend_heads`` over the rounded qkv [B, T, 3W] of the fused
+    kernels. Returns o [B, T, W] in qkv's dtype."""
     B, T, W3 = qkv.shape
     W = W3 // 3
     d = W // n_heads
     q, k, v = (
         t.reshape(B, T, n_heads, d).transpose(1, 2) for t in qkv.split(W, dim=-1)
     )
-    q = q * torch.tensor(1.0 / math.sqrt(d), dtype=dt, device=qkv.device)
-    s = q.float() @ k.float().transpose(-1, -2)
-    if causal:
-        mask = torch.ones(T, T, dtype=torch.bool, device=qkv.device).tril()
-        s = torch.where(mask, s, torch.tensor(-1e30, device=qkv.device))
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    denom = p.sum(-1, keepdim=True)
-    o = ((p.to(dt).float() @ v.float()) / denom).to(dt)
-    return o.transpose(1, 2).reshape(B, T, W)
+    return attend_heads(q, k, v, causal).transpose(1, 2).reshape(B, T, W)
 
 
 def fused_attn_block_plain(

@@ -22,7 +22,7 @@ CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "build"
 KERNEL_SOURCES = (
     "block_attn", "block_mlp", "block_quant", "topk_fused", "block_attn_bwd", "block_mlp_bwd",
-    "adc_list",
+    "adc_list", "flash_attn",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -133,6 +133,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "adc_list":
         fn = lib.evr_adc_list_scores
         fn.argtypes = [p, p, i, i, i, i, i, p, p]
+        fn.restype = i
+    elif name == "flash_attn":
+        fn = lib.evr_flash_attention
+        fn.argtypes = [i, p, p, p, p, i, i, i, i, f, p]
         fn.restype = i
     else:
         raise KeyError(f"unknown kernel library {name!r}")

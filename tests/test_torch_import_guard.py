@@ -26,9 +26,11 @@ import evr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(evr_tpu_torch.__path__, "evr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# the ANN slice: K7's wrapper, the three tiers and the offline CLI
+# the ANN slice: K7's wrapper, the three tiers and the offline CLI; the
+# flash-attention slice: K6's wrapper
 for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.index.pq",
-             "evr_tpu_torch.index.ivfpq", "evr_tpu_torch.tools.index_tool"):
+             "evr_tpu_torch.index.ivfpq", "evr_tpu_torch.tools.index_tool",
+             "evr_tpu_torch.ops.attention"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)
@@ -42,11 +44,11 @@ def test_port_imports_without_jax_or_evr_tpu():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr[-3000:]
-    # every module of slices 1 to 4 (models.quant and quant_gate, ops.int8
+    # every module of slices 1 to 5 (models.quant and quant_gate, ops.int8
     # and retrieval; models.classifier, parallel.contrastive, the training
     # package and tools.finetune; ops.adc, index.ivf, pq, ivfpq and
-    # tools.index_tool among them) was imported
-    assert int(out.stdout.strip().splitlines()[-1]) >= 49
+    # tools.index_tool; ops.attention among them) was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 50
 
 
 def _port_files():
