@@ -13,11 +13,14 @@ package. Phases, each fatal on failure:
    against their plain PyTorch versions at the ViT-B/32 main-path shapes,
    vision (B=256, T=50, W=768, H=12) and text (B=16, T=77, W=512, H=8,
    causal), in bfloat16 and float32, and K1, K2, K3a and K3b at the
-   ViT-L/14@336px training shape (B=32, T=577, W=1024, H=16); K4 (``fused_topk``) against
+   ViT-L/14@336px training shape (B=32, T=577, W=1024, H=16) and at
+   ViT-H-14's vision shape (B=32, T=257, W=1280, H=16: head dim 80, exact
+   GELU); K4 (``fused_topk``) against
    its plain version on 1,048,576 index rows of 512 in int8, bf16 and fp32;
    K5a and K5b (``fused_attn_block_bwd``, ``fused_mlp_block_bwd``: the block
    backward) against theirs at the training shape and at ViT-L/14's causal
-   text shape (B=16, T=77, W=768, H=12), bf16 and fp32, every output;
+   text shape (B=16, T=77, W=768, H=12), and K5a at head dim 80 (B=4,
+   T=577, W=1280, H=16), bf16 and fp32, every output;
 4. main path, bf16 weights: ``EmbeddingEngine("ViT-B/32", device="cuda")``
    with seeded random weights embeds 1,024 synthetic frames of four videos
    at batch 256, the data root is written, ``ServingContext`` boots from it
@@ -65,7 +68,27 @@ package. Phases, each fatal on failure:
    rankings against ``attn_impl="flash_plain"``); the same weights train
    three ``make_train_step`` steps (batch 32, bf16, ``freeze_layers=8``): K6
    in every block's forward, the plain recompute backward, frozen leaves
-   unchanged, a K6 step against a plain step within bands; K6's times.
+   unchanged, a K6 step against a plain step within bands; K6's times; and
+   the served path again with int8 block linears under "flash" (K6 launches
+   as before, no K1-K3), unit embeddings and rankings against
+   ``"flash_plain"`` within the int8 bands;
+10. ViT-H-14 under its default configuration: ``EmbeddingEngine("ViT-H-14",
+   params=..., device="cuda")`` with no ``cfg`` (``attn_impl="auto"``) serves
+   the path of phase 4 through K1 and K2 at head dim 80 (vision, T=257,
+   W=1280, exact GELU) and 64 (text), 31 launches of each per encode batch
+   and 23 per text encode, K6 none, against ``attn_impl="plain"``; then with
+   int8 weights through K3a and K3b, against the int8 plain route (phase 3
+   holds K1, K2, K3a and K3b to their plain versions at that vision shape,
+   and K5a at head dim 80, T=577; phase 7 times them there);
+11. the exported ops no tower calls, as in the JAX package: K8
+   (``ops.fused_layer_norm``) on 12,800 x 768, 65,792 x 1280 and 1,000 x 100
+   rows, bf16 and fp32, with and without the quickGELU tail, against its
+   plain version, timed against ``F.layer_norm``; K9
+   (``ops.block_fused.fused_block_merged``) at ViT-B/32's vision and text
+   shapes and ViT-H-14's vision shape, bf16 and fp32, bit-equal to
+   ``fused_block_apply`` (K1 then K2), timed against that pair, its plain
+   version and the library composition. Their launches are counted over
+   their own phases.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -93,6 +116,14 @@ TEXT = dict(B=16, T=77, W=512, H=8, causal=True)
 # K1/K2 and K5a/K5b, and its (causal) text tower
 VITL = dict(B=32, T=577, W=1024, H=16, causal=False)
 VITL_TEXT = dict(B=16, T=77, W=768, H=12, causal=True)
+# ViT-H-14's vision tower (16 heads of 80, exact GELU), the widest the fused
+# route takes: K1-K3 parity at a batch cut to 32 (VITH), their times at the
+# serving batch (VITH_SERVE), and K5a's parity at head dim 80 and T = 577 at
+# the kernel level (VITH_BWD: no registry tower with head dim 80 trains at
+# T >= 512, where the fused backward runs)
+VITH = dict(B=32, T=257, W=1280, H=16, causal=False, act="gelu")
+VITH_SERVE = dict(VITH, B=256)
+VITH_BWD = dict(B=4, T=577, W=1280, H=16, causal=False)
 FP32_TOL = 2e-4  # max abs, fp32 kernel vs plain version (accumulation order only)
 BF16_TOL = 3e-2  # max abs on unit-variance activations: about 2 bf16 ulps below 4
 BF16_MIN_COS = 0.9999  # per output row, bf16
@@ -121,6 +152,16 @@ INT8_MIN_COS = 0.99999  # per output row; the probe's worst was 0.999998
 # queries) and 3.83e-3 with each path's own text vectors.
 INT8_ONE_VECTOR_RANK_NOISE = 4e-3
 INT8_SERVED_RANK_NOISE = 8e-3
+# ViT-H-14 on int8 weights (the default route through K3, and "flash"): on
+# random weights its 32 vision blocks leave the frame embeddings so alike
+# that the int8 bands hold nearly every frame around each top-10 cut (all
+# 1,024 for frame queries in a probe run on an H100 80GB HBM3 at 700 W), so
+# the ranking check cannot reject anything there. These paths are held to a
+# tighter row-cosine band instead: the int8 kernel path's unit rows against
+# the plain path's were at least 0.999676 (text) and 0.999782 (frames) in
+# that run, a gap of at most 3.2e-4; the band allows about twice that, and
+# still rejects rows off by cosine 0.999.
+VITH_INT8_MIN_COS = 0.99935
 # K4 on an index of TOPK_ROWS x TOPK_DIM: rows must be equal; scores within
 # 1e-5 (fp32 rows) or 1e-3 (int8/bf16), though the plain version sums in the
 # kernel's order and so should agree to the bit.
@@ -212,6 +253,17 @@ FLASH_ONE_VECTOR_RANK_NOISE = ONE_VECTOR_RANK_NOISE
 FLASH_SERVED_RANK_NOISE = SERVED_RANK_NOISE
 FLASH_STEP_FP32_BANDS = STEP_FP32_BANDS
 FLASH_STEP_BF16_BANDS = (4e-4, 1.6e-2, 0.9939)
+# K8 (``ops.fused_layer_norm``) on the rows of the towers' LayerNorms:
+# ViT-B/32's vision blocks at the serving batch (256 x 50 rows of 768),
+# ViT-H-14's (256 x 257 rows of 1280), and a ragged case (1,000 rows of 100,
+# not a multiple of 32 or 8); timed at ViT-H-14's rows. Tolerances as for K1.
+LN_CASES = {"vitb-vision": (12800, 768), "vith-vision": (65792, 1280), "ragged": (1000, 100)}
+LN_MAIN_CASE = "vith-vision"
+# K9 (``fused_block_merged``) at ViT-B/32's vision and causal text shapes
+# (quickGELU) and ViT-H-14's vision shape (head dim 80, exact GELU, the
+# parity batch of VITH); bit-equal to fused_block_apply, and within the K1/K2
+# tolerances of its plain version
+MERGED_SHAPES = {"vision": VISION, "text": TEXT, "vith": VITH}
 MODEL = "ViT-B/32"
 N_FRAMES, N_VIDEOS, BATCH = 1024, 4, 256
 N_FRAME_QUERIES = 8
@@ -324,7 +376,7 @@ def phase_parity(torch):
 
     dev = torch.device("cuda")
     worst = {"fused_attn_block": 0.0, "fused_mlp_block": 0.0}
-    for shape_name, s in (("vision", VISION), ("text", TEXT), ("vitl", VITL)):
+    for shape_name, s in (("vision", VISION), ("text", TEXT), ("vitl", VITL), ("vith", VITH)):
         gen = torch.Generator(device=dev).manual_seed(1)
         attn_args, mlp_args = bf.block_half_params(block_params(torch, s["W"], gen, dev))
         x32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev)
@@ -335,7 +387,7 @@ def phase_parity(torch):
                 ("fused_attn_block", bf.fused_attn_block, bf.fused_attn_block_plain,
                  dict(n_heads=s["H"], causal=s["causal"]), attn_args),
                 ("fused_mlp_block", bf.fused_mlp_block, bf.fused_mlp_block_plain,
-                 dict(activation="quick_gelu"), mlp_args),
+                 dict(activation=s.get("act", "quick_gelu")), mlp_args),
             ):
                 got = kern(x, *args, **kw)
                 torch.cuda.synchronize()
@@ -383,20 +435,22 @@ def bwd_compare(torch, got, ref, is_dx: bool):
 def phase_parity_bwd(torch):
     """K5a and K5b against their plain versions at ViT-L/14@336px's training
     shapes, vision and causal text, bf16 and fp32, quickGELU; exact GELU
-    for K5b at the vision shape. Every output is checked."""
+    for K5b at the vision shape; K5a at head dim 80 (VITH_BWD). Every
+    output is checked."""
     from evr_tpu_torch.ops import block_fused as bf
 
     dev = torch.device("cuda")
     worst = {"fused_attn_block_bwd": 0.0, "fused_mlp_block_bwd": 0.0}
-    for shape_name, s in (("vitl", VITL), ("vitl-text", VITL_TEXT)):
+    for shape_name, s in (("vitl", VITL), ("vitl-text", VITL_TEXT), ("vith", VITH_BWD)):
         gen = torch.Generator(device=dev).manual_seed(1)
         attn_args, mlp_args = bf.block_half_params(block_params(torch, s["W"], gen, dev))
         x32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev)
         g32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev) * 0.01
         cases = [("fused_attn_block_bwd", bf.fused_attn_block_bwd, bf.fused_attn_block_bwd_plain,
-                  dict(n_heads=s["H"], causal=s["causal"]), attn_args),
-                 ("fused_mlp_block_bwd", bf.fused_mlp_block_bwd, bf.fused_mlp_block_bwd_plain,
-                  dict(activation="quick_gelu"), mlp_args)]
+                  dict(n_heads=s["H"], causal=s["causal"]), attn_args)]
+        if shape_name != "vith":  # K5a alone at head dim 80
+            cases.append(("fused_mlp_block_bwd", bf.fused_mlp_block_bwd, bf.fused_mlp_block_bwd_plain,
+                          dict(activation="quick_gelu"), mlp_args))
         if shape_name == "vitl":
             cases.append(("fused_mlp_block_bwd", bf.fused_mlp_block_bwd, bf.fused_mlp_block_bwd_plain,
                           dict(activation="gelu"), mlp_args))
@@ -437,20 +491,21 @@ def quantized_block(p):
 
 def phase_parity_int8(torch):
     """K3a and K3b against their plain versions, bf16 and fp32, at the
-    serving shapes and at T = 577 (ViT-L/14@336px's vision tower), quickGELU;
-    exact GELU at the vision width."""
+    serving shapes, at T = 577 (ViT-L/14@336px's vision tower), quickGELU,
+    and at ViT-H-14's vision shape (head dim 80, exact GELU); exact GELU
+    also at the ViT-B/32 vision width."""
     from evr_tpu_torch.ops import block_fused as bf
 
     dev = torch.device("cuda")
     worst = {"fused_attn_block_q": 0.0, "fused_mlp_block_q": 0.0}
-    for shape_name, s in (("vision", VISION), ("text", TEXT), ("vitl", VITL)):
+    for shape_name, s in (("vision", VISION), ("text", TEXT), ("vitl", VITL), ("vith", VITH)):
         gen = torch.Generator(device=dev).manual_seed(1)
         attn, mlp = bf.quant_block_half_params(quantized_block(block_params(torch, s["W"], gen, dev)))
         x32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev)
         cases = [("fused_attn_block_q", bf.fused_attn_block_q, bf.fused_attn_block_q_plain,
                   dict(n_heads=s["H"], causal=s["causal"]), attn),
                  ("fused_mlp_block_q", bf.fused_mlp_block_q, bf.fused_mlp_block_q_plain,
-                  dict(activation="quick_gelu"), mlp)]
+                  dict(activation=s.get("act", "quick_gelu")), mlp)]
         if shape_name == "vision":
             cases.append(("fused_mlp_block_q", bf.fused_mlp_block_q, bf.fused_mlp_block_q_plain,
                           dict(activation="gelu"), mlp))
@@ -704,11 +759,16 @@ def serve_counted(torch, engine, frames, root: pathlib.Path, counted, **ctx_kwar
 
 
 def check_against_plain(torch, engine, frames, emb, one_noise: float, served_noise: float,
-                        what: str, plain_impl: str = "plain") -> dict:
+                        what: str, plain_impl: str = "plain", min_cos: float = EMBED_MIN_COS) -> dict:
     """The kernel path's embeddings and top-10 rankings against the plain
     versions' (``attn_impl=plain_impl``: "plain", or "flash_plain" for the
-    flash route) on the same frames and queries. Returns the least row
-    cosines and the largest score difference of each ranking case."""
+    flash route) on the same frames and queries: unit rows within ``min_cos``
+    and rankings within the noise bands. Then the check must reject frame
+    embeddings off by row cosine EMBED_MIN_COS: through the rankings, or,
+    where ``min_cos`` is tighter than that (a path whose rankings are too
+    flat for the bands to reject anything), through the row cosines, row by
+    row. Returns the least row cosines and the largest score difference of
+    each ranking case."""
     import dataclasses
 
     import numpy as np
@@ -726,7 +786,7 @@ def check_against_plain(torch, engine, frames, emb, one_noise: float, served_noi
     ref_n = ref / np.linalg.norm(ref, axis=1, keepdims=True)
     cos = (got_n * ref_n).sum(1)
     log(f"{what}: frame embeddings, kernel path vs plain path: min row cos {cos.min():.6f}")
-    check(cos.min() >= EMBED_MIN_COS, f"{what}: embedding cosine {cos.min()} < {EMBED_MIN_COS}")
+    check(cos.min() >= min_cos, f"{what}: embedding cosine {cos.min()} < {min_cos}")
     tokens = torch.from_numpy(engine.tokenizer(list(QUERIES))).cuda()
     with torch.inference_mode():
         txt_ref = encode_text(engine.params, plain_cfg, tokens, dtype=engine.compute_dtype,
@@ -735,7 +795,7 @@ def check_against_plain(torch, engine, frames, emb, one_noise: float, served_noi
     txt = engine.encode_texts(list(QUERIES))
     tcos = (txt * txt_ref).sum(1)
     log(f"{what}: text embeddings, kernel path vs plain path: min row cos {tcos.min():.6f}")
-    check(tcos.min() >= EMBED_MIN_COS, f"{what}: text embedding cosine {tcos.min()} < {EMBED_MIN_COS}")
+    check(tcos.min() >= min_cos, f"{what}: text embedding cosine {tcos.min()} < {min_cos}")
 
     # rankings: the frame paths under the plain path's text vectors and
     # under its vectors of a few frames; then the served ranking, each text
@@ -760,9 +820,16 @@ def check_against_plain(torch, engine, frames, emb, one_noise: float, served_noi
     off = got_n + noise * math.sqrt((1 / EMBED_MIN_COS**2 - 1) / got_n.shape[1])
     off /= np.linalg.norm(off, axis=1, keepdims=True)
     bad_off = sum(rank_check(off, ref_n, q, q, one_noise)[0] for q in (txt_ref, ref_n[picks]))
+    off_cos = (off * ref_n).sum(1)
     log(f"{what}: the one-vector ranking checks on frame embeddings off by row cosine "
-        f"{float((off * got_n).sum(1).mean()):.5f}: {bad_off} violations")
-    check(bad_off > 0, f"{what}: the ranking check passes embeddings off by row cosine 0.999")
+        f"{float((off * got_n).sum(1).mean()):.5f}: {bad_off} violations; their row cosines "
+        f"against the plain path {float(off_cos.min()):.5f} to {float(off_cos.max()):.5f}")
+    if min_cos > EMBED_MIN_COS:
+        check(bad_off > 0 or bool((off_cos < min_cos).all()),
+              f"{what}: neither the ranking check nor the row-cosine band {min_cos} rejects "
+              "embeddings off by row cosine 0.999")
+    else:
+        check(bad_off > 0, f"{what}: the ranking check passes embeddings off by row cosine 0.999")
     return out
 
 
@@ -1132,7 +1199,42 @@ def time_case(torch, name, tag, kern, plain, lib, t_ops, t_bytes, desc, counted)
     return rec
 
 
+def library_act(torch, act: str):
+    """The activation of a library yardstick: quickGELU, or exact GELU."""
+    if act == "quick_gelu":
+        return lambda h: h * torch.sigmoid(1.702 * h)
+    return torch.nn.functional.gelu
+
+
+def library_halves(torch, a, m, s: dict):
+    """The library yardsticks of K1 and K2, which the port never calls:
+    ``F.layer_norm`` + ``F.linear`` + ``F.scaled_dot_product_attention`` +
+    ``F.linear``, and LN + linear + activation + linear, over the halves'
+    parameters ``a`` and ``m`` in the compute dtype. Returns two functions
+    of x."""
+    import torch.nn.functional as F
+
+    B, T, W, H = s["B"], s["T"], s["W"], s["H"]
+    act_fn = library_act(torch, s.get("act", "quick_gelu"))
+    qkv_t, out_t = a[2].t().contiguous(), a[4].t().contiguous()
+    fc_t, pr_t = m[2].t().contiguous(), m[4].t().contiguous()
+
+    def attn(x):
+        y = F.layer_norm(x, (W,), a[0], a[1], 1e-5)
+        q, k, v = F.linear(y, qkv_t, a[3]).view(B, T, 3, H, W // H).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=s["causal"])
+        return x + F.linear(o.transpose(1, 2).reshape(B, T, W), out_t, a[5])
+
+    def mlp(x):
+        h = F.linear(F.layer_norm(x, (W,), m[0], m[1], 1e-5), fc_t, m[3])
+        return x + F.linear(act_fn(h), pr_t, m[5])
+
+    return attn, mlp
+
+
 def phase_times(torch):
+    """K1, K2, K3a and K3b at the ViT-B/32 serving shapes (vision, text) and
+    at ViT-H-14's vision shape (VITH_SERVE, exact GELU), bf16."""
     import torch.nn.functional as F
 
     from evr_tpu_torch.ops import block_fused as bf
@@ -1141,7 +1243,9 @@ def phase_times(torch):
     dev = torch.device("cuda")
     counted = (bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_q, bf.fused_mlp_block_q)
     out = {}
-    for shape_name, s in (("vision", VISION), ("text", TEXT)):
+    for shape_name, s in (("vision", VISION), ("text", TEXT), ("vith", VITH_SERVE)):
+        act = s.get("act", "quick_gelu")
+        act_fn = library_act(torch, act)
         gen = torch.Generator(device=dev).manual_seed(2)
         fp = block_params(torch, s["W"], gen, dev)
         attn_args, mlp_args = bf.block_half_params(fp)
@@ -1150,21 +1254,10 @@ def phase_times(torch):
         a = [t.to(dt) for t in attn_args]
         m = [t.to(dt) for t in mlp_args]
         B, T, W, H = s["B"], s["T"], s["W"], s["H"]
-        qkv_t, out_t = a[2].t().contiguous(), a[4].t().contiguous()
-        fc_t, pr_t = m[2].t().contiguous(), m[4].t().contiguous()
         qa, qm = bf.quant_block_half_params(quantized_block(fp))
         qa_args = bf.cast_quant_args(dt, qa)
         qm_args = bf.cast_quant_args(dt, qm)
-
-        def lib_attn():
-            y = F.layer_norm(x, (W,), a[0], a[1], 1e-5)
-            q, k, v = F.linear(y, qkv_t, a[3]).view(B, T, 3, H, W // H).permute(2, 0, 3, 1, 4)
-            o = F.scaled_dot_product_attention(q, k, v, is_causal=s["causal"])
-            return x + F.linear(o.transpose(1, 2).reshape(B, T, W), out_t, a[5])
-
-        def lib_mlp():
-            h = F.linear(F.layer_norm(x, (W,), m[0], m[1], 1e-5), fc_t, m[3])
-            return x + F.linear(h * torch.sigmoid(1.702 * h), pr_t, m[5])
+        lib_attn_of, lib_mlp_of = library_halves(torch, a, m, s)
 
         # int8 yardsticks: the library's int8 GEMM (torch._int_mm, weights
         # column-major as its int8 path takes them) around the same
@@ -1187,20 +1280,20 @@ def phase_times(torch):
         def lib_mlp_q():
             y = F.layer_norm(x.float(), (W,), qm_args[0].float(), qm_args[1].float(), 1e-5)
             h = int_mm(y.view(-1, W), fc_cm, qm_args[3], qm_args[4])
-            o = int_mm(h * torch.sigmoid(1.702 * h), prq_cm, qm_args[6], qm_args[7])
+            o = int_mm(act_fn(h), prq_cm, qm_args[6], qm_args[7])
             return (x.view(-1, W).float() + o).to(dt)
 
         cases = (
             ("fused_attn_block", lambda: bf.fused_attn_block(x, *a, n_heads=H, causal=s["causal"]),
-             lambda: bf.fused_attn_block_plain(x, *a, n_heads=H, causal=s["causal"]), lib_attn),
-            ("fused_mlp_block", lambda: bf.fused_mlp_block(x, *m),
-             lambda: bf.fused_mlp_block_plain(x, *m), lib_mlp),
+             lambda: bf.fused_attn_block_plain(x, *a, n_heads=H, causal=s["causal"]), lambda: lib_attn_of(x)),
+            ("fused_mlp_block", lambda: bf.fused_mlp_block(x, *m, activation=act),
+             lambda: bf.fused_mlp_block_plain(x, *m, activation=act), lambda: lib_mlp_of(x)),
             ("fused_attn_block_q",
              lambda: bf.fused_attn_block_q(x, *qa, n_heads=H, causal=s["causal"]),
              lambda: bf.fused_attn_block_q_plain(x, *qa_args, n_heads=H, causal=s["causal"]),
              lib_attn_q),
-            ("fused_mlp_block_q", lambda: bf.fused_mlp_block_q(x, *qm),
-             lambda: bf.fused_mlp_block_q_plain(x, *qm_args), lib_mlp_q),
+            ("fused_mlp_block_q", lambda: bf.fused_mlp_block_q(x, *qm, activation=act),
+             lambda: bf.fused_mlp_block_q_plain(x, *qm_args, activation=act), lib_mlp_q),
         )
         for name, kern, plain, lib in cases:
             t_ops, t_bytes, desc = half_bound_ms(name, s, 2)
@@ -1693,14 +1786,16 @@ def flash_params():
     return cfg, params
 
 
-def phase_main_path_flash(torch, cfg, np_params):
+def phase_main_path_flash(torch, cfg, np_params, params_dtype: str = "float32"):
     """The flash route served: ``EmbeddingEngine(cfg=...)`` with the seeded
-    ViT-H-14 weights encodes N_FRAMES synthetic 224² frames at batch BATCH,
-    the data root is written, ``ServingContext(engine=...)`` boots and
-    answers /api/search; K6a's and K6b's launches against the counts
-    expected (every full block of both towers), K1's and K2's (none), and
-    the embeddings and rankings against the same path with K6's plain
-    version (``attn_impl="flash_plain"``)."""
+    ViT-H-14 weights (or, with ``params_dtype="int8"``, their int8 block
+    linears) encodes N_FRAMES synthetic 224² frames at batch BATCH, the data
+    root is written, ``ServingContext(engine=...)`` boots and answers
+    /api/search; K6a's and K6b's launches against the counts expected (every
+    full block of both towers), K1's, K2's, K3a's and K3b's (none), and the
+    unit embeddings and rankings against the same path with K6's plain
+    version (``attn_impl="flash_plain"``), within the int8 bands on int8
+    weights."""
     from evr_tpu_torch.index import EmbeddingEngine
     from evr_tpu_torch.ops import attention as fa
     from evr_tpu_torch.ops import block_fused as bf
@@ -1708,25 +1803,32 @@ def phase_main_path_flash(torch, cfg, np_params):
     vis = cfg.vision
     frames = synthetic_frames(torch, N_FRAMES, vis.image_size, vis.patch_size)
     t0 = time.perf_counter()
-    engine = EmbeddingEngine(FLASH_MODEL, params=np_params, cfg=cfg, device="cuda", batch_size=BATCH)
-    log(f"engine: {FLASH_MODEL}, attn_impl={engine.cfg.attn_impl!r}, {engine.compute_dtype}, "
-        f"set up in {time.perf_counter() - t0:.1f} s")
+    engine = EmbeddingEngine(FLASH_MODEL, params=np_params, cfg=cfg, device="cuda", batch_size=BATCH,
+                             params_dtype=params_dtype)
+    log(f"engine: {FLASH_MODEL}, attn_impl={engine.cfg.attn_impl!r}, {params_dtype} weights, "
+        f"{engine.compute_dtype}, set up in {time.perf_counter() - t0:.1f} s")
     counted = [fa.flash_attention_full, fa.flash_attention_blocked, bf.fused_attn_block,
-               bf.fused_mlp_block]
+               bf.fused_mlp_block, bf.fused_attn_block_q, bf.fused_mlp_block_q]
+    what = f"{FLASH_MODEL} flash" + (" int8" if params_dtype == "int8" else "")
     with tempfile.TemporaryDirectory() as tmp:
         emb, ctx, encode_s, request_ms, launches = serve_counted(
             torch, engine, frames, pathlib.Path(tmp), counted)
         n_batches, n_text = -(-N_FRAMES // BATCH), len(QUERIES)
         expected = {"flash_attention_full": (vis.layers - 1) * n_batches,
                     "flash_attention_blocked": (cfg.text.layers - 1) * n_text,
-                    "fused_attn_block": 0, "fused_mlp_block": 0}
-        log(f"launches over the {FLASH_MODEL} flash path: {launches} (expected {expected}: "
+                    "fused_attn_block": 0, "fused_mlp_block": 0, "fused_attn_block_q": 0,
+                    "fused_mlp_block_q": 0}
+        log(f"launches over the {what} path: {launches} (expected {expected}: "
             f"{vis.layers - 1} full vision blocks per encode batch, {n_batches} batches; "
             f"{cfg.text.layers - 1} full text blocks per text encode, {n_text} encodes)")
         for name, n in expected.items():
             check(launches[name] == n, f"{name}: {launches[name]} launches, expected {n}")
-        diffs = check_against_plain(torch, engine, frames, emb, FLASH_ONE_VECTOR_RANK_NOISE,
-                                    FLASH_SERVED_RANK_NOISE, f"{FLASH_MODEL} flash", "flash_plain")
+        if params_dtype == "int8":
+            bands = (INT8_ONE_VECTOR_RANK_NOISE, INT8_SERVED_RANK_NOISE, what, "flash_plain",
+                     VITH_INT8_MIN_COS)
+        else:
+            bands = (FLASH_ONE_VECTOR_RANK_NOISE, FLASH_SERVED_RANK_NOISE, what, "flash_plain")
+        diffs = check_against_plain(torch, engine, frames, emb, *bands)
         p50 = text_query_p50_ms(engine, ctx)
         del ctx
     del engine
@@ -1847,6 +1949,207 @@ def phase_train_flash(torch, cfg, np_params):
             "peak_gib": peak, "compared": compared}
 
 
+# -- 10. ViT-H-14 under its default route -----------------------------------
+
+
+def phase_main_path_vith(torch, np_params, params_dtype: str = "float32"):
+    """ViT-H-14 served under its default configuration:
+    ``EmbeddingEngine(FLASH_MODEL, params=..., device="cuda")`` with no
+    ``cfg``, so ``attn_impl="auto"`` sends every full block of both towers
+    (vision W 1280, 16 heads of 80, exact GELU; text W 1024, 16 heads of 64)
+    to K1 and K2, or with ``params_dtype="int8"`` to K3a and K3b. The path of
+    phase 4 over the seeded ViT-H-14 weights; the launches of the route's
+    pair against the counts expected, of the other pair and of K6 (none);
+    embeddings and rankings against ``attn_impl="plain"`` within the bf16
+    (int8) bands."""
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.ops import attention as fa
+    from evr_tpu_torch.ops import block_fused as bf
+
+    t0 = time.perf_counter()
+    engine = EmbeddingEngine(FLASH_MODEL, params=np_params, device="cuda", batch_size=BATCH,
+                             params_dtype=params_dtype)
+    cfg = engine.cfg
+    check(cfg.attn_impl == "auto", f"{FLASH_MODEL}'s default attn_impl is {cfg.attn_impl!r}")
+    int8 = params_dtype == "int8"
+    what = f"{FLASH_MODEL} auto " + ("int8" if int8 else "bf16")
+    log(f"engine: {FLASH_MODEL}, default configuration (attn_impl={cfg.attn_impl!r}), {params_dtype} "
+        f"weights, {engine.compute_dtype}, set up in {time.perf_counter() - t0:.1f} s")
+    frames = synthetic_frames(torch, N_FRAMES, cfg.vision.image_size, cfg.vision.patch_size)
+    route = [bf.fused_attn_block_q, bf.fused_mlp_block_q] if int8 else [bf.fused_attn_block, bf.fused_mlp_block]
+    other = [bf.fused_attn_block, bf.fused_mlp_block] if int8 else [bf.fused_attn_block_q, bf.fused_mlp_block_q]
+    counted = route + other + [fa.flash_attention_full, fa.flash_attention_blocked]
+    with tempfile.TemporaryDirectory() as tmp:
+        emb, ctx, encode_s, request_ms, launches = serve_counted(
+            torch, engine, frames, pathlib.Path(tmp), counted)
+        n_batches, n_text = -(-N_FRAMES // BATCH), len(QUERIES)
+        per_route = (cfg.vision.layers - 1) * n_batches + (cfg.text.layers - 1) * n_text
+        expected = {fn.__name__: per_route if fn in route else 0 for fn in counted}
+        log(f"launches over the {what} path: {launches} (expected {expected}: "
+            f"{cfg.vision.layers - 1} full vision blocks per encode batch, {n_batches} batches; "
+            f"{cfg.text.layers - 1} full text blocks per text encode, {n_text} encodes)")
+        for name, n in expected.items():
+            check(launches[name] == n, f"{name}: {launches[name]} launches, expected {n}")
+        if int8:
+            bands = (INT8_ONE_VECTOR_RANK_NOISE, INT8_SERVED_RANK_NOISE, what, "plain", VITH_INT8_MIN_COS)
+        else:
+            bands = (ONE_VECTOR_RANK_NOISE, SERVED_RANK_NOISE, what, "plain")
+        diffs = check_against_plain(torch, engine, frames, emb, *bands)
+        p50 = text_query_p50_ms(engine, ctx)
+        del ctx
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": launches, "encode_frames_per_s": N_FRAMES / encode_s,
+            "text_query_p50_ms": p50, "request_p50_ms": statistics.median(request_ms),
+            "against_plain": diffs}
+
+
+# -- 11. K8 and K9, the exported ops -----------------------------------------
+
+
+def ln_inputs(torch, rows: int, d: int, seed: int):
+    """x [rows, d] of unit variance, scale about 1 and bias about 0 (fp32)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = unit_activations(torch, (rows, d), gen, "cuda")
+    scale = 1.0 + torch.randn(d, generator=gen, device="cuda") * 0.1
+    bias = torch.randn(d, generator=gen, device="cuda") * 0.1
+    return x, scale, bias
+
+
+def phase_layer_norm(torch):
+    """K8 through the entry point a user calls, ``ops.fused_layer_norm``
+    (no tower calls it, as in the JAX package): every LN_CASES case, bf16
+    and fp32, with and without the quickGELU tail, its launches counted over
+    that run alone; then each output against the plain version on the same
+    inputs (fp32 FP32_TOL, bf16 BF16_TOL); zero rows; the times at
+    LN_MAIN_CASE in bf16 against ``F.layer_norm`` (and the tail)."""
+    import torch.nn.functional as F
+
+    from evr_tpu_torch import ops
+    from evr_tpu_torch.ops import layernorm as ln
+
+    inputs = {tag: ln_inputs(torch, rows, d, seed=12) for tag, (rows, d) in LN_CASES.items()}
+    cases = [(tag, dt, act) for tag in LN_CASES for dt in (torch.bfloat16, torch.float32)
+             for act in ("none", "quick_gelu")]
+    ln.fused_layer_norm.launches = 0
+    outs = [ops.fused_layer_norm(inputs[tag][0].to(dt), *inputs[tag][1:], activation=act)
+            for tag, dt, act in cases]
+    torch.cuda.synchronize()
+    launches = ln.fused_layer_norm.launches
+    log(f"fused_layer_norm launches over its {len(cases)} calls: {launches}")
+    check(launches == len(cases), f"fused_layer_norm: {launches} launches, expected {len(cases)}")
+    worst = 0.0
+    for (tag, dt, act), got in zip(cases, outs):
+        x, scale, bias = inputs[tag]
+        ref = ln.fused_layer_norm_plain(x.to(dt), scale, bias, act)
+        err, cos, finite = compare(torch, got, ref)
+        name = f"fused_layer_norm {tag} {act} {str(dt).split('.')[-1]}"
+        log(f"parity {name}: max_abs_err={err:.3e} min_row_cos={cos:.7f}")
+        check(got.dtype == dt and got.shape == x.shape, f"{name}: {got.dtype} {tuple(got.shape)}")
+        check(finite, f"{name}: non-finite output")
+        tol = FP32_TOL if dt == torch.float32 else BF16_TOL
+        check(err <= tol, f"{name}: max abs err {err} > {tol}")
+        if dt == torch.bfloat16:
+            worst = max(worst, err)
+    empty = ops.fused_layer_norm(torch.empty((0, 768), device="cuda", dtype=torch.bfloat16),
+                                 *inputs["vitb-vision"][1:])
+    check(empty.shape == (0, 768) and ln.fused_layer_norm.launches == launches, "zero rows")
+    del outs
+
+    rows, d = LN_CASES[LN_MAIN_CASE]
+    x32, scale, bias = inputs[LN_MAIN_CASE]
+    x = x32.to(torch.bfloat16)
+    s16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    times = {}
+    for act, ops_per in (("none", 8), ("quick_gelu", 13)):
+        def lib(act=act):
+            y = F.layer_norm(x, (d,), s16, b16, 1e-5)
+            return y * torch.sigmoid(1.702 * y) if act == "quick_gelu" else y
+
+        nbytes = 2 * rows * d * 2 + 2 * d * 4
+        flops = ops_per * rows * d
+        times[act] = time_case(
+            torch, "fused_layer_norm", f"{LN_MAIN_CASE} {act} bf16 {rows} x {d}",
+            lambda act=act: ops.fused_layer_norm(x, scale, bias, activation=act),
+            lambda act=act: ln.fused_layer_norm_plain(x, scale, bias, act), lib,
+            flops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3,
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP fp32", (ln.fused_layer_norm,))
+    return {"launches": launches, "max_abs_err": worst, "times": times}
+
+
+def phase_merged(torch):
+    """K9 through the entry point a user calls, ``fused_block_merged`` (no
+    tower calls it, as in the JAX package), at MERGED_SHAPES, bf16 and fp32,
+    its launches counted over that run alone; each output bit-equal to
+    ``fused_block_apply`` (K1 then K2) on the same inputs and within the
+    K1/K2 tolerances of the plain version; the times at ViT-B/32's vision
+    shape against the K1 + K2 pair, the plain version and the library
+    composition of the two halves."""
+    from evr_tpu_torch.ops import block_fused as bf
+
+    dev = torch.device("cuda")
+    blocks = {}
+    for tag, s in MERGED_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(13)
+        p = block_params(torch, s["W"], gen, dev)
+        blocks[tag] = (p, unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev))
+    cases = [(tag, dt) for tag in MERGED_SHAPES for dt in (torch.bfloat16, torch.float32)]
+
+    def run(fn, tag, dt):
+        s = MERGED_SHAPES[tag]
+        p, x32 = blocks[tag]
+        return fn(x32.to(dt), p, s["H"], s.get("act", "quick_gelu"), s["causal"])
+
+    bf.fused_block_merged.launches = 0
+    outs = [run(bf.fused_block_merged, tag, dt) for tag, dt in cases]
+    torch.cuda.synchronize()
+    launches = bf.fused_block_merged.launches
+    log(f"fused_block_merged launches over its {len(cases)} calls: {launches}")
+    check(launches == len(cases), f"fused_block_merged: {launches} launches, expected {len(cases)}")
+    worst = 0.0
+    for (tag, dt), got in zip(cases, outs):
+        pair = run(bf.fused_block_apply, tag, dt)
+        ref = run(bf.fused_block_merged_plain, tag, dt)
+        err, cos, finite = compare(torch, got, ref)
+        same = bool(torch.equal(got, pair))
+        name = f"fused_block_merged {tag} {str(dt).split('.')[-1]}"
+        log(f"parity {name}: bit-equal to fused_block_apply {same}; against the plain version "
+            f"max_abs_err={err:.3e} min_row_cos={cos:.7f}")
+        check(same, f"{name}: differs from fused_block_apply (K1 then K2)")
+        check(finite, f"{name}: non-finite output")
+        if dt == torch.float32:
+            check(err <= FP32_TOL, f"{name}: max abs err {err} > {FP32_TOL}")
+        else:
+            check(err <= BF16_TOL, f"{name}: max abs err {err} > {BF16_TOL}")
+            check(cos >= BF16_MIN_COS, f"{name}: row cosine {cos} < {BF16_MIN_COS}")
+            if tag == "vision":
+                worst = max(worst, err)
+        del pair, ref
+    del outs
+
+    s, dt = MERGED_SHAPES["vision"], torch.bfloat16
+    p32, x32 = blocks["vision"]
+    x = x32.to(dt)
+    p = {k: {n: (v.to(dt) if torch.is_tensor(v) else {m: t.to(dt) for m, t in v.items()})
+             for n, v in g.items()} for k, g in p32.items()}
+    attn, mlp = bf.block_half_params(p)
+    lib_attn, lib_mlp = library_halves(torch, attn, mlp, s)
+    counted = (bf.fused_block_merged, bf.fused_attn_block, bf.fused_mlp_block)
+    saved = [c.launches for c in counted]
+    pair_ms = min(cuda_ms(torch, lambda: bf.fused_block_apply(x, p, s["H"])) for _ in range(2))
+    for c, n in zip(counted, saved):
+        c.launches = n
+    t_ops = sum(half_bound_ms(n, s, 2)[0] for n in ("fused_attn_block", "fused_mlp_block"))
+    nbytes = (2 * s["B"] * s["T"] * s["W"] + 12 * s["W"] ** 2 + 13 * s["W"]) * 2
+    rec = time_case(
+        torch, "fused_block_merged", "vision bf16", lambda: bf.fused_block_merged(x, p, s["H"]),
+        lambda: bf.fused_block_merged_plain(x, p, s["H"]), lambda: lib_mlp(lib_attn(x)),
+        t_ops, nbytes / H100_BYTES_PER_S * 1e3, f"{t_ops:.4f} ms of K1's and K2's operations, {nbytes / 1e6:.1f} MB",
+        counted)
+    log(f"time fused_block_merged vision bf16: the K1 + K2 pair (fused_block_apply) {pair_ms:.4f} ms")
+    return {"launches": launches, "max_abs_err": worst, "times": rec, "pair_ms": pair_ms}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -1895,10 +2198,17 @@ def main() -> int:
         t2 = time.perf_counter()
         flash_cfg, flash_np = flash_params()
         main_f = phase_main_path_flash(torch, flash_cfg, flash_np)
+        main_fq = phase_main_path_flash(torch, flash_cfg, flash_np, params_dtype="int8")
         train_f = phase_train_flash(torch, flash_cfg, flash_np)
-        del flash_np
         times.update(phase_times_flash(torch))
         flash_s = time.perf_counter() - t2
+        t3 = time.perf_counter()
+        main_h = phase_main_path_vith(torch, flash_np)
+        main_hq = phase_main_path_vith(torch, flash_np, params_dtype="int8")
+        del flash_np
+        vith_s = time.perf_counter() - t3
+        k8 = phase_layer_norm(torch)
+        k9 = phase_merged(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1922,12 +2232,29 @@ def main() -> int:
         f"train step (batch {TRAIN_BATCH}, bf16) {train_f['step_s']:.4f} s, {train_f['samples_per_s']:.2f} "
         f"samples/s, peak {train_f['peak_gib']:.1f} GiB; K6 step vs plain step {json.dumps(train_f['compared'])}; "
         f"the flash phases took {flash_s:.1f} s")
+    log(f"flash route, {FLASH_MODEL}, int8 weights: encode {main_fq['encode_frames_per_s']:.1f} frames/s, "
+        f"text query p50 {main_fq['text_query_p50_ms']:.2f} ms, /api/search p50 "
+        f"{main_fq['request_p50_ms']:.2f} ms; against K6's plain version {json.dumps(main_fq['against_plain'])}")
+    for tag, m in (("bf16", main_h), ("int8", main_hq)):
+        log(f"default route (auto), {FLASH_MODEL}, {tag}: encode {m['encode_frames_per_s']:.1f} frames/s "
+            f"(batch {BATCH}, {N_FRAMES} frames), text query p50 {m['text_query_p50_ms']:.2f} ms, "
+            f"/api/search p50 {m['request_p50_ms']:.2f} ms; against the plain route "
+            f"{json.dumps(m['against_plain'])}")
+    log(f"the {FLASH_MODEL} default-route phases took {vith_s:.1f} s")
     log(f"everything after the parity phases {time.perf_counter() - t0:.1f} s, "
         f"the whole script {time.perf_counter() - start:.1f} s")
     launches = {**main["launches"], **main_q["launches"]}
     launches.update({k: train["launches"][k] for k in ("fused_attn_block_bwd", "fused_mlp_block_bwd")})
     launches["adc_list_scores"] = ann["launches"]
     launches.update({k: main_f["launches"][k] for k in FLASH_MAIN_SHAPE})
+    # K8 and K9 have no caller on a serving path: their launches are those of
+    # their own phases, through the entry points the ops package exports
+    launches["fused_layer_norm"] = k8["launches"]
+    launches["fused_block_merged"] = k9["launches"]
+    worst["fused_layer_norm"] = k8["max_abs_err"]
+    worst["fused_block_merged"] = k9["max_abs_err"]
+    times[("fused_layer_norm", LN_MAIN_CASE)] = k8["times"]["none"]
+    times[("fused_block_merged", "vision")] = k9["times"]
     sources = {
         "fused_attn_block": ("evr_tpu_torch/ops/csrc/block_attn.cu", "evr_tpu/ops/block_fused.py:340"),
         "fused_mlp_block": ("evr_tpu_torch/ops/csrc/block_mlp.cu", "evr_tpu/ops/block_fused.py:1038"),
@@ -1939,10 +2266,13 @@ def main() -> int:
         "adc_list_scores": ("evr_tpu_torch/ops/csrc/adc_list.cu", "evr_tpu/ops/adc_pallas.py:137"),
         "flash_attention_full": ("evr_tpu_torch/ops/csrc/flash_attn.cu", "evr_tpu/ops/attention.py:188"),
         "flash_attention_blocked": ("evr_tpu_torch/ops/csrc/flash_attn.cu", "evr_tpu/ops/attention.py:224"),
+        "fused_layer_norm": ("evr_tpu_torch/ops/csrc/layernorm.cu", "evr_tpu/ops/layernorm.py:58"),
+        "fused_block_merged": ("evr_tpu_torch/ops/csrc/block_merged.cu", "evr_tpu/ops/block_fused.py:293"),
     }
     kernels = []
+    main_shape = {**FLASH_MAIN_SHAPE, "fused_layer_norm": LN_MAIN_CASE}
     for name, (src, replaces) in sources.items():
-        shape = FLASH_MAIN_SHAPE.get(name, "vitl" if name.endswith("_bwd") else "vision")
+        shape = main_shape.get(name, "vitl" if name.endswith("_bwd") else "vision")
         t = times[(name, shape)]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -167,12 +167,14 @@ def block_apply(
     p: Params,
     n_heads: int,
     causal: bool = False,
-    attn_impl: str = "auto",
+    attn_impl: str = "xla",
     activation: str = "quick_gelu",
 ) -> torch.Tensor:
-    """One pre-LN residual block. ``attn_impl``: "auto" (kernels K1 → K2, or
-    K3a → K3b on int8 params, for a CUDA tensor of width ≤ 1280; otherwise the
-    composition with ``attention(impl="auto")``), "auto_grad" ("auto" at
+    """One pre-LN residual block. ``attn_impl`` (default "xla", as in the JAX
+    package; the towers pass ``CLIPConfig.attn_impl``, "auto" by default):
+    "auto" (kernels K1 → K2, or K3a → K3b on int8 params, for a CUDA tensor
+    of width ≤ 1280; otherwise the composition with
+    ``attention(impl="auto")``), "auto_grad" ("auto" at
     T ≥ 512, else "xla"), "xla" (the plain composition), "flash" (the
     composition with K6 at any width), "plain" (K1's and K2's plain
     versions, the reference of the fused route), "plain_grad" ("plain" at

@@ -1,4 +1,5 @@
 from .attention import flash_attention
+from .layernorm import fused_layer_norm
 from .preprocess import CLIP_MEAN, CLIP_STD, stage_array_fast, stage_image_fast
 from .retrieval import fused_topk
 from .topk import cosine_topk, merge_topk
@@ -10,6 +11,7 @@ __all__ = [
     "stage_image_fast",
     "cosine_topk",
     "flash_attention",
+    "fused_layer_norm",
     "fused_topk",
     "merge_topk",
 ]

@@ -1,4 +1,4 @@
-"""Fused pre-LN transformer-block halves: hand-written CUDA kernels K1–K3, K5.
+"""Fused pre-LN transformer-block halves: hand-written CUDA kernels K1–K3, K5, K9.
 
 Counterpart of ``evr_tpu/ops/block_fused.py``: each residual block runs as two
 fused halves,
@@ -13,7 +13,13 @@ fused halves,
   (``csrc/block_attn_bwd.cu``) and K5b ``fused_mlp_block_bwd``
   (``csrc/block_mlp_bwd.cu``), each recomputing its half from x and giving
   dx and the fp32 parameter gradients; ``FusedBlockFunction`` composes them
-  as the JAX custom VJP ``fused_block_apply`` does.
+  as the JAX custom VJP ``fused_block_apply`` does;
+- K9 ``fused_block_merged``, a whole block (K1's math, then K2's) from one
+  C call, bit-equal to ``fused_block_apply``, source ``csrc/block_merged.cu``;
+  forward only, and, as in the JAX package, exported but routed nowhere.
+
+K1, K3a, K5a and K9 take head dim 64 or 80 (ViT-H-14's vision tower) and any
+T; other head dims raise on a CUDA tensor.
 
 Each wrapper takes x's dtype (bfloat16 or float32) as the compute dtype and
 casts the LayerNorm parameters (and, for K1/K2/K5, the kernels and biases) to
@@ -334,8 +340,8 @@ def fused_attn_block(
     n_heads: int,
     causal: bool = False,
 ) -> torch.Tensor:
-    """x + out(attention(LN(x))), kernel K1 on a CUDA tensor (head dim 64,
-    any T)."""
+    """x + out(attention(LN(x))), kernel K1 on a CUDA tensor (head dim 64 or
+    80, any T)."""
     raw = (ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias)
     refuse_grad("fused_attn_block", x, *raw)
     dt = x.dtype
@@ -419,7 +425,7 @@ def fused_attn_block_q(
     causal: bool = False,
 ) -> torch.Tensor:
     """x + out(attention(LN(x))) over int8 weights, kernel K3a on a CUDA
-    tensor (head dim 64, any T)."""
+    tensor (head dim 64 or 80, any T)."""
     refuse_grad("fused_attn_block_q", x, ln_scale, ln_bias, qkv_kq, qkv_ks, qkv_bias,
                 out_kq, out_ks, out_bias)
     dt = x.dtype
@@ -722,3 +728,55 @@ def plain_block_apply(x, p, n_heads: int, activation: str = "quick_gelu", causal
         )
         return fused_mlp_block_q_plain(x, *cast_quant_args(dt, mlp), activation=activation)
     return fused_block_apply(x, p, n_heads, activation, causal, impl="plain")
+
+
+def fused_block_merged_plain(x, p, n_heads: int, activation: str = "quick_gelu", causal: bool = False):
+    """K9's function in plain PyTorch: K1's plain version, then K2's, with
+    the mid-block residual in x's dtype between them."""
+    return _block_forward(x, *block_half_params(p), n_heads, activation, causal, "plain")[1]
+
+
+def fused_block_merged(
+    x: torch.Tensor,  # [B, T, W]
+    p,  # one residual block's params (layers.init_block layout)
+    n_heads: int,
+    activation: str = "quick_gelu",
+    causal: bool = False,
+) -> torch.Tensor:
+    """One whole residual block, kernel K9 on a CUDA tensor (head dim 64 or
+    80, any T): K1's math then K2's from one C call, bit-equal to
+    ``fused_block_apply``. Forward only, as in the JAX package."""
+    attn, mlp = block_half_params(p)
+    refuse_grad("fused_block_merged", x, *attn, *mlp)
+    if not x.is_cuda:
+        return fused_block_merged_plain(x, p, n_heads, activation, causal)
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
+    if x.dim() != 3 or x.shape[2] % n_heads:
+        raise ValueError(f"fused_block_merged: x of shape {tuple(x.shape)} with {n_heads} heads")
+    dt = x.dtype
+    params = [t.to(dt).contiguous() for t in (*attn, *mlp)]
+    B, T, W = x.shape
+    hid = params[8].shape[-1]
+    _check_cuda(
+        x, params,
+        [(W,), (W,), (W, 3 * W), (3 * W,), (W, W), (W,), (W,), (W,), (W, hid), (hid,), (hid, W), (W,)],
+        "fused_block_merged",
+    )
+    lib = build.load("block_merged")
+    rows = B * T
+    qkv = torch.empty((rows, 3 * W), dtype=dt, device=x.device)
+    o, xc, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    h = torch.empty((rows, hid), dtype=dt, device=x.device)
+    rc = lib.evr_fused_block_merged(
+        _DTYPE_CODES[dt], x.data_ptr(), *(t.data_ptr() for t in params),
+        qkv.data_ptr(), o.data_ptr(), xc.data_ptr(), h.data_ptr(), out.data_ptr(),
+        B, T, W, n_heads, hid, _ACT_CODES[activation], int(causal), 1.0 / math.sqrt(W // n_heads),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_rc(rc, "fused_block_merged", x.shape)
+    fused_block_merged.launches += 1
+    return out
+
+
+fused_block_merged.launches = 0

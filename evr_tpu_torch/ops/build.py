@@ -22,7 +22,7 @@ CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "build"
 KERNEL_SOURCES = (
     "block_attn", "block_mlp", "block_quant", "topk_fused", "block_attn_bwd", "block_mlp_bwd",
-    "adc_list", "flash_attn",
+    "adc_list", "flash_attn", "layernorm", "block_merged",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -137,6 +137,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "flash_attn":
         fn = lib.evr_flash_attention
         fn.argtypes = [i, p, p, p, p, i, i, i, i, f, p]
+        fn.restype = i
+    elif name == "layernorm":
+        fn = lib.evr_fused_layer_norm
+        fn.argtypes = [i, p, p, p, p, i, i, i, p]
+        fn.restype = i
+    elif name == "block_merged":
+        fn = lib.evr_fused_block_merged
+        fn.argtypes = [i] + [p] * 18 + [i] * 7 + [f, p]
         fn.restype = i
     else:
         raise KeyError(f"unknown kernel library {name!r}")

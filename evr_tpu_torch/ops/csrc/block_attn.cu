@@ -1,6 +1,6 @@
 // K1: the attention half of a pre-LN residual block,
-//     out = x + out_proj(MHA(LN1(x))),  x [B, T, W] bf16 or fp32, head dim 64,
-//     any T.
+//     out = x + out_proj(MHA(LN1(x))),  x [B, T, W] bf16 or fp32, head dim 64
+//     or 80, any T.
 //
 // Replaces: evr_tpu/ops/block_fused.py::fused_attn_block (Pallas kernel body
 // _attn_block_kernel). Rounding points reproduced from it: LN statistics in
@@ -36,7 +36,7 @@ template <typename T>
 int attn_block(const T* x, const T* ln_s, const T* ln_b, const T* qkv_k, const T* qkv_b, const T* out_k,
                const T* out_b, T* qkv, T* o, T* out, int B, int T_, int W, int H, int causal, float scale,
                cudaStream_t stream) {
-  if (W % H != 0 || W / H != kFD || W % kGemmBN != 0 || T_ < 1) return -1;
+  if (H < 1 || W % H != 0 || !flash_head_dim(W / H) || W % kGemmBN != 0 || T_ < 1) return -1;
   const int M = B * T_;
   int rc = launch_gemm<T, kLayerNorm, kRound>(x, ln_s, ln_b, qkv_k, qkv_b, nullptr, qkv, M, 3 * W, W, stream);
   if (rc != 0) return rc;

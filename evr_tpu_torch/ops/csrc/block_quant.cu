@@ -193,7 +193,7 @@ int attn_block_q(const T* x, const T* ln_s, const T* ln_b, const int8_t* qkv_kq,
                  const float* qkv_b, const int8_t* out_kq, const float* out_ks, const float* out_b,
                  int8_t* a_q, float* a_scale, T* qkv, T* o, T* out, int B, int T_, int W, int H,
                  int causal, float scale, cudaStream_t stream) {
-  if (B < 1 || T_ < 1 || W % H != 0 || W / H != kFD || W % kQBN != 0 || W % kQBK != 0)
+  if (B < 1 || T_ < 1 || H < 1 || W % H != 0 || !flash_head_dim(W / H) || W % kQBN != 0 || W % kQBK != 0)
     return -1;
   const int M = B * T_;
   EVR_TRY((launch_quant_rows<T, true>(x, ln_s, ln_b, a_q, a_scale, M, W, stream)));
@@ -226,7 +226,7 @@ int mlp_block_q(const T* x, const T* ln_s, const T* ln_b, const int8_t* fc_kq, c
 
 // Plain C entry points for ctypes. dtype 0 = float32, 1 = bfloat16; act 0 =
 // quickGELU, 1 = exact GELU. Return 0, -1 for a shape the kernels do not
-// take (head dim other than 64, W not a multiple of 128), or a CUDA error
+// take (head dim other than 64 or 80, W not a multiple of 128), or a CUDA error
 // code.
 extern "C" int evr_fused_attn_block_q(int dtype, const void* x, const void* ln_s, const void* ln_b,
                                       const void* qkv_kq, const void* qkv_ks, const void* qkv_b,

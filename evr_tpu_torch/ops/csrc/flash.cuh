@@ -1,10 +1,13 @@
-// Attention over any sequence length in 64-row tiles, head dim 64: the
-// forward of K1 (block_attn.cu) and the attention part of K5a's backward
+// Attention over any sequence length in 64-row tiles, head dim D = 64 or 80:
+// the forward of K1 (block_attn.cu), K3a (block_quant.cu) and K9
+// (block_merged.cu), and the attention part of K5a's backward
 // (block_attn_bwd.cu). Inputs are the rounded qkv [B*T, 3W] of the block
-// (q, k, v of head h at columns h*64, W + h*64, 2W + h*64).
+// (q, k, v of head h at columns h*D, W + h*D, 2W + h*D).
 //
 // Rounding points of the reference kernels (_attn_block_kernel,
-// _attn_block_bwd_kernel): q times 1/sqrt(d) in the element type; scores in
+// _attn_block_bwd_kernel): q times 1/sqrt(d) in the element type, the scale
+// itself rounded to it first (jnp.asarray(scale, dtype): 0.11181640625 at
+// d = 80 in bf16), while dq is scaled by the unrounded fp32 value; scores in
 // fp32; the causal fill -1e30; the row max over the WHOLE row before any
 // exponent. A running-max (online) softmax would round P against a partial
 // max, so every kernel here walks the key blocks more than once instead:
@@ -21,35 +24,53 @@
 // - backward, dk and dv: per key tile over the query tiles,
 //   dv = round(pn)^T . do and dk = round(ds)^T . (scaled q).
 //
-// Each block owns one (64-row tile, head, sequence); the 64 x 64 products run
-// on the warp tile product of common.cuh (8 warps, two 16 x 16 output tiles
-// each), and the per-row softmax arithmetic is one warp per 8 rows. A causal
-// tower skips the key blocks (or query tiles) that its mask empties.
+// Each block owns one (64-row tile, head, sequence). The tile edge (64 query
+// rows, 64 keys) is fixed and the head dim is a template parameter, in the
+// layout of K6 (flash_attn.cu): q, k, v and do tiles are [64][D + 8], the
+// probability and ds tiles [64][72]. The [64, 64] products (q k^T, do v^T)
+// contract over D (4 WMMA steps at 64, 5 at 80), two 16 x 16 output tiles per
+// warp; the [64, D] products (P.V, dq, dk, dv) contract over 64 and spread
+// their 4 D/16 output tiles over the 8 warps (16 at D = 64, 20 at D = 80,
+// where warps 0-3 own a third). Tile products run on the warp tile product
+// of common.cuh; the per-row softmax arithmetic is one warp per 8 rows. A
+// causal tower skips the key blocks (or query tiles) that its mask empties.
 #pragma once
 
 #include "common.cuh"
 
 namespace evr {
 
-constexpr int kFD = 64;  // head dim; also the tile edge for queries and keys
+constexpr int kFT = 64;         // the tile edge: query rows and keys per tile
+constexpr int kFLDP = kFT + 8;  // probability and ds tiles [64][kFLDP] (T)
+constexpr int kFLDS = kFT + 4;  // fp32 score tiles [64][kFLDS]
 
-template <typename T>
+// the head dims the kernels take
+inline bool flash_head_dim(int d) { return d == 64 || d == 80; }
+
+template <typename T, int D>
 struct FlashLayout {
-  static constexpr int LDT = kFD + 8;  // q, k, v, do and probability tiles [64][LDT] (T)
-  static constexpr int LDS = kFD + 4;  // fp32 tiles [64][LDS]
-  static constexpr size_t tile = align128(sizeof(T) * kFD * LDT);
-  static constexpr size_t ftile = align128(sizeof(float) * kFD * LDS);
-  static constexpr size_t vec = align128(sizeof(float) * kFD);
+  static_assert(D % 16 == 0, "head dim: a multiple of the 16-deep tile product");
+  static constexpr int LDT = D + 8;  // q, k, v and do tiles [64][LDT] (T)
+  static constexpr int LDO = D + 4;  // fp32 output tiles [64][LDO]
+  static constexpr int kOutTiles = 4 * (D / 16);  // 16 x 16 tiles of a [64, D] output
+  static constexpr int kPerWarp = (kOutTiles + 7) / 8;
+  static constexpr size_t tile = align128(sizeof(T) * kFT * LDT);
+  static constexpr size_t ptile = align128(sizeof(T) * kFT * kFLDP);
+  static constexpr size_t ftile = align128(sizeof(float) * kFT * (LDO > kFLDS ? LDO : kFLDS));
+  static constexpr size_t vec = align128(sizeof(float) * kFT);
 };
 
+template <typename T, int D>
+using FlashAcc = typename Tile<T>::Acc[FlashLayout<T, D>::kPerWarp];
+
 // rows [r0, r0 + 64) of a [*, ld] matrix (of one sequence), columns
-// [col, col + 64), into a T tile; rows >= T_ are zero. With ``scale`` each
+// [col, col + D), into a T tile; rows >= T_ are zero. With ``scale`` each
 // value is multiplied by ``mul`` and rounded to T (the scaled q).
-template <typename T>
+template <typename T, int D>
 __device__ void flash_load(T* dst, const T* src, size_t ld, int r0, int T_, int col, bool scale, float mul) {
-  using L = FlashLayout<T>;
-  for (int i = threadIdx.x; i < kFD * kFD; i += kThreads) {
-    const int r = i / kFD, c = i % kFD;
+  using L = FlashLayout<T, D>;
+  for (int i = threadIdx.x; i < kFT * D; i += kThreads) {
+    const int r = i / D, c = i % D;
     float v = 0.f;
     if (r0 + r < T_) {
       v = to_f(src[static_cast<size_t>(r0 + r) * ld + col + c]);
@@ -59,56 +80,71 @@ __device__ void flash_load(T* dst, const T* src, size_t ld, int r0, int T_, int 
   }
 }
 
-// acc += op(A) @ op(B) over a 64-deep contraction; A and B are 64x64 tiles of
-// T with row stride LDT. Warp w owns output tiles w and w + 8 (of 4 x 4).
-template <typename T, bool AT, bool BT>
-__device__ void flash_mm(typename Tile<T>::Acc (&acc)[2], const T* a, const T* b) {
-  using L = FlashLayout<T>;
+// dst = a . b^T, a fp32 [64, 64] tile (row stride kFLDS), contracting the
+// head dim of two [64][LDT] tiles (q k^T, do v^T). Warp w owns output tiles
+// w and w + 8 (of 4 x 4).
+template <typename T, int D>
+__device__ void flash_scores(float* dst, const T* a, const T* b) {
+  using L = FlashLayout<T, D>;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const int t = warp + 8 * p, tr = (t >> 2) * 16, tc = (t & 3) * 16;
+    typename Tile<T>::Acc acc;
+    Tile<T>::zero(acc);
 #pragma unroll
-    for (int kk = 0; kk < kFD; kk += 16) {
-      const T* pa = AT ? a + kk * L::LDT + tr : a + tr * L::LDT + kk;
-      const T* pb = BT ? b + tc * L::LDT + kk : b + kk * L::LDT + tc;
-      Tile<T>::template mma<BT, AT>(acc[p], pa, L::LDT, pb, L::LDT);
+    for (int kk = 0; kk < D; kk += 16)
+      Tile<T>::template mma<true>(acc, a + tr * L::LDT + kk, L::LDT, b + tc * L::LDT + kk, L::LDT);
+    Tile<T>::store(dst + tr * kFLDS + tc, kFLDS, acc);
+  }
+}
+
+// acc += op(a) . b over the tile's 64 rows: a is a [64][kFLDP] probability or
+// ds tile (with AT, its transpose), b a [64][LDT] tile (v, k, do or q). Warp
+// w owns the [64, D] output's tiles w, w + 8, w + 16 (those that exist).
+template <typename T, int D, bool AT>
+__device__ void flash_out_mm(FlashAcc<T, D>& acc, const T* a, const T* b) {
+  using L = FlashLayout<T, D>;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int p = 0; p < L::kPerWarp; ++p) {
+    const int t = warp + 8 * p;
+    if (t >= L::kOutTiles) continue;  // the same for the whole warp
+    const int tr = (t / (D / 16)) * 16, tc = (t % (D / 16)) * 16;
+#pragma unroll
+    for (int kk = 0; kk < kFT; kk += 16) {
+      const T* pa = AT ? a + kk * kFLDP + tr : a + tr * kFLDP + kk;
+      Tile<T>::template mma<false, AT>(acc[p], pa, kFLDP, b + kk * L::LDT + tc, L::LDT);
     }
   }
 }
 
-template <typename T>
-__device__ void flash_zero(typename Tile<T>::Acc (&acc)[2]) {
-  Tile<T>::zero(acc[0]);
-  Tile<T>::zero(acc[1]);
+template <typename T, int D>
+__device__ void flash_out_zero(FlashAcc<T, D>& acc) {
+#pragma unroll
+  for (int p = 0; p < FlashLayout<T, D>::kPerWarp; ++p) Tile<T>::zero(acc[p]);
 }
 
-template <typename T>
-__device__ void flash_store(float* dst, const typename Tile<T>::Acc (&acc)[2]) {
-  using L = FlashLayout<T>;
+// the [64, D] accumulators into a fp32 tile of row stride LDO
+template <typename T, int D>
+__device__ void flash_out_store(float* dst, const FlashAcc<T, D>& acc) {
+  using L = FlashLayout<T, D>;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
+  for (int p = 0; p < L::kPerWarp; ++p) {
     const int t = warp + 8 * p;
-    Tile<T>::store(dst + (t >> 2) * 16 * L::LDS + (t & 3) * 16, L::LDS, acc[p]);
+    if (t >= L::kOutTiles) continue;
+    const int tr = (t / (D / 16)) * 16, tc = (t % (D / 16)) * 16;
+    Tile<T>::store(dst + tr * L::LDO + tc, L::LDO, acc[p]);
   }
-}
-
-// dst = op(A) @ op(B) as a fp32 64x64 tile
-template <typename T, bool AT, bool BT>
-__device__ void flash_product(float* dst, const T* a, const T* b) {
-  typename Tile<T>::Acc acc[2];
-  flash_zero<T>(acc);
-  flash_mm<T, AT, BT>(acc, a, b);
-  flash_store<T>(dst, acc);
 }
 
 // score of query row i, key column j from the fp32 tile, with the causal fill
 __device__ __forceinline__ float flash_score(const float* ss, int r, int jj, int i, int j, int causal) {
-  return (causal && j > i) ? -1e30f : ss[r * FlashLayout<float>::LDS + jj];
+  return (causal && j > i) ? -1e30f : ss[r * kFLDS + jj];
 }
 
-__device__ __forceinline__ int flash_tiles(int T_) { return (T_ + kFD - 1) / kFD; }
+__host__ __device__ __forceinline__ int flash_tiles(int T_) { return (T_ + kFT - 1) / kFT; }
 
 // key blocks a query tile can see: all, or up to its own diagonal block
 __device__ __forceinline__ int flash_key_blocks(int qt, int T_, int causal) {
@@ -118,7 +154,7 @@ __device__ __forceinline__ int flash_key_blocks(int qt, int T_, int causal) {
 // pass 1 of every query-tile kernel: the row max of each of the warp's 8
 // rows over the whole (masked) key row, in every lane. sq holds the scaled q
 // tile; sk and ss are scratch.
-template <typename T>
+template <typename T, int D>
 __device__ void flash_row_max(float (&m)[8], const T* sq, T* sk, float* ss, const T* base, size_t ld,
                               int i0, int T_, int W, int h, int causal, int n_kb) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -126,15 +162,15 @@ __device__ void flash_row_max(float (&m)[8], const T* sq, T* sk, float* ss, cons
   for (int q = 0; q < 8; ++q) m[q] = -INFINITY;
   for (int kb = 0; kb < n_kb; ++kb) {
     __syncthreads();
-    flash_load(sk, base, ld, kb * kFD, T_, W + h * kFD, false, 1.f);
+    flash_load<T, D>(sk, base, ld, kb * kFT, T_, W + h * D, false, 1.f);
     __syncthreads();
-    flash_product<T, false, true>(ss, sq, sk);
+    flash_scores<T, D>(ss, sq, sk);
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int r = warp * 8 + q, i = i0 + r;
-      for (int jj = lane; jj < kFD; jj += 32) {
-        const int j = kb * kFD + jj;
+      for (int jj = lane; jj < kFT; jj += 32) {
+        const int j = kb * kFT + jj;
         if (j < T_) m[q] = fmaxf(m[q], flash_score(ss, r, jj, i, j, causal));
       }
     }
@@ -144,7 +180,7 @@ __device__ void flash_row_max(float (&m)[8], const T* sq, T* sk, float* ss, cons
 }
 
 // pass 2: l = sum over the row of exp(s - m), fp32, in every lane
-template <typename T>
+template <typename T, int D>
 __device__ void flash_row_sum(float (&l)[8], const float (&m)[8], const T* sq, T* sk, float* ss,
                               const T* base, size_t ld, int i0, int T_, int W, int h, int causal, int n_kb) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -152,15 +188,15 @@ __device__ void flash_row_sum(float (&l)[8], const float (&m)[8], const T* sq, T
   for (int q = 0; q < 8; ++q) l[q] = 0.f;
   for (int kb = 0; kb < n_kb; ++kb) {
     __syncthreads();
-    flash_load(sk, base, ld, kb * kFD, T_, W + h * kFD, false, 1.f);
+    flash_load<T, D>(sk, base, ld, kb * kFT, T_, W + h * D, false, 1.f);
     __syncthreads();
-    flash_product<T, false, true>(ss, sq, sk);
+    flash_scores<T, D>(ss, sq, sk);
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int r = warp * 8 + q, i = i0 + r;
-      for (int jj = lane; jj < kFD; jj += 32) {
-        const int j = kb * kFD + jj;
+      for (int jj = lane; jj < kFT; jj += 32) {
+        const int j = kb * kFT + jj;
         if (j < T_) l[q] += expf(flash_score(ss, r, jj, i, j, causal) - m[q]);
       }
     }
@@ -169,55 +205,55 @@ __device__ void flash_row_sum(float (&l)[8], const float (&m)[8], const T* sq, T
   for (int q = 0; q < 8; ++q) l[q] = warp_sum(l[q]);
 }
 
-// -- forward (K1) ------------------------------------------------------------
-template <typename T>
+// -- forward (K1, K3a, K9) ----------------------------------------------------
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
                                                              int T_, int W, int causal, float scale) {
-  using L = FlashLayout<T>;
+  using L = FlashLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
   T* sk = reinterpret_cast<T*>(smem + L::tile);
   T* sv = reinterpret_cast<T*>(smem + 2 * L::tile);
   T* sp = reinterpret_cast<T*>(smem + 3 * L::tile);
-  float* ss = reinterpret_cast<float*>(smem + 4 * L::tile);
-  float* s_l = reinterpret_cast<float*>(smem + 4 * L::tile + L::ftile);
+  float* ss = reinterpret_cast<float*>(smem + 3 * L::tile + L::ptile);
+  float* s_l = reinterpret_cast<float*>(smem + 3 * L::tile + L::ptile + L::ftile);
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, i0 = qt * kFD;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, i0 = qt * kFT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t ld = 3 * static_cast<size_t>(W);
   const T* base = qkv + static_cast<size_t>(b) * T_ * ld;
   const int n_kb = flash_key_blocks(qt, T_, causal);
 
-  flash_load(sq, base, ld, i0, T_, h * kFD, true, scale);
+  flash_load<T, D>(sq, base, ld, i0, T_, h * D, true, rnd<T>(scale));
   float m[8];
-  flash_row_max<T>(m, sq, sk, ss, base, ld, i0, T_, W, h, causal, n_kb);
+  flash_row_max<T, D>(m, sq, sk, ss, base, ld, i0, T_, W, h, causal, n_kb);
 
   // pass 2: the fp32 sum of exp(s - m) and round(exp(s - m)) . v
   float l[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) l[q] = 0.f;
-  typename Tile<T>::Acc acc[2];
-  flash_zero<T>(acc);
+  FlashAcc<T, D> acc;
+  flash_out_zero<T, D>(acc);
   for (int kb = 0; kb < n_kb; ++kb) {
     __syncthreads();
-    flash_load(sk, base, ld, kb * kFD, T_, W + h * kFD, false, 1.f);
-    flash_load(sv, base, ld, kb * kFD, T_, 2 * W + h * kFD, false, 1.f);
+    flash_load<T, D>(sk, base, ld, kb * kFT, T_, W + h * D, false, 1.f);
+    flash_load<T, D>(sv, base, ld, kb * kFT, T_, 2 * W + h * D, false, 1.f);
     __syncthreads();
-    flash_product<T, false, true>(ss, sq, sk);
+    flash_scores<T, D>(ss, sq, sk);
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int r = warp * 8 + q, i = i0 + r;
-      for (int jj = lane; jj < kFD; jj += 32) {
-        const int j = kb * kFD + jj;
+      for (int jj = lane; jj < kFT; jj += 32) {
+        const int j = kb * kFT + jj;
         float p = 0.f;
         if (j < T_) p = expf(flash_score(ss, r, jj, i, j, causal) - m[q]);
         l[q] += p;
-        sp[r * L::LDT + jj] = from_f<T>(p);
+        sp[r * kFLDP + jj] = from_f<T>(p);
       }
     }
     __syncthreads();
-    flash_mm<T, false, false>(acc, sp, sv);
+    flash_out_mm<T, D, false>(acc, sp, sv);
   }
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -225,26 +261,36 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const T* __restrict
     if (lane == 0) s_l[warp * 8 + q] = sum;
   }
   __syncthreads();
-  flash_store<T>(ss, acc);
+  flash_out_store<T, D>(ss, acc);
   __syncthreads();
-  for (int i = threadIdx.x; i < kFD * kFD; i += kThreads) {
-    const int r = i / kFD, c = i % kFD;
+  for (int i = threadIdx.x; i < kFT * D; i += kThreads) {
+    const int r = i / D, c = i % D;
     if (i0 + r < T_)
-      o[(static_cast<size_t>(b) * T_ + i0 + r) * W + h * kFD + c] = from_f<T>(ss[r * L::LDS + c] / s_l[r]);
+      o[(static_cast<size_t>(b) * T_ + i0 + r) * W + h * D + c] = from_f<T>(ss[r * L::LDO + c] / s_l[r]);
   }
 }
 
-template <typename T>
-int launch_flash_fwd(const T* qkv, T* o, int B, int T_, int W, int H, int causal, float scale,
-                     cudaStream_t stream) {
-  using L = FlashLayout<T>;
-  constexpr size_t smem = 4 * L::tile + L::ftile + L::vec;
-  auto kernel = flash_fwd_kernel<T>;
+template <typename T, int D>
+int launch_flash_fwd_d(const T* qkv, T* o, int B, int T_, int W, int H, int causal, float scale,
+                       cudaStream_t stream) {
+  using L = FlashLayout<T, D>;
+  constexpr size_t smem = 3 * L::tile + L::ptile + L::ftile + L::vec;
+  auto kernel = flash_fwd_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((T_ + kFD - 1) / kFD, H, B), kThreads, smem, stream>>>(qkv, o, T_, W, causal, scale);
+  kernel<<<dim3(flash_tiles(T_), H, B), kThreads, smem, stream>>>(qkv, o, T_, W, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The attention forward at head dim W / H; -1 for a head dim not taken.
+template <typename T>
+int launch_flash_fwd(const T* qkv, T* o, int B, int T_, int W, int H, int causal, float scale,
+                     cudaStream_t stream) {
+  if (H < 1 || W % H != 0) return -1;
+  if (W / H == 64) return launch_flash_fwd_d<T, 64>(qkv, o, B, T_, W, H, causal, scale, stream);
+  if (W / H == 80) return launch_flash_fwd_d<T, 80>(qkv, o, B, T_, W, H, causal, scale, stream);
+  return -1;
 }
 
 // -- backward (K5a) ----------------------------------------------------------
@@ -252,59 +298,59 @@ int launch_flash_fwd(const T* qkv, T* o, int B, int T_, int W, int H, int causal
 // D = rowsum(dpn * pn).
 
 // o = round(round(pn) . v), and m, l, D, per (query tile, head, sequence)
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_stats_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ o, float* __restrict__ st_m,
     float* __restrict__ st_l, float* __restrict__ st_d, int T_, int W, int H, int causal, float scale) {
-  using L = FlashLayout<T>;
+  using L = FlashLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
   T* sk = reinterpret_cast<T*>(smem + L::tile);
   T* sv = reinterpret_cast<T*>(smem + 2 * L::tile);
   T* sdo = reinterpret_cast<T*>(smem + 3 * L::tile);
   T* sp = reinterpret_cast<T*>(smem + 4 * L::tile);
-  float* ss = reinterpret_cast<float*>(smem + 5 * L::tile);
-  float* sdp = reinterpret_cast<float*>(smem + 5 * L::tile + L::ftile);
+  float* ss = reinterpret_cast<float*>(smem + 4 * L::tile + L::ptile);
+  float* sdp = reinterpret_cast<float*>(smem + 4 * L::tile + L::ptile + L::ftile);
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, i0 = qt * kFD;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, i0 = qt * kFT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t ld = 3 * static_cast<size_t>(W);
   const T* base = qkv + static_cast<size_t>(b) * T_ * ld;
   const T* dbase = dout + static_cast<size_t>(b) * T_ * W;
   const int n_kb = flash_key_blocks(qt, T_, causal);
 
-  flash_load(sq, base, ld, i0, T_, h * kFD, true, scale);
-  flash_load(sdo, dbase, W, i0, T_, h * kFD, false, 1.f);
+  flash_load<T, D>(sq, base, ld, i0, T_, h * D, true, rnd<T>(scale));
+  flash_load<T, D>(sdo, dbase, W, i0, T_, h * D, false, 1.f);
   float m[8], l[8], d[8];
-  flash_row_max<T>(m, sq, sk, ss, base, ld, i0, T_, W, h, causal, n_kb);
-  flash_row_sum<T>(l, m, sq, sk, ss, base, ld, i0, T_, W, h, causal, n_kb);
+  flash_row_max<T, D>(m, sq, sk, ss, base, ld, i0, T_, W, h, causal, n_kb);
+  flash_row_sum<T, D>(l, m, sq, sk, ss, base, ld, i0, T_, W, h, causal, n_kb);
 
   // pass 3: pn, o, D
 #pragma unroll
   for (int q = 0; q < 8; ++q) d[q] = 0.f;
-  typename Tile<T>::Acc acc[2];
-  flash_zero<T>(acc);
+  FlashAcc<T, D> acc;
+  flash_out_zero<T, D>(acc);
   for (int kb = 0; kb < n_kb; ++kb) {
     __syncthreads();
-    flash_load(sk, base, ld, kb * kFD, T_, W + h * kFD, false, 1.f);
-    flash_load(sv, base, ld, kb * kFD, T_, 2 * W + h * kFD, false, 1.f);
+    flash_load<T, D>(sk, base, ld, kb * kFT, T_, W + h * D, false, 1.f);
+    flash_load<T, D>(sv, base, ld, kb * kFT, T_, 2 * W + h * D, false, 1.f);
     __syncthreads();
-    flash_product<T, false, true>(ss, sq, sk);
-    flash_product<T, false, true>(sdp, sdo, sv);
+    flash_scores<T, D>(ss, sq, sk);
+    flash_scores<T, D>(sdp, sdo, sv);
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int r = warp * 8 + q, i = i0 + r;
-      for (int jj = lane; jj < kFD; jj += 32) {
-        const int j = kb * kFD + jj;
+      for (int jj = lane; jj < kFT; jj += 32) {
+        const int j = kb * kFT + jj;
         float pn = 0.f;
         if (j < T_) pn = expf(flash_score(ss, r, jj, i, j, causal) - m[q]) / l[q];
-        d[q] += sdp[r * L::LDS + jj] * pn;
-        sp[r * L::LDT + jj] = from_f<T>(pn);
+        d[q] += sdp[r * kFLDS + jj] * pn;
+        sp[r * kFLDP + jj] = from_f<T>(pn);
       }
     }
     __syncthreads();
-    flash_mm<T, false, false>(acc, sp, sv);
+    flash_out_mm<T, D, false>(acc, sp, sv);
   }
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -318,11 +364,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_stats_kernel(
     }
   }
   __syncthreads();
-  flash_store<T>(ss, acc);
+  flash_out_store<T, D>(ss, acc);
   __syncthreads();
-  for (int i = threadIdx.x; i < kFD * kFD; i += kThreads) {
-    const int r = i / kFD, c = i % kFD;
-    if (i0 + r < T_) o[(static_cast<size_t>(b) * T_ + i0 + r) * W + h * kFD + c] = from_f<T>(ss[r * L::LDS + c]);
+  for (int i = threadIdx.x; i < kFT * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    if (i0 + r < T_) o[(static_cast<size_t>(b) * T_ + i0 + r) * W + h * D + c] = from_f<T>(ss[r * L::LDO + c]);
   }
 }
 
@@ -335,30 +381,30 @@ __device__ __forceinline__ void flash_pn_ds(float s, float dp, float m, float l,
 
 // dq = round(ds) . k * scale (fp32), per (query tile, head, sequence), into
 // the q columns of dqkv [B*T, 3W]
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ st_m,
     const float* __restrict__ st_l, const float* __restrict__ st_d, float* __restrict__ dqkv, int T_, int W,
     int H, int causal, float scale) {
-  using L = FlashLayout<T>;
+  using L = FlashLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
   T* sk = reinterpret_cast<T*>(smem + L::tile);
   T* sv = reinterpret_cast<T*>(smem + 2 * L::tile);
   T* sdo = reinterpret_cast<T*>(smem + 3 * L::tile);
   T* sds = reinterpret_cast<T*>(smem + 4 * L::tile);
-  float* ss = reinterpret_cast<float*>(smem + 5 * L::tile);
-  float* sdp = reinterpret_cast<float*>(smem + 5 * L::tile + L::ftile);
+  float* ss = reinterpret_cast<float*>(smem + 4 * L::tile + L::ptile);
+  float* sdp = reinterpret_cast<float*>(smem + 4 * L::tile + L::ptile + L::ftile);
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, i0 = qt * kFD;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, i0 = qt * kFT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t ld = 3 * static_cast<size_t>(W);
   const T* base = qkv + static_cast<size_t>(b) * T_ * ld;
   const T* dbase = dout + static_cast<size_t>(b) * T_ * W;
   const int n_kb = flash_key_blocks(qt, T_, causal);
 
-  flash_load(sq, base, ld, i0, T_, h * kFD, true, scale);
-  flash_load(sdo, dbase, W, i0, T_, h * kFD, false, 1.f);
+  flash_load<T, D>(sq, base, ld, i0, T_, h * D, true, rnd<T>(scale));
+  flash_load<T, D>(sdo, dbase, W, i0, T_, h * D, false, 1.f);
   float m[8], l[8], d[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -368,78 +414,79 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     l[q] = i < T_ ? st_l[o_st] : 1.f;
     d[q] = i < T_ ? st_d[o_st] : 0.f;
   }
-  typename Tile<T>::Acc acc[2];
-  flash_zero<T>(acc);
+  FlashAcc<T, D> acc;
+  flash_out_zero<T, D>(acc);
   for (int kb = 0; kb < n_kb; ++kb) {
     __syncthreads();
-    flash_load(sk, base, ld, kb * kFD, T_, W + h * kFD, false, 1.f);
-    flash_load(sv, base, ld, kb * kFD, T_, 2 * W + h * kFD, false, 1.f);
+    flash_load<T, D>(sk, base, ld, kb * kFT, T_, W + h * D, false, 1.f);
+    flash_load<T, D>(sv, base, ld, kb * kFT, T_, 2 * W + h * D, false, 1.f);
     __syncthreads();
-    flash_product<T, false, true>(ss, sq, sk);
-    flash_product<T, false, true>(sdp, sdo, sv);
+    flash_scores<T, D>(ss, sq, sk);
+    flash_scores<T, D>(sdp, sdo, sv);
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int r = warp * 8 + q, i = i0 + r;
-      for (int jj = lane; jj < kFD; jj += 32) {
-        const int j = kb * kFD + jj;
+      for (int jj = lane; jj < kFT; jj += 32) {
+        const int j = kb * kFT + jj;
         float pn, ds;
-        flash_pn_ds(flash_score(ss, r, jj, i, j, causal), sdp[r * L::LDS + jj], m[q], l[q], d[q], j < T_,
+        flash_pn_ds(flash_score(ss, r, jj, i, j, causal), sdp[r * kFLDS + jj], m[q], l[q], d[q], j < T_,
                     pn, ds);
-        sds[r * L::LDT + jj] = from_f<T>(ds);
+        sds[r * kFLDP + jj] = from_f<T>(ds);
       }
     }
     __syncthreads();
-    flash_mm<T, false, false>(acc, sds, sk);
+    flash_out_mm<T, D, false>(acc, sds, sk);
   }
   __syncthreads();
-  flash_store<T>(ss, acc);
+  flash_out_store<T, D>(ss, acc);
   __syncthreads();
-  for (int i = threadIdx.x; i < kFD * kFD; i += kThreads) {
-    const int r = i / kFD, c = i % kFD;
-    if (i0 + r < T_) dqkv[(static_cast<size_t>(b) * T_ + i0 + r) * ld + h * kFD + c] = ss[r * L::LDS + c] * scale;
+  for (int i = threadIdx.x; i < kFT * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    if (i0 + r < T_)
+      dqkv[(static_cast<size_t>(b) * T_ + i0 + r) * ld + h * D + c] = ss[r * L::LDO + c] * scale;
   }
 }
 
 // dv = round(pn)^T . do and dk = round(ds)^T . (scaled q), per (key tile,
 // head, sequence), into the k and v columns of dqkv
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ st_m,
     const float* __restrict__ st_l, const float* __restrict__ st_d, float* __restrict__ dqkv, int T_, int W,
     int H, int causal, float scale) {
-  using L = FlashLayout<T>;
+  using L = FlashLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
   T* sk = reinterpret_cast<T*>(smem + L::tile);
   T* sv = reinterpret_cast<T*>(smem + 2 * L::tile);
   T* sdo = reinterpret_cast<T*>(smem + 3 * L::tile);
   T* sp = reinterpret_cast<T*>(smem + 4 * L::tile);
-  T* sds = reinterpret_cast<T*>(smem + 5 * L::tile);
-  float* ss = reinterpret_cast<float*>(smem + 6 * L::tile);
-  float* sdp = reinterpret_cast<float*>(smem + 6 * L::tile + L::ftile);
-  float* s_m = reinterpret_cast<float*>(smem + 6 * L::tile + 2 * L::ftile);
-  float* s_l = s_m + kFD;
-  float* s_d = s_l + kFD;
+  T* sds = reinterpret_cast<T*>(smem + 4 * L::tile + L::ptile);
+  float* ss = reinterpret_cast<float*>(smem + 4 * L::tile + 2 * L::ptile);
+  float* sdp = reinterpret_cast<float*>(smem + 4 * L::tile + 2 * L::ptile + L::ftile);
+  float* s_m = reinterpret_cast<float*>(smem + 4 * L::tile + 2 * L::ptile + 2 * L::ftile);
+  float* s_l = s_m + kFT;
+  float* s_d = s_l + kFT;
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, j0 = kt * kFD;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, j0 = kt * kFT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t ld = 3 * static_cast<size_t>(W);
   const T* base = qkv + static_cast<size_t>(b) * T_ * ld;
   const T* dbase = dout + static_cast<size_t>(b) * T_ * W;
   const int n_qt = flash_tiles(T_);
 
-  flash_load(sk, base, ld, j0, T_, W + h * kFD, false, 1.f);
-  flash_load(sv, base, ld, j0, T_, 2 * W + h * kFD, false, 1.f);
-  typename Tile<T>::Acc dk[2], dv[2];
-  flash_zero<T>(dk);
-  flash_zero<T>(dv);
+  flash_load<T, D>(sk, base, ld, j0, T_, W + h * D, false, 1.f);
+  flash_load<T, D>(sv, base, ld, j0, T_, 2 * W + h * D, false, 1.f);
+  FlashAcc<T, D> dk, dv;
+  flash_out_zero<T, D>(dk);
+  flash_out_zero<T, D>(dv);
   for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
-    const int i0 = qt * kFD;
+    const int i0 = qt * kFT;
     __syncthreads();
-    flash_load(sq, base, ld, i0, T_, h * kFD, true, scale);
-    flash_load(sdo, dbase, W, i0, T_, h * kFD, false, 1.f);
-    for (int r = threadIdx.x; r < kFD; r += kThreads) {
+    flash_load<T, D>(sq, base, ld, i0, T_, h * D, true, rnd<T>(scale));
+    flash_load<T, D>(sdo, dbase, W, i0, T_, h * D, false, 1.f);
+    for (int r = threadIdx.x; r < kFT; r += kThreads) {
       const int i = i0 + r;
       const size_t o_st = (static_cast<size_t>(b) * H + h) * T_ + i;
       s_m[r] = i < T_ ? st_m[o_st] : 0.f;
@@ -447,71 +494,81 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
       s_d[r] = i < T_ ? st_d[o_st] : 0.f;
     }
     __syncthreads();
-    flash_product<T, false, true>(ss, sq, sk);
-    flash_product<T, false, true>(sdp, sdo, sv);
+    flash_scores<T, D>(ss, sq, sk);
+    flash_scores<T, D>(sdp, sdo, sv);
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int r = warp * 8 + q, i = i0 + r;
-      for (int jj = lane; jj < kFD; jj += 32) {
+      for (int jj = lane; jj < kFT; jj += 32) {
         const int j = j0 + jj;
         float pn, ds;
-        flash_pn_ds(flash_score(ss, r, jj, i, j, causal), sdp[r * L::LDS + jj], s_m[r], s_l[r], s_d[r],
+        flash_pn_ds(flash_score(ss, r, jj, i, j, causal), sdp[r * kFLDS + jj], s_m[r], s_l[r], s_d[r],
                     i < T_ && j < T_, pn, ds);
-        sp[r * L::LDT + jj] = from_f<T>(pn);
-        sds[r * L::LDT + jj] = from_f<T>(ds);
+        sp[r * kFLDP + jj] = from_f<T>(pn);
+        sds[r * kFLDP + jj] = from_f<T>(ds);
       }
     }
     __syncthreads();
-    flash_mm<T, true, false>(dv, sp, sdo);
-    flash_mm<T, true, false>(dk, sds, sq);
+    flash_out_mm<T, D, true>(dv, sp, sdo);
+    flash_out_mm<T, D, true>(dk, sds, sq);
   }
   __syncthreads();
-  flash_store<T>(ss, dk);
-  flash_store<T>(sdp, dv);
+  flash_out_store<T, D>(ss, dk);
+  flash_out_store<T, D>(sdp, dv);
   __syncthreads();
-  for (int i = threadIdx.x; i < kFD * kFD; i += kThreads) {
-    const int r = i / kFD, c = i % kFD;
+  for (int i = threadIdx.x; i < kFT * D; i += kThreads) {
+    const int r = i / D, c = i % D;
     if (j0 + r < T_) {
-      const size_t o = (static_cast<size_t>(b) * T_ + j0 + r) * ld + h * kFD + c;
-      dqkv[o + W] = ss[r * L::LDS + c];
-      dqkv[o + 2 * static_cast<size_t>(W)] = sdp[r * L::LDS + c];
+      const size_t o = (static_cast<size_t>(b) * T_ + j0 + r) * ld + h * D + c;
+      dqkv[o + W] = ss[r * L::LDO + c];
+      dqkv[o + 2 * static_cast<size_t>(W)] = sdp[r * L::LDO + c];
     }
   }
 }
 
-// The attention backward: o, the row statistics, then dq and dk/dv into the
-// fp32 dqkv. ``st`` holds 3 * B * H * T_ floats.
-template <typename T>
-int flash_backward(const T* qkv, const T* dout, T* o, float* st, float* dqkv, int B, int T_, int W, int H,
-                   int causal, float scale, cudaStream_t stream) {
-  using L = FlashLayout<T>;
+template <typename T, int D>
+int flash_backward_d(const T* qkv, const T* dout, T* o, float* st, float* dqkv, int B, int T_, int W, int H,
+                     int causal, float scale, cudaStream_t stream) {
+  using L = FlashLayout<T, D>;
   const size_t n = static_cast<size_t>(B) * H * T_;
   float *st_m = st, *st_l = st + n, *st_d = st + 2 * n;
-  const dim3 grid((T_ + kFD - 1) / kFD, H, B);
-  constexpr size_t smem_a = 5 * L::tile + 2 * L::ftile;
-  constexpr size_t smem_c = 6 * L::tile + 2 * L::ftile + 3 * L::vec;
+  const dim3 grid(flash_tiles(T_), H, B);
+  constexpr size_t smem_a = 4 * L::tile + L::ptile + 2 * L::ftile;
+  constexpr size_t smem_c = 4 * L::tile + 2 * L::ptile + 2 * L::ftile + 3 * L::vec;
   cudaError_t err;
-  err = cudaFuncSetAttribute(flash_bwd_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(flash_bwd_stats_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_a));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_stats_kernel<T><<<grid, kThreads, smem_a, stream>>>(qkv, dout, o, st_m, st_l, st_d, T_, W, H,
+  flash_bwd_stats_kernel<T, D><<<grid, kThreads, smem_a, stream>>>(qkv, dout, o, st_m, st_l, st_d, T_, W, H,
+                                                                   causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_a));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem_a, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, T_, W, H,
                                                                 causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_a));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, smem_a, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, T_, W, H,
-                                                             causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_c));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<T><<<grid, kThreads, smem_c, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, T_, W, H,
-                                                               causal, scale);
+  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, smem_c, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, T_, W,
+                                                                  H, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The attention backward at head dim W / H: o, the row statistics, then dq
+// and dk/dv into the fp32 dqkv. ``st`` holds 3 * B * H * T_ floats. -1 for
+// a head dim not taken.
+template <typename T>
+int flash_backward(const T* qkv, const T* dout, T* o, float* st, float* dqkv, int B, int T_, int W, int H,
+                   int causal, float scale, cudaStream_t stream) {
+  if (H < 1 || W % H != 0) return -1;
+  if (W / H == 64) return flash_backward_d<T, 64>(qkv, dout, o, st, dqkv, B, T_, W, H, causal, scale, stream);
+  if (W / H == 80) return flash_backward_d<T, 80>(qkv, dout, o, st, dqkv, B, T_, W, H, causal, scale, stream);
+  return -1;
 }
 
 }  // namespace evr

@@ -27,10 +27,10 @@ names = [m.name for m in pkgutil.walk_packages(evr_tpu_torch.__path__, "evr_tpu_
 for name in names:
     importlib.import_module(name)
 # the ANN slice: K7's wrapper, the three tiers and the offline CLI; the
-# flash-attention slice: K6's wrapper
+# flash-attention slice: K6's wrapper; K8's wrapper
 for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.index.pq",
              "evr_tpu_torch.index.ivfpq", "evr_tpu_torch.tools.index_tool",
-             "evr_tpu_torch.ops.attention"):
+             "evr_tpu_torch.ops.attention", "evr_tpu_torch.ops.layernorm"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)
