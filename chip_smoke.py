@@ -7,12 +7,19 @@ package. Phases, each fatal on failure:
 
 1. the card: name and power limit (``nvidia-smi``); TF32 off for matmuls and
    cuDNN, so fp32 comparisons are full fp32;
-2. build: every kernel of the main paths compiled from ``ops/csrc``;
-3. kernel parity: K1 (``fused_attn_block``), K2 (``fused_mlp_block``), K3a
+2. build: every kernel of the main paths compiled from ``ops/csrc``; the
+   SASS of the K1, K2 and K9 libraries (``cuobjdump -sass``) must hold
+   ``HGMMA`` instructions, the wgmma products of ``csrc/gemm_sm90.cuh``;
+3. the bf16 GEMM under K1, K2 and K9 alone (``gemm_bf16``) at ViT-H-14's
+   four vision GEMMs (65,792 rows), ViT-B/32's vision and text GEMMs, a
+   ragged M and one tile, against ``torch.matmul`` in fp32 rounded once,
+   timed against ``torch.matmul`` in bf16; then kernel parity: K1
+   (``fused_attn_block``), K2 (``fused_mlp_block``), K3a
    and K3b (``fused_attn_block_q``, ``fused_mlp_block_q``: the int8 halves)
    against their plain PyTorch versions at the ViT-B/32 main-path shapes,
    vision (B=256, T=50, W=768, H=12) and text (B=16, T=77, W=512, H=8,
-   causal), in bfloat16 and float32, and K1, K2, K3a and K3b at the
+   causal) and a ragged batch (B=3, T=50, W=768: 150 rows, K1 and K2), in
+   bfloat16 and float32, and K1, K2, K3a and K3b at the
    ViT-L/14@336px training shape (B=32, T=577, W=1024, H=16) and at
    ViT-H-14's vision shape (B=32, T=257, W=1280, H=16: head dim 80, exact
    GELU); K4 (``fused_topk``) against
@@ -86,9 +93,9 @@ package. Phases, each fatal on failure:
    plain version, timed against ``F.layer_norm``; K9
    (``ops.block_fused.fused_block_merged``) at ViT-B/32's vision and text
    shapes and ViT-H-14's vision shape, bf16 and fp32, bit-equal to
-   ``fused_block_apply`` (K1 then K2), timed against that pair, its plain
-   version and the library composition. Their launches are counted over
-   their own phases.
+   ``fused_block_apply`` (K1 then K2), timed at each of those shapes
+   against that pair, its plain version and the library composition. Their
+   launches are counted over their own phases.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -124,6 +131,29 @@ VITL_TEXT = dict(B=16, T=77, W=768, H=12, causal=True)
 VITH = dict(B=32, T=257, W=1280, H=16, causal=False, act="gelu")
 VITH_SERVE = dict(VITH, B=256)
 VITH_BWD = dict(B=4, T=577, W=1280, H=16, causal=False)
+# A ragged row count for K1 and K2 (150 rows: one full 128-row GEMM tile and
+# a part-filled one)
+RAGGED = dict(B=3, T=50, W=768, H=12, causal=False)
+# The bf16 GEMM under K1, K2 and K9 alone: ViT-H-14's four vision GEMMs at
+# the serving batch (256 x 257 rows), ViT-B/32's vision (256 x 50 rows) and
+# text (16 x 77 rows) GEMMs, a ragged M and a single 128 x 256 x 64 tile, as
+# (M, N, K). Against the fp32 product of the same bf16 inputs plus the bias,
+# rounded once: the two fp32 sums differ only in their order, by far less
+# than a bf16 step, so a rounded output may move by one bf16 step at its own
+# magnitude; the band is GEMM_TOL_STEPS bf16 steps at the output's largest
+# magnitude.
+GEMM_SHAPES = {
+    "vith-qkv": (65792, 3840, 1280), "vith-out": (65792, 1280, 1280),
+    "vith-fc": (65792, 5120, 1280), "vith-proj": (65792, 1280, 5120),
+    "vitb-qkv": (12800, 2304, 768), "vitb-out": (12800, 768, 768),
+    "vitb-fc": (12800, 3072, 768), "vitb-proj": (12800, 768, 3072),
+    "text-qkv": (1232, 1536, 512), "text-out": (1232, 512, 512),
+    "text-fc": (1232, 2048, 512), "text-proj": (1232, 512, 2048),
+    "ragged": (150, 768, 768), "one-tile": (128, 256, 64),
+}
+GEMM_TOL_STEPS = 1
+# the libraries whose bf16 GEMMs run on csrc/gemm_sm90.cuh's wgmma kernel
+HGMMA_LIBS = ("block_attn", "block_mlp", "block_merged")
 FP32_TOL = 2e-4  # max abs, fp32 kernel vs plain version (accumulation order only)
 BF16_TOL = 3e-2  # max abs on unit-variance activations: about 2 bf16 ulps below 4
 BF16_MIN_COS = 0.9999  # per output row, bf16
@@ -362,13 +392,59 @@ def phase_build():
         report = path.with_suffix(".log")
         if report.exists():
             for line in report.read_text().splitlines():
-                if "spill" in line or "registers" in line:
+                if "spill" in line or "registers" in line or "C7515" in line:
                     log(f"  ptxas {name}: {line.strip()}")
     log(f"build: {json.dumps({k: round(v, 1) for k, v in times.items()})} "
         f"total {total:.1f} s (0 = already built)")
+    # the bf16 GEMMs of K1, K2 and K9 must be wgmma products in the binary
+    cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    counts = {}
+    for name in HGMMA_LIBS:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        counts[name] = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"sass: HGMMA instructions per library {json.dumps(counts)}")
+    for name, n in counts.items():
+        check(n > 0, f"{name}: no HGMMA instruction in its SASS")
 
 
-# -- 3. kernel parity --------------------------------------------------------
+# -- 3. the GEMM alone, then kernel parity -----------------------------------
+
+
+def phase_gemm(torch):
+    """``gemm_bf16`` (the wgmma GEMM under K1, K2 and K9) at GEMM_SHAPES
+    against ``gemm_bf16_plain`` (``torch.matmul`` in fp32, rounded once)
+    within GEMM_TOL_STEPS bf16 steps, and timed against ``torch.matmul`` in
+    bf16 by CUDA events."""
+    from evr_tpu_torch.ops import block_fused as bf
+
+    dev = torch.device("cuda")
+    out = {}
+    for tag, (M, N, K) in GEMM_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(14)
+        a = unit_activations(torch, (M, K), gen, dev).to(torch.bfloat16)
+        w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        b = (torch.randn((N,), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        before = bf.gemm_bf16.launches
+        got = bf.gemm_bf16(a, w, b)
+        torch.cuda.synchronize()
+        check(bf.gemm_bf16.launches == before + 1, f"gemm_bf16 {tag}: the kernel did not launch")
+        ref = bf.gemm_bf16_plain(a, w, b).float()
+        err = (got.float() - ref).abs().max().item()
+        band = GEMM_TOL_STEPS * 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
+        finite = bool(torch.isfinite(got.float()).all().item())
+        ms = min(cuda_ms(torch, lambda: bf.gemm_bf16(a, w, b)) for _ in range(2))
+        lib_ms = min(cuda_ms(torch, lambda: torch.matmul(a, w)) for _ in range(2))
+        flops = 2 * M * N * K
+        bound = max(flops / H100_BF16_FLOPS, 2 * (M * K + K * N + N + M * N) / H100_BYTES_PER_S) * 1e3
+        log(f"gemm_bf16 {tag} {M} x {N} x {K}: max_abs_err={err:.3e} (band {band:.3e}), kernel {ms:.4f} ms "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, torch.matmul {lib_ms:.4f} ms {flops / lib_ms / 1e9:.1f} TFLOP/s, "
+            f"bound {bound:.4f} ms")
+        check(finite and got.shape == (M, N), f"gemm_bf16 {tag}: {tuple(got.shape)}, finite {finite}")
+        check(err <= band, f"gemm_bf16 {tag}: max abs err {err} > {band}")
+        out[tag] = {"ms": ms, "library_ms": lib_ms, "tflops": flops / ms / 1e9}
+        del a, w, b, got, ref
+    return out
 
 
 def phase_parity(torch):
@@ -376,7 +452,8 @@ def phase_parity(torch):
 
     dev = torch.device("cuda")
     worst = {"fused_attn_block": 0.0, "fused_mlp_block": 0.0}
-    for shape_name, s in (("vision", VISION), ("text", TEXT), ("vitl", VITL), ("vith", VITH)):
+    for shape_name, s in (("vision", VISION), ("text", TEXT), ("ragged", RAGGED), ("vitl", VITL),
+                          ("vith", VITH)):
         gen = torch.Generator(device=dev).manual_seed(1)
         attn_args, mlp_args = bf.block_half_params(block_params(torch, s["W"], gen, dev))
         x32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev)
@@ -2082,9 +2159,9 @@ def phase_merged(torch):
     tower calls it, as in the JAX package), at MERGED_SHAPES, bf16 and fp32,
     its launches counted over that run alone; each output bit-equal to
     ``fused_block_apply`` (K1 then K2) on the same inputs and within the
-    K1/K2 tolerances of the plain version; the times at ViT-B/32's vision
-    shape against the K1 + K2 pair, the plain version and the library
-    composition of the two halves."""
+    K1/K2 tolerances of the plain version; the times at each shape (bf16)
+    against the K1 + K2 pair, the plain version and the library composition
+    of the two halves."""
     from evr_tpu_torch.ops import block_fused as bf
 
     dev = torch.device("cuda")
@@ -2127,27 +2204,32 @@ def phase_merged(torch):
         del pair, ref
     del outs
 
-    s, dt = MERGED_SHAPES["vision"], torch.bfloat16
-    p32, x32 = blocks["vision"]
-    x = x32.to(dt)
-    p = {k: {n: (v.to(dt) if torch.is_tensor(v) else {m: t.to(dt) for m, t in v.items()})
-             for n, v in g.items()} for k, g in p32.items()}
-    attn, mlp = bf.block_half_params(p)
-    lib_attn, lib_mlp = library_halves(torch, attn, mlp, s)
+    dt = torch.bfloat16
     counted = (bf.fused_block_merged, bf.fused_attn_block, bf.fused_mlp_block)
-    saved = [c.launches for c in counted]
-    pair_ms = min(cuda_ms(torch, lambda: bf.fused_block_apply(x, p, s["H"])) for _ in range(2))
-    for c, n in zip(counted, saved):
-        c.launches = n
-    t_ops = sum(half_bound_ms(n, s, 2)[0] for n in ("fused_attn_block", "fused_mlp_block"))
-    nbytes = (2 * s["B"] * s["T"] * s["W"] + 12 * s["W"] ** 2 + 13 * s["W"]) * 2
-    rec = time_case(
-        torch, "fused_block_merged", "vision bf16", lambda: bf.fused_block_merged(x, p, s["H"]),
-        lambda: bf.fused_block_merged_plain(x, p, s["H"]), lambda: lib_mlp(lib_attn(x)),
-        t_ops, nbytes / H100_BYTES_PER_S * 1e3, f"{t_ops:.4f} ms of K1's and K2's operations, {nbytes / 1e6:.1f} MB",
-        counted)
-    log(f"time fused_block_merged vision bf16: the K1 + K2 pair (fused_block_apply) {pair_ms:.4f} ms")
-    return {"launches": launches, "max_abs_err": worst, "times": rec, "pair_ms": pair_ms}
+    recs, pair_ms = {}, {}
+    for tag, s in MERGED_SHAPES.items():
+        p32, x32 = blocks[tag]
+        x = x32.to(dt)
+        p = {k: {n: (v.to(dt) if torch.is_tensor(v) else {m: t.to(dt) for m, t in v.items()})
+                 for n, v in g.items()} for k, g in p32.items()}
+        act = s.get("act", "quick_gelu")
+        attn, mlp = bf.block_half_params(p)
+        lib_attn, lib_mlp = library_halves(torch, attn, mlp, s)
+        saved = [c.launches for c in counted]
+        pair_ms[tag] = min(cuda_ms(torch, lambda: bf.fused_block_apply(x, p, s["H"], act, s["causal"]))
+                           for _ in range(2))
+        for c, n in zip(counted, saved):
+            c.launches = n
+        t_ops = sum(half_bound_ms(n, s, 2)[0] for n in ("fused_attn_block", "fused_mlp_block"))
+        nbytes = (2 * s["B"] * s["T"] * s["W"] + 12 * s["W"] ** 2 + 13 * s["W"]) * 2
+        recs[tag] = time_case(
+            torch, "fused_block_merged", f"{tag} bf16",
+            lambda: bf.fused_block_merged(x, p, s["H"], act, s["causal"]),
+            lambda: bf.fused_block_merged_plain(x, p, s["H"], act, s["causal"]), lambda: lib_mlp(lib_attn(x)),
+            t_ops, nbytes / H100_BYTES_PER_S * 1e3,
+            f"{t_ops:.4f} ms of K1's and K2's operations, {nbytes / 1e6:.1f} MB", counted)
+        log(f"time fused_block_merged {tag} bf16: the K1 + K2 pair (fused_block_apply) {pair_ms[tag]:.4f} ms")
+    return {"launches": launches, "max_abs_err": worst, "times": recs["vision"], "pair_ms": pair_ms}
 
 
 # -- main --------------------------------------------------------------------
@@ -2174,6 +2256,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     try:
         phase_build()
+        gemm = phase_gemm(torch)
         worst = phase_parity(torch)
         worst.update(phase_parity_int8(torch))
         worst["fused_topk"] = phase_parity_topk(torch)
@@ -2189,6 +2272,9 @@ def main() -> int:
         times = phase_times(torch)
         times[("fused_topk", "vision")] = phase_times_topk(torch)
         times.update(phase_times_train(torch))
+        log("K1/K2 bf16 at ViT-L/14@336px (vitl) and ViT-H-14 (vith): " + ", ".join(
+            f"{n} {sh} {times[(n, sh)]['ms']:.4f} ms (library {times[(n, sh)]['library_ms']:.4f})"
+            for sh in ("vitl", "vith") for n in ("fused_attn_block", "fused_mlp_block")))
         t1 = time.perf_counter()
         ann = phase_ann_large(torch)
         worst["adc_list_scores"] = max(worst["adc_list_scores"], ann["max_abs_err"])
@@ -2241,6 +2327,9 @@ def main() -> int:
             f"/api/search p50 {m['request_p50_ms']:.2f} ms; against the plain route "
             f"{json.dumps(m['against_plain'])}")
     log(f"the {FLASH_MODEL} default-route phases took {vith_s:.1f} s")
+    log("gemm_bf16 TFLOP/s: " + ", ".join(
+        f"{tag} {g['tflops']:.1f} (torch.matmul {2 * math.prod(GEMM_SHAPES[tag]) / g['library_ms'] / 1e9:.1f})"
+        for tag, g in gemm.items()))
     log(f"everything after the parity phases {time.perf_counter() - t0:.1f} s, "
         f"the whole script {time.perf_counter() - start:.1f} s")
     launches = {**main["launches"], **main_q["launches"]}

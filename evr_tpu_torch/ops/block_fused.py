@@ -18,6 +18,13 @@ fused halves,
   C call, bit-equal to ``fused_block_apply``, source ``csrc/block_merged.cu``;
   forward only, and, as in the JAX package, exported but routed nowhere.
 
+K1, K2 and K9 normalise in a row pass first (``ln_rows_plain`` is its plain
+version: K8's device code, writing the rounded LN output into a scratch) and
+then multiply on one GEMM: in bf16 the warp-specialised wgmma + TMA kernel
+of ``csrc/gemm_sm90.cuh``, which takes the shapes ``gemm_takes`` accepts
+(the wrappers check before loading a library), in fp32 the CUDA-core GEMM of
+``csrc/common.cuh``. ``gemm_bf16`` runs that bf16 GEMM alone.
+
 K1, K3a, K5a and K9 take head dim 64 or 80 (ViT-H-14's vision tower) and any
 T; other head dims raise on a CUDA tensor.
 
@@ -113,6 +120,21 @@ def _attend(qkv: torch.Tensor, n_heads: int, causal: bool) -> torch.Tensor:
     return attend_heads(q, k, v, causal).transpose(1, 2).reshape(B, T, W)
 
 
+def ln_rows_plain(x: torch.Tensor, ln_scale, ln_bias) -> torch.Tensor:
+    """The LayerNorm row pass of K1, K2 and K9 in plain PyTorch: y =
+    round_T(LN(x)·s + b) in x's dtype T, the statistics and the affine step
+    in fp32 on the parameters' values (already in T), one rounding. It is the
+    y the plain halves multiply with, and K8's function
+    (``layernorm.fused_layer_norm_plain``) on the fp32 values of s and b."""
+    return _ln32(x.float(), ln_scale, ln_bias).to(x.dtype)
+
+
+def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``gemm_bf16``'s function in plain PyTorch: the fp32 product of the
+    inputs plus the bias, rounded once to bfloat16."""
+    return (a.float() @ w.float() + bias.float()).to(torch.bfloat16)
+
+
 def fused_attn_block_plain(
     x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, n_heads: int,
     causal: bool = False,
@@ -120,7 +142,7 @@ def fused_attn_block_plain(
     """K1's function in plain PyTorch, parameters already in x's dtype."""
     dt = x.dtype
     x32 = x.float()
-    y = _ln32(x32, ln_scale, ln_bias).to(dt)
+    y = ln_rows_plain(x, ln_scale, ln_bias)
     qkv = (y.float() @ qkv_kernel.float() + qkv_bias.float()).to(dt)
     o = _attend(qkv, n_heads, causal)
     proj = o.float() @ out_kernel.float() + out_bias.float()
@@ -134,7 +156,7 @@ def fused_mlp_block_plain(
     """K2's function in plain PyTorch, parameters already in x's dtype."""
     dt = x.dtype
     x32 = x.float()
-    y = _ln32(x32, ln_scale, ln_bias).to(dt)
+    y = ln_rows_plain(x, ln_scale, ln_bias)
     h = _activate(y.float() @ fc_kernel.float() + fc_bias.float(), activation).to(dt)
     o = h.float() @ proj_kernel.float() + proj_bias.float()
     return x32.to(dt) + o.to(dt)
@@ -315,6 +337,41 @@ def _raise_rc(rc: int, what: str, shape) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error code {rc}")
 
 
+GEMM_TILE_M, GEMM_TILE_N, GEMM_TILE_K = 128, 256, 64
+
+
+def gemm_takes(M: int, N: int, K: int) -> bool:
+    """Whether the bf16 GEMM under K1, K2 and K9 (``csrc/gemm_sm90.cuh``,
+    whose ``gemm_takes`` this mirrors) computes out[M, N] = A[M, K]·W[K, N]:
+    N a multiple of its 256-wide output tile, K of its 64-wide step, M any
+    row count from 1 up to 65,535 row tiles of 128."""
+    return (
+        M >= 1 and N >= GEMM_TILE_N and K >= GEMM_TILE_K and N % GEMM_TILE_N == 0
+        and K % GEMM_TILE_K == 0 and -(-M // GEMM_TILE_M) <= 65535
+    )
+
+
+def _check_gemms(what: str, x: torch.Tensor, gemms, kernels, biases) -> None:
+    """A bf16 call, before any library is loaded: every GEMM (M, N, K) must
+    be one the wgmma GEMM takes, and what TMA and its 16-byte epilogue read
+    (x, the kernels) must start on a 16-byte boundary, the biases (read in
+    pairs) on a 4-byte one. fp32 calls run on the CUDA-core GEMM, whose C
+    side returns -1 for a shape it does not take."""
+    if x.dtype != torch.bfloat16:
+        return
+    for M, N, K in gemms:
+        if not gemm_takes(M, N, K):
+            raise ValueError(
+                f"{what}: the CUDA kernel does not take shape {tuple(x.shape)} "
+                f"(its GEMM takes N a multiple of {GEMM_TILE_N} and K of {GEMM_TILE_K}; "
+                f"got {M} x {N} x {K})"
+            )
+    if any(t.data_ptr() % 16 for t in (x, *kernels)) or any(b.data_ptr() % 4 for b in biases):
+        raise ValueError(
+            f"{what}: x and the kernels must start on 16-byte boundaries, the biases on 4-byte ones"
+        )
+
+
 def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
     """A kernel wrapper's result is written through raw pointers and has no
     autograd history: under grad mode, an input that requires grad would
@@ -352,14 +409,16 @@ def fused_attn_block(
         raise ValueError(f"fused_attn_block: x of shape {tuple(x.shape)} with {n_heads} heads")
     B, T, W = x.shape
     _check_cuda(x, params, [(W,), (W,), (W, 3 * W), (3 * W,), (W, W), (W,)], "fused_attn_block")
+    M = B * T
+    _check_gemms("fused_attn_block", x, [(M, 3 * W, W), (M, W, W)], params[2::2], params[3::2])
     lib = build.load("block_attn")
-    qkv = torch.empty((B * T, 3 * W), dtype=dt, device=x.device)
-    o = torch.empty_like(x)
-    out = torch.empty_like(x)
+    ln32 = [p.float() for p in params[:2]]  # the element-type values, as the row pass reads them
+    y, o, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    qkv = torch.empty((M, 3 * W), dtype=dt, device=x.device)
     d = W // n_heads
     rc = lib.evr_fused_attn_block(
-        _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in params),
-        qkv.data_ptr(), o.data_ptr(), out.data_ptr(), B, T, W, n_heads, int(causal),
+        _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in (*ln32, *params[2:])),
+        y.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(), B, T, W, n_heads, int(causal),
         1.0 / math.sqrt(d), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_rc(rc, "fused_attn_block", x.shape)
@@ -388,12 +447,15 @@ def fused_mlp_block(
     W, hid = x.shape[-1], params[2].shape[-1]
     _check_cuda(x, params, [(W,), (W,), (W, hid), (hid,), (hid, W), (W,)], "fused_mlp_block")
     rows = x.numel() // W
+    _check_gemms("fused_mlp_block", x, [(rows, hid, W), (rows, W, hid)], params[2::2], params[3::2])
     lib = build.load("block_mlp")
+    ln32 = [p.float() for p in params[:2]]  # the element-type values, as the row pass reads them
+    y = torch.empty((rows, W), dtype=dt, device=x.device)
     h = torch.empty((rows, hid), dtype=dt, device=x.device)
     out = torch.empty_like(x)
     rc = lib.evr_fused_mlp_block(
-        _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in params),
-        h.data_ptr(), out.data_ptr(), rows, W, hid, _ACT_CODES[activation],
+        _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in (*ln32, *params[2:])),
+        y.data_ptr(), h.data_ptr(), out.data_ptr(), rows, W, hid, _ACT_CODES[activation],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_rc(rc, "fused_mlp_block", x.shape)
@@ -597,8 +659,34 @@ def fused_mlp_block_bwd(
     return (dx, *grads)
 
 
+def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """out = round(a·w + bias) for a [M, K], w [K, N] and bias [N] in
+    bfloat16: the wgmma GEMM under K1, K2 and K9 on its own (entry
+    ``evr_gemm_bf16`` of ``csrc/block_mlp.cu``, the kRound epilogue), for
+    checking and timing it alone. Nothing on the serving or training path
+    calls it. A CPU tensor takes ``gemm_bf16_plain``."""
+    refuse_grad("gemm_bf16", a, w, bias)
+    if not a.is_cuda:
+        return gemm_bf16_plain(a, w, bias)
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0] or tuple(bias.shape) != (w.shape[1],):
+        raise ValueError(f"gemm_bf16: a {tuple(a.shape)}, w {tuple(w.shape)}, bias {tuple(bias.shape)}")
+    for t in (a, w, bias):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != a.device:
+            raise ValueError("gemm_bf16: a, w and bias must be contiguous bfloat16 tensors on one device")
+    (M, K), N = a.shape, w.shape[1]
+    _check_gemms("gemm_bf16", a, [(M, N, K)], [w], [bias])
+    lib = build.load("block_mlp")
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    rc = lib.evr_gemm_bf16(a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), M, N, K,
+                           torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_rc(rc, "gemm_bf16", (M, N, K))
+    gemm_bf16.launches += 1
+    return out
+
+
 fused_attn_block.launches = 0
 fused_mlp_block.launches = 0
+gemm_bf16.launches = 0
 fused_attn_block_q.launches = 0
 fused_mlp_block_q.launches = 0
 fused_attn_block_bwd.launches = 0
@@ -763,14 +851,20 @@ def fused_block_merged(
         [(W,), (W,), (W, 3 * W), (3 * W,), (W, W), (W,), (W,), (W,), (W, hid), (hid,), (hid, W), (W,)],
         "fused_block_merged",
     )
-    lib = build.load("block_merged")
     rows = B * T
+    _check_gemms(
+        "fused_block_merged", x, [(rows, 3 * W, W), (rows, W, W), (rows, hid, W), (rows, W, hid)],
+        [params[i] for i in (2, 4, 8, 10)], [params[i] for i in (3, 5, 9, 11)],
+    )
+    lib = build.load("block_merged")
+    # the LN parameters as the row pass reads them: their element-type values in fp32
+    params = [t.float() if i in (0, 1, 6, 7) else t for i, t in enumerate(params)]
     qkv = torch.empty((rows, 3 * W), dtype=dt, device=x.device)
-    o, xc, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    y, o, xc, out = (torch.empty_like(x) for _ in range(4))
     h = torch.empty((rows, hid), dtype=dt, device=x.device)
     rc = lib.evr_fused_block_merged(
         _DTYPE_CODES[dt], x.data_ptr(), *(t.data_ptr() for t in params),
-        qkv.data_ptr(), o.data_ptr(), xc.data_ptr(), h.data_ptr(), out.data_ptr(),
+        y.data_ptr(), qkv.data_ptr(), o.data_ptr(), xc.data_ptr(), h.data_ptr(), out.data_ptr(),
         B, T, W, n_heads, hid, _ACT_CODES[activation], int(causal), 1.0 / math.sqrt(W // n_heads),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

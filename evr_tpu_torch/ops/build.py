@@ -105,11 +105,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "block_attn":
         fn = lib.evr_fused_attn_block
-        fn.argtypes = [i] + [p] * 10 + [i] * 5 + [f, p]
+        fn.argtypes = [i] + [p] * 11 + [i] * 5 + [f, p]
         fn.restype = i
     elif name == "block_mlp":
         fn = lib.evr_fused_mlp_block
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [i] + [p] * 10 + [i] * 4 + [p]
+        fn.restype = i
+        fn = lib.evr_gemm_bf16
+        fn.argtypes = [p] * 4 + [i] * 3 + [p]
         fn.restype = i
     elif name == "block_quant":
         fn = lib.evr_fused_attn_block_q
@@ -144,7 +147,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.restype = i
     elif name == "block_merged":
         fn = lib.evr_fused_block_merged
-        fn.argtypes = [i] + [p] * 18 + [i] * 7 + [f, p]
+        fn.argtypes = [i] + [p] * 19 + [i] * 7 + [f, p]
         fn.restype = i
     else:
         raise KeyError(f"unknown kernel library {name!r}")

@@ -17,56 +17,69 @@
 // x, out and weights = 13 us; ViT-L/14@336px training, B=32 T=577 W=1024
 // H=16, 199 GFLOP = 0.20 ms against 80 MB = 24 us. Bound by operations.
 //
-// Design: three launches. (1) the shared row-tiled GEMM (common.cuh) with
-// LN1 as its A-operand prologue and bias + rounding as its epilogue writes
-// qkv [B*T, 3W]; (2) flash_fwd_kernel (flash.cuh), one block per (64-row
-// query tile, head, sequence), walks the key blocks twice (the row max, then
-// the sum and P.V) so that P is rounded against the row's true max, and
-// writes the head output o; (3) the shared GEMM for o @ out_kernel + bias +
-// x. qkv and o make a round trip through device memory (at the training
-// shape 2 x 113 MB and 2 x 38 MB), and QK^T is computed twice; both are the
-// costs this simple version accepts. Every product runs on the tensor cores
-// in bf16 (WMMA, fp32 accumulation); fp32 calls multiply on the CUDA cores.
+// Design: four launches. (1) the LayerNorm row pass (layer_norm_kernel,
+// common.cuh, K8's device code) writes y = round(LN1(x) * s + b) into a
+// scratch [B*T, W]; (2) the GEMM writes qkv = round(y @ W_qkv + b) [B*T, 3W];
+// (3) flash_fwd_kernel (flash.cuh), one block per (64-row query tile, head,
+// sequence), walks the key blocks twice (the row max, then the sum and P.V)
+// so that P is rounded against the row's true max, and writes the head
+// output o; (4) the GEMM for o @ out_kernel + bias + x. In bf16 both GEMMs
+// run on the warp-specialised wgmma + TMA kernel of gemm_sm90.cuh (128 x 256
+// tiles, a 4-stage ring, 16-byte epilogue); in fp32 on the CUDA-core GEMM of
+// common.cuh (full fp32). What bounds it on this card: the GEMMs are 91 % of
+// the operations at ViT-H-14's vision shape (862 of 949 GFLOP) and, at the
+// old GEMM's 36 TFLOP/s, most of the time; the new one runs them near the
+// tensor cores' rate, which leaves the attention core (WMMA tiles, QK^T
+// computed twice, k read twice) as the larger share. y, qkv and o make a
+// round trip through device memory (at ViT-H-14's shape 168, 505 and 168
+// MB), a cost of a few hundredths of a millisecond each at 3.35 TB/s.
 
 #include "flash.cuh"
+#include "gemm_sm90.cuh"
 
 namespace evr {
 
 template <typename T>
-int attn_block(const T* x, const T* ln_s, const T* ln_b, const T* qkv_k, const T* qkv_b, const T* out_k,
-               const T* out_b, T* qkv, T* o, T* out, int B, int T_, int W, int H, int causal, float scale,
+int attn_block(const T* x, const float* ln_s, const float* ln_b, const T* qkv_k, const T* qkv_b, const T* out_k,
+               const T* out_b, T* y, T* qkv, T* o, T* out, int B, int T_, int W, int H, int causal, float scale,
                cudaStream_t stream) {
-  if (H < 1 || W % H != 0 || !flash_head_dim(W / H) || W % kGemmBN != 0 || T_ < 1) return -1;
+  if (B < 1 || T_ < 1 || H < 1 || W % H != 0 || !flash_head_dim(W / H)) return -1;
   const int M = B * T_;
-  int rc = launch_gemm<T, kLayerNorm, kRound>(x, ln_s, ln_b, qkv_k, qkv_b, nullptr, qkv, M, 3 * W, W, stream);
+  if (!block_gemm_takes<T>(M, 3 * W, W) || !block_gemm_takes<T>(M, W, W)) return -1;
+  int rc = launch_layer_norm<T>(x, ln_s, ln_b, y, M, W, false, stream);
+  if (rc != 0) return rc;
+  rc = block_gemm<kRound>(y, qkv_k, qkv_b, nullptr, qkv, M, 3 * W, W, stream);
   if (rc != 0) return rc;
   rc = launch_flash_fwd<T>(qkv, o, B, T_, W, H, causal, scale, stream);
   if (rc != 0) return rc;
-  return launch_gemm<T, kPlain, kResidualOnce>(o, nullptr, nullptr, out_k, out_b, x, out, M, W, W, stream);
+  return block_gemm<kResidualOnce>(o, out_k, out_b, x, out, M, W, W, stream);
+}
+
+template <typename T>
+int attn_block_c(const void* x, const void* ln_s, const void* ln_b, const void* const* p, void* const* scratch,
+                 void* out, int B, int T_, int W, int H, int causal, float scale, cudaStream_t stream) {
+  auto c = [p](int i) { return static_cast<const T*>(p[i]); };
+  auto m = [scratch](int i) { return static_cast<T*>(scratch[i]); };
+  return attn_block<T>(static_cast<const T*>(x), static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
+                       c(0), c(1), c(2), c(3), m(0), m(1), m(2), static_cast<T*>(out), B, T_, W, H, causal, scale,
+                       stream);
 }
 
 }  // namespace evr
 
-// Plain C entry point for ctypes. dtype 0 = float32, 1 = bfloat16. qkv
-// [B*T, 3W] and o [B*T, W] are scratch. Returns 0, -1 for a shape the kernel
-// does not take, or a CUDA error code.
+// Plain C entry point for ctypes. dtype 0 = float32, 1 = bfloat16. x [B*T, W]
+// and the kernels and biases in that dtype; ln_s and ln_b [W] fp32 (the
+// values of the element-type LN parameters). y [B*T, W], qkv [B*T, 3W] and o
+// [B*T, W] are scratch. Returns 0, -1 for a shape the kernel does not take,
+// or a CUDA error code.
 extern "C" int evr_fused_attn_block(int dtype, const void* x, const void* ln_s, const void* ln_b,
                                     const void* qkv_k, const void* qkv_b, const void* out_k,
-                                    const void* out_b, void* qkv, void* o, void* out, int B, int T, int W,
+                                    const void* out_b, void* y, void* qkv, void* o, void* out, int B, int T, int W,
                                     int H, int causal, float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return evr::attn_block<float>(
-        static_cast<const float*>(x), static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-        static_cast<const float*>(qkv_k), static_cast<const float*>(qkv_b),
-        static_cast<const float*>(out_k), static_cast<const float*>(out_b), static_cast<float*>(qkv),
-        static_cast<float*>(o), static_cast<float*>(out), B, T, W, H, causal, scale, s);
-  if (dtype == 1)
-    return evr::attn_block<evr::bf16>(
-        static_cast<const evr::bf16*>(x), static_cast<const evr::bf16*>(ln_s),
-        static_cast<const evr::bf16*>(ln_b), static_cast<const evr::bf16*>(qkv_k),
-        static_cast<const evr::bf16*>(qkv_b), static_cast<const evr::bf16*>(out_k),
-        static_cast<const evr::bf16*>(out_b), static_cast<evr::bf16*>(qkv), static_cast<evr::bf16*>(o),
-        static_cast<evr::bf16*>(out), B, T, W, H, causal, scale, s);
+  const void* p[4] = {qkv_k, qkv_b, out_k, out_b};
+  void* scratch[3] = {y, qkv, o};
+  if (dtype == 0) return evr::attn_block_c<float>(x, ln_s, ln_b, p, scratch, out, B, T, W, H, causal, scale, s);
+  if (dtype == 1) return evr::attn_block_c<evr::bf16>(x, ln_s, ln_b, p, scratch, out, B, T, W, H, causal, scale, s);
   return -1;
 }

@@ -1,8 +1,10 @@
-// Shared pieces of the fused transformer-block kernels (block_attn.cu,
-// block_mlp.cu, block_quant.cu, block_attn_bwd.cu, block_mlp_bwd.cu):
-// element-type helpers, a warp-level 16x16x16 tile product with fp32
-// accumulation, and a row-tiled GEMM with a LayerNorm prologue and the
-// residual/activation epilogues the two block halves need.
+// Shared pieces of the hand-written kernels (block_attn.cu, block_mlp.cu,
+// block_merged.cu, block_quant.cu, block_attn_bwd.cu, block_mlp_bwd.cu,
+// flash_attn.cu, layernorm.cu, topk_fused.cu): element-type helpers, a
+// warp-level 16x16x16 tile product with fp32 accumulation (flash.cuh and
+// grad_common.cuh), the block halves' epilogues, the LayerNorm row pass (K8's
+// device code) and the fp32 row-tiled GEMM of the block halves' fp32 calls.
+// Their bf16 GEMMs run on the wgmma kernel of gemm_sm90.cuh.
 //
 // Element types: __nv_bfloat16 (the serving dtype; tile products run on the
 // tensor cores through WMMA) and float (tile products run as fp32 FMAs on the
@@ -146,75 +148,118 @@ struct Tile<float> {
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
-// -- row-tiled GEMM with fused prologue / epilogue --------------------------
-// out[M, N] = epilogue(prologue(A)[M, K] @ W[K, N] + bias), one 64x128 output
-// tile per block, K walked in 32-wide steps through shared memory; 8 warps as
-// 2 x 4, each owning a 32x32 quarter (2 x 2 tiles).
-enum Prologue { kPlain = 0, kLayerNorm = 1 };
+// The block halves' epilogues, applied to v = the fp32 sum plus the bias, at
+// the reference's rounding points (evr_tpu/ops/block_fused.py): kRound rounds
+// v once; kResidualOnce adds the residual in fp32 and rounds once (K1);
+// kResidualTwice adds the rounded v to the residual in the element type (K2);
+// kQuickGelu and kGelu apply the activation in fp32 and round.
 enum Epilogue { kResidualOnce = 0, kQuickGelu = 1, kGelu = 2, kResidualTwice = 3, kRound = 4 };
 
-constexpr int kGemmBM = 64, kGemmBN = 128, kGemmBK = 32;
-
-template <typename T>
-__host__ __device__ constexpr size_t gemm_smem_bytes() {
-  return align128(sizeof(T) * kGemmBM * (kGemmBK + 8)) +
-         align128(sizeof(T) * kGemmBK * (kGemmBN + 8)) +
-         align128(sizeof(float) * kGemmBM * (kGemmBN + 4)) + align128(sizeof(float) * 2 * kGemmBM);
+template <int EPI>
+__host__ __device__ constexpr bool epilogue_reads_residual() {
+  return EPI == kResidualOnce || EPI == kResidualTwice;
 }
 
-template <typename T, int PRO, int EPI>
+template <typename T, int EPI>
+__device__ __forceinline__ T apply_epilogue(float v, float res) {
+  if constexpr (EPI == kResidualOnce) {
+    return from_f<T>(res + v);  // fp32 sum, one rounding
+  } else if constexpr (EPI == kResidualTwice) {
+    return from_f<T>(res + rnd<T>(v));  // sum of two T values
+  } else if constexpr (EPI == kRound) {
+    return from_f<T>(v);
+  } else if constexpr (EPI == kQuickGelu) {
+    return from_f<T>(quick_gelu(v));
+  } else {
+    return from_f<T>(gelu_as(v));
+  }
+}
+
+// -- LayerNorm row pass (K8's device code) ----------------------------------
+// y = LN(x) * scale + bias (then y * sigmoid(1.702 y) with TAIL), one warp a
+// row, eight rows a block: row_stats' two passes, then a third that
+// normalises, scales and casts once. scale and bias are fp32. K8 launches it
+// on its own; the block halves launch it before the QKV and fc GEMMs, with
+// the fp32 values of their element-type LN parameters, so y is exactly the
+// rounded LN output the reference multiplies with.
+template <typename T, bool TAIL>
+__global__ void __launch_bounds__(kThreads) layer_norm_kernel(const T* __restrict__ x,
+                                                              const float* __restrict__ scale,
+                                                              const float* __restrict__ bias,
+                                                              T* __restrict__ y, int rows, int D) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kThreads / 32) + warp;
+  if (row >= rows) return;  // whole warps leave; the kernel has no barrier
+  const T* xr = x + static_cast<size_t>(row) * D;
+  T* yr = y + static_cast<size_t>(row) * D;
+  float mean, rstd;
+  row_stats(xr, D, mean, rstd);
+  for (int k = lane; k < D; k += 32) {
+    float v = (to_f(xr[k]) - mean) * rstd;
+    v = v * scale[k] + bias[k];
+    if constexpr (TAIL) v = quick_gelu(v);
+    yr[k] = from_f<T>(v);
+  }
+}
+
+template <typename T>
+int launch_layer_norm(const T* x, const float* scale, const float* bias, T* y, int rows, int D, bool tail,
+                      cudaStream_t stream) {
+  constexpr int rows_per_block = kThreads / 32;
+  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+  if (tail)
+    layer_norm_kernel<T, true><<<blocks, kThreads, 0, stream>>>(x, scale, bias, y, rows, D);
+  else
+    layer_norm_kernel<T, false><<<blocks, kThreads, 0, stream>>>(x, scale, bias, y, rows, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- fp32 row-tiled GEMM on the CUDA cores ----------------------------------
+// out[M, N] = epilogue(A[M, K] @ W[K, N] + bias) in full fp32 (no TF32), one
+// 64x128 output tile per block, K walked in 32-wide steps through shared
+// memory; 8 warps as 2 x 4, each owning a 32x32 quarter (2 x 2 Tile<float>
+// products). The block halves' fp32 calls run here; their bf16 calls run on
+// the wgmma GEMM of gemm_sm90.cuh.
+constexpr int kGemmBM = 64, kGemmBN = 128, kGemmBK = 32;
+
+__host__ __device__ constexpr size_t gemm_smem_bytes() {
+  return align128(sizeof(float) * kGemmBM * (kGemmBK + 8)) + align128(sizeof(float) * kGemmBK * (kGemmBN + 8)) +
+         align128(sizeof(float) * kGemmBM * (kGemmBN + 4));
+}
+
+inline bool gemm_f32_takes(int M, int N, int K) {
+  return M >= 1 && N >= kGemmBN && K >= kGemmBK && N % kGemmBN == 0 && K % kGemmBK == 0 &&
+         (M + kGemmBM - 1) / kGemmBM <= 65535;
+}
+
+template <int EPI>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(
-    const T* __restrict__ a,      // [M, K]; for kLayerNorm the pre-norm rows
-    const T* __restrict__ ln_s,   // [K] (kLayerNorm)
-    const T* __restrict__ ln_b,   // [K] (kLayerNorm)
-    const T* __restrict__ w,      // [K, N]
-    const T* __restrict__ bias,   // [N]
-    const T* __restrict__ res,    // [M, N] residual (kResidual*)
-    T* __restrict__ out,          // [M, N]
+    const float* __restrict__ a,     // [M, K]
+    const float* __restrict__ w,     // [K, N]
+    const float* __restrict__ bias,  // [N]
+    const float* __restrict__ res,   // [M, N] residual (kResidual*)
+    float* __restrict__ out,         // [M, N]
     int M, int N, int K) {
   constexpr int BM = kGemmBM, BN = kGemmBN, BK = kGemmBK;
   constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sa = reinterpret_cast<T*>(smem);
-  T* sb = reinterpret_cast<T*>(smem + align128(sizeof(T) * BM * LDA));
-  float* sc = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sb) +
-                                       align128(sizeof(T) * BK * LDB));
-  float* s_mean = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sc) +
-                                           align128(sizeof(float) * BM * LDC));
-  float* s_rstd = s_mean + BM;
+  float* sa = reinterpret_cast<float*>(smem);
+  float* sb = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * LDA));
+  float* sc = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sb) + align128(sizeof(float) * BK * LDB));
 
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  if constexpr (PRO == kLayerNorm) {
-    for (int r = warp; r < BM; r += kThreads / 32) {
-      float mean = 0.f, rstd = 0.f;
-      if (row0 + r < M) row_stats(a + static_cast<size_t>(row0 + r) * K, K, mean, rstd);
-      if (lane == 0) {
-        s_mean[r] = mean;
-        s_rstd[r] = rstd;
-      }
-    }
-    __syncthreads();
-  }
-
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int wr = warp >> 2, wc = warp & 3;
-  typename Tile<T>::Acc acc[2][2];
+  Tile<float>::Acc acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) Tile<T>::zero(acc[i][j]);
+    for (int j = 0; j < 2; ++j) Tile<float>::zero(acc[i][j]);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int i = tid; i < BM * BK; i += kThreads) {
       const int r = i / BK, c = i % BK, gr = row0 + r;
-      float v = 0.f;
-      if (gr < M) {
-        v = to_f(a[static_cast<size_t>(gr) * K + k0 + c]);
-        if constexpr (PRO == kLayerNorm)
-          v = rnd<T>((v - s_mean[r]) * s_rstd[r] * to_f(ln_s[k0 + c]) + to_f(ln_b[k0 + c]));
-      }
-      sa[r * LDA + c] = from_f<T>(v);
+      sa[r * LDA + c] = gr < M ? a[static_cast<size_t>(gr) * K + k0 + c] : 0.f;
     }
     for (int i = tid; i < BK * BN; i += kThreads) {
       const int r = i / BN, c = i % BN;
@@ -227,47 +272,39 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          Tile<T>::template mma<false>(acc[i][j], sa + (wr * 32 + i * 16) * LDA + kk, LDA,
-                                       sb + kk * LDB + wc * 32 + j * 16, LDB);
+          Tile<float>::mma<false>(acc[i][j], sa + (wr * 32 + i * 16) * LDA + kk, LDA,
+                                  sb + kk * LDB + wc * 32 + j * 16, LDB);
     __syncthreads();
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      Tile<T>::store(sc + (wr * 32 + i * 16) * LDC + wc * 32 + j * 16, LDC, acc[i][j]);
+      Tile<float>::store(sc + (wr * 32 + i * 16) * LDC + wc * 32 + j * 16, LDC, acc[i][j]);
   __syncthreads();
 
   for (int i = tid; i < BM * BN; i += kThreads) {
     const int r = i / BN, c = i % BN, gr = row0 + r, gc = col0 + c;
     if (gr >= M) continue;
-    const float v = sc[r * LDC + c] + to_f(bias[gc]);
     const size_t o = static_cast<size_t>(gr) * N + gc;
-    if constexpr (EPI == kResidualOnce) {
-      out[o] = from_f<T>(to_f(res[o]) + v);  // fp32 sum, one rounding
-    } else if constexpr (EPI == kResidualTwice) {
-      out[o] = from_f<T>(to_f(res[o]) + rnd<T>(v));  // sum of two T values
-    } else if constexpr (EPI == kRound) {
-      out[o] = from_f<T>(v);  // the fp32 sum plus bias, rounded once
-    } else if constexpr (EPI == kQuickGelu) {
-      out[o] = from_f<T>(quick_gelu(v));
-    } else {
-      out[o] = from_f<T>(gelu_as(v));
-    }
+    const float rv = epilogue_reads_residual<EPI>() ? res[o] : 0.f;
+    out[o] = apply_epilogue<float, EPI>(sc[r * LDC + c] + bias[gc], rv);
   }
 }
 
-// Launch one gemm_kernel instantiation; returns the CUDA error code.
-template <typename T, int PRO, int EPI>
-int launch_gemm(const T* a, const T* ln_s, const T* ln_b, const T* w, const T* bias,
-                const T* res, T* out, int M, int N, int K, cudaStream_t stream) {
-  constexpr size_t smem = gemm_smem_bytes<T>();
-  auto kernel = gemm_kernel<T, PRO, EPI>;
+// Launch one fp32 gemm_kernel instantiation; returns -1 for a shape it does
+// not take, else the CUDA error code.
+template <int EPI>
+int launch_gemm(const float* a, const float* w, const float* bias, const float* res, float* out, int M, int N,
+                int K, cudaStream_t stream) {
+  if (!gemm_f32_takes(M, N, K)) return -1;
+  constexpr size_t smem = gemm_smem_bytes();
+  auto kernel = gemm_kernel<EPI>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(N / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-  kernel<<<grid, kThreads, smem, stream>>>(a, ln_s, ln_b, w, bias, res, out, M, N, K);
+  kernel<<<grid, kThreads, smem, stream>>>(a, w, bias, res, out, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,54 +16,17 @@
 // element (13 with the tail). ViT-H-14's vision rows, 65,792 x 1280 bf16:
 // 336.8 MB = 0.101 ms against 0.67 GFLOP = 0.010 ms. Bound by bytes.
 //
-// Design (right and simple first): one warp per row, eight rows a block of
-// 256 threads. The warp takes the row's statistics with row_stats of
-// common.cuh (the shared LN prologue of the block kernels: two passes over
-// the row, fp32 sums by warp shuffles), then a third pass normalises, scales,
-// applies the tail and stores. Lane l reads columns l, l + 32, ..., so loads
-// are coalesced for any D. The second and third passes re-read the row from
-// L1/L2 rather than device memory; keeping the row in registers or shared
-// memory, and 16-byte vector loads, are left for later.
+// Design (right and simple first): layer_norm_kernel of common.cuh, one warp
+// per row, eight rows a block of 256 threads; the block halves K1, K2 and K9
+// launch the same function as their LayerNorm row pass. The warp takes the
+// row's statistics with row_stats (two passes over the row, fp32 sums by warp
+// shuffles), then a third pass normalises, scales, applies the tail and
+// stores. Lane l reads columns l, l + 32, ..., so loads are coalesced for
+// any D. The second and third passes re-read the row from L1/L2 rather than
+// device memory; keeping the row in registers or shared memory, and 16-byte
+// vector loads, are left for later.
 
 #include "common.cuh"
-
-namespace evr {
-
-template <typename T, bool TAIL>
-__global__ void __launch_bounds__(kThreads) layer_norm_kernel(const T* __restrict__ x,
-                                                              const float* __restrict__ scale,
-                                                              const float* __restrict__ bias,
-                                                              T* __restrict__ y, int rows, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kThreads / 32) + warp;
-  if (row >= rows) return;  // whole warps leave; the kernel has no barrier
-  const T* xr = x + static_cast<size_t>(row) * D;
-  T* yr = y + static_cast<size_t>(row) * D;
-  float mean, rstd;
-  row_stats(xr, D, mean, rstd);
-  for (int k = lane; k < D; k += 32) {
-    float v = (to_f(xr[k]) - mean) * rstd;
-    v = v * scale[k] + bias[k];
-    if constexpr (TAIL) v = quick_gelu(v);
-    yr[k] = from_f<T>(v);
-  }
-}
-
-template <typename T>
-int layer_norm(const void* x, const float* scale, const float* bias, void* y, int rows, int D, int tail,
-               cudaStream_t stream) {
-  constexpr int rows_per_block = kThreads / 32;
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  auto xt = static_cast<const T*>(x);
-  auto yt = static_cast<T*>(y);
-  if (tail)
-    layer_norm_kernel<T, true><<<blocks, kThreads, 0, stream>>>(xt, scale, bias, yt, rows, D);
-  else
-    layer_norm_kernel<T, false><<<blocks, kThreads, 0, stream>>>(xt, scale, bias, yt, rows, D);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace evr
 
 // Plain C entry point for ctypes. dtype 0 = float32, 1 = bfloat16; x and y
 // contiguous [rows, D] in that dtype, scale and bias [D] fp32; tail 1 adds
@@ -74,7 +37,11 @@ extern "C" int evr_fused_layer_norm(int dtype, const void* x, const void* scale,
   auto s = static_cast<cudaStream_t>(stream);
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   if (rows < 1 || D < 1) return -1;
-  if (dtype == 0) return evr::layer_norm<float>(x, f32(scale), f32(bias), y, rows, D, tail, s);
-  if (dtype == 1) return evr::layer_norm<evr::bf16>(x, f32(scale), f32(bias), y, rows, D, tail, s);
+  if (dtype == 0)
+    return evr::launch_layer_norm(static_cast<const float*>(x), f32(scale), f32(bias), static_cast<float*>(y),
+                                  rows, D, tail != 0, s);
+  if (dtype == 1)
+    return evr::launch_layer_norm(static_cast<const evr::bf16*>(x), f32(scale), f32(bias),
+                                  static_cast<evr::bf16*>(y), rows, D, tail != 0, s);
   return -1;
 }
