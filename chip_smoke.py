@@ -8,12 +8,16 @@ package. Phases, each fatal on failure:
 1. the card: name and power limit (``nvidia-smi``); TF32 off for matmuls and
    cuDNN, so fp32 comparisons are full fp32;
 2. build: every kernel of the main paths compiled from ``ops/csrc``; the
-   SASS of the K1, K2 and K9 libraries (``cuobjdump -sass``) must hold
-   ``HGMMA`` instructions, the wgmma products of ``csrc/gemm_sm90.cuh``;
-3. the bf16 GEMM under K1, K2 and K9 alone (``gemm_bf16``) at ViT-H-14's
+   SASS of the K1, K2, K9, K5a and K5b libraries (``cuobjdump -sass``) must
+   hold ``HGMMA`` instructions, the wgmma products of ``csrc/gemm_sm90.cuh``;
+3. the bf16 GEMM under K1, K2, K9 and K5 alone (``gemm_bf16``) at ViT-H-14's
    four vision GEMMs (65,792 rows), ViT-B/32's vision and text GEMMs, a
    ragged M and one tile, against ``torch.matmul`` in fp32 rounded once,
-   timed against ``torch.matmul`` in bf16; then kernel parity: K1
+   and in K5's layouts (Aᵀ from a [K, M] array, Wᵀ from W's [in, out]
+   array; bf16 or fp32 out) at the ten backward products of
+   ViT-L/14@336px's training shape and its text shape, a ragged K and split
+   weight gradients, against the fp32 product of the same inputs, each timed
+   against ``torch.matmul`` on the same layout; then kernel parity: K1
    (``fused_attn_block``), K2 (``fused_mlp_block``), K3a
    and K3b (``fused_attn_block_q``, ``fused_mlp_block_q``: the int8 halves)
    against their plain PyTorch versions at the ViT-B/32 main-path shapes,
@@ -49,8 +53,9 @@ package. Phases, each fatal on failure:
    held together within bands that a gradient perturbed to cosine 0.99
    fails; the step time;
 7. times: each kernel, its plain version and a PyTorch library computation
-   of the same function, by CUDA events at the main-path shapes; encode
-   frames/s and the p50 of a text query, bf16 and int8;
+   of the same function, by CUDA events at the main-path shapes; K5a split
+   into its attention backward alone (``attn_backward``), its five GEMMs and
+   the rest; encode frames/s and the p50 of a text query, bf16 and int8;
 8. the ANN tiers: K7 (``adc_list_scores``) against its plain version, bit
    for bit (phase 3); the bf16 data root of phase 4 served under
    ``search_impl="ivf"`` at a full probe (served events equal to the exact
@@ -152,8 +157,49 @@ GEMM_SHAPES = {
     "ragged": (150, 768, 768), "one-tile": (128, 256, 64),
 }
 GEMM_TOL_STEPS = 1
+# The same GEMM in the layouts and outputs of K5's ten products, as (M, N,
+# K, a_t, w_t, out_dtype, bias): aᵀ read from a [K, M] array for the weight
+# gradients, wᵀ from W's [in, out] array for the input gradients. At
+# ViT-L/14@336px's training shape (18,464 rows, W 1,024, hidden 4,096) and
+# its causal text shape (1,232 rows, W 768, hidden 3,072), a ragged K below
+# one 64-row step, and a weight gradient split into four slices of rows
+# (dW_out at W 1,024: 32 output tiles; it is timed in one pass too). K5b's
+# two activation epilogues are run here in their layouts with
+# the plain bf16 output (h_pre: the forward layout; dh: wᵀ); K5b's parity
+# checks the epilogues themselves. Against the fp32 product of the same bf16
+# inputs (torch.matmul on the transposed views): bf16 outputs within
+# GEMM_TOL_STEPS bf16 steps as above; fp32 outputs within BWD_GEMM_F32_REL
+# of the output's largest entry. Only the order of the fp32 sums differs
+# (over up to 18,464 rows, and the slice order of a split): the largest such
+# error was 2.47e-5 (dW_proj at the training shape, one pass over 18,464
+# rows; 5.1e-6 for the split dW_out) in this script's run on an H100 80GB
+# HBM3 (700 W), and the band is about twice that. Each run shows it
+# rejecting an output whose largest entry moved by one bf16 step (about
+# 6e-3 of it).
+def _bwd_gemms(tag: str, R: int, W: int, hid: int) -> dict:
+    bf, f32 = "bfloat16", "float32"
+    return {
+        f"{tag}-K5a-qkv": (R, 3 * W, W, False, False, bf, True),
+        f"{tag}-K5a-do": (R, W, W, False, True, bf, False),
+        f"{tag}-K5a-dW_qkv": (W, 3 * W, R, True, False, f32, False),
+        f"{tag}-K5a-dy": (R, W, 3 * W, False, True, f32, False),
+        f"{tag}-K5a-dW_out": (W, W, R, True, False, f32, False),
+        f"{tag}-K5b-h_pre": (R, hid, W, False, False, bf, True),
+        f"{tag}-K5b-dW_proj": (hid, W, R, True, False, f32, False),
+        f"{tag}-K5b-dh": (R, hid, W, False, True, bf, False),
+        f"{tag}-K5b-dW_fc": (W, hid, R, True, False, f32, False),
+        f"{tag}-K5b-dy": (R, W, hid, False, True, f32, False),
+    }
+
+
+BWD_GEMM_SHAPES = {
+    **_bwd_gemms("vitl", 32 * 577, 1024, 4096),
+    **_bwd_gemms("text", 16 * 77, 768, 3072),
+    "ragged-k": (256, 512, 40, True, False, "float32", False),
+}
+BWD_GEMM_F32_REL = 5e-5
 # the libraries whose bf16 GEMMs run on csrc/gemm_sm90.cuh's wgmma kernel
-HGMMA_LIBS = ("block_attn", "block_mlp", "block_merged")
+HGMMA_LIBS = ("block_attn", "block_mlp", "block_merged", "block_attn_bwd", "block_mlp_bwd")
 FP32_TOL = 2e-4  # max abs, fp32 kernel vs plain version (accumulation order only)
 BF16_TOL = 3e-2  # max abs on unit-variance activations: about 2 bf16 ulps below 4
 BF16_MIN_COS = 0.9999  # per output row, bf16
@@ -396,7 +442,7 @@ def phase_build():
                     log(f"  ptxas {name}: {line.strip()}")
     log(f"build: {json.dumps({k: round(v, 1) for k, v in times.items()})} "
         f"total {total:.1f} s (0 = already built)")
-    # the bf16 GEMMs of K1, K2 and K9 must be wgmma products in the binary
+    # the bf16 GEMMs of K1, K2, K9 and K5 must be wgmma products in the binary
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     counts = {}
     for name in HGMMA_LIBS:
@@ -442,9 +488,72 @@ def phase_gemm(torch):
             f"bound {bound:.4f} ms")
         check(finite and got.shape == (M, N), f"gemm_bf16 {tag}: {tuple(got.shape)}, finite {finite}")
         check(err <= band, f"gemm_bf16 {tag}: max abs err {err} > {band}")
-        out[tag] = {"ms": ms, "library_ms": lib_ms, "tflops": flops / ms / 1e9}
+        out[tag] = {"ms": ms, "library_ms": lib_ms, "tflops": flops / ms / 1e9, "flops": flops}
         del a, w, b, got, ref
+    for tag, (M, N, K, a_t, w_t, out_name, has_bias) in BWD_GEMM_SHAPES.items():
+        out[tag] = gemm_layout_case(torch, tag, M, N, K, a_t, w_t, getattr(torch, out_name), has_bias)
     return out
+
+
+def gemm_layout_case(torch, tag, M, N, K, a_t, w_t, out_dtype, has_bias):
+    """``gemm_bf16`` in one of K5's layouts against ``gemm_bf16_plain`` (the
+    fp32 product of the same bf16 inputs), and timed against
+    ``torch.matmul`` on the transposed views (bf16 out) by CUDA events."""
+    from evr_tpu_torch.ops import block_fused as bf
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    a = unit_activations(torch, (K, M) if a_t else (M, K), gen, dev).to(torch.bfloat16)
+    w = (torch.randn((N, K) if w_t else (K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+    b = (torch.randn((N,), generator=gen, device=dev) * 0.02).to(torch.bfloat16) if has_bias else None
+    kw = dict(a_t=a_t, w_t=w_t, out_dtype=out_dtype)
+    before = bf.gemm_bf16.launches
+    got = bf.gemm_bf16(a, w, b, **kw)
+    torch.cuda.synchronize()
+    check(bf.gemm_bf16.launches == before + 1, f"gemm_bf16 {tag}: the kernel did not launch")
+    ref = bf.gemm_bf16_plain(a, w, b, **kw).float()
+    peak = ref.abs().max().item()
+    err = (got.float() - ref).abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all().item())
+    check(finite and got.shape == (M, N) and got.dtype == out_dtype,
+          f"gemm_bf16 {tag}: {got.dtype} {tuple(got.shape)}, finite {finite}")
+    step = 2.0 ** (math.floor(math.log2(peak)) - 7)  # one bf16 step at the largest magnitude
+    if out_dtype == torch.bfloat16:
+        band = GEMM_TOL_STEPS * step
+        verdict = f"max_abs_err={err:.3e} (band {band:.3e})"
+        ok = err <= band
+    else:
+        rel = err / peak
+        # the band must reject the output with its largest entry one bf16 step off
+        moved = got.float().reshape(-1).clone()
+        moved[int(ref.reshape(-1).abs().argmax().item())] += step
+        moved_rel = (moved - ref.reshape(-1)).abs().max().item() / peak
+        check(moved_rel > BWD_GEMM_F32_REL, f"gemm_bf16 {tag}: a one-step perturbation ({moved_rel}) passes")
+        verdict = f"rel_err={rel:.3e} (band {BWD_GEMM_F32_REL:.1e}; one bf16 step off {moved_rel:.3e})"
+        ok = rel <= BWD_GEMM_F32_REL
+        del moved
+    at, wt = (a.t() if a_t else a), (w.t() if w_t else w)
+    ms = min(cuda_ms(torch, lambda: bf.gemm_bf16(a, w, b, **kw)) for _ in range(2))
+    lib_ms = min(cuda_ms(torch, lambda: torch.matmul(at, wt)) for _ in range(2))
+    flops = 2 * M * N * K
+    tiles = -(-M // 128) * (N // 256)
+    splits = -(-K // bf.gemm_k_slice(M, N, K, a_t, w_t)) if out_dtype == torch.float32 else 1
+    nbytes = 2 * (M * K + K * N) + out_dtype.itemsize * M * N
+    bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+    log(f"gemm_bf16 {tag} {M} x {N} x {K} a_t={int(a_t)} w_t={int(w_t)} {str(out_dtype)[6:]} "
+        f"({tiles} tiles x {splits} slices): {verdict}, kernel {ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"torch.matmul {lib_ms:.4f} ms {flops / lib_ms / 1e9:.1f} TFLOP/s, bound {bound:.4f} ms")
+    check(ok, f"gemm_bf16 {tag}: outside its band ({verdict})")
+    rec = {"ms": ms, "library_ms": lib_ms, "tflops": flops / ms / 1e9, "tiles": tiles, "flops": flops}
+    if splits > 1:  # what the split buys: the same product in one pass over K
+        one = bf.gemm_bf16(a, w, k_slice=K, **kw)
+        one_rel = (one.float() - ref).abs().max().item() / peak
+        check(one_rel <= BWD_GEMM_F32_REL, f"gemm_bf16 {tag} in one pass: relative err {one_rel}")
+        rec["one_pass_ms"] = min(cuda_ms(torch, lambda: bf.gemm_bf16(a, w, k_slice=K, **kw)) for _ in range(2))
+        log(f"gemm_bf16 {tag} in one pass over K ({tiles} tiles): rel_err={one_rel:.3e}, kernel "
+            f"{rec['one_pass_ms']:.4f} ms {flops / rec['one_pass_ms'] / 1e9:.1f} TFLOP/s; the {splits} slices "
+            f"{rec['one_pass_ms'] / ms:.2f}x faster")
+    return rec
 
 
 def phase_parity(torch):
@@ -1379,11 +1488,14 @@ def phase_times(torch):
     return out
 
 
-def phase_times_train(torch):
+def phase_times_train(torch, gemm):
     """K1, K2, K5a and K5b at the ViT-L/14@336px training shape (bf16). The
     yardsticks: the forward composition of ``phase_times`` for K1/K2, and
     its forward and backward under torch.autograd for K5a/K5b (the kernels
-    recompute their half's forward too)."""
+    recompute their half's forward too). Then K5a split: its attention
+    backward alone (``attn_backward``) and the sum of its five GEMMs as the
+    GEMM phase timed them (``gemm``), the rest being the LN passes and the
+    column sums."""
     import torch.nn.functional as F
 
     from evr_tpu_torch.ops import block_fused as bf
@@ -1433,6 +1545,28 @@ def phase_times_train(torch):
         t_ops, t_bytes, desc = half_bound_ms(name, s, 2)
         out[(name, "vitl")] = time_case(torch, name, "vitl bf16", kern, plain, lib, t_ops, t_bytes,
                                         desc, counted)
+    # K5a's attention backward alone, on qkv and do from the kernel's own GEMMs
+    y = bf.ln_rows_plain(x, a[0], a[1]).reshape(-1, W)
+    qkv = bf.gemm_bf16(y, a[2], a[3]).reshape(B, T, 3 * W)
+    dout = bf.gemm_bf16(g.reshape(-1, W), a[4], w_t=True).reshape(B, T, W)
+    before = bf.attn_backward.launches
+    o, dqkv, dqkv_r = bf.attn_backward(qkv, dout, H)
+    torch.cuda.synchronize()
+    check(bf.attn_backward.launches == before + 1, "attn_backward: the kernel did not launch")
+    check(bool(torch.isfinite(dqkv).all().item()), "attn_backward: non-finite dqkv")
+    check(torch.equal(dqkv_r, dqkv.to(dt)), "attn_backward: round(dqkv) is not dqkv rounded")
+    o_p, dqkv_p = bf.attn_backward_plain(qkv, dout, H)
+    err, rel, cos, _ = bwd_compare(torch, dqkv, dqkv_p, False)
+    o_err = (o.float() - o_p.float()).abs().max().item()
+    attn_ms = min(cuda_ms(torch, lambda: bf.attn_backward(qkv, dout, H)) for _ in range(2))
+    gemm_ms = sum(gemm[tag]["ms"] for tag in gemm if tag.startswith("vitl-K5a-"))
+    k5a = out[("fused_attn_block_bwd", "vitl")]["ms"]
+    out["k5a_split"] = {"ms": k5a, "attention_ms": attn_ms, "gemm_ms": gemm_ms,
+                        "rest_ms": k5a - attn_ms - gemm_ms}
+    log(f"K5a split at vitl bf16: {k5a:.4f} ms = attention backward {attn_ms:.4f} ms "
+        f"({attn_ms / k5a:.1%}) + five GEMMs {gemm_ms:.4f} ms ({gemm_ms / k5a:.1%}; gemm_bf16 at the same "
+        f"shapes and layouts) + the rest {k5a - attn_ms - gemm_ms:.4f} ms; attention backward against its "
+        f"plain version: dqkv rel {rel:.3e} cos {cos:.7f}, o max abs {o_err:.3e}")
     return out
 
 
@@ -2271,7 +2405,7 @@ def main() -> int:
         train = phase_train(torch)
         times = phase_times(torch)
         times[("fused_topk", "vision")] = phase_times_topk(torch)
-        times.update(phase_times_train(torch))
+        times.update(phase_times_train(torch, gemm))
         log("K1/K2 bf16 at ViT-L/14@336px (vitl) and ViT-H-14 (vith): " + ", ".join(
             f"{n} {sh} {times[(n, sh)]['ms']:.4f} ms (library {times[(n, sh)]['library_ms']:.4f})"
             for sh in ("vitl", "vith") for n in ("fused_attn_block", "fused_mlp_block")))
@@ -2305,6 +2439,10 @@ def main() -> int:
     log(f"main path training: {TRAIN_MODEL}, batch {TRAIN_BATCH}, bf16: step {train['step_s']:.4f} s, "
         f"{train['samples_per_s']:.2f} samples/s; checkpoint saves {json.dumps(train['checkpoint_s'])} s; "
         f"kernel vs plain step: {json.dumps(train['compared'])}")
+    split = times["k5a_split"]
+    log(f"K5 at {TRAIN_MODEL}, bf16: K5a {times[('fused_attn_block_bwd', 'vitl')]['ms']:.4f} ms (attention "
+        f"backward {split['attention_ms']:.4f}, GEMMs {split['gemm_ms']:.4f}, rest {split['rest_ms']:.4f}), "
+        f"K5b {times[('fused_mlp_block_bwd', 'vitl')]['ms']:.4f} ms")
     log(f"ann tiers: /api/search p50 ivf {main['then']['ivf']:.2f} ms, ivfpq (host store) "
         f"{main['then']['ivfpq']:.2f} ms; large IVF-PQ ({ANN_ROWS} x {ANN_DIM}, {ANN_LISTS} lists): "
         f"build {ann['build_s']:.2f} s, pool {ann['pool']} rows, recall@10 {ann['recall']:.4f} "
@@ -2328,7 +2466,7 @@ def main() -> int:
             f"{json.dumps(m['against_plain'])}")
     log(f"the {FLASH_MODEL} default-route phases took {vith_s:.1f} s")
     log("gemm_bf16 TFLOP/s: " + ", ".join(
-        f"{tag} {g['tflops']:.1f} (torch.matmul {2 * math.prod(GEMM_SHAPES[tag]) / g['library_ms'] / 1e9:.1f})"
+        f"{tag} {g['tflops']:.1f} (torch.matmul {g['flops'] / g['library_ms'] / 1e9:.1f})"
         for tag, g in gemm.items()))
     log(f"everything after the parity phases {time.perf_counter() - t0:.1f} s, "
         f"the whole script {time.perf_counter() - start:.1f} s")

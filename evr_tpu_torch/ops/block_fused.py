@@ -23,7 +23,11 @@ version: K8's device code, writing the rounded LN output into a scratch) and
 then multiply on one GEMM: in bf16 the warp-specialised wgmma + TMA kernel
 of ``csrc/gemm_sm90.cuh``, which takes the shapes ``gemm_takes`` accepts
 (the wrappers check before loading a library), in fp32 the CUDA-core GEMM of
-``csrc/common.cuh``. ``gemm_bf16`` runs that bf16 GEMM alone.
+``csrc/common.cuh``. In bf16, K5's ten products run on the same kernel in
+the backward's transposed layouts (``attn_bwd_gemms``, ``mlp_bwd_gemms``),
+in fp32 on the CUDA-core ``gemm_t`` of ``csrc/grad_common.cuh``.
+``gemm_bf16`` runs the bf16 GEMM alone in each of those layouts, and
+``attn_backward`` K5a's attention backward alone.
 
 K1, K3a, K5a and K9 take head dim 64 or 80 (ViT-H-14's vision tower) and any
 T; other head dims raise on a CUDA tensor.
@@ -129,10 +133,32 @@ def ln_rows_plain(x: torch.Tensor, ln_scale, ln_bias) -> torch.Tensor:
     return _ln32(x.float(), ln_scale, ln_bias).to(x.dtype)
 
 
-def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """``gemm_bf16``'s function in plain PyTorch: the fp32 product of the
-    inputs plus the bias, rounded once to bfloat16."""
-    return (a.float() @ w.float() + bias.float()).to(torch.bfloat16)
+def gemm_bf16_plain(
+    a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *, a_t: bool = False,
+    w_t: bool = False, out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """``gemm_bf16``'s function in plain PyTorch: op(a)·op(w) in fp32, with
+    op(a) = aᵀ when ``a_t`` (a stored [K, M]) and op(w) = wᵀ when ``w_t`` (w
+    stored [N, K]), plus the bias if one is given, then cast once to
+    ``out_dtype`` (bfloat16: rounded once; float32: the sum as it is)."""
+    out = (a.T if a_t else a).float() @ (w.T if w_t else w).float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+def gemm_slices_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A weight gradient aᵀ·w (a [K, M], w [K, N], summing over K rows) as
+    the wgmma GEMM forms it when ``gemm_k_slice`` splits it: the fp32 sum of
+    each slice of rows, then the partials added in slice order (its second
+    pass). Unsplit, one fp32 product."""
+    (K, M), N = a.shape, w.shape[1]
+    step = gemm_k_slice(M, N, K, a_t=True)
+    parts = [a[k:k + step].T.float() @ w[k:k + step].float() for k in range(0, K, step)]
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
 
 
 def fused_attn_block_plain(
@@ -208,6 +234,44 @@ def _ln_bwd(dy, xhat, inv, scale, g32):
     return g32 + dx_ln, (dy * xhat).sum(0), dy.sum(0)
 
 
+def attn_backward_plain(qkv: torch.Tensor, dout: torch.Tensor, n_heads: int, causal: bool = False):
+    """K5a's attention backward in plain PyTorch, from the rounded qkv
+    [B, T, 3W] and do [B, T, W] in the element type: (o [B*T, W] in that
+    type, dqkv [B*T, 3W] in fp32), at the rounding points listed in
+    ``fused_attn_block_bwd_plain``, whose middle part it is."""
+    dt = qkv.dtype
+    B, T, W3 = qkv.shape
+    W = W3 // 3
+    d = W // n_heads
+    scale = 1.0 / math.sqrt(d)
+
+    def heads(t):  # [B, T, W] -> [B, H, T, d]
+        return t.reshape(B, T, n_heads, d).transpose(1, 2)
+
+    def rows(t):  # [B, H, T, d] -> [B*T, W]
+        return t.transpose(1, 2).reshape(B * T, W)
+
+    q, k, v = (heads(t) for t in qkv.split(W, dim=-1))
+    q = (q * torch.tensor(scale, dtype=dt, device=qkv.device)).float()
+    k, v = k.float(), v.float()
+    s = q @ k.transpose(-1, -2)
+    if causal:
+        mask = torch.ones(T, T, dtype=torch.bool, device=qkv.device).tril()
+        s = torch.where(mask, s, torch.tensor(-1e30, device=qkv.device))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    pn = e / e.sum(-1, keepdim=True)
+    pn_dt = pn.to(dt).float()
+    o = (pn_dt @ v).to(dt)
+    do_h = heads(dout).float()
+    dv = pn_dt.transpose(-1, -2) @ do_h
+    dpn = do_h @ v.transpose(-1, -2)
+    ds = pn * (dpn - (dpn * pn).sum(-1, keepdim=True))
+    ds_dt = ds.to(dt).float()
+    dq = (ds_dt @ k) * scale
+    dk = ds_dt.transpose(-1, -2) @ q
+    return rows(o), torch.cat([rows(dq), rows(dk), rows(dv)], dim=-1)
+
+
 def fused_attn_block_bwd_plain(
     x, g, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, n_heads: int,
     causal: bool = False,
@@ -224,42 +288,17 @@ def fused_attn_block_bwd_plain(
     dqkv_bias, dout_kernel, dout_bias), the gradients in fp32."""
     dt = x.dtype
     B, T, W = x.shape
-    d = W // n_heads
-    scale = 1.0 / math.sqrt(d)
     x32 = x.reshape(-1, W).float()
     g32 = g.reshape(-1, W).float()
     gd = g32.to(dt).float()
     xhat, inv, y32 = _ln_fwd_stats(x32, ln_scale, ln_bias)
     y = y32.to(dt).float()
     qkv = (y @ qkv_kernel.float() + qkv_bias.float()).to(dt)
-
-    def heads(t):  # [B*T, W] -> [B, H, T, d]
-        return t.reshape(B, T, n_heads, d).transpose(1, 2)
-
-    q, k, v = (heads(t) for t in qkv.split(W, dim=-1))
-    q = (q * torch.tensor(scale, dtype=dt, device=x.device)).float()
-    k, v = k.float(), v.float()
-    s = q @ k.transpose(-1, -2)
-    if causal:
-        mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-        s = torch.where(mask, s, torch.tensor(-1e30, device=x.device))
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    pn = e / e.sum(-1, keepdim=True)
-    pn_dt = pn.to(dt).float()
-    o = (pn_dt @ v).to(dt).float()
-    do_h = heads((gd @ out_kernel.float().T).to(dt).float())
-    dv = pn_dt.transpose(-1, -2) @ do_h
-    dpn = do_h @ v.transpose(-1, -2)
-    ds = pn * (dpn - (dpn * pn).sum(-1, keepdim=True))
-    ds_dt = ds.to(dt).float()
-    dq = (ds_dt @ k) * scale
-    dk = ds_dt.transpose(-1, -2) @ q
-
-    def rows(t):  # [B, H, T, d] -> [B*T, W]
-        return t.transpose(1, 2).reshape(B * T, W)
-
-    o = rows(o)
-    dqkv = torch.cat([rows(dq), rows(dk), rows(dv)], dim=-1)
+    dout = (gd @ out_kernel.float().T).to(dt)
+    o, dqkv = attn_backward_plain(
+        qkv.reshape(B, T, 3 * W), dout.reshape(B, T, W), n_heads, causal
+    )
+    o = o.float()
     dqkv_dt = dqkv.to(dt).float()
     dy = dqkv_dt @ qkv_kernel.float().T
     dx, dls, dlb = _ln_bwd(dy, xhat, inv, ln_scale, g32)
@@ -337,38 +376,102 @@ def _raise_rc(rc: int, what: str, shape) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error code {rc}")
 
 
+def _ptr(t: torch.Tensor | None):
+    """A tensor's address for ctypes, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
 GEMM_TILE_M, GEMM_TILE_N, GEMM_TILE_K = 128, 256, 64
+# up to 4 K slices of at least 16 steps each, below half an H100's 132 SMs
+GEMM_SPLIT_MAX, GEMM_SPLIT_BELOW_TILES, GEMM_SPLIT_MIN_STEPS = 4, 66, 16
 
 
-def gemm_takes(M: int, N: int, K: int) -> bool:
-    """Whether the bf16 GEMM under K1, K2 and K9 (``csrc/gemm_sm90.cuh``,
-    whose ``gemm_takes`` this mirrors) computes out[M, N] = A[M, K]·W[K, N]:
-    N a multiple of its 256-wide output tile, K of its 64-wide step, M any
-    row count from 1 up to 65,535 row tiles of 128."""
+def gemm_takes(M: int, N: int, K: int, a_t: bool = False, w_t: bool = False) -> bool:
+    """Whether the bf16 GEMM of K1, K2, K9 and K5 (``csrc/gemm_sm90.cuh``,
+    whose ``gemm_takes`` this mirrors) computes out[M, N] = op(A)·op(W) in a
+    layout: A stored [M, K], or [K, M] read transposed (``a_t``, a weight
+    gradient's sum over rows); W stored [K, N], or [N, K] read transposed
+    (``w_t``, an input gradient). N a multiple of its 256-wide output tile; K
+    of its 64-wide step where K is an operand's contiguous dimension (A not
+    transposed, or ``w_t``), else any K (TMA zero-fills the ragged rows); M
+    any row count from 1 up to 65,535 row tiles of 128, and with ``a_t`` a
+    multiple of 8 (16-byte rows of the [K, M] array)."""
+    k_contiguous = not a_t or w_t
     return (
-        M >= 1 and N >= GEMM_TILE_N and K >= GEMM_TILE_K and N % GEMM_TILE_N == 0
-        and K % GEMM_TILE_K == 0 and -(-M // GEMM_TILE_M) <= 65535
+        M >= 1 and N >= GEMM_TILE_N and N % GEMM_TILE_N == 0 and K >= 1
+        and (not k_contiguous or K % GEMM_TILE_K == 0) and (not a_t or M % 8 == 0)
+        and -(-M // GEMM_TILE_M) <= 65535
     )
 
 
-def _check_gemms(what: str, x: torch.Tensor, gemms, kernels, biases) -> None:
-    """A bf16 call, before any library is loaded: every GEMM (M, N, K) must
-    be one the wgmma GEMM takes, and what TMA and its 16-byte epilogue read
-    (x, the kernels) must start on a 16-byte boundary, the biases (read in
-    pairs) on a 4-byte one. fp32 calls run on the CUDA-core GEMM, whose C
-    side returns -1 for a shape it does not take."""
+def gemm_k_slice(M: int, N: int, K: int, a_t: bool = False, w_t: bool = False) -> int:
+    """Rows of K each slice of the bf16 GEMM walks (``csrc/gemm_sm90.cuh``'s
+    ``gemm_k_slice``): all K, or, for a weight gradient (``a_t`` and not
+    ``w_t``, fp32 out) with fewer output tiles than half the SMs, whole
+    64-row steps cut into at most four slices of at least 16 steps each,
+    summed in slice order by a second pass."""
+    tiles = -(-M // GEMM_TILE_M) * (N // GEMM_TILE_N)
+    steps = -(-K // GEMM_TILE_K)
+    slices = min(GEMM_SPLIT_MAX, steps // GEMM_SPLIT_MIN_STEPS)
+    if not a_t or w_t or tiles >= GEMM_SPLIT_BELOW_TILES or slices < 2:
+        return K
+    return -(-steps // slices) * GEMM_TILE_K
+
+
+def gemm_split_floats(gemms) -> int:
+    """fp32 scratch for the split partials of the weight gradients among
+    ``gemms`` ((M, N, K, a_t, w_t) tuples): the most of slices x M x N over
+    those that split, 0 where none does."""
+    most = 0
+    for M, N, K, a_t, w_t in gemms:
+        splits = -(-K // gemm_k_slice(M, N, K, a_t, w_t))
+        if splits > 1:
+            most = max(most, splits * M * N)
+    return most
+
+
+def attn_bwd_gemms(M: int, W: int) -> list[tuple[int, int, int, bool, bool]]:
+    """K5a's five products (M, N, K, a_t, w_t) over M rows of width W, in
+    their order (``csrc/block_attn_bwd.cu``'s ``attn_bwd_gemms_take``): qkv
+    = y·W_qkv + b, do = g·W_outᵀ, dW_qkv = yᵀ·round(dqkv), dy =
+    round(dqkv)·W_qkvᵀ, dW_out = oᵀ·g."""
+    return [(M, 3 * W, W, False, False), (M, W, W, False, True), (W, 3 * W, M, True, False),
+            (M, W, 3 * W, False, True), (W, W, M, True, False)]
+
+
+def mlp_bwd_gemms(M: int, W: int, hid: int) -> list[tuple[int, int, int, bool, bool]]:
+    """K5b's five products (M, N, K, a_t, w_t), in their order
+    (``csrc/block_mlp_bwd.cu``'s ``mlp_bwd_gemms_take``): h_pre = y·W_fc +
+    b, dW_proj = hᵀ·g, dh = g·W_projᵀ, dW_fc = yᵀ·round(dh_pre), dy =
+    round(dh_pre)·W_fcᵀ."""
+    return [(M, hid, W, False, False), (hid, W, M, True, False), (M, hid, W, False, True),
+            (W, hid, M, True, False), (M, W, hid, False, True)]
+
+
+def _check_gemms(what: str, x: torch.Tensor, gemms, tensors, biases) -> None:
+    """A bf16 call, before any library is loaded: every GEMM, (M, N, K) in
+    the forward layout or (M, N, K, a_t, w_t), must be one the wgmma GEMM
+    takes, and what TMA and its 16-byte epilogue read (x, and ``tensors``:
+    the kernels, the cotangent) must start on a 16-byte boundary, the biases
+    (read in pairs) on a 4-byte one. fp32 calls run on the CUDA-core GEMMs,
+    whose C side returns -1 for a shape it does not take."""
     if x.dtype != torch.bfloat16:
         return
-    for M, N, K in gemms:
-        if not gemm_takes(M, N, K):
+    for gemm in gemms:
+        M, N, K, a_t, w_t = (*gemm, False, False)[:5]
+        if not gemm_takes(M, N, K, a_t, w_t):
+            k_rule = (f"K a multiple of {GEMM_TILE_K}" if not a_t or w_t
+                      else "any K, M a multiple of 8")
+            layout = f"{'Aᵀ' if a_t else 'A'}·{'Wᵀ' if w_t else 'W'}"
             raise ValueError(
                 f"{what}: the CUDA kernel does not take shape {tuple(x.shape)} "
-                f"(its GEMM takes N a multiple of {GEMM_TILE_N} and K of {GEMM_TILE_K}; "
+                f"(its GEMM takes N a multiple of {GEMM_TILE_N} and, for {layout}, {k_rule}; "
                 f"got {M} x {N} x {K})"
             )
-    if any(t.data_ptr() % 16 for t in (x, *kernels)) or any(b.data_ptr() % 4 for b in biases):
+    if any(t.data_ptr() % 16 for t in (x, *tensors)) or any(b.data_ptr() % 4 for b in biases):
         raise ValueError(
-            f"{what}: x and the kernels must start on 16-byte boundaries, the biases on 4-byte ones"
+            f"{what}: x, the cotangent and the kernels must start on 16-byte boundaries, "
+            "the biases on 4-byte ones"
         )
 
 
@@ -594,8 +697,10 @@ def fused_attn_block_bwd(
     B, T, W = x.shape
     _check_cuda(x, params, [(W,), (W,), (W, 3 * W), (3 * W,), (W, W), (W,)], "fused_attn_block_bwd")
     _check_bwd(x, g, "fused_attn_block_bwd")
-    lib = build.load("block_attn_bwd")
     dev, M = x.device, B * T
+    gemms = attn_bwd_gemms(M, W)
+    _check_gemms("fused_attn_block_bwd", x, gemms, [g, params[2], params[4]], [params[3]])
+    lib = build.load("block_attn_bwd")
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -605,11 +710,15 @@ def fused_attn_block_bwd(
 
     dx = torch.empty_like(x)
     grads = [f32(W), f32(W), f32(W, 3 * W), f32(3 * W), f32(W, W), f32(W)]
+    # bf16: round(dqkv), the operand of dW_qkv and dy, and the split partials
+    bf16 = dt == torch.bfloat16
+    split = gemm_split_floats(gemms) if bf16 else 0
     scratch = [elt(M, W), f32(M), f32(M), elt(M, 3 * W), elt(M, W), elt(M, W),
-               f32(3, B, n_heads, T), f32(M, 3 * W), f32(M, W), f32(-(-M // 128) * 3 * W)]
+               f32(3, B, n_heads, T), f32(M, 3 * W), elt(M, 3 * W) if bf16 else None, f32(M, W),
+               f32(-(-M // 128) * 3 * W), f32(split) if split else None]
     rc = lib.evr_fused_attn_block_bwd(
         _DTYPE_CODES[dt], x.data_ptr(), g.data_ptr(), *(p.data_ptr() for p in params[:5]),
-        dx.data_ptr(), *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
+        dx.data_ptr(), *(t.data_ptr() for t in grads), *(_ptr(t) for t in scratch),
         B, T, W, n_heads, int(causal), 1.0 / math.sqrt(W // n_heads),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -639,19 +748,26 @@ def fused_mlp_block_bwd(
     W, hid = x.shape[-1], params[2].shape[-1]
     _check_cuda(x, params, [(W,), (W,), (W, hid), (hid,), (hid, W), (W,)], "fused_mlp_block_bwd")
     _check_bwd(x, g, "fused_mlp_block_bwd")
-    lib = build.load("block_mlp_bwd")
     dev, M = x.device, x.numel() // W
+    gemms = mlp_bwd_gemms(M, W, hid)
+    _check_gemms("fused_mlp_block_bwd", x, gemms, [g, params[2], params[4]], [params[3]])
+    lib = build.load("block_mlp_bwd")
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     dx = torch.empty_like(x)
     grads = [f32(W), f32(W), f32(W, hid), f32(hid), f32(hid, W), f32(W)]
+    # bf16: round(dh_pre), the operand of dW_fc and dy, and the split partials
+    bf16 = dt == torch.bfloat16
+    split = gemm_split_floats(gemms) if bf16 else 0
     scratch = [torch.empty((M, W), dtype=dt, device=dev), f32(M), f32(M), f32(M, hid),
-               torch.empty((M, hid), dtype=dt, device=dev), f32(M, W), f32(-(-M // 128) * hid)]
+               torch.empty((M, hid), dtype=dt, device=dev),
+               torch.empty((M, hid), dtype=dt, device=dev) if bf16 else None, f32(M, W),
+               f32(-(-M // 128) * hid), f32(split) if split else None]
     rc = lib.evr_fused_mlp_block_bwd(
         _DTYPE_CODES[dt], x.data_ptr(), g.data_ptr(), *(p.data_ptr() for p in params[:5]),
-        dx.data_ptr(), *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
+        dx.data_ptr(), *(t.data_ptr() for t in grads), *(_ptr(t) for t in scratch),
         M, W, hid, _ACT_CODES[activation], torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_rc(rc, "fused_mlp_block_bwd", x.shape)
@@ -659,34 +775,109 @@ def fused_mlp_block_bwd(
     return (dx, *grads)
 
 
-def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """out = round(a·w + bias) for a [M, K], w [K, N] and bias [N] in
-    bfloat16: the wgmma GEMM under K1, K2 and K9 on its own (entry
-    ``evr_gemm_bf16`` of ``csrc/block_mlp.cu``, the kRound epilogue), for
-    checking and timing it alone. Nothing on the serving or training path
-    calls it. A CPU tensor takes ``gemm_bf16_plain``."""
-    refuse_grad("gemm_bf16", a, w, bias)
+# (a_t, w_t, out_dtype) of the products gemm_bf16 runs: K1, K2, K9 and K5's
+# recomputed forwards; K5a's do; the weight gradients; the input gradients dy
+GEMM_BF16_LAYOUTS = (
+    (False, False, torch.bfloat16), (False, True, torch.bfloat16),
+    (True, False, torch.float32), (False, True, torch.float32),
+)
+
+
+def gemm_bf16(
+    a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *, a_t: bool = False,
+    w_t: bool = False, out_dtype: torch.dtype = torch.bfloat16, k_slice: int | None = None,
+) -> torch.Tensor:
+    """out = op(a)·op(w) (+ bias) on bfloat16 operands: the wgmma GEMM under
+    K1, K2, K9 and K5 on its own, for checking and timing it alone. op(a) =
+    a [M, K], or aᵀ for a stored [K, M] (``a_t``); op(w) = w [K, N], or wᵀ
+    for w stored [N, K] (``w_t``); out in ``out_dtype``: bfloat16, the fp32
+    sum plus the bias rounded once, or float32 as it is (no bias; a weight
+    gradient split into slices as K5 splits it, or, given ``k_slice``, into
+    slices of that many rows: K for one pass, to time the split against).
+    The layouts taken are ``GEMM_BF16_LAYOUTS``: the first through the entry
+    ``evr_gemm_bf16`` of ``csrc/block_mlp.cu``, the others through
+    ``evr_gemm_bf16_t`` of ``csrc/block_attn_bwd.cu``. Nothing on the
+    serving or training path calls it. A CPU tensor takes
+    ``gemm_bf16_plain``."""
+    refuse_grad("gemm_bf16", a, w, *(() if bias is None else (bias,)))
+    if (a_t, w_t, out_dtype) not in GEMM_BF16_LAYOUTS:
+        raise ValueError(f"gemm_bf16: layout a_t={a_t}, w_t={w_t}, out_dtype={out_dtype} not taken")
+    if out_dtype == torch.float32 and bias is not None:
+        raise ValueError("gemm_bf16: a float32 output takes no bias")
+    if k_slice is not None and (out_dtype != torch.float32 or k_slice < 1):
+        raise ValueError(f"gemm_bf16: k_slice={k_slice} (a positive row count, float32 outputs only)")
     if not a.is_cuda:
-        return gemm_bf16_plain(a, w, bias)
-    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0] or tuple(bias.shape) != (w.shape[1],):
-        raise ValueError(f"gemm_bf16: a {tuple(a.shape)}, w {tuple(w.shape)}, bias {tuple(bias.shape)}")
-    for t in (a, w, bias):
+        return gemm_bf16_plain(a, w, bias, a_t=a_t, w_t=w_t, out_dtype=out_dtype)
+    if a.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"gemm_bf16: a {tuple(a.shape)}, w {tuple(w.shape)}")
+    M, K = (a.shape[1], a.shape[0]) if a_t else a.shape
+    Kw, N = (w.shape[1], w.shape[0]) if w_t else w.shape
+    if K != Kw or (bias is not None and tuple(bias.shape) != (N,)):
+        raise ValueError(f"gemm_bf16: a {tuple(a.shape)} (a_t={a_t}), w {tuple(w.shape)} (w_t={w_t}), "
+                         f"bias {None if bias is None else tuple(bias.shape)}")
+    for t in (a, w) + (() if bias is None else (bias,)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != a.device:
             raise ValueError("gemm_bf16: a, w and bias must be contiguous bfloat16 tensors on one device")
-    (M, K), N = a.shape, w.shape[1]
-    _check_gemms("gemm_bf16", a, [(M, N, K)], [w], [bias])
-    lib = build.load("block_mlp")
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
-    rc = lib.evr_gemm_bf16(a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), M, N, K,
-                           torch.cuda.current_stream(a.device).cuda_stream)
+    gemm = (M, N, K, a_t, w_t)
+    _check_gemms("gemm_bf16", a, [gemm], [w], [] if bias is None else [bias])
+    if k_slice is not None and k_slice < K and k_slice % GEMM_TILE_K:
+        raise ValueError(f"gemm_bf16: k_slice={k_slice} is neither K nor a multiple of {GEMM_TILE_K}")
+    dev = a.device
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if not a_t and not w_t:
+        rc = build.load("block_mlp").evr_gemm_bf16(a.data_ptr(), w.data_ptr(), _ptr(bias), out.data_ptr(),
+                                                   M, N, K, stream)
+    else:
+        slices = -(-K // (k_slice or gemm_k_slice(*gemm)))
+        part = torch.empty(slices * M * N, dtype=torch.float32, device=dev) if slices > 1 else None
+        rc = build.load("block_attn_bwd").evr_gemm_bf16_t(
+            a.data_ptr(), w.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(part), M, N, K, int(a_t),
+            int(w_t), int(out_dtype == torch.float32), k_slice or 0, stream)
     _raise_rc(rc, "gemm_bf16", (M, N, K))
     gemm_bf16.launches += 1
     return out
 
 
+def attn_backward(qkv: torch.Tensor, dout: torch.Tensor, n_heads: int, causal: bool = False):
+    """K5a's attention backward alone (``csrc/flash.cuh``, through the entry
+    ``evr_flash_backward`` of ``csrc/block_attn_bwd.cu``): from the rounded
+    qkv [B, T, 3W] and do [B, T, W], (o [B*T, W], dqkv [B*T, 3W] in fp32, and
+    in bfloat16 round(dqkv), else None), as K5a computes them between its
+    GEMMs. For checking and timing it apart from them; no path calls it. A
+    CPU tensor takes ``attn_backward_plain``."""
+    dt = qkv.dtype
+    bf16 = dt == torch.bfloat16
+    if not qkv.is_cuda:
+        o, dqkv = attn_backward_plain(qkv, dout, n_heads, causal)
+        return o, dqkv, dqkv.to(dt) if bf16 else None
+    B, T, W3 = qkv.shape
+    W = W3 // 3
+    if dt not in _DTYPE_CODES or dout.dtype != dt or tuple(dout.shape) != (B, T, W) or W % n_heads:
+        raise ValueError(f"attn_backward: qkv {dt} {tuple(qkv.shape)}, do {dout.dtype} "
+                         f"{tuple(dout.shape)}, {n_heads} heads")
+    if not (qkv.is_contiguous() and dout.is_contiguous()) or dout.device != qkv.device:
+        raise ValueError("attn_backward: qkv and do must be contiguous and on one device")
+    dev, M = qkv.device, B * T
+    lib = build.load("block_attn_bwd")
+    o = torch.empty((M, W), dtype=dt, device=dev)
+    st = torch.empty((3, B, n_heads, T), dtype=torch.float32, device=dev)
+    dqkv = torch.empty((M, W3), dtype=torch.float32, device=dev)
+    dqkv_r = torch.empty((M, W3), dtype=dt, device=dev) if bf16 else None
+    rc = lib.evr_flash_backward(
+        _DTYPE_CODES[dt], qkv.data_ptr(), dout.data_ptr(), o.data_ptr(), st.data_ptr(), dqkv.data_ptr(),
+        _ptr(dqkv_r), B, T, W, n_heads, int(causal), 1.0 / math.sqrt(W // n_heads),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_rc(rc, "attn_backward", qkv.shape)
+    attn_backward.launches += 1
+    return o, dqkv, dqkv_r
+
+
 fused_attn_block.launches = 0
 fused_mlp_block.launches = 0
 gemm_bf16.launches = 0
+attn_backward.launches = 0
 fused_attn_block_q.launches = 0
 fused_mlp_block_q.launches = 0
 fused_attn_block_bwd.launches = 0

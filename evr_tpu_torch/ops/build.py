@@ -127,11 +127,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.restype = i
     elif name == "block_attn_bwd":
         fn = lib.evr_fused_attn_block_bwd
-        fn.argtypes = [i] + [p] * 24 + [i] * 5 + [f, p]
+        fn.argtypes = [i] + [p] * 26 + [i] * 5 + [f, p]
+        fn.restype = i
+        fn = lib.evr_flash_backward
+        fn.argtypes = [i] + [p] * 6 + [i] * 5 + [f, p]
+        fn.restype = i
+        fn = lib.evr_gemm_bf16_t
+        fn.argtypes = [p] * 5 + [i] * 7 + [p]
         fn.restype = i
     elif name == "block_mlp_bwd":
         fn = lib.evr_fused_mlp_block_bwd
-        fn.argtypes = [i] + [p] * 21 + [i] * 4 + [p]
+        fn.argtypes = [i] + [p] * 23 + [i] * 4 + [p]
         fn.restype = i
     elif name == "adc_list":
         fn = lib.evr_adc_list_scores

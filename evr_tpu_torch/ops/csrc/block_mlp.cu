@@ -74,12 +74,13 @@ extern "C" int evr_fused_mlp_block(int dtype, const void* x, const void* ln_s, c
 }
 
 // The bf16 GEMM alone, out[M, N] = round(a[M, K] @ w[K, N] + bias) (the kRound
-// epilogue), for checking and timing it on its own; nothing on the serving
-// or training path calls it. Returns 0, -1 for a shape or alignment the
-// kernel does not take, or a CUDA error code.
+// epilogue; bias may be null), for checking and timing it on its own;
+// nothing on the serving or training path calls it. Returns 0, -1 for a
+// shape or alignment the kernel does not take, or a CUDA error code.
 extern "C" int evr_gemm_bf16(const void* a, const void* w, const void* bias, void* out, int M, int N, int K,
                              void* stream) {
-  return evr::launch_gemm_sm90<evr::kRound>(static_cast<const evr::bf16*>(a), static_cast<const evr::bf16*>(w),
-                                            static_cast<const evr::bf16*>(bias), nullptr,
-                                            static_cast<evr::bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream));
+  return evr::launch_gemm_sm90<evr::kRound>(
+      static_cast<const evr::bf16*>(a), static_cast<const evr::bf16*>(w),
+      evr::GemmOut{static_cast<const evr::bf16*>(bias), nullptr, out, nullptr}, M, N, K, nullptr,
+      static_cast<cudaStream_t>(stream));
 }

@@ -20,39 +20,36 @@
 //
 // Design: a chain of launches on the shared pieces of grad_common.cuh. (1)
 // LN2 rows (y, mean, rstd); (2) h_pre = y W_fc + b, kept in fp32, and h =
-// round(act(h_pre)) (gemm_t with a two-output epilogue); (3) dW_proj = h^T g,
-// one launch over all rows; (4) b_proj's gradient, a fixed-order column sum;
-// (5) dh_pre = (g W_proj^T) act'(h_pre), written over h_pre in place; (6)
-// b_fc's gradient; (7) dW_fc = y^T round(dh_pre); (8) dy = round(dh_pre)
-// W_fc^T; (9) the LN backward and its column sums. h_pre and dh_pre (302 MB
-// in fp32 at the training shape) and h go through device memory, the cost of
-// this simple version; the TPU kernel keeps them on chip.
+// round(act(h_pre)) (a two-output epilogue); (3) dW_proj = h^T g, over all
+// rows; (4) b_proj's gradient, a fixed-order column sum; (5) dh_pre =
+// (g W_proj^T) act'(h_pre), written over h_pre in place, and, in bf16,
+// round(dh_pre) beside it; (6) b_fc's gradient, from the fp32 dh_pre; (7)
+// dW_fc = y^T round(dh_pre); (8) dy = round(dh_pre) W_fc^T; (9) the LN
+// backward and its column sums. In bf16 the five products (2, 3, 5, 7, 8) run
+// on the wgmma + TMA kernel of gemm_sm90.cuh, its activation epilogues
+// writing both outputs of (2) and (5) from the accumulators: y, g and
+// round(dh_pre) K-major; W_fc MN-major for (2); W_proj^T and W_fc^T K-major
+// from their [in, out] arrays for (5) and (8); h^T and y^T MN-major from
+// their [rows, width] arrays for the weight gradients (3) and (7), whose
+// ragged K (the rows) TMA pads with zeros. In fp32 they run on gemm_t
+// (CUDA-core fp32, the parity path). What is left: h_pre/dh_pre (302 MB in
+// fp32 at the training shape), h and round(dh_pre) go through device memory,
+// where the TPU kernel keeps them on chip; no persistent grid.
 
 #include "grad_common.cuh"
 
 namespace evr {
 
-__device__ __forceinline__ float act_grad(float h, int act) {
-  if (act == 0) {  // quickGELU
-    const float sig = 1.f / (1.f + expf(-1.702f * h));
-    return sig * (1.f + 1.702f * h * (1.f - sig));
-  }
-  // d/dh [h Phi(h)] = Phi(h) + h phi(h), Phi = 0.5 (1 + erf(h / sqrt 2))
-  const float pdf = 0.3989422804014327f * expf(-0.5f * h * h);
-  return 0.5f * (1.f + erf_as(h * 0.7071067811865476f)) + h * pdf;
-}
-
-template <typename T>
-struct EpiActFwd {  // h_pre = sum + b (fp32, kept) and h = round(act(h_pre))
-  const T* bias;
+struct EpiActFwd {  // h_pre = sum + b (fp32, kept) and h = act(h_pre)
+  const float* bias;
   float* pre;
-  T* h;
+  float* h;
   int ld, act;
   __device__ void operator()(int m, int n, float v) const {
-    const float hp = v + to_f(bias[n]);
+    const float hp = v + bias[n];
     const size_t o = static_cast<size_t>(m) * ld + n;
     pre[o] = hp;
-    h[o] = from_f<T>(act == 0 ? quick_gelu(hp) : gelu_as(hp));
+    h[o] = act == 0 ? quick_gelu(hp) : gelu_as(hp);
   }
 };
 
@@ -61,32 +58,74 @@ struct EpiActGrad {  // dh_pre = sum * act'(h_pre), over h_pre in place
   int ld, act;
   __device__ void operator()(int m, int n, float v) const {
     const size_t o = static_cast<size_t>(m) * ld + n;
-    pre[o] = v * act_grad(pre[o], act);
+    pre[o] = v * (act == 0 ? quick_gelu_grad(pre[o]) : gelu_grad(pre[o]));
   }
 };
+
+// The five products of the bf16 backward, as (M, N, K) in their layouts
+// (ops/block_fused.py::mlp_bwd_gemms mirrors this).
+inline bool mlp_bwd_gemms_take(int M, int W, int HID) {
+  return gemm_takes<false, false>(M, HID, W) && gemm_takes<true, false>(HID, W, M) &&
+         gemm_takes<false, true>(M, HID, W) && gemm_takes<true, false>(W, HID, M) &&
+         gemm_takes<false, true>(M, W, HID);
+}
+
+// (2) and (5) in bf16, the activation chosen at compile time
+int mlp_fc_act(const bf16* y, const bf16* fc_k, const bf16* fc_b, float* pre, bf16* h, int M, int W, int HID,
+               int act, cudaStream_t stream) {
+  const GemmOut o{fc_b, nullptr, pre, h};
+  if (act == 0) return launch_gemm_sm90<kActFwdQuick>(y, fc_k, o, M, HID, W, nullptr, stream);
+  return launch_gemm_sm90<kActFwdGelu>(y, fc_k, o, M, HID, W, nullptr, stream);
+}
+
+int mlp_dh_act(const bf16* g, const bf16* pr_k, float* pre, bf16* dhp, int M, int W, int HID, int act,
+               cudaStream_t stream) {
+  const GemmOut o{nullptr, nullptr, pre, dhp};
+  if (act == 0) return launch_gemm_sm90<kActGradQuick, false, true>(g, pr_k, o, M, HID, W, nullptr, stream);
+  return launch_gemm_sm90<kActGradGelu, false, true>(g, pr_k, o, M, HID, W, nullptr, stream);
+}
 
 template <typename T>
 int mlp_block_bwd(const T* x, const T* g, const T* ln_s, const T* ln_b, const T* fc_k, const T* fc_b,
                   const T* pr_k, T* dx, float* dls, float* dlb, float* dfck, float* dfcb, float* dprk,
-                  float* dprb, T* y, float* mean, float* rstd, float* pre, T* h, float* dy, float* partial,
-                  int M, int W, int HID, int act, cudaStream_t stream) {
-  if (W % kTBN != 0 || HID % kTBN != 0 || M < 1 || (act != 0 && act != 1)) return -1;
+                  float* dprb, T* y, float* mean, float* rstd, float* pre, T* h, T* dhp, float* dy, float* partial,
+                  float* split, int M, int W, int HID, int act, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  if (M < 1 || (act != 0 && act != 1)) return -1;
+  if (kBf16 ? !mlp_bwd_gemms_take(M, W, HID) || dhp == nullptr : W % kTBN != 0 || HID % kTBN != 0) return -1;
   int rc = launch_ln_rows<T>(x, ln_s, ln_b, y, mean, rstd, M, W, stream);
   if (rc != 0) return rc;
-  rc = launch_gemm_t<T, T, false, T, false>(y, W, fc_k, HID, M, HID, W, EpiActFwd<T>{fc_b, pre, h, HID, act},
-                                            stream);
-  if (rc != 0) return rc;
-  rc = launch_gemm_t<T, T, true, T, false>(h, HID, g, W, HID, W, M, EpiF32{dprk, W}, stream);
+  if constexpr (kBf16) {
+    rc = mlp_fc_act(y, fc_k, fc_b, pre, h, M, W, HID, act, stream);
+    if (rc != 0) return rc;
+    rc = launch_gemm_sm90<kF32, true, false>(h, g, GemmOut{nullptr, nullptr, dprk, nullptr}, HID, W, M, split,
+                                             stream);
+  } else {
+    rc = launch_gemm_t<false, false>(y, W, fc_k, HID, M, HID, W, EpiActFwd{fc_b, pre, h, HID, act}, stream);
+    if (rc != 0) return rc;
+    rc = launch_gemm_t<true, false>(h, HID, g, W, HID, W, M, EpiF32{dprk, W}, stream);
+  }
   if (rc != 0) return rc;
   rc = launch_colsum(ColElt<T>{g, W}, partial, dprb, M, W, stream);
   if (rc != 0) return rc;
-  rc = launch_gemm_t<T, T, false, T, true>(g, W, pr_k, W, M, HID, W, EpiActGrad{pre, HID, act}, stream);
+  if constexpr (kBf16)
+    rc = mlp_dh_act(g, pr_k, pre, dhp, M, W, HID, act, stream);
+  else
+    rc = launch_gemm_t<false, true>(g, W, pr_k, W, M, HID, W, EpiActGrad{pre, HID, act}, stream);
   if (rc != 0) return rc;
   rc = launch_colsum(ColF32{pre, HID}, partial, dfcb, M, HID, stream);
   if (rc != 0) return rc;
-  rc = launch_gemm_t<T, T, true, float, false>(y, W, pre, HID, W, HID, M, EpiF32{dfck, HID}, stream);
-  if (rc != 0) return rc;
-  rc = launch_gemm_t<T, float, false, T, true>(pre, HID, fc_k, HID, M, W, HID, EpiF32{dy, W}, stream);
+  if constexpr (kBf16) {
+    rc = launch_gemm_sm90<kF32, true, false>(y, dhp, GemmOut{nullptr, nullptr, dfck, nullptr}, W, HID, M, split,
+                                             stream);
+    if (rc != 0) return rc;
+    rc = launch_gemm_sm90<kF32, false, true>(dhp, fc_k, GemmOut{nullptr, nullptr, dy, nullptr}, M, W, HID,
+                                             nullptr, stream);
+  } else {
+    rc = launch_gemm_t<true, false>(y, W, pre, HID, W, HID, M, EpiF32{dfck, HID}, stream);
+    if (rc != 0) return rc;
+    rc = launch_gemm_t<false, true>(pre, HID, fc_k, HID, M, W, HID, EpiF32{dy, W}, stream);
+  }
   if (rc != 0) return rc;
   return ln_backward<T>(x, mean, rstd, dy, ln_s, g, dx, dls, dlb, partial, M, W, stream);
 }
@@ -97,15 +136,18 @@ int mlp_block_bwd(const T* x, const T* g, const T* ln_s, const T* ln_b, const T*
 // quickGELU, 1 = exact GELU. Inputs x, g and the parameters in the element
 // type (proj_b is not read: its gradient is g's column sum); outputs dx
 // (element type) and six fp32 gradients; then scratch: y [M, W] and h
-// [M, HID] in the element type, mean and rstd [M], pre [M, HID] and dy [M, W]
-// in fp32, and ``partial`` of ceil(M / 128) * HID floats. Returns 0, -1 for a
-// shape the kernel does not take, or a CUDA error code.
+// [M, HID] in the element type, mean and rstd [M], pre [M, HID] in fp32, dhp
+// [M, HID] in bf16 (bf16 calls; null for fp32), dy [M, W] in fp32,
+// ``partial`` of ceil(M / 128) * HID floats, and ``split``, the fp32 partials
+// of a split weight gradient (bf16 calls: the most of splits x M x N over
+// dW_proj and dW_fc, see gemm_k_slice; null where neither splits). Returns
+// 0, -1 for a shape the kernel does not take, or a CUDA error code.
 extern "C" int evr_fused_mlp_block_bwd(int dtype, const void* x, const void* g, const void* ln_s,
                                        const void* ln_b, const void* fc_k, const void* fc_b, const void* pr_k,
                                        void* dx, void* dls, void* dlb, void* dfck, void* dfcb, void* dprk,
                                        void* dprb, void* y, void* mean, void* rstd, void* pre, void* h,
-                                       void* dy, void* partial, int M, int W, int HID, int act,
-                                       void* stream) {
+                                       void* dhp, void* dy, void* partial, void* split, int M, int W, int HID,
+                                       int act, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](void* p) { return static_cast<float*>(p); };
   if (dtype == 0) {
@@ -115,7 +157,7 @@ extern "C" int evr_fused_mlp_block_bwd(int dtype, const void* x, const void* g, 
                                  static_cast<const E*>(fc_k), static_cast<const E*>(fc_b),
                                  static_cast<const E*>(pr_k), static_cast<E*>(dx), f(dls), f(dlb), f(dfck),
                                  f(dfcb), f(dprk), f(dprb), static_cast<E*>(y), f(mean), f(rstd), f(pre),
-                                 static_cast<E*>(h), f(dy), f(partial), M, W, HID, act, s);
+                                 static_cast<E*>(h), nullptr, f(dy), f(partial), nullptr, M, W, HID, act, s);
   }
   if (dtype == 1) {
     using E = evr::bf16;
@@ -124,7 +166,8 @@ extern "C" int evr_fused_mlp_block_bwd(int dtype, const void* x, const void* g, 
                                  static_cast<const E*>(fc_k), static_cast<const E*>(fc_b),
                                  static_cast<const E*>(pr_k), static_cast<E*>(dx), f(dls), f(dlb), f(dfck),
                                  f(dfcb), f(dprk), f(dprb), static_cast<E*>(y), f(mean), f(rstd), f(pre),
-                                 static_cast<E*>(h), f(dy), f(partial), M, W, HID, act, s);
+                                 static_cast<E*>(h), static_cast<E*>(dhp), f(dy), f(partial), f(split), M, W,
+                                 HID, act, s);
   }
   return -1;
 }

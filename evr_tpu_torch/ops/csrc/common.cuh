@@ -3,8 +3,9 @@
 // flash_attn.cu, layernorm.cu, topk_fused.cu): element-type helpers, a
 // warp-level 16x16x16 tile product with fp32 accumulation (flash.cuh and
 // grad_common.cuh), the block halves' epilogues, the LayerNorm row pass (K8's
-// device code) and the fp32 row-tiled GEMM of the block halves' fp32 calls.
-// Their bf16 GEMMs run on the wgmma kernel of gemm_sm90.cuh.
+// device code) and the fp32 row-tiled GEMM of the forward block halves' fp32
+// calls. Their bf16 GEMMs, and those of the backward halves, run on the wgmma
+// kernel of gemm_sm90.cuh.
 //
 // Element types: __nv_bfloat16 (the serving dtype; tile products run on the
 // tensor cores through WMMA) and float (tile products run as fp32 FMAs on the
@@ -84,6 +85,19 @@ __device__ __forceinline__ float gelu_as(float x) {
 
 __device__ __forceinline__ float quick_gelu(float x) {
   return x * (1.f / (1.f + expf(-1.702f * x)));
+}
+
+// the activations' derivatives, fp32 (K5b's backward):
+// d/dh [h sigmoid(1.702 h)] = sig (1 + 1.702 h (1 - sig))
+__device__ __forceinline__ float quick_gelu_grad(float h) {
+  const float sig = 1.f / (1.f + expf(-1.702f * h));
+  return sig * (1.f + 1.702f * h * (1.f - sig));
+}
+
+// d/dh [h Phi(h)] = Phi(h) + h phi(h), Phi = 0.5 (1 + erf(h / sqrt 2))
+__device__ __forceinline__ float gelu_grad(float h) {
+  const float pdf = 0.3989422804014327f * expf(-0.5f * h * h);
+  return 0.5f * (1.f + erf_as(h * 0.7071067811865476f)) + h * pdf;
 }
 
 // -- warp-level 16x16x16 tile product, fp32 accumulator ---------------------

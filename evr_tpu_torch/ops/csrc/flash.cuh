@@ -380,12 +380,13 @@ __device__ __forceinline__ void flash_pn_ds(float s, float dp, float m, float l,
 }
 
 // dq = round(ds) . k * scale (fp32), per (query tile, head, sequence), into
-// the q columns of dqkv [B*T, 3W]
+// the q columns of dqkv [B*T, 3W], and rounded to T into dqkv_r's where
+// dqkv_r is given (the bf16 operand of dW_qkv and dy)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ st_m,
-    const float* __restrict__ st_l, const float* __restrict__ st_d, float* __restrict__ dqkv, int T_, int W,
-    int H, int causal, float scale) {
+    const float* __restrict__ st_l, const float* __restrict__ st_d, float* __restrict__ dqkv,
+    T* __restrict__ dqkv_r, int T_, int W, int H, int causal, float scale) {
   using L = FlashLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
@@ -443,18 +444,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   __syncthreads();
   for (int i = threadIdx.x; i < kFT * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    if (i0 + r < T_)
-      dqkv[(static_cast<size_t>(b) * T_ + i0 + r) * ld + h * D + c] = ss[r * L::LDO + c] * scale;
+    if (i0 + r < T_) {
+      const size_t o = (static_cast<size_t>(b) * T_ + i0 + r) * ld + h * D + c;
+      const float v = ss[r * L::LDO + c] * scale;
+      dqkv[o] = v;
+      if (dqkv_r != nullptr) dqkv_r[o] = from_f<T>(v);
+    }
   }
 }
 
 // dv = round(pn)^T . do and dk = round(ds)^T . (scaled q), per (key tile,
-// head, sequence), into the k and v columns of dqkv
+// head, sequence), into the k and v columns of dqkv (and, rounded to T, of
+// dqkv_r where it is given)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ st_m,
-    const float* __restrict__ st_l, const float* __restrict__ st_d, float* __restrict__ dqkv, int T_, int W,
-    int H, int causal, float scale) {
+    const float* __restrict__ st_l, const float* __restrict__ st_d, float* __restrict__ dqkv,
+    T* __restrict__ dqkv_r, int T_, int W, int H, int causal, float scale) {
   using L = FlashLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
@@ -521,15 +527,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const int r = i / D, c = i % D;
     if (j0 + r < T_) {
       const size_t o = (static_cast<size_t>(b) * T_ + j0 + r) * ld + h * D + c;
-      dqkv[o + W] = ss[r * L::LDO + c];
-      dqkv[o + 2 * static_cast<size_t>(W)] = sdp[r * L::LDO + c];
+      const float dk_v = ss[r * L::LDO + c], dv_v = sdp[r * L::LDO + c];
+      dqkv[o + W] = dk_v;
+      dqkv[o + 2 * static_cast<size_t>(W)] = dv_v;
+      if (dqkv_r != nullptr) {
+        dqkv_r[o + W] = from_f<T>(dk_v);
+        dqkv_r[o + 2 * static_cast<size_t>(W)] = from_f<T>(dv_v);
+      }
     }
   }
 }
 
 template <typename T, int D>
-int flash_backward_d(const T* qkv, const T* dout, T* o, float* st, float* dqkv, int B, int T_, int W, int H,
-                     int causal, float scale, cudaStream_t stream) {
+int flash_backward_d(const T* qkv, const T* dout, T* o, float* st, float* dqkv, T* dqkv_r, int B, int T_, int W,
+                     int H, int causal, float scale, cudaStream_t stream) {
   using L = FlashLayout<T, D>;
   const size_t n = static_cast<size_t>(B) * H * T_;
   float *st_m = st, *st_l = st + n, *st_d = st + 2 * n;
@@ -547,27 +558,30 @@ int flash_backward_d(const T* qkv, const T* dout, T* o, float* st, float* dqkv, 
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_a));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem_a, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, T_, W, H,
-                                                                causal, scale);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem_a, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, dqkv_r, T_,
+                                                                W, H, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_c));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, smem_c, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, T_, W,
-                                                                  H, causal, scale);
+  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, smem_c, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, dqkv_r,
+                                                                  T_, W, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The attention backward at head dim W / H: o, the row statistics, then dq
-// and dk/dv into the fp32 dqkv. ``st`` holds 3 * B * H * T_ floats. -1 for
-// a head dim not taken.
+// and dk/dv into the fp32 dqkv and, where dqkv_r is not null, rounded to T
+// into dqkv_r. ``st`` holds 3 * B * H * T_ floats. -1 for a head dim not
+// taken.
 template <typename T>
-int flash_backward(const T* qkv, const T* dout, T* o, float* st, float* dqkv, int B, int T_, int W, int H,
-                   int causal, float scale, cudaStream_t stream) {
+int flash_backward(const T* qkv, const T* dout, T* o, float* st, float* dqkv, T* dqkv_r, int B, int T_, int W,
+                   int H, int causal, float scale, cudaStream_t stream) {
   if (H < 1 || W % H != 0) return -1;
-  if (W / H == 64) return flash_backward_d<T, 64>(qkv, dout, o, st, dqkv, B, T_, W, H, causal, scale, stream);
-  if (W / H == 80) return flash_backward_d<T, 80>(qkv, dout, o, st, dqkv, B, T_, W, H, causal, scale, stream);
+  if (W / H == 64)
+    return flash_backward_d<T, 64>(qkv, dout, o, st, dqkv, dqkv_r, B, T_, W, H, causal, scale, stream);
+  if (W / H == 80)
+    return flash_backward_d<T, 80>(qkv, dout, o, st, dqkv, dqkv_r, B, T_, W, H, causal, scale, stream);
   return -1;
 }
 

@@ -1,24 +1,25 @@
 // Pieces shared by the backward kernels K5a (block_attn_bwd.cu) and K5b
 // (block_mlp_bwd.cu):
 //
-// - gemm_t: out[M, N] = epilogue(op(A)[M, K] @ op(B)[K, N]), where either
-//   operand may be read transposed and may be stored in fp32; it is rounded
-//   to the element type T as it is staged, so every product runs on T
-//   operands with fp32 accumulation, as the reference kernels' dot_generals
-//   do. A weight gradient (a product over all B*T rows, K = rows) is one
-//   launch: each block walks the whole K range for its output tile, so the
-//   sum over rows has one fixed order and no atomics.
+// - gemm_t, the fp32 calls' GEMM: out[M, N] = epilogue(op(A)[M, K] @
+//   op(B)[K, N]) in full fp32 on the CUDA cores, either operand read
+//   transposed; the on-card parity path the fp32 bands are measured on. A
+//   weight gradient (a product over all B*T rows, K = rows) is one launch:
+//   each block walks the whole K range for its output tile, so the sum over
+//   rows has one fixed order and no atomics. The bf16 calls run their ten
+//   products on the wgmma kernel of gemm_sm90.cuh instead, with its
+//   transposed layouts and fp32 epilogues.
 // - LayerNorm over rows (y rounded to T, with the fp32 statistics kept) and
 //   its backward (dx = g + dx_ln, rounded once).
 // - column sums over rows in two fixed-order stages (per 128-row chunk, then
 //   over the chunks): the bias and LayerNorm-parameter gradients.
 #pragma once
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace evr {
 
-// -- general tiled GEMM ------------------------------------------------------
+// -- fp32 tiled GEMM ---------------------------------------------------------
 // Tiles as gemm_kernel: one 64x128 output tile per block, K in 32-wide steps,
 // 8 warps as 2 x 4 each owning 32x32. A is stored [M, K] (lda) or, with TA,
 // [K, M]; B is stored [K, N] (ldb) or, with TB, [N, K]. A transposed operand
@@ -26,57 +27,53 @@ namespace evr {
 // stay contiguous. M and K may be ragged; N must be a multiple of 128.
 constexpr int kTBM = 64, kTBN = 128, kTBK = 32;
 
-template <typename T, bool TA, bool TB>
+template <bool TA, bool TB>
 struct GemmTLayout {
   static constexpr int LDA = TA ? kTBM + 8 : kTBK + 8;  // staged A row stride
   static constexpr int LDB = TB ? kTBK + 8 : kTBN + 8;  // staged B row stride
   static constexpr int LDC = kTBN + 4;
-  static constexpr size_t a_bytes = align128(sizeof(T) * (TA ? kTBK : kTBM) * LDA);
-  static constexpr size_t b_bytes = align128(sizeof(T) * (TB ? kTBN : kTBK) * LDB);
+  static constexpr size_t a_bytes = align128(sizeof(float) * (TA ? kTBK : kTBM) * LDA);
+  static constexpr size_t b_bytes = align128(sizeof(float) * (TB ? kTBN : kTBK) * LDB);
   static constexpr size_t bytes = a_bytes + b_bytes + align128(sizeof(float) * kTBM * LDC);
 };
 
-template <typename T, typename SA, bool TA, typename SB, bool TB, class Epi>
-__global__ void __launch_bounds__(kThreads) gemm_t_kernel(const SA* __restrict__ a, int lda,
-                                                          const SB* __restrict__ b, int ldb, int M,
-                                                          int N, int K, Epi epi) {
-  using L = GemmTLayout<T, TA, TB>;
+template <bool TA, bool TB, class Epi>
+__global__ void __launch_bounds__(kThreads) gemm_t_kernel(const float* __restrict__ a, int lda,
+                                                          const float* __restrict__ b, int ldb, int M, int N,
+                                                          int K, Epi epi) {
+  using L = GemmTLayout<TA, TB>;
   constexpr int BM = kTBM, BN = kTBN, BK = kTBK;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sa = reinterpret_cast<T*>(smem);
-  T* sb = reinterpret_cast<T*>(smem + L::a_bytes);
+  float* sa = reinterpret_cast<float*>(smem);
+  float* sb = reinterpret_cast<float*>(smem + L::a_bytes);
   float* sc = reinterpret_cast<float*>(smem + L::a_bytes + L::b_bytes);
 
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int wr = warp >> 2, wc = warp & 3;
-  typename Tile<T>::Acc acc[2][2];
+  Tile<float>::Acc acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) Tile<T>::zero(acc[i][j]);
+    for (int j = 0; j < 2; ++j) Tile<float>::zero(acc[i][j]);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int i = tid; i < BM * BK; i += kThreads) {
       if constexpr (TA) {  // element (m, k) at a[k*lda + m], m fastest
         const int m = i % BM, k = i / BM, gm = row0 + m, gk = k0 + k;
-        const float v = (gm < M && gk < K) ? to_f(a[static_cast<size_t>(gk) * lda + gm]) : 0.f;
-        sa[k * L::LDA + m] = from_f<T>(v);
+        sa[k * L::LDA + m] = (gm < M && gk < K) ? a[static_cast<size_t>(gk) * lda + gm] : 0.f;
       } else {
         const int m = i / BK, k = i % BK, gm = row0 + m, gk = k0 + k;
-        const float v = (gm < M && gk < K) ? to_f(a[static_cast<size_t>(gm) * lda + gk]) : 0.f;
-        sa[m * L::LDA + k] = from_f<T>(v);
+        sa[m * L::LDA + k] = (gm < M && gk < K) ? a[static_cast<size_t>(gm) * lda + gk] : 0.f;
       }
     }
     for (int i = tid; i < BK * BN; i += kThreads) {
       if constexpr (TB) {  // element (k, n) at b[n*ldb + k], k fastest
         const int k = i % BK, n = i / BK, gk = k0 + k;
-        const float v = gk < K ? to_f(b[static_cast<size_t>(col0 + n) * ldb + gk]) : 0.f;
-        sb[n * L::LDB + k] = from_f<T>(v);
+        sb[n * L::LDB + k] = gk < K ? b[static_cast<size_t>(col0 + n) * ldb + gk] : 0.f;
       } else {
         const int k = i / BN, n = i % BN, gk = k0 + k;
-        const float v = gk < K ? to_f(b[static_cast<size_t>(gk) * ldb + col0 + n]) : 0.f;
-        sb[k * L::LDB + n] = from_f<T>(v);
+        sb[k * L::LDB + n] = gk < K ? b[static_cast<size_t>(gk) * ldb + col0 + n] : 0.f;
       }
     }
     __syncthreads();
@@ -87,9 +84,9 @@ __global__ void __launch_bounds__(kThreads) gemm_t_kernel(const SA* __restrict__
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int r = wr * 32 + i * 16, c = wc * 32 + j * 16;
-          const T* pa = TA ? sa + kk * L::LDA + r : sa + r * L::LDA + kk;
-          const T* pb = TB ? sb + c * L::LDB + kk : sb + kk * L::LDB + c;
-          Tile<T>::template mma<TB, TA>(acc[i][j], pa, L::LDA, pb, L::LDB);
+          const float* pa = TA ? sa + kk * L::LDA + r : sa + r * L::LDA + kk;
+          const float* pb = TB ? sb + c * L::LDB + kk : sb + kk * L::LDB + c;
+          Tile<float>::mma<TB, TA>(acc[i][j], pa, L::LDA, pb, L::LDB);
         }
     __syncthreads();
   }
@@ -97,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) gemm_t_kernel(const SA* __restrict__
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      Tile<T>::store(sc + (wr * 32 + i * 16) * L::LDC + wc * 32 + j * 16, L::LDC, acc[i][j]);
+      Tile<float>::store(sc + (wr * 32 + i * 16) * L::LDC + wc * 32 + j * 16, L::LDC, acc[i][j]);
   __syncthreads();
   for (int i = tid; i < BM * BN; i += kThreads) {
     const int r = i / BN, c = i % BN, gm = row0 + r;
@@ -105,12 +102,12 @@ __global__ void __launch_bounds__(kThreads) gemm_t_kernel(const SA* __restrict__
   }
 }
 
-template <typename T, typename SA, bool TA, typename SB, bool TB, class Epi>
-int launch_gemm_t(const SA* a, int lda, const SB* b, int ldb, int M, int N, int K, Epi epi,
+template <bool TA, bool TB, class Epi>
+int launch_gemm_t(const float* a, int lda, const float* b, int ldb, int M, int N, int K, Epi epi,
                   cudaStream_t stream) {
   if (N % kTBN != 0 || M < 1 || K < 1) return -1;
-  constexpr size_t smem = GemmTLayout<T, TA, TB>::bytes;
-  auto kernel = gemm_t_kernel<T, SA, TA, SB, TB, Epi>;
+  constexpr size_t smem = GemmTLayout<TA, TB>::bytes;
+  auto kernel = gemm_t_kernel<TA, TB, Epi>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -125,14 +122,13 @@ struct EpiF32 {  // the fp32 sum as it is (gradients, dy)
   __device__ void operator()(int m, int n, float v) const { out[static_cast<size_t>(m) * ldo + n] = v; }
 };
 
-template <typename T>
-struct EpiRound {  // the fp32 sum, plus an optional bias, rounded to T
-  T* out;
-  const T* bias;
+struct EpiBias {  // the fp32 sum plus an optional bias
+  float* out;
+  const float* bias;
   int ldo;
   __device__ void operator()(int m, int n, float v) const {
-    if (bias != nullptr) v += to_f(bias[n]);
-    out[static_cast<size_t>(m) * ldo + n] = from_f<T>(v);
+    if (bias != nullptr) v += bias[n];
+    out[static_cast<size_t>(m) * ldo + n] = v;
   }
 };
 
