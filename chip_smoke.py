@@ -9,7 +9,10 @@ package. Phases, each fatal on failure:
    cuDNN, so fp32 comparisons are full fp32;
 2. build: every kernel of the main paths compiled from ``ops/csrc``; the
    SASS of the K1, K2, K9, K5a and K5b libraries (``cuobjdump -sass``) must
-   hold ``HGMMA`` instructions, the wgmma products of ``csrc/gemm_sm90.cuh``;
+   hold ``HGMMA`` instructions, the wgmma products of ``csrc/gemm_sm90.cuh``,
+   and in the K6 and K1 libraries each function of the bf16 attention
+   forward (``attn_sm90_kernel``, ``csrc/attn_sm90.cuh``, head dims 64 and
+   80) must hold its own; ptxas's register and spill lines are printed;
 3. the bf16 GEMM under K1, K2, K9 and K5 alone (``gemm_bf16``) at ViT-H-14's
    four vision GEMMs (65,792 rows), ViT-B/32's vision and text GEMMs, a
    ragged M and one tile, against ``torch.matmul`` in fp32 rounded once,
@@ -23,7 +26,10 @@ package. Phases, each fatal on failure:
    against their plain PyTorch versions at the ViT-B/32 main-path shapes,
    vision (B=256, T=50, W=768, H=12) and text (B=16, T=77, W=512, H=8,
    causal) and a ragged batch (B=3, T=50, W=768: 150 rows, K1 and K2), in
-   bfloat16 and float32, and K1, K2, K3a and K3b at the
+   bfloat16 and float32; K1's attention core alone (``attn_forward``) at
+   the vision, text, ViT-L/14@336px and ViT-H-14 shapes and at two key rows
+   of 1,000 (head dims 64 and 80, one causal), bf16 and fp32; and K1, K2,
+   K3a and K3b at the
    ViT-L/14@336px training shape (B=32, T=577, W=1024, H=16) and at
    ViT-H-14's vision shape (B=32, T=257, W=1280, H=16: head dim 80, exact
    GELU); K4 (``fused_topk``) against
@@ -55,7 +61,9 @@ package. Phases, each fatal on failure:
 7. times: each kernel, its plain version and a PyTorch library computation
    of the same function, by CUDA events at the main-path shapes; K5a split
    into its attention backward alone (``attn_backward``), its five GEMMs and
-   the rest; encode frames/s and the p50 of a text query, bf16 and int8;
+   the rest; K1's attention core alone (``attn_forward``) at ViT-H-14,
+   ViT-L/14@336px, ViT-B/32 vision and text shapes against SDPA; encode
+   frames/s and the p50 of a text query, bf16 and int8;
 8. the ANN tiers: K7 (``adc_list_scores``) against its plain version, bit
    for bit (phase 3); the bf16 data root of phase 4 served under
    ``search_impl="ivf"`` at a full probe (served events equal to the exact
@@ -198,8 +206,25 @@ BWD_GEMM_SHAPES = {
     "ragged-k": (256, 512, 40, True, False, "float32", False),
 }
 BWD_GEMM_F32_REL = 5e-5
+# K1's attention core alone (``ops.block_fused.attn_forward``, no path calls
+# it) on the packed qkv [B, T, 3W]: held to its plain version at the block
+# halves' shapes (tolerances as for K1) and at two key rows longer than the
+# kernel's resident k slots (T 1,000, head dims 64 and 80, one causal), so
+# that k streams through both walks; timed at ATTN_CORE_TIMED against SDPA on
+# q, k, v views of the same qkv
+ATTN_CORE_SHAPES = {
+    "vith": VITH_SERVE, "vitl": VITL, "vitb": VISION, "text": TEXT,
+    "long-d64": dict(B=2, T=1000, W=512, H=8, causal=False),
+    "long-d80": dict(B=2, T=1000, W=640, H=8, causal=True),
+}
+ATTN_CORE_TIMED = ("vith", "vitl", "vitb", "text")
 # the libraries whose bf16 GEMMs run on csrc/gemm_sm90.cuh's wgmma kernel
 HGMMA_LIBS = ("block_attn", "block_mlp", "block_merged", "block_attn_bwd", "block_mlp_bwd")
+# the libraries whose bf16 attention forward runs on csrc/attn_sm90.cuh's
+# wgmma kernel (K6; K1, and through it the core of K3a and K9), and that
+# kernel's function name: its own SASS function must hold HGMMA instructions
+ATTN_HGMMA_LIBS = ("flash_attn", "block_attn")
+ATTN_KERNEL = "attn_sm90_kernel"
 FP32_TOL = 2e-4  # max abs, fp32 kernel vs plain version (accumulation order only)
 BF16_TOL = 3e-2  # max abs on unit-variance activations: about 2 bf16 ulps below 4
 BF16_MIN_COS = 0.9999  # per output row, bf16
@@ -426,6 +451,19 @@ def cuda_ms(torch, fn, iters: int = 30, warmup: int = 5) -> float:
 # -- 2. build ----------------------------------------------------------------
 
 
+def sass_functions(sass: str) -> dict[str, int]:
+    """HGMMA instructions per function of ``cuobjdump -sass`` output, split
+    at each ``Function :`` header."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def phase_build():
     from evr_tpu_torch.ops import build
 
@@ -437,21 +475,33 @@ def phase_build():
         check(path.exists(), f"{name}: no library after the build")
         report = path.with_suffix(".log")
         if report.exists():
+            current = ""
             for line in report.read_text().splitlines():
+                if "Compiling entry function" in line:
+                    current = line.split("'")[1] if "'" in line else line
                 if "spill" in line or "registers" in line or "C7515" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+                    tag = " (attention forward)" if ATTN_KERNEL in current else ""
+                    log(f"  ptxas {name}{tag}: {line.strip()}")
     log(f"build: {json.dumps({k: round(v, 1) for k, v in times.items()})} "
         f"total {total:.1f} s (0 = already built)")
-    # the bf16 GEMMs of K1, K2, K9 and K5 must be wgmma products in the binary
+    # the bf16 GEMMs of K1, K2, K9 and K5 must be wgmma products in the binary,
+    # and so must the bf16 attention forward in its own kernel function
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
-    counts = {}
-    for name in HGMMA_LIBS:
+    counts, attn = {}, {}
+    for name in sorted(set(HGMMA_LIBS) | set(ATTN_HGMMA_LIBS)):
         sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         counts[name] = sum("HGMMA" in line for line in sass.splitlines())
+        if name in ATTN_HGMMA_LIBS:
+            attn[name] = {f: n for f, n in sass_functions(sass).items() if ATTN_KERNEL in f}
     log(f"sass: HGMMA instructions per library {json.dumps(counts)}")
-    for name, n in counts.items():
-        check(n > 0, f"{name}: no HGMMA instruction in its SASS")
+    log(f"sass: HGMMA instructions in each {ATTN_KERNEL} function {json.dumps(attn)}")
+    for name in HGMMA_LIBS:
+        check(counts[name] > 0, f"{name}: no HGMMA instruction in its SASS")
+    for name in ATTN_HGMMA_LIBS:
+        check(len(attn[name]) == 2, f"{name}: {len(attn[name])} {ATTN_KERNEL} functions, expected 2 (d 64, 80)")
+        for f, n in attn[name].items():
+            check(n > 0, f"{name}: no HGMMA instruction in {f}")
 
 
 # -- 3. the GEMM alone, then kernel parity -----------------------------------
@@ -601,6 +651,43 @@ def phase_parity(torch):
                 check(finite, f"{tag}: non-finite output")
                 tol = FP32_TOL if dt == torch.float32 else BF16_TOL
                 check(err <= tol, f"{tag}: max abs err {err} > {tol}")
+    return worst
+
+
+def core_inputs(torch, s: dict, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return unit_activations(torch, (s["B"], s["T"], 3 * s["W"]), gen, "cuda")
+
+
+def phase_parity_core(torch):
+    """K1's attention core alone (``attn_forward``) against
+    ``attn_forward_plain`` at ATTN_CORE_SHAPES, bf16 (the TMA + wgmma kernel
+    of csrc/attn_sm90.cuh) and fp32 (flash.cuh's flash_fwd_kernel), one
+    launch a call."""
+    from evr_tpu_torch.ops import block_fused as bf
+
+    worst = 0.0
+    for tag, s in ATTN_CORE_SHAPES.items():
+        qkv32 = core_inputs(torch, s, seed=10)
+        for dt in (torch.bfloat16, torch.float32):
+            qkv = qkv32.to(dt)
+            before = bf.attn_forward.launches
+            got = bf.attn_forward(qkv, s["H"], s["causal"])
+            torch.cuda.synchronize()
+            ref = bf.attn_forward_plain(qkv, s["H"], s["causal"])
+            err, cos, finite = compare(torch, got, ref)
+            name = f"attn_forward {tag} {str(dt).split('.')[-1]} (T {s['T']}, d {s['W'] // s['H']})"
+            log(f"parity {name}: max_abs_err={err:.3e} min_row_cos={cos:.7f}")
+            check(bf.attn_forward.launches == before + 1, f"{name}: not one launch")
+            check(got.dtype == dt and got.shape == ref.shape, f"{name}: {got.dtype} {tuple(got.shape)}")
+            check(finite, f"{name}: non-finite output")
+            if dt == torch.float32:
+                check(err <= FP32_TOL, f"{name}: max abs err {err} > {FP32_TOL}")
+            else:
+                check(err <= BF16_TOL, f"{name}: max abs err {err} > {BF16_TOL}")
+                check(cos >= BF16_MIN_COS, f"{name}: row cosine {cos} < {BF16_MIN_COS}")
+                worst = max(worst, err)
+            del got, ref
     return worst
 
 
@@ -1570,6 +1657,35 @@ def phase_times_train(torch, gemm):
     return out
 
 
+def phase_times_core(torch):
+    """K1's attention core alone (``attn_forward``, bf16) at ATTN_CORE_TIMED,
+    against its plain version and ``F.scaled_dot_product_attention`` on q, k,
+    v views of the same qkv (which the port never calls). The bound counts
+    qkv read once and o written once, and 4·d operations per (query, key)
+    pair the mask keeps."""
+    import torch.nn.functional as F
+
+    from evr_tpu_torch.ops import block_fused as bf
+
+    out = {}
+    for tag in ATTN_CORE_TIMED:
+        s = ATTN_CORE_SHAPES[tag]
+        B, T, W, H, causal = s["B"], s["T"], s["W"], s["H"], s["causal"]
+        d = W // H
+        qkv = core_inputs(torch, s, seed=11).to(torch.bfloat16)
+        q, k, v = qkv.view(B, T, 3, H, d).permute(2, 0, 3, 1, 4)
+        pairs = T * (T + 1) // 2 if causal else T * T
+        flops, nbytes = 4 * B * H * pairs * d, 4 * B * T * W * 2
+        out[tag] = time_case(
+            torch, "attn_forward", f"{tag} bf16 B={B} T={T} W={W} H={H}",
+            lambda: bf.attn_forward(qkv, H, causal), lambda: bf.attn_forward_plain(qkv, H, causal),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+            flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3,
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB", (bf.attn_forward,))
+        del qkv, q, k, v
+    return out
+
+
 def phase_times_topk(torch):
     """K4 at the serving shape of one text query: Q = 1, k = 30 over
     TOPK_ROWS int8 rows (the row scales applied)."""
@@ -2392,6 +2508,7 @@ def main() -> int:
         phase_build()
         gemm = phase_gemm(torch)
         worst = phase_parity(torch)
+        core_worst = phase_parity_core(torch)
         worst.update(phase_parity_int8(torch))
         worst["fused_topk"] = phase_parity_topk(torch)
         worst.update(phase_parity_bwd(torch))
@@ -2406,9 +2523,16 @@ def main() -> int:
         times = phase_times(torch)
         times[("fused_topk", "vision")] = phase_times_topk(torch)
         times.update(phase_times_train(torch, gemm))
+        core = phase_times_core(torch)
         log("K1/K2 bf16 at ViT-L/14@336px (vitl) and ViT-H-14 (vith): " + ", ".join(
             f"{n} {sh} {times[(n, sh)]['ms']:.4f} ms (library {times[(n, sh)]['library_ms']:.4f})"
             for sh in ("vitl", "vith") for n in ("fused_attn_block", "fused_mlp_block")))
+        log("K1's attention core alone (attn_forward, bf16): " + ", ".join(
+            f"{sh} {core[sh]['ms']:.4f} ms of K1's "
+            f"{times[('fused_attn_block', 'vision' if sh == 'vitb' else sh)]['ms']:.4f} "
+            f"(SDPA {core[sh]['library_ms']:.4f}, bound {core[sh]['bound_ms']:.4f})"
+            for sh in ("vith", "vitl", "vitb")) + f"; text {core['text']['ms']:.4f} ms "
+            f"(SDPA {core['text']['library_ms']:.4f}); parity max abs err {core_worst:.3e}")
         t1 = time.perf_counter()
         ann = phase_ann_large(torch)
         worst["adc_list_scores"] = max(worst["adc_list_scores"], ann["max_abs_err"])

@@ -26,11 +26,16 @@ of ``csrc/gemm_sm90.cuh``, which takes the shapes ``gemm_takes`` accepts
 ``csrc/common.cuh``. In bf16, K5's ten products run on the same kernel in
 the backward's transposed layouts (``attn_bwd_gemms``, ``mlp_bwd_gemms``),
 in fp32 on the CUDA-core ``gemm_t`` of ``csrc/grad_common.cuh``.
-``gemm_bf16`` runs the bf16 GEMM alone in each of those layouts, and
+``gemm_bf16`` runs the bf16 GEMM alone in each of those layouts,
+``attn_forward`` the attention core of K1, K3a and K9 alone and
 ``attn_backward`` K5a's attention backward alone.
 
 K1, K3a, K5a and K9 take head dim 64 or 80 (ViT-H-14's vision tower) and any
-T; other head dims raise on a CUDA tensor.
+T; other head dims raise on a CUDA tensor. Their bf16 attention forward runs
+on the warp-specialised TMA + wgmma kernel of ``csrc/attn_sm90.cuh``, which
+K6 (``ops.attention``) shares; ``attn_takes``, ``attn_boxes``,
+``attn_smem_bytes`` and ``attn_k_slots`` mirror its shape rule and
+shared-memory plan. fp32 keeps the CUDA-core kernels of ``csrc/flash.cuh``.
 
 Each wrapper takes x's dtype (bfloat16 or float32) as the compute dtype and
 casts the LayerNorm parameters (and, for K1/K2/K5, the kernels and biases) to
@@ -112,9 +117,10 @@ def attend_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
     return ((p.to(dt).float() @ v.float()) / denom).to(dt)
 
 
-def _attend(qkv: torch.Tensor, n_heads: int, causal: bool) -> torch.Tensor:
-    """``attend_heads`` over the rounded qkv [B, T, 3W] of the fused
-    kernels. Returns o [B, T, W] in qkv's dtype."""
+def attn_forward_plain(qkv: torch.Tensor, n_heads: int, causal: bool = False) -> torch.Tensor:
+    """The attention core of K1, K3a and K9 in plain PyTorch: ``attend_heads``
+    over the rounded qkv [B, T, 3W] of the fused kernels (head h's q, k, v at
+    columns h·d, W + h·d, 2W + h·d). Returns o [B, T, W] in qkv's dtype."""
     B, T, W3 = qkv.shape
     W = W3 // 3
     d = W // n_heads
@@ -170,7 +176,7 @@ def fused_attn_block_plain(
     x32 = x.float()
     y = ln_rows_plain(x, ln_scale, ln_bias)
     qkv = (y.float() @ qkv_kernel.float() + qkv_bias.float()).to(dt)
-    o = _attend(qkv, n_heads, causal)
+    o = attn_forward_plain(qkv, n_heads, causal)
     proj = o.float() @ out_kernel.float() + out_bias.float()
     return (x32 + proj).to(dt)
 
@@ -203,7 +209,7 @@ def fused_attn_block_q_plain(
     x32 = x.float()
     y = _ln32(x32, ln_scale, ln_bias)
     qkv = dequant_dot(y, qkv_kq, qkv_ks, qkv_bias).to(dt)
-    o = _attend(qkv, n_heads, causal)
+    o = attn_forward_plain(qkv, n_heads, causal)
     proj = dequant_dot(o.float(), out_kq, out_ks, out_bias)
     return (x32 + proj).to(dt)
 
@@ -839,6 +845,97 @@ def gemm_bf16(
     return out
 
 
+ATTN_HEAD_DIMS = (64, 80)
+ATTN_TILE = 64  # query rows per consumer warpgroup, keys per block
+ATTN_CONSUMERS = 2  # consumer warpgroups (query tiles) per block
+ATTN_V_SLOTS = 4  # the v ring
+SMEM_PER_SM = 233472  # an H100 SM's 228 KB
+ATTN_SMEM_PER_BLOCK = SMEM_PER_SM // 2 - 1024  # two blocks an SM, 1 KB each kept by the runtime
+_SWIZZLE_LINE = 128  # bytes: the widest swizzled TMA box row
+
+
+def attn_boxes(d: int) -> list[tuple[int, int, int]]:
+    """The TMA boxes a row of a q, k or v tile of head dim ``d`` is loaded
+    in by the bf16 attention forward (``csrc/attn_sm90.cuh``), as (first
+    column, width, swizzle bytes): as many 64-column boxes under the 128-byte
+    swizzle as fit, the rest in one box under the swizzle of its own width
+    (at d 80: columns [0, 64) and [64, 80) under the 32-byte swizzle)."""
+    wide = _SWIZZLE_LINE // 2
+    boxes = [(c, wide, _SWIZZLE_LINE) for c in range(0, d - d % wide, wide)]
+    if d % wide:
+        boxes.append((d - d % wide, d % wide, 2 * (d % wide)))
+    return boxes
+
+
+def attn_smem_bytes(d: int, k_slots: int) -> int:
+    """Shared memory of one block of the bf16 attention forward at head dim
+    ``d`` holding ``k_slots`` k tiles (``attn_sm90.cuh``'s ``Plan::smem``):
+    the 1,024-byte alignment slack, the consumers' q tiles, the k slots and
+    ``ATTN_V_SLOTS`` v slots (64 rows of d bf16 each), and one 8-byte
+    mbarrier for q and two for each slot."""
+    tile = ATTN_TILE * d * 2
+    return 1024 + (ATTN_CONSUMERS + k_slots + ATTN_V_SLOTS) * tile + 8 * (1 + 2 * k_slots + 2 * ATTN_V_SLOTS)
+
+
+def attn_k_slots(T: int, d: int) -> int:
+    """k slots of a block over rows of T keys (``Plan::k_slots``): the whole
+    key row, resident in shared memory for both walks, where that fits two
+    blocks on an SM; else as many as fit, the row streamed through them
+    once a walk."""
+    n = -(-T // ATTN_TILE)
+    if attn_smem_bytes(d, n) <= ATTN_SMEM_PER_BLOCK:
+        return n
+    slots = 2
+    while attn_smem_bytes(d, slots + 1) <= ATTN_SMEM_PER_BLOCK:
+        slots += 1
+    return slots
+
+
+def attn_takes(seqs: int, T: int, n_heads: int, d: int) -> bool:
+    """Whether the bf16 attention forward (``csrc/attn_sm90.cuh``'s
+    ``takes``, which this mirrors) runs ``seqs`` sequences of T tokens and
+    ``n_heads`` heads of dim ``d``: head dim 64 or 80, any T, and a grid of
+    one block per pair of 64-row query tiles, head and sequence within 2³¹ −
+    1 blocks."""
+    if d not in ATTN_HEAD_DIMS or min(seqs, T, n_heads) < 1:
+        return False
+    pairs = -(-(-(-T // ATTN_TILE)) // ATTN_CONSUMERS)
+    return pairs * n_heads * seqs <= 2 ** 31 - 1
+
+
+def attn_forward(qkv: torch.Tensor, n_heads: int, causal: bool = False) -> torch.Tensor:
+    """The attention core of K1, K3a and K9 alone (``csrc/flash.cuh``'s
+    ``launch_flash_fwd``, through the entry ``evr_flash_forward`` of
+    ``csrc/block_attn.cu``): o [B, T, W] from the rounded qkv [B, T, 3W], as
+    the block halves compute it between their GEMMs. In bfloat16 the TMA +
+    wgmma kernel of ``csrc/attn_sm90.cuh``, in float32 ``flash_fwd_kernel``.
+    For checking and timing it apart from them; no path calls it. A CPU
+    tensor takes ``attn_forward_plain``."""
+    refuse_grad("attn_forward", qkv)
+    if not qkv.is_cuda:
+        return attn_forward_plain(qkv, n_heads, causal)
+    if qkv.dim() != 3 or qkv.shape[2] % 3 or (qkv.shape[2] // 3) % n_heads:
+        raise ValueError(f"attn_forward: qkv of shape {tuple(qkv.shape)} with {n_heads} heads")
+    B, T, W3 = qkv.shape
+    W = W3 // 3
+    d = W // n_heads
+    if qkv.dtype not in _DTYPE_CODES:
+        raise ValueError(f"attn_forward: dtype {qkv.dtype} not supported (float32 or bfloat16)")
+    if not attn_takes(B, T, n_heads, d):
+        raise ValueError(f"attn_forward: the CUDA kernel does not take {B} x {T} tokens of "
+                         f"{n_heads} heads of dim {d} (head dims {ATTN_HEAD_DIMS})")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("attn_forward: qkv must be contiguous and 16-byte aligned")
+    o = torch.empty((B, T, W), dtype=qkv.dtype, device=qkv.device)
+    rc = build.load("block_attn").evr_flash_forward(
+        _DTYPE_CODES[qkv.dtype], qkv.data_ptr(), o.data_ptr(), B, T, W, n_heads, int(causal),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    _raise_rc(rc, "attn_forward", qkv.shape)
+    attn_forward.launches += 1
+    return o
+
+
 def attn_backward(qkv: torch.Tensor, dout: torch.Tensor, n_heads: int, causal: bool = False):
     """K5a's attention backward alone (``csrc/flash.cuh``, through the entry
     ``evr_flash_backward`` of ``csrc/block_attn_bwd.cu``): from the rounded
@@ -877,6 +974,7 @@ def attn_backward(qkv: torch.Tensor, dout: torch.Tensor, n_heads: int, causal: b
 fused_attn_block.launches = 0
 fused_mlp_block.launches = 0
 gemm_bf16.launches = 0
+attn_forward.launches = 0
 attn_backward.launches = 0
 fused_attn_block_q.launches = 0
 fused_mlp_block_q.launches = 0

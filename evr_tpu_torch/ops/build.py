@@ -107,6 +107,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.evr_fused_attn_block
         fn.argtypes = [i] + [p] * 11 + [i] * 5 + [f, p]
         fn.restype = i
+        fn = lib.evr_flash_forward
+        fn.argtypes = [i, p, p] + [i] * 5 + [f, p]
+        fn.restype = i
     elif name == "block_mlp":
         fn = lib.evr_fused_mlp_block
         fn.argtypes = [i] + [p] * 10 + [i] * 4 + [p]

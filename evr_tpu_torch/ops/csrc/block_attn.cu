@@ -20,19 +20,21 @@
 // Design: four launches. (1) the LayerNorm row pass (layer_norm_kernel,
 // common.cuh, K8's device code) writes y = round(LN1(x) * s + b) into a
 // scratch [B*T, W]; (2) the GEMM writes qkv = round(y @ W_qkv + b) [B*T, 3W];
-// (3) flash_fwd_kernel (flash.cuh), one block per (64-row query tile, head,
-// sequence), walks the key blocks twice (the row max, then the sum and P.V)
-// so that P is rounded against the row's true max, and writes the head
-// output o; (4) the GEMM for o @ out_kernel + bias + x. In bf16 both GEMMs
+// (3) the attention core (flash.cuh's launch_flash_fwd) writes the head
+// outputs o; (4) the GEMM for o @ out_kernel + bias + x. In bf16 both GEMMs
 // run on the warp-specialised wgmma + TMA kernel of gemm_sm90.cuh (128 x 256
-// tiles, a 4-stage ring, 16-byte epilogue); in fp32 on the CUDA-core GEMM of
-// common.cuh (full fp32). What bounds it on this card: the GEMMs are 91 % of
-// the operations at ViT-H-14's vision shape (862 of 949 GFLOP) and, at the
-// old GEMM's 36 TFLOP/s, most of the time; the new one runs them near the
-// tensor cores' rate, which leaves the attention core (WMMA tiles, QK^T
-// computed twice, k read twice) as the larger share. y, qkv and o make a
-// round trip through device memory (at ViT-H-14's shape 168, 505 and 168
-// MB), a cost of a few hundredths of a millisecond each at 3.35 TB/s.
+// tiles, a 4-stage ring, 16-byte epilogue) and the core on the one of
+// attn_sm90.cuh (a producer warp loading q, k and v tiles of the packed qkv
+// by 3-D TMA, two consumer warpgroups per pair of 64-row query tiles, both
+// walks over the keys on wgmma with the scores in registers, k resident in
+// shared memory between them); in fp32 on the CUDA-core GEMM of common.cuh
+// and flash.cuh's flash_fwd_kernel (full fp32). What bounds it on this card:
+// the GEMMs are 91 % of the operations at ViT-H-14's vision shape (862 of 949
+// GFLOP); the core is bound by its bytes (qkv read and o written once: 673.7
+// MB = 0.20 ms there), and the two walks do 1.5 times the products of one
+// pass. y, qkv and o make a round trip through device memory (at ViT-H-14's
+// shape 168, 505 and 168 MB), a cost of a few hundredths of a millisecond
+// each at 3.35 TB/s. ``evr_flash_forward`` runs the core alone.
 
 #include "flash.cuh"
 #include "gemm_sm90.cuh"
@@ -81,5 +83,23 @@ extern "C" int evr_fused_attn_block(int dtype, const void* x, const void* ln_s, 
   void* scratch[3] = {y, qkv, o};
   if (dtype == 0) return evr::attn_block_c<float>(x, ln_s, ln_b, p, scratch, out, B, T, W, H, causal, scale, s);
   if (dtype == 1) return evr::attn_block_c<evr::bf16>(x, ln_s, ln_b, p, scratch, out, B, T, W, H, causal, scale, s);
+  return -1;
+}
+
+// The attention core alone (launch_flash_fwd), for checking and timing it
+// apart from the GEMMs: qkv [B*T, 3W] as the QKV GEMM writes it, o [B*T, W].
+// dtype 0 = float32, 1 = bfloat16; ``scale`` is 1/sqrt(d), rounded to the
+// element type inside. Returns 0, -1 for a shape it does not take, or a
+// CUDA error code.
+extern "C" int evr_flash_forward(int dtype, const void* qkv, void* o, int B, int T, int W, int H, int causal,
+                                 float scale, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || T < 1 || H < 1 || W % H != 0 || !evr::flash_head_dim(W / H)) return -1;
+  if (dtype == 0)
+    return evr::launch_flash_fwd<float>(static_cast<const float*>(qkv), static_cast<float*>(o), B, T, W, H, causal,
+                                        scale, s);
+  if (dtype == 1)
+    return evr::launch_flash_fwd<evr::bf16>(static_cast<const evr::bf16*>(qkv), static_cast<evr::bf16*>(o), B, T,
+                                            W, H, causal, scale, s);
   return -1;
 }

@@ -14,7 +14,8 @@
 // bit-equal to the pair on the card:
 //   (1) the LN1 row pass, y = round(LN1(x) * s + b);
 //   (2) the GEMM qkv = round(y @ W_qkv + b);
-//   (3) flash_fwd_kernel, o = the rounded head outputs;
+//   (3) the attention core (flash.cuh; attn_sm90.cuh's wgmma kernel in
+//       bf16), o = the rounded head outputs;
 //   (4) the GEMM with K1's residual, xc = round(x + o @ W_out + b) (fp32
 //       sum, rounded once), written in the model dtype;
 //   (5) the LN2 row pass into the same y scratch, y = round(LN2(xc) * s + b);
@@ -33,8 +34,8 @@
 // Design: seven launches, K1's four and K2's three; xc makes one
 // device-memory round trip in the model dtype (as do y, qkv, o and h, exactly
 // as in K1 and K2): that round trip is the rounding the TPU kernel emulates.
-// What bounds it on this card is what bounds K1 and K2: the GEMMs, now on the
-// wgmma + TMA kernel, then K1's attention core. A single whole-block kernel
+// What bounds it on this card is what bounds K1 and K2: the GEMMs and K1's
+// attention core, all three on wgmma + TMA kernels in bf16. A single whole-block kernel
 // that keeps xc and h on chip is later speed work.
 
 #include "flash.cuh"

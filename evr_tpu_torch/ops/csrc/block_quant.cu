@@ -35,7 +35,8 @@
 // (2) igemm_kernel: int8 x int8 -> int32 on the tensor cores (WMMA s8
 // 16x16x16), one 64x128 output tile per block, K in 64-byte steps through
 // shared memory panels, dequantisation and the half's epilogue fused.
-// K3a then runs (3) K1's flash_fwd_kernel (flash.cuh: 64-row query tiles,
+// K3a then runs (3) K1's attention core (flash.cuh's launch_flash_fwd: in
+// bf16 the TMA + wgmma kernel of attn_sm90.cuh, in fp32 flash_fwd_kernel;
 // two passes over the key blocks, any T) on the rounded qkv rows; (4)
 // quant_rows_kernel on the head outputs; (5) igemm_kernel with the residual
 // epilogue. K3b runs (1), (2) with the activation epilogue writing fp32 h,

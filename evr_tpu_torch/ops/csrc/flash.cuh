@@ -4,17 +4,23 @@
 // (block_attn_bwd.cu). Inputs are the rounded qkv [B*T, 3W] of the block
 // (q, k, v of head h at columns h*D, W + h*D, 2W + h*D).
 //
-// Rounding points of the reference kernels (_attn_block_kernel,
-// _attn_block_bwd_kernel): q times 1/sqrt(d) in the element type, the scale
-// itself rounded to it first (jnp.asarray(scale, dtype): 0.11181640625 at
-// d = 80 in bf16), while dq is scaled by the unrounded fp32 value; scores in
-// fp32; the causal fill -1e30; the row max over the WHOLE row before any
-// exponent. A running-max (online) softmax would round P against a partial
-// max, so every kernel here walks the key blocks more than once instead:
+// Replaces: the attention core of evr_tpu/ops/block_fused.py::
+// fused_attn_block (_attn_block_kernel) and of its backward
+// (_attn_block_bwd_kernel). Rounding points of those kernels: q times
+// 1/sqrt(d) in the element type, the scale itself rounded to it first
+// (jnp.asarray(scale, dtype): 0.11181640625 at d = 80 in bf16), while dq is
+// scaled by the unrounded fp32 value; scores in fp32; the causal fill -1e30;
+// the row max over the WHOLE row before any exponent. A running-max (online)
+// softmax would round P against a partial max, so every kernel here walks
+// the key blocks more than once instead:
 //
 // - forward: pass 1 takes the row max, pass 2 sums exp(s - m) in fp32 and
 //   accumulates round(exp(s - m)) . v; the sum divides after P.V and the head
-//   output is rounded;
+//   output is rounded. In bf16 it runs on the warp-specialised TMA + wgmma
+//   kernel of attn_sm90.cuh (launch_flash_fwd routes by the element type
+//   alone), which keeps the scores in registers and k in shared memory
+//   between the passes; this header's flash_fwd_kernel is the fp32 forward
+//   (full fp32 on the CUDA cores, the on-card parity path);
 // - backward, stats: the max, then the sum l, then pn = exp(s - m) / l in
 //   fp32, o = round(round(pn) . v) (the backward's own o, not the forward's
 //   divide-after-P.V one; it feeds dW_out) and D = rowsum(dpn * pn) with
@@ -24,18 +30,25 @@
 // - backward, dk and dv: per key tile over the query tiles,
 //   dv = round(pn)^T . do and dk = round(ds)^T . (scaled q).
 //
-// Each block owns one (64-row tile, head, sequence). The tile edge (64 query
-// rows, 64 keys) is fixed and the head dim is a template parameter, in the
-// layout of K6 (flash_attn.cu): q, k, v and do tiles are [64][D + 8], the
-// probability and ds tiles [64][72]. The [64, 64] products (q k^T, do v^T)
-// contract over D (4 WMMA steps at 64, 5 at 80), two 16 x 16 output tiles per
-// warp; the [64, D] products (P.V, dq, dk, dv) contract over 64 and spread
-// their 4 D/16 output tiles over the 8 warps (16 at D = 64, 20 at D = 80,
-// where warps 0-3 own a third). Tile products run on the warp tile product
-// of common.cuh; the per-row softmax arithmetic is one warp per 8 rows. A
-// causal tower skips the key blocks (or query tiles) that its mask empties.
+// Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the forward does
+// 4 T^2 D operations per (sequence, head) against the T D elements each of
+// q, k, v and o, bound by bytes at CLIP's lengths (attn_sm90.cuh has the
+// figures); the backward does three times the products.
+//
+// The fp32 forward and the backward kernels: each block owns one (64-row
+// tile, head, sequence). The tile edge (64 query rows, 64 keys) is fixed and
+// the head dim is a template parameter: q, k, v and do tiles are [64][D + 8],
+// the probability and ds tiles [64][72]. The [64, 64] products (q k^T, do
+// v^T) contract over D (4 steps of 16 at 64, 5 at 80), two 16 x 16 output
+// tiles per warp; the [64, D] products (P.V, dq, dk, dv) contract over 64 and
+// spread their 4 D/16 output tiles over the 8 warps (16 at D = 64, 20 at D =
+// 80, where warps 0-3 own a third). Tile products run on the warp tile
+// product of common.cuh (bf16 through WMMA, fp32 as FMAs); the per-row
+// softmax arithmetic is one warp per 8 rows. A causal tower skips the key
+// blocks (or query tiles) that its mask empties.
 #pragma once
 
+#include "attn_sm90.cuh"
 #include "common.cuh"
 
 namespace evr {
@@ -205,10 +218,11 @@ __device__ void flash_row_sum(float (&l)[8], const float (&m)[8], const T* sq, T
   for (int q = 0; q < 8; ++q) l[q] = warp_sum(l[q]);
 }
 
-// -- forward (K1, K3a, K9) ----------------------------------------------------
+// -- forward (K1, K3a, K9), fp32 ------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
                                                              int T_, int W, int causal, float scale) {
+  static_assert(std::is_same<T, float>::value, "the bf16 forward runs on attn_sm90.cuh");
   using L = FlashLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
@@ -283,14 +297,19 @@ int launch_flash_fwd_d(const T* qkv, T* o, int B, int T_, int W, int H, int caus
   return static_cast<int>(cudaGetLastError());
 }
 
-// The attention forward at head dim W / H; -1 for a head dim not taken.
+// The attention forward at head dim W / H: bf16 on the wgmma kernel of
+// attn_sm90.cuh, fp32 on flash_fwd_kernel; -1 for a head dim not taken.
 template <typename T>
 int launch_flash_fwd(const T* qkv, T* o, int B, int T_, int W, int H, int causal, float scale,
                      cudaStream_t stream) {
-  if (H < 1 || W % H != 0) return -1;
-  if (W / H == 64) return launch_flash_fwd_d<T, 64>(qkv, o, B, T_, W, H, causal, scale, stream);
-  if (W / H == 80) return launch_flash_fwd_d<T, 80>(qkv, o, B, T_, W, H, causal, scale, stream);
-  return -1;
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_attn_sm90_packed(qkv, o, B, T_, W, H, causal, scale, stream);
+  } else {
+    if (H < 1 || W % H != 0) return -1;
+    if (W / H == 64) return launch_flash_fwd_d<T, 64>(qkv, o, B, T_, W, H, causal, scale, stream);
+    if (W / H == 80) return launch_flash_fwd_d<T, 80>(qkv, o, B, T_, W, H, causal, scale, stream);
+    return -1;
+  }
 }
 
 // -- backward (K5a) ----------------------------------------------------------

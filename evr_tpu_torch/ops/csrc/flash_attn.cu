@@ -28,19 +28,23 @@
 // 86.6 GFLOP = 0.088 ms; ViT-H-14 text, B=16 H=16 T=77 D=64 causal: 10.1 MB
 // = 3.0 us. Bound by bytes at CLIP's lengths.
 //
-// Design (right and simple first): one block of 256 threads per (64-row
-// query tile, head, sequence). The scaled q tile stays in shared memory; the
-// block walks the key blocks of 64 twice, as flash.cuh does for K1: first
-// for the row max, then for exp(s - m), its fp32 sum and round(p) . v, so
-// that p is rounded against the row's true max (an online softmax would
-// round it against a partial one). A causal tile stops at its diagonal block.
-// Tile products run on the warp tile product of common.cuh: bf16 on the
-// tensor cores through WMMA with fp32 accumulation, fp32 as FMAs on the CUDA
-// cores; the per-row arithmetic is one warp per 8 rows. Tiles are loaded with
+// Design: bf16 runs on the warp-specialised TMA + wgmma kernel of
+// attn_sm90.cuh (launch_attn_sm90_heads), the same device code as K1's
+// attention core: one block per (pair of 64-row query tiles, head,
+// sequence), a producer warp issuing 3-D TMA loads over the [B*H, T, D]
+// arrays, two consumer warpgroups that walk the key blocks twice (the row
+// max, then exp(s - m), its fp32 sum and round(p) . v) with the scores in
+// registers, k resident in shared memory between the walks while T <= 768,
+// and p fed to wgmma as its register A operand. The route is chosen by the
+// element type alone. fp32 keeps the kernel below (full fp32 FMAs on the
+// CUDA cores, the on-card parity path; wgmma has no full-fp32 input): one
+// block of 256 threads per (64-row query tile, head, sequence), the scaled q
+// tile in shared memory, the same two walks over key blocks of 64 through
+// common.cuh's warp tile product, one warp per 8 rows for the softmax, and
 // 16-byte vector loads (q, k, v contiguous and 16-byte aligned, which the
-// wrapper checks). Left for later: QK^T computed twice, k and v staged
-// without cp.async or TMA, no wgmma.
+// wrapper checks).
 
+#include "attn_sm90.cuh"
 #include "common.cuh"
 
 #include <cstdint>
@@ -125,6 +129,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                                             const T* __restrict__ v, T* __restrict__ o, int T_,
                                                             int causal, float scale) {
+  static_assert(std::is_same<T, float>::value, "the bf16 forward runs on attn_sm90.cuh");
   using L = AttnLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
@@ -242,7 +247,9 @@ extern "C" int evr_flash_attention(int dtype, const void* q, const void* k, cons
   if (BH < 1 || T < 1 || (T + evr::kBR - 1) / evr::kBR > 65535) return -1;
   if (dtype == 0 && d == 64) return evr::launch<float, 64>(q, k, v, o, BH, T, causal, scale, s);
   if (dtype == 0 && d == 80) return evr::launch<float, 80>(q, k, v, o, BH, T, causal, scale, s);
-  if (dtype == 1 && d == 64) return evr::launch<evr::bf16, 64>(q, k, v, o, BH, T, causal, scale, s);
-  if (dtype == 1 && d == 80) return evr::launch<evr::bf16, 80>(q, k, v, o, BH, T, causal, scale, s);
+  if (dtype == 1)
+    return evr::launch_attn_sm90_heads(static_cast<const evr::bf16*>(q), static_cast<const evr::bf16*>(k),
+                                       static_cast<const evr::bf16*>(v), static_cast<evr::bf16*>(o), BH, T, d,
+                                       causal, scale, s);
   return -1;
 }

@@ -56,18 +56,14 @@
 // with TMA multicast, and feeding A to wgmma from registers (which would let
 // the LayerNorm row pass fold into the GEMM).
 //
-// Tensor maps are encoded on the host for each call with
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
-// library needs no -lcuda; each map is passed as a __grid_constant__ kernel
-// parameter.
+// The PTX wrappers, descriptors and tensor-map encoding live in sm90.cuh,
+// shared with the attention forward (attn_sm90.cuh).
 #pragma once
-
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 
 #include <algorithm>
 #include <cstdint>
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace evr {
 
@@ -94,7 +90,7 @@ constexpr int kConsumers = 2;                       // warpgroups of 128 threads
 constexpr int kGemmThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr int kBox = 64;                            // an MN-major TMA box: 64 columns (128 B) x kBK rows
 constexpr uint32_t kABytes = kBM * kBK * 2;         // 16 KB
-constexpr uint32_t kBoxBytes = kBox * kBK * 2;      // 8 KB
+static_assert(kBoxBytes == kBox * kBK * 2, "an MN-major box: 64 x 64 (sm90.cuh)");
 constexpr uint32_t kStageBytes = kABytes + kBN * kBK * 2;  // 48 KB
 constexpr int kEpiLd = kBN + 8;                     // staged bf16 output row (elements), 16-byte multiple
 constexpr int kEpiLd32 = kBN + 4;                   // staged fp32 output row (floats), 16-byte multiple
@@ -103,87 +99,6 @@ static_assert(kConsumers * 64 * kEpiLd32 * 4 <= kStages * kStageBytes, "epilogue
 constexpr int kSplitMax = 4;          // K slices of a weight gradient on a small grid
 constexpr int kSplitBelowTiles = 66;  // half of an H100's 132 SMs
 constexpr int kSplitMinSteps = 16;    // K steps a slice walks at least
-
-// -- PTX wrappers -------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// 2-D TMA load of the box at (c0 innermost, c1) into shared memory; completion
-// is counted in bytes on the mbarrier
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-// K-major operand tile: rows of 64 K elements (one 128-byte swizzle line
-// each), 8-row groups 1,024 B apart (SBO), the leading offset unused under
-// the swizzle. The k16 step k moves the start 32 B along the line. A
-// warpgroup's 64 rows of A start 8 KB into the tile; B's 256 rows are all
-// read by one product.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int k) { return smem_desc(tile + 32 * k, 16, 1024); }
-
-// MN-major operand tile: [64 K rows][64 MN columns] boxes 8 KB apart. In the
-// MN-major canonical form the leading byte offset steps between 64-column
-// blocks along M or N (8 KB), the stride byte offset between 8-row groups
-// along K (1,024 B). The k16 step k starts 16 rows (2,048 B) further down
-// every box. A warpgroup's 64 columns of an MN-major A are one box.
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int k) {
-  return smem_desc(tile + 2048 * k, kBoxBytes, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across a wgmma
-// fence or wait
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d[64 x 256] = A[64 x 16] . B[16 x 256] (+ d when accumulate): bf16 in, fp32
 // accumulators; the transpose bit of A is 1 for MN-major (TA), of B 1 for
@@ -433,41 +348,6 @@ __global__ void __launch_bounds__(256) split_sum_kernel(const float4* __restrict
   }
 }
 
-// -- host side --------------------------------------------------------------------
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled as the CUDA runtime resolves it; null if it cannot
-// be found
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
-                                                                      : nullptr;
-  }();
-  return fn;
-}
-
-// a row-major bf16 [rows, cols] matrix read in boxes of box_rows x box_cols,
-// 128-byte swizzle, zeros past its edges
-inline bool encode_map(EncodeTiled encode, CUtensorMap* map, const bf16* ptr, int rows, int cols, int box_rows,
-                       int box_cols) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace sm90
 
 // The shapes the wgmma GEMM takes in each layout (ops/block_fused.py::
@@ -497,8 +377,6 @@ inline int gemm_k_slice(int M, int N, int K) {
   if (!A_MN || B_K || ((M + kBM - 1) / kBM) * (N / kBN) >= kSplitBelowTiles || slices < 2) return K;
   return (steps + slices - 1) / slices * kBK;
 }
-
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // Launch gemm_sm90_kernel: out = epilogue(op(a) @ op(b)), a stored [M, K]
 // (or [K, M] with A_MN), b stored [K, N] (or [N, K] with B_K). ``split``
