@@ -12,7 +12,10 @@ package. Phases, each fatal on failure:
    hold ``HGMMA`` instructions, the wgmma products of ``csrc/gemm_sm90.cuh``,
    and in the K6 and K1 libraries each function of the bf16 attention
    forward (``attn_sm90_kernel``, ``csrc/attn_sm90.cuh``, head dims 64 and
-   80) must hold its own; ptxas's register and spill lines are printed;
+   80) must hold its own, as must each function of K5a's bf16 attention
+   backward in the K5a library (``attn_bwd_q_kernel``,
+   ``attn_bwd_kv_kernel``, ``csrc/attn_bwd_sm90.cuh``); ptxas's register and
+   spill lines are printed;
 3. the bf16 GEMM under K1, K2, K9 and K5 alone (``gemm_bf16``) at ViT-H-14's
    four vision GEMMs (65,792 rows), ViT-B/32's vision and text GEMMs, a
    ragged M and one tile, against ``torch.matmul`` in fp32 rounded once,
@@ -37,7 +40,11 @@ package. Phases, each fatal on failure:
    K5a and K5b (``fused_attn_block_bwd``, ``fused_mlp_block_bwd``: the block
    backward) against theirs at the training shape and at ViT-L/14's causal
    text shape (B=16, T=77, W=768, H=12), and K5a at head dim 80 (B=4,
-   T=577, W=1280, H=16), bf16 and fp32, every output;
+   T=577, W=1280, H=16), bf16 and fp32, every output; K5a's attention
+   backward alone (``attn_backward``, bf16) at the training, causal text and
+   head-dim-80 shapes, at ViT-H-14's T=257 and at a causal key row of 1,000:
+   o and each of dq, dk and dv against its plain version, and a second call
+   bit-equal to the first;
 4. main path, bf16 weights: ``EmbeddingEngine("ViT-B/32", device="cuda")``
    with seeded random weights embeds 1,024 synthetic frames of four videos
    at batch 256, the data root is written, ``ServingContext`` boots from it
@@ -60,8 +67,8 @@ package. Phases, each fatal on failure:
    fails; the step time;
 7. times: each kernel, its plain version and a PyTorch library computation
    of the same function, by CUDA events at the main-path shapes; K5a split
-   into its attention backward alone (``attn_backward``), its five GEMMs and
-   the rest; K1's attention core alone (``attn_forward``) at ViT-H-14,
+   into its attention backward alone (``attn_backward``, beside its bound
+   and the backward of SDPA), its five GEMMs and the rest; K1's attention core alone (``attn_forward``) at ViT-H-14,
    ViT-L/14@336px, ViT-B/32 vision and text shapes against SDPA; encode
    frames/s and the p50 of a text query, bf16 and int8;
 8. the ANN tiers: K7 (``adc_list_scores``) against its plain version, bit
@@ -225,6 +232,34 @@ HGMMA_LIBS = ("block_attn", "block_mlp", "block_merged", "block_attn_bwd", "bloc
 # kernel's function name: its own SASS function must hold HGMMA instructions
 ATTN_HGMMA_LIBS = ("flash_attn", "block_attn")
 ATTN_KERNEL = "attn_sm90_kernel"
+# K5a's attention backward alone (``ops.block_fused.attn_backward``, no path
+# calls it) on the packed qkv and do: in bf16 the two TMA + wgmma kernels of
+# csrc/attn_bwd_sm90.cuh, whose functions in the block_attn_bwd library
+# (ATTN_BWD_KERNELS at head dims 64 and 80) must each hold HGMMA
+# instructions. Held to attn_backward_plain at ViT-L/14@336px's training
+# shape, ViT-L/14's causal text shape, head dim 80 at T 577 (its key row
+# streams through the slots) and at ViT-H-14's T 257 (a one-row tail tile),
+# and a causal key row of 1,000 that streams; a second call must repeat the
+# first bit for bit.
+ATTN_BWD_SHAPES = {
+    "vitl": VITL, "vitl-text": VITL_TEXT, "d80-577": VITH_BWD,
+    "d80-257": dict(B=32, T=257, W=1280, H=16, causal=False),
+    "long-causal": dict(B=2, T=1000, W=512, H=8, causal=True),
+}
+ATTN_BWD_LIB = "block_attn_bwd"
+ATTN_BWD_KERNELS = ("attn_bwd_q_kernel", "attn_bwd_kv_kernel")
+# Bands against attn_backward_plain on these inputs (qkv of unit variance, do
+# of 0.01 x unit): both round at the same points, so an output differs where
+# a sum in another order rounds the other way. The parent's kernels
+# (flash.cuh's WMMA backward) measured, on these inputs, in one call on an
+# H100 80GB HBM3 (700 W) with `python -m evr_tpu_torch.tools.attn_bench
+# --parts bwd`: o within 3.906e-3 (one bf16 step, the causal text shape),
+# each of dq, dk and dv within 2.007e-3 of its largest entry (dq at the
+# training shape), float64 cosines at least 0.9999999994. Each band is about
+# twice that.
+ATTN_BWD_O_TOL = 8e-3
+ATTN_BWD_REL = 4e-3
+ATTN_BWD_MIN_COS = 0.9999999988
 FP32_TOL = 2e-4  # max abs, fp32 kernel vs plain version (accumulation order only)
 BF16_TOL = 3e-2  # max abs on unit-variance activations: about 2 bf16 ulps below 4
 BF16_MIN_COS = 0.9999  # per output row, bf16
@@ -481,27 +516,39 @@ def phase_build():
                     current = line.split("'")[1] if "'" in line else line
                 if "spill" in line or "registers" in line or "C7515" in line:
                     tag = " (attention forward)" if ATTN_KERNEL in current else ""
+                    for k in ATTN_BWD_KERNELS:
+                        if k in current:  # the mangled name holds the head dim as ILi64E / ILi80E
+                            tag = f" (attention backward: {k}<{'80' if 'ILi80E' in current else '64'}>)"
                     log(f"  ptxas {name}{tag}: {line.strip()}")
     log(f"build: {json.dumps({k: round(v, 1) for k, v in times.items()})} "
         f"total {total:.1f} s (0 = already built)")
     # the bf16 GEMMs of K1, K2, K9 and K5 must be wgmma products in the binary,
-    # and so must the bf16 attention forward in its own kernel function
+    # and so must the bf16 attention forward and backward in their own kernel
+    # functions
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
-    counts, attn = {}, {}
+    counts, attn, bwd = {}, {}, {}
     for name in sorted(set(HGMMA_LIBS) | set(ATTN_HGMMA_LIBS)):
         sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         counts[name] = sum("HGMMA" in line for line in sass.splitlines())
         if name in ATTN_HGMMA_LIBS:
             attn[name] = {f: n for f, n in sass_functions(sass).items() if ATTN_KERNEL in f}
+        if name == ATTN_BWD_LIB:
+            bwd = {f: n for f, n in sass_functions(sass).items() if any(k in f for k in ATTN_BWD_KERNELS)}
     log(f"sass: HGMMA instructions per library {json.dumps(counts)}")
     log(f"sass: HGMMA instructions in each {ATTN_KERNEL} function {json.dumps(attn)}")
+    log(f"sass: HGMMA instructions in each attention backward function of {ATTN_BWD_LIB} {json.dumps(bwd)}")
     for name in HGMMA_LIBS:
         check(counts[name] > 0, f"{name}: no HGMMA instruction in its SASS")
     for name in ATTN_HGMMA_LIBS:
         check(len(attn[name]) == 2, f"{name}: {len(attn[name])} {ATTN_KERNEL} functions, expected 2 (d 64, 80)")
         for f, n in attn[name].items():
             check(n > 0, f"{name}: no HGMMA instruction in {f}")
+    check(len(bwd) == 2 * len(ATTN_BWD_KERNELS),
+          f"{ATTN_BWD_LIB}: {len(bwd)} attention backward functions, expected {2 * len(ATTN_BWD_KERNELS)} "
+          f"({', '.join(ATTN_BWD_KERNELS)} at d 64 and 80)")
+    for f, n in bwd.items():
+        check(n > 0, f"{ATTN_BWD_LIB}: no HGMMA instruction in {f}")
 
 
 # -- 3. the GEMM alone, then kernel parity -----------------------------------
@@ -750,6 +797,58 @@ def phase_parity_bwd(torch):
                         if shape_name == "vitl":
                             worst[name] = max(worst[name], err)
                 del got, ref
+    return worst
+
+
+def cosine64(got, ref) -> float:
+    """The cosine of two tensors taken whole, in float64: near 1 an fp32
+    cosine over millions of entries scatters by about 1e-7 on its own."""
+    g, r = got.double().reshape(-1), ref.double().reshape(-1)
+    return (g @ r / (g.norm() * r.norm())).item()
+
+
+def phase_parity_attn_bwd(torch):
+    """K5a's attention backward alone (``attn_backward``, bf16: the TMA +
+    wgmma kernels of csrc/attn_bwd_sm90.cuh) against ``attn_backward_plain``
+    at ATTN_BWD_SHAPES: o, and each of the q, k and v column blocks of the
+    fp32 dqkv (error relative to the block's largest entry, cosine in
+    float64); dqkv_r is dqkv rounded; a second call gives the same bits; one
+    launch a call."""
+    from evr_tpu_torch.ops import block_fused as bf
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for tag, s in ATTN_BWD_SHAPES.items():
+        B, T, W, H, causal = s["B"], s["T"], s["W"], s["H"], s["causal"]
+        gen = torch.Generator(device=dev).manual_seed(12)
+        qkv = unit_activations(torch, (B, T, 3 * W), gen, dev).to(torch.bfloat16)
+        dout = (unit_activations(torch, (B, T, W), gen, dev) * 0.01).to(torch.bfloat16)
+        name = f"attn_backward {tag} bf16 (B {B}, T {T}, d {W // H}{', causal' if causal else ''})"
+        before = bf.attn_backward.launches
+        o, dqkv, dqkv_r = bf.attn_backward(qkv, dout, H, causal)
+        again = bf.attn_backward(qkv, dout, H, causal)
+        torch.cuda.synchronize()
+        check(bf.attn_backward.launches == before + 2, f"{name}: not one launch a call")
+        check(all(torch.equal(u, v) for u, v in zip((o, dqkv, dqkv_r), again)),
+              f"{name}: a second call gave other bits")
+        del again
+        check(torch.equal(dqkv_r, dqkv.to(torch.bfloat16)), f"{name}: dqkv_r is not dqkv rounded")
+        o_p, dqkv_p = bf.attn_backward_plain(qkv, dout, H, causal)
+        o_err = (o.float() - o_p.float()).abs().max().item()
+        check(bool(torch.isfinite(o.float()).all().item()), f"{name}: non-finite o")
+        check(o_err <= ATTN_BWD_O_TOL, f"{name}: o max abs err {o_err} > {ATTN_BWD_O_TOL}")
+        parts = []
+        for n, part in enumerate(("dq", "dk", "dv")):
+            u, v = dqkv[:, n * W:(n + 1) * W], dqkv_p[:, n * W:(n + 1) * W]
+            err, rel, _, finite = bwd_compare(torch, u, v, False)
+            cos = cosine64(u, v)
+            parts.append(f"{part} rel={rel:.3e} cos={cos:.10f}")
+            check(finite, f"{name} {part}: non-finite output")
+            check(rel <= ATTN_BWD_REL, f"{name} {part}: relative err {rel} > {ATTN_BWD_REL}")
+            check(cos >= ATTN_BWD_MIN_COS, f"{name} {part}: cosine {cos} < {ATTN_BWD_MIN_COS}")
+            worst = max(worst, err)
+        log(f"parity {name}: o max_abs_err={o_err:.3e} " + " ".join(parts) + "; repeats bit for bit")
+        del o, dqkv, dqkv_r, o_p, dqkv_p
     return worst
 
 
@@ -1580,9 +1679,10 @@ def phase_times_train(torch, gemm):
     yardsticks: the forward composition of ``phase_times`` for K1/K2, and
     its forward and backward under torch.autograd for K5a/K5b (the kernels
     recompute their half's forward too). Then K5a split: its attention
-    backward alone (``attn_backward``) and the sum of its five GEMMs as the
-    GEMM phase timed them (``gemm``), the rest being the LN passes and the
-    column sums."""
+    backward alone (``attn_backward``, timed against its plain version, the
+    backward of SDPA on views of the same qkv and its bound) and the sum of
+    its five GEMMs as the GEMM phase timed them (``gemm``), the rest being
+    the LN passes and the column sums."""
     import torch.nn.functional as F
 
     from evr_tpu_torch.ops import block_fused as bf
@@ -1645,13 +1745,35 @@ def phase_times_train(torch, gemm):
     o_p, dqkv_p = bf.attn_backward_plain(qkv, dout, H)
     err, rel, cos, _ = bwd_compare(torch, dqkv, dqkv_p, False)
     o_err = (o.float() - o_p.float()).abs().max().item()
-    attn_ms = min(cuda_ms(torch, lambda: bf.attn_backward(qkv, dout, H)) for _ in range(2))
+    del o, dqkv, dqkv_r, o_p, dqkv_p
+    # its yardstick, which the port never calls: the backward of SDPA on q, k,
+    # v views of the same qkv, the forward outside the timed region. Its
+    # bound: 12 d operations per (query, key) pair (s, o, dpn, dv, dq, dk)
+    # against qkv and do read, o, the fp32 and bf16 dqkv and the statistics
+    # written once.
+    d = W // H
+    leaf = qkv.detach().requires_grad_()
+    q, k, v = leaf.view(B, T, 3, H, d).permute(2, 0, 3, 1, 4)
+    lib_out = F.scaled_dot_product_attention(q, k, v)
+    g_out = dout.view(B, T, H, d).transpose(1, 2)
+    flops = 12 * B * H * T * T * d
+    nbytes = B * T * W * (3 * 2 + 2 + 2 + 3 * 4 + 3 * 2) + 3 * B * H * T * 4
+    attn = time_case(
+        torch, "attn_backward", "vitl bf16", lambda: bf.attn_backward(qkv, dout, H),
+        lambda: bf.attn_backward_plain(qkv, dout, H),
+        lambda: torch.autograd.grad(lib_out, leaf, g_out, retain_graph=True),
+        flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3,
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB", (bf.attn_backward,))
+    del leaf, q, k, v, lib_out
+    attn_ms = attn["ms"]
     gemm_ms = sum(gemm[tag]["ms"] for tag in gemm if tag.startswith("vitl-K5a-"))
     k5a = out[("fused_attn_block_bwd", "vitl")]["ms"]
     out["k5a_split"] = {"ms": k5a, "attention_ms": attn_ms, "gemm_ms": gemm_ms,
-                        "rest_ms": k5a - attn_ms - gemm_ms}
+                        "rest_ms": k5a - attn_ms - gemm_ms, "attention_bound_ms": attn["bound_ms"],
+                        "attention_library_ms": attn["library_ms"]}
     log(f"K5a split at vitl bf16: {k5a:.4f} ms = attention backward {attn_ms:.4f} ms "
-        f"({attn_ms / k5a:.1%}) + five GEMMs {gemm_ms:.4f} ms ({gemm_ms / k5a:.1%}; gemm_bf16 at the same "
+        f"({attn_ms / k5a:.1%}; bound {attn['bound_ms']:.4f} ms, SDPA's backward {attn['library_ms']:.4f} ms) "
+        f"+ five GEMMs {gemm_ms:.4f} ms ({gemm_ms / k5a:.1%}; gemm_bf16 at the same "
         f"shapes and layouts) + the rest {k5a - attn_ms - gemm_ms:.4f} ms; attention backward against its "
         f"plain version: dqkv rel {rel:.3e} cos {cos:.7f}, o max abs {o_err:.3e}")
     return out
@@ -2512,6 +2634,7 @@ def main() -> int:
         worst.update(phase_parity_int8(torch))
         worst["fused_topk"] = phase_parity_topk(torch)
         worst.update(phase_parity_bwd(torch))
+        attn_bwd_worst = phase_parity_attn_bwd(torch)
         worst["adc_list_scores"] = phase_parity_adc(torch)
         worst.update(phase_parity_flash(torch))
         vis = get_model_config(MODEL).vision
@@ -2565,8 +2688,10 @@ def main() -> int:
         f"kernel vs plain step: {json.dumps(train['compared'])}")
     split = times["k5a_split"]
     log(f"K5 at {TRAIN_MODEL}, bf16: K5a {times[('fused_attn_block_bwd', 'vitl')]['ms']:.4f} ms (attention "
-        f"backward {split['attention_ms']:.4f}, GEMMs {split['gemm_ms']:.4f}, rest {split['rest_ms']:.4f}), "
-        f"K5b {times[('fused_mlp_block_bwd', 'vitl')]['ms']:.4f} ms")
+        f"backward {split['attention_ms']:.4f}, its bound {split['attention_bound_ms']:.4f}, SDPA's backward "
+        f"{split['attention_library_ms']:.4f}; GEMMs {split['gemm_ms']:.4f}, rest {split['rest_ms']:.4f}), "
+        f"K5b {times[('fused_mlp_block_bwd', 'vitl')]['ms']:.4f} ms; attention backward parity max abs err "
+        f"{attn_bwd_worst:.3e}")
     log(f"ann tiers: /api/search p50 ivf {main['then']['ivf']:.2f} ms, ivfpq (host store) "
         f"{main['then']['ivfpq']:.2f} ms; large IVF-PQ ({ANN_ROWS} x {ANN_DIM}, {ANN_LISTS} lists): "
         f"build {ann['build_s']:.2f} s, pool {ann['pool']} rows, recall@10 {ann['recall']:.4f} "

@@ -35,7 +35,12 @@ T; other head dims raise on a CUDA tensor. Their bf16 attention forward runs
 on the warp-specialised TMA + wgmma kernel of ``csrc/attn_sm90.cuh``, which
 K6 (``ops.attention``) shares; ``attn_takes``, ``attn_boxes``,
 ``attn_smem_bytes`` and ``attn_k_slots`` mirror its shape rule and
-shared-memory plan. fp32 keeps the CUDA-core kernels of ``csrc/flash.cuh``.
+shared-memory plan. K5a's bf16 attention backward runs on the two TMA +
+wgmma kernels of ``csrc/attn_bwd_sm90.cuh`` (statistics, o and dq per query
+tile; dk and dv per key tile), which take the shapes ``attn_takes`` does
+and whose shared-memory plan ``attn_bwd_slots``, ``attn_bwd_smem_bytes``
+and ``attn_bwd_kv_smem_bytes`` mirror.
+fp32 keeps the CUDA-core kernels of ``csrc/flash.cuh``.
 
 Each wrapper takes x's dtype (bfloat16 or float32) as the compute dtype and
 casts the LayerNorm parameters (and, for K1/K2/K5, the kernels and biases) to
@@ -706,6 +711,8 @@ def fused_attn_block_bwd(
     dev, M = x.device, B * T
     gemms = attn_bwd_gemms(M, W)
     _check_gemms("fused_attn_block_bwd", x, gemms, [g, params[2], params[4]], [params[3]])
+    if dt == torch.bfloat16:  # qkv and do are the wrapper's own allocations
+        _check_attn_bwd("fused_attn_block_bwd", B, T, n_heads, W // n_heads)
     lib = build.load("block_attn_bwd")
 
     def f32(*shape):
@@ -903,6 +910,59 @@ def attn_takes(seqs: int, T: int, n_heads: int, d: int) -> bool:
     return pairs * n_heads * seqs <= 2 ** 31 - 1
 
 
+ATTN_BWD_SMEM_PER_BLOCK = 232448  # one block an SM: the most a block may take (227 KB)
+ATTN_BWD_STAGES = 4  # the q / do ring of the key-tile kernel
+ATTN_BWD_STAT_BYTES = 3 * ATTN_TILE * 4  # (m, l, D) of a query tile's 64 rows
+
+
+def attn_bwd_smem_bytes(d: int, slots: int) -> int:
+    """Shared memory of one block of the backward's query-tile kernel
+    (statistics, o, dq) at head dim ``d`` with ``slots`` slots of a k and a
+    v tile (``QPlan::smem``): the 1,024-byte alignment slack, the consumers'
+    q and do tiles, the slots' tiles, and one 8-byte mbarrier for q and do
+    and two for each slot."""
+    tile = ATTN_TILE * d * 2
+    return 1024 + (2 * ATTN_CONSUMERS + 2 * slots) * tile + 8 * (1 + 2 * slots)
+
+
+def attn_bwd_kv_smem_bytes(d: int) -> int:
+    """Shared memory of one block of the backward's key-tile kernel (dk, dv)
+    at head dim ``d`` (``KvPlan::smem``): the alignment slack, the consumers'
+    k and v tiles, ``ATTN_BWD_STAGES`` q and do tiles and (m, l, D) rows,
+    and an mbarrier for k and v and three for each stage."""
+    tile = ATTN_TILE * d * 2
+    return (1024 + (2 * ATTN_CONSUMERS + 2 * ATTN_BWD_STAGES) * tile
+            + ATTN_BWD_STAGES * ATTN_BWD_STAT_BYTES + 8 * (1 + 3 * ATTN_BWD_STAGES))
+
+
+def attn_bwd_slots(T: int, d: int) -> tuple[int, bool]:
+    """(slots of a k and a v tile, resident) of the backward's query-tile kernel over
+    rows of T keys (``QPlan::slots``): the whole key row, resident in shared
+    memory for both walks, where it fits one block an SM; else as many
+    as fit (at least two: a walk holds one block's k and v while it asks for
+    the next), the row streamed through them once a walk."""
+    n = -(-T // ATTN_TILE)
+    if attn_bwd_smem_bytes(d, n) <= ATTN_BWD_SMEM_PER_BLOCK:
+        return n, True
+    slots = 2
+    while attn_bwd_smem_bytes(d, slots + 1) <= ATTN_BWD_SMEM_PER_BLOCK:
+        slots += 1
+    return slots, False
+
+
+def _check_attn_bwd(what: str, B: int, T: int, n_heads: int, d: int, *tensors: torch.Tensor) -> None:
+    """A bf16 attention backward on the card, before any library loads: the
+    shape must be one the wgmma kernels take (the forward's rule,
+    ``attn_takes``: their grids are the same pairs of 64-row tiles), and
+    what TMA reads (qkv, do) must start on 16-byte boundaries. fp32 keeps
+    the CUDA-core kernels."""
+    if not attn_takes(B, T, n_heads, d):
+        raise ValueError(f"{what}: the CUDA kernel does not take {B} x {T} tokens of {n_heads} heads of "
+                         f"dim {d} (the bf16 attention backward takes head dims {ATTN_HEAD_DIMS})")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: qkv and do must start on 16-byte boundaries")
+
+
 def attn_forward(qkv: torch.Tensor, n_heads: int, causal: bool = False) -> torch.Tensor:
     """The attention core of K1, K3a and K9 alone (``csrc/flash.cuh``'s
     ``launch_flash_fwd``, through the entry ``evr_flash_forward`` of
@@ -937,12 +997,15 @@ def attn_forward(qkv: torch.Tensor, n_heads: int, causal: bool = False) -> torch
 
 
 def attn_backward(qkv: torch.Tensor, dout: torch.Tensor, n_heads: int, causal: bool = False):
-    """K5a's attention backward alone (``csrc/flash.cuh``, through the entry
-    ``evr_flash_backward`` of ``csrc/block_attn_bwd.cu``): from the rounded
-    qkv [B, T, 3W] and do [B, T, W], (o [B*T, W], dqkv [B*T, 3W] in fp32, and
-    in bfloat16 round(dqkv), else None), as K5a computes them between its
-    GEMMs. For checking and timing it apart from them; no path calls it. A
-    CPU tensor takes ``attn_backward_plain``."""
+    """K5a's attention backward alone (``csrc/flash.cuh``'s ``flash_backward``,
+    through the entry ``evr_flash_backward`` of ``csrc/block_attn_bwd.cu``):
+    from the rounded qkv [B, T, 3W] and do [B, T, W], (o [B*T, W], dqkv
+    [B*T, 3W] in fp32, and in bfloat16 round(dqkv), else None), as K5a
+    computes them between its GEMMs. In bfloat16 the two TMA + wgmma kernels
+    of ``csrc/attn_bwd_sm90.cuh`` (a shape they do not take raises here, see
+    ``attn_takes``), in float32 flash.cuh's CUDA-core kernels. For
+    checking and timing it apart from them; no path calls it. A CPU tensor
+    takes ``attn_backward_plain``."""
     dt = qkv.dtype
     bf16 = dt == torch.bfloat16
     if not qkv.is_cuda:
@@ -955,6 +1018,8 @@ def attn_backward(qkv: torch.Tensor, dout: torch.Tensor, n_heads: int, causal: b
                          f"{tuple(dout.shape)}, {n_heads} heads")
     if not (qkv.is_contiguous() and dout.is_contiguous()) or dout.device != qkv.device:
         raise ValueError("attn_backward: qkv and do must be contiguous and on one device")
+    if bf16:
+        _check_attn_bwd("attn_backward", B, T, n_heads, W // n_heads, qkv, dout)
     dev, M = qkv.device, B * T
     lib = build.load("block_attn_bwd")
     o = torch.empty((M, W), dtype=dt, device=dev)

@@ -5,7 +5,9 @@
 // qkv [B*T, 3W] of the block) and of K6a and K6b (flash_attn.cu, on
 // contiguous [B*H, T, d] arrays) in bf16; their fp32 calls keep the
 // CUDA-core kernels of flash.cuh and flash_attn.cu (wgmma has no full-fp32
-// input).
+// input). Its head-tile pieces (the tile layout, TMA tile loads and tensor
+// maps, the q scaling, the two product sequences and the register A
+// operand) serve K5a's bf16 attention backward too (attn_bwd_sm90.cuh).
 //
 // Replaces: the attention core of evr_tpu/ops/block_fused.py::
 // fused_attn_block (_attn_block_kernel, and so of fused_quant_block_apply's
@@ -98,18 +100,93 @@ __host__ __device__ constexpr bool takes_head_dim(int d) { return d == 64 || d =
 
 __host__ __device__ constexpr int key_blocks(int T) { return (T + kTile - 1) / kTile; }
 
-// Shared memory at head dim D: the consumers' q tiles, k_slots k tiles,
-// kVSlots v tiles, then the mbarriers (q full; k full and empty; v full and
-// empty). A tile is 64 rows of D, stored as a 128-byte-swizzled box of
-// columns [0, 64) and, at D = 80, a 32-byte-swizzled box of [64, 80) right
-// after it; every tile starts on the swizzle's 1,024-byte period.
+// -- head tiles: the pieces the forward and the backward (attn_bwd_sm90.cuh) share --
+
+// A tile is 64 rows of one head's D columns (q, k, v or do), stored as a
+// 128-byte-swizzled box of columns [0, 64) and, at D = 80, a
+// 32-byte-swizzled box of [64, 80) right after it; every tile starts on the
+// swizzle's 1,024-byte period.
 template <int D>
-struct Plan {
+struct HeadTile {
   static_assert(takes_head_dim(D), "head dim 64 or 80");
   static constexpr bool kSplit = D == 80;
   static constexpr uint32_t kBox0 = kTile * 64 * 2;  // 8 KB
   static constexpr uint32_t kTileBytes = kTile * D * 2;
   static_assert(kTileBytes % 1024 == 0, "tiles on the 128-byte swizzle's period");
+};
+
+// rows [row, row + 64) of sequence seq, columns [col, col + D), into the
+// tile at dst by TMA (one box, or two at D = 80), completing on bar
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m, const CUtensorMap* m2, int col,
+                                          int row, int seq, uint32_t bar) {
+  tma_load_3d(dst, m, bar, col, row, seq);
+  if constexpr (HeadTile<D>::kSplit) tma_load_3d(dst + HeadTile<D>::kBox0, m2, bar, col + 64, row, seq);
+}
+
+// every bf16 of a tile times the scale, rounded (the scaled q): thread t of
+// n; elementwise, so the swizzle does not matter. The caller fences and
+// synchronises before wgmma reads the tile.
+template <int D>
+__device__ __forceinline__ void scale_tile(unsigned char* tile, float scale, int t, int n) {
+  uint4* qv = reinterpret_cast<uint4*>(tile);
+  for (int i = t; i < static_cast<int>(HeadTile<D>::kTileBytes / 16); i += n) {
+    uint4 v = qv[i];
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(e[j]);
+      e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    qv[i] = v;
+  }
+}
+
+// s[64 x 64] = a . b^T over the head dim, both tiles K-major in shared
+// memory (q k^T, do v^T, k q^T, v do^T): four 128-byte-swizzled k16 steps,
+// and at D = 80 a fifth on the 32-byte-swizzled box. Issued, not committed.
+template <int D>
+__device__ __forceinline__ void issue_ss(float (&s)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64(s, desc_kmajor(a, kk), desc_kmajor(b, kk), kk > 0);
+  if constexpr (HeadTile<D>::kSplit)
+    wgmma_ss_n64(s, desc_kmajor32(a + HeadTile<D>::kBox0), desc_kmajor32(b + HeadTile<D>::kBox0), true);
+}
+
+// o[64 x D] (+)= P . b over a 64-row chunk of the contraction: P from
+// registers (pa, four k16 chunks), the tile b MN-major (p v, ds k, p^T do,
+// ds^T q); o holds columns [0, 64), o2 at D = 80 columns [64, 80). The first
+// chunk overwrites o unless ``accumulate``. Issued, not committed.
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&o)[32], float (&o2)[8], const uint32_t (&pa)[16], uint32_t b,
+                                         bool accumulate) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    wgmma_rs_n64(o, pa + 4 * c, desc_mnmajor(b, c), accumulate || c > 0);
+    if constexpr (HeadTile<D>::kSplit)
+      wgmma_rs_n16(o2, pa + 4 * c, desc_mnmajor32(b + HeadTile<D>::kBox0, c), accumulate || c > 0);
+  }
+}
+
+// A [64 x 64] fp32 accumulator rounded to bf16 as wgmma's register A
+// operand: key chunk c (columns 16 c .. 16 c + 15) of rows r0 and r0 + 8 is
+// pa[4 c .. 4 c + 3], columns 16 c + c0 (+1) and 16 c + 8 + c0 (+1)
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[16], const float (&p)[32]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    pa[4 * c + 0] = pack_bf16(p[8 * c + 0], p[8 * c + 1]);
+    pa[4 * c + 1] = pack_bf16(p[8 * c + 2], p[8 * c + 3]);
+    pa[4 * c + 2] = pack_bf16(p[8 * c + 4], p[8 * c + 5]);
+    pa[4 * c + 3] = pack_bf16(p[8 * c + 6], p[8 * c + 7]);
+  }
+}
+
+// Shared memory at head dim D: the consumers' q tiles, k_slots k tiles,
+// kVSlots v tiles, then the mbarriers (q full; k full and empty; v full and
+// empty).
+template <int D>
+struct Plan : HeadTile<D> {
+  using HeadTile<D>::kTileBytes;
   static constexpr size_t smem(int k_slots) {
     return 1024 + static_cast<size_t>(kConsumers + k_slots + kVSlots) * kTileBytes + 8 * (1 + 2 * k_slots + 2 * kVSlots);
   }
@@ -133,57 +210,6 @@ struct Args {
   int ld_o, T, H, n_pairs, col_k, col_v, causal, k_slots;
   float scale;  // already rounded to bf16
 };
-
-// -- wgmma of the two products ------------------------------------------------------
-
-// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], both from shared memory, K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, bool accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
-}
-
-// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A from registers (four bf16
-// pairs a thread), B MN-major from shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db, bool accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(static_cast<int>(accumulate)));
-}
-
-// d[64 x 16] (+)= A[64 x 16] . B[16 x 16], A from registers, B MN-major
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a, uint64_t db, bool accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(static_cast<int>(accumulate)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // -- the kernel -----------------------------------------------------------------
 
@@ -245,25 +271,21 @@ __global__ void __launch_bounds__(kThreads, 2)
     // producer: one thread keeps the k and v slots filled ahead of the walks
     if (threadIdx.x != kConsumers * 128) return;
     const int cq = h * D, ck = a.col_k + h * D, cv = a.col_v + h * D;
-    auto load = [seq](uint32_t dst, const CUtensorMap* m, const CUtensorMap* m2, int col, int row, uint32_t bar) {
-      tma_load_3d(dst, m, bar, col, row, seq);
-      if constexpr (P::kSplit) tma_load_3d(dst + P::kBox0, m2, bar, col + 64, row, seq);
-    };
     mbar_expect_tx(q_full, n_active * P::kTileBytes);
-    for (int w = 0; w < n_active; ++w) load(q_tile(w), &mq, &mq2, cq, (qt0 + w) * kTile, q_full);
+    for (int w = 0; w < n_active; ++w) load_tile<D>(q_tile(w), &mq, &mq2, cq, (qt0 + w) * kTile, seq, q_full);
     for (int walk = 0; walk < 2; ++walk) {
       for (int kb = 0; kb < n_kb; ++kb) {
         if (walk == 0 || !resident) {
           const int s = k_slot(kb, walk), fill = k_fill(kb, walk);
           if (fill > 0) mbar_wait(k_empty(s), (fill - 1) & 1);
           mbar_expect_tx(k_full(s), P::kTileBytes);
-          load(k_tile(s), &mk, &mk2, ck, kb * kTile, k_full(s));
+          load_tile<D>(k_tile(s), &mk, &mk2, ck, kb * kTile, seq, k_full(s));
         }
         if (walk == 1) {
           const int s = kb % kVSlots, fill = kb / kVSlots;
           if (fill > 0) mbar_wait(v_empty(s), (fill - 1) & 1);
           mbar_expect_tx(v_full(s), P::kTileBytes);
-          load(v_tile(s), &mv, &mv2, cv, kb * kTile, v_full(s));
+          load_tile<D>(v_tile(s), &mv, &mv2, cv, kb * kTile, seq, v_full(s));
         }
       }
     }
@@ -278,24 +300,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
   const uint32_t q = q_tile(wg);
 
-  // q times the scale, rounded: elementwise, so the swizzle does not matter
+  // q times the scale, rounded
   mbar_wait(q_full, 0);
-  {
-    const float scale = a.scale;
-    uint4* qv = reinterpret_cast<uint4*>(smem + wg * P::kTileBytes);
-    for (int i = t; i < static_cast<int>(P::kTileBytes / 16); i += 128) {
-      uint4 v = qv[i];
-      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(e[j]);
-        e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-      }
-      qv[i] = v;
-    }
-    fence_async_shared();
-    named_bar_sync(1 + wg, 128);
-  }
+  scale_tile<D>(smem + wg * P::kTileBytes, a.scale, t, 128);
+  fence_async_shared();
+  named_bar_sync(1 + wg, 128);
 
   // key j is in row i's softmax; a key block needs the test past T and on
   // the causal diagonal
@@ -303,17 +312,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto edge = [causal, T, qt](int kb) { return (kb + 1) * kTile > T || (causal && kb == qt); };
 
   // s = q . k^T for key block kb (of walk 0 or 1): issued and committed, not
-  // waited for; four 128-byte-swizzled k16 steps over the head dim, and at D
-  // = 80 a fifth on the 32-byte-swizzled box
+  // waited for
   auto issue_scores = [&](float (&s)[32], int kb, int walk) {
     const int slot = k_slot(kb, walk);
     mbar_wait(k_full(slot), k_fill(kb, walk) & 1);
-    const uint32_t k = k_tile(slot);
     fence_acc(s);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64(s, desc_kmajor(q, kk), desc_kmajor(k, kk), kk > 0);
-    if constexpr (P::kSplit) wgmma_ss_n64(s, desc_kmajor32(q + P::kBox0), desc_kmajor32(k + P::kBox0), true);
+    issue_ss<D>(s, q, k_tile(slot));
     wgmma_commit();
   };
   // a k tile read by this warpgroup's products for the last time in a walk
@@ -389,26 +394,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       l[hr] += p;
       sa[e] = p;
     }
-    // key chunk c (keys 16 c .. 16 c + 15) as wgmma's A fragment: rows r0
-    // and r0 + 8, keys 16 c + c0 (+1) and 16 c + 8 + c0 (+1)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      pa[4 * c + 0] = pack_bf16(sa[8 * c + 0], sa[8 * c + 1]);
-      pa[4 * c + 1] = pack_bf16(sa[8 * c + 2], sa[8 * c + 3]);
-      pa[4 * c + 2] = pack_bf16(sa[8 * c + 4], sa[8 * c + 5]);
-      pa[4 * c + 3] = pack_bf16(sa[8 * c + 6], sa[8 * c + 7]);
-    }
+    pack_a(pa, sa);
     const int vs = kb % kVSlots;
     mbar_wait(v_full(vs), (kb / kVSlots) & 1);
-    const uint32_t v = v_tile(vs);
     fence_acc(o);
     if constexpr (P::kSplit) fence_acc(o2);
     wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      wgmma_rs_n64(o, pa + 4 * c, desc_mnmajor(v, c), kb > 0 || c > 0);
-      if constexpr (P::kSplit) wgmma_rs_n16(o2, pa + 4 * c, desc_mnmajor32(v + P::kBox0, c), kb > 0 || c > 0);
-    }
+    issue_rs<D>(o, o2, pa, v_tile(vs), kb > 0);
     wgmma_commit();
     if (kb + 1 < my_kb) issue_scores(sa, kb + 1, 1);
     wgmma_wait<0>();
@@ -467,6 +459,22 @@ inline float round_bf16(float v) {
   return v;
 }
 
+// the tensor maps of a [seqs, T, cols] bf16 array read in head tiles: 64
+// rows of columns [c, c + 64) under the 128-byte swizzle and, at D = 80,
+// [c + 64, c + 80) under the 32-byte swizzle (m2; at D = 64 a copy of m, not
+// read)
+template <int D>
+bool encode_head_maps(EncodeTiled encode, CUtensorMap* m, CUtensorMap* m2, const bf16* src, int seqs, int T,
+                      int cols) {
+  if (!encode_map3(encode, m, src, seqs, T, cols, kTile, 64, CU_TENSOR_MAP_SWIZZLE_128B)) return false;
+  if constexpr (!HeadTile<D>::kSplit) {
+    *m2 = *m;
+    return true;
+  } else {
+    return encode_map3(encode, m2, src, seqs, T, cols, kTile, 16, CU_TENSOR_MAP_SWIZZLE_32B);
+  }
+}
+
 template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, int cols, int col_k, int col_v, bf16* o, int ld_o,
            int seqs, int T, int H, int causal, float scale, cudaStream_t stream) {
@@ -475,14 +483,9 @@ int launch(const bf16* q, const bf16* k, const bf16* v, int cols, int col_k, int
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap maps[6];
   const bf16* src[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const bool ok = encode_map3(encode, &maps[i], src[i], seqs, T, cols, kTile, 64, CU_TENSOR_MAP_SWIZZLE_128B) &&
-                    (!P::kSplit ||
-                     encode_map3(encode, &maps[3 + i], src[i], seqs, T, cols, kTile, 16, CU_TENSOR_MAP_SWIZZLE_32B));
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (!P::kSplit)
-    for (int i = 0; i < 3; ++i) maps[3 + i] = maps[i];  // not read
+  for (int i = 0; i < 3; ++i)
+    if (!encode_head_maps<D>(encode, &maps[i], &maps[3 + i], src[i], seqs, T, cols))
+      return static_cast<int>(cudaErrorInvalidValue);
   const int n_pairs = (key_blocks(T) + kConsumers - 1) / kConsumers, k_slots = P::k_slots(T);
   const Args args{o, ld_o, T, H, n_pairs, col_k, col_v, causal, k_slots, round_bf16(scale)};
   const size_t smem = P::smem(k_slots);

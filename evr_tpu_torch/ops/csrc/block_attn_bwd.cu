@@ -23,12 +23,14 @@
 //
 // Design: a chain of launches on the shared pieces. (1) LN1 rows (y, mean,
 // rstd); (2) qkv = y W_qkv + b (rounded); (3) do = g W_out^T (rounded); (4-6)
-// the attention backward of flash.cuh (per query tile: the max, the sum, then
-// pn, o and D; per query tile dq; per key tile dk and dv), written as fp32
-// dqkv [B*T, 3W] and, in bf16, as round(dqkv) beside it; (7) b_qkv's
-// gradient, a fixed-order column sum of the fp32 dqkv; (8) dW_qkv = y^T
-// round(dqkv), over all rows; (9) dy = round(dqkv) W_qkv^T; (10) the LN
-// backward and its column sums; (11) dW_out = o^T g; (12) b_out's gradient.
+// the attention backward (flash.cuh's flash_backward: in bf16 two
+// warp-specialised TMA + wgmma kernels of attn_bwd_sm90.cuh, per query tile
+// the max and the sum, pn, o, D and dq, then per key tile dk and dv; in fp32
+// three CUDA-core kernels), written as fp32 dqkv [B*T, 3W] and, in bf16, as
+// round(dqkv) beside it; (7) b_qkv's gradient, a fixed-order column sum of
+// the fp32 dqkv; (8) dW_qkv = y^T round(dqkv), over all rows; (9) dy =
+// round(dqkv) W_qkv^T; (10) the LN backward and its column sums; (11) dW_out
+// = o^T g; (12) b_out's gradient.
 // In bf16 the five products (2, 3, 8, 9, 11) run on the wgmma + TMA kernel of
 // gemm_sm90.cuh: y and g K-major; W_qkv MN-major for (2), W_out^T and W_qkv^T
 // K-major from their [in, out] arrays for (3) and (9); y^T and o^T MN-major
@@ -37,10 +39,10 @@
 // 1,024 and is split into four slices of rows summed in order by a second
 // pass. In fp32 they run on gemm_t (CUDA-core fp32, the parity path). Weight
 // gradients never go through atomics. What is left: the attention backward
-// (4-6), WMMA 64 x 64 tile products that recompute QK^T five times, is most
-// of K5a's time now; the intermediates (qkv, do, o, dqkv in fp32 and bf16,
-// dy, about 0.6 GB at the training shape) go through device memory; no
-// persistent grid.
+// (4-6) recomputes q k^T four times and do v^T three times (11 products where
+// 6 would do) and is still the largest part of K5a; the intermediates (qkv,
+// do, o, dqkv in fp32 and bf16, dy, about 0.6 GB at the training shape) go
+// through device memory; no persistent grid.
 
 #include "flash.cuh"
 #include "grad_common.cuh"

@@ -1,15 +1,15 @@
 // Shared pieces of the hand-written kernels (block_attn.cu, block_mlp.cu,
 // block_merged.cu, block_quant.cu, block_attn_bwd.cu, block_mlp_bwd.cu,
 // flash_attn.cu, layernorm.cu, topk_fused.cu): element-type helpers, a
-// warp-level 16x16x16 tile product with fp32 accumulation (flash.cuh and
-// grad_common.cuh), the block halves' epilogues, the LayerNorm row pass (K8's
+// warp-level 16x16x16 fp32 tile product (the fp32 attention of flash.cuh and
+// flash_attn.cu), the block halves' epilogues, the LayerNorm row pass (K8's
 // device code) and the fp32 row-tiled GEMM of the forward block halves' fp32
 // calls. Their bf16 GEMMs, and those of the backward halves, run on the wgmma
 // kernel of gemm_sm90.cuh.
 //
-// Element types: __nv_bfloat16 (the serving dtype; tile products run on the
-// tensor cores through WMMA) and float (tile products run as fp32 FMAs on the
-// CUDA cores, so an fp32 call keeps full fp32 precision instead of TF32).
+// Element types: __nv_bfloat16 (the serving dtype; its products run on the
+// wgmma kernels) and float (products run as fp32 FMAs on the CUDA cores, so
+// an fp32 call keeps full fp32 precision instead of TF32).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -104,33 +104,13 @@ __device__ __forceinline__ float gelu_grad(float h) {
 // A is row-major with leading dimension lda, or, with AT, the transpose of a
 // row-major matrix (element (m, k) at a[k*lda + m]). B is row-major (ldb), or,
 // with BT, the transpose of a row-major matrix (element (k, n) at
-// b[n*ldb + k]). Pointers into shared memory must be 32-byte aligned for the
-// bf16 path.
+// b[n*ldb + k]). Only fp32 takes it (the fp32 attention of flash.cuh and
+// flash_attn.cu, full fp32 on the CUDA cores): the tile split over the warp
+// by hand, lane l owning row l/2 and eight neighbouring columns. bf16
+// attention runs on the wgmma kernels of attn_sm90.cuh and attn_bwd_sm90.cuh.
 template <typename T>
 struct Tile;
 
-template <>
-struct Tile<bf16> {
-  using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-  __device__ static void zero(Acc& c) { nvcuda::wmma::fill_fragment(c, 0.f); }
-  template <bool BT, bool AT = false>
-  __device__ static void mma(Acc& c, const bf16* a, int lda, const bf16* b, int ldb) {
-    using namespace nvcuda::wmma;
-    using LA = typename std::conditional<AT, col_major, row_major>::type;
-    using LB = typename std::conditional<BT, col_major, row_major>::type;
-    fragment<matrix_a, 16, 16, 16, bf16, LA> fa;
-    fragment<matrix_b, 16, 16, 16, bf16, LB> fb;
-    load_matrix_sync(fa, a, lda);
-    load_matrix_sync(fb, b, ldb);
-    mma_sync(c, fa, fb, c);
-  }
-  __device__ static void store(float* out, int ldc, const Acc& c) {
-    nvcuda::wmma::store_matrix_sync(out, c, ldc, nvcuda::wmma::mem_row_major);
-  }
-};
-
-// fp32: the same tile split over the warp by hand, lane l owning row l/2 and
-// eight neighbouring columns, so both element types share the kernels' code.
 template <>
 struct Tile<float> {
   struct Acc {

@@ -29,25 +29,31 @@
 //   ds = pn (dpn - D), dq = round(ds) . k * scale in fp32;
 // - backward, dk and dv: per key tile over the query tiles,
 //   dv = round(pn)^T . do and dk = round(ds)^T . (scaled q).
+//   In bf16 the backward runs on the two warp-specialised TMA + wgmma kernels
+//   of attn_bwd_sm90.cuh (flash_backward routes by the element type alone:
+//   statistics, o and dq per query tile, then dk and dv per key tile); this
+//   header's three backward kernels are the fp32 backward (full fp32 on the
+//   CUDA cores, the on-card parity path).
 //
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the forward does
 // 4 T^2 D operations per (sequence, head) against the T D elements each of
 // q, k, v and o, bound by bytes at CLIP's lengths (attn_sm90.cuh has the
 // figures); the backward does three times the products.
 //
-// The fp32 forward and the backward kernels: each block owns one (64-row
+// The fp32 forward and backward kernels: each block owns one (64-row
 // tile, head, sequence). The tile edge (64 query rows, 64 keys) is fixed and
 // the head dim is a template parameter: q, k, v and do tiles are [64][D + 8],
 // the probability and ds tiles [64][72]. The [64, 64] products (q k^T, do
 // v^T) contract over D (4 steps of 16 at 64, 5 at 80), two 16 x 16 output
 // tiles per warp; the [64, D] products (P.V, dq, dk, dv) contract over 64 and
 // spread their 4 D/16 output tiles over the 8 warps (16 at D = 64, 20 at D =
-// 80, where warps 0-3 own a third). Tile products run on the warp tile
-// product of common.cuh (bf16 through WMMA, fp32 as FMAs); the per-row
+// 80, where warps 0-3 own a third). Tile products run on the fp32 warp tile
+// product of common.cuh (FMAs); the per-row
 // softmax arithmetic is one warp per 8 rows. A causal tower skips the key
 // blocks (or query tiles) that its mask empties.
 #pragma once
 
+#include "attn_bwd_sm90.cuh"
 #include "attn_sm90.cuh"
 #include "common.cuh"
 
@@ -321,6 +327,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_stats_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ o, float* __restrict__ st_m,
     float* __restrict__ st_l, float* __restrict__ st_d, int T_, int W, int H, int causal, float scale) {
+  static_assert(std::is_same<T, float>::value, "the bf16 backward runs on attn_bwd_sm90.cuh");
   using L = FlashLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
@@ -399,13 +406,13 @@ __device__ __forceinline__ void flash_pn_ds(float s, float dp, float m, float l,
 }
 
 // dq = round(ds) . k * scale (fp32), per (query tile, head, sequence), into
-// the q columns of dqkv [B*T, 3W], and rounded to T into dqkv_r's where
-// dqkv_r is given (the bf16 operand of dW_qkv and dy)
+// the q columns of dqkv [B*T, 3W]
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ st_m,
-    const float* __restrict__ st_l, const float* __restrict__ st_d, float* __restrict__ dqkv,
-    T* __restrict__ dqkv_r, int T_, int W, int H, int causal, float scale) {
+    const float* __restrict__ st_l, const float* __restrict__ st_d, float* __restrict__ dqkv, int T_, int W, int H,
+    int causal, float scale) {
+  static_assert(std::is_same<T, float>::value, "the bf16 backward runs on attn_bwd_sm90.cuh");
   using L = FlashLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
@@ -463,23 +470,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   __syncthreads();
   for (int i = threadIdx.x; i < kFT * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    if (i0 + r < T_) {
-      const size_t o = (static_cast<size_t>(b) * T_ + i0 + r) * ld + h * D + c;
-      const float v = ss[r * L::LDO + c] * scale;
-      dqkv[o] = v;
-      if (dqkv_r != nullptr) dqkv_r[o] = from_f<T>(v);
-    }
+    if (i0 + r < T_) dqkv[(static_cast<size_t>(b) * T_ + i0 + r) * ld + h * D + c] = ss[r * L::LDO + c] * scale;
   }
 }
 
 // dv = round(pn)^T . do and dk = round(ds)^T . (scaled q), per (key tile,
-// head, sequence), into the k and v columns of dqkv (and, rounded to T, of
-// dqkv_r where it is given)
+// head, sequence), into the k and v columns of dqkv
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ st_m,
-    const float* __restrict__ st_l, const float* __restrict__ st_d, float* __restrict__ dqkv,
-    T* __restrict__ dqkv_r, int T_, int W, int H, int causal, float scale) {
+    const float* __restrict__ st_l, const float* __restrict__ st_d, float* __restrict__ dqkv, int T_, int W, int H,
+    int causal, float scale) {
+  static_assert(std::is_same<T, float>::value, "the bf16 backward runs on attn_bwd_sm90.cuh");
   using L = FlashLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);
@@ -546,20 +548,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const int r = i / D, c = i % D;
     if (j0 + r < T_) {
       const size_t o = (static_cast<size_t>(b) * T_ + j0 + r) * ld + h * D + c;
-      const float dk_v = ss[r * L::LDO + c], dv_v = sdp[r * L::LDO + c];
-      dqkv[o + W] = dk_v;
-      dqkv[o + 2 * static_cast<size_t>(W)] = dv_v;
-      if (dqkv_r != nullptr) {
-        dqkv_r[o + W] = from_f<T>(dk_v);
-        dqkv_r[o + 2 * static_cast<size_t>(W)] = from_f<T>(dv_v);
-      }
+      dqkv[o + W] = ss[r * L::LDO + c];
+      dqkv[o + 2 * static_cast<size_t>(W)] = sdp[r * L::LDO + c];
     }
   }
 }
 
 template <typename T, int D>
-int flash_backward_d(const T* qkv, const T* dout, T* o, float* st, float* dqkv, T* dqkv_r, int B, int T_, int W,
-                     int H, int causal, float scale, cudaStream_t stream) {
+int flash_backward_d(const T* qkv, const T* dout, T* o, float* st, float* dqkv, int B, int T_, int W, int H,
+                     int causal, float scale, cudaStream_t stream) {
   using L = FlashLayout<T, D>;
   const size_t n = static_cast<size_t>(B) * H * T_;
   float *st_m = st, *st_l = st + n, *st_d = st + 2 * n;
@@ -577,31 +574,34 @@ int flash_backward_d(const T* qkv, const T* dout, T* o, float* st, float* dqkv, 
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_a));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem_a, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, dqkv_r, T_,
-                                                                W, H, causal, scale);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem_a, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, T_, W, H,
+                                                                causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_c));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, smem_c, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, dqkv_r,
-                                                                  T_, W, H, causal, scale);
+  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, smem_c, stream>>>(qkv, dout, st_m, st_l, st_d, dqkv, T_, W, H,
+                                                                  causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The attention backward at head dim W / H: o, the row statistics, then dq
-// and dk/dv into the fp32 dqkv and, where dqkv_r is not null, rounded to T
-// into dqkv_r. ``st`` holds 3 * B * H * T_ floats. -1 for a head dim not
-// taken.
+// and dk/dv into the fp32 dqkv and, in bf16, rounded into dqkv_r (which a
+// bf16 call must give; fp32 calls write no rounded copy and pass null).
+// ``st`` holds 3 * B * H * T_ floats. bf16 on the wgmma kernels of
+// attn_bwd_sm90.cuh, fp32 on this header's; -1 for a shape not taken.
 template <typename T>
 int flash_backward(const T* qkv, const T* dout, T* o, float* st, float* dqkv, T* dqkv_r, int B, int T_, int W,
                    int H, int causal, float scale, cudaStream_t stream) {
-  if (H < 1 || W % H != 0) return -1;
-  if (W / H == 64)
-    return flash_backward_d<T, 64>(qkv, dout, o, st, dqkv, dqkv_r, B, T_, W, H, causal, scale, stream);
-  if (W / H == 80)
-    return flash_backward_d<T, 80>(qkv, dout, o, st, dqkv, dqkv_r, B, T_, W, H, causal, scale, stream);
-  return -1;
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_attn_bwd_sm90(qkv, dout, o, st, dqkv, dqkv_r, B, T_, W, H, causal, scale, stream);
+  } else {
+    if (H < 1 || W % H != 0) return -1;
+    if (W / H == 64) return flash_backward_d<T, 64>(qkv, dout, o, st, dqkv, B, T_, W, H, causal, scale, stream);
+    if (W / H == 80) return flash_backward_d<T, 80>(qkv, dout, o, st, dqkv, B, T_, W, H, causal, scale, stream);
+    return -1;
+  }
 }
 
 }  // namespace evr

@@ -1,16 +1,32 @@
-"""Hold the attention forward to its plain version and time it, for one or
-more source trees of the kernels, on one NVIDIA GPU.
+"""Hold the attention forward and backward to their plain versions and time
+them, for one or more source trees of the kernels, on one NVIDIA GPU.
 
-    python -m evr_tpu_torch.tools.attn_bench [--csrc DIR ...] [--out FILE]
+    python -m evr_tpu_torch.tools.attn_bench [--csrc DIR ...] [--parts fwd,bwd] [--out FILE]
 
 Each ``--csrc`` is an ``ops/csrc`` directory (default: this package's); give
 an older tree's too to compare the two on one card in one process. For each
-tree two libraries are compiled with ``ops.build``'s nvcc flags, all nvcc
+tree three libraries are compiled with ``ops.build``'s nvcc flags, all nvcc
 processes started together: the tree's ``flash_attn.cu`` (K6, entry
-``evr_flash_attention``) and a shim over its ``flash.cuh`` exporting
+``evr_flash_attention``), a shim over its ``flash.cuh`` exporting
 ``launch_flash_fwd``, the attention core of K1, K3a and K9 (the function of
-``ops.block_fused.attn_forward``), so that a tree from before that entry
-existed runs through the same device code as the block halves.
+``ops.block_fused.attn_forward``), and a shim exporting its
+``flash_backward``, K5a's attention backward (the function of
+``ops.block_fused.attn_backward``), so that a tree from before those entries
+existed runs through the same device code as the block halves. ``--parts``
+picks the forward (``fwd``: K6 and the core), the backward (``bwd``) or both.
+
+The backward is checked at every shape in bf16 and fp32 against
+``attn_backward_plain``: o's max abs error, and for each of the q, k and v
+column blocks of the fp32 dqkv the max abs error relative to the block's
+largest entry and the cosine; bf16 within BWD_BF16_O_TOL, BWD_BF16_REL and
+BWD_BF16_MIN_COS, fp32 within BWD_FP32_REL. Each tree's bf16 call must
+repeat bit for bit, and every tree's fp32 outputs must equal the first
+tree's bit for bit (trees that route fp32 to the same kernels). It is timed
+at BWD_TIMED beside ``torch.autograd.grad`` of
+``F.scaled_dot_product_attention`` on q, k, v views of the same qkv (the
+forward outside the timed region) and its bound: 12·d operations per kept
+(query, key) pair at 989 TFLOP/s against qkv and do read, o, the fp32 and
+bf16 dqkv and the statistics written, at 3.35 TB/s.
 
 At every shape each tree's kernels are checked against their plain versions
 (``attn_forward_plain``, ``flash_attention_plain``): bf16 within a max abs
@@ -61,6 +77,21 @@ K6_TIMED = {
     "vith-vision": (256, 16, 257, 80, False),
     "vith-text": (16, 16, 77, 64, True),
 }
+# K5a's attention backward on the packed qkv [B, T, 3W] and do [B, T, W]:
+# (B, T, W, H, causal), as chip_smoke.py's ATTN_BWD_SHAPES
+BWD_TIMED = {
+    "vitl": (32, 577, 1024, 16, False),  # ViT-L/14@336px training
+    "d80-577": (4, 577, 1280, 16, False),  # head dim 80, a streamed key row
+}
+BWD_CHECKED = {
+    "vitl-text": (16, 77, 768, 12, True),
+    "d80-257": (32, 257, 1280, 16, False),
+    "long-causal": (2, 1000, 512, 8, True),
+}
+# the backward's bands against attn_backward_plain, as chip_smoke.py's
+# ATTN_BWD_O_TOL, ATTN_BWD_REL and ATTN_BWD_MIN_COS (bf16; on the same
+# inputs) and BWD_FP32_REL (fp32)
+BWD_BF16_O_TOL, BWD_BF16_REL, BWD_BF16_MIN_COS, BWD_FP32_REL = 8e-3, 4e-3, 0.9999999988, 1.5e-5
 K6_CHECKED = {
     "vitb-vision": (256, 12, 50, 64, False),
     "long-d80-causal": (2, 4, 1000, 80, True),
@@ -80,23 +111,45 @@ extern "C" int shim_flash_forward(int dtype, const void* qkv, void* o, int B, in
 }
 """
 
+BWD_SHIM = r"""
+#include "flash.cuh"
+extern "C" int shim_flash_backward(int dtype, const void* qkv, const void* dout, void* o, void* st, void* dqkv,
+                                   void* dqkv_r, int B, int T, int W, int H, int causal, float scale,
+                                   void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return evr::flash_backward<float>(static_cast<const float*>(qkv), static_cast<const float*>(dout),
+                                      static_cast<float*>(o), static_cast<float*>(st), static_cast<float*>(dqkv),
+                                      nullptr, B, T, W, H, causal, scale, s);
+  return evr::flash_backward<evr::bf16>(static_cast<const evr::bf16*>(qkv), static_cast<const evr::bf16*>(dout),
+                                        static_cast<evr::bf16*>(o), static_cast<float*>(st),
+                                        static_cast<float*>(dqkv), static_cast<evr::bf16*>(dqkv_r), B, T, W, H,
+                                        causal, scale, s);
+}
+"""
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def build_trees(trees: list[pathlib.Path], out: pathlib.Path) -> list[dict]:
-    """Compile each tree's core shim and flash_attn.cu; all nvcc processes
-    run together. Returns per tree {"core", "k6"}: library paths."""
+def build_trees(trees: list[pathlib.Path], out: pathlib.Path, parts: set[str]) -> list[dict]:
+    """Compile each tree's core shim and flash_attn.cu (part ``fwd``) and
+    backward shim (``bwd``); all nvcc processes run together. Returns per
+    tree {"core", "k6", "bwd"}: library paths (the parts asked for)."""
     from evr_tpu_torch.ops import build
 
     nvcc = build.nvcc_path()
     procs, libs = [], []
     for n, csrc in enumerate(trees):
-        shim = out / f"core_shim{n}.cu"
+        shim, bwd_shim = out / f"core_shim{n}.cu", out / f"bwd_shim{n}.cu"
         shim.write_text(SHIM)
-        lib = {"core": out / f"libcore{n}.so", "k6": out / f"libk6{n}.so"}
-        for key, src in (("core", shim), ("k6", csrc / "flash_attn.cu")):
+        bwd_shim.write_text(BWD_SHIM)
+        srcs = {"core": shim, "k6": csrc / "flash_attn.cu", "bwd": bwd_shim}
+        keys = (("core", "k6") if "fwd" in parts else ()) + (("bwd",) if "bwd" in parts else ())
+        lib = {key: out / f"lib{key}{n}.so" for key in keys}
+        for key in keys:
+            src = srcs[key]
             cmd = [nvcc, *build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib[key]), str(src)]
             procs.append((f"{csrc} {key}", lib[key], subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -113,8 +166,12 @@ def build_trees(trees: list[pathlib.Path], out: pathlib.Path) -> list[dict]:
 
 
 def attention_functions(lib: pathlib.Path) -> dict[str, dict]:
-    """{mangled name: {"hgmma": n, "ptxas": [lines]}} for each attention
-    kernel function of a library (its name holds ``attn`` or ``flash_fwd``)."""
+    """{mangled name: {"hgmma": n, "depbar": n, "ptxas": [lines]}} for each
+    attention kernel function of a library (its name holds ``attn``,
+    ``flash_fwd`` or ``flash_bwd``): its HGMMA instructions, its
+    ``WARPGROUP.DEPBAR`` waits (one after every HGMMA where ptxas serialised
+    the products, its note C7514) and ptxas's register, spill and C75xx
+    lines for it."""
     from evr_tpu_torch.ops import build
 
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
@@ -125,17 +182,22 @@ def attention_functions(lib: pathlib.Path) -> dict[str, dict]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            funcs[name] = {"hgmma": 0, "ptxas": []}
+            funcs[name] = {"hgmma": 0, "depbar": 0, "ptxas": []}
         elif name is not None and "HGMMA" in line:
             funcs[name]["hgmma"] += 1
-    funcs = {k: v for k, v in funcs.items() if "attn" in k or "flash_fwd" in k}
+        elif name is not None and "WARPGROUP.DEPBAR" in line:
+            funcs[name]["depbar"] += 1
+    funcs = {k: v for k, v in funcs.items() if "attn" in k or "flash_fwd" in k or "flash_bwd" in k}
     current = None
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
         if m:
             current = m.group(1)
-        elif current in funcs and ("registers" in line or "spill" in line or "C7515" in line):
+        elif current in funcs and ("registers" in line or "spill" in line or "C751" in line):
             funcs[current]["ptxas"].append(line.strip())
+        for name in funcs:  # notes that name their function
+            if "C751" in line and f"'{name}'" in line and line.strip() not in funcs[name]["ptxas"]:
+                funcs[name]["ptxas"].append(line.strip())
     return funcs
 
 
@@ -158,6 +220,13 @@ def compare(torch, got, ref) -> tuple[float, float, bool]:
     return (g - r).abs().max().item(), cos, bool(torch.isfinite(g).all().item())
 
 
+def cosine64(got, ref) -> float:
+    """The cosine of two tensors taken whole, in float64: near 1 an fp32
+    cosine scatters by about 1e-7 on its own."""
+    g, r = got.double().reshape(-1), ref.double().reshape(-1)
+    return (g @ r / (g.norm() * r.norm())).item()
+
+
 def within(dt_name: str, err: float, cos: float, finite: bool) -> bool:
     if dt_name == "float32":
         return finite and err <= FP32_TOL
@@ -168,8 +237,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", action="append", type=pathlib.Path,
                     help="an ops/csrc directory (repeatable; default this package's)")
+    ap.add_argument("--parts", default="fwd,bwd",
+                    help="comma-separated: fwd (K6 and K1's core), bwd (K5a's attention backward)")
     ap.add_argument("--out", type=pathlib.Path, help="also write the JSON result here")
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
+    if not parts or parts - {"fwd", "bwd"}:
+        ap.error(f"--parts {args.parts!r}: fwd, bwd or both")
     import torch
     import torch.nn.functional as F
 
@@ -178,7 +252,7 @@ def main(argv=None) -> int:
         return 2
     from evr_tpu_torch.ops import build
     from evr_tpu_torch.ops.attention import flash_attention_plain
-    from evr_tpu_torch.ops.block_fused import attn_forward_plain
+    from evr_tpu_torch.ops.block_fused import attn_backward_plain, attn_forward_plain
 
     trees = [p.resolve() for p in (args.csrc or [build.CSRC])]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -189,24 +263,30 @@ def main(argv=None) -> int:
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        paths = build_trees(trees, pathlib.Path(tmp))
+        paths = build_trees(trees, pathlib.Path(tmp), parts)
         log(f"build: {time.perf_counter() - t0:.1f} s")
         funcs = []
         for tree, lib in zip(trees, paths):
             for key, path in lib.items():
                 for name, f in attention_functions(path).items():
-                    log(f"sass {tree} {key} {name}: HGMMA {f['hgmma']}; " + "; ".join(f["ptxas"]))
+                    log(f"sass {tree} {key} {name}: HGMMA {f['hgmma']}, DEPBAR {f['depbar']}; "
+                        + "; ".join(f["ptxas"]))
                     funcs.append({"tree": str(tree), "lib": key, "function": name, **f})
         result["functions"] = funcs
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        cores, k6s = [], []
+        cores, k6s, bwds = [], [], []
         for lib in paths:
-            core = ctypes.CDLL(str(lib["core"])).shim_flash_forward
-            core.argtypes, core.restype = [i, p, p] + [i] * 5 + [f, p], i
-            k6 = ctypes.CDLL(str(lib["k6"])).evr_flash_attention
-            k6.argtypes, k6.restype = [i, p, p, p, p, i, i, i, i, f, p], i
-            cores.append(core)
-            k6s.append(k6)
+            if "fwd" in parts:
+                core = ctypes.CDLL(str(lib["core"])).shim_flash_forward
+                core.argtypes, core.restype = [i, p, p] + [i] * 5 + [f, p], i
+                k6 = ctypes.CDLL(str(lib["k6"])).evr_flash_attention
+                k6.argtypes, k6.restype = [i, p, p, p, p, i, i, i, i, f, p], i
+                cores.append(core)
+                k6s.append(k6)
+            if "bwd" in parts:
+                bwd = ctypes.CDLL(str(lib["bwd"])).shim_flash_backward
+                bwd.argtypes, bwd.restype = [i] + [p] * 6 + [i] * 5 + [f, p], i
+                bwds.append(bwd)
         dev = torch.device("cuda")
         stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -257,7 +337,7 @@ def main(argv=None) -> int:
         def unit(shape):
             return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * math.sqrt(3.0)
 
-        for tag, (B, T, W, H, causal) in {**CORE_TIMED, **CORE_CHECKED}.items():
+        for tag, (B, T, W, H, causal) in ({**CORE_TIMED, **CORE_CHECKED} if "fwd" in parts else {}).items():
             qkv32 = unit((B, T, 3 * W))
             for dt in (torch.bfloat16, torch.float32):
                 qkv = qkv32.to(dt)
@@ -278,7 +358,7 @@ def main(argv=None) -> int:
                         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
                         4 * B * H * pairs * d, (3 * W + W) * B * T * 2)
                 del outs
-        for tag, (B, H, T, d, causal) in {**K6_TIMED, **K6_CHECKED}.items():
+        for tag, (B, H, T, d, causal) in ({**K6_TIMED, **K6_CHECKED} if "fwd" in parts else {}).items():
             q32, k32, v32 = (unit((B, H, T, d)) for _ in range(3))
             for dt in (torch.bfloat16, torch.float32):
                 q, k, v = (x.to(dt) for x in (q32, k32, v32))
@@ -296,6 +376,94 @@ def main(argv=None) -> int:
                         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
                         4 * B * H * pairs * d, 4 * B * H * T * d * 2)
                 del outs
+
+        def run_bwd(fn, qkv, dout, outs, H, causal):
+            B, T, W3 = qkv.shape
+            W = W3 // 3
+            code = 1 if qkv.dtype == torch.bfloat16 else 0
+            o, st, dqkv, dqkv_r = outs
+            rc = fn(code, qkv.data_ptr(), dout.data_ptr(), o.data_ptr(), st.data_ptr(), dqkv.data_ptr(),
+                    0 if dqkv_r is None else dqkv_r.data_ptr(), B, T, W, H, int(causal),
+                    1.0 / math.sqrt(W // H), stream)
+            if rc != 0:
+                raise RuntimeError(f"backward: launch returned {rc}")
+
+        def bwd_outs(qkv, H):
+            B, T, W3 = qkv.shape
+            bf = qkv.dtype == torch.bfloat16
+            return (torch.empty((B * T, W3 // 3), dtype=qkv.dtype, device=dev),
+                    torch.empty((3, B, H, T), dtype=torch.float32, device=dev),
+                    torch.empty((B * T, W3), dtype=torch.float32, device=dev),
+                    torch.empty((B * T, W3), dtype=qkv.dtype, device=dev) if bf else None)
+
+        def bwd_record(tag, tree, dt_name, outs, ref, same):
+            nonlocal ok
+            (o, _, dqkv, dqkv_r), (o_p, dqkv_p) = outs, ref
+            W = o.shape[1]
+            rec = {"kind": "bwd", "shape": tag, "dtype": dt_name, "tree": tree,
+                   "o_max_abs_err": (o.float() - o_p.float()).abs().max().item(),
+                   "finite": bool(torch.isfinite(dqkv).all().item() and torch.isfinite(o.float()).all().item())}
+            for n, part in enumerate("qkv"):
+                g, r = dqkv[:, n * W:(n + 1) * W], dqkv_p[:, n * W:(n + 1) * W]
+                rec[f"d{part}_rel"] = (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+                rec[f"d{part}_cos"] = cosine64(g, r)
+            rels = [rec[f"d{x}_rel"] for x in "qkv"]
+            coss = [rec[f"d{x}_cos"] for x in "qkv"]
+            if dt_name == "float32":
+                good = rec["finite"] and max(rels) <= BWD_FP32_REL
+            else:
+                rec["rounded"] = bool(torch.equal(dqkv_r, dqkv.to(torch.bfloat16)))
+                good = (rec["finite"] and rec["rounded"] and rec["o_max_abs_err"] <= BWD_BF16_O_TOL
+                        and max(rels) <= BWD_BF16_REL and min(coss) >= BWD_BF16_MIN_COS)
+            rec["same_bits"] = same
+            good &= same
+            rec["ok"] = good
+            ok &= good
+            log(f"check bwd {tag} {dt_name} tree {tree}: o max_abs_err={rec['o_max_abs_err']:.3e} "
+                + " ".join(f"d{x} rel={rec[f'd{x}_rel']:.3e} cos={rec[f'd{x}_cos']:.10f}" for x in "qkv")
+                + f" same_bits={same} {'ok' if good else 'FAILED'}")
+            result["checks"].append(rec)
+
+        for tag, (B, T, W, H, causal) in ({**BWD_TIMED, **BWD_CHECKED} if "bwd" in parts else {}).items():
+            d = W // H
+            # the inputs of chip_smoke.py's phase_parity_attn_bwd
+            gen_b = torch.Generator(device=dev).manual_seed(12)
+            qkv32 = (torch.rand((B, T, 3 * W), generator=gen_b, device=dev) * 2 - 1) * math.sqrt(3.0)
+            do32 = (torch.rand((B, T, W), generator=gen_b, device=dev) * 2 - 1) * math.sqrt(3.0) * 0.01
+            first_fp32 = None
+            for dt in (torch.bfloat16, torch.float32):
+                qkv, dout = qkv32.to(dt), do32.to(dt)
+                dt_name = str(dt).split(".")[-1]
+                ref = attn_backward_plain(qkv, dout, H, causal)
+                outs = [bwd_outs(qkv, H) for _ in trees]
+                for n, (fn, out) in enumerate(zip(bwds, outs)):
+                    run_bwd(fn, qkv, dout, out, H, causal)
+                    torch.cuda.synchronize()
+                    if dt == torch.bfloat16:  # the same bits from a second call
+                        again = bwd_outs(qkv, H)
+                        run_bwd(fn, qkv, dout, again, H, causal)
+                        torch.cuda.synchronize()
+                        same = all(torch.equal(x, y) for x, y in zip(out, again) if x is not None)
+                        del again
+                    else:  # the same bits as the first tree's fp32 kernels
+                        first_fp32 = first_fp32 or out
+                        same = all(torch.equal(x, y) for x, y in zip(out, first_fp32) if x is not None)
+                    bwd_record(tag, n, dt_name, out, ref, same)
+                del ref
+                if dt == torch.bfloat16 and tag in BWD_TIMED:
+                    leaf = qkv.detach().requires_grad_()
+                    q, k, v = leaf.view(B, T, 3, H, d).permute(2, 0, 3, 1, 4)
+                    lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+                    g_out = dout.view(B, T, H, d).transpose(1, 2)
+                    pairs = T * (T + 1) // 2 if causal else T * T
+                    timed("bwd", f"{tag} B={B} T={T} W={W} H={H}", [
+                        (lambda fn=fn, out=out: run_bwd(fn, qkv, dout, out, H, causal))
+                        for fn, out in zip(bwds, outs)],
+                        lambda: torch.autograd.grad(lib_out, leaf, g_out, retain_graph=True),
+                        12 * B * H * pairs * d, B * T * W * (6 + 2 + 2 + 12 + 6) + 3 * B * H * T * 4)
+                    del leaf, q, k, v, lib_out
+                del outs
+            del first_fp32
     result["ok"] = ok
     line = json.dumps(result)
     if args.out:
