@@ -11,19 +11,29 @@ package. Phases, each fatal on failure:
    SASS of the K1, K2, K9, K5a and K5b libraries (``cuobjdump -sass``) must
    hold ``HGMMA`` instructions, the wgmma products of ``csrc/gemm_sm90.cuh``,
    and in the K6 and K1 libraries each function of the bf16 attention
-   forward (``attn_sm90_kernel``, ``csrc/attn_sm90.cuh``, head dims 64 and
-   80) must hold its own, as must each function of K5a's bf16 attention
+   forward (``attn_sm90_kernel``, ``csrc/attn_sm90.cuh``, head dims 16, 64
+   and 80) must hold its own, as must each function of K5a's bf16 attention
    backward in the K5a library (``attn_bwd_q_kernel``,
-   ``attn_bwd_kv_kernel``, ``csrc/attn_bwd_sm90.cuh``); ptxas's register and
-   spill lines are printed;
+   ``attn_bwd_kv_kernel``, ``csrc/attn_bwd_sm90.cuh``), and each function
+   of K3's int8 GEMM in the K3 library (``gemm_s8_kernel``,
+   ``csrc/gemm_s8_sm90.cuh``) must hold ``IGMMA`` instructions; ptxas's
+   register and spill lines are printed, and its "wgmma serialised" notes
+   for the int8 GEMM;
 3. the bf16 GEMM under K1, K2, K9 and K5 alone (``gemm_bf16``) at ViT-H-14's
    four vision GEMMs (65,792 rows), ViT-B/32's vision and text GEMMs, a
-   ragged M and one tile, against ``torch.matmul`` in fp32 rounded once,
+   ragged M, one tile and the tiny tower's four (N 64, 192 and 256: the
+   narrow 64-wide tile), against ``torch.matmul`` in fp32 rounded once,
    and in K5's layouts (Aᵀ from a [K, M] array, Wᵀ from W's [in, out]
    array; bf16 or fp32 out) at the ten backward products of
    ViT-L/14@336px's training shape and its text shape, a ragged K and split
    weight gradients, against the fp32 product of the same inputs, each timed
-   against ``torch.matmul`` on the same layout; then kernel parity: K1
+   against ``torch.matmul`` on the same layout; the int8 GEMM under K3a and
+   K3b alone (``gemm_s8``) at the four K3 products of ViT-B/32's vision and
+   text shapes, ViT-L/14@336px's T 577, ViT-H-14, the tiny tower and a
+   ragged M: its int32 sums equal to ``torch._int_mm``'s and the plain
+   version's, each epilogue bit-equal to the plain version's (exact GELU
+   within GEMM_S8_GELU_STEPS fp32 steps), timed against ``torch._int_mm``
+   with and without its K-major copy of the weights; then kernel parity: K1
    (``fused_attn_block``), K2 (``fused_mlp_block``), K3a
    and K3b (``fused_attn_block_q``, ``fused_mlp_block_q``: the int8 halves)
    against their plain PyTorch versions at the ViT-B/32 main-path shapes,
@@ -35,7 +45,7 @@ package. Phases, each fatal on failure:
    K3a and K3b at the
    ViT-L/14@336px training shape (B=32, T=577, W=1024, H=16) and at
    ViT-H-14's vision shape (B=32, T=257, W=1280, H=16: head dim 80, exact
-   GELU); K4 (``fused_topk``) against
+   GELU), and K3a and K3b at the tiny tower's shapes; K4 (``fused_topk``) against
    its plain version on 1,048,576 index rows of 512 in int8, bf16 and fp32;
    K5a and K5b (``fused_attn_block_bwd``, ``fused_mlp_block_bwd``: the block
    backward) against theirs at the training shape and at ViT-L/14's causal
@@ -115,7 +125,15 @@ package. Phases, each fatal on failure:
    shapes and ViT-H-14's vision shape, bf16 and fp32, bit-equal to
    ``fused_block_apply`` (K1 then K2), timed at each of those shapes
    against that pair, its plain version and the library composition. Their
-   launches are counted over their own phases.
+   launches are counted over their own phases;
+12. ViT-Tiny-Test (W 64, four heads of 16, T 17 and 77): K1, K2, K3a, K3b,
+   K6a, K6b and K9 against their plain versions, bf16 and fp32; then
+   ``EmbeddingEngine("ViT-Tiny-Test", device="cuda")`` with seeded random
+   weights encodes 1,024 frames and the text queries through K1/K2 (bf16
+   weights), K3a/K3b (int8 weights) and K6a/K6b (``attn_impl="flash"``),
+   each route's launches counted, its unit embeddings against the plain
+   route's within row cosine 0.999. Then int8 encode against bf16 at
+   ViT-B/32 and ViT-H-14, and the share of K3's K-major weight copies.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -154,6 +172,13 @@ VITH_BWD = dict(B=4, T=577, W=1280, H=16, causal=False)
 # A ragged row count for K1 and K2 (150 rows: one full 128-row GEMM tile and
 # a part-filled one)
 RAGGED = dict(B=3, T=50, W=768, H=12, causal=False)
+# ViT-Tiny-Test (W 64, four heads of 16 in both towers): its vision tower at
+# the serving batch (256 frames of 17 tokens) and its causal text tower (16
+# queries of 77 tokens). Its GEMMs have N of 64, 192 and 256 (the narrow
+# 64-wide tiles) and its attention head dim 16 (phase 12)
+TINY_MODEL = "ViT-Tiny-Test"
+TINY = dict(B=256, T=17, W=64, H=4, causal=False)
+TINY_TEXT = dict(B=16, T=77, W=64, H=4, causal=True)
 # The bf16 GEMM under K1, K2 and K9 alone: ViT-H-14's four vision GEMMs at
 # the serving batch (256 x 257 rows), ViT-B/32's vision (256 x 50 rows) and
 # text (16 x 77 rows) GEMMs, a ragged M and a single 128 x 256 x 64 tile, as
@@ -170,6 +195,8 @@ GEMM_SHAPES = {
     "text-qkv": (1232, 1536, 512), "text-out": (1232, 512, 512),
     "text-fc": (1232, 2048, 512), "text-proj": (1232, 512, 2048),
     "ragged": (150, 768, 768), "one-tile": (128, 256, 64),
+    "tiny-qkv": (4352, 192, 64), "tiny-out": (4352, 64, 64), "tiny-fc": (4352, 256, 64),
+    "tiny-proj": (4352, 64, 256),
 }
 GEMM_TOL_STEPS = 1
 # The same GEMM in the layouts and outputs of K5's ten products, as (M, N,
@@ -227,6 +254,30 @@ ATTN_CORE_SHAPES = {
 ATTN_CORE_TIMED = ("vith", "vitl", "vitb", "text")
 # the libraries whose bf16 GEMMs run on csrc/gemm_sm90.cuh's wgmma kernel
 HGMMA_LIBS = ("block_attn", "block_mlp", "block_merged", "block_attn_bwd", "block_mlp_bwd")
+# K3a's and K3b's int8 GEMM (csrc/gemm_s8_sm90.cuh): every function of it in
+# the block_quant library (five epilogues x two element types x two tile
+# widths) must hold warpgroup int8 products, IGMMA in the SASS
+S8_LIB, S8_KERNEL, S8_FUNCTIONS = "block_quant", "gemm_s8_kernel", 20
+# The int8 GEMM alone (``ops.block_fused.gemm_s8``, no path calls it) at the
+# four K3 products (qkv, out, fc, proj: M, N, K and the epilogue K3 runs
+# them with) of ViT-B/32's vision and text shapes, ViT-L/14@336px's T 577,
+# ViT-H-14's vision shape (exact GELU), the tiny tower and a ragged M; as
+# (rows, W, activation). Its int32 sums must equal torch._int_mm's and the
+# plain version's exactly, and each epilogue its plain version's bit for
+# bit, in bf16 and fp32, but exact GELU: the kernel's erf (common.cuh's
+# erf_as, the same device code as the parent's WMMA kernel) is contracted
+# into FMAs by nvcc, PyTorch's plain one rounds each operation, and the two
+# differed by up to 4.768e-7, 2.00 fp32 steps of max(1, |plain|), on about a
+# third of the outputs, in this script's run on an H100 80GB HBM3 (700 W).
+# Exact GELU is held to GEMM_S8_GELU_STEPS such steps instead, about twice
+# that. (quickGELU's kernel arithmetic and the plain version's gave the same
+# bits there.)
+GEMM_S8_SHAPES = {
+    "vitb": (12800, 768, "quick_gelu"), "text": (1232, 512, "quick_gelu"),
+    "vitl": (18464, 1024, "quick_gelu"), "vith": (65792, 1280, "gelu"),
+    "tiny": (4352, 64, "quick_gelu"), "ragged": (150, 768, "gelu"),
+}
+GEMM_S8_GELU_STEPS = 4
 # the libraries whose bf16 attention forward runs on csrc/attn_sm90.cuh's
 # wgmma kernel (K6; K1, and through it the core of K3a and K9), and that
 # kernel's function name: its own SASS function must hold HGMMA instructions
@@ -486,15 +537,16 @@ def cuda_ms(torch, fn, iters: int = 30, warmup: int = 5) -> float:
 # -- 2. build ----------------------------------------------------------------
 
 
-def sass_functions(sass: str) -> dict[str, int]:
-    """HGMMA instructions per function of ``cuobjdump -sass`` output, split
-    at each ``Function :`` header."""
+def sass_functions(sass: str, mnemonic: str = "HGMMA") -> dict[str, int]:
+    """``mnemonic`` instructions (HGMMA: bf16 warpgroup products; IGMMA:
+    int8 ones) per function of ``cuobjdump -sass`` output, split at each
+    ``Function :`` header."""
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             counts[name] = 0
-        elif name is not None and "HGMMA" in line:
+        elif name is not None and mnemonic in line:
             counts[name] += 1
     return counts
 
@@ -514,8 +566,13 @@ def phase_build():
             for line in report.read_text().splitlines():
                 if "Compiling entry function" in line:
                     current = line.split("'")[1] if "'" in line else line
-                if "spill" in line or "registers" in line or "C7515" in line:
+                serialised = "C7514" in line or "C7515" in line
+                if S8_KERNEL in line and serialised:
+                    log(f"  ptxas {name} (int8 GEMM, wgmma serialised): {line.strip()}")
+                elif "spill" in line or "registers" in line or "C7515" in line:
                     tag = " (attention forward)" if ATTN_KERNEL in current else ""
+                    if S8_KERNEL in current:
+                        tag = " (int8 GEMM)"
                     for k in ATTN_BWD_KERNELS:
                         if k in current:  # the mangled name holds the head dim as ILi64E / ILi80E
                             tag = f" (attention backward: {k}<{'80' if 'ILi80E' in current else '64'}>)"
@@ -527,7 +584,7 @@ def phase_build():
     # functions
     cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     counts, attn, bwd = {}, {}, {}
-    for name in sorted(set(HGMMA_LIBS) | set(ATTN_HGMMA_LIBS)):
+    for name in sorted(set(HGMMA_LIBS) | set(ATTN_HGMMA_LIBS) | {S8_LIB}):
         sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         counts[name] = sum("HGMMA" in line for line in sass.splitlines())
@@ -535,13 +592,16 @@ def phase_build():
             attn[name] = {f: n for f, n in sass_functions(sass).items() if ATTN_KERNEL in f}
         if name == ATTN_BWD_LIB:
             bwd = {f: n for f, n in sass_functions(sass).items() if any(k in f for k in ATTN_BWD_KERNELS)}
+        if name == S8_LIB:
+            s8 = {f: n for f, n in sass_functions(sass, "IGMMA").items() if S8_KERNEL in f}
     log(f"sass: HGMMA instructions per library {json.dumps(counts)}")
     log(f"sass: HGMMA instructions in each {ATTN_KERNEL} function {json.dumps(attn)}")
     log(f"sass: HGMMA instructions in each attention backward function of {ATTN_BWD_LIB} {json.dumps(bwd)}")
+    log(f"sass: IGMMA instructions in each {S8_KERNEL} function of {S8_LIB} {json.dumps(s8)}")
     for name in HGMMA_LIBS:
         check(counts[name] > 0, f"{name}: no HGMMA instruction in its SASS")
     for name in ATTN_HGMMA_LIBS:
-        check(len(attn[name]) == 2, f"{name}: {len(attn[name])} {ATTN_KERNEL} functions, expected 2 (d 64, 80)")
+        check(len(attn[name]) == 3, f"{name}: {len(attn[name])} {ATTN_KERNEL} functions, expected 3 (d 16, 64, 80)")
         for f, n in attn[name].items():
             check(n > 0, f"{name}: no HGMMA instruction in {f}")
     check(len(bwd) == 2 * len(ATTN_BWD_KERNELS),
@@ -549,6 +609,9 @@ def phase_build():
           f"({', '.join(ATTN_BWD_KERNELS)} at d 64 and 80)")
     for f, n in bwd.items():
         check(n > 0, f"{ATTN_BWD_LIB}: no HGMMA instruction in {f}")
+    check(len(s8) == S8_FUNCTIONS, f"{S8_LIB}: {len(s8)} {S8_KERNEL} functions, expected {S8_FUNCTIONS}")
+    for f, n in s8.items():
+        check(n > 0, f"{S8_LIB}: no IGMMA instruction in {f}")
 
 
 # -- 3. the GEMM alone, then kernel parity -----------------------------------
@@ -651,6 +714,85 @@ def gemm_layout_case(torch, tag, M, N, K, a_t, w_t, out_dtype, has_bias):
             f"{rec['one_pass_ms']:.4f} ms {flops / rec['one_pass_ms'] / 1e9:.1f} TFLOP/s; the {splits} slices "
             f"{rec['one_pass_ms'] / ms:.2f}x faster")
     return rec
+
+
+def phase_gemm_s8(torch):
+    """``gemm_s8`` (the int8 wgmma GEMM under K3a and K3b) at the four K3
+    products of GEMM_S8_SHAPES: its int32 sums against ``torch._int_mm`` (a
+    yardstick the port never calls) and ``gemm_s8_plain``, exactly; the
+    product's own K3 epilogue in bf16 and fp32 against the plain version,
+    bit for bit (exact GELU within GEMM_S8_GELU_STEPS fp32 steps); timed
+    against ``torch._int_mm`` by CUDA events (the weight's K-major copy made
+    once, by its first call), and the copy alone (``evr_transpose_s8``).
+    Returns the times per product."""
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.ops import build
+    from evr_tpu_torch.ops.int8 import quantize_rows
+
+    dev = torch.device("cuda")
+    lib = build.load("block_quant")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out, worst_gelu = {}, 0.0
+    for tag, (M, W, act) in GEMM_S8_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(15)
+        for name, N, K, epi in (("qkv", 3 * W, W, "store"), ("out", W, W, "residual"),
+                                ("fc", 4 * W, W, act), ("proj", W, 4 * W, "residual")):
+            a, a_scale = quantize_rows(unit_activations(torch, (M, K), gen, dev))
+            a_scale = a_scale.reshape(-1).contiguous()
+            w = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+            w_scale = torch.rand((N,), generator=gen, device=dev) * (0.02 / K ** 0.5)
+            bias = torch.randn((N,), generator=gen, device=dev) * 0.02
+            what = f"gemm_s8 {tag}-{name} {M} x {N} x {K}"
+            before = bf.gemm_s8.launches
+            sums = bf.gemm_s8(a, a_scale, w, w_scale, bias, "int32")
+            torch.cuda.synchronize()
+            check(bf.gemm_s8.launches == before + 1, f"{what}: the kernel did not launch")
+            w_cm = w.t().contiguous().t()  # torch._int_mm's int8 path takes B column-major
+            check(torch.equal(sums, torch._int_mm(a, w_cm)), f"{what}: int32 sums differ from torch._int_mm")
+            check(torch.equal(sums, bf.gemm_s8_plain(a, a_scale, w, w_scale, bias, "int32")),
+                  f"{what}: int32 sums differ from the plain version")
+            notes = []
+            for dt in (torch.bfloat16, torch.float32):
+                res = unit_activations(torch, (M, N), gen, dev).to(dt) if epi == "residual" else None
+                got = bf.gemm_s8(a, a_scale, w, w_scale, bias, epi, dt, res)
+                ref = bf.gemm_s8_plain(a, a_scale, w, w_scale, bias, epi, dt, res)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got.float()).all().item()), f"{what} {epi} {dt}: non-finite output")
+                if epi == "gelu":
+                    diff = (got - ref).abs()
+                    steps = (diff / (ref.abs().clamp_min(1.0) * 2.0 ** -23)).max().item()
+                    worst_gelu = max(worst_gelu, diff.max().item())
+                    notes.append(f"{str(dt).split('.')[-1]} {epi} max_abs_err {diff.max().item():.3e} "
+                                 f"({steps:.2f} steps, {(diff > 0).float().mean().item():.3f} of outputs)")
+                    check(steps <= GEMM_S8_GELU_STEPS, f"{what} {epi} {dt}: {steps} fp32 steps off the plain version")
+                else:
+                    same = bool(torch.equal(got, ref))
+                    notes.append(f"{str(dt).split('.')[-1]} {epi} bit-equal {same}")
+                    check(same, f"{what} {epi} {dt}: differs from the plain version")
+                del got, ref, res
+            ms = min(cuda_ms(torch, lambda: bf.gemm_s8(a, a_scale, w, w_scale, bias, "int32")) for _ in range(2))
+            lib_ms = min(cuda_ms(torch, lambda: torch._int_mm(a, w_cm)) for _ in range(2))
+            w_t = torch.empty((N, K), dtype=torch.int8, device=dev)
+
+            def copy():
+                rc = lib.evr_transpose_s8(w.data_ptr(), w_t.data_ptr(), K, N, stream)
+                check(rc == 0, f"{what}: evr_transpose_s8 returned {rc}")
+
+            copy()
+            torch.cuda.synchronize()
+            check(torch.equal(w_t, w.t()), f"{what}: the K-major copy differs from w transposed")
+            copy_ms = cuda_ms(torch, copy)
+            ops = 2 * M * N * K
+            bound = max(ops / H100_INT8_OPS, (M * K + K * N + 4 * M * N) / H100_BYTES_PER_S) * 1e3
+            log(f"{what} ({epi}): int32 equal to torch._int_mm and the plain version; {'; '.join(notes)}; "
+                f"kernel {ms:.4f} ms {ops / ms / 1e9:.1f} TOP/s (the weight's K-major copy, made once: "
+                f"{copy_ms:.4f} ms), torch._int_mm {lib_ms:.4f} ms {ops / lib_ms / 1e9:.1f} TOP/s, "
+                f"bound {bound:.4f} ms")
+            out[(tag, name)] = {"ms": ms, "copy_ms": copy_ms, "library_ms": lib_ms, "ops": ops}
+            del a, a_scale, w, w_cm, w_t, sums
+        torch.cuda.empty_cache()
+    log(f"gemm_s8 exact GELU against its plain version: largest difference {worst_gelu:.3e}")
+    return out
 
 
 def phase_parity(torch):
@@ -864,13 +1006,15 @@ def quantized_block(p):
 def phase_parity_int8(torch):
     """K3a and K3b against their plain versions, bf16 and fp32, at the
     serving shapes, at T = 577 (ViT-L/14@336px's vision tower), quickGELU,
-    and at ViT-H-14's vision shape (head dim 80, exact GELU); exact GELU
-    also at the ViT-B/32 vision width."""
+    at ViT-H-14's vision shape (head dim 80, exact GELU) and at the tiny
+    tower's two (W 64, head dim 16: the int8 GEMM's narrow tile); exact GELU
+    also at the ViT-B/32 vision width and the tiny ones."""
     from evr_tpu_torch.ops import block_fused as bf
 
     dev = torch.device("cuda")
     worst = {"fused_attn_block_q": 0.0, "fused_mlp_block_q": 0.0}
-    for shape_name, s in (("vision", VISION), ("text", TEXT), ("vitl", VITL), ("vith", VITH)):
+    for shape_name, s in (("vision", VISION), ("text", TEXT), ("vitl", VITL), ("vith", VITH), ("tiny", TINY),
+                          ("tiny-text", TINY_TEXT)):
         gen = torch.Generator(device=dev).manual_seed(1)
         attn, mlp = bf.quant_block_half_params(quantized_block(block_params(torch, s["W"], gen, dev)))
         x32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev)
@@ -878,7 +1022,7 @@ def phase_parity_int8(torch):
                   dict(n_heads=s["H"], causal=s["causal"]), attn),
                  ("fused_mlp_block_q", bf.fused_mlp_block_q, bf.fused_mlp_block_q_plain,
                   dict(activation=s.get("act", "quick_gelu")), mlp)]
-        if shape_name == "vision":
+        if shape_name in ("vision", "tiny", "tiny-text"):
             cases.append(("fused_mlp_block_q", bf.fused_mlp_block_q, bf.fused_mlp_block_q_plain,
                           dict(activation="gelu"), mlp))
         for dt in (torch.bfloat16, torch.float32):
@@ -2604,6 +2748,144 @@ def phase_merged(torch):
     return {"launches": launches, "max_abs_err": worst, "times": recs["vision"], "pair_ms": pair_ms}
 
 
+# -- 12. ViT-Tiny-Test on the card ---------------------------------------------
+
+
+def tiny_kernel_parity(torch) -> float:
+    """K1, K2, K3a, K3b, K9 and K6 (K6a on the vision shape, K6b on the
+    causal text shape) against their plain versions at TINY and TINY_TEXT
+    (W 64, four heads of 16), bf16 and fp32, within the bands of their
+    registry-shape checks; K9 bit-equal to fused_block_apply too. Returns
+    the largest bf16 error."""
+    from evr_tpu_torch.ops import attention as fa
+    from evr_tpu_torch.ops import block_fused as bf
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for shape_name, s in (("tiny", TINY), ("tiny-text", TINY_TEXT)):
+        B, T, W, H, causal = s["B"], s["T"], s["W"], s["H"], s["causal"]
+        gen = torch.Generator(device=dev).manual_seed(16)
+        p = block_params(torch, W, gen, dev)
+        attn, mlp = bf.block_half_params(p)
+        qattn, qmlp = bf.quant_block_half_params(quantized_block(p))
+        x32 = unit_activations(torch, (B, T, W), gen, dev)
+        qkv32 = [unit_activations(torch, (B, H, T, W // H), gen, dev) for _ in range(3)]
+        k6 = fa.flash_attention_blocked if causal else fa.flash_attention_full
+        for dt in (torch.bfloat16, torch.float32):
+            x = x32.to(dt)
+            a, m = [t.to(dt) for t in attn], [t.to(dt) for t in mlp]
+            q, k, v = (t.to(dt) for t in qkv32)
+            cases = (
+                ("fused_attn_block", lambda: bf.fused_attn_block(x, *attn, n_heads=H, causal=causal),
+                 lambda: bf.fused_attn_block_plain(x, *a, n_heads=H, causal=causal), False),
+                ("fused_mlp_block", lambda: bf.fused_mlp_block(x, *mlp),
+                 lambda: bf.fused_mlp_block_plain(x, *m), False),
+                ("fused_attn_block_q", lambda: bf.fused_attn_block_q(x, *qattn, n_heads=H, causal=causal),
+                 lambda: bf.fused_attn_block_q_plain(x, *bf.cast_quant_args(dt, qattn), n_heads=H,
+                                                     causal=causal), True),
+                ("fused_mlp_block_q", lambda: bf.fused_mlp_block_q(x, *qmlp),
+                 lambda: bf.fused_mlp_block_q_plain(x, *bf.cast_quant_args(dt, qmlp)), True),
+                ("fused_block_merged", lambda: bf.fused_block_merged(x, p, H, causal=causal),
+                 lambda: bf.fused_block_merged_plain(x, p, H, causal=causal), False),
+                (k6.__name__, lambda: k6(q, k, v, causal) if causal else k6(q, k, v),
+                 lambda: fa.flash_attention_plain(q, k, v, causal), False),
+            )
+            for name, kern, plain, int8 in cases:
+                got = kern()
+                torch.cuda.synchronize()
+                err, cos, finite = compare(torch, got, plain())
+                tag = f"{name} {shape_name} {str(dt).split('.')[-1]}"
+                log(f"parity {tag}: max_abs_err={err:.3e} min_row_cos={cos:.7f}")
+                check(finite, f"{tag}: non-finite output")
+                if dt == torch.float32:
+                    tol = INT8_FP32_TOL if int8 else FP32_TOL
+                    check(err <= tol, f"{tag}: max abs err {err} > {tol}")
+                else:
+                    check(err <= BF16_TOL, f"{tag}: max abs err {err} > {BF16_TOL}")
+                    worst = max(worst, err)
+                check(cos >= (INT8_MIN_COS if int8 else BF16_MIN_COS), f"{tag}: row cosine {cos}")
+                if name == "fused_block_merged":
+                    pair = bf.fused_block_apply(x, p, H, causal=causal)
+                    check(torch.equal(got, pair), f"{tag}: differs from fused_block_apply (K1 then K2)")
+    return worst
+
+
+def phase_tiny(torch):
+    """ViT-Tiny-Test on the card (ROADMAP C3): its kernels against their
+    plain versions (``tiny_kernel_parity``), then
+    ``EmbeddingEngine(TINY_MODEL, params=..., device="cuda")`` with seeded
+    random weights encodes N_FRAMES synthetic 64² frames at batch BATCH and
+    the text queries, through K1 and K2 with bf16 weights, K3a and K3b with
+    int8 weights, and K6a and K6b under ``attn_impl="flash"``: each route's
+    launches against the counts expected (every full block of both towers;
+    the other kernels none), and the unit frame and text embeddings against
+    the same engine's plain route (``"plain"``, ``"flash_plain"``) within
+    row cosine EMBED_MIN_COS."""
+    import dataclasses
+
+    import numpy as np
+
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.models import get_model_config, init_clip_params
+    from evr_tpu_torch.models.clip import encode_staged_u8, encode_text
+    from evr_tpu_torch.ops import attention as fa
+    from evr_tpu_torch.ops import block_fused as bf
+
+    worst = tiny_kernel_parity(torch)
+    np_params = init_clip_params(np.random.default_rng(0), get_model_config(TINY_MODEL))
+    counted = [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_q, bf.fused_mlp_block_q,
+               fa.flash_attention_full, fa.flash_attention_blocked]
+    out = {"max_abs_err": worst}
+    for route, impl, params_dtype, plain_impl, kernels in (
+            ("bf16", "auto", "float32", "plain", ("fused_attn_block", "fused_mlp_block")),
+            ("int8", "auto", "int8", "plain", ("fused_attn_block_q", "fused_mlp_block_q")),
+            ("flash", "flash", "float32", "flash_plain", ("flash_attention_full", "flash_attention_blocked"))):
+        cfg = get_model_config(TINY_MODEL, attn_impl=impl)
+        engine = EmbeddingEngine(TINY_MODEL, params=np_params, cfg=cfg, device="cuda", batch_size=BATCH,
+                                 params_dtype=params_dtype)
+        frames = synthetic_frames(torch, N_FRAMES, cfg.vision.image_size, cfg.vision.patch_size)
+        engine.encode_staged_images(frames[:BATCH])  # first call: kernel libraries load
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        emb = engine.encode_staged_images(frames)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        txt = engine.encode_texts(list(QUERIES))
+        launches = {fn.__name__: fn.launches for fn in counted}
+        n_batches = -(-N_FRAMES // BATCH)
+        vis, text = cfg.vision.layers - 1, cfg.text.layers - 1  # full blocks: the last is pooled
+        per = {"fused_attn_block": vis * n_batches + text, "flash_attention_full": vis * n_batches,
+               "flash_attention_blocked": text}
+        per["fused_mlp_block"] = per["fused_attn_block_q"] = per["fused_mlp_block_q"] = per["fused_attn_block"]
+        expected = {name: per[name] if name in kernels else 0 for name in launches}
+        what = f"{TINY_MODEL} {route}"
+        log(f"launches over the {what} encode ({n_batches} batches of {BATCH} frames, one text encode of "
+            f"{len(QUERIES)} queries): {launches} (expected {expected})")
+        for name, n in expected.items():
+            check(launches[name] == n, f"{what}: {name} {launches[name]} launches, expected {n}")
+        check(emb.shape == (N_FRAMES, cfg.embed_dim) and bool(np.isfinite(emb).all()),
+              f"{what}: embeddings {emb.shape}, finite {bool(np.isfinite(emb).all())}")
+        plain_cfg = dataclasses.replace(engine.cfg, attn_impl=plain_impl)
+        with torch.inference_mode():
+            ref = torch.cat([encode_staged_u8(engine.params, plain_cfg, torch.from_numpy(frames[i:i + BATCH]).cuda(),
+                                              dtype=engine.compute_dtype) for i in range(0, N_FRAMES, BATCH)])
+            tokens = torch.from_numpy(engine.tokenizer(list(QUERIES))).cuda()
+            txt_ref = encode_text(engine.params, plain_cfg, tokens, dtype=engine.compute_dtype, eot_fast_final=True)
+        ref, txt_ref = ref.float().cpu().numpy(), txt_ref.float().cpu().numpy()
+        unit = [x / np.linalg.norm(x, axis=1, keepdims=True) for x in (emb, ref, txt, txt_ref)]
+        cos, tcos = (unit[0] * unit[1]).sum(1).min(), (unit[2] * unit[3]).sum(1).min()
+        log(f"{what}: encode {N_FRAMES / encode_s:.1f} frames/s; against {plain_impl!r}: least row cosine "
+            f"{cos:.7f} (frames), {tcos:.7f} (text)")
+        check(min(cos, tcos) >= EMBED_MIN_COS, f"{what}: row cosine {min(cos, tcos)} < {EMBED_MIN_COS}")
+        out[route] = {"launches": launches, "frame_cos": float(cos), "text_cos": float(tcos),
+                      "encode_frames_per_s": N_FRAMES / encode_s}
+        del engine
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -2629,6 +2911,7 @@ def main() -> int:
     try:
         phase_build()
         gemm = phase_gemm(torch)
+        gemm_s8 = phase_gemm_s8(torch)
         worst = phase_parity(torch)
         core_worst = phase_parity_core(torch)
         worst.update(phase_parity_int8(torch))
@@ -2676,6 +2959,9 @@ def main() -> int:
         vith_s = time.perf_counter() - t3
         k8 = phase_layer_norm(torch)
         k9 = phase_merged(torch)
+        t4 = time.perf_counter()
+        tiny = phase_tiny(torch)
+        tiny_s = time.perf_counter() - t4
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2714,6 +3000,23 @@ def main() -> int:
             f"/api/search p50 {m['request_p50_ms']:.2f} ms; against the plain route "
             f"{json.dumps(m['against_plain'])}")
     log(f"the {FLASH_MODEL} default-route phases took {vith_s:.1f} s")
+    for width, (b, q) in ((MODEL, (main, main_q)), (FLASH_MODEL, (main_h, main_hq))):
+        log(f"int8 against bf16 encode, {width}: {q['encode_frames_per_s']:.1f} against "
+            f"{b['encode_frames_per_s']:.1f} frames/s ({q['encode_frames_per_s'] / b['encode_frames_per_s']:.3f}x)")
+    for shape, tag in (("vision", "vitb"), ("vith", "vith")):
+        for half, names in (("fused_attn_block_q", ("qkv", "out")), ("fused_mlp_block_q", ("fc", "proj"))):
+            copy_ms = sum(gemm_s8[(tag, n)]["copy_ms"] for n in names)
+            half_ms = times[(half, shape)]["ms"]
+            log(f"{half} {shape}: the K-major copies of its two kernels, made once per weight, would take "
+                f"{copy_ms:.4f} ms a call, {100 * copy_ms / half_ms:.2f} % of its {half_ms:.4f} ms")
+    log("gemm_s8 TOP/s (torch._int_mm): " + ", ".join(
+        f"{tag}-{n} {g['ops'] / g['ms'] / 1e9:.1f} ({g['ops'] / g['library_ms'] / 1e9:.1f})"
+        for (tag, n), g in gemm_s8.items()))
+    log(f"{TINY_MODEL} (phase 12, {tiny_s:.1f} s): kernels against their plain versions, largest bf16 error "
+        f"{tiny['max_abs_err']:.3e}; " + "; ".join(
+            f"{r} encode {tiny[r]['encode_frames_per_s']:.1f} frames/s, launches {json.dumps(tiny[r]['launches'])}, "
+            f"least row cosine {min(tiny[r]['frame_cos'], tiny[r]['text_cos']):.7f}"
+            for r in ("bf16", "int8", "flash")))
     log("gemm_bf16 TFLOP/s: " + ", ".join(
         f"{tag} {g['tflops']:.1f} (torch.matmul {g['flops'] / g['library_ms'] / 1e9:.1f})"
         for tag, g in gemm.items()))

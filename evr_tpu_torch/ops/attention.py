@@ -28,7 +28,7 @@ is K6 and saves q, k and v; the backward differentiates ``xla_attention``
 (the XLA-path einsum attention, ``_xla_attention``) recomputed from them. K6
 has no backward kernel in the JAX package and none here.
 
-The kernel takes head dims 64 and 80, bfloat16 or float32, contiguous
+The kernel takes head dims 16, 64 and 80, bfloat16 or float32, contiguous
 16-byte-aligned inputs of one shape on one device. A CUDA tensor launches
 the kernel or raises, with no fallback; a CPU tensor takes the plain
 version. Every launch adds one to its route's ``launches`` count.
@@ -43,7 +43,7 @@ import torch
 from . import build
 from .block_fused import _DTYPE_CODES, _raise_rc, attend_heads
 
-HEAD_DIMS = (64, 80)
+HEAD_DIMS = (16, 64, 80)
 WHOLE_SEQUENCE_SCORE_BYTES = 4 * 1024 * 1024  # the JAX route rule: T·T·4 ≤ 4 MiB
 IMPLS = ("kernel", "plain")
 

@@ -8,7 +8,10 @@ fused halves,
 - K3 ``fused_quant_block_apply``, the same two halves over int8 weights
   (``models.quant`` layout: ``kernel_q``/``kernel_scale``): K3a
   ``fused_attn_block_q`` and K3b ``fused_mlp_block_q``, source
-  ``csrc/block_quant.cu``; inference only, as in the JAX package;
+  ``csrc/block_quant.cu``, their four products on the warp-specialised TMA
+  + wgmma int8 GEMM of ``csrc/gemm_s8_sm90.cuh`` (shape rule
+  ``gemm_s8_takes``; ``gemm_s8`` runs it alone); inference only, as in the
+  JAX package;
 - K5, the backward of the two float halves: K5a ``fused_attn_block_bwd``
   (``csrc/block_attn_bwd.cu``) and K5b ``fused_mlp_block_bwd``
   (``csrc/block_mlp_bwd.cu``), each recomputing its half from x and giving
@@ -22,24 +25,27 @@ K1, K2 and K9 normalise in a row pass first (``ln_rows_plain`` is its plain
 version: K8's device code, writing the rounded LN output into a scratch) and
 then multiply on one GEMM: in bf16 the warp-specialised wgmma + TMA kernel
 of ``csrc/gemm_sm90.cuh``, which takes the shapes ``gemm_takes`` accepts
-(the wrappers check before loading a library), in fp32 the CUDA-core GEMM of
-``csrc/common.cuh``. In bf16, K5's ten products run on the same kernel in
+(the wrappers check before loading a library: N a multiple of 256, or of 64
+for a forward product), in fp32 the CUDA-core GEMM of ``csrc/common.cuh``
+(N a multiple of 64). In bf16, K5's ten products run on the same kernel in
 the backward's transposed layouts (``attn_bwd_gemms``, ``mlp_bwd_gemms``),
 in fp32 on the CUDA-core ``gemm_t`` of ``csrc/grad_common.cuh``.
 ``gemm_bf16`` runs the bf16 GEMM alone in each of those layouts,
 ``attn_forward`` the attention core of K1, K3a and K9 alone and
 ``attn_backward`` K5a's attention backward alone.
 
-K1, K3a, K5a and K9 take head dim 64 or 80 (ViT-H-14's vision tower) and any
-T; other head dims raise on a CUDA tensor. Their bf16 attention forward runs
+K1, K3a and K9 take head dim 16, 64 or 80 (the tiny test tower, ViT-H-14's
+vision tower) and any T, K5a head dim 64 or 80; other head dims raise on a
+CUDA tensor. Their bf16 attention forward runs
 on the warp-specialised TMA + wgmma kernel of ``csrc/attn_sm90.cuh``, which
 K6 (``ops.attention``) shares; ``attn_takes``, ``attn_boxes``,
 ``attn_smem_bytes`` and ``attn_k_slots`` mirror its shape rule and
 shared-memory plan. K5a's bf16 attention backward runs on the two TMA +
 wgmma kernels of ``csrc/attn_bwd_sm90.cuh`` (statistics, o and dq per query
-tile; dk and dv per key tile), which take the shapes ``attn_takes`` does
-and whose shared-memory plan ``attn_bwd_slots``, ``attn_bwd_smem_bytes``
-and ``attn_bwd_kv_smem_bytes`` mirror.
+tile; dk and dv per key tile), which take the shapes ``attn_bwd_takes``
+does (``attn_takes``' at head dims 64 and 80) and whose shared-memory plan
+``attn_bwd_slots``, ``attn_bwd_smem_bytes`` and ``attn_bwd_kv_smem_bytes``
+mirror.
 fp32 keeps the CUDA-core kernels of ``csrc/flash.cuh``.
 
 Each wrapper takes x's dtype (bfloat16 or float32) as the compute dtype and
@@ -59,9 +65,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import build
-from .int8 import dequant_dot
+from .int8 import dequant_dot, int8_matmul
 
 LN_EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -170,6 +177,33 @@ def gemm_slices_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for p in parts[1:]:
         out = out + p
     return out
+
+
+GEMM_S8_EPILOGUES = {"store": 0, "quick_gelu": 1, "gelu": 2, "residual": 3, "int32": 4}
+
+
+def gemm_s8_plain(
+    a_q: torch.Tensor, a_scale: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+    bias: torch.Tensor, epilogue: str = "store", dtype: torch.dtype = torch.bfloat16,
+    res: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``gemm_s8``'s function in plain PyTorch: the exact product of int8 a
+    [M, K] and w [K, N] (``ops.int8``'s float64 route), then the epilogue
+    at the K3 halves' rounding points: ``"int32"`` the sums themselves;
+    otherwise v = (sum·a_scale)·w_scale + bias in fp32, each step rounded,
+    then v in ``dtype`` (``"store"``), quickGELU or exact GELU of v in fp32
+    (``"quick_gelu"``, ``"gelu"``), or (res + v) in fp32 rounded once to
+    ``dtype`` (``"residual"``)."""
+    if epilogue not in GEMM_S8_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    if epilogue == "int32":
+        return (a_q.double() @ w_q.double()).to(torch.int32)
+    v = int8_matmul(a_q, w_q) * a_scale.float().reshape(-1, 1) * w_scale.float() + bias.float()
+    if epilogue == "store":
+        return v.to(dtype)
+    if epilogue == "residual":
+        return (res.float() + v).to(dtype)
+    return _activate(v, epilogue)
 
 
 def fused_attn_block_plain(
@@ -393,6 +427,7 @@ def _ptr(t: torch.Tensor | None):
 
 
 GEMM_TILE_M, GEMM_TILE_N, GEMM_TILE_K = 128, 256, 64
+GEMM_TILE_N_NARROW = 64  # a forward product's N off the 256-wide tile
 # up to 4 K slices of at least 16 steps each, below half an H100's 132 SMs
 GEMM_SPLIT_MAX, GEMM_SPLIT_BELOW_TILES, GEMM_SPLIT_MIN_STEPS = 4, 66, 16
 
@@ -402,14 +437,17 @@ def gemm_takes(M: int, N: int, K: int, a_t: bool = False, w_t: bool = False) -> 
     whose ``gemm_takes`` this mirrors) computes out[M, N] = op(A)·op(W) in a
     layout: A stored [M, K], or [K, M] read transposed (``a_t``, a weight
     gradient's sum over rows); W stored [K, N], or [N, K] read transposed
-    (``w_t``, an input gradient). N a multiple of its 256-wide output tile; K
-    of its 64-wide step where K is an operand's contiguous dimension (A not
-    transposed, or ``w_t``), else any K (TMA zero-fills the ragged rows); M
-    any row count from 1 up to 65,535 row tiles of 128, and with ``a_t`` a
-    multiple of 8 (16-byte rows of the [K, M] array)."""
+    (``w_t``, an input gradient). N a multiple of its 256-wide output tile,
+    or, for a forward product (neither transposed), of its 64-wide narrow
+    tile; K of its 64-wide step where K is an operand's contiguous dimension
+    (A not transposed, or ``w_t``), else any K (TMA zero-fills the ragged
+    rows); M any row count from 1 up to 65,535 row tiles of 128, and with
+    ``a_t`` a multiple of 8 (16-byte rows of the [K, M] array). K5's
+    transposed products have N = W, so a K5 call keeps W a multiple of 256."""
     k_contiguous = not a_t or w_t
+    n_tile = GEMM_TILE_N if a_t or w_t else GEMM_TILE_N_NARROW
     return (
-        M >= 1 and N >= GEMM_TILE_N and N % GEMM_TILE_N == 0 and K >= 1
+        M >= 1 and N >= n_tile and N % n_tile == 0 and K >= 1
         and (not k_contiguous or K % GEMM_TILE_K == 0) and (not a_t or M % 8 == 0)
         and -(-M // GEMM_TILE_M) <= 65535
     )
@@ -473,10 +511,11 @@ def _check_gemms(what: str, x: torch.Tensor, gemms, tensors, biases) -> None:
         if not gemm_takes(M, N, K, a_t, w_t):
             k_rule = (f"K a multiple of {GEMM_TILE_K}" if not a_t or w_t
                       else "any K, M a multiple of 8")
+            n_tile = GEMM_TILE_N if a_t or w_t else GEMM_TILE_N_NARROW
             layout = f"{'Aᵀ' if a_t else 'A'}·{'Wᵀ' if w_t else 'W'}"
             raise ValueError(
                 f"{what}: the CUDA kernel does not take shape {tuple(x.shape)} "
-                f"(its GEMM takes N a multiple of {GEMM_TILE_N} and, for {layout}, {k_rule}; "
+                f"(its GEMM takes, for {layout}, N a multiple of {n_tile} and {k_rule}; "
                 f"got {M} x {N} x {K})"
             )
     if any(t.data_ptr() % 16 for t in (x, *tensors)) or any(b.data_ptr() % 4 for b in biases):
@@ -511,8 +550,8 @@ def fused_attn_block(
     n_heads: int,
     causal: bool = False,
 ) -> torch.Tensor:
-    """x + out(attention(LN(x))), kernel K1 on a CUDA tensor (head dim 64 or
-    80, any T)."""
+    """x + out(attention(LN(x))), kernel K1 on a CUDA tensor (head dim 16, 64
+    or 80, any T)."""
     raw = (ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias)
     refuse_grad("fused_attn_block", x, *raw)
     dt = x.dtype
@@ -525,6 +564,7 @@ def fused_attn_block(
     _check_cuda(x, params, [(W,), (W,), (W, 3 * W), (3 * W,), (W, W), (W,)], "fused_attn_block")
     M = B * T
     _check_gemms("fused_attn_block", x, [(M, 3 * W, W), (M, W, W)], params[2::2], params[3::2])
+    _check_heads("fused_attn_block", x, n_heads)
     lib = build.load("block_attn")
     ln32 = [p.float() for p in params[:2]]  # the element-type values, as the row pass reads them
     y, o, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
@@ -590,6 +630,67 @@ def cast_quant_args(dt, args) -> list:
 
 
 _I8, _F32 = torch.int8, torch.float32
+GEMM_S8_TILE_N, GEMM_S8_K_STEP = 64, 16  # the int8 GEMM's narrow tile; K in 16-byte rows
+
+
+def gemm_s8_takes(M: int, N: int, K: int) -> bool:
+    """Whether the int8 GEMM of K3a, K3b and ``gemm_s8``
+    (``csrc/gemm_s8_sm90.cuh``'s ``gemm_s8_takes``, which this mirrors)
+    computes out[M, N] = epilogue(a[M, K]·w[K, N]): N a multiple of its
+    64-wide narrow tile (the 256-wide one serves N a multiple of 256), K of
+    16 (16-byte rows for TMA), M any row count from 1 up to 65,535 row tiles
+    of 128."""
+    return (M >= 1 and N >= GEMM_S8_TILE_N and N % GEMM_S8_TILE_N == 0 and K >= GEMM_S8_K_STEP
+            and K % GEMM_S8_K_STEP == 0 and -(-M // GEMM_TILE_M) <= 65535)
+
+
+def _check_s8_gemms(what: str, x: torch.Tensor, gemms) -> None:
+    """An int8 half on the card, before any library is loaded: each (M, N,
+    K) must be one the int8 GEMM takes (both element types run on it)."""
+    for M, N, K in gemms:
+        if not gemm_s8_takes(M, N, K):
+            raise ValueError(
+                f"{what}: the CUDA kernel does not take shape {tuple(x.shape)} (its int8 GEMM takes "
+                f"N a multiple of {GEMM_S8_TILE_N} and K of {GEMM_S8_K_STEP}; got {M} x {N} x {K})"
+            )
+
+
+def _check_heads(what: str, x: torch.Tensor, n_heads: int) -> None:
+    """A forward block half's attention on the card, before any library is
+    loaded: head dims ``ATTN_HEAD_DIMS`` in both element types (the bf16
+    kernel's grid rule too, ``attn_takes``)."""
+    B, T, W = x.shape
+    d = W // n_heads
+    ok = attn_takes(B, T, n_heads, d) if x.dtype == torch.bfloat16 else d in ATTN_HEAD_DIMS
+    if not ok:
+        raise ValueError(f"{what}: the CUDA kernel does not take {B} x {T} tokens of {n_heads} heads of "
+                         f"dim {d} (head dims {ATTN_HEAD_DIMS})")
+
+
+_K_MAJOR = WeakIdKeyDictionary()  # int8 kernel -> (its version, its K-major copy)
+
+
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """The K-major copy wᵀ [out, in] of an int8 kernel w [in, out] on the
+    card, which the int8 GEMM reads (wgmma takes 8-bit operands K-major
+    only): made by ``csrc/block_quant.cu``'s ``transpose_s8_kernel``
+    (``evr_transpose_s8``) on first use and kept beside w, weakly (it goes
+    when w does) and while w's version counter stays (an in-place change of w
+    makes it anew; an inference tensor, which has no counter, gets a fresh
+    copy each call). Made per call, the copies took 5.25 % of K3a and 2.35 %
+    of K3b at ViT-B/32's serving shape (``chip_smoke.py``, H100 80GB HBM3).
+    The params keep their layout: the copy is derived and never saved."""
+    hit = _K_MAJOR.get(w)
+    if hit is not None and hit[0] == w._version:
+        return hit[1]
+    K, N = w.shape
+    w_t = torch.empty((N, K), dtype=torch.int8, device=w.device)
+    rc = build.load("block_quant").evr_transpose_s8(
+        w.data_ptr(), w_t.data_ptr(), K, N, torch.cuda.current_stream(w.device).cuda_stream)
+    _raise_rc(rc, "k_major", tuple(w.shape))
+    if not w.is_inference():
+        _K_MAJOR[w] = (w._version, w_t)
+    return w_t
 
 
 def fused_attn_block_q(
@@ -601,7 +702,7 @@ def fused_attn_block_q(
     causal: bool = False,
 ) -> torch.Tensor:
     """x + out(attention(LN(x))) over int8 weights, kernel K3a on a CUDA
-    tensor (head dim 64 or 80, any T)."""
+    tensor (head dim 16, 64 or 80, any T, W a multiple of 64)."""
     refuse_grad("fused_attn_block_q", x, ln_scale, ln_bias, qkv_kq, qkv_ks, qkv_bias,
                 out_kq, out_ks, out_bias)
     dt = x.dtype
@@ -618,15 +719,17 @@ def fused_attn_block_q(
         "fused_attn_block_q", [dt, dt, _I8, _F32, _F32, _I8, _F32, _F32],
     )
     rows = B * T
+    _check_s8_gemms("fused_attn_block_q", x, [(rows, 3 * W, W), (rows, W, W)])
+    _check_heads("fused_attn_block_q", x, n_heads)
     lib = build.load("block_quant")
+    args = [k_major(t) if i in (2, 5) else t for i, t in enumerate(params)]  # the kernels K-major
     a_q = torch.empty((rows, W), dtype=torch.int8, device=x.device)
     a_scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
     qkv = torch.empty((rows, 3 * W), dtype=dt, device=x.device)
     o = torch.empty_like(x)
     out = torch.empty_like(x)
     rc = lib.evr_fused_attn_block_q(
-        _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in params),
-        a_q.data_ptr(), a_scale.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[dt], x.data_ptr(), *(t.data_ptr() for t in args), a_q.data_ptr(), a_scale.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
         B, T, W, n_heads, int(causal), 1.0 / math.sqrt(W // n_heads),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -660,16 +763,17 @@ def fused_mlp_block_q(
         "fused_mlp_block_q", [dt, dt, _I8, _F32, _F32, _I8, _F32, _F32],
     )
     rows = x.numel() // W
+    _check_s8_gemms("fused_mlp_block_q", x, [(rows, hid, W), (rows, W, hid)])
     lib = build.load("block_quant")
     dev = x.device
+    args = [k_major(t) if i in (2, 5) else t for i, t in enumerate(params)]  # the kernels K-major
     y_q = torch.empty((rows, W), dtype=torch.int8, device=dev)
     h = torch.empty((rows, hid), dtype=torch.float32, device=dev)
     h_q = torch.empty((rows, hid), dtype=torch.int8, device=dev)
     scales = torch.empty((2, rows), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     rc = lib.evr_fused_mlp_block_q(
-        _DTYPE_CODES[dt], x.data_ptr(), *(p.data_ptr() for p in params),
-        y_q.data_ptr(), scales[0].data_ptr(), h.data_ptr(), h_q.data_ptr(),
+        _DTYPE_CODES[dt], x.data_ptr(), *(t.data_ptr() for t in args), y_q.data_ptr(), scales[0].data_ptr(), h.data_ptr(), h_q.data_ptr(),
         scales[1].data_ptr(), out.data_ptr(), rows, W, hid, _ACT_CODES[activation],
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -852,7 +956,55 @@ def gemm_bf16(
     return out
 
 
-ATTN_HEAD_DIMS = (64, 80)
+def gemm_s8(
+    a_q: torch.Tensor, a_scale: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+    bias: torch.Tensor, epilogue: str = "store", dtype: torch.dtype = torch.bfloat16,
+    res: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The int8 GEMM under K3a and K3b on its own (``csrc/gemm_s8_sm90.cuh``
+    through the entry ``evr_gemm_s8`` of ``csrc/block_quant.cu``), for
+    checking and timing it alone; nothing on the serving path calls it. a
+    int8 [M, K] with fp32 row scales a_scale [M], w int8 [K, N] as the
+    params hold it (read through its cached K-major copy, ``k_major``) with
+    fp32 w_scale and bias [N]; the epilogues of
+    ``gemm_s8_plain`` (``GEMM_S8_EPILOGUES``): ``dtype`` (float32 or
+    bfloat16) is the residual's and the output's of ``"store"`` and
+    ``"residual"``, the activations write float32, ``"int32"`` the sums. A
+    CPU tensor takes ``gemm_s8_plain``; on the card a shape
+    ``gemm_s8_takes`` refuses raises before a library loads."""
+    if epilogue not in GEMM_S8_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"gemm_s8: dtype {dtype} not supported (float32 or bfloat16)")
+    if (res is None) != (epilogue != "residual"):
+        raise ValueError("gemm_s8: a residual is given with the residual epilogue, and only then")
+    if not a_q.is_cuda:
+        return gemm_s8_plain(a_q, a_scale, w_q, w_scale, bias, epilogue, dtype, res)
+    if a_q.dim() != 2 or w_q.dim() != 2 or a_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"gemm_s8: a {tuple(a_q.shape)}, w {tuple(w_q.shape)}")
+    (M, K), N = a_q.shape, w_q.shape[1]
+    for name, t, shape, dt in (("a", a_q, (M, K), _I8), ("a_scale", a_scale, (M,), _F32),
+                               ("w", w_q, (K, N), _I8), ("w_scale", w_scale, (N,), _F32),
+                               ("bias", bias, (N,), _F32)) + ((("res", res, (M, N), dtype),) if res is not None else ()):
+        if tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous() or t.device != a_q.device:
+            raise ValueError(f"gemm_s8: {name} must be a contiguous {dt} tensor of shape {shape} on {a_q.device}")
+    if not gemm_s8_takes(M, N, K):
+        raise ValueError(f"gemm_s8: the CUDA kernel does not take shape {(M, N, K)} (N a multiple of "
+                         f"{GEMM_S8_TILE_N}, K of {GEMM_S8_K_STEP})")
+    out_dtype = {"int32": torch.int32, "quick_gelu": _F32, "gelu": _F32}.get(epilogue, dtype)
+    out = torch.empty((M, N), dtype=out_dtype, device=a_q.device)
+    rc = build.load("block_quant").evr_gemm_s8(
+        _DTYPE_CODES[dtype], GEMM_S8_EPILOGUES[epilogue], a_q.data_ptr(), a_scale.data_ptr(),
+        k_major(w_q).data_ptr(), w_scale.data_ptr(), bias.data_ptr(), _ptr(res), out.data_ptr(), M, N, K,
+        torch.cuda.current_stream(a_q.device).cuda_stream,
+    )
+    _raise_rc(rc, "gemm_s8", (M, N, K))
+    gemm_s8.launches += 1
+    return out
+
+
+ATTN_HEAD_DIMS = (16, 64, 80)  # the forward's
+ATTN_BWD_HEAD_DIMS = (64, 80)  # the backward's (d 16 has no training route to it: ROADMAP C4)
 ATTN_TILE = 64  # query rows per consumer warpgroup, keys per block
 ATTN_CONSUMERS = 2  # consumer warpgroups (query tiles) per block
 ATTN_V_SLOTS = 4  # the v ring
@@ -901,13 +1053,20 @@ def attn_k_slots(T: int, d: int) -> int:
 def attn_takes(seqs: int, T: int, n_heads: int, d: int) -> bool:
     """Whether the bf16 attention forward (``csrc/attn_sm90.cuh``'s
     ``takes``, which this mirrors) runs ``seqs`` sequences of T tokens and
-    ``n_heads`` heads of dim ``d``: head dim 64 or 80, any T, and a grid of
-    one block per pair of 64-row query tiles, head and sequence within 2³¹ −
-    1 blocks."""
+    ``n_heads`` heads of dim ``d``: head dim 16, 64 or 80, any T, and a grid
+    of one block per pair of 64-row query tiles, head and sequence within
+    2³¹ − 1 blocks."""
     if d not in ATTN_HEAD_DIMS or min(seqs, T, n_heads) < 1:
         return False
     pairs = -(-(-(-T // ATTN_TILE)) // ATTN_CONSUMERS)
     return pairs * n_heads * seqs <= 2 ** 31 - 1
+
+
+def attn_bwd_takes(seqs: int, T: int, n_heads: int, d: int) -> bool:
+    """Whether the bf16 attention backward (``csrc/attn_bwd_sm90.cuh``:
+    ``takes_head_dim`` and the forward's grid rule) runs the shape: the
+    forward's rule at head dims ``ATTN_BWD_HEAD_DIMS``."""
+    return d in ATTN_BWD_HEAD_DIMS and attn_takes(seqs, T, n_heads, d)
 
 
 ATTN_BWD_SMEM_PER_BLOCK = 232448  # one block an SM: the most a block may take (227 KB)
@@ -952,13 +1111,13 @@ def attn_bwd_slots(T: int, d: int) -> tuple[int, bool]:
 
 def _check_attn_bwd(what: str, B: int, T: int, n_heads: int, d: int, *tensors: torch.Tensor) -> None:
     """A bf16 attention backward on the card, before any library loads: the
-    shape must be one the wgmma kernels take (the forward's rule,
-    ``attn_takes``: their grids are the same pairs of 64-row tiles), and
-    what TMA reads (qkv, do) must start on 16-byte boundaries. fp32 keeps
-    the CUDA-core kernels."""
-    if not attn_takes(B, T, n_heads, d):
+    shape must be one the wgmma kernels take (``attn_bwd_takes``: the
+    forward's rule at head dims 64 and 80; their grids are the same pairs of
+    64-row tiles), and what TMA reads (qkv, do) must start on 16-byte
+    boundaries. fp32 keeps the CUDA-core kernels."""
+    if not attn_bwd_takes(B, T, n_heads, d):
         raise ValueError(f"{what}: the CUDA kernel does not take {B} x {T} tokens of {n_heads} heads of "
-                         f"dim {d} (the bf16 attention backward takes head dims {ATTN_HEAD_DIMS})")
+                         f"dim {d} (the bf16 attention backward takes head dims {ATTN_BWD_HEAD_DIMS})")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: qkv and do must start on 16-byte boundaries")
 
@@ -1039,6 +1198,7 @@ def attn_backward(qkv: torch.Tensor, dout: torch.Tensor, n_heads: int, causal: b
 fused_attn_block.launches = 0
 fused_mlp_block.launches = 0
 gemm_bf16.launches = 0
+gemm_s8.launches = 0
 attn_forward.launches = 0
 attn_backward.launches = 0
 fused_attn_block_q.launches = 0
@@ -1185,8 +1345,8 @@ def fused_block_merged(
     activation: str = "quick_gelu",
     causal: bool = False,
 ) -> torch.Tensor:
-    """One whole residual block, kernel K9 on a CUDA tensor (head dim 64 or
-    80, any T): K1's math then K2's from one C call, bit-equal to
+    """One whole residual block, kernel K9 on a CUDA tensor (head dim 16, 64
+    or 80, any T): K1's math then K2's from one C call, bit-equal to
     ``fused_block_apply``. Forward only, as in the JAX package."""
     attn, mlp = block_half_params(p)
     refuse_grad("fused_block_merged", x, *attn, *mlp)
@@ -1210,6 +1370,7 @@ def fused_block_merged(
         "fused_block_merged", x, [(rows, 3 * W, W), (rows, W, W), (rows, hid, W), (rows, W, hid)],
         [params[i] for i in (2, 4, 8, 10)], [params[i] for i in (3, 5, 9, 11)],
     )
+    _check_heads("fused_block_merged", x, n_heads)
     lib = build.load("block_merged")
     # the LN parameters as the row pass reads them: their element-type values in fp32
     params = [t.float() if i in (0, 1, 6, 7) else t for i, t in enumerate(params)]

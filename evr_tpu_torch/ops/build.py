@@ -124,6 +124,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.evr_fused_mlp_block_q
         fn.argtypes = [i] + [p] * 15 + [i, i, i, i, p]
         fn.restype = i
+        fn = lib.evr_gemm_s8
+        fn.argtypes = [i, i] + [p] * 7 + [i, i, i, p]
+        fn.restype = i
+        fn = lib.evr_transpose_s8
+        fn.argtypes = [p, p, i, i, p]
+        fn.restype = i
     elif name == "topk_fused":
         fn = lib.evr_fused_topk
         fn.argtypes = [i, p, p, p, i, i, i, i, i, i, p, p, p]

@@ -101,8 +101,13 @@ using attn90::pack_a;
 using attn90::scale_tile;
 
 constexpr int kConsumers = 2;                       // consumer warpgroups: tiles per block
-// the forward's grid of tile pairs, so the forward's shape rule (attn90::takes) is the backward's too
+// the forward's grid of tile pairs, so the forward's shape rule (attn90::takes) is the backward's too,
+// at the head dims the backward takes
 static_assert(kConsumers == attn90::kConsumers, "pairs of 64-row tiles, as the forward");
+
+// the head dims the backward takes: 64 and 80 (d 16, the tiny test tower's,
+// has no training route to the fused backward: ROADMAP C4)
+__host__ __device__ constexpr bool takes_head_dim(int d) { return d == 64 || d == 80; }
 constexpr int kThreads = 128 * (kConsumers + 1);    // and the producer warpgroup
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg: 128 x 40 + 256 x 232 <= 65,536
 constexpr size_t kSmemPerBlock = 232448;         // the most one block of an H100 may take (227 KB)
@@ -121,6 +126,7 @@ __device__ __forceinline__ float ex(float x) { return exp2f(x * kLog2e); }
 // the slots, then the mbarriers (q full; per slot full and empty)
 template <int D>
 struct QPlan {
+  static_assert(takes_head_dim(D), "the backward takes head dims 64 and 80");
   static constexpr uint32_t kTileBytes = HeadTile<D>::kTileBytes;
   static constexpr size_t smem(int slots) {
     return 1024 + static_cast<size_t>(2 * kConsumers + 2 * slots) * kTileBytes + 8 * (1 + 2 * slots);
@@ -625,14 +631,14 @@ template <typename E>
 int launch_attn_bwd_sm90(const E* qkv, const E* dout, E* o, float* st, float* dqkv, E* dqkv_r, int B, int T, int W,
                          int H, int causal, float scale, cudaStream_t stream) {
   static_assert(std::is_same<E, bf16>::value, "the wgmma backward is bf16 only");
-  if (H < 1 || W % H != 0 || !attn90::takes(B, T, H, W / H) || W % 8 != 0) return -1;
+  if (H < 1 || W % H != 0 || !attn_bwd90::takes_head_dim(W / H) || !attn90::takes(B, T, H, W / H) || W % 8 != 0)
+    return -1;
   if (dqkv_r == nullptr || !aligned16(qkv) || !aligned16(dout) || !aligned16(o) || !aligned16(dqkv) ||
       !aligned16(dqkv_r))
     return -1;
-  return attn90::dispatch(W / H, [&](auto d) {
-    return attn_bwd90::launch<decltype(d)::value>(qkv, dout, o, st, dqkv, dqkv_r, B, T, W, H, causal, scale,
-                                                  stream);
-  });
+  if (W / H == 64)
+    return attn_bwd90::launch<64>(qkv, dout, o, st, dqkv, dqkv_r, B, T, W, H, causal, scale, stream);
+  return attn_bwd90::launch<80>(qkv, dout, o, st, dqkv, dqkv_r, B, T, W, H, causal, scale, stream);
 }
 
 }  // namespace evr

@@ -1,6 +1,7 @@
 // The bf16 attention forward, written for Hopper: per (sequence, head),
 //     o = softmax(round(q * scale) k^T) v,
-// q, k and v [T, d] in bf16, head dim d = 64 or 80, any T, causal or not.
+// q, k and v [T, d] in bf16, head dim d = 16, 64 or 80, any T, causal or
+// not.
 // The forward of K1, K3a and K9 (flash.cuh's launch_flash_fwd, on the packed
 // qkv [B*T, 3W] of the block) and of K6a and K6b (flash_attn.cu, on
 // contiguous [B*H, T, d] arrays) in bf16; their fp32 calls keep the
@@ -39,7 +40,8 @@
 //     tiles, then (k,) v tiles, with a full and an empty mbarrier a slot. A
 //     row of d 80 is two boxes: columns [0, 64) under the 128-byte swizzle
 //     and [64, 80) under the 32-byte swizzle (a 128-byte-swizzled box is at
-//     most 128 bytes wide);
+//     most 128 bytes wide); a row of d 16 (the tiny test tower) is that
+//     16-column box alone;
 //   - two blocks on an SM (the consumers wait on their own products, so a
 //     second block's warpgroups fill the gaps): shared memory is sized to
 //     the key row, each block under half of the SM's 228 KB;
@@ -51,7 +53,8 @@
 //     and walk 2 reads it again from there; longer rows stream k twice
 //     through the same slots;
 //   - S = q k^T by wgmma m64n64k16 with both operands K-major from shared
-//     memory (a fifth, 32-byte-swizzled k16 step at d 80), S in registers:
+//     memory (a fifth, 32-byte-swizzled k16 step at d 80, that step alone
+//     at d 16), S in registers:
 //     each thread holds two rows' 16 columns of a key block, so the row max
 //     takes two quad shuffles and no score reaches shared memory; walk 1
 //     keeps the next block's product in flight (two score buffers) while it
@@ -61,7 +64,8 @@
 //     chunk is the register layout of wgmma's A operand) and runs p . v by
 //     wgmma with A from registers and v as an MN-major B through the
 //     transpose bit (m64n64k16, plus m64n16k16 on the 32-byte-swizzled box
-//     at d 80); o stays in registers (32 or 40 floats a thread), and the
+//     at d 80; m64n16k16 alone at d 16); o stays in registers (32, 40 or 8
+//     floats a thread), and the
 //     next block's scores are issued behind p . v, one wait for both;
 //   - the epilogue divides by l, rounds, stages the tile over its own q tile
 //     and writes rows below T with 16-byte stores.
@@ -95,23 +99,28 @@ constexpr int kVSlots = 4;                       // the v ring
 constexpr size_t kSmemPerSm = 233472;            // an H100 SM's 228 KB
 constexpr size_t kSmemPerBlock = kSmemPerSm / 2 - 1024;  // two blocks an SM, 1 KB each kept by the runtime
 
-// the head dims the kernel takes
-__host__ __device__ constexpr bool takes_head_dim(int d) { return d == 64 || d == 80; }
+// the head dims the forward takes (the backward, attn_bwd_sm90.cuh, takes 64
+// and 80 only)
+__host__ __device__ constexpr bool takes_head_dim(int d) { return d == 16 || d == 64 || d == 80; }
 
 __host__ __device__ constexpr int key_blocks(int T) { return (T + kTile - 1) / kTile; }
 
 // -- head tiles: the pieces the forward and the backward (attn_bwd_sm90.cuh) share --
 
 // A tile is 64 rows of one head's D columns (q, k, v or do), stored as a
-// 128-byte-swizzled box of columns [0, 64) and, at D = 80, a
-// 32-byte-swizzled box of [64, 80) right after it; every tile starts on the
-// swizzle's 1,024-byte period.
+// 128-byte-swizzled box of columns [0, kWide) (64 columns, none at D = 16)
+// and, at D = 80 and 16, a 32-byte-swizzled box of the kTail = 16 columns
+// after them right after it; every tile starts on the swizzle's 1,024-byte
+// period.
 template <int D>
 struct HeadTile {
-  static_assert(takes_head_dim(D), "head dim 64 or 80");
-  static constexpr bool kSplit = D == 80;
-  static constexpr uint32_t kBox0 = kTile * 64 * 2;  // 8 KB
+  static_assert(takes_head_dim(D), "head dim 16, 64 or 80");
+  static constexpr int kWide = D / 64 * 64;  // columns of the 128-byte-swizzled box
+  static constexpr int kTail = D - kWide;    // columns of the 32-byte-swizzled box
+  static constexpr bool kSplit = kTail != 0;  // the 16-column box is there
+  static constexpr uint32_t kBox0 = kTile * kWide * 2;  // where it starts: 8 KB, or 0 at D = 16
   static constexpr uint32_t kTileBytes = kTile * D * 2;
+  static_assert(kTail == 0 || kTail == 16, "one 16-column box at most");
   static_assert(kTileBytes % 1024 == 0, "tiles on the 128-byte swizzle's period");
 };
 
@@ -120,8 +129,9 @@ struct HeadTile {
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m, const CUtensorMap* m2, int col,
                                           int row, int seq, uint32_t bar) {
-  tma_load_3d(dst, m, bar, col, row, seq);
-  if constexpr (HeadTile<D>::kSplit) tma_load_3d(dst + HeadTile<D>::kBox0, m2, bar, col + 64, row, seq);
+  using HT = HeadTile<D>;
+  if constexpr (HT::kWide > 0) tma_load_3d(dst, m, bar, col, row, seq);
+  if constexpr (HT::kSplit) tma_load_3d(dst + HT::kBox0, m2, bar, col + HT::kWide, row, seq);
 }
 
 // every bf16 of a tile times the scale, rounded (the scaled q): thread t of
@@ -144,27 +154,30 @@ __device__ __forceinline__ void scale_tile(unsigned char* tile, float scale, int
 
 // s[64 x 64] = a . b^T over the head dim, both tiles K-major in shared
 // memory (q k^T, do v^T, k q^T, v do^T): four 128-byte-swizzled k16 steps,
-// and at D = 80 a fifth on the 32-byte-swizzled box. Issued, not committed.
+// and at D = 80 a fifth on the 32-byte-swizzled box (at D = 16 that one
+// alone). Issued, not committed.
 template <int D>
 __device__ __forceinline__ void issue_ss(float (&s)[32], uint32_t a, uint32_t b) {
+  using HT = HeadTile<D>;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64(s, desc_kmajor(a, kk), desc_kmajor(b, kk), kk > 0);
-  if constexpr (HeadTile<D>::kSplit)
-    wgmma_ss_n64(s, desc_kmajor32(a + HeadTile<D>::kBox0), desc_kmajor32(b + HeadTile<D>::kBox0), true);
+  for (int kk = 0; kk < HT::kWide / 16; ++kk) wgmma_ss_n64(s, desc_kmajor(a, kk), desc_kmajor(b, kk), kk > 0);
+  if constexpr (HT::kSplit)
+    wgmma_ss_n64(s, desc_kmajor32(a + HT::kBox0), desc_kmajor32(b + HT::kBox0), HT::kWide > 0);
 }
 
 // o[64 x D] (+)= P . b over a 64-row chunk of the contraction: P from
 // registers (pa, four k16 chunks), the tile b MN-major (p v, ds k, p^T do,
-// ds^T q); o holds columns [0, 64), o2 at D = 80 columns [64, 80). The first
-// chunk overwrites o unless ``accumulate``. Issued, not committed.
+// ds^T q); o holds columns [0, 64) (not at D = 16), o2 at D = 80 columns
+// [64, 80) and at D = 16 all of them. The first chunk overwrites o unless
+// ``accumulate``. Issued, not committed.
 template <int D>
 __device__ __forceinline__ void issue_rs(float (&o)[32], float (&o2)[8], const uint32_t (&pa)[16], uint32_t b,
                                          bool accumulate) {
+  using HT = HeadTile<D>;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    wgmma_rs_n64(o, pa + 4 * c, desc_mnmajor(b, c), accumulate || c > 0);
-    if constexpr (HeadTile<D>::kSplit)
-      wgmma_rs_n16(o2, pa + 4 * c, desc_mnmajor32(b + HeadTile<D>::kBox0, c), accumulate || c > 0);
+    if constexpr (HT::kWide > 0) wgmma_rs_n64(o, pa + 4 * c, desc_mnmajor(b, c), accumulate || c > 0);
+    if constexpr (HT::kSplit) wgmma_rs_n16(o2, pa + 4 * c, desc_mnmajor32(b + HT::kBox0, c), accumulate || c > 0);
   }
 }
 
@@ -397,14 +410,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     pack_a(pa, sa);
     const int vs = kb % kVSlots;
     mbar_wait(v_full(vs), (kb / kVSlots) & 1);
-    fence_acc(o);
+    if constexpr (P::kWide > 0) fence_acc(o);
     if constexpr (P::kSplit) fence_acc(o2);
     wgmma_fence();
     issue_rs<D>(o, o2, pa, v_tile(vs), kb > 0);
     wgmma_commit();
     if (kb + 1 < my_kb) issue_scores(sa, kb + 1, 1);
     wgmma_wait<0>();
-    fence_acc(o);
+    if constexpr (P::kWide > 0) fence_acc(o);
     if constexpr (P::kSplit) fence_acc(o2);
     fence_acc(sa);
     if (t == 0) mbar_arrive(v_empty(vs));
@@ -426,17 +439,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   // product of the warpgroup is done), then 16-byte stores of rows below T
   named_bar_sync(1 + wg, 128);
   bf16* stage = reinterpret_cast<bf16*>(smem + wg * P::kTileBytes);
+  if constexpr (P::kWide > 0) {
 #pragma unroll
-  for (int e = 0; e < 32; e += 2) {
-    const int hr = (e / 2) % 2;
-    *reinterpret_cast<__nv_bfloat162*>(stage + (r0 + 8 * hr) * D + 8 * (e / 4) + c0) =
-        __floats2bfloat162_rn(o[e] / l[hr], o[e + 1] / l[hr]);
+    for (int e = 0; e < 32; e += 2) {
+      const int hr = (e / 2) % 2;
+      *reinterpret_cast<__nv_bfloat162*>(stage + (r0 + 8 * hr) * D + 8 * (e / 4) + c0) =
+          __floats2bfloat162_rn(o[e] / l[hr], o[e + 1] / l[hr]);
+    }
   }
   if constexpr (P::kSplit) {
 #pragma unroll
     for (int e = 0; e < 8; e += 2) {
       const int hr = (e / 2) % 2;
-      *reinterpret_cast<__nv_bfloat162*>(stage + (r0 + 8 * hr) * D + 64 + 8 * (e / 4) + c0) =
+      *reinterpret_cast<__nv_bfloat162*>(stage + (r0 + 8 * hr) * D + P::kWide + 8 * (e / 4) + c0) =
           __floats2bfloat162_rn(o2[e] / l[hr], o2[e + 1] / l[hr]);
     }
   }
@@ -460,18 +475,23 @@ inline float round_bf16(float v) {
 }
 
 // the tensor maps of a [seqs, T, cols] bf16 array read in head tiles: 64
-// rows of columns [c, c + 64) under the 128-byte swizzle and, at D = 80,
-// [c + 64, c + 80) under the 32-byte swizzle (m2; at D = 64 a copy of m, not
-// read)
+// rows of columns [c, c + 64) under the 128-byte swizzle (m) and, at D = 80,
+// [c + 64, c + 80) under the 32-byte swizzle (m2); at D = 64 m2 is a copy of
+// m, at D = 16 m is a copy of m2 (columns [c, c + 16)), neither read
 template <int D>
 bool encode_head_maps(EncodeTiled encode, CUtensorMap* m, CUtensorMap* m2, const bf16* src, int seqs, int T,
                       int cols) {
-  if (!encode_map3(encode, m, src, seqs, T, cols, kTile, 64, CU_TENSOR_MAP_SWIZZLE_128B)) return false;
-  if constexpr (!HeadTile<D>::kSplit) {
+  using HT = HeadTile<D>;
+  if constexpr (HT::kWide > 0) {
+    if (!encode_map3(encode, m, src, seqs, T, cols, kTile, 64, CU_TENSOR_MAP_SWIZZLE_128B)) return false;
+  }
+  if constexpr (!HT::kSplit) {
     *m2 = *m;
     return true;
   } else {
-    return encode_map3(encode, m2, src, seqs, T, cols, kTile, 16, CU_TENSOR_MAP_SWIZZLE_32B);
+    if (!encode_map3(encode, m2, src, seqs, T, cols, kTile, 16, CU_TENSOR_MAP_SWIZZLE_32B)) return false;
+    if constexpr (HT::kWide == 0) *m = *m2;
+    return true;
   }
 }
 
@@ -500,7 +520,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, int cols, int col_k, int
 }
 
 // the shapes the kernel takes (ops/block_fused.py::attn_takes mirrors this):
-// head dim 64 or 80, any T, a grid of at most 2^31 - 1 blocks
+// head dim 16, 64 or 80, any T, a grid of at most 2^31 - 1 blocks
 inline bool takes(int seqs, int T, int H, int d) {
   if (!takes_head_dim(d) || seqs < 1 || T < 1 || H < 1) return false;
   const long long pairs = (key_blocks(T) + kConsumers - 1) / kConsumers;
@@ -509,6 +529,7 @@ inline bool takes(int seqs, int T, int H, int d) {
 
 template <typename F>
 int dispatch(int d, F&& f) {
+  if (d == 16) return f(std::integral_constant<int, 16>{});
   if (d == 64) return f(std::integral_constant<int, 64>{});
   if (d == 80) return f(std::integral_constant<int, 80>{});
   return -1;

@@ -1,6 +1,6 @@
 // K1: the attention half of a pre-LN residual block,
-//     out = x + out_proj(MHA(LN1(x))),  x [B, T, W] bf16 or fp32, head dim 64
-//     or 80, any T.
+//     out = x + out_proj(MHA(LN1(x))),  x [B, T, W] bf16 or fp32, head dim
+//     16, 64 or 80, any T, W a multiple of 64.
 //
 // Replaces: evr_tpu/ops/block_fused.py::fused_attn_block (Pallas kernel body
 // _attn_block_kernel). Rounding points reproduced from it: LN statistics in

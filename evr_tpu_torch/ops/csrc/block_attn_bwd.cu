@@ -64,7 +64,7 @@ int attn_block_bwd(const T* x, const T* g, const T* ln_s, const T* ln_b, const T
                    float* dqkv, T* dqkv_r, float* dy, float* partial, float* split, int B, int T_, int W, int H,
                    int causal, float scale, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  if (H < 1 || W % H != 0 || !flash_head_dim(W / H) || T_ < 1) return -1;
+  if (H < 1 || W % H != 0 || !flash_bwd_head_dim(W / H) || T_ < 1) return -1;
   const int M = B * T_, W3 = 3 * W;
   if (kBf16 ? !attn_bwd_gemms_take(M, W) || dqkv_r == nullptr : W % kTBN != 0) return -1;
   int rc = launch_ln_rows<T>(x, ln_s, ln_b, y, mean, rstd, M, W, stream);

@@ -1,8 +1,8 @@
 // K9: a whole pre-LN residual block in one call,
 //     xc  = x + out_proj(MHA(LN1(x))),  rounded to the element type,
 //     out = xc + proj(act(fc(LN2(xc)))),
-//     x [B, T, W] bf16 or fp32, head dim 64 or 80, any T, quickGELU or exact
-//     GELU, causal or not; forward only.
+//     x [B, T, W] bf16 or fp32, head dim 16, 64 or 80, any T, W a multiple
+//     of 64, quickGELU or exact GELU, causal or not; forward only.
 //
 // Replaces: evr_tpu/ops/block_fused.py::fused_block_merged (Pallas kernel
 // body _merged_block_kernel). The TPU kernel runs K1's math and then K2's in

@@ -212,8 +212,11 @@ int launch_layer_norm(const T* x, const float* scale, const float* bias, T* y, i
 // out[M, N] = epilogue(A[M, K] @ W[K, N] + bias) in full fp32 (no TF32), one
 // 64x128 output tile per block, K walked in 32-wide steps through shared
 // memory; 8 warps as 2 x 4, each owning a 32x32 quarter (2 x 2 Tile<float>
-// products). The block halves' fp32 calls run here; their bf16 calls run on
-// the wgmma GEMM of gemm_sm90.cuh.
+// products). N a multiple of 64: a last tile half past N reads zeros for its
+// missing columns and stores none of them (the tiny test tower's N of 64 and
+// 192); every N a multiple of 128 runs as before, no column masked. The
+// block halves' fp32 calls run here; their bf16 calls run on the wgmma GEMM
+// of gemm_sm90.cuh.
 constexpr int kGemmBM = 64, kGemmBN = 128, kGemmBK = 32;
 
 __host__ __device__ constexpr size_t gemm_smem_bytes() {
@@ -222,7 +225,7 @@ __host__ __device__ constexpr size_t gemm_smem_bytes() {
 }
 
 inline bool gemm_f32_takes(int M, int N, int K) {
-  return M >= 1 && N >= kGemmBN && K >= kGemmBK && N % kGemmBN == 0 && K % kGemmBK == 0 &&
+  return M >= 1 && N >= kGemmBN / 2 && K >= kGemmBK && N % (kGemmBN / 2) == 0 && K % kGemmBK == 0 &&
          (M + kGemmBM - 1) / kGemmBM <= 65535;
 }
 
@@ -257,7 +260,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
     }
     for (int i = tid; i < BK * BN; i += kThreads) {
       const int r = i / BN, c = i % BN;
-      sb[r * LDB + c] = w[static_cast<size_t>(k0 + r) * N + col0 + c];
+      sb[r * LDB + c] = col0 + c < N ? w[static_cast<size_t>(k0 + r) * N + col0 + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -279,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
 
   for (int i = tid; i < BM * BN; i += kThreads) {
     const int r = i / BN, c = i % BN, gr = row0 + r, gc = col0 + c;
-    if (gr >= M) continue;
+    if (gr >= M || gc >= N) continue;
     const size_t o = static_cast<size_t>(gr) * N + gc;
     const float rv = epilogue_reads_residual<EPI>() ? res[o] : 0.f;
     out[o] = apply_epilogue<float, EPI>(sc[r * LDC + c] + bias[gc], rv);
@@ -297,7 +300,7 @@ int launch_gemm(const float* a, const float* w, const float* bias, const float* 
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(N / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
+  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
   kernel<<<grid, kThreads, smem, stream>>>(a, w, bias, res, out, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

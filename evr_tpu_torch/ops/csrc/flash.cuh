@@ -1,7 +1,7 @@
-// Attention over any sequence length in 64-row tiles, head dim D = 64 or 80:
-// the forward of K1 (block_attn.cu), K3a (block_quant.cu) and K9
-// (block_merged.cu), and the attention part of K5a's backward
-// (block_attn_bwd.cu). Inputs are the rounded qkv [B*T, 3W] of the block
+// Attention over any sequence length in 64-row tiles: the forward of K1
+// (block_attn.cu), K3a (block_quant.cu) and K9 (block_merged.cu) at head dim
+// D = 16, 64 or 80, and the attention part of K5a's backward
+// (block_attn_bwd.cu) at D = 64 or 80. Inputs are the rounded qkv [B*T, 3W] of the block
 // (q, k, v of head h at columns h*D, W + h*D, 2W + h*D).
 //
 // Replaces: the attention core of evr_tpu/ops/block_fused.py::
@@ -44,10 +44,10 @@
 // tile, head, sequence). The tile edge (64 query rows, 64 keys) is fixed and
 // the head dim is a template parameter: q, k, v and do tiles are [64][D + 8],
 // the probability and ds tiles [64][72]. The [64, 64] products (q k^T, do
-// v^T) contract over D (4 steps of 16 at 64, 5 at 80), two 16 x 16 output
-// tiles per warp; the [64, D] products (P.V, dq, dk, dv) contract over 64 and
-// spread their 4 D/16 output tiles over the 8 warps (16 at D = 64, 20 at D =
-// 80, where warps 0-3 own a third). Tile products run on the fp32 warp tile
+// v^T) contract over D (4 steps of 16 at 64, 5 at 80, 1 at 16), two 16 x 16
+// output tiles per warp; the [64, D] products (P.V, dq, dk, dv) contract over
+// 64 and spread their 4 D/16 output tiles over the 8 warps (16 at D = 64, 20
+// at D = 80, where warps 0-3 own a third, 4 at D = 16, where warps 4-7 idle). Tile products run on the fp32 warp tile
 // product of common.cuh (FMAs); the per-row
 // softmax arithmetic is one warp per 8 rows. A causal tower skips the key
 // blocks (or query tiles) that its mask empties.
@@ -63,8 +63,10 @@ constexpr int kFT = 64;         // the tile edge: query rows and keys per tile
 constexpr int kFLDP = kFT + 8;  // probability and ds tiles [64][kFLDP] (T)
 constexpr int kFLDS = kFT + 4;  // fp32 score tiles [64][kFLDS]
 
-// the head dims the kernels take
-inline bool flash_head_dim(int d) { return d == 64 || d == 80; }
+// the head dims the forward kernels take (d 16: the tiny test tower), and
+// those the backward kernels take
+inline bool flash_head_dim(int d) { return d == 16 || d == 64 || d == 80; }
+inline bool flash_bwd_head_dim(int d) { return d == 64 || d == 80; }
 
 template <typename T, int D>
 struct FlashLayout {
@@ -312,6 +314,7 @@ int launch_flash_fwd(const T* qkv, T* o, int B, int T_, int W, int H, int causal
     return launch_attn_sm90_packed(qkv, o, B, T_, W, H, causal, scale, stream);
   } else {
     if (H < 1 || W % H != 0) return -1;
+    if (W / H == 16) return launch_flash_fwd_d<T, 16>(qkv, o, B, T_, W, H, causal, scale, stream);
     if (W / H == 64) return launch_flash_fwd_d<T, 64>(qkv, o, B, T_, W, H, causal, scale, stream);
     if (W / H == 80) return launch_flash_fwd_d<T, 80>(qkv, o, B, T_, W, H, causal, scale, stream);
     return -1;

@@ -1,6 +1,6 @@
-// K6: multi-head attention over q, k, v [B, H, T, D] (bf16 or fp32, D = 64
-//     or 80, any T, optional causal mask), o = softmax(q k^T / sqrt(D)) v in
-//     the layout and dtype of q.
+// K6: multi-head attention over q, k, v [B, H, T, D] (bf16 or fp32, D = 16,
+//     64 or 80, any T, optional causal mask), o = softmax(q k^T / sqrt(D)) v
+//     in the layout and dtype of q.
 //
 // Replaces: evr_tpu/ops/attention.py::_flash_forward_impl, both of its Pallas
 // kernels: K6a, the whole-sequence route (_attention_kernel_full: no
@@ -245,6 +245,7 @@ extern "C" int evr_flash_attention(int dtype, const void* q, const void* k, cons
                                    int T, int d, int causal, float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (BH < 1 || T < 1 || (T + evr::kBR - 1) / evr::kBR > 65535) return -1;
+  if (dtype == 0 && d == 16) return evr::launch<float, 16>(q, k, v, o, BH, T, causal, scale, s);
   if (dtype == 0 && d == 64) return evr::launch<float, 64>(q, k, v, o, BH, T, causal, scale, s);
   if (dtype == 0 && d == 80) return evr::launch<float, 80>(q, k, v, o, BH, T, causal, scale, s);
   if (dtype == 1)

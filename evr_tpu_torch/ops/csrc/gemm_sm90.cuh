@@ -23,9 +23,14 @@
 // MB = 62 us. Bound by operations, so the design is about keeping the
 // tensor cores fed:
 //   - a 128 x 256 output tile, K walked in 64-wide steps (each 64-element row
-//     of a K-major tile is one 128-byte swizzle line);
-//   - a ring of kStages = 4 stages (48 KB each: A 128 x 64, B 64 x 256) in
-//     dynamic shared memory, with a full and an empty mbarrier a stage;
+//     of a K-major tile is one 128-byte swizzle line); a forward product
+//     (A and B as the params lie, a bf16 epilogue) whose N is a multiple of
+//     64 but not of 256 takes a 128 x 64 tile instead (the tiny test
+//     tower's N of 64 and 192), so every N a multiple of 256 keeps the wide
+//     tile and its bits;
+//   - a ring of kStages = 4 stages (48 KB each: A 128 x 64, B 64 x 256; 24
+//     KB at the narrow tile) in dynamic shared memory, with a full and an
+//     empty mbarrier a stage;
 //   - one producer warp (warpgroup 2, registers cut to 40 by setmaxnreg)
 //     whose one thread issues the TMA loads (cp.async.bulk.tensor.2d), all
 //     with the 128-byte swizzle: a K-major A as one box of 128 rows x 64, an
@@ -36,7 +41,8 @@
 //     K as their outer dimension (the weight gradients: K = the rows);
 //   - two consumer warpgroups (registers raised to 232), each owning 64 x 256
 //     of the tile as 128 fp32 accumulators a thread, through wgmma.mma_async
-//     m64n256k16 with both operands from shared memory; one wgmma group stays
+//     m64n256k16 (m64n64k16 at the narrow tile) with both operands from
+//     shared memory; one wgmma group stays
 //     in flight while the next stage's is issued, and a stage is released to
 //     the producer once its products are done;
 //   - the epilogue from the accumulator registers, staged through the freed
@@ -86,16 +92,28 @@ struct GemmOut {
 namespace sm90 {
 
 constexpr int kBM = 128, kBN = 256, kBK = 64, kStages = 4;
+constexpr int kBNarrow = 64;                        // the narrow tile's N (forward products, N % 256 != 0)
 constexpr int kConsumers = 2;                       // warpgroups of 128 threads, 64 rows each
 constexpr int kGemmThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr int kBox = 64;                            // an MN-major TMA box: 64 columns (128 B) x kBK rows
 constexpr uint32_t kABytes = kBM * kBK * 2;         // 16 KB
 static_assert(kBoxBytes == kBox * kBK * 2, "an MN-major box: 64 x 64 (sm90.cuh)");
-constexpr uint32_t kStageBytes = kABytes + kBN * kBK * 2;  // 48 KB
-constexpr int kEpiLd = kBN + 8;                     // staged bf16 output row (elements), 16-byte multiple
-constexpr int kEpiLd32 = kBN + 4;                   // staged fp32 output row (floats), 16-byte multiple
-constexpr size_t kSmemBytes = 1024 + size_t(kStages) * kStageBytes + 2 * kStages * sizeof(uint64_t);
-static_assert(kConsumers * 64 * kEpiLd32 * 4 <= kStages * kStageBytes, "epilogue staging fits in the ring");
+// a stage at tile width BN: A 128 x 64, B 64 x BN (48 KB, or 24 KB narrow)
+template <int BN>
+__host__ __device__ constexpr uint32_t stage_bytes() { return kABytes + BN * kBK * 2; }
+constexpr uint32_t kStageBytes = stage_bytes<kBN>();
+template <int BN>
+__host__ __device__ constexpr int epi_ld() { return BN + 8; }  // staged bf16 output row (elements), 16-byte multiple
+template <int BN>
+__host__ __device__ constexpr int epi_ld32() { return BN + 4; }  // staged fp32 output row (floats), 16-byte multiple
+template <int BN>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return 1024 + size_t(kStages) * stage_bytes<BN>() + 2 * kStages * sizeof(uint64_t);
+}
+static_assert(kConsumers * 64 * epi_ld32<kBN>() * 4 <= kStages * stage_bytes<kBN>(),
+              "epilogue staging fits in the ring");
+static_assert(kConsumers * 64 * epi_ld32<kBNarrow>() * 4 <= kStages * stage_bytes<kBNarrow>(),
+              "epilogue staging fits in the narrow ring");
 constexpr int kSplitMax = 4;          // K slices of a weight gradient on a small grid
 constexpr int kSplitBelowTiles = 66;  // half of an H100's 132 SMs
 constexpr int kSplitMinSteps = 16;    // K steps a slice walks at least
@@ -139,6 +157,33 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)), "n"(TA ? 1 : 0), "n"(TB ? 1 : 0));
 }
 
+// d[64 x 64] = A[64 x 16] . B[16 x 64] (+ d): the narrow tile's product, the
+// transpose bits as above
+template <bool TA, bool TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db, bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)), "n"(TA ? 1 : 0), "n"(TB ? 1 : 0));
+}
+
+// d[64 x BN] (+)= A . B over one k16 step at the tile width
+template <int BN, bool TA, bool TB>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db, bool accumulate) {
+  if constexpr (BN == kBN)
+    wgmma_m64n256k16<TA, TB>(d, da, db, accumulate);
+  else
+    wgmma_m64n64k16<TA, TB>(d, da, db, accumulate);
+}
+
 // -- the kernel -----------------------------------------------------------------
 
 // d(act)/dh at h_pre, fp32: quickGELU or exact GELU (the A-S erf)
@@ -174,11 +219,14 @@ __device__ __forceinline__ void store_grad_epilogue(float4 v, float* out, bf16* 
   }
 }
 
-template <int EPI, bool A_MN, bool B_K>
+template <int EPI, bool A_MN, bool B_K, int BN = kBN>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,  // A [M, K] box 128 x 64, or [K, M] box 64 x 64
-                     const __grid_constant__ CUtensorMap map_b,  // B [K, N] box 64 x 64, or [N, K] box 256 x 64
+                     const __grid_constant__ CUtensorMap map_b,  // B [K, N] box 64 x 64, or [N, K] box BN x 64
                      const GemmOut o, int M, int N, int K, int k_slice) {
+  static_assert(BN == kBN || (BN == kBNarrow && !A_MN && !B_K), "the narrow tile serves forward products only");
+  constexpr uint32_t kStageBytes = stage_bytes<BN>();
+  constexpr int kEpiLd = epi_ld<BN>(), kEpiLd32 = epi_ld32<BN>();
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1,024 B: stage tiles start on that grid
   const uint32_t raw = smem_u32(smem_raw);
@@ -191,7 +239,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   auto tile_b = [base](int s) { return base + s * kStageBytes + kABytes; };
 
   const int wg = threadIdx.x / 128;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
   // this block's K slice: all of K, or slice blockIdx.z of a split weight gradient
   const int k0 = blockIdx.z * k_slice;
   const int nk = (min(K - k0, k_slice) + kBK - 1) / kBK;
@@ -224,7 +272,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
           tma_load_2d(tile_b(s), &map_b, full(s), k, n0);
         } else {
 #pragma unroll
-          for (int j = 0; j < kBN / kBox; ++j)
+          for (int j = 0; j < BN / kBox; ++j)
             tma_load_2d(tile_b(s) + j * kBoxBytes, &map_b, full(s), n0 + j * kBox, k);
         }
       }
@@ -235,7 +283,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     // the first product of the first stage overwrites d (scale-d 0), so the
     // accumulators need no zeroing: only wgmma defines them while a group is
     // in flight, and ptxas keeps the products pipelined
-    float d[128];
+    float d[BN / 2];
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % kStages;
       mbar_wait(full(s), (kt / kStages) & 1);
@@ -247,7 +295,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
         const uint32_t a = tile_a(s) + wg * kBoxBytes;
         const uint64_t da = A_MN ? desc_mnmajor(a, k) : desc_kmajor(a, k);
         const uint64_t db = B_K ? desc_kmajor(tile_b(s), k) : desc_mnmajor(tile_b(s), k);
-        wgmma_m64n256k16<A_MN, !B_K>(d, da, db, kt > 0 || k > 0);
+        wgmma_tile<BN, A_MN, !B_K>(d, da, db, kt > 0 || k > 0);
       }
       wgmma_commit();
       // one group in flight: the previous stage's products are done, so the
@@ -269,7 +317,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       float* stage = reinterpret_cast<float*>(smem) + wg * 64 * kEpiLd32;
       constexpr bool kBias = EPI == kActFwdQuick || EPI == kActFwdGelu;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
         const int col = 8 * j + 2 * (lane % 4);
         float2 b = make_float2(0.f, 0.f);
         if constexpr (kBias) b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o.bias + n0 + col));
@@ -282,7 +330,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       named_bar_sync(2 + wg, 128);
       // a split weight gradient writes its slice's partial sums to layer z
       float* out = static_cast<float*>(o.out) + static_cast<size_t>(blockIdx.z) * M * N;
-      constexpr int kVecs = kBN / 4;  // 16-byte vectors a row
+      constexpr int kVecs = BN / 4;  // 16-byte vectors a row
       for (int i = t; i < 64 * kVecs; i += 128) {
         const int r = i / kVecs, c = (i % kVecs) * 4;
         if (row0 + r >= M) continue;
@@ -293,7 +341,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     } else {
       bf16* out = static_cast<bf16*>(o.out);
       bf16* stage = reinterpret_cast<bf16*>(smem) + wg * 64 * kEpiLd;
-      constexpr int kVecs = kBN / 8;  // 16-byte vectors a row
+      constexpr int kVecs = BN / 8;  // 16-byte vectors a row
       if constexpr (epilogue_reads_residual<EPI>()) {
         for (int i = t; i < 64 * kVecs; i += 128) {
           const int r = i / kVecs, c = (i % kVecs) * 8;
@@ -304,7 +352,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
         named_bar_sync(2 + wg, 128);
       }
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
         const int col = 8 * j + 2 * (lane % 4);
         float2 b = make_float2(0.f, 0.f);
         if (o.bias != nullptr) b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o.bias + n0 + col));
@@ -351,16 +399,20 @@ __global__ void __launch_bounds__(256) split_sum_kernel(const float4* __restrict
 }  // namespace sm90
 
 // The shapes the wgmma GEMM takes in each layout (ops/block_fused.py::
-// gemm_takes mirrors this): N a multiple of the 256-wide tile; K a multiple
-// of the 64-wide step where it is an operand's contiguous dimension (a
-// K-major A or B), else any K (both operands hold K as their outer
-// dimension, and TMA zero-fills past it); M any positive row count up to the
-// grid's 65,535 row tiles, and with an MN-major A a multiple of 8 (the
-// [K, M] array's rows must be 16-byte multiples for TMA).
+// gemm_takes mirrors this): N a multiple of the 256-wide tile, or, for a
+// forward product (A and B as stored, no transposed layout), of the 64-wide
+// narrow tile; K a multiple of the 64-wide step where it is an operand's
+// contiguous dimension (a K-major A or B), else any K (both operands hold K
+// as their outer dimension, and TMA zero-fills past it); M any positive row
+// count up to the grid's 65,535 row tiles, and with an MN-major A a
+// multiple of 8 (the [K, M] array's rows must be 16-byte multiples for
+// TMA). K5's backward has transposed products of N = W, so it keeps W a
+// multiple of 256.
 template <bool A_MN = false, bool B_K = false>
 inline bool gemm_takes(int M, int N, int K) {
   const bool k_contiguous = !A_MN || B_K;
-  return M >= 1 && N >= sm90::kBN && N % sm90::kBN == 0 && K >= 1 && (!k_contiguous || K % sm90::kBK == 0) &&
+  const int n_tile = A_MN || B_K ? sm90::kBN : sm90::kBNarrow;
+  return M >= 1 && N >= n_tile && N % n_tile == 0 && K >= 1 && (!k_contiguous || K % sm90::kBK == 0) &&
          (!A_MN || M % 8 == 0) && (M + sm90::kBM - 1) / sm90::kBM <= 65535;
 }
 
@@ -393,6 +445,11 @@ int launch_gemm_sm90(const bf16* a, const bf16* b, GemmOut o, int M, int N, int 
                      cudaStream_t stream, int k_slice = 0) {
   using namespace sm90;
   if (!gemm_takes<A_MN, B_K>(M, N, K)) return -1;
+  // N off the wide tile (a forward product, as gemm_takes has it): the
+  // narrow tile, under a bf16 epilogue and in one pass
+  constexpr bool kNarrowTakes = !A_MN && !B_K && EPI < kF32;
+  const bool narrow = N % kBN != 0;
+  if (narrow && (!kNarrowTakes || k_slice != 0)) return -1;
   if (k_slice == 0)
     k_slice = EPI == kF32 ? gemm_k_slice<A_MN, B_K>(M, N, K) : K;
   else if (EPI != kF32 || k_slice < 1 || (k_slice < K && k_slice % kBK != 0))
@@ -415,15 +472,22 @@ int launch_gemm_sm90(const bf16* a, const bf16* b, GemmOut o, int M, int N, int 
   const bool ok_b =
       B_K ? encode_map(encode, &map_b, b, N, K, kBN, kBK) : encode_map(encode, &map_b, b, K, N, kBK, kBox);
   if (!ok_a || !ok_b) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = gemm_sm90_kernel<EPI, A_MN, B_K>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
   GemmOut to = o;
   if (splits > 1) to.out = split;
-  const dim3 grid(N / kBN, (M + kBM - 1) / kBM, splits);
-  kernel<<<grid, kGemmThreads, kSmemBytes, stream>>>(map_a, map_b, to, M, N, K, k_slice);
-  err = cudaGetLastError();
+  auto run = [&](auto kernel, size_t smem, int bn) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(N / bn, (M + kBM - 1) / kBM, splits), kGemmThreads, smem, stream>>>(map_a, map_b, to, M, N, K,
+                                                                                        k_slice);
+    return cudaGetLastError();
+  };
+  cudaError_t err;
+  if constexpr (kNarrowTakes) {
+    err = narrow ? run(gemm_sm90_kernel<EPI, false, false, kBNarrow>, smem_bytes<kBNarrow>(), kBNarrow)
+                 : run(gemm_sm90_kernel<EPI, A_MN, B_K>, smem_bytes<kBN>(), kBN);
+  } else {
+    err = run(gemm_sm90_kernel<EPI, A_MN, B_K>, smem_bytes<kBN>(), kBN);
+  }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n4 = static_cast<size_t>(M) * N / 4;
   const int blocks = static_cast<int>(std::min<size_t>((n4 + 255) / 256, 4096));

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the warp-specialised kernels, the bf16
-// GEMM (gemm_sm90.cuh), the bf16 attention forward (attn_sm90.cuh) and
-// backward (attn_bwd_sm90.cuh):
+// GEMM (gemm_sm90.cuh), the int8 GEMM (gemm_s8_sm90.cuh), the bf16 attention
+// forward (attn_sm90.cuh) and backward (attn_bwd_sm90.cuh):
 // PTX wrappers for mbarriers, TMA loads, named barriers and wgmma, the
 // wgmma shared-memory matrix descriptors of the layouts those kernels read,
 // and the host-side encoding of TMA tensor maps.
@@ -135,6 +135,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // -- wgmma at the attention kernels' tile edge (attn_sm90.cuh, attn_bwd_sm90.cuh) --
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64], both from shared memory, K-major
@@ -208,16 +214,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major bf16 [rows, cols] matrix read in boxes of box_rows x box_cols,
-// 128-byte swizzle, zeros past its edges
-inline bool encode_map(EncodeTiled encode, CUtensorMap* map, const bf16* ptr, int rows, int cols, int box_rows,
+// a row-major [rows, cols] matrix of bf16 or int8 read in boxes of box_rows
+// x box_cols, 128-byte swizzle, zeros past its edges
+template <typename E>
+inline bool encode_map(EncodeTiled encode, CUtensorMap* map, const E* ptr, int rows, int cols, int box_rows,
                        int box_cols) {
+  static_assert(sizeof(E) == 2 || sizeof(E) == 1, "bf16 or int8 elements");
+  const CUtensorMapDataType type = sizeof(E) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(E)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, type, 2, const_cast<E*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

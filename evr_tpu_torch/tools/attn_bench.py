@@ -1,7 +1,8 @@
-"""Hold the attention forward and backward to their plain versions and time
-them, for one or more source trees of the kernels, on one NVIDIA GPU.
+"""Hold the attention forward and backward, and the block halves, to their
+plain versions and time them, for one or more source trees of the kernels,
+on one NVIDIA GPU.
 
-    python -m evr_tpu_torch.tools.attn_bench [--csrc DIR ...] [--parts fwd,bwd] [--out FILE]
+    python -m evr_tpu_torch.tools.attn_bench [--csrc DIR ...] [--parts fwd,bwd,int8,blocks] [--out FILE]
 
 Each ``--csrc`` is an ``ops/csrc`` directory (default: this package's); give
 an older tree's too to compare the two on one card in one process. For each
@@ -13,7 +14,29 @@ processes started together: the tree's ``flash_attn.cu`` (K6, entry
 ``flash_backward``, K5a's attention backward (the function of
 ``ops.block_fused.attn_backward``), so that a tree from before those entries
 existed runs through the same device code as the block halves. ``--parts``
-picks the forward (``fwd``: K6 and the core), the backward (``bwd``) or both.
+picks the forward (``fwd``: K6 and the core), the backward (``bwd``), K3
+(``int8``) and K1, K2 and K9 (``blocks``), in any combination (default
+``fwd,bwd``).
+
+``int8`` compiles each tree's ``block_quant.cu`` and calls K3a and K3b
+(``evr_fused_attn_block_q``, ``evr_fused_mlp_block_q``) through a shim per
+tree: a tree whose library exports ``evr_gemm_s8`` (the wgmma int8 GEMM)
+takes each int8 kernel as its K-major copy (made once, as the wrapper
+does), an older one the kernels as the params hold them.
+At INT8_CHECKED's shapes (``chip_smoke.py``'s phase_parity_int8: ViT-B/32's
+vision and text shapes, T 577, ViT-H-14's vision shape, the tiny tower's),
+bf16 and fp32, quickGELU and exact GELU, every tree that takes a shape must
+give the same output bit for bit, and each within ``chip_smoke.py``'s K3
+bands of ``fused_*_block_q_plain``; a tree that refuses a shape (returns
+-1: the tiny tower before it was taken) is recorded as refusing it. K3a and
+K3b are then timed at INT8_TIMED (ViT-B/32 vision and ViT-H-14 vision
+serving, bf16), the trees in turns, beside their bound (int8 GEMM
+operations at 1,979 TOP/s and the attention at 989 TFLOP/s, against x, out
+and the weights at 3.35 TB/s). ``blocks`` compiles each tree's
+``block_attn.cu``, ``block_mlp.cu`` and ``block_merged.cu`` and runs K1, K2
+and K9 through the package's wrappers on each tree's library at
+BLOCKS_CHECKED's registry shapes, bf16 and fp32: every tree's output must
+equal the first tree's bit for bit.
 
 The backward is checked at every shape in bf16 and fp32 against
 ``attn_backward_plain``: o's max abs error, and for each of the q, k and v
@@ -97,6 +120,32 @@ K6_CHECKED = {
     "long-d80-causal": (2, 4, 1000, 80, True),
     "t129-d64": (3, 5, 129, 64, False),
 }
+# K3 on int8 weights: (B, T, W, H, causal, activation), chip_smoke.py's
+# phase_parity_int8 shapes, and its bands (INT8_FP32_TOL, BF16_TOL,
+# INT8_MIN_COS)
+INT8_CHECKED = {
+    "vision": (256, 50, 768, 12, False, "quick_gelu"),
+    "vision-gelu": (256, 50, 768, 12, False, "gelu"),
+    "text": (16, 77, 512, 8, True, "quick_gelu"),
+    "vitl": (32, 577, 1024, 16, False, "quick_gelu"),
+    "vith": (32, 257, 1280, 16, False, "gelu"),
+    "tiny": (256, 17, 64, 4, False, "quick_gelu"),
+    "tiny-text-gelu": (16, 77, 64, 4, True, "gelu"),
+}
+INT8_TIMED = {
+    "vision": (256, 50, 768, 12, False, "quick_gelu"),
+    "vith": (256, 257, 1280, 16, False, "gelu"),
+}
+INT8_FP32_TOL, INT8_MIN_COS = 1e-2, 0.99999
+H100_INT8_OPS = 1979e12
+# K1, K2 and K9 at the registry shapes they ran at before the narrow tiles:
+# (B, T, W, H, causal, activation)
+BLOCKS_CHECKED = {
+    "vision": (256, 50, 768, 12, False, "quick_gelu"),
+    "text": (16, 77, 512, 8, True, "quick_gelu"),
+    "vitl": (32, 577, 1024, 16, False, "quick_gelu"),
+    "vith": (32, 257, 1280, 16, False, "gelu"),
+}
 
 SHIM = r"""
 #include "flash.cuh"
@@ -134,9 +183,11 @@ def log(msg: str) -> None:
 
 
 def build_trees(trees: list[pathlib.Path], out: pathlib.Path, parts: set[str]) -> list[dict]:
-    """Compile each tree's core shim and flash_attn.cu (part ``fwd``) and
-    backward shim (``bwd``); all nvcc processes run together. Returns per
-    tree {"core", "k6", "bwd"}: library paths (the parts asked for)."""
+    """Compile each tree's core shim and flash_attn.cu (part ``fwd``),
+    backward shim (``bwd``), block_quant.cu (``int8``) and block_attn.cu,
+    block_mlp.cu and block_merged.cu (``blocks``); all nvcc processes run
+    together. Returns per tree {key: library path} for the parts asked
+    for."""
     from evr_tpu_torch.ops import build
 
     nvcc = build.nvcc_path()
@@ -145,8 +196,12 @@ def build_trees(trees: list[pathlib.Path], out: pathlib.Path, parts: set[str]) -
         shim, bwd_shim = out / f"core_shim{n}.cu", out / f"bwd_shim{n}.cu"
         shim.write_text(SHIM)
         bwd_shim.write_text(BWD_SHIM)
-        srcs = {"core": shim, "k6": csrc / "flash_attn.cu", "bwd": bwd_shim}
-        keys = (("core", "k6") if "fwd" in parts else ()) + (("bwd",) if "bwd" in parts else ())
+        srcs = {"core": shim, "k6": csrc / "flash_attn.cu", "bwd": bwd_shim, "int8": csrc / "block_quant.cu",
+                "block_attn": csrc / "block_attn.cu", "block_mlp": csrc / "block_mlp.cu",
+                "block_merged": csrc / "block_merged.cu"}
+        keys = ((("core", "k6") if "fwd" in parts else ()) + (("bwd",) if "bwd" in parts else ())
+                + (("int8",) if "int8" in parts else ())
+                + (("block_attn", "block_mlp", "block_merged") if "blocks" in parts else ()))
         lib = {key: out / f"lib{key}{n}.so" for key in keys}
         for key in keys:
             src = srcs[key]
@@ -167,8 +222,9 @@ def build_trees(trees: list[pathlib.Path], out: pathlib.Path, parts: set[str]) -
 
 def attention_functions(lib: pathlib.Path) -> dict[str, dict]:
     """{mangled name: {"hgmma": n, "depbar": n, "ptxas": [lines]}} for each
-    attention kernel function of a library (its name holds ``attn``,
-    ``flash_fwd`` or ``flash_bwd``): its HGMMA instructions, its
+    attention or int8 GEMM kernel function of a library (its name holds
+    ``attn``, ``flash_fwd``, ``flash_bwd``, ``gemm_s8`` or ``igemm``): its
+    HGMMA (or int8 IGMMA) instructions, its
     ``WARPGROUP.DEPBAR`` waits (one after every HGMMA where ptxas serialised
     the products, its note C7514) and ptxas's register, spill and C75xx
     lines for it."""
@@ -183,11 +239,12 @@ def attention_functions(lib: pathlib.Path) -> dict[str, dict]:
         if m:
             name = m.group(1)
             funcs[name] = {"hgmma": 0, "depbar": 0, "ptxas": []}
-        elif name is not None and "HGMMA" in line:
+        elif name is not None and ("HGMMA" in line or "IGMMA" in line):
             funcs[name]["hgmma"] += 1
         elif name is not None and "WARPGROUP.DEPBAR" in line:
             funcs[name]["depbar"] += 1
-    funcs = {k: v for k, v in funcs.items() if "attn" in k or "flash_fwd" in k or "flash_bwd" in k}
+    funcs = {k: v for k, v in funcs.items()
+             if "attn" in k or "flash_fwd" in k or "flash_bwd" in k or "gemm_s8" in k or "igemm" in k}
     current = None
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
@@ -233,17 +290,275 @@ def within(dt_name: str, err: float, cos: float, finite: bool) -> bool:
     return finite and err <= BF16_TOL and cos >= BF16_MIN_COS
 
 
+def block_params(torch, W: int, gen, device):
+    """One residual block's fp32 parameters at CLIP's init scales (as
+    ``chip_smoke.py``'s)."""
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=device) * std
+
+    proj_std = W ** -0.5 * (2 * 12) ** -0.5
+    return {
+        "ln_1": {"scale": 1.0 + normal((W,), 0.1), "bias": normal((W,), 0.1)},
+        "attn": {"qkv": {"kernel": normal((W, 3 * W), W ** -0.5), "bias": normal((3 * W,), 0.02)},
+                 "out": {"kernel": normal((W, W), proj_std), "bias": normal((W,), 0.02)}},
+        "ln_2": {"scale": 1.0 + normal((W,), 0.1), "bias": normal((W,), 0.1)},
+        "mlp": {"fc": {"kernel": normal((W, 4 * W), (2 * W) ** -0.5), "bias": normal((4 * W,), 0.02)},
+                "proj": {"kernel": normal((4 * W, W), proj_std), "bias": normal((W,), 0.02)}},
+    }
+
+
+def k3_shim(path: pathlib.Path):
+    """A tree's K3 entry points as one call each, whatever the tree's
+    arguments: (attn(x, params, H, causal) -> out or None, mlp(x, params, act)
+    -> out or None), None where the tree refuses the shape (-1). A tree whose
+    library exports ``evr_gemm_s8`` (the wgmma int8 GEMM) takes each int8
+    kernel as its K-major copy, made here once per kernel with the tree's
+    ``evr_transpose_s8`` as ``ops.block_fused.k_major`` makes it; an older
+    tree takes the kernels as the params hold them."""
+    import torch
+
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    try:
+        lib.evr_gemm_s8
+        k_major = True
+    except AttributeError:
+        k_major = False
+    lib.evr_fused_attn_block_q.argtypes = [i] + [p] * 14 + [i] * 5 + [f, p]
+    lib.evr_fused_mlp_block_q.argtypes = [i] + [p] * 15 + [i] * 4 + [p]
+    lib.evr_fused_attn_block_q.restype = lib.evr_fused_mlp_block_q.restype = i
+    if k_major:
+        lib.evr_transpose_s8.argtypes, lib.evr_transpose_s8.restype = [p, p, i, i, p], i
+    copies = {}
+
+    def stream(x):
+        return torch.cuda.current_stream(x.device).cuda_stream
+
+    def args(prm):
+        """the half's eight arguments as the tree reads them"""
+        if not k_major:
+            return prm
+        out = list(prm)
+        for at in (2, 5):
+            w = prm[at]
+            if w.data_ptr() not in copies:
+                K, N = w.shape
+                w_t = torch.empty((N, K), dtype=torch.int8, device=w.device)
+                rc = lib.evr_transpose_s8(w.data_ptr(), w_t.data_ptr(), K, N, stream(w))
+                if rc != 0:
+                    raise RuntimeError(f"evr_transpose_s8 returned {rc}")
+                copies[w.data_ptr()] = (w, w_t)
+            out[at] = copies[w.data_ptr()][1]
+        return out
+
+    def code(x):
+        return 1 if x.dtype == torch.bfloat16 else 0
+
+    def attn(x, prm, H, causal):
+        B, T, W = x.shape
+        rows, dev = B * T, x.device
+        a_q = torch.empty((rows, W), dtype=torch.int8, device=dev)
+        a_scale = torch.empty(rows, dtype=torch.float32, device=dev)
+        qkv = torch.empty((rows, 3 * W), dtype=x.dtype, device=dev)
+        o, out = torch.empty_like(x), torch.empty_like(x)
+        rc = lib.evr_fused_attn_block_q(code(x), x.data_ptr(), *(t.data_ptr() for t in args(prm)),
+                                        a_q.data_ptr(), a_scale.data_ptr(), qkv.data_ptr(), o.data_ptr(),
+                                        out.data_ptr(), B, T, W, H, int(causal), 1.0 / math.sqrt(W // H), stream(x))
+        if rc not in (0, -1):
+            raise RuntimeError(f"K3a: launch returned {rc}")
+        return out if rc == 0 else None
+
+    def mlp(x, prm, act):
+        W, hid = x.shape[-1], prm[2].shape[1]
+        rows, dev = x.numel() // W, x.device
+        y_q = torch.empty((rows, W), dtype=torch.int8, device=dev)
+        h = torch.empty((rows, hid), dtype=torch.float32, device=dev)
+        h_q = torch.empty((rows, hid), dtype=torch.int8, device=dev)
+        scales = torch.empty((2, rows), dtype=torch.float32, device=dev)
+        out = torch.empty_like(x)
+        rc = lib.evr_fused_mlp_block_q(code(x), x.data_ptr(), *(t.data_ptr() for t in args(prm)), y_q.data_ptr(),
+                                       scales[0].data_ptr(), h.data_ptr(), h_q.data_ptr(), scales[1].data_ptr(),
+                                       out.data_ptr(), rows, W, hid, {"quick_gelu": 0, "gelu": 1}[act], stream(x))
+        if rc not in (0, -1):
+            raise RuntimeError(f"K3b: launch returned {rc}")
+        return out if rc == 0 else None
+
+    return attn, mlp
+
+
+def bench_int8(torch, libs: list[pathlib.Path], result: dict) -> bool:
+    """K3a and K3b of each tree: bit-equal across the trees that take a
+    shape and within the K3 bands of the plain versions, then timed in
+    turns."""
+    from evr_tpu_torch.models.quant import quantize_linear_params
+    from evr_tpu_torch.ops import block_fused as bf
+
+    dev = torch.device("cuda")
+    shims = [k3_shim(path) for path in libs]
+    ok = True
+
+    def args(B, T, W, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        p = block_params(torch, W, gen, dev)
+        q = {**p, "attn": {n: quantize_linear_params(v) for n, v in p["attn"].items()},
+             "mlp": {n: quantize_linear_params(v) for n, v in p["mlp"].items()}}
+        x32 = (torch.rand((B, T, W), generator=gen, device=dev) * 2 - 1) * math.sqrt(3.0)
+        return bf.quant_block_half_params(q), x32
+
+    for tag, (B, T, W, H, causal, act) in INT8_CHECKED.items():
+        (qa, qm), x32 = args(B, T, W, 1)
+        for dt in (torch.bfloat16, torch.float32):
+            x = x32.to(dt)
+            dt_name = str(dt).split(".")[-1]
+            pa, pm = bf.cast_quant_args(dt, qa), bf.cast_quant_args(dt, qm)
+            for half, ref in (("attn", bf.fused_attn_block_q_plain(x, *pa, n_heads=H, causal=causal)),
+                              ("mlp", bf.fused_mlp_block_q_plain(x, *pm, activation=act))):
+                outs = [shim[0](x, pa, H, causal) if half == "attn" else shim[1](x, pm, act) for shim in shims]
+                torch.cuda.synchronize()
+                taken = [o for o in outs if o is not None]
+                same = all(torch.equal(o, taken[0]) for o in taken)
+                rec = {"kind": f"K3{'a' if half == 'attn' else 'b'}", "shape": tag, "dtype": dt_name,
+                       "taken": [o is not None for o in outs], "same_bits": same}
+                good = bool(taken) and same
+                for n, o in enumerate(outs):
+                    if o is None:
+                        continue
+                    err, cos, finite = compare(torch, o, ref)
+                    tol = INT8_FP32_TOL if dt == torch.float32 else BF16_TOL
+                    good &= finite and err <= tol and cos >= INT8_MIN_COS
+                    rec[f"tree{n}"] = {"max_abs_err": err, "min_row_cos": cos}
+                rec["ok"] = good
+                ok &= good
+                log(f"check {rec['kind']} {tag} {act} {dt_name}: taken by trees {rec['taken']}, bit-equal across "
+                    f"them {same}; " + ", ".join(f"tree {n} max_abs_err={rec[f'tree{n}']['max_abs_err']:.3e} "
+                                                 f"min_row_cos={rec[f'tree{n}']['min_row_cos']:.7f}"
+                                                 for n, o in enumerate(outs) if o is not None)
+                    + f" {'ok' if good else 'FAILED'}")
+                result["checks"].append(rec)
+                del outs, taken, ref
+    for tag, (B, T, W, H, causal, act) in INT8_TIMED.items():
+        (qa, qm), x32 = args(B, T, W, 2)
+        x = x32.to(torch.bfloat16)
+        pa, pm = bf.cast_quant_args(torch.bfloat16, qa), bf.cast_quant_args(torch.bfloat16, qm)
+        rows = B * T
+        for half in ("attn", "mlp"):
+            if half == "attn":
+                ops, flops = 2 * rows * W * 4 * W, 4 * B * T * T * W
+                nbytes = 4 * rows * W + 4 * W * W + 8 * 4 * W
+                kerns = [lambda s=s: s[0](x, pa, H, causal) for s in shims]
+            else:
+                ops, flops = 2 * 2 * rows * W * 4 * W, 0
+                nbytes = 4 * rows * W + 8 * W * W + 10 * 4 * W
+                kerns = [lambda s=s: s[1](x, pm, act) for s in shims]
+            n = len(kerns)
+            runs = [[] for _ in range(n)]
+            for idx in list(range(n)) + list(reversed(range(n))):
+                runs[idx].append(cuda_ms(torch, kerns[idx]))
+            t_ops = (ops / H100_INT8_OPS + flops / H100_BF16_FLOPS) * 1e3
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            rec = {"kind": f"K3{'a' if half == 'attn' else 'b'}", "shape": tag, "ms": [min(r) for r in runs],
+                   "runs_ms": runs, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            result["times"].append(rec)
+            log(f"time {rec['kind']} {tag} B={B} T={T} W={W} bf16: " + ", ".join(
+                f"tree {j} {'/'.join(f'{v:.4f}' for v in runs[j])} ms" for j in range(n))
+                + f"; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {ops / 1e9:.2f} G int8 operations, "
+                f"{flops / 1e9:.2f} GFLOP attention, {nbytes / 1e6:.1f} MB)")
+            rec["split_ms"] = kernel_split(torch, kerns[-1])
+            log(f"split {rec['kind']} {tag}, tree {n - 1}, device ms a call by kernel: " + ", ".join(
+                f"{name} {ms:.4f}" for name, ms in rec["split_ms"].items()))
+    return ok
+
+
+def kernel_split(torch, fn, calls: int = 20) -> dict[str, float]:
+    """Device time a call of ``fn`` spends in each CUDA kernel, by
+    ``torch.profiler`` over ``calls`` calls after a warm-up: {kernel name
+    (shortened to its function): ms}, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us <= 0 or ev.key.startswith("cuda") or "Memcpy" in ev.key or "Memset" in ev.key:
+            continue
+        name = re.sub(r"^(void )?", "", ev.key).split("(")[0].split("<")[0].split("::")[-1]
+        template = re.search(r"<(.*)>", ev.key)
+        if template:
+            name += "<" + template.group(1)[:40] + ">"
+        split[name] = split.get(name, 0.0) + us / 1e3 / calls
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def check_blocks(torch, paths: list[dict], result: dict) -> bool:
+    """K1, K2 and K9 of each tree through the package's wrappers (each
+    tree's libraries put in ``ops.build``'s place in turn): every tree's
+    output equal to the first tree's bit for bit at BLOCKS_CHECKED."""
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.ops import build
+
+    dev = torch.device("cuda")
+    names = ("block_attn", "block_mlp", "block_merged")
+    libs = []
+    for lib in paths:
+        loaded = {}
+        for name in names:
+            loaded[name] = ctypes.CDLL(str(lib[name]))
+            build._declare(name, loaded[name])
+        libs.append(loaded)
+    saved = {name: build._loaded.get(name) for name in names}
+    ok = True
+    try:
+        for tag, (B, T, W, H, causal, act) in BLOCKS_CHECKED.items():
+            gen = torch.Generator(device=dev).manual_seed(3)
+            p = block_params(torch, W, gen, dev)
+            attn, mlp = bf.block_half_params(p)
+            x32 = (torch.rand((B, T, W), generator=gen, device=dev) * 2 - 1) * math.sqrt(3.0)
+            for dt in (torch.bfloat16, torch.float32):
+                x = x32.to(dt)
+                calls = (("K1", lambda: bf.fused_attn_block(x, *attn, n_heads=H, causal=causal)),
+                         ("K2", lambda: bf.fused_mlp_block(x, *mlp, activation=act)),
+                         ("K9", lambda: bf.fused_block_merged(x, p, H, act, causal)))
+                for kind, call in calls:
+                    outs = []
+                    for loaded in libs:
+                        build._loaded.update(loaded)
+                        outs.append(call())
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(o, outs[0]) for o in outs)
+                    ok &= same
+                    dt_name = str(dt).split(".")[-1]
+                    log(f"check {kind} {tag} {dt_name}: bit-equal across the trees {same} "
+                        f"{'ok' if same else 'FAILED'}")
+                    result["checks"].append({"kind": kind, "shape": tag, "dtype": dt_name, "same_bits": same,
+                                             "ok": same})
+                    del outs
+    finally:
+        for name, lib in saved.items():
+            if lib is None:
+                build._loaded.pop(name, None)
+            else:
+                build._loaded[name] = lib
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", action="append", type=pathlib.Path,
                     help="an ops/csrc directory (repeatable; default this package's)")
     ap.add_argument("--parts", default="fwd,bwd",
-                    help="comma-separated: fwd (K6 and K1's core), bwd (K5a's attention backward)")
+                    help="comma-separated: fwd (K6 and K1's core), bwd (K5a's attention backward), "
+                         "int8 (K3a and K3b), blocks (K1, K2 and K9)")
     ap.add_argument("--out", type=pathlib.Path, help="also write the JSON result here")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
-    if not parts or parts - {"fwd", "bwd"}:
-        ap.error(f"--parts {args.parts!r}: fwd, bwd or both")
+    if not parts or parts - {"fwd", "bwd", "int8", "blocks"}:
+        ap.error(f"--parts {args.parts!r}: any of fwd, bwd, int8, blocks")
     import torch
     import torch.nn.functional as F
 
@@ -269,7 +584,7 @@ def main(argv=None) -> int:
         for tree, lib in zip(trees, paths):
             for key, path in lib.items():
                 for name, f in attention_functions(path).items():
-                    log(f"sass {tree} {key} {name}: HGMMA {f['hgmma']}, DEPBAR {f['depbar']}; "
+                    log(f"sass {tree} {key} {name}: HGMMA/IGMMA {f['hgmma']}, DEPBAR {f['depbar']}; "
                         + "; ".join(f["ptxas"]))
                     funcs.append({"tree": str(tree), "lib": key, "function": name, **f})
         result["functions"] = funcs
@@ -464,6 +779,10 @@ def main(argv=None) -> int:
                     del leaf, q, k, v, lib_out
                 del outs
             del first_fp32
+        if "int8" in parts:
+            ok &= bench_int8(torch, [lib["int8"] for lib in paths], result)
+        if "blocks" in parts:
+            ok &= check_blocks(torch, paths, result)
     result["ok"] = ok
     line = json.dumps(result)
     if args.out:

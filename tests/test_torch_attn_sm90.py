@@ -16,8 +16,9 @@ own SASS function; here the CPU checks what that rests on:
   ``attn_takes``, ``attn_boxes``, ``attn_smem_bytes`` and ``attn_k_slots``:
   every bf16 attention of each registry tower but the tiny test one is
   taken, two blocks fit on an SM, a row of d 80 is a 128-byte-swizzled box
-  of 64 columns and a 32-byte-swizzled one of 16, and head dim 16 raises
-  before any library loads;
+  of 64 columns and a 32-byte-swizzled one of 16, head dim 16 (the tiny
+  test tower's, one 32-byte-swizzled box) goes on to its library and head
+  dim 24 raises before any library loads;
 - the routes: bf16 reaches the new kernel and fp32 keeps the CUDA-core
   kernels (by the dtype alone), the new header is in the build key of every
   library that includes it, and the new entry's ctypes declaration matches
@@ -118,7 +119,7 @@ def test_plan_splits_d80_rows_and_keeps_short_key_rows_resident():
     assert tbf.attn_k_slots(320, 80) == 5 and tbf.attn_k_slots(321, 80) == 5
     assert tbf.attn_k_slots(448, 64) == 7 and tbf.attn_k_slots(449, 64) == 7
     assert tbf.attn_smem_bytes(80, 5) == 1024 + 11 * 64 * 80 * 2 + 8 * 19
-    assert not tbf.attn_takes(1, 100, 4, 16) and not tbf.attn_takes(0, 100, 4, 64)
+    assert not tbf.attn_takes(1, 100, 4, 24) and not tbf.attn_takes(0, 100, 4, 64)
     assert tbf.attn_takes(1, 1, 1, 64) and not tbf.attn_takes(2 ** 16, 2 ** 12, 2 ** 10, 80)
 
 
@@ -136,12 +137,23 @@ def test_head_dim_16_raises_before_any_library_loads(monkeypatch):
         raise RuntimeError(f"library {name} loaded")
 
     monkeypatch.setattr(build, "load", no_load)
-    tiny = MODEL_REGISTRY["ViT-Tiny-Test"].vision  # 4 heads of 16
+    # head dim 16 (the tiny test tower's 4 heads of 16) now passes the
+    # mirrors and goes on to its library, K1's core and K6 alike
+    tiny = MODEL_REGISTRY["ViT-Tiny-Test"].vision
+    assert tbf.attn_takes(2, 17, tiny.heads, 16) and 16 in tattn.HEAD_DIMS
+    assert tbf.attn_boxes(16) == [(0, 16, 32)]
     qkv = torch.zeros(2, 17, 3 * tiny.width, dtype=torch.bfloat16).as_subclass(_ClaimsCuda)
-    with pytest.raises(ValueError, match="does not take"):
+    with pytest.raises(RuntimeError, match="library block_attn loaded"):
         tbf.attn_forward(qkv, tiny.heads)
     q = torch.zeros(2, tiny.heads, 17, tiny.width // tiny.heads, dtype=torch.bfloat16).as_subclass(_ClaimsCuda)
-    with pytest.raises(ValueError, match="head dim 16"):
+    with pytest.raises(RuntimeError, match="library flash_attn loaded"):
+        tattn.flash_attention_full(q, q, q)
+    # head dim 24 raises before any library loads
+    qkv = torch.zeros(2, 17, 3 * 96, dtype=torch.bfloat16).as_subclass(_ClaimsCuda)
+    with pytest.raises(ValueError, match="does not take"):
+        tbf.attn_forward(qkv, 4)
+    q = torch.zeros(2, 4, 17, 24, dtype=torch.bfloat16).as_subclass(_ClaimsCuda)
+    with pytest.raises(ValueError, match="head dim 24"):
         tattn.flash_attention_full(q, q, q)
     # head dim 64 in bf16 and fp32 goes on to its library
     for dt in (torch.bfloat16, torch.float32):

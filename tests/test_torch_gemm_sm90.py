@@ -61,10 +61,12 @@ def test_gemm_takes_every_block_gemm_of_the_tower(name):
 def test_gemm_takes_refuses_off_tile_shapes():
     assert tbf.gemm_takes(1, 256, 64) and tbf.gemm_takes(150, 768, 768)
     # the tiny test tower's width 64 gives N = 64, 192, 256 with K = 64, 256:
-    # its QKV, out and proj GEMMs are off the 256-wide tile
+    # its QKV, out and proj GEMMs are off the 256-wide tile and take the
+    # 64-wide narrow one
     tiny = MODEL_REGISTRY["ViT-Tiny-Test"].vision.width
-    assert [tbf.gemm_takes(8, N, K) for _, N, K in _block_gemms(tiny, 8)] == [False, False, True, False]
-    assert not tbf.gemm_takes(128, 384, 128)  # N off the 256-wide tile
+    assert [tbf.gemm_takes(8, N, K) for _, N, K in _block_gemms(tiny, 8)] == [True, True, True, True]
+    assert not tbf.gemm_takes(128, 96, 128)  # N off the 64-wide narrow tile
+    assert not tbf.gemm_takes(128, 384, 128, w_t=True)  # a transposed product: N off the 256-wide tile
     assert not tbf.gemm_takes(128, 256, 96)  # K off the 64-wide step
     assert not tbf.gemm_takes(0, 256, 64)  # no rows
     assert not tbf.gemm_takes(65535 * 128 + 1, 256, 64)  # past the grid's row tiles
