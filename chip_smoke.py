@@ -14,7 +14,8 @@ package. Phases, each fatal on failure:
    forward (``attn_sm90_kernel``, ``csrc/attn_sm90.cuh``, head dims 16, 64
    and 80) must hold its own, as must each function of K5a's bf16 attention
    backward in the K5a library (``attn_bwd_q_kernel``,
-   ``attn_bwd_kv_kernel``, ``csrc/attn_bwd_sm90.cuh``), and each function
+   ``attn_bwd_kv_kernel``, ``csrc/attn_bwd_sm90.cuh``, head dims 16, 64 and
+   80), and each function
    of K3's int8 GEMM in the K3 library (``gemm_s8_kernel``,
    ``csrc/gemm_s8_sm90.cuh``) must hold ``IGMMA`` instructions; ptxas's
    register and spill lines are printed, and its "wgmma serialised" notes
@@ -25,8 +26,10 @@ package. Phases, each fatal on failure:
    narrow 64-wide tile), against ``torch.matmul`` in fp32 rounded once,
    and in K5's layouts (Aᵀ from a [K, M] array, Wᵀ from W's [in, out]
    array; bf16 or fp32 out) at the ten backward products of
-   ViT-L/14@336px's training shape and its text shape, a ragged K and split
-   weight gradients, against the fp32 product of the same inputs, each timed
+   ViT-L/14@336px's training shape and its text shape, ViT-Tiny-Test's text
+   training shape (W 64: the 64-wide tile in every layout), a ragged K and
+   split weight gradients, against the fp32 product of the same inputs, each
+   timed
    against ``torch.matmul`` on the same layout; the int8 GEMM under K3a and
    K3b alone (``gemm_s8``) at the four K3 products of ViT-B/32's vision and
    text shapes, ViT-L/14@336px's T 577, ViT-H-14, the tiny tower and a
@@ -46,7 +49,11 @@ package. Phases, each fatal on failure:
    ViT-L/14@336px training shape (B=32, T=577, W=1024, H=16) and at
    ViT-H-14's vision shape (B=32, T=257, W=1280, H=16: head dim 80, exact
    GELU), and K3a and K3b at the tiny tower's shapes; K4 (``fused_topk``) against
-   its plain version on 1,048,576 index rows of 512 in int8, bf16 and fp32;
+   its plain version on 1,048,576 index rows of 512 in int8, bf16 and fp32
+   (rows equal, scores bit-equal), and, each with a negative control that
+   the row check rejects, k above a 10-row range, tied rows across a tile's
+   and a block's boundary in a second index, and indexes of 1,000 and 1,025
+   rows;
    K5a and K5b (``fused_attn_block_bwd``, ``fused_mlp_block_bwd``: the block
    backward) against theirs at the training shape and at ViT-L/14's causal
    text shape (B=16, T=77, W=768, H=12), and K5a at head dim 80 (B=4,
@@ -54,7 +61,10 @@ package. Phases, each fatal on failure:
    backward alone (``attn_backward``, bf16) at the training, causal text and
    head-dim-80 shapes, at ViT-H-14's T=257 and at a causal key row of 1,000:
    o and each of dq, dk and dv against its plain version, and a second call
-   bit-equal to the first;
+   bit-equal to the first; K5a and K5b at ViT-Tiny-Test's geometry (W 64,
+   head dim 16: T 17, 77 causal and 577), bf16 and fp32, within the same
+   bands, a second call bit-equal, and the attention backward alone at head
+   dim 16 (W 256, H 16);
 4. main path, bf16 weights: ``EmbeddingEngine("ViT-B/32", device="cuda")``
    with seeded random weights embeds 1,024 synthetic frames of four videos
    at batch 256, the data root is written, ``ServingContext`` boots from it
@@ -78,7 +88,9 @@ package. Phases, each fatal on failure:
 7. times: each kernel, its plain version and a PyTorch library computation
    of the same function, by CUDA events at the main-path shapes; K5a split
    into its attention backward alone (``attn_backward``, beside its bound
-   and the backward of SDPA), its five GEMMs and the rest; K1's attention core alone (``attn_forward``) at ViT-H-14,
+   and the backward of SDPA), its five GEMMs and the rest; K4 split into
+   ``prepared_queries``, the scan, the selection and ``_merge``, and K4 on
+   bf16 and fp32 rows and at Q = 5 and 32; K1's attention core alone (``attn_forward``) at ViT-H-14,
    ViT-L/14@336px, ViT-B/32 vision and text shapes against SDPA; encode
    frames/s and the p50 of a text query, bf16 and int8;
 8. the ANN tiers: K7 (``adc_list_scores``) against its plain version, bit
@@ -203,8 +215,11 @@ GEMM_TOL_STEPS = 1
 # K, a_t, w_t, out_dtype, bias): aᵀ read from a [K, M] array for the weight
 # gradients, wᵀ from W's [in, out] array for the input gradients. At
 # ViT-L/14@336px's training shape (18,464 rows, W 1,024, hidden 4,096) and
-# its causal text shape (1,232 rows, W 768, hidden 3,072), a ragged K below
-# one 64-row step, and a weight gradient split into four slices of rows
+# its causal text shape (1,232 rows, W 768, hidden 3,072), ViT-Tiny-Test's
+# text training shape (2,464 rows, W 64, hidden 256: N 64 and 192 on the
+# 64-wide tile in every layout, its weight gradients split in two), a
+# ragged K below one 64-row step, and a weight gradient split into four
+# slices of rows
 # (dW_out at W 1,024: 32 output tiles; it is timed in one pass too). K5b's
 # two activation epilogues are run here in their layouts with
 # the plain bf16 output (h_pre: the forward layout; dh: wᵀ); K5b's parity
@@ -237,6 +252,7 @@ def _bwd_gemms(tag: str, R: int, W: int, hid: int) -> dict:
 BWD_GEMM_SHAPES = {
     **_bwd_gemms("vitl", 32 * 577, 1024, 4096),
     **_bwd_gemms("text", 16 * 77, 768, 3072),
+    **_bwd_gemms("tiny", 32 * 77, 64, 256),
     "ragged-k": (256, 512, 40, True, False, "float32", False),
 }
 BWD_GEMM_F32_REL = 5e-5
@@ -299,6 +315,22 @@ ATTN_BWD_SHAPES = {
 }
 ATTN_BWD_LIB = "block_attn_bwd"
 ATTN_BWD_KERNELS = ("attn_bwd_q_kernel", "attn_bwd_kv_kernel")
+ATTN_BWD_HEAD_DIMS = (16, 64, 80)  # each kernel's functions in that library
+# K5a/K5b at ViT-Tiny-Test's geometry (W 64, four heads of 16: the 64-wide
+# tile in the transposed GEMMs, the attention backward at d 16): the tiny
+# towers' T 17 and causal 77 at the training batch, and T 577, against their
+# plain versions within the BWD_* bands; K5a's attention backward alone at d
+# 16 on a wider block (W 256, H 16) within the ATTN_BWD_* bands. Each call
+# repeated must give the same bits.
+TINY_BWD_SHAPES = {
+    "tiny": dict(B=32, T=17, W=64, H=4, causal=False),
+    "tiny-text": dict(B=32, T=77, W=64, H=4, causal=True),
+    "tiny-577": dict(B=4, T=577, W=64, H=4, causal=False),
+}
+TINY_ATTN_BWD_SHAPES = {
+    "d16-577": dict(B=4, T=577, W=256, H=16, causal=False),
+    "d16-text": dict(B=16, T=77, W=256, H=16, causal=True),
+}
 # Bands against attn_backward_plain on these inputs (qkv of unit variance, do
 # of 0.01 x unit): both round at the same points, so an output differs where
 # a sum in another order rounds the other way. The parent's kernels
@@ -574,8 +606,9 @@ def phase_build():
                     if S8_KERNEL in current:
                         tag = " (int8 GEMM)"
                     for k in ATTN_BWD_KERNELS:
-                        if k in current:  # the mangled name holds the head dim as ILi64E / ILi80E
-                            tag = f" (attention backward: {k}<{'80' if 'ILi80E' in current else '64'}>)"
+                        if k in current:  # the mangled name holds the head dim as ILi16E / ILi64E / ILi80E
+                            d = next((d for d in ATTN_BWD_HEAD_DIMS if f"ILi{d}E" in current), "?")
+                            tag = f" (attention backward: {k}<{d}>)"
                     log(f"  ptxas {name}{tag}: {line.strip()}")
     log(f"build: {json.dumps({k: round(v, 1) for k, v in times.items()})} "
         f"total {total:.1f} s (0 = already built)")
@@ -604,9 +637,10 @@ def phase_build():
         check(len(attn[name]) == 3, f"{name}: {len(attn[name])} {ATTN_KERNEL} functions, expected 3 (d 16, 64, 80)")
         for f, n in attn[name].items():
             check(n > 0, f"{name}: no HGMMA instruction in {f}")
-    check(len(bwd) == 2 * len(ATTN_BWD_KERNELS),
-          f"{ATTN_BWD_LIB}: {len(bwd)} attention backward functions, expected {2 * len(ATTN_BWD_KERNELS)} "
-          f"({', '.join(ATTN_BWD_KERNELS)} at d 64 and 80)")
+    n_bwd = len(ATTN_BWD_HEAD_DIMS) * len(ATTN_BWD_KERNELS)
+    check(len(bwd) == n_bwd,
+          f"{ATTN_BWD_LIB}: {len(bwd)} attention backward functions, expected {n_bwd} "
+          f"({', '.join(ATTN_BWD_KERNELS)} at d {', '.join(map(str, ATTN_BWD_HEAD_DIMS))})")
     for f, n in bwd.items():
         check(n > 0, f"{ATTN_BWD_LIB}: no HGMMA instruction in {f}")
     check(len(s8) == S8_FUNCTIONS, f"{S8_LIB}: {len(s8)} {S8_KERNEL} functions, expected {S8_FUNCTIONS}")
@@ -696,7 +730,7 @@ def gemm_layout_case(torch, tag, M, N, K, a_t, w_t, out_dtype, has_bias):
     ms = min(cuda_ms(torch, lambda: bf.gemm_bf16(a, w, b, **kw)) for _ in range(2))
     lib_ms = min(cuda_ms(torch, lambda: torch.matmul(at, wt)) for _ in range(2))
     flops = 2 * M * N * K
-    tiles = -(-M // 128) * (N // 256)
+    tiles = -(-M // bf.GEMM_TILE_M) * (N // bf.gemm_tile_n(N))
     splits = -(-K // bf.gemm_k_slice(M, N, K, a_t, w_t)) if out_dtype == torch.float32 else 1
     nbytes = 2 * (M * K + K * N) + out_dtype.itemsize * M * N
     bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
@@ -923,22 +957,77 @@ def phase_parity_bwd(torch):
                 torch.cuda.synchronize()
                 ref = plain(x, g, *[a.to(dt) for a in args], **kw)
                 tag = f"{name} {kw.get('activation', '')} {shape_name} {str(dt).split('.')[-1]}"
-                for out_name, u, v in zip(BWD_OUTPUTS[name], got, ref):
-                    is_dx = out_name == "dx"
-                    err, rel, cos, finite = bwd_compare(torch, u, v, is_dx)
-                    log(f"parity {tag} {out_name}: max_abs_err={err:.3e} rel={rel:.3e} "
-                        f"{'min_row_cos' if is_dx else 'leaf_cos'}={cos:.7f}")
-                    check(finite, f"{tag} {out_name}: non-finite output")
-                    check(u.dtype == (dt if is_dx else torch.float32), f"{tag} {out_name}: dtype {u.dtype}")
-                    if dt == torch.float32:
-                        check(rel <= BWD_FP32_REL, f"{tag} {out_name}: relative err {rel} > {BWD_FP32_REL}")
-                    else:
-                        tol = BWD_BF16_DX_REL if is_dx else BWD_BF16_GRAD_REL
-                        check(rel <= tol, f"{tag} {out_name}: relative err {rel} > {tol}")
-                        check(cos >= BWD_MIN_COS, f"{tag} {out_name}: cosine {cos} < {BWD_MIN_COS}")
-                        if shape_name == "vitl":
-                            worst[name] = max(worst[name], err)
+                err = check_bwd_outputs(torch, tag, name, dt, got, ref)
+                if shape_name == "vitl" and dt == torch.bfloat16:
+                    worst[name] = max(worst[name], err)
                 del got, ref
+    return worst
+
+
+def check_bwd_outputs(torch, tag, name, dt, got, ref) -> float:
+    """Every output of a K5a/K5b call against its plain version within the
+    BWD_* bands; returns the largest absolute error."""
+    worst = 0.0
+    for out_name, u, v in zip(BWD_OUTPUTS[name], got, ref):
+        is_dx = out_name == "dx"
+        err, rel, cos, finite = bwd_compare(torch, u, v, is_dx)
+        log(f"parity {tag} {out_name}: max_abs_err={err:.3e} rel={rel:.3e} "
+            f"{'min_row_cos' if is_dx else 'leaf_cos'}={cos:.7f}")
+        check(finite, f"{tag} {out_name}: non-finite output")
+        check(u.dtype == (dt if is_dx else torch.float32), f"{tag} {out_name}: dtype {u.dtype}")
+        if dt == torch.float32:
+            check(rel <= BWD_FP32_REL, f"{tag} {out_name}: relative err {rel} > {BWD_FP32_REL}")
+        else:
+            tol = BWD_BF16_DX_REL if is_dx else BWD_BF16_GRAD_REL
+            check(rel <= tol, f"{tag} {out_name}: relative err {rel} > {tol}")
+            check(cos >= BWD_MIN_COS, f"{tag} {out_name}: cosine {cos} < {BWD_MIN_COS}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_parity_tiny_bwd(torch):
+    """K5a and K5b at ViT-Tiny-Test's geometry (TINY_BWD_SHAPES: W 64, head
+    dim 16; quickGELU, and exact GELU at T 17) against their plain
+    versions, bf16 and fp32, every output within the BWD_* bands, a second
+    call bit-equal to the first, one launch a call; then K5a's attention
+    backward alone at d 16 (TINY_ATTN_BWD_SHAPES) as
+    ``phase_parity_attn_bwd`` holds it. Returns the largest bf16 error."""
+    from evr_tpu_torch.ops import block_fused as bf
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for shape_name, s in TINY_BWD_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(17)
+        attn_args, mlp_args = bf.block_half_params(block_params(torch, s["W"], gen, dev))
+        x32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev)
+        g32 = unit_activations(torch, (s["B"], s["T"], s["W"]), gen, dev) * 0.01
+        cases = [("fused_attn_block_bwd", bf.fused_attn_block_bwd, bf.fused_attn_block_bwd_plain,
+                  dict(n_heads=s["H"], causal=s["causal"]), attn_args),
+                 ("fused_mlp_block_bwd", bf.fused_mlp_block_bwd, bf.fused_mlp_block_bwd_plain,
+                  dict(activation="quick_gelu"), mlp_args)]
+        if shape_name == "tiny":
+            cases.append(("fused_mlp_block_bwd", bf.fused_mlp_block_bwd, bf.fused_mlp_block_bwd_plain,
+                          dict(activation="gelu"), mlp_args))
+        for dt in (torch.bfloat16, torch.float32):
+            x, g = x32.to(dt), g32.to(dt)
+            for name, kern, plain, kw, args in cases:
+                counter = getattr(bf, name)
+                before = counter.launches
+                got = kern(x, g, *args, **kw)
+                again = kern(x, g, *args, **kw)
+                torch.cuda.synchronize()
+                tag = (f"{name} {kw.get('activation', '')} {shape_name} {str(dt).split('.')[-1]} "
+                       f"(B {s['B']}, T {s['T']}, W {s['W']}, d {s['W'] // s['H']})")
+                check(counter.launches == before + 2, f"{tag}: not one launch a call")
+                check(all(torch.equal(u, v) for u, v in zip(got, again)), f"{tag}: a second call gave other bits")
+                del again
+                ref = plain(x, g, *[a.to(dt) for a in args], **kw)
+                err = check_bwd_outputs(torch, tag, name, dt, got, ref)
+                if dt == torch.bfloat16:
+                    worst = max(worst, err)
+                del got, ref
+    for tag, s in TINY_ATTN_BWD_SHAPES.items():
+        worst = max(worst, attn_bwd_case(torch, tag, s))
     return worst
 
 
@@ -956,41 +1045,46 @@ def phase_parity_attn_bwd(torch):
     fp32 dqkv (error relative to the block's largest entry, cosine in
     float64); dqkv_r is dqkv rounded; a second call gives the same bits; one
     launch a call."""
+    return max(attn_bwd_case(torch, tag, s) for tag, s in ATTN_BWD_SHAPES.items())
+
+
+def attn_bwd_case(torch, tag, s) -> float:
+    """``attn_backward`` (bf16) at one shape against ``attn_backward_plain``
+    within the ATTN_BWD_* bands, a second call bit-equal, one launch a call;
+    returns the largest dq/dk/dv error."""
     from evr_tpu_torch.ops import block_fused as bf
 
     dev = torch.device("cuda")
     worst = 0.0
-    for tag, s in ATTN_BWD_SHAPES.items():
-        B, T, W, H, causal = s["B"], s["T"], s["W"], s["H"], s["causal"]
-        gen = torch.Generator(device=dev).manual_seed(12)
-        qkv = unit_activations(torch, (B, T, 3 * W), gen, dev).to(torch.bfloat16)
-        dout = (unit_activations(torch, (B, T, W), gen, dev) * 0.01).to(torch.bfloat16)
-        name = f"attn_backward {tag} bf16 (B {B}, T {T}, d {W // H}{', causal' if causal else ''})"
-        before = bf.attn_backward.launches
-        o, dqkv, dqkv_r = bf.attn_backward(qkv, dout, H, causal)
-        again = bf.attn_backward(qkv, dout, H, causal)
-        torch.cuda.synchronize()
-        check(bf.attn_backward.launches == before + 2, f"{name}: not one launch a call")
-        check(all(torch.equal(u, v) for u, v in zip((o, dqkv, dqkv_r), again)),
-              f"{name}: a second call gave other bits")
-        del again
-        check(torch.equal(dqkv_r, dqkv.to(torch.bfloat16)), f"{name}: dqkv_r is not dqkv rounded")
-        o_p, dqkv_p = bf.attn_backward_plain(qkv, dout, H, causal)
-        o_err = (o.float() - o_p.float()).abs().max().item()
-        check(bool(torch.isfinite(o.float()).all().item()), f"{name}: non-finite o")
-        check(o_err <= ATTN_BWD_O_TOL, f"{name}: o max abs err {o_err} > {ATTN_BWD_O_TOL}")
-        parts = []
-        for n, part in enumerate(("dq", "dk", "dv")):
-            u, v = dqkv[:, n * W:(n + 1) * W], dqkv_p[:, n * W:(n + 1) * W]
-            err, rel, _, finite = bwd_compare(torch, u, v, False)
-            cos = cosine64(u, v)
-            parts.append(f"{part} rel={rel:.3e} cos={cos:.10f}")
-            check(finite, f"{name} {part}: non-finite output")
-            check(rel <= ATTN_BWD_REL, f"{name} {part}: relative err {rel} > {ATTN_BWD_REL}")
-            check(cos >= ATTN_BWD_MIN_COS, f"{name} {part}: cosine {cos} < {ATTN_BWD_MIN_COS}")
-            worst = max(worst, err)
-        log(f"parity {name}: o max_abs_err={o_err:.3e} " + " ".join(parts) + "; repeats bit for bit")
-        del o, dqkv, dqkv_r, o_p, dqkv_p
+    B, T, W, H, causal = s["B"], s["T"], s["W"], s["H"], s["causal"]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    qkv = unit_activations(torch, (B, T, 3 * W), gen, dev).to(torch.bfloat16)
+    dout = (unit_activations(torch, (B, T, W), gen, dev) * 0.01).to(torch.bfloat16)
+    name = f"attn_backward {tag} bf16 (B {B}, T {T}, d {W // H}{', causal' if causal else ''})"
+    before = bf.attn_backward.launches
+    o, dqkv, dqkv_r = bf.attn_backward(qkv, dout, H, causal)
+    again = bf.attn_backward(qkv, dout, H, causal)
+    torch.cuda.synchronize()
+    check(bf.attn_backward.launches == before + 2, f"{name}: not one launch a call")
+    check(all(torch.equal(u, v) for u, v in zip((o, dqkv, dqkv_r), again)),
+          f"{name}: a second call gave other bits")
+    del again
+    check(torch.equal(dqkv_r, dqkv.to(torch.bfloat16)), f"{name}: dqkv_r is not dqkv rounded")
+    o_p, dqkv_p = bf.attn_backward_plain(qkv, dout, H, causal)
+    o_err = (o.float() - o_p.float()).abs().max().item()
+    check(bool(torch.isfinite(o.float()).all().item()), f"{name}: non-finite o")
+    check(o_err <= ATTN_BWD_O_TOL, f"{name}: o max abs err {o_err} > {ATTN_BWD_O_TOL}")
+    parts = []
+    for n, part in enumerate(("dq", "dk", "dv")):
+        u, v = dqkv[:, n * W:(n + 1) * W], dqkv_p[:, n * W:(n + 1) * W]
+        err, rel, _, finite = bwd_compare(torch, u, v, False)
+        cos = cosine64(u, v)
+        parts.append(f"{part} rel={rel:.3e} cos={cos:.10f}")
+        check(finite, f"{name} {part}: non-finite output")
+        check(rel <= ATTN_BWD_REL, f"{name} {part}: relative err {rel} > {ATTN_BWD_REL}")
+        check(cos >= ATTN_BWD_MIN_COS, f"{name} {part}: cosine {cos} < {ATTN_BWD_MIN_COS}")
+        worst = max(worst, err)
+    log(f"parity {name}: o max_abs_err={o_err:.3e} " + " ".join(parts) + "; repeats bit for bit")
     return worst
 
 
@@ -1043,12 +1137,14 @@ def phase_parity_int8(torch):
     return worst
 
 
-def topk_index(torch, dtype: str):
-    """(index, row scales) of TOPK_ROWS seeded unit rows with a block of 64
-    duplicated rows (ties), stored as ``FrameIndex`` stores ``dtype``."""
+def topk_index(torch, dtype: str, tied=((5000, 5064),)):
+    """(index, row scales) of TOPK_ROWS seeded unit rows with blocks of
+    duplicated rows (ties; by default 64 rows at 5,000), stored as
+    ``FrameIndex`` stores ``dtype``."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     emb = torch.randn((TOPK_ROWS, TOPK_DIM), generator=gen, device="cuda")
-    emb[5000:5064] = emb[5000]
+    for a, b in tied:
+        emb[a:b] = emb[a]
     emb = emb / emb.norm(dim=1, keepdim=True)
     if dtype == "int8":
         scales = (emb.abs().amax(1) / 127.0).clamp_min(1e-12)
@@ -1056,13 +1152,48 @@ def topk_index(torch, dtype: str):
     return emb.to(getattr(torch, dtype)), None
 
 
+def topk_case(torch, tag, index, q, start, end, k, scales, control=None):
+    """One K4 call against ``fused_topk_plain``: rows equal, scores equal
+    bit for bit (and within TOPK_SCORE_TOL); with ``control`` (a function of
+    the kernel's rows) a wrong answer built from them must fail the same row
+    check. Returns (the largest score error, the kernel's rows)."""
+    from evr_tpu_torch.ops.retrieval import fused_topk, fused_topk_plain
+
+    got_s, got_r = fused_topk(index, q, start, end, k, scales)
+    torch.cuda.synchronize()
+    ref_s, ref_r = fused_topk_plain(index, q, start, end, k, scales)
+    err = (got_s - ref_s).abs().max().item() if bool(torch.isfinite(ref_s).all()) else \
+        (got_s - ref_s)[torch.isfinite(ref_s)].abs().max().item()
+    same, bits = bool(torch.equal(got_r, ref_r)), bool(torch.equal(got_s, ref_s))
+    tail = f", control rows equal {bool(torch.equal(control(got_r), ref_r))}" if control else ""
+    log(f"parity {tag}: rows equal {same}, scores bit-equal {bits}, max_abs_err={err:.3e}{tail}")
+    check(same, f"{tag}: rows differ from the plain version")
+    check(bits and err <= TOPK_SCORE_TOL[str(index.dtype).split('.')[-1]], f"{tag}: score err {err}")
+    if control is not None:
+        check(not torch.equal(control(got_r), ref_r), f"{tag}: the row check passed a wrong answer")
+    return err, got_r
+
+
+def swap_first_two(rows):
+    """A wrong answer: the first two rows of each query swapped."""
+    bad = rows.clone()
+    bad[:, [0, 1]] = bad[:, [1, 0]]
+    return bad
+
+
 def phase_parity_topk(torch):
     """K4 against its plain version: Q in {1, 5, 32}, k in {1, 30, 300}, a
     row range that starts past 0 and ends before the last tile, a query on
-    the tied block."""
-    from evr_tpu_torch.ops.retrieval import fused_topk, fused_topk_plain
+    the tied block; then, each with a negative control, k above a range of
+    10 rows (the tail of -inf rows, lowest first), a new index with tied
+    blocks across a tile boundary (rows 1,000..1,050) and across a block's
+    boundary (8,150..8,250: 8,192 is both), and indexes of 1,000 and 1,025
+    rows (under one tile, one past it)."""
+    from evr_tpu_torch.ops.retrieval import topk_plan
 
     worst, start, end = 0.0, 17, TOPK_ROWS - 4099
+    check(topk_plan(TOPK_ROWS, TOPK_DIM, 1, 30).tiles_per_block * 1024 == 8192,
+          "the tied block at 8,150..8,250 no longer straddles a block's boundary")
     for dtype in ("int8", "bfloat16", "float32"):
         index, scales = topk_index(torch, dtype)
         gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1070,20 +1201,48 @@ def phase_parity_topk(torch):
             q = torch.randn((nq, TOPK_DIM), generator=gen, device="cuda")
             q[0] = index[5000].float()
             for k in (1, 30, 300):
-                got_s, got_r = fused_topk(index, q, start, end, k, scales)
-                torch.cuda.synchronize()
-                ref_s, ref_r = fused_topk_plain(index, q, start, end, k, scales)
-                err = (got_s - ref_s).abs().max().item()
-                same = bool(torch.equal(got_r, ref_r))
-                tag = f"fused_topk {dtype} Q={nq} k={k}"
-                log(f"parity {tag}: rows equal {same}, max_abs_err={err:.3e}")
-                check(same, f"{tag}: rows differ from the plain version")
-                check(err <= TOPK_SCORE_TOL[dtype], f"{tag}: score err {err}")
-                tied = got_r[0][(got_r[0] >= 5000) & (got_r[0] < 5064)]
-                check(bool(torch.equal(tied, tied.sort().values)), f"{tag}: ties not lowest row first")
+                err, got_r = topk_case(torch, f"fused_topk {dtype} Q={nq} k={k}", index, q, start, end, k, scales)
                 worst = max(worst, err)
+                tied = got_r[0][(got_r[0] >= 5000) & (got_r[0] < 5064)]
+                check(bool(torch.equal(tied, tied.sort().values)), f"{dtype} Q={nq} k={k}: ties not lowest row first")
+        # k above the range: ten rows, then the lowest rows at -inf; the
+        # control repeats the first row in that tail
+        q = torch.randn((5, TOPK_DIM), generator=gen, device="cuda")
+
+        def repeat_tail(rows):
+            bad = rows.clone()
+            bad[:, 10:] = 0
+            return bad
+
+        worst = max(worst, topk_case(torch, f"fused_topk {dtype} Q=5 k=30 over rows [600000, 600010)", index, q,
+                                     600000, 600010, 30, scales, repeat_tail)[0])
+        for n in (1000, 1025):  # a ragged single tile, one row past a tile
+            for k in (1, 30, 300):
+                worst = max(worst, topk_case(
+                    torch, f"fused_topk {dtype} N={n} Q=5 k={k} over rows [3, {n - 2})",
+                    index[:n], q, 3, n - 2, k, None if scales is None else scales[:n].contiguous(),
+                    swap_first_two if k > 1 else (lambda r: r + 1))[0])
+        del index, scales
+        # tied blocks across the tile boundary 1,024 and the block boundary 8,192
+        index, scales = topk_index(torch, dtype, tied=((1000, 1051), (8150, 8251)))
+        q = torch.randn((2, TOPK_DIM), generator=gen, device="cuda")
+        q[0], q[1] = index[1000].float(), index[8150].float()
+        for k, n_tied in ((30, 30), (300, 51)):
+            tag = f"fused_topk {dtype} tied rows across 1,024 and 8,192, k={k}"
+
+            def swap_tied(rows):
+                bad = rows.clone()
+                bad[:, [2, 3]] = bad[:, [3, 2]]
+                return bad
+
+            err, got_r = topk_case(torch, tag, index, q, 0, TOPK_ROWS, k, scales, swap_tied)
+            worst = max(worst, err)
+            check(bool(torch.equal(got_r[0, :n_tied].cpu(), torch.arange(1000, 1000 + n_tied)))
+                  and bool(torch.equal(got_r[1, :min(k, 101)].cpu(), torch.arange(8150, 8150 + min(k, 101)))),
+                  f"{tag}: the tied rows are not first, lowest first")
         del index, scales
     return worst
+
 
 
 def flash_route(s: dict) -> str:
@@ -1952,27 +2111,81 @@ def phase_times_core(torch):
     return out
 
 
+def topk_bound_ms(n: int, d: int, elt: int, nq: int, k: int, scaled: bool) -> tuple[float, float, str]:
+    """(operations time, bytes time, description) of a K4 call: the rows (and
+    their scales) and the queries read once, the top k written once; one
+    product and one sum per element and query at the fp32 peak."""
+    nbytes = n * d * elt + (4 * n if scaled else 0) + 4 * d * nq + nq * k * (4 + 8)
+    ops = 2 * n * d * nq
+    return (ops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3,
+            f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP fp32")
+
+
 def phase_times_topk(torch):
     """K4 at the serving shape of one text query: Q = 1, k = 30 over
-    TOPK_ROWS int8 rows (the row scales applied)."""
-    from evr_tpu_torch.ops.retrieval import fused_topk, fused_topk_plain
+    TOPK_ROWS int8 rows (the row scales applied), the whole call against
+    its plain version and ``torch.matmul`` + ``torch.topk`` on the rows
+    dequantised to bf16, beside its bound; then the call split by CUDA
+    events into ``prepared_queries``, the kernel alone
+    (``topk_candidates``), the scan alone (the same walk with no selection,
+    ``scan_only``), the selection (the kernel less the scan) and ``_merge``;
+    then bf16 and fp32 rows at Q = 1 and int8 rows at Q = 5 and 32, each
+    against its library call and bound. Returns (the int8 Q = 1 record, the
+    split and the other cases)."""
+    from evr_tpu_torch.ops.retrieval import (_merge, fused_topk, fused_topk_plain, prepared_queries,
+                                             topk_candidates)
 
+    k, n, d = 30, TOPK_ROWS, TOPK_DIM
     index, scales = topk_index(torch, "int8")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    q = torch.randn((1, TOPK_DIM), generator=gen, device="cuda")
-    k, n, d = 30, TOPK_ROWS, TOPK_DIM
+    q = torch.randn((1, d), generator=gen, device="cuda")
     rows_bf16 = (index.float() * scales[:, None]).to(torch.bfloat16)
     q_bf16 = (q / q.norm()).to(torch.bfloat16)
-    nbytes = n * d + 4 * n + 4 * d + k * (4 + 8)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 2 * n * d / H100_FP32_FLOPS * 1e3
-    desc = f"{nbytes / 1e6:.1f} MB, {2 * n * d / 1e9:.2f} GFLOP fp32"
+    t_ops, t_bytes, desc = topk_bound_ms(n, d, 1, 1, k, True)
     rec = time_case(
         torch, "fused_topk", f"int8 {n} x {d}, Q=1, k={k}",
         lambda: fused_topk(index, q, 0, n, k, scales),
         lambda: fused_topk_plain(index, q, 0, n, k, scales),
         lambda: torch.topk(q_bf16 @ rows_bf16.T, k), t_ops, t_bytes, desc, (fused_topk,))
-    return rec
+    saved = fused_topk.launches
+    qp = prepared_queries(q, index.dtype)
+    cands = topk_candidates(index, qp, 0, n, k, scales)
+    parts = {
+        "call": lambda: fused_topk(index, q, 0, n, k, scales),
+        "prepared_queries": lambda: prepared_queries(q, index.dtype),
+        "kernel": lambda: topk_candidates(index, qp, 0, n, k, scales),
+        "scan": lambda: topk_candidates(index, qp, 0, n, k, scales, scan_only=True),
+        "merge": lambda: _merge(*cands, k),
+    }
+    split = {name: min(cuda_ms(torch, fn) for _ in range(2)) for name, fn in parts.items()}
+    split["selection"] = split["kernel"] - split["scan"]
+    log(f"time fused_topk int8 Q=1 k={k} split: " + ", ".join(f"{p} {v:.4f} ms" for p, v in split.items())
+        + f" (candidates {tuple(cands[0].shape)}; the scan's bound {t_bytes:.4f} ms)")
+    del rows_bf16, cands
+    cases = {}
+    for dtype, nq in (("int8", 5), ("int8", 32), ("bfloat16", 1), ("float32", 1)):
+        if dtype != "int8":
+            del index, scales
+            index, scales = topk_index(torch, dtype)
+        qq = torch.randn((nq, d), generator=gen, device="cuda")
+        qn = qq / qq.norm(dim=1, keepdim=True)
+        if dtype == "int8":
+            rows = (index.float() * scales[:, None]).to(torch.bfloat16)
+            lib = lambda: torch.topk(qn.to(torch.bfloat16) @ rows.T, k)  # noqa: E731
+        else:
+            rows = index
+            lib = lambda: torch.topk(qn.to(rows.dtype) @ rows.T, k)  # noqa: E731
+        ms = min(cuda_ms(torch, lambda: fused_topk(index, qq, 0, n, k, scales)) for _ in range(2))
+        lib_ms = cuda_ms(torch, lib)
+        o, b, what = topk_bound_ms(n, d, index.element_size(), nq, k, scales is not None)
+        cases[f"{dtype} Q={nq}"] = {"ms": ms, "library_ms": lib_ms, "bound_ms": max(o, b),
+                                     "bound_by": "operations" if o >= b else "bytes"}
+        log(f"time fused_topk {dtype} {n} x {d}, Q={nq}, k={k}: kernel {ms:.4f} ms, library {lib_ms:.4f} ms, "
+            f"bound {max(o, b):.4f} ms ({'operations' if o >= b else 'bytes'}: {what})")
+        del rows
+    fused_topk.launches = saved
+    del index, scales
+    return rec, {"split": split, "cases": cases}
 
 
 def phase_times_flash(torch):
@@ -2918,6 +3131,7 @@ def main() -> int:
         worst["fused_topk"] = phase_parity_topk(torch)
         worst.update(phase_parity_bwd(torch))
         attn_bwd_worst = phase_parity_attn_bwd(torch)
+        tiny_bwd_worst = phase_parity_tiny_bwd(torch)
         worst["adc_list_scores"] = phase_parity_adc(torch)
         worst.update(phase_parity_flash(torch))
         vis = get_model_config(MODEL).vision
@@ -2927,7 +3141,7 @@ def main() -> int:
         main_q = phase_main_path_int8(torch, frames)
         train = phase_train(torch)
         times = phase_times(torch)
-        times[("fused_topk", "vision")] = phase_times_topk(torch)
+        times[("fused_topk", "vision")], topk_times = phase_times_topk(torch)
         times.update(phase_times_train(torch, gemm))
         core = phase_times_core(torch)
         log("K1/K2 bf16 at ViT-L/14@336px (vitl) and ViT-H-14 (vith): " + ", ".join(
@@ -2978,6 +3192,14 @@ def main() -> int:
         f"{split['attention_library_ms']:.4f}; GEMMs {split['gemm_ms']:.4f}, rest {split['rest_ms']:.4f}), "
         f"K5b {times[('fused_mlp_block_bwd', 'vitl')]['ms']:.4f} ms; attention backward parity max abs err "
         f"{attn_bwd_worst:.3e}")
+    log(f"C4: K5a/K5b at W 64, head dim 16 ({', '.join(TINY_BWD_SHAPES)}) and attn_backward at d 16 "
+        f"({', '.join(TINY_ATTN_BWD_SHAPES)}) within their bands, largest bf16 error {tiny_bwd_worst:.3e}")
+    k4 = times[("fused_topk", "vision")]
+    log(f"K4 (fused_topk), int8 {TOPK_ROWS} x {TOPK_DIM}, Q=1, k=30: {k4['ms']:.4f} ms (library "
+        f"{k4['library_ms']:.4f}, bound {k4['bound_ms']:.4f}); split "
+        + ", ".join(f"{p} {v:.4f}" for p, v in topk_times["split"].items()) + " ms; "
+        + ", ".join(f"{c} {r['ms']:.4f} ms (library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f})"
+                    for c, r in topk_times["cases"].items()))
     log(f"ann tiers: /api/search p50 ivf {main['then']['ivf']:.2f} ms, ivfpq (host store) "
         f"{main['then']['ivfpq']:.2f} ms; large IVF-PQ ({ANN_ROWS} x {ANN_DIM}, {ANN_LISTS} lists): "
         f"build {ann['build_s']:.2f} s, pool {ann['pool']} rows, recall@10 {ann['recall']:.4f} "

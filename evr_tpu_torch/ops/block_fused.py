@@ -25,25 +25,26 @@ K1, K2 and K9 normalise in a row pass first (``ln_rows_plain`` is its plain
 version: K8's device code, writing the rounded LN output into a scratch) and
 then multiply on one GEMM: in bf16 the warp-specialised wgmma + TMA kernel
 of ``csrc/gemm_sm90.cuh``, which takes the shapes ``gemm_takes`` accepts
-(the wrappers check before loading a library: N a multiple of 256, or of 64
-for a forward product), in fp32 the CUDA-core GEMM of ``csrc/common.cuh``
-(N a multiple of 64). In bf16, K5's ten products run on the same kernel in
-the backward's transposed layouts (``attn_bwd_gemms``, ``mlp_bwd_gemms``),
-in fp32 on the CUDA-core ``gemm_t`` of ``csrc/grad_common.cuh``.
+(the wrappers check before loading a library: N a multiple of 64, on a
+128 x 64 tile where N is not a multiple of 256), in fp32 the CUDA-core GEMM
+of ``csrc/common.cuh`` (N a multiple of 64). In bf16, K5's ten products run
+on the same kernel in the backward's transposed layouts
+(``attn_bwd_gemms``, ``mlp_bwd_gemms``), in fp32 on the CUDA-core
+``gemm_t`` of ``csrc/grad_common.cuh`` (N a multiple of 64 as well).
 ``gemm_bf16`` runs the bf16 GEMM alone in each of those layouts,
 ``attn_forward`` the attention core of K1, K3a and K9 alone and
 ``attn_backward`` K5a's attention backward alone.
 
-K1, K3a and K9 take head dim 16, 64 or 80 (the tiny test tower, ViT-H-14's
-vision tower) and any T, K5a head dim 64 or 80; other head dims raise on a
-CUDA tensor. Their bf16 attention forward runs
+K1, K3a, K5a and K9 take head dim 16, 64 or 80 (the tiny test tower,
+ViT-H-14's vision tower) and any T; other head dims raise on a CUDA
+tensor. Their bf16 attention forward runs
 on the warp-specialised TMA + wgmma kernel of ``csrc/attn_sm90.cuh``, which
 K6 (``ops.attention``) shares; ``attn_takes``, ``attn_boxes``,
 ``attn_smem_bytes`` and ``attn_k_slots`` mirror its shape rule and
 shared-memory plan. K5a's bf16 attention backward runs on the two TMA +
 wgmma kernels of ``csrc/attn_bwd_sm90.cuh`` (statistics, o and dq per query
 tile; dk and dv per key tile), which take the shapes ``attn_bwd_takes``
-does (``attn_takes``' at head dims 64 and 80) and whose shared-memory plan
+does (``attn_takes``' rule) and whose shared-memory plan
 ``attn_bwd_slots``, ``attn_bwd_smem_bytes`` and ``attn_bwd_kv_smem_bytes``
 mirror.
 fp32 keeps the CUDA-core kernels of ``csrc/flash.cuh``.
@@ -427,7 +428,7 @@ def _ptr(t: torch.Tensor | None):
 
 
 GEMM_TILE_M, GEMM_TILE_N, GEMM_TILE_K = 128, 256, 64
-GEMM_TILE_N_NARROW = 64  # a forward product's N off the 256-wide tile
+GEMM_TILE_N_NARROW = 64  # a product's N off the 256-wide tile
 # up to 4 K slices of at least 16 steps each, below half an H100's 132 SMs
 GEMM_SPLIT_MAX, GEMM_SPLIT_BELOW_TILES, GEMM_SPLIT_MIN_STEPS = 4, 66, 16
 
@@ -437,20 +438,25 @@ def gemm_takes(M: int, N: int, K: int, a_t: bool = False, w_t: bool = False) -> 
     whose ``gemm_takes`` this mirrors) computes out[M, N] = op(A)·op(W) in a
     layout: A stored [M, K], or [K, M] read transposed (``a_t``, a weight
     gradient's sum over rows); W stored [K, N], or [N, K] read transposed
-    (``w_t``, an input gradient). N a multiple of its 256-wide output tile,
-    or, for a forward product (neither transposed), of its 64-wide narrow
-    tile; K of its 64-wide step where K is an operand's contiguous dimension
+    (``w_t``, an input gradient). N a multiple of its 64-wide narrow output
+    tile in every layout (``gemm_tile_n``: the 256-wide tile where it divides
+    N); K of its 64-wide step where K is an operand's contiguous dimension
     (A not transposed, or ``w_t``), else any K (TMA zero-fills the ragged
     rows); M any row count from 1 up to 65,535 row tiles of 128, and with
     ``a_t`` a multiple of 8 (16-byte rows of the [K, M] array). K5's
-    transposed products have N = W, so a K5 call keeps W a multiple of 256."""
+    transposed products have N = W, so a K5 call takes W a multiple of 64."""
     k_contiguous = not a_t or w_t
-    n_tile = GEMM_TILE_N if a_t or w_t else GEMM_TILE_N_NARROW
     return (
-        M >= 1 and N >= n_tile and N % n_tile == 0 and K >= 1
+        M >= 1 and N >= GEMM_TILE_N_NARROW and N % GEMM_TILE_N_NARROW == 0 and K >= 1
         and (not k_contiguous or K % GEMM_TILE_K == 0) and (not a_t or M % 8 == 0)
         and -(-M // GEMM_TILE_M) <= 65535
     )
+
+
+def gemm_tile_n(N: int) -> int:
+    """The output tile's N (``gemm_sm90.cuh``'s ``gemm_tile_n``): 256 where
+    it divides N, else the 64-wide narrow tile."""
+    return GEMM_TILE_N if N % GEMM_TILE_N == 0 else GEMM_TILE_N_NARROW
 
 
 def gemm_k_slice(M: int, N: int, K: int, a_t: bool = False, w_t: bool = False) -> int:
@@ -459,7 +465,7 @@ def gemm_k_slice(M: int, N: int, K: int, a_t: bool = False, w_t: bool = False) -
     ``w_t``, fp32 out) with fewer output tiles than half the SMs, whole
     64-row steps cut into at most four slices of at least 16 steps each,
     summed in slice order by a second pass."""
-    tiles = -(-M // GEMM_TILE_M) * (N // GEMM_TILE_N)
+    tiles = -(-M // GEMM_TILE_M) * (N // gemm_tile_n(N))
     steps = -(-K // GEMM_TILE_K)
     slices = min(GEMM_SPLIT_MAX, steps // GEMM_SPLIT_MIN_STEPS)
     if not a_t or w_t or tiles >= GEMM_SPLIT_BELOW_TILES or slices < 2:
@@ -511,11 +517,10 @@ def _check_gemms(what: str, x: torch.Tensor, gemms, tensors, biases) -> None:
         if not gemm_takes(M, N, K, a_t, w_t):
             k_rule = (f"K a multiple of {GEMM_TILE_K}" if not a_t or w_t
                       else "any K, M a multiple of 8")
-            n_tile = GEMM_TILE_N if a_t or w_t else GEMM_TILE_N_NARROW
             layout = f"{'Aᵀ' if a_t else 'A'}·{'Wᵀ' if w_t else 'W'}"
             raise ValueError(
                 f"{what}: the CUDA kernel does not take shape {tuple(x.shape)} "
-                f"(its GEMM takes, for {layout}, N a multiple of {n_tile} and {k_rule}; "
+                f"(its GEMM takes, for {layout}, N a multiple of {GEMM_TILE_N_NARROW} and {k_rule}; "
                 f"got {M} x {N} x {K})"
             )
     if any(t.data_ptr() % 16 for t in (x, *tensors)) or any(b.data_ptr() % 4 for b in biases):
@@ -1004,7 +1009,7 @@ def gemm_s8(
 
 
 ATTN_HEAD_DIMS = (16, 64, 80)  # the forward's
-ATTN_BWD_HEAD_DIMS = (64, 80)  # the backward's (d 16 has no training route to it: ROADMAP C4)
+ATTN_BWD_HEAD_DIMS = (16, 64, 80)  # the backward's: the forward's
 ATTN_TILE = 64  # query rows per consumer warpgroup, keys per block
 ATTN_CONSUMERS = 2  # consumer warpgroups (query tiles) per block
 ATTN_V_SLOTS = 4  # the v ring
@@ -1112,8 +1117,8 @@ def attn_bwd_slots(T: int, d: int) -> tuple[int, bool]:
 def _check_attn_bwd(what: str, B: int, T: int, n_heads: int, d: int, *tensors: torch.Tensor) -> None:
     """A bf16 attention backward on the card, before any library loads: the
     shape must be one the wgmma kernels take (``attn_bwd_takes``: the
-    forward's rule at head dims 64 and 80; their grids are the same pairs of
-    64-row tiles), and what TMA reads (qkv, do) must start on 16-byte
+    forward's rule at head dims 16, 64 and 80; their grids are the same
+    pairs of 64-row tiles), and what TMA reads (qkv, do) must start on 16-byte
     boundaries. fp32 keeps the CUDA-core kernels."""
     if not attn_bwd_takes(B, T, n_heads, d):
         raise ValueError(f"{what}: the CUDA kernel does not take {B} x {T} tokens of {n_heads} heads of "

@@ -131,8 +131,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [p, p, i, i, p]
         fn.restype = i
     elif name == "topk_fused":
-        fn = lib.evr_fused_topk
-        fn.argtypes = [i, p, p, p, i, i, i, i, i, i, p, p, p]
+        for fn in (lib.evr_fused_topk, lib.evr_fused_topk_scan):
+            fn.argtypes = [i, p, p, p, i, i, i, i, i, i, p, p, p]
+            fn.restype = i
+        fn = lib.evr_topk_plan
+        fn.argtypes = [i, i, i, i, p]
         fn.restype = i
     elif name == "block_attn_bwd":
         fn = lib.evr_fused_attn_block_bwd

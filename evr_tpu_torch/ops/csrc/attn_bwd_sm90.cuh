@@ -1,7 +1,7 @@
 // The bf16 attention backward of K5a, written for Hopper: per (sequence,
 // head), from the rounded packed qkv [B*T, 3W] (head h's q, k, v at columns
-// h d, W + h d, 2W + h d) and do [B*T, W] in bf16, head dim d = 64 or 80,
-// any T, causal or not:
+// h d, W + h d, 2W + h d) and do [B*T, W] in bf16, head dim d = 16, 64 or
+// 80, any T, causal or not:
 //     s = round(q * scale) k^T in fp32 (keys past T, and past the diagonal
 //       when causal, left out by index), m = the row's true max,
 //     pn = exp(s - m) / l in fp32, l = sum exp(s - m),
@@ -53,12 +53,13 @@
 //    - walk 2: s and dpn again → pn → ds; o += round(pn) v and dq +=
 //      round(ds) k with pn and ds as wgmma's register A operand and v and k
 //      MN-major through the transpose bit (m64n64k16, plus m64n16k16 on the
-//      32-byte-swizzled box at d 80), the next block's s and dpn issued
-//      behind them, one wait for all; then o, dq * scale (fp32 and bf16) and
-//      (m, l, D) written.
-//    While the key row fits (T <= 768 at d 64, T <= 576 at d 80) k and v
-//    stay resident after their first load; longer rows stream through the
-//    same slots once a walk.
+//      32-byte-swizzled box at d 80; at d 16 that box alone, s and dpn one
+//      k16 step and every d-wide product m64n16k16), the next block's s and
+//      dpn issued behind them, one wait for all; then o, dq * scale (fp32
+//      and bf16) and (m, l, D) written.
+//    While the key row fits (T <= 768 at d 64, T <= 576 at d 80, T <= 3,456
+//    at d 16) k and v stay resident after their first load; longer rows
+//    stream through the same slots once a walk.
 // 2. attn_bwd_kv_kernel, per (pair of 64-key tiles, head, sequence), after
 //    FlashAttention-3's backward: each consumer warpgroup keeps its k and v
 //    tiles resident and walks the query tiles (causal: from the diagonal's),
@@ -72,7 +73,7 @@
 //    of the scaling.
 // Both kernels run one block an SM with a producer warpgroup whose
 // registers setmaxnreg cuts to 40, so that each consumer thread has 232:
-// walk 2 holds o and dq (64 or 80 floats) beside s, dpn and their packed
+// walk 2 holds o and dq (16, 64 or 80 floats) beside s, dpn and their packed
 // bf16 copies, the key-tile kernel dk and dv beside s^T and dpn^T. Every
 // wait is for all of a warpgroup's products (wgmma_wait<0>): reading one
 // accumulator while another product is in flight, as a double-buffered walk
@@ -105,9 +106,9 @@ constexpr int kConsumers = 2;                       // consumer warpgroups: tile
 // at the head dims the backward takes
 static_assert(kConsumers == attn90::kConsumers, "pairs of 64-row tiles, as the forward");
 
-// the head dims the backward takes: 64 and 80 (d 16, the tiny test tower's,
-// has no training route to the fused backward: ROADMAP C4)
-__host__ __device__ constexpr bool takes_head_dim(int d) { return d == 64 || d == 80; }
+// the head dims the backward takes: the forward's, 16 (the tiny test
+// tower's: one 16-column, 32-byte-swizzled box a tile), 64 and 80
+__host__ __device__ constexpr bool takes_head_dim(int d) { return d == 16 || d == 64 || d == 80; }
 constexpr int kThreads = 128 * (kConsumers + 1);    // and the producer warpgroup
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg: 128 x 40 + 256 x 232 <= 65,536
 constexpr size_t kSmemPerBlock = 232448;         // the most one block of an H100 may take (227 KB)
@@ -126,7 +127,7 @@ __device__ __forceinline__ float ex(float x) { return exp2f(x * kLog2e); }
 // the slots, then the mbarriers (q full; per slot full and empty)
 template <int D>
 struct QPlan {
-  static_assert(takes_head_dim(D), "the backward takes head dims 64 and 80");
+  static_assert(takes_head_dim(D), "the backward takes head dims 16, 64 and 80");
   static constexpr uint32_t kTileBytes = HeadTile<D>::kTileBytes;
   static constexpr size_t smem(int slots) {
     return 1024 + static_cast<size_t>(2 * kConsumers + 2 * slots) * kTileBytes + 8 * (1 + 2 * slots);
@@ -174,21 +175,23 @@ struct Args {
 __device__ __forceinline__ int acc_row(int r0, int e) { return r0 + 8 * ((e / 2) % 2); }
 __device__ __forceinline__ int acc_col(int c0, int e) { return 8 * (e / 4) + c0 + e % 2; }
 
-// fence_acc over an m64n(D) accumulator pair: columns [0, 64), and at D =
-// 80 the m64n16 of [64, 80)
+// fence_acc over an m64n(D) accumulator pair: columns [0, 64) (none at D =
+// 16), and at D = 80 and 16 the m64n16 of the 16 columns after them
 template <int D>
 __device__ __forceinline__ void fence_out(float (&o)[32], float (&o2)[8]) {
-  fence_acc(o);
+  if constexpr (HeadTile<D>::kWide > 0) fence_acc(o);
   if constexpr (HeadTile<D>::kSplit) fence_acc(o2);
 }
 
-// rows [0, 64) of an m64n(D) accumulator pair (o, o2) below ``rows`` into
-// out[row * ld + c], c over the head's D columns: fp32 pairs (times ``mul``)
+// rows [0, 64) of an m64n(D) accumulator pair (o: columns [0, 64); o2: the
+// 16 after them, all of them at D = 16) below ``rows`` into out[row * ld +
+// c], c over the head's D columns: fp32 pairs (times ``mul``)
 // and, where out_r is given, the same rounded to bf16 pairs at the same
 // offsets of out_r; or bf16 pairs only (out == nullptr)
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&o)[32], const float (&o2)[8], float mul, int r0, int c0,
                                            int rows, size_t ld, float* out, bf16* out_r) {
+  using HT = HeadTile<D>;
   auto put = [=](int e, int col0, float x, float y) {
     const int r = acc_row(r0, e);
     if (r >= rows) return;
@@ -196,11 +199,13 @@ __device__ __forceinline__ void store_rows(const float (&o)[32], const float (&o
     if (out != nullptr) *reinterpret_cast<float2*>(out + off) = make_float2(x * mul, y * mul);
     if (out_r != nullptr) *reinterpret_cast<__nv_bfloat162*>(out_r + off) = __floats2bfloat162_rn(x * mul, y * mul);
   };
+  if constexpr (HT::kWide > 0) {
 #pragma unroll
-  for (int e = 0; e < 32; e += 2) put(e, 0, o[e], o[e + 1]);
-  if constexpr (HeadTile<D>::kSplit) {
+    for (int e = 0; e < 32; e += 2) put(e, 0, o[e], o[e + 1]);
+  }
+  if constexpr (HT::kSplit) {
 #pragma unroll
-    for (int e = 0; e < 8; e += 2) put(e, 64, o2[e], o2[e + 1]);
+    for (int e = 0; e < 8; e += 2) put(e, HT::kWide, o2[e], o2[e + 1]);
   }
 }
 
@@ -636,9 +641,10 @@ int launch_attn_bwd_sm90(const E* qkv, const E* dout, E* o, float* st, float* dq
   if (dqkv_r == nullptr || !aligned16(qkv) || !aligned16(dout) || !aligned16(o) || !aligned16(dqkv) ||
       !aligned16(dqkv_r))
     return -1;
-  if (W / H == 64)
-    return attn_bwd90::launch<64>(qkv, dout, o, st, dqkv, dqkv_r, B, T, W, H, causal, scale, stream);
-  return attn_bwd90::launch<80>(qkv, dout, o, st, dqkv, dqkv_r, B, T, W, H, causal, scale, stream);
+  return attn90::dispatch(W / H, [&](auto d) {
+    return attn_bwd90::launch<decltype(d)::value>(qkv, dout, o, st, dqkv, dqkv_r, B, T, W, H, causal, scale,
+                                                   stream);
+  });
 }
 
 }  // namespace evr

@@ -1,7 +1,8 @@
 // K5a: the backward of the attention half, out = x + out_proj(MHA(LN1(x))):
 //     from x [B, T, W] and the output's cotangent g, dx (x's dtype) and the
 //     fp32 gradients of LN1's scale and bias, W_qkv [W, 3W], b_qkv, W_out
-//     [W, W] and b_out, summed over all B*T rows. Head dim 64 or 80, any T.
+//     [W, W] and b_out, summed over all B*T rows. Head dim 16, 64 or 80, W a
+//     multiple of 64, any T.
 //
 // Replaces: evr_tpu/ops/block_fused.py::fused_attn_block_bwd (Pallas kernel
 // body _attn_block_bwd_kernel). Like it, nothing of the forward is saved but
@@ -64,9 +65,9 @@ int attn_block_bwd(const T* x, const T* g, const T* ln_s, const T* ln_b, const T
                    float* dqkv, T* dqkv_r, float* dy, float* partial, float* split, int B, int T_, int W, int H,
                    int causal, float scale, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  if (H < 1 || W % H != 0 || !flash_bwd_head_dim(W / H) || T_ < 1) return -1;
+  if (H < 1 || W % H != 0 || !flash_head_dim(W / H) || T_ < 1) return -1;
   const int M = B * T_, W3 = 3 * W;
-  if (kBf16 ? !attn_bwd_gemms_take(M, W) || dqkv_r == nullptr : W % kTBN != 0) return -1;
+  if (kBf16 ? !attn_bwd_gemms_take(M, W) || dqkv_r == nullptr : W % (kTBN / 2) != 0) return -1;
   int rc = launch_ln_rows<T>(x, ln_s, ln_b, y, mean, rstd, M, W, stream);
   if (rc != 0) return rc;
   if constexpr (kBf16) {

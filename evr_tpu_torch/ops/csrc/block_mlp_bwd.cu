@@ -92,7 +92,8 @@ int mlp_block_bwd(const T* x, const T* g, const T* ln_s, const T* ln_b, const T*
                   float* split, int M, int W, int HID, int act, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   if (M < 1 || (act != 0 && act != 1)) return -1;
-  if (kBf16 ? !mlp_bwd_gemms_take(M, W, HID) || dhp == nullptr : W % kTBN != 0 || HID % kTBN != 0) return -1;
+  if (kBf16 ? !mlp_bwd_gemms_take(M, W, HID) || dhp == nullptr : W % (kTBN / 2) != 0 || HID % (kTBN / 2) != 0)
+    return -1;
   int rc = launch_ln_rows<T>(x, ln_s, ln_b, y, mean, rstd, M, W, stream);
   if (rc != 0) return rc;
   if constexpr (kBf16) {

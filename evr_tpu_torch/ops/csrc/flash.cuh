@@ -1,8 +1,9 @@
 // Attention over any sequence length in 64-row tiles: the forward of K1
 // (block_attn.cu), K3a (block_quant.cu) and K9 (block_merged.cu) at head dim
 // D = 16, 64 or 80, and the attention part of K5a's backward
-// (block_attn_bwd.cu) at D = 64 or 80. Inputs are the rounded qkv [B*T, 3W] of the block
-// (q, k, v of head h at columns h*D, W + h*D, 2W + h*D).
+// (block_attn_bwd.cu) at the same head dims. Inputs are the rounded qkv
+// [B*T, 3W] of the block (q, k, v of head h at columns h*D, W + h*D, 2W +
+// h*D).
 //
 // Replaces: the attention core of evr_tpu/ops/block_fused.py::
 // fused_attn_block (_attn_block_kernel) and of its backward
@@ -63,10 +64,9 @@ constexpr int kFT = 64;         // the tile edge: query rows and keys per tile
 constexpr int kFLDP = kFT + 8;  // probability and ds tiles [64][kFLDP] (T)
 constexpr int kFLDS = kFT + 4;  // fp32 score tiles [64][kFLDS]
 
-// the head dims the forward kernels take (d 16: the tiny test tower), and
-// those the backward kernels take
+// the head dims the forward and backward kernels take (d 16: the tiny test
+// tower)
 inline bool flash_head_dim(int d) { return d == 16 || d == 64 || d == 80; }
-inline bool flash_bwd_head_dim(int d) { return d == 64 || d == 80; }
 
 template <typename T, int D>
 struct FlashLayout {
@@ -601,6 +601,7 @@ int flash_backward(const T* qkv, const T* dout, T* o, float* st, float* dqkv, T*
     return launch_attn_bwd_sm90(qkv, dout, o, st, dqkv, dqkv_r, B, T_, W, H, causal, scale, stream);
   } else {
     if (H < 1 || W % H != 0) return -1;
+    if (W / H == 16) return flash_backward_d<T, 16>(qkv, dout, o, st, dqkv, B, T_, W, H, causal, scale, stream);
     if (W / H == 64) return flash_backward_d<T, 64>(qkv, dout, o, st, dqkv, B, T_, W, H, causal, scale, stream);
     if (W / H == 80) return flash_backward_d<T, 80>(qkv, dout, o, st, dqkv, B, T_, W, H, causal, scale, stream);
     return -1;

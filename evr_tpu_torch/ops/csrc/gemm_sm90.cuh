@@ -23,10 +23,10 @@
 // MB = 62 us. Bound by operations, so the design is about keeping the
 // tensor cores fed:
 //   - a 128 x 256 output tile, K walked in 64-wide steps (each 64-element row
-//     of a K-major tile is one 128-byte swizzle line); a forward product
-//     (A and B as the params lie, a bf16 epilogue) whose N is a multiple of
-//     64 but not of 256 takes a 128 x 64 tile instead (the tiny test
-//     tower's N of 64 and 192), so every N a multiple of 256 keeps the wide
+//     of a K-major tile is one 128-byte swizzle line); a product whose N is
+//     a multiple of 64 but not of 256 takes a 128 x 64 tile instead, in
+//     every layout and epilogue (the tiny test tower's N of 64 and 192,
+//     forward and backward), so every N a multiple of 256 keeps the wide
 //     tile and its bits;
 //   - a ring of kStages = 4 stages (48 KB each: A 128 x 64, B 64 x 256; 24
 //     KB at the narrow tile) in dynamic shared memory, with a full and an
@@ -35,7 +35,8 @@
 //     whose one thread issues the TMA loads (cp.async.bulk.tensor.2d), all
 //     with the 128-byte swizzle: a K-major A as one box of 128 rows x 64, an
 //     MN-major A as two of 64 K rows x 64 M columns, an MN-major B as four
-//     of 64 K rows x 64 N columns, a K-major B as one of 256 N rows x 64.
+//     (one at the narrow tile) of 64 K rows x 64 N columns, a K-major B as
+//     one of 256 (64) N rows x 64.
 //     TMA fills what lies past an edge with zeros, so a ragged M needs no
 //     masking on load, and neither does a ragged K where both operands hold
 //     K as their outer dimension (the weight gradients: K = the rows);
@@ -92,7 +93,7 @@ struct GemmOut {
 namespace sm90 {
 
 constexpr int kBM = 128, kBN = 256, kBK = 64, kStages = 4;
-constexpr int kBNarrow = 64;                        // the narrow tile's N (forward products, N % 256 != 0)
+constexpr int kBNarrow = 64;                        // the narrow tile's N (N % 256 != 0)
 constexpr int kConsumers = 2;                       // warpgroups of 128 threads, 64 rows each
 constexpr int kGemmThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr int kBox = 64;                            // an MN-major TMA box: 64 columns (128 B) x kBK rows
@@ -224,7 +225,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,  // A [M, K] box 128 x 64, or [K, M] box 64 x 64
                      const __grid_constant__ CUtensorMap map_b,  // B [K, N] box 64 x 64, or [N, K] box BN x 64
                      const GemmOut o, int M, int N, int K, int k_slice) {
-  static_assert(BN == kBN || (BN == kBNarrow && !A_MN && !B_K), "the narrow tile serves forward products only");
+  static_assert(BN == kBN || BN == kBNarrow, "the wide or the narrow tile");
   constexpr uint32_t kStageBytes = stage_bytes<BN>();
   constexpr int kEpiLd = epi_ld<BN>(), kEpiLd32 = epi_ld32<BN>();
   extern __shared__ unsigned char smem_raw[];
@@ -399,22 +400,23 @@ __global__ void __launch_bounds__(256) split_sum_kernel(const float4* __restrict
 }  // namespace sm90
 
 // The shapes the wgmma GEMM takes in each layout (ops/block_fused.py::
-// gemm_takes mirrors this): N a multiple of the 256-wide tile, or, for a
-// forward product (A and B as stored, no transposed layout), of the 64-wide
-// narrow tile; K a multiple of the 64-wide step where it is an operand's
-// contiguous dimension (a K-major A or B), else any K (both operands hold K
-// as their outer dimension, and TMA zero-fills past it); M any positive row
-// count up to the grid's 65,535 row tiles, and with an MN-major A a
-// multiple of 8 (the [K, M] array's rows must be 16-byte multiples for
-// TMA). K5's backward has transposed products of N = W, so it keeps W a
-// multiple of 256.
+// gemm_takes mirrors this): N a multiple of the 64-wide narrow tile (the
+// 256-wide one where N is a multiple of 256); K a multiple of the 64-wide
+// step where it is an operand's contiguous dimension (a K-major A or B),
+// else any K (both operands hold K as their outer dimension, and TMA
+// zero-fills past it); M any positive row count up to the grid's 65,535 row
+// tiles, and with an MN-major A a multiple of 8 (the [K, M] array's rows
+// must be 16-byte multiples for TMA). K5's backward has transposed products
+// of N = W, so it takes W a multiple of 64.
 template <bool A_MN = false, bool B_K = false>
 inline bool gemm_takes(int M, int N, int K) {
   const bool k_contiguous = !A_MN || B_K;
-  const int n_tile = A_MN || B_K ? sm90::kBN : sm90::kBNarrow;
-  return M >= 1 && N >= n_tile && N % n_tile == 0 && K >= 1 && (!k_contiguous || K % sm90::kBK == 0) &&
-         (!A_MN || M % 8 == 0) && (M + sm90::kBM - 1) / sm90::kBM <= 65535;
+  return M >= 1 && N >= sm90::kBNarrow && N % sm90::kBNarrow == 0 && K >= 1 &&
+         (!k_contiguous || K % sm90::kBK == 0) && (!A_MN || M % 8 == 0) && (M + sm90::kBM - 1) / sm90::kBM <= 65535;
 }
+
+// the output tile's N: the wide tile where it divides N, else the narrow one
+inline int gemm_tile_n(int N) { return N % sm90::kBN == 0 ? sm90::kBN : sm90::kBNarrow; }
 
 // Rows of K a slice walks: K itself, or, for a weight gradient (A and B
 // MN-major) with fewer output tiles than kSplitBelowTiles, whole 64-row steps
@@ -426,7 +428,7 @@ inline int gemm_k_slice(int M, int N, int K) {
   using namespace sm90;
   const int steps = (K + kBK - 1) / kBK;
   const int slices = std::min(kSplitMax, steps / kSplitMinSteps);
-  if (!A_MN || B_K || ((M + kBM - 1) / kBM) * (N / kBN) >= kSplitBelowTiles || slices < 2) return K;
+  if (!A_MN || B_K || ((M + kBM - 1) / kBM) * (N / gemm_tile_n(N)) >= kSplitBelowTiles || slices < 2) return K;
   return (steps + slices - 1) / slices * kBK;
 }
 
@@ -445,11 +447,7 @@ int launch_gemm_sm90(const bf16* a, const bf16* b, GemmOut o, int M, int N, int 
                      cudaStream_t stream, int k_slice = 0) {
   using namespace sm90;
   if (!gemm_takes<A_MN, B_K>(M, N, K)) return -1;
-  // N off the wide tile (a forward product, as gemm_takes has it): the
-  // narrow tile, under a bf16 epilogue and in one pass
-  constexpr bool kNarrowTakes = !A_MN && !B_K && EPI < kF32;
-  const bool narrow = N % kBN != 0;
-  if (narrow && (!kNarrowTakes || k_slice != 0)) return -1;
+  const int bn = gemm_tile_n(N);  // N off the wide tile: the narrow one
   if (k_slice == 0)
     k_slice = EPI == kF32 ? gemm_k_slice<A_MN, B_K>(M, N, K) : K;
   else if (EPI != kF32 || k_slice < 1 || (k_slice < K && k_slice % kBK != 0))
@@ -470,24 +468,19 @@ int launch_gemm_sm90(const bf16* a, const bf16* b, GemmOut o, int M, int N, int 
   const bool ok_a =
       A_MN ? encode_map(encode, &map_a, a, K, M, kBK, kBox) : encode_map(encode, &map_a, a, M, K, kBM, kBK);
   const bool ok_b =
-      B_K ? encode_map(encode, &map_b, b, N, K, kBN, kBK) : encode_map(encode, &map_b, b, K, N, kBK, kBox);
+      B_K ? encode_map(encode, &map_b, b, N, K, bn, kBK) : encode_map(encode, &map_b, b, K, N, kBK, kBox);
   if (!ok_a || !ok_b) return static_cast<int>(cudaErrorInvalidValue);
   GemmOut to = o;
   if (splits > 1) to.out = split;
-  auto run = [&](auto kernel, size_t smem, int bn) {
+  auto run = [&](auto kernel, size_t smem) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     kernel<<<dim3(N / bn, (M + kBM - 1) / kBM, splits), kGemmThreads, smem, stream>>>(map_a, map_b, to, M, N, K,
                                                                                         k_slice);
     return cudaGetLastError();
   };
-  cudaError_t err;
-  if constexpr (kNarrowTakes) {
-    err = narrow ? run(gemm_sm90_kernel<EPI, false, false, kBNarrow>, smem_bytes<kBNarrow>(), kBNarrow)
-                 : run(gemm_sm90_kernel<EPI, A_MN, B_K>, smem_bytes<kBN>(), kBN);
-  } else {
-    err = run(gemm_sm90_kernel<EPI, A_MN, B_K>, smem_bytes<kBN>(), kBN);
-  }
+  const cudaError_t err = bn == kBN ? run(gemm_sm90_kernel<EPI, A_MN, B_K, kBN>, smem_bytes<kBN>())
+                                    : run(gemm_sm90_kernel<EPI, A_MN, B_K, kBNarrow>, smem_bytes<kBNarrow>());
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n4 = static_cast<size_t>(M) * N / 4;
   const int blocks = static_cast<int>(std::min<size_t>((n4 + 255) / 256, 4096));

@@ -24,7 +24,10 @@ namespace evr {
 // 8 warps as 2 x 4 each owning 32x32. A is stored [M, K] (lda) or, with TA,
 // [K, M]; B is stored [K, N] (ldb) or, with TB, [N, K]. A transposed operand
 // is staged transposed and read by the tile product as such, so global reads
-// stay contiguous. M and K may be ragged; N must be a multiple of 128.
+// stay contiguous. M and K may be ragged; N must be a multiple of 64: a last
+// tile half past N reads zeros for its missing columns and hands none of
+// them to the epilogue (the tiny test tower's W of 64 and 3W of 192), and
+// every N a multiple of 128 runs as before, no column masked.
 constexpr int kTBM = 64, kTBN = 128, kTBK = 32;
 
 template <bool TA, bool TB>
@@ -70,10 +73,10 @@ __global__ void __launch_bounds__(kThreads) gemm_t_kernel(const float* __restric
     for (int i = tid; i < BK * BN; i += kThreads) {
       if constexpr (TB) {  // element (k, n) at b[n*ldb + k], k fastest
         const int k = i % BK, n = i / BK, gk = k0 + k;
-        sb[n * L::LDB + k] = gk < K ? b[static_cast<size_t>(col0 + n) * ldb + gk] : 0.f;
+        sb[n * L::LDB + k] = gk < K && col0 + n < N ? b[static_cast<size_t>(col0 + n) * ldb + gk] : 0.f;
       } else {
         const int k = i / BN, n = i % BN, gk = k0 + k;
-        sb[k * L::LDB + n] = gk < K ? b[static_cast<size_t>(gk) * ldb + col0 + n] : 0.f;
+        sb[k * L::LDB + n] = gk < K && col0 + n < N ? b[static_cast<size_t>(gk) * ldb + col0 + n] : 0.f;
       }
     }
     __syncthreads();
@@ -98,20 +101,21 @@ __global__ void __launch_bounds__(kThreads) gemm_t_kernel(const float* __restric
   __syncthreads();
   for (int i = tid; i < BM * BN; i += kThreads) {
     const int r = i / BN, c = i % BN, gm = row0 + r;
-    if (gm < M) epi(gm, col0 + c, sc[r * L::LDC + c]);
+    if (gm < M && col0 + c < N) epi(gm, col0 + c, sc[r * L::LDC + c]);
   }
 }
 
 template <bool TA, bool TB, class Epi>
 int launch_gemm_t(const float* a, int lda, const float* b, int ldb, int M, int N, int K, Epi epi,
                   cudaStream_t stream) {
-  if (N % kTBN != 0 || M < 1 || K < 1) return -1;
+  if (N < kTBN / 2 || N % (kTBN / 2) != 0 || M < 1 || K < 1) return -1;
   constexpr size_t smem = GemmTLayout<TA, TB>::bytes;
   auto kernel = gemm_t_kernel<TA, TB, Epi>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(N / kTBN, (M + kTBM - 1) / kTBM), kThreads, smem, stream>>>(a, lda, b, ldb, M, N, K, epi);
+  kernel<<<dim3((N + kTBN - 1) / kTBN, (M + kTBM - 1) / kTBM), kThreads, smem, stream>>>(a, lda, b, ldb, M, N, K,
+                                                                                      epi);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,7 @@ processes started together: the tree's ``flash_attn.cu`` (K6, entry
 ``ops.block_fused.attn_backward``), so that a tree from before those entries
 existed runs through the same device code as the block halves. ``--parts``
 picks the forward (``fwd``: K6 and the core), the backward (``bwd``), K3
-(``int8``) and K1, K2 and K9 (``blocks``), in any combination (default
+(``int8``) and K1, K2, K9, K5a and K5b (``blocks``), in any combination (default
 ``fwd,bwd``).
 
 ``int8`` compiles each tree's ``block_quant.cu`` and calls K3a and K3b
@@ -33,10 +33,11 @@ K3b are then timed at INT8_TIMED (ViT-B/32 vision and ViT-H-14 vision
 serving, bf16), the trees in turns, beside their bound (int8 GEMM
 operations at 1,979 TOP/s and the attention at 989 TFLOP/s, against x, out
 and the weights at 3.35 TB/s). ``blocks`` compiles each tree's
-``block_attn.cu``, ``block_mlp.cu`` and ``block_merged.cu`` and runs K1, K2
-and K9 through the package's wrappers on each tree's library at
-BLOCKS_CHECKED's registry shapes, bf16 and fp32: every tree's output must
-equal the first tree's bit for bit.
+``block_attn.cu``, ``block_mlp.cu``, ``block_merged.cu``,
+``block_attn_bwd.cu`` and ``block_mlp_bwd.cu`` and runs K1, K2, K9, K5a and
+K5b through the package's wrappers on each tree's library at
+BLOCKS_CHECKED's registry shapes, bf16 and fp32: every tree's output (K5:
+dx and every gradient) must equal the first tree's bit for bit.
 
 The backward is checked at every shape in bf16 and fp32 against
 ``attn_backward_plain``: o's max abs error, and for each of the q, k and v
@@ -140,6 +141,7 @@ INT8_FP32_TOL, INT8_MIN_COS = 1e-2, 0.99999
 H100_INT8_OPS = 1979e12
 # K1, K2 and K9 at the registry shapes they ran at before the narrow tiles:
 # (B, T, W, H, causal, activation)
+BLOCK_LIBS = ("block_attn", "block_mlp", "block_merged", "block_attn_bwd", "block_mlp_bwd")
 BLOCKS_CHECKED = {
     "vision": (256, 50, 768, 12, False, "quick_gelu"),
     "text": (16, 77, 512, 8, True, "quick_gelu"),
@@ -185,9 +187,9 @@ def log(msg: str) -> None:
 def build_trees(trees: list[pathlib.Path], out: pathlib.Path, parts: set[str]) -> list[dict]:
     """Compile each tree's core shim and flash_attn.cu (part ``fwd``),
     backward shim (``bwd``), block_quant.cu (``int8``) and block_attn.cu,
-    block_mlp.cu and block_merged.cu (``blocks``); all nvcc processes run
-    together. Returns per tree {key: library path} for the parts asked
-    for."""
+    block_mlp.cu, block_merged.cu, block_attn_bwd.cu and block_mlp_bwd.cu
+    (``blocks``); all nvcc processes run together. Returns per tree {key:
+    library path} for the parts asked for."""
     from evr_tpu_torch.ops import build
 
     nvcc = build.nvcc_path()
@@ -198,10 +200,11 @@ def build_trees(trees: list[pathlib.Path], out: pathlib.Path, parts: set[str]) -
         bwd_shim.write_text(BWD_SHIM)
         srcs = {"core": shim, "k6": csrc / "flash_attn.cu", "bwd": bwd_shim, "int8": csrc / "block_quant.cu",
                 "block_attn": csrc / "block_attn.cu", "block_mlp": csrc / "block_mlp.cu",
-                "block_merged": csrc / "block_merged.cu"}
+                "block_merged": csrc / "block_merged.cu", "block_attn_bwd": csrc / "block_attn_bwd.cu",
+                "block_mlp_bwd": csrc / "block_mlp_bwd.cu"}
         keys = ((("core", "k6") if "fwd" in parts else ()) + (("bwd",) if "bwd" in parts else ())
                 + (("int8",) if "int8" in parts else ())
-                + (("block_attn", "block_mlp", "block_merged") if "blocks" in parts else ()))
+                + (BLOCK_LIBS if "blocks" in parts else ()))
         lib = {key: out / f"lib{key}{n}.so" for key in keys}
         for key in keys:
             src = srcs[key]
@@ -496,14 +499,15 @@ def kernel_split(torch, fn, calls: int = 20) -> dict[str, float]:
 
 
 def check_blocks(torch, paths: list[dict], result: dict) -> bool:
-    """K1, K2 and K9 of each tree through the package's wrappers (each
-    tree's libraries put in ``ops.build``'s place in turn): every tree's
-    output equal to the first tree's bit for bit at BLOCKS_CHECKED."""
+    """K1, K2, K9, K5a and K5b of each tree through the package's wrappers
+    (each tree's libraries put in ``ops.build``'s place in turn): every
+    tree's output (K5: dx and every gradient) equal to the first tree's bit
+    for bit at BLOCKS_CHECKED."""
     from evr_tpu_torch.ops import block_fused as bf
     from evr_tpu_torch.ops import build
 
     dev = torch.device("cuda")
-    names = ("block_attn", "block_mlp", "block_merged")
+    names = BLOCK_LIBS
     libs = []
     for lib in paths:
         loaded = {}
@@ -519,18 +523,21 @@ def check_blocks(torch, paths: list[dict], result: dict) -> bool:
             p = block_params(torch, W, gen, dev)
             attn, mlp = bf.block_half_params(p)
             x32 = (torch.rand((B, T, W), generator=gen, device=dev) * 2 - 1) * math.sqrt(3.0)
+            g32 = (torch.rand((B, T, W), generator=gen, device=dev) * 2 - 1) * 0.01
             for dt in (torch.bfloat16, torch.float32):
-                x = x32.to(dt)
-                calls = (("K1", lambda: bf.fused_attn_block(x, *attn, n_heads=H, causal=causal)),
-                         ("K2", lambda: bf.fused_mlp_block(x, *mlp, activation=act)),
-                         ("K9", lambda: bf.fused_block_merged(x, p, H, act, causal)))
+                x, g = x32.to(dt), g32.to(dt)
+                calls = (("K1", lambda: [bf.fused_attn_block(x, *attn, n_heads=H, causal=causal)]),
+                         ("K2", lambda: [bf.fused_mlp_block(x, *mlp, activation=act)]),
+                         ("K9", lambda: [bf.fused_block_merged(x, p, H, act, causal)]),
+                         ("K5a", lambda: bf.fused_attn_block_bwd(x, g, *attn, n_heads=H, causal=causal)),
+                         ("K5b", lambda: bf.fused_mlp_block_bwd(x, g, *mlp, activation=act)))
                 for kind, call in calls:
                     outs = []
                     for loaded in libs:
                         build._loaded.update(loaded)
                         outs.append(call())
                     torch.cuda.synchronize()
-                    same = all(torch.equal(o, outs[0]) for o in outs)
+                    same = all(torch.equal(u, v) for o in outs for u, v in zip(o, outs[0]))
                     ok &= same
                     dt_name = str(dt).split(".")[-1]
                     log(f"check {kind} {tag} {dt_name}: bit-equal across the trees {same} "
@@ -553,7 +560,7 @@ def main(argv=None) -> int:
                     help="an ops/csrc directory (repeatable; default this package's)")
     ap.add_argument("--parts", default="fwd,bwd",
                     help="comma-separated: fwd (K6 and K1's core), bwd (K5a's attention backward), "
-                         "int8 (K3a and K3b), blocks (K1, K2 and K9)")
+                         "int8 (K3a and K3b), blocks (K1, K2, K9, K5a and K5b)")
     ap.add_argument("--out", type=pathlib.Path, help="also write the JSON result here")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))

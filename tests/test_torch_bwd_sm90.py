@@ -88,17 +88,17 @@ def _call_bwd(half, x, g, width):
 
 @pytest.mark.parametrize("half", ["attn", "mlp"])
 def test_bf16_k5_off_tile_width_raises_before_any_library_loads(half, monkeypatch):
-    """W 384 took the old WMMA GEMM (W % 128); its bf16 products are now off
-    the wgmma GEMM's 256-wide tile, so a bf16 call raises in the wrapper,
-    before a library loads. An fp32 call at that width still goes on to its
-    library (the CUDA-core GEMM), as does a bf16 call at W 256; a bf16 x off
-    a 16-byte boundary raises too."""
+    """W 160 (two heads of 80) puts K5's products off the wgmma GEMM's
+    64-wide tile (N 160), so a bf16 call raises in the wrapper, before a
+    library loads. An fp32 call at that width still goes on to its library
+    (the CUDA-core GEMM, whose C side refuses it), as does a bf16 call at W
+    256; a bf16 x off a 16-byte boundary raises too."""
 
     def no_load(name):
         raise RuntimeError(f"library {name} loaded")
 
     monkeypatch.setattr(build, "load", no_load)
-    for width, dt, expect in ((384, BF16, ValueError), (384, torch.float32, RuntimeError),
+    for width, dt, expect in ((160, BF16, ValueError), (160, torch.float32, RuntimeError),
                               (256, BF16, RuntimeError)):
         x = torch.zeros(2, 5, width, dtype=dt).as_subclass(_ClaimsCuda)
         g = torch.zeros(2, 5, width, dtype=dt).as_subclass(_ClaimsCuda)
@@ -109,11 +109,12 @@ def test_bf16_k5_off_tile_width_raises_before_any_library_loads(half, monkeypatc
     with pytest.raises(ValueError, match="16-byte"):
         _call_bwd(half, off, g, 256)
     # the rule per layout: K a multiple of 64 where it is contiguous, else
-    # any K; with a transposed A, M a multiple of 8; N on the 256-wide tile
+    # any K; with a transposed A, M a multiple of 8; N on the 64-wide tile
     assert tbf.gemm_takes(1024, 3072, 18464, a_t=True) and tbf.gemm_takes(256, 256, 40, a_t=True)
     assert not tbf.gemm_takes(1024, 3072, 18464) and not tbf.gemm_takes(18464, 1024, 3000, w_t=True)
     assert tbf.gemm_takes(18464, 1024, 3072, w_t=True)
-    assert not tbf.gemm_takes(1020, 256, 64, a_t=True) and not tbf.gemm_takes(384, 384, 1000, a_t=True)
+    assert not tbf.gemm_takes(1020, 256, 64, a_t=True) and not tbf.gemm_takes(384, 416, 1000, a_t=True)
+    assert tbf.gemm_takes(384, 384, 1000, a_t=True)
 
 
 def test_gemm_bf16_plain_layouts_equal_their_definitions():

@@ -66,7 +66,8 @@ def test_gemm_takes_refuses_off_tile_shapes():
     tiny = MODEL_REGISTRY["ViT-Tiny-Test"].vision.width
     assert [tbf.gemm_takes(8, N, K) for _, N, K in _block_gemms(tiny, 8)] == [True, True, True, True]
     assert not tbf.gemm_takes(128, 96, 128)  # N off the 64-wide narrow tile
-    assert not tbf.gemm_takes(128, 384, 128, w_t=True)  # a transposed product: N off the 256-wide tile
+    assert not tbf.gemm_takes(128, 416, 128, w_t=True)  # a transposed product: N off the 64-wide tile
+    assert tbf.gemm_takes(128, 384, 128, w_t=True)  # and N 384 on the narrow one
     assert not tbf.gemm_takes(128, 256, 96)  # K off the 64-wide step
     assert not tbf.gemm_takes(0, 256, 64)  # no rows
     assert not tbf.gemm_takes(65535 * 128 + 1, 256, 64)  # past the grid's row tiles

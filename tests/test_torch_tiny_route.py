@@ -11,11 +11,13 @@ on the card, where ``chip_smoke.py``'s Tiny phase holds them to these plain
 versions; here the CPU checks what that rests on:
 
 - the mirrors (``gemm_takes``, ``gemm_s8_takes``, ``attn_takes``,
-  ``ops.attention.HEAD_DIMS``) take every forward GEMM and attention of the
-  tiny towers and every shape of the other registry towers, and refuse N
-  off the 64-wide tile, head dims other than 16, 64 and 80, and head dim 16
-  and width 64 in K5's backward (no training route reaches it there,
-  ROADMAP C4), before any library loads;
+  ``attn_bwd_takes``, ``ops.attention.HEAD_DIMS``) take every forward GEMM
+  and attention of the tiny towers and every shape of the other registry
+  towers, K5's transposed products at N 64 and its attention backward at
+  head dim 16, and refuse N off the 64-wide tile and head dims other than
+  16, 64 and 80, before any library loads; K5a, K5b and K5a's attention
+  backward at W 64 and head dim 16 pass every wrapper check and reach their
+  library;
 - the plain K1, K2, K3a, K3b, K6a and K6b at W 64, H 4 against the JAX
   Pallas kernels in interpret mode on the same numpy inputs and params:
   fp32 at the JAX kernel tests' 2e-4, bf16 within one bf16 step (both round
@@ -98,16 +100,19 @@ def test_mirrors_take_every_registry_tower(name):
 
 def test_mirrors_refuse_off_rule_shapes():
     assert not tbf.gemm_takes(128, 96, 64)  # N off the 64-wide narrow tile
-    assert not tbf.gemm_takes(128, 192, 64, w_t=True)  # a transposed product keeps the 256-wide tile
-    assert not tbf.gemm_takes(64, 192, 128, a_t=True)
+    # the transposed products (K5's) take the narrow tile too, at N 64 and 192
+    assert tbf.gemm_takes(128, 192, 64, w_t=True) and tbf.gemm_takes(64, 192, 128, a_t=True)
+    assert tbf.gemm_takes(4352, 64, 64, w_t=True) and tbf.gemm_takes(64, 64, 4352, a_t=True)
+    assert not tbf.gemm_takes(128, 96, 64, w_t=True) and not tbf.gemm_takes(64, 96, 128, a_t=True)
     assert not tbf.gemm_s8_takes(128, 96, 64) and not tbf.gemm_s8_takes(128, 64, 24)  # N, K off the rule
     assert not tbf.gemm_s8_takes(0, 64, 64) and not tbf.gemm_s8_takes(65535 * 128 + 1, 64, 64)
     assert tbf.gemm_s8_takes(65535 * 128, 64, 16)
     for d in (8, 24, 32, 48, 96, 128):
         assert not tbf.attn_takes(2, 17, 4, d) and d not in tattn.HEAD_DIMS
-    # the backward keeps head dims 64 and 80 (ROADMAP C4)
-    assert tbf.attn_takes(2, 17, 4, 16) and not tbf.attn_bwd_takes(2, 17, 4, 16)
-    assert tbf.ATTN_BWD_HEAD_DIMS == (64, 80) and tbf.attn_bwd_takes(2, 17, 4, 64)
+        assert not tbf.attn_bwd_takes(2, 17, 4, d)
+    # the backward takes the forward's head dims, 16 among them
+    assert tbf.attn_takes(2, 17, 4, 16) and tbf.attn_bwd_takes(2, 17, 4, 16)
+    assert tbf.ATTN_BWD_HEAD_DIMS == (16, 64, 80) and tbf.attn_bwd_takes(2, 17, 4, 64)
 
 
 class _ClaimsCuda(torch.Tensor):
@@ -124,25 +129,29 @@ def _no_load(name):
 
 
 def test_k5_at_the_tiny_geometry_raises_before_any_library_loads(monkeypatch):
-    """K5a/K5b at W 64 (their transposed products keep the 256-wide tile) and
-    K5a's attention backward at head dim 16 (W 256, H 16) raise in the
-    wrappers in bf16, before a library loads."""
+    """K5a/K5b and K5a's attention backward alone at the tiny geometry (W 64,
+    H 4) and at head dim 16 on a wider block (W 256, H 16), bf16 and fp32:
+    no wrapper check raises any more (the transposed products take the
+    narrow tile, the attention backward d 16); each call goes on to load its
+    library, which raises here."""
     monkeypatch.setattr(build, "load", _no_load)
-    bf = torch.bfloat16
 
-    def cuda(*shape):
-        return torch.zeros(*shape, dtype=bf).as_subclass(_ClaimsCuda)
+    for dt in (torch.bfloat16, torch.float32):
+        def cuda(*shape):
+            return torch.zeros(*shape, dtype=dt).as_subclass(_ClaimsCuda)
 
-    for width, heads in ((64, 4), (256, 16)):
-        x, g = cuda(2, 17, width), cuda(2, 17, width)
-        attn = [cuda(width), cuda(width), cuda(width, 3 * width), cuda(3 * width), cuda(width, width), cuda(width)]
-        with pytest.raises(ValueError, match="does not take"):
-            tbf.fused_attn_block_bwd(x, g, *attn, n_heads=heads)
-        with pytest.raises(ValueError, match="does not take"):
-            tbf.attn_backward(cuda(2, 17, 3 * width), cuda(2, 17, width), heads)
-    mlp = [cuda(64), cuda(64), cuda(64, 256), cuda(256), cuda(256, 64), cuda(64)]
-    with pytest.raises(ValueError, match="does not take"):
-        tbf.fused_mlp_block_bwd(cuda(2, 17, 64), cuda(2, 17, 64), *mlp)
+        for width, heads in ((64, 4), (256, 16)):
+            x, g = cuda(2, 17, width), cuda(2, 17, width)
+            attn = [cuda(width), cuda(width), cuda(width, 3 * width), cuda(3 * width), cuda(width, width),
+                    cuda(width)]
+            with pytest.raises(RuntimeError, match="library block_attn_bwd loaded"):
+                tbf.fused_attn_block_bwd(x, g, *attn, n_heads=heads)
+            with pytest.raises(RuntimeError, match="library block_attn_bwd loaded"):
+                tbf.attn_backward(cuda(2, 17, 3 * width), cuda(2, 17, width), heads)
+            mlp = [cuda(width), cuda(width), cuda(width, 4 * width), cuda(4 * width), cuda(4 * width, width),
+                   cuda(width)]
+            with pytest.raises(RuntimeError, match="library block_mlp_bwd loaded"):
+                tbf.fused_mlp_block_bwd(x, g, *mlp)
 
 
 @pytest.fixture(scope="module")
