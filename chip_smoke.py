@@ -19,7 +19,9 @@ package. Phases, each fatal on failure:
    of K3's int8 GEMM in the K3 library (``gemm_s8_kernel``,
    ``csrc/gemm_s8_sm90.cuh``) must hold ``IGMMA`` instructions; ptxas's
    register and spill lines are printed, and its "wgmma serialised" notes
-   for the int8 GEMM;
+   for the int8 GEMM; each function of K7's ring walk in the K7 library
+   (``adc_ring_kernel``, S 32, 64, 96, 128) must hold the TMA unit's bulk
+   copies (``UBLKCP``), whose counts are printed with ``UTMALDG``'s;
 3. the bf16 GEMM under K1, K2, K9 and K5 alone (``gemm_bf16``) at ViT-H-14's
    four vision GEMMs (65,792 rows), ViT-B/32's vision and text GEMMs, a
    ragged M, one tile and the tiny tower's four (N 64, 192 and 256: the
@@ -93,8 +95,12 @@ package. Phases, each fatal on failure:
    bf16 and fp32 rows and at Q = 5 and 32; K1's attention core alone (``attn_forward``) at ViT-H-14,
    ViT-L/14@336px, ViT-B/32 vision and text shapes against SDPA; encode
    frames/s and the p50 of a text query, bf16 and int8;
-8. the ANN tiers: K7 (``adc_list_scores``) against its plain version, bit
-   for bit (phase 3); the bf16 data root of phase 4 served under
+8. the ANN tiers: K7 (``adc_list_scores`` on gathered blocks, and
+   ``adc_probe_scores`` on lists in place at repeated ids, the ring walk at S
+   32, 64 and 128 and the direct walk, each new case with a negative control)
+   against its plain version, bit for bit, its plan against
+   ``ops.adc.adc_plan``, and a list id out of range faulting in a child
+   process for each walk (phase 3); the bf16 data root of phase 4 served under
    ``search_impl="ivf"`` at a full probe (served events equal to the exact
    path's) and ``"ivfpq"`` with the int8 host store (the top-1 of perturbed
    corpus frames equal to the exact path's), each /api/search p50; then
@@ -103,7 +109,13 @@ package. Phases, each fatal on failure:
    searched by 8 queries at nprobe 32 with ``adc_impl="pallas"`` (K7) and
    ``"xla"`` (same rows), recall@10 with and without an int8 re-rank of 50,
    the query p50 of both, K7's launches over those searches against the
-   count expected, K7 on the search's own probed blocks, and K7's times;
+   count expected (one a chunk of probes whose 17 bytes a row fit
+   ``ivf.CHUNK_BYTES``), K7 on the search's own lists and probed ids, a
+   ``torch.profiler`` split of the nprobe-32 query, the query with an id
+   read-back and a full probe chunked as the gathered copy was, each in
+   turns with the search as it is, and K7's times (the call in place by
+   CUDA events and its launch's device time, and the parent's form: the
+   probed lists gathered, then scored);
    then ``tools.index_tool`` ``build --streamed --host-store`` and
    ``query`` over a 262,144-row ``.npy``, its rows equal to a direct search;
 9. the flash route: K6 (``flash_attention``: K6a ``flash_attention_full``,
@@ -420,8 +432,22 @@ TRAIN_MODEL, TRAIN_BATCH, N_TRAIN, N_VAL = "ViT-L/14@336px", 32, 96, 32
 STEP_FP32_BANDS = (1.5e-7, 3e-7, 0.9999995)
 STEP_BF16_BANDS = (2e-4, 3e-3, 0.9968)
 # K7 against its plain version: both sum each row over s in order, so they
-# should agree to the bit; the band is 1e-6 of the output's largest entry.
+# must agree to the bit (and within 1e-6 of the output's largest entry, the
+# band of the JAX parity). Its ring walk is instantiated for each S of
+# ``ops.adc.RING_SUBSPACES``.
 ADC_REL_TOL = 1e-6
+ADC_LIB, ADC_RING_KERNEL = "adc_list", "adc_ring_kernel"
+# K7 over lists in place (adc_probe_scores): (L, C, S, K, list ids [B][n]),
+# each with a negative control; repeated and unordered ids on the ring walk,
+# the ragged direct-load shape, the ring at S 32 and 128 (one row a lane), and
+# the direct walk's 16-byte loads on an unaligned view of the codes
+ADC_PROBE_CASES = {
+    "ring L=40 C=1000 S=64 K=256 repeated ids": (40, 1000, 64, 256, [[3, 17, 3, 39, 0, 17], [5, 5, 22, 1, 38, 9]]),
+    "direct L=9 C=517 S=20 K=100": (9, 517, 20, 100, [[8, 0, 4], [4, 4, 1]]),
+    "ring L=12 C=777 S=32 K=256": (12, 777, 32, 256, [[11, 2, 7, 7], [0, 1, 2, 3], [6, 10, 6, 4]]),
+    "ring L=10 C=3072 S=128 K=256": (10, 3072, 128, 256, [[9, 1], [4, 4]]),
+    "direct L=10 C=300 S=64 K=256 unaligned": (10, 300, 64, 256, [[2, 9, 2], [0, 5, 7]]),
+}
 # The large IVF-PQ tier: ANN_ROWS unit rows of ANN_DIM (4,194,304 x 512 fp32,
 # 8 GB: about 1,165 hours of video at one frame a second), ANN_CENTRES seeded
 # centres with ANN_NOISE per dimension, 2,048 lists (capacity 1.5 x 2,048 =
@@ -631,6 +657,18 @@ def phase_build():
     log(f"sass: HGMMA instructions in each {ATTN_KERNEL} function {json.dumps(attn)}")
     log(f"sass: HGMMA instructions in each attention backward function of {ATTN_BWD_LIB} {json.dumps(bwd)}")
     log(f"sass: IGMMA instructions in each {S8_KERNEL} function of {S8_LIB} {json.dumps(s8)}")
+    # K7's ring walk streams its tiles and tables by the TMA unit's bulk
+    # copies (UBLKCP; UTMALDG would be tensor-map loads)
+    from evr_tpu_torch.ops.adc import RING_SUBSPACES
+
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(ADC_LIB))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    tma = {m: {f: n for f, n in sass_functions(sass, m).items() if ADC_RING_KERNEL in f} for m in ("UBLKCP", "UTMALDG")}
+    log(f"sass: TMA instructions in each {ADC_RING_KERNEL} function of {ADC_LIB} {json.dumps(tma)}")
+    check(len(tma["UBLKCP"]) == len(RING_SUBSPACES),
+          f"{ADC_LIB}: {len(tma['UBLKCP'])} {ADC_RING_KERNEL} functions, expected {len(RING_SUBSPACES)}")
+    for f, n in tma["UBLKCP"].items():
+        check(n > 0, f"{ADC_LIB}: no bulk copy (UBLKCP) in {f}")
     for name in HGMMA_LIBS:
         check(counts[name] > 0, f"{name}: no HGMMA instruction in its SASS")
     for name in ATTN_HGMMA_LIBS:
@@ -2231,28 +2269,51 @@ def adc_case(torch, p: int, c: int, s: int, k: int, b: int, seed: int):
     return blocks, tables
 
 
-def adc_compare(torch, blocks, tables, nprobe: int, tag: str) -> float:
-    """K7 against its plain version on the same inputs: expected bit-equal
-    (the same order of sums), held to ADC_REL_TOL of the output's scale."""
-    from evr_tpu_torch.ops.adc import adc_list_scores, adc_list_scores_plain
-
-    got = adc_list_scores(blocks, tables, nprobe)
+def adc_compare(torch, got, ref, tag: str) -> float:
+    """K7's scores against its plain version's on the same inputs: bit-equal
+    (the same order of sums), and within ADC_REL_TOL of the output's scale."""
     torch.cuda.synchronize()
-    ref = adc_list_scores_plain(blocks, tables, nprobe)
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     same = bool(torch.equal(got, ref))
     log(f"parity adc_list_scores {tag}: bit-equal {same}, max_abs_err={err:.3e} "
         f"(output scale {scale:.3f})")
     check(bool(torch.isfinite(got).all().item()), f"adc_list_scores {tag}: non-finite scores")
+    check(same, f"adc_list_scores {tag}: not bit-equal to the plain version")
     check(err <= ADC_REL_TOL * scale, f"adc_list_scores {tag}: err {err} above {ADC_REL_TOL} x {scale}")
     return err
 
 
+def adc_plan_check(torch, codes, n_probed: int, k: int, tag: str):
+    """The kernel's plan (``evr_adc_plan``) equal to ``ops.adc.adc_plan``'s
+    mirror for these codes; returns it."""
+    import ctypes
+
+    from evr_tpu_torch.ops import build
+    from evr_tpu_torch.ops.adc import adc_plan
+
+    n_lists, c, s = codes.shape
+    aligned = codes.data_ptr() % 16 == 0
+    out = (ctypes.c_int * 7)()
+    rc = build.load(ADC_LIB).evr_adc_plan(n_lists, c, s, k, n_probed, int(aligned), out)
+    want = adc_plan(n_lists, c, s, k, n_probed, aligned)
+    check(rc == 0 and tuple(out) == tuple(want), f"adc plan {tag}: C {tuple(out)} (rc {rc}), adc_plan {tuple(want)}")
+    return want
+
+
 def phase_parity_adc(torch) -> float:
-    """K7 against its plain version: the IVF-PQ probe shape of phase 9 (P =
-    B x nprobe = 256 lists of C = 3,072 rows, S = 64, K = 256), a ragged C
-    with several probes per query, and an S that takes the scalar code loads."""
+    """K7 against its plain version, bit for bit: through ``adc_list_scores``
+    on gathered blocks at the IVF-PQ probe shape of phase 8 (P = B x nprobe =
+    256 lists of C = 3,072 rows, S = 64, K = 256), a ragged C with several
+    probes per query, and an S that takes the direct walk; then through
+    ``adc_probe_scores`` on lists in place at ADC_PROBE_CASES, each with a
+    negative control (one output element moved by one step) that the
+    bit-equality check must reject, and the kernel's plan equal to its
+    Python mirror; last, a list id out of range must fault on the card
+    (``adc_trap_check``)."""
+    from evr_tpu_torch.ops.adc import (
+        adc_list_scores, adc_list_scores_plain, adc_probe_scores, adc_probe_scores_plain)
+
     worst = 0.0
     for tag, (p, c, s, k, b) in (
         ("P=256 C=3072 S=64 K=256 B=8", (ANN_B * ANN_NPROBE, ANN_CAPACITY, 64, 256, ANN_B)),
@@ -2260,8 +2321,56 @@ def phase_parity_adc(torch) -> float:
         ("P=6 C=517 S=20 K=100 B=2", (6, 517, 20, 100, 2)),
     ):
         blocks, tables = adc_case(torch, p, c, s, k, b, seed=p + c)
-        worst = max(worst, adc_compare(torch, blocks, tables, p // b, tag))
+        adc_plan_check(torch, blocks, p, k, tag)
+        got = adc_list_scores(blocks, tables, p // b)
+        worst = max(worst, adc_compare(torch, got, adc_list_scores_plain(blocks, tables, p // b), tag))
+    for tag, (n_lists, c, s, k, ids) in ADC_PROBE_CASES.items():
+        codes, tables = adc_case(torch, n_lists, c, s, k, len(ids), seed=n_lists + c + s)
+        if tag.endswith("unaligned"):
+            flat = torch.empty(codes.numel() + 16, dtype=torch.uint8, device="cuda")
+            codes = flat[1:1 + codes.numel()].view(codes.shape).copy_(codes)
+        ids = torch.tensor(ids, device="cuda")
+        plan = adc_plan_check(torch, codes, ids.numel(), k, tag)
+        check(plan.walk == (0 if tag.startswith("direct") else 1), f"adc {tag}: plan {plan}")
+        got = adc_probe_scores(codes, ids, tables)
+        ref = adc_probe_scores_plain(codes, ids, tables)
+        worst = max(worst, adc_compare(torch, got, ref, f"in place, {tag}"))
+        bad = got.clone().view(-1)
+        i = bad.numel() // 2
+        bad[i] = torch.nextafter(bad[i], bad[i] + 1)
+        check(not torch.equal(bad.view(got.shape), ref), f"adc {tag}: the negative control passed the bit-equality check")
+        log(f"parity adc_probe_scores {tag}: plan {tuple(plan)}; negative control rejected")
+    adc_trap_check()
     return worst
+
+
+def adc_trap_check() -> None:
+    """``adc_probe_scores`` does not read CUDA list ids back; K7 traps on an
+    id outside [0, L) instead, which loses the process's CUDA context, so
+    each walk is driven with the id L in a child process of its own (both
+    started together), which must fail with a CUDA error and print no
+    scores."""
+    here = pathlib.Path(__file__).resolve().parent
+    procs = {}
+    for walk, (c, s, k) in {"ring": (128, 64, 256), "direct": (100, 20, 100)}.items():
+        code = ("import torch\n"
+                "from evr_tpu_torch.ops.adc import adc_probe_scores\n"
+                f"codes = torch.zeros((4, {c}, {s}), dtype=torch.uint8, device='cuda')\n"
+                f"out = adc_probe_scores(codes, torch.tensor([[1, 4]], device='cuda'), torch.zeros((1, {s}, {k}), device='cuda'))\n"
+                "print('scores', float(out.sum()))\n")
+        procs[walk] = subprocess.Popen([sys.executable, "-c", code], cwd=here, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+    for walk, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise SmokeFailure(f"adc {walk} walk: the child with an id out of range did not end in 300 s")
+        last = (err.strip().splitlines() or [""])[-1]
+        log(f"adc {walk} walk, list id 4 of 4 lists: child exit {proc.returncode}, {last[:200]!r}")
+        check(proc.returncode != 0 and "scores" not in out and "CUDA error" in err,
+              f"adc {walk} walk: an id out of range gave exit {proc.returncode}, stdout {out[-200:]!r}")
 
 
 def clustered_unit_rows(torch, n: int, d: int, centres: int, seed: int):
@@ -2381,7 +2490,7 @@ def phase_ann_large(torch):
     from evr_tpu_torch.index import IVFPQIndex
     from evr_tpu_torch.index.ivf import chunk_rows, probe_lists
     from evr_tpu_torch.index.pq import adc_tables
-    from evr_tpu_torch.ops.adc import adc_list_scores
+    from evr_tpu_torch.ops.adc import adc_list_scores, adc_probe_scores, adc_probe_scores_plain
     from evr_tpu_torch.ops.topk import cosine_topk
 
     t0 = time.perf_counter()
@@ -2423,15 +2532,15 @@ def phase_ann_large(torch):
     def recall(rows):
         return float(np.mean([len(set(r) & set(e)) / 10 for r, e in zip(rows, exact_rows)]))
 
-    chunk = chunk_rows(ANN_B * idx._capacity * 64)  # probes per K7 launch (ivfpq.py)
+    chunk = chunk_rows(ANN_B * idx._capacity * 17)  # probes per K7 launch: 17 bytes a row (ivfpq.py)
     per_search = -(-ANN_NPROBE // chunk)
     adc_list_scores.launches = 0
     results = {}
     for impl in ("pallas", "xla"):
         for rerank in (None, 50):
             results[(impl, rerank)] = idx.search(q, 10, nprobe=ANN_NPROBE, rerank=rerank, adc_impl=impl)
-    # a full probe: every list, ceil(lists / chunk) launches, the gathered
-    # codes bounded by the chunk
+    # a full probe: every list, ceil(lists / chunk) launches, the scores
+    # bounded by the chunk
     t1 = time.perf_counter()
     sf, rf = idx.search(q, 10, nprobe=ANN_LISTS, adc_impl="pallas")
     full_ms = (time.perf_counter() - t1) * 1e3
@@ -2461,22 +2570,133 @@ def phase_ann_large(torch):
     check(np.array_equal(results[("pallas", 50)][1], results[("xla", 50)][1]),
           "ann large: re-ranked rows differ between the two impls")
     check(launches == expected > 0, f"adc_list_scores: {launches} launches, expected {expected}")
+    extra = ann_host_costs(torch, idx, q, chunk)
 
-    # K7 against its plain version at the path's own inputs: the probed
-    # blocks and the tables of this search
+    # K7 against its plain version at the path's own inputs: the index's
+    # lists in place, this search's probed list ids and tables
     with torch.no_grad():
         qt = torch.from_numpy(q).cuda()
         cids = probe_lists(qt, idx.centroids, ANN_NPROBE)[2]
-        blocks = idx.codes_lists.view(idx.n_clusters, idx._capacity, 64)[cids].reshape(
-            -1, idx._capacity, 64)
+        codes_lists = idx.codes_lists.view(idx.n_clusters, idx._capacity, 64)
         tables = adc_tables(qt, idx.codebooks)
-    err_path = adc_compare(torch, blocks, tables, ANN_NPROBE, "on the search's probed blocks")
-    del x, idx
+    err_path = adc_compare(torch, adc_probe_scores(codes_lists, cids, tables),
+                           adc_probe_scores_plain(codes_lists, cids, tables), "on the search's lists in place")
+    split = ann_query_split(torch, idx, q, lat["pallas"])
+    log(f"ann large query split (nprobe {ANN_NPROBE}, B {ANN_B}, torch.profiler, ms a search): "
+        f"{json.dumps({k: round(v, 4) for k, v in split.items()})}")
+    del x
     torch.cuda.empty_cache()
     return {"build_s": build_s, "build2_s": build2_s, "pool": o, "launches": launches,
             "recall": recall(rp), "recall_rerank": recall(results[("pallas", 50)][1]),
             "p50_pallas": lat["pallas"], "p50_xla": lat["xla"], "max_abs_err": err_path,
-            "blocks": blocks, "tables": tables}
+            "full_ms": full_ms, **extra, "split": split, "index": idx, "cids": cids, "tables": tables}
+
+
+def ann_host_costs(torch, idx, q, chunk: int, runs: int = 7) -> dict:
+    """Two costs of the search beside K7, each timed in turns with the
+    search as it is (query p50s, ms): the nprobe-32 query with a read-back
+    of the probed ids' range before each launch (one synchronisation, as
+    an id check on the host would make), and a full probe of ANN_LISTS
+    lists chunked as the gathered copy was (a chunk of uint8 codes, 64
+    bytes a row: ceil(ANN_LISTS / chunk) launches) against the chunk of
+    ``chunk`` probes. Their K7 launches are not counted."""
+    import evr_tpu_torch.index.ivfpq as ivfpq_mod
+    from evr_tpu_torch.index.ivf import chunk_rows
+    from evr_tpu_torch.ops import adc
+
+    saved = adc.adc_list_scores.launches
+    probe = ivfpq_mod.adc_probe_scores
+
+    def synced(codes_lists, list_ids, tables):
+        adc._check_ids(list_ids, codes_lists.shape[0])
+        return probe(codes_lists, list_ids, tables)
+
+    def gathered_chunks(_):
+        return chunk_rows(ANN_B * idx._capacity * 64)
+
+    cases = {}
+    order = ("nprobe", "nprobe_synced", "full", "full_gathered_chunks")
+    for name in order + order[::-1]:
+        try:
+            if name == "nprobe_synced":
+                ivfpq_mod.adc_probe_scores = synced
+            if name == "full_gathered_chunks":
+                ivfpq_mod.chunk_rows = gathered_chunks
+            nprobe = ANN_NPROBE if name.startswith("nprobe") else ANN_LISTS
+            ts = []
+            for _ in range(runs if nprobe == ANN_LISTS else 2 * ANN_TIMED):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                idx.search(q, 10, nprobe=nprobe, adc_impl="pallas")
+                ts.append((time.perf_counter() - t1) * 1e3)
+        finally:
+            ivfpq_mod.adc_probe_scores = probe
+            ivfpq_mod.chunk_rows = chunk_rows
+        cases.setdefault(name, []).append(statistics.median(ts))
+    adc.adc_list_scores.launches = saved
+    out = {f"{k}_p50": v for k, v in cases.items()}
+    log(f"ann large host costs (query p50 ms, two runs each in turns): {json.dumps(out)}; the full probe "
+        f"{-(-ANN_LISTS // chunk)} launches, chunked as the gathered copy "
+        f"{-(-ANN_LISTS // chunk_rows(ANN_B * idx._capacity * 64))}")
+    return out
+
+
+def kernel_busy_ms(torch, fn, calls: int) -> dict:
+    """``fn`` run ``calls`` times under ``torch.profiler``: each kernel's
+    device time a call (ms, by name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            busy[e.key] = (getattr(e, "device_time_total", 0.0) or e.cuda_time_total) / 1e3 / calls
+    return busy
+
+
+def ann_query_split(torch, idx, q, p50: float, searches: int = 10) -> dict:
+    """A ``torch.profiler`` split of the nprobe-32 query with K7, in device
+    ms a search: K7's kernels, ``probe_lists``' and ``merge_candidates``'
+    kernels (their first-argmax rounds; each traced alone on the arguments
+    one search hands it), the pool's GEMM kernels, every other kernel and the
+    device's busy time; then the query's p50 without the profiler (``p50``)
+    and the host's share of it (p50 less the busy time)."""
+    import evr_tpu_torch.index.ivfpq as ivfpq_mod
+
+    captured = {}
+    saved = {n: getattr(ivfpq_mod, n) for n in ("probe_lists", "merge_candidates")}
+
+    def capturing(name, fn):
+        def run(*args, **kw):
+            captured[name] = (args, kw)
+            return fn(*args, **kw)
+        return run
+
+    for n, fn in saved.items():
+        setattr(ivfpq_mod, n, capturing(n, fn))
+    try:
+        idx.search(q, 10, nprobe=ANN_NPROBE, adc_impl="pallas")
+    finally:
+        for n, fn in saved.items():
+            setattr(ivfpq_mod, n, fn)
+    whole = kernel_busy_ms(torch, lambda: idx.search(q, 10, nprobe=ANN_NPROBE, adc_impl="pallas"), searches)
+    out = {"K7": sum(v for k, v in whole.items() if "adc_" in k)}
+    for n, fn in saved.items():
+        args, kw = captured[n]
+        args = tuple(a.clone() if torch.is_tensor(a) else a for a in args)  # merge_candidates overwrites its scores
+        part = kernel_busy_ms(torch, lambda: fn(*args, **kw), searches)
+        out[n] = sum(part.values())
+    out["pool_gemm"] = sum(v for k, v in whole.items()
+                           if any(s in k.lower() for s in ("gemm", "gemv", "xmma", "cutlass")))
+    out["device_busy"] = sum(whole.values())
+    out["other_kernels"] = out["device_busy"] - out["K7"] - out["probe_lists"] - out["merge_candidates"] - out["pool_gemm"]
+    out["p50"] = p50
+    out["host"] = p50 - out["device_busy"]
+    return out
 
 
 def quantize_host_rows(torch, rows):
@@ -2486,30 +2706,62 @@ def quantize_host_rows(torch, rows):
     return q.cpu().numpy(), scale.cpu().numpy()
 
 
-def phase_times_adc(torch, blocks, tables):
-    """K7 at the path's shape (P = 256, C = 3,072, S = 64, K = 256, B = 8),
-    its plain version, and a library expression of the same function: each
-    block's query table expanded over C, gathered at the codes, summed."""
-    from evr_tpu_torch.ops.adc import adc_list_scores, adc_list_scores_plain
+def phase_times_adc(torch, idx, cids, tables):
+    """K7 at the path's shape (the search's lists in place, its 256 probed
+    list ids at B = 8 x nprobe 32, C = 3,072, S = 64, K = 256): the call as
+    the search makes it (``adc_probe_scores``: the table's code-major copy
+    and the launch), its plain version and a library expression of the same
+    function on the gathered blocks (each block's query table expanded over
+    C, gathered at the codes, summed), by CUDA events over back-to-back
+    calls as every kernel's ``ms``; beside them the parent's form, the
+    probed lists gathered into [P, C, S] and scored by ``adc_list_scores``.
+    From a ``torch.profiler`` trace, the device time of K7's launch
+    (``device_ms``) and of all the kernels of each form. The bound counts
+    the distinct probed lists' codes once."""
+    from evr_tpu_torch.ops import adc
 
-    p, c, s = blocks.shape
-    b, _, k = tables.shape
-    nprobe = p // b
-    owner = torch.arange(p, device="cuda") // nprobe
+    codes_lists = idx.codes_lists.view(idx.n_clusters, idx._capacity, 64)
+    b, n = cids.shape
+    _, c, s = codes_lists.shape
+    k = tables.shape[2]
+    p = b * n
+    flat = cids.reshape(-1)
+    blocks = codes_lists[flat]
+    owner = torch.arange(p, device="cuda") // n
 
     def library():
         t = tables[owner][:, None].expand(p, c, s, k)
         return torch.gather(t, 3, blocks.long()[..., None])[..., 0].sum(dim=2)
 
-    nbytes = p * c * s + b * s * k * 4 + p * c * 4
+    def call():
+        return adc.adc_probe_scores(codes_lists, cids, tables)
+
+    def parent_form():
+        return adc.adc_list_scores(codes_lists[flat], tables, n)
+
+    lists = int(torch.unique(cids).numel())
+    nbytes = adc.adc_bytes(lists, c, s, k, b, p)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = p * c * s / H100_FP32_FLOPS * 1e3
-    desc = f"{nbytes / 1e6:.1f} MB, {p * c * s / 1e6:.1f} M fp32 adds"
-    return time_case(
-        torch, "adc_list_scores", f"P={p} C={c} S={s} K={k} B={b}",
-        lambda: adc_list_scores(blocks, tables, nprobe),
-        lambda: adc_list_scores_plain(blocks, tables, nprobe), library, t_ops, t_bytes, desc,
-        (adc_list_scores,))
+    desc = f"{nbytes / 1e6:.1f} MB ({lists} distinct lists), {p * c * s / 1e6:.1f} M fp32 adds"
+    rec = time_case(
+        torch, "adc_list_scores", f"in place, P={p} C={c} S={s} K={k} B={b}", call,
+        lambda: adc.adc_probe_scores_plain(codes_lists, cids, tables), library, t_ops, t_bytes, desc,
+        (adc.adc_list_scores,))
+    saved = adc.adc_list_scores.launches
+    form_ms = cuda_ms(torch, parent_form)
+    copy_ms = cuda_ms(torch, lambda: codes_lists[flat])
+    busy = {"call": kernel_busy_ms(torch, call, 20), "parent_form": kernel_busy_ms(torch, parent_form, 20)}
+    adc.adc_list_scores.launches = saved
+    k7 = {f: sum(v for key, v in t.items() if "adc_" in key) for f, t in busy.items()}
+    rec.update({"device_ms": k7["call"], "call_device_ms": sum(busy["call"].values()),
+                "parent_form_ms": form_ms, "parent_form_k7_device_ms": k7["parent_form"],
+                "parent_form_device_ms": sum(busy["parent_form"].values()), "gather_copy_ms": copy_ms})
+    log(f"time adc_list_scores in place: the call {rec['ms']:.4f} ms (CUDA events), its kernels "
+        f"{rec['call_device_ms']:.4f} ms on the device, K7's launch {rec['device_ms']:.4f}; the parent's "
+        f"form (gather + adc_list_scores) {form_ms:.4f} ms, its kernels {rec['parent_form_device_ms']:.4f} "
+        f"(K7's launch {k7['parent_form']:.4f}); the gathered copy alone {copy_ms:.4f} ms")
+    return rec
 
 
 def phase_index_tool(torch):
@@ -3156,7 +3408,8 @@ def main() -> int:
         t1 = time.perf_counter()
         ann = phase_ann_large(torch)
         worst["adc_list_scores"] = max(worst["adc_list_scores"], ann["max_abs_err"])
-        times[("adc_list_scores", "vision")] = phase_times_adc(torch, ann.pop("blocks"), ann.pop("tables"))
+        times[("adc_list_scores", "vision")] = phase_times_adc(torch, ann.pop("index"), ann.pop("cids"),
+                                                               ann.pop("tables"))
         tool = phase_index_tool(torch)
         ann_s = time.perf_counter() - t1
         t2 = time.perf_counter()
@@ -3200,11 +3453,20 @@ def main() -> int:
         + ", ".join(f"{p} {v:.4f}" for p, v in topk_times["split"].items()) + " ms; "
         + ", ".join(f"{c} {r['ms']:.4f} ms (library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f})"
                     for c, r in topk_times["cases"].items()))
+    k7 = times[("adc_list_scores", "vision")]
+    log(f"K7 (adc_list_scores) in place at P={ANN_B * ANN_NPROBE}: the call {k7['ms']:.4f} ms (CUDA events; "
+        f"K7's launch {k7['device_ms']:.4f} ms on the device, bound {k7['bound_ms']:.4f}, library "
+        f"{k7['library_ms']:.4f}); the parent's form, gather + kernel, {k7['parent_form_ms']:.4f} ms (device "
+        f"{k7['parent_form_device_ms']:.4f}, the copy {k7['gather_copy_ms']:.4f}); query split "
+        f"{json.dumps({k: round(v, 4) for k, v in ann['split'].items()})}")
     log(f"ann tiers: /api/search p50 ivf {main['then']['ivf']:.2f} ms, ivfpq (host store) "
         f"{main['then']['ivfpq']:.2f} ms; large IVF-PQ ({ANN_ROWS} x {ANN_DIM}, {ANN_LISTS} lists): "
         f"build {ann['build_s']:.2f} s, pool {ann['pool']} rows, recall@10 {ann['recall']:.4f} "
         f"(re-rank 50: {ann['recall_rerank']:.4f}), query p50 K7 {ann['p50_pallas']:.3f} ms / "
-        f"gather-sum {ann['p50_xla']:.3f} ms at nprobe {ANN_NPROBE}, B {ANN_B}; index_tool build "
+        f"gather-sum {ann['p50_xla']:.3f} ms at nprobe {ANN_NPROBE}, B {ANN_B} (in turns: "
+        f"{json.dumps(ann['nprobe_p50'])}, with an id read-back {json.dumps(ann['nprobe_synced_p50'])}); "
+        f"full probe {json.dumps(ann['full_p50'])} ms (chunked as the gathered copy "
+        f"{json.dumps(ann['full_gathered_chunks_p50'])}); index_tool build "
         f"{tool['build_s']:.2f} s, query {tool['query_s']:.2f} s; the large tier and the tool took "
         f"{ann_s:.1f} s")
     log(f"flash route, {FLASH_MODEL}: encode {main_f['encode_frames_per_s']:.1f} frames/s (batch {BATCH}, "
@@ -3280,6 +3542,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": worst[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            # K7: its launch's device time (torch.profiler) beside the call's
+            **({"device_ms": t["device_ms"]} if "device_ms" in t else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,17 +14,21 @@ no kernel). ``build_device`` (a corpus on the device) gives the packed layout
 by default — list i's codes contiguous at flat rows [i·C, (i+1)·C) — and
 ``build_device_streamed`` the same codes stored paired ([k·C/2, 2S], the same
 bytes). ``_probe_adc_search_packed`` scores probed lists either with
-``adc_impl="xla"`` (a gather of the table entries and a sum: a library
-expression) or ``adc_impl="pallas"``, which runs every chunk of probes
-through kernel K7 (``ops.adc.adc_list_scores``). ``"auto"`` means "xla", as
-in the JAX package. K7 is not a fallback and has none: on a CUDA index
-``"pallas"`` launches the kernel or raises (the JAX package demotes a failing
-instance to "xla"; the port does not). The overflow pool is scored as one
-GEMM against its PQ reconstructions (``_pool_recon``).
+``adc_impl="xla"`` (the probed lists gathered, then a gather of the table
+entries and a sum: a library expression) or ``adc_impl="pallas"``, which
+hands kernel K7 (``ops.adc.adc_probe_scores``) the lists as they lie,
+``[n_lists, C, S]``, and each chunk's probed list ids: no gathered copy.
+``"auto"`` means "xla", as in the JAX package. K7 is not a fallback and has
+none: on a CUDA index ``"pallas"`` launches the kernel or raises (the JAX
+package demotes a failing instance to "xla"; the port does not). The
+overflow pool is scored as one GEMM against its PQ reconstructions
+(``_pool_recon``).
 
-Probed blocks are gathered a chunk of probes at a time, so the transient
-stays within ``ivf.CHUNK_BYTES`` (256 MB) whatever ``nprobe``; the JAX package
-scans one probe at a time. k-means inits come from ``torch.Generator``s, so a
+Probes go a chunk at a time, so the transient stays within
+``ivf.CHUNK_BYTES`` (256 MB) whatever ``nprobe``: with K7 a chunk's fp32
+scores, its rows' int32 ids, their validity mask and the fp32 sum with the
+centroid scores and its masked copy (17 bytes a row), with the gather-sum
+its gathered codes' int64 indices; the JAX package slices one probe at a time into the kernel. k-means inits come from ``torch.Generator``s, so a
 port-built index differs from a JAX-built one; both load each other's
 ``.npz`` and search it alike.
 """
@@ -34,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from evr_tpu_torch.ops.adc import adc_list_scores
+from evr_tpu_torch.ops.adc import adc_probe_scores
 from evr_tpu_torch.utils.device import resolve_device
 
 from .ivf import (
@@ -609,9 +613,12 @@ class IVFPQIndex:
         block, its residual scores from K7 (``"pallas"``) or the gather-sum
         (``"xla"``), plus the probed centroid's score; padding slots −inf;
         the pool as one GEMM against its reconstructions. Probes go a chunk
-        at a time: with K7 the chunk's gathered [B·n, C, S] uint8 blocks stay
-        within ``ivf.CHUNK_BYTES`` (one launch per chunk), with the
-        gather-sum its int64 indices do."""
+        at a time, the chunk's transient within ``ivf.CHUNK_BYTES``: K7
+        reads the lists where they lie (``codes_lists`` viewed as [k, C, S])
+        at the chunk's list ids, one launch a chunk, and a chunk holds 17
+        bytes a row (K7's fp32 scores, the rows' int32 ids, their validity
+        mask, the fp32 sum with the centroid scores and its masked copy); the
+        gather-sum gathers the chunk's codes and indexes them with int64."""
         b = q.shape[0]
         s = books.shape[0]
         k = cents.shape[0]
@@ -619,18 +626,16 @@ class IVFPQIndex:
         _, cvals, cids = probe_lists(q, cents, nprobe)
         blocks_all = codes_lists.view(k, capacity, s)                 # paired: the same bytes
         ids_all = id_lists.view(k, capacity)
-        per_code = 1 if adc_impl == "pallas" else 8
-        step = chunk_rows(per_code * b * capacity * s)
+        row_bytes = 17 if adc_impl == "pallas" else 8 * s
+        step = chunk_rows(row_bytes * b * capacity)
         sco, ids = [], []
         for lo in range(0, nprobe, step):
             c = cids[:, lo : lo + step]                                # [B, n]
             n = c.shape[1]
-            blocks = blocks_all[c]                                     # [B, n, C, S]
             if adc_impl == "pallas":
-                resid = adc_list_scores(blocks.view(b * n, capacity, s), tables, nprobe=n)
-                resid = resid.view(b, n, capacity)
+                resid = adc_probe_scores(blocks_all, c, tables)        # [B, n, C]
             else:
-                resid = adc_gather_sum(blocks, tables)
+                resid = adc_gather_sum(blocks_all[c], tables)
             i = ids_all[c]
             sco.append(torch.where(i >= 0, resid + cvals[:, lo : lo + n, None], -torch.inf))
             ids.append(i)

@@ -152,8 +152,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [i] + [p] * 23 + [i] * 4 + [p]
         fn.restype = i
     elif name == "adc_list":
-        fn = lib.evr_adc_list_scores
-        fn.argtypes = [p, p, i, i, i, i, i, p, p]
+        fn = lib.evr_adc_probe_scores
+        fn.argtypes = [p, i, i, i, p, i, i, p, i, p, p]
+        fn.restype = i
+        fn = lib.evr_adc_plan
+        fn.argtypes = [i] * 6 + [p]
         fn.restype = i
     elif name == "flash_attn":
         fn = lib.evr_flash_attention

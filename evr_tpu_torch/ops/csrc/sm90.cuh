@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the warp-specialised kernels, the bf16
 // GEMM (gemm_sm90.cuh), the int8 GEMM (gemm_s8_sm90.cuh), the bf16 attention
-// forward (attn_sm90.cuh) and backward (attn_bwd_sm90.cuh):
-// PTX wrappers for mbarriers, TMA loads, named barriers and wgmma, the
+// forward (attn_sm90.cuh) and backward (attn_bwd_sm90.cuh), the index scan
+// (topk_fused.cu) and the PQ lookup scorer (adc_list.cu):
+// PTX wrappers for mbarriers, TMA and bulk loads, named barriers and wgmma, the
 // wgmma shared-memory matrix descriptors of the layouts those kernels read,
 // and the host-side encoding of TMA tensor maps.
 //
@@ -68,6 +69,14 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory, counted in bytes on the mbarrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
 }
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {

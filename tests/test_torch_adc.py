@@ -110,15 +110,16 @@ def test_kernel_failure_propagates_out_of_search(monkeypatch):
     ref = idx.search(q, 5, nprobe=8, adc_impl="xla")
     calls = []
 
-    def failing_launch(blocks, tables, nprobe):
-        calls.append(tuple(blocks.shape))
+    def failing_launch(codes_lists, list_ids, tables):
+        calls.append((tuple(codes_lists.shape), tuple(list_ids.shape)))
         raise RuntimeError("adc_list_scores: CUDA launch failed with error code 1")
 
     monkeypatch.setattr(adc, "_on_card", lambda t: True)
     monkeypatch.setattr(adc, "_launch", failing_launch)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         idx.search(q, 5, nprobe=8, adc_impl="pallas")
-    assert calls and calls[0][1:] == (idx._capacity, 8)
+    # the launch was handed the lists in place and the probed ids
+    assert calls and calls[0] == ((idx.n_clusters, idx._capacity, 8), (3, 8))
     assert not hasattr(idx, "_pallas_broken")
     # the xla path is untouched by the failure
     np.testing.assert_array_equal(idx.search(q, 5, nprobe=8, adc_impl="xla")[1], ref[1])
