@@ -70,23 +70,32 @@ package. Phases, each fatal on failure:
 4. main path, bf16 weights: ``EmbeddingEngine("ViT-B/32", device="cuda")``
    with seeded random weights embeds 1,024 synthetic frames of four videos
    at batch 256, the data root is written, ``ServingContext`` boots from it
-   and ``create_app`` answers /api/search requests; the launch counts of K1
+   and ``create_app`` answers /api/search requests: six text queries, each
+   one uncached dispatch of the one-call ``TextSearcher`` (every text block,
+   then ``cosine_topk``), and two with a negative query (two pooled-row text
+   encodes each, then ``FrameIndex.search``); the exact launch counts of K1
    and K2 over that run, and the kernel path's embeddings and top-10
    rankings against the plain versions' on the same frames and queries;
+   then phase 13's searchers over that root;
 5. main path, int8: the same with ``params_dtype="int8"`` (K3) and an int8
-   index searched by K4 (``index_dtype="int8", search_impl="pallas"``); the
-   launch counts of K3a, K3b and K4 and the calls of ``cosine_topk`` (none);
+   index under ``search_impl="pallas"``: the launch counts of K3a and K3b,
+   ``cosine_topk`` once per searcher dispatch and never in the index, K4
+   once per negative-query request; phase 13's searchers over that root;
    then ``auto_params_dtype`` gates a float32 engine over that data root;
 6. main path, training: ``python -m evr_tpu_torch.tools.finetune`` (its
-   ``main``) fine-tunes ViT-L/14@336px at full width from seeded random
-   weights on a synthetic caption set (96 train and 32 val images, batch
-   32, bf16, one epoch: 3 steps and 1 validation batch); the launch counts
-   of K1, K2, K5a and K5b (and none of the plain backward), finite losses,
-   frozen leaves bit-unchanged and trainable ones moved in the final
-   checkpoint; then one step from the same params and batch through the
-   kernels and through their plain versions (``attn_impl="plain_grad"``),
-   held together within bands that a gradient perturbed to cosine 0.99
-   fails; the step time;
+   ``main``) fine-tunes ViT-L/14@336px at full width from
+   ``--init-checkpoint``, a reference file of the seeded weights, with an
+   EMA, on a synthetic caption set (96 train and 32 val images, batch 32,
+   bf16, one epoch: 3 steps and 1 validation batch); the launch counts of
+   K1, K2, K5a and K5b (and none of the plain backward), finite losses,
+   the first step's loss equal to the same params' in memory, frozen leaves
+   bit-unchanged and trainable ones moved in the final checkpoint; then
+   ``best_model.pt`` served (``from_checkpoint``, the EMA): 256 frames of
+   336² through K1/K2 at T 577 and six ``TextSearcher`` queries, launches
+   exact, embeddings bit-equal to the Trainer's in-memory EMA's; then one
+   step from the same params and batch through the kernels and through
+   their plain versions (``attn_impl="plain_grad"``), held together within
+   bands that a gradient perturbed to cosine 0.99 fails; the step time;
 7. times: each kernel, its plain version and a PyTorch library computation
    of the same function, by CUDA events at the main-path shapes; K5a split
    into its attention backward alone (``attn_backward``, beside its bound
@@ -117,7 +126,8 @@ package. Phases, each fatal on failure:
    CUDA events and its launch's device time, and the parent's form: the
    probed lists gathered, then scored);
    then ``tools.index_tool`` ``build --streamed --host-store`` and
-   ``query`` over a 262,144-row ``.npy``, its rows equal to a direct search;
+   ``query`` over a 262,144-row ``.npy``, its rows equal to a direct search,
+   and ``query --query ... --checkpoint`` with phase 13's ViT-B/32 file;
 9. the flash route: K6 (``flash_attention``: K6a ``flash_attention_full``,
    K6b ``flash_attention_blocked``) against its plain version at ViT-H-14's
    vision (B=256, H=16, T=257, d=80) and causal text (B=16, T=77, d=64)
@@ -157,7 +167,20 @@ package. Phases, each fatal on failure:
    weights), K3a/K3b (int8 weights) and K6a/K6b (``attn_impl="flash"``),
    each route's launches counted, its unit embeddings against the plain
    route's within row cosine 0.999. Then int8 encode against bf16 at
-   ViT-B/32 and ViT-H-14, and the share of K3's K-major weight copies.
+   ViT-B/32 and ViT-H-14, and the share of K3's K-major weight copies;
+13. checkpoints and the one-call searchers: a ViT-B/32 reference file of
+   seeded weights and a classifier head (``save_reference_checkpoint``)
+   served by ``EmbeddingEngine.from_checkpoint`` with bf16 and with int8
+   weights, its 1,024 frame embeddings bit-equal to an engine built from the
+   params in memory, ``classify`` on the card within 1e-5 of the plain head
+   on the CPU; and, over phase 4's and phase 5's data roots,
+   ``TextSearcher`` against the two-step path within the ranking bands
+   (scores within 1e-5 under one query vector), the uncached text-query p50
+   of both, 16 threads of single queries unbatched and under a 4 ms window
+   (fewer dispatches than queries, bucket sizes, rows within the bands of
+   the unbatched ones, and the check rejecting rows handed to the wrong
+   query), and ``ImageSearcher`` finding 8 indexed frames as their own
+   top-1 in one dispatch.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -516,6 +539,35 @@ QUERIES = (
     "a red car on a street", "people walking in a park", "a dog running",
     "a crowd at a concert", "a boat on the water", "text on a sign",
 )
+# /api/search requests with a negative query (text_clip): each scores the
+# composite direction normalise(q+ - w q-) through FrameIndex.search (K4 under
+# search_impl="pallas"), its two texts encoded by the engine's pooled-row path
+NEGATIVE_REQUESTS = (("people at a market", "a parked bicycle"), ("a river at dawn", "a boat on a lake"))
+N_NEGATIVE_TEXTS = len({t for pair in NEGATIVE_REQUESTS for t in pair})
+# The one-call searchers (phase 13): each path fetches SEARCH_FETCH rows, so a
+# row that leaves one path's top SEARCH_K is scored by the other; under one
+# query vector the searcher's scores must match the index search's within
+# SEARCHER_SCORE_TOL on the rows both return (both sum 512 fp32 products)
+SEARCH_K, SEARCH_FETCH, SEARCHER_SCORE_TOL = 10, 40, 1e-5
+BATCH_WINDOW_MS, SEARCHER_MAX_BATCH = 4.0, 16
+BUCKETS = (1, 2, 4, 8, 16)
+THREAD_ROUNDS = 2  # measured rounds of each searcher, after one warm-up round each
+THREAD_QUERIES = (  # one a thread
+    "a man riding a horse", "two dogs in the snow", "a burning building", "children on a beach",
+    "a train at a station", "a woman singing on stage", "cars stuck in traffic", "a cat on a sofa",
+    "soldiers marching", "a plate of food", "an airplane taking off", "people dancing at a party",
+    "a storm over the sea", "a football match", "a police car with lights", "an empty classroom",
+)
+N_THREADS = len(THREAD_QUERIES)
+P50_QUERIES = 20
+N_IMAGE_QUERIES = 8
+# Checkpoints (phase 13): a ViT-B/32 reference file of seeded weights (seed
+# CKPT_SEED, not the engines' 0) and a seeded classifier head; classify on
+# the card against the plain head on the CPU within CLASSIFY_TOL
+CKPT_SEED, CLASSIFY_TOL = 5, 1e-5
+# The fine-tune of phase 6 keeps an EMA (so best_model.pt serves it); the
+# ViT-L/14@336px engine then encodes TRAIN_SERVE_FRAMES frames of 336^2
+TRAIN_EMA_DECAY, TRAIN_SERVE_FRAMES = 0.999, 256
 
 
 class SmokeFailure(Exception):
@@ -1423,15 +1475,18 @@ def write_data_root(root: pathlib.Path, names, embeddings_per_video, frames_per_
 def serve_counted(torch, engine, frames, root: pathlib.Path, counted, **ctx_kwargs):
     """The main path once, through the entry points a user calls: encode the
     frames, write the data root, boot ``ServingContext`` from it and answer
-    the /api/search requests. Every count in ``counted`` (objects with a
-    ``launches`` attribute) is set to 0 just before and read just after.
-    Returns (embeddings, context, encode seconds, request ms, launches)."""
+    the /api/search requests: QUERIES (each an uncached one-call
+    ``TextSearcher`` dispatch) and NEGATIVE_REQUESTS. Every count in
+    ``counted`` (objects with a ``launches`` attribute) is set to 0 just
+    before and read just after. Returns (embeddings, context, encode seconds,
+    request ms of QUERIES, launches)."""
     import numpy as np
     from werkzeug.test import Client
 
     from evr_tpu_torch.serving import ServingContext, create_app
 
     engine.encode_staged_images(frames[:BATCH])  # first call: kernel libraries load
+    engine.clear_text_cache()
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
@@ -1467,8 +1522,27 @@ def serve_counted(torch, engine, frames, root: pathlib.Path, counted, **ctx_kwar
         log(f"search {body['search_method']:13s} {q!r}: HTTP 200, {len(events)} events, "
             f"top {events[0]['videoId']}/{events[0]['id']} "
             f"score {events[0]['clip_similarity']:.4f}, {request_ms[-1]:.1f} ms")
+    for q, neg in NEGATIVE_REQUESTS:
+        body = {"query": q, "negative_query": neg, "search_type": "text", "top_k": 10,
+                "search_method": "text_clip"}
+        resp = client.post("/api/search", json=body)
+        check(resp.status_code == 200, f"/api/search {q!r} not {neg!r}: HTTP {resp.status_code}")
+        events = json.loads(resp.get_data(as_text=True))["events"]
+        check(len(events) > 0 and all(math.isfinite(e["clip_similarity"]) for e in events),
+              f"/api/search {q!r} not {neg!r}: {len(events)} events")
+        log(f"search text_clip     {q!r} not {neg!r}: HTTP 200, {len(events)} events, top "
+            f"{events[0]['videoId']}/{events[0]['id']} score {events[0]['clip_similarity']:.4f}")
     launches = {fn.__name__: fn.launches for fn in counted}
     return emb, ctx, encode_s, request_ms, launches
+
+
+def served_text_launches(cfg) -> int:
+    """Launches of one full-block kernel (K1, K2, K3a, K3b or K6b) by the text
+    tower over serve_counted's requests: every block per uncached
+    ``TextSearcher`` dispatch (one per QUERIES entry), and every block but the
+    pooled last one per text that the negative requests encode
+    (``EmbeddingEngine.get_text_features``)."""
+    return cfg.text.layers * len(QUERIES) + (cfg.text.layers - 1) * N_NEGATIVE_TEXTS
 
 
 def check_against_plain(torch, engine, frames, emb, one_noise: float, served_noise: float,
@@ -1571,11 +1645,13 @@ def phase_main_path(torch, frames, then=None):
     with tempfile.TemporaryDirectory() as tmp:
         emb, ctx, encode_s, request_ms, launches = serve_counted(
             torch, engine, frames, pathlib.Path(tmp), [bf.fused_attn_block, bf.fused_mlp_block])
-        n_batches, n_text = -(-N_FRAMES // BATCH), len(QUERIES)
+        n_batches = -(-N_FRAMES // BATCH)
         n_blocks = engine.cfg.vision.layers - 1  # the last block is the pooled-row one
-        expected = n_blocks * n_batches + (engine.cfg.text.layers - 1) * n_text
+        expected = n_blocks * n_batches + served_text_launches(engine.cfg)
         log(f"launches over the bf16 main path: {launches} (expected {expected} each: "
-            f"11 per encode batch per tower, {n_batches} frame batches, {n_text} text encodes)")
+            f"{n_blocks} per frame encode batch, {n_batches} batches; {engine.cfg.text.layers} per "
+            f"TextSearcher dispatch, {len(QUERIES)} dispatches; {engine.cfg.text.layers - 1} per "
+            f"negative-request text encode, {N_NEGATIVE_TEXTS} encodes)")
         for name, n in launches.items():
             check(n == expected > 0, f"{name}: {n} launches, expected {expected}")
         check_against_plain(torch, engine, frames, emb, ONE_VECTOR_RANK_NOISE, SERVED_RANK_NOISE,
@@ -1591,10 +1667,14 @@ def phase_main_path(torch, frames, then=None):
     }
 
 
-def phase_main_path_int8(torch, frames):
-    """int8 weights through K3a and K3b, an int8 index searched by K4; then
-    the boot gate (``--params-dtype auto``) over the same data root."""
-    from evr_tpu_torch.index import EmbeddingEngine, store
+def phase_main_path_int8(torch, frames, then=None):
+    """int8 weights through K3a and K3b, an int8 index under
+    ``search_impl="pallas"``: /api/search's plain text queries through the
+    one-call ``TextSearcher`` (``cosine_topk``, as in the JAX package), its
+    negative queries through ``FrameIndex.search`` and K4; ``then(engine,
+    data_root)`` runs next over the same engine and data root; then the boot
+    gate (``--params-dtype auto``) over that data root."""
+    from evr_tpu_torch.index import EmbeddingEngine, fused_search, store
     from evr_tpu_torch.models.quant_gate import auto_params_dtype
     from evr_tpu_torch.ops import block_fused as bf
     from evr_tpu_torch.ops.retrieval import fused_topk
@@ -1602,30 +1682,40 @@ def phase_main_path_int8(torch, frames):
     engine = EmbeddingEngine(MODEL, device="cuda", batch_size=BATCH, rng_seed=0,
                              params_dtype="int8")
     log(f"engine: {MODEL} random weights (seed 0), int8 block linears, {engine.compute_dtype}")
-    # independent counts beside the kernels': index searches, and calls of
-    # the GEMM-and-sort search that the fused path must not make
+    # independent counts beside the kernels': index searches, and the calls
+    # of the GEMM-and-sort search by the index (none: K4 serves it) and by
+    # the searcher (one per uncached dispatch)
     searches, xla_search = counting(store.FrameIndex._search_raw_locked), counting(store.cosine_topk)
+    searcher_topk = counting(fused_search.cosine_topk)
     store.FrameIndex._search_raw_locked, store.cosine_topk = searches, xla_search
+    fused_search.cosine_topk = searcher_topk
+    searcher_topk.__name__ = "searcher_cosine_topk"
     try:
         with tempfile.TemporaryDirectory() as tmp:
             emb, ctx, encode_s, request_ms, launches = serve_counted(
                 torch, engine, frames, pathlib.Path(tmp),
-                [bf.fused_attn_block_q, bf.fused_mlp_block_q, fused_topk, searches, xla_search],
+                [bf.fused_attn_block_q, bf.fused_mlp_block_q, fused_topk, searches, xla_search,
+                 searcher_topk],
                 index_dtype="int8", search_impl="pallas")
-            n_batches, n_text = -(-N_FRAMES // BATCH), len(QUERIES)
-            expected = (engine.cfg.vision.layers - 1) * n_batches + (engine.cfg.text.layers - 1) * n_text
+            n_batches, n_neg = -(-N_FRAMES // BATCH), len(NEGATIVE_REQUESTS)
+            expected = (engine.cfg.vision.layers - 1) * n_batches + served_text_launches(engine.cfg)
             log(f"launches over the int8 main path: {launches} (expected {expected} of each K3 "
-                f"half, {n_text} index searches, each one fused_topk launch, no cosine_topk)")
+                f"half; {len(QUERIES)} TextSearcher dispatches, each one cosine_topk; "
+                f"{n_neg} negative-query requests, each one index search and one fused_topk "
+                f"launch; no cosine_topk in the index)")
             for name in ("fused_attn_block_q", "fused_mlp_block_q"):
                 check(launches[name] == expected > 0, f"{name}: {launches[name]} launches, expected {expected}")
-            check(launches["_search_raw_locked"] == n_text, f"{launches['_search_raw_locked']} index searches")
-            check(launches["fused_topk"] == n_text, f"fused_topk: {launches['fused_topk']} launches")
-            check(launches["cosine_topk"] == 0, f"cosine_topk ran {launches['cosine_topk']} times")
+            check(launches["searcher_cosine_topk"] == len(QUERIES),
+                  f"TextSearcher ran cosine_topk {launches['searcher_cosine_topk']} times")
+            check(launches["_search_raw_locked"] == n_neg, f"{launches['_search_raw_locked']} index searches")
+            check(launches["fused_topk"] == n_neg >= 2, f"fused_topk: {launches['fused_topk']} launches")
+            check(launches["cosine_topk"] == 0, f"the index ran cosine_topk {launches['cosine_topk']} times")
             check(ctx.index._device_index.dtype == torch.int8, "the served index is not int8")
             check_against_plain(torch, engine, frames, emb, INT8_ONE_VECTOR_RANK_NOISE,
                                 INT8_SERVED_RANK_NOISE, "int8")
             p50 = text_query_p50_ms(engine, ctx)
             root = ctx.data_root
+            after = then(engine, root.root) if then else None
             del engine, ctx
 
             # --params-dtype auto: a float32 engine, gated over the data root
@@ -1639,13 +1729,16 @@ def phase_main_path_int8(torch, frames):
     finally:
         store.FrameIndex._search_raw_locked = searches.__wrapped__
         store.cosine_topk = xla_search.__wrapped__
-    launches = {k: v for k, v in launches.items() if k not in ("_search_raw_locked", "cosine_topk")}
+        fused_search.cosine_topk = searcher_topk.__wrapped__
+    launches = {k: v for k, v in launches.items()
+                if k not in ("_search_raw_locked", "cosine_topk", "searcher_cosine_topk")}
     return {
         "launches": launches,
         "encode_frames_per_s": N_FRAMES / encode_s,
         "text_query_p50_ms": p50,
         "request_p50_ms": statistics.median(request_ms),
         "gate": report.as_dict(),
+        "then": after,
     }
 
 
@@ -1746,22 +1839,52 @@ def step_check(tag, got, bands) -> None:
           f"{tag}: the leaf check passes gradients perturbed to cosine 0.99")
 
 
+def record_first_step(finetune_module):
+    """Wrap ``make_train_step`` in ``training.finetune`` (the Trainer builds
+    its step with it) so the first step records its batch, its generator's
+    state, its state object (the Trainer's, updated in place by every later
+    step) and its total loss. Returns (the record, a function that
+    restores the module)."""
+    record, make = {}, finetune_module.make_train_step
+
+    def recording(*args, **kwargs):
+        step, eval_step = make(*args, **kwargs)
+
+        def first_step(state, batch, generator=None):
+            if "loss" in record:
+                return step(state, batch, generator)
+            record.update(batch=batch, state=state, generator=generator.get_state())
+            state, metrics = step(state, batch, generator)
+            record["loss"] = metrics["total_loss"].item()
+            return state, metrics
+
+        return first_step, eval_step
+
+    finetune_module.make_train_step = recording
+    return record, lambda: setattr(finetune_module, "make_train_step", make)
+
+
 def phase_train(torch):
-    """The training path through ``tools.finetune.main`` (counted), the
-    checkpoint against the initial weights, the kernel step against the
-    plain step, and the time of a step."""
+    """The training path through ``tools.finetune.main`` (counted), started
+    from ``--init-checkpoint``: a reference file of the seeded params, whose
+    first step's loss must equal the loss of the same params, batch and
+    dropout draw in memory; with an EMA (``--ema-decay``). The checkpoint
+    against the initial weights, the kernel step against the plain step, the
+    time of a step; then ``best_model.pt`` served (``serve_trained``)."""
     import dataclasses
 
     import numpy as np
 
     from evr_tpu_torch.models import get_model_config, init_clip_params, params_from_numpy
     from evr_tpu_torch.models.classifier import ClassifierConfig, init_classifier_params
+    from evr_tpu_torch.models.torch_export import save_reference_checkpoint
     from evr_tpu_torch.ops import block_fused as bf
     from evr_tpu_torch.tools import finetune as cli
     from evr_tpu_torch.training import (
         CaptionDataset, TrainConfig, TrainState, make_grad_fn, make_optimizer, make_train_step,
         param_group_labels,
     )
+    from evr_tpu_torch.training import finetune as tf
     from evr_tpu_torch.training.finetune import flat_leaves
 
     cfg = get_model_config(TRAIN_MODEL)
@@ -1769,10 +1892,15 @@ def phase_train(torch):
     with tempfile.TemporaryDirectory() as tmp:
         root = pathlib.Path(tmp)
         train_json, val_json = write_caption_set(root, cfg.vision.image_size, cfg.vision.patch_size)
+        t0 = time.perf_counter()
+        save_reference_checkpoint(root / "init.pt", init_clip_params(seed, cfg))
+        log(f"--init-checkpoint: {TRAIN_MODEL} seeded params written as a reference file "
+            f"({(root / 'init.pt').stat().st_size / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
         plain_attn, plain_mlp = counting(bf.fused_attn_block_bwd_plain), counting(bf.fused_mlp_block_bwd_plain)
         bf.fused_attn_block_bwd_plain, bf.fused_mlp_block_bwd_plain = plain_attn, plain_mlp
         counted = [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_bwd,
                    bf.fused_mlp_block_bwd, plain_attn, plain_mlp]
+        first, restore = record_first_step(tf)
         try:
             for fn in counted:
                 fn.launches = 0
@@ -1781,6 +1909,7 @@ def phase_train(torch):
                 "--train-json", str(train_json), "--val-json", str(val_json), "--data-dir", str(root),
                 "--model", TRAIN_MODEL, "--batch-size", str(TRAIN_BATCH), "--epochs", "1",
                 "--seed", str(seed), "--save-dir", str(root / "ckpt"), "--device", "cuda",
+                "--init-checkpoint", str(root / "init.pt"), "--ema-decay", str(TRAIN_EMA_DECAY),
             ])
             torch.cuda.synchronize()
             fit_s = time.perf_counter() - t0
@@ -1788,6 +1917,7 @@ def phase_train(torch):
         finally:
             bf.fused_attn_block_bwd_plain = plain_attn.__wrapped__
             bf.fused_mlp_block_bwd_plain = plain_mlp.__wrapped__
+            restore()
         blocks = cfg.vision.layers
         steps, val_batches = N_TRAIN // TRAIN_BATCH, N_VAL // TRAIN_BATCH
         log(f"training launches: {launches} (expected K1 = K2 = {blocks} x {steps + val_batches}, "
@@ -1822,10 +1952,22 @@ def phase_train(torch):
         check(not stale, f"trainable leaves did not move: {stale[:5]}")
         del final, got
 
-        # one step from the same params and batch: kernels against plain
+        # the first step from --init-checkpoint against the same params in memory
         params = params_from_numpy(init, "cuda")
+        cls_cfg = ClassifierConfig(embed_dim=cfg.embed_dim)
+        generator = torch.Generator(device="cuda")
+        generator.set_state(first["generator"])
+        grad_fn = make_grad_fn(cfg, cls_cfg, TrainConfig(seed=seed, batch_size=TRAIN_BATCH, epochs=1,
+                                                         ema_decay=TRAIN_EMA_DECAY))
+        in_memory_loss = grad_fn(params, first["batch"], generator)[0]["total_loss"].item()
+        log(f"first step's loss from --init-checkpoint {first['loss']!r}, from the same params, batch and "
+            f"dropout draw in memory {in_memory_loss!r}")
+        check(first["loss"] == in_memory_loss, "the first step from the file differs from the params in memory")
+        served = serve_trained(torch, cfg, root / "ckpt" / "best_model.pt", first.pop("state"))
+        first.clear()
+
+        # one step from the same params and batch: kernels against plain
         batch = next(iter(CaptionDataset(train_json, root).batches(TRAIN_BATCH, cfg.vision.image_size, seed=seed)))
-    cls_cfg = ClassifierConfig(embed_dim=cfg.embed_dim)
     plain_cfg = dataclasses.replace(cfg, attn_impl="plain_grad")
     compared = {}
     for dtype in ("float32", "bfloat16"):
@@ -1860,7 +2002,68 @@ def phase_train(torch):
         f"median {step_s:.4f} s = {TRAIN_BATCH / step_s:.2f} samples/s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return {"launches": launches, "step_s": step_s, "samples_per_s": TRAIN_BATCH / step_s,
-            "checkpoint_s": saves, "compared": compared}
+            "checkpoint_s": saves, "compared": compared, "served": served,
+            "first_step_loss": in_memory_loss}
+
+
+def serve_trained(torch, cfg, best: pathlib.Path, state) -> dict:
+    """The fine-tuned model served: ``EmbeddingEngine.from_checkpoint(best,
+    TRAIN_MODEL)`` with ``prefer_ema`` (the run kept an EMA), TRAIN_SERVE_FRAMES
+    frames of 336^2 encoded in one batch through K1/K2 at T 577 and six
+    queries searched by ``TextSearcher``, each kernel's launches exact
+    (vision.layers - 1 per batch, text.layers per dispatch); the embeddings
+    bit-equal to an engine built from the Trainer's in-memory EMA
+    (``state``); the load seconds and the classes of the batch."""
+    import numpy as np
+
+    from evr_tpu_torch.index import EmbeddingEngine, FrameIndex
+    from evr_tpu_torch.index.fused_search import TextSearcher
+    from evr_tpu_torch.models.torch_import import read_torch_file
+    from evr_tpu_torch.ops import block_fused as bf
+
+    payload = read_torch_file(best)
+    check(payload.get("ema") is not None, f"{best.name} holds no EMA")
+    del payload
+    t0 = time.perf_counter()
+    engine = EmbeddingEngine.from_checkpoint(best, TRAIN_MODEL, prefer_ema=True, device="cuda",
+                                             batch_size=TRAIN_SERVE_FRAMES)
+    total_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.load_finetuned(best, "reload", prefer_ema=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del engine.models["reload"]
+    check(engine.active_model == "finetuned", f"from_checkpoint left {engine.active_model!r} active")
+    frames = synthetic_frames(torch, TRAIN_SERVE_FRAMES, cfg.vision.image_size, cfg.vision.patch_size)
+    counted = [bf.fused_attn_block, bf.fused_mlp_block]
+    for fn in counted:
+        fn.launches = 0
+    emb = engine.encode_staged_images(frames)
+    index = FrameIndex(embed_dim=cfg.embed_dim, device="cuda")
+    index.add_video("trained", emb)
+    searcher = TextSearcher(engine, index)
+    results = [searcher.search(q, SEARCH_K) for q in QUERIES]
+    launches = {fn.__name__: fn.launches for fn in counted}
+    expected = cfg.vision.layers - 1 + cfg.text.layers * len(QUERIES)
+    in_memory = EmbeddingEngine(TRAIN_MODEL, params=state.ema_params["clip"], device="cuda",
+                                batch_size=TRAIN_SERVE_FRAMES)
+    ref = in_memory.encode_staged_images(frames)
+    unit = emb / np.linalg.norm(emb, axis=1, keepdims=True)
+    classes = np.bincount(engine.classify(unit).argmax(1), minlength=3).tolist()
+    log(f"serving {best.name} ({best.stat().st_size / 1e9:.2f} GB, EMA): from_checkpoint {total_s:.2f} s "
+        f"(with the random 'original' it also draws), the file's EMA to the card {load_s:.2f} s; "
+        f"{TRAIN_SERVE_FRAMES} frames of {cfg.vision.image_size}^2 bit-equal to the Trainer's in-memory EMA: "
+        f"{np.array_equal(emb, ref)}; launches {launches} (expected {expected} each: "
+        f"{cfg.vision.layers - 1} per encode batch at T {cfg.vision.seq_len}, {cfg.text.layers} per "
+        f"TextSearcher dispatch, {len(QUERIES)} dispatches); classes of the batch {classes}; top-1 of "
+        f"{QUERIES[0]!r}: row {int(results[0][1][0, 0])}, score {float(results[0][0][0, 0]):.4f}")
+    check(np.array_equal(emb, ref), "best_model.pt: embeddings differ from the Trainer's in-memory EMA's")
+    check(all(n == expected for n in launches.values()), f"serving best_model.pt: launches {launches}")
+    check(all(np.isfinite(s).all() and r.shape == (1, min(SEARCH_K, TRAIN_SERVE_FRAMES)) for s, r in results),
+          "serving best_model.pt: TextSearcher results")
+    del engine, in_memory
+    torch.cuda.empty_cache()
+    return {"from_checkpoint_s": total_s, "load_s": load_s, "classes": classes}
 
 
 # -- 7. times ----------------------------------------------------------------
@@ -2414,7 +2617,8 @@ def served_events(client, queries) -> tuple[list, list]:
 
 def phase_ann_serving(torch, engine, root: pathlib.Path):
     """The bf16 phase's data root served under ``search_impl="ivf"`` (full
-    probe) and ``"ivfpq"`` with the int8 host store, beside the exact path:
+    probe) and ``"ivfpq"`` with the int8 host store, beside the exact path
+    (two steps, as the ANN tiers search, under the same query vectors):
     IVF's served top-10 equals the exact path's (a frame may cross the cut
     only within ANN_FULL_PROBE_NOISE of the exact 10th score); IVF-PQ's top-1
     on perturbed corpus frames equals the exact path's. Returns the
@@ -2427,6 +2631,11 @@ def phase_ann_serving(torch, engine, root: pathlib.Path):
     t0 = time.perf_counter()
     exact = ServingContext(root, engine=engine)
     exact.boot()
+    # the ANN tiers take the two-step path (the engine's cached text features,
+    # then FrameIndex.search); the exact reference takes it too, with the
+    # one-call searcher of the exact tier set aside, so both score the same
+    # query vectors
+    exact.query_engine._searcher = None
     exact_events, _ = served_events(Client(create_app(exact)), QUERIES)
     emb = np.concatenate([exact.index.get_embeddings(v) for v in exact.index.videos]).astype(np.float32)
     picks = np.linspace(0, len(emb) - 1, 16).astype(int)
@@ -2764,17 +2973,19 @@ def phase_times_adc(torch, idx, cids, tables):
     return rec
 
 
-def phase_index_tool(torch):
+def phase_index_tool(torch, ckpt: pathlib.Path):
     """``tools.index_tool.main``: ``build --type ivfpq --streamed`` (the
     paired layout) with the int8 host store over a TOOL_ROWS-row .npy, then
     ``query`` with a re-rank; its JSON lines against a direct search of the
-    same index."""
+    same index. Then ``query --query ... --checkpoint ckpt`` (the ViT-B/32
+    reference file of ``phase_checkpoint``): its rows against a direct search
+    with the text vectors of ``EmbeddingEngine.from_checkpoint(ckpt)``."""
     import contextlib
     import io
 
     import numpy as np
 
-    from evr_tpu_torch.index import IVFPQIndex
+    from evr_tpu_torch.index import EmbeddingEngine, IVFPQIndex
     from evr_tpu_torch.tools import index_tool
 
     x = clustered_unit_rows(torch, TOOL_ROWS, ANN_DIM, 1024, seed=21)
@@ -2812,10 +3023,26 @@ def phase_index_tool(torch):
         for qi, line in enumerate(lines[:-1]):
             check([h["row"] for h in line["hits"]] == [int(r) for r in rows[qi] if r >= 0],
                   f"index_tool query {qi}: rows differ from a direct search")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            index_tool.main(["query", "--index", str(tmp / "idx.npz"), "--type", "ivfpq", "--query",
+                             *QUERIES, "--model", MODEL, "--checkpoint", str(ckpt), "--top-k", "10",
+                             "--nprobe", "32", "--rerank", "50", "--host-store", str(tmp / "store"),
+                             "--device", "cuda"])
+        ckpt_s = time.perf_counter() - t0
+        text_lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+        q_text = EmbeddingEngine.from_checkpoint(ckpt, MODEL, device="cuda").encode_texts(list(QUERIES))
+        _, text_rows = idx.search(q_text, 10, nprobe=32, rerank=50)
+        check(len(text_lines) == len(QUERIES) + 1, f"index_tool query --checkpoint printed {len(text_lines)} lines")
+        for qi, line in enumerate(text_lines[:-1]):
+            check([h["row"] for h in line["hits"]] == [int(r) for r in text_rows[qi] if r >= 0],
+                  f"index_tool query --checkpoint {qi}: rows differ from a direct search")
     log(f"index_tool: build {json.dumps(built)} in {runs['build'][1]:.2f} s; query of {len(q)} "
         f"in {runs['query'][1]:.2f} s ({lines[-1]['batch_ms']} ms search), rows equal to a direct "
-        f"search")
-    return {"build_s": runs["build"][1], "query_s": runs["query"][1]}
+        f"search; query --checkpoint of {len(QUERIES)} texts with the {MODEL} reference file in "
+        f"{ckpt_s:.2f} s, rows equal to a direct search with the engine's finetuned text vectors")
+    return {"build_s": runs["build"][1], "query_s": runs["query"][1], "query_checkpoint_s": ckpt_s}
 
 
 # -- 9. the flash route: ViT-H-14 ---------------------------------------------
@@ -2871,14 +3098,15 @@ def phase_main_path_flash(torch, cfg, np_params, params_dtype: str = "float32"):
     with tempfile.TemporaryDirectory() as tmp:
         emb, ctx, encode_s, request_ms, launches = serve_counted(
             torch, engine, frames, pathlib.Path(tmp), counted)
-        n_batches, n_text = -(-N_FRAMES // BATCH), len(QUERIES)
+        n_batches = -(-N_FRAMES // BATCH)
         expected = {"flash_attention_full": (vis.layers - 1) * n_batches,
-                    "flash_attention_blocked": (cfg.text.layers - 1) * n_text,
+                    "flash_attention_blocked": served_text_launches(cfg),
                     "fused_attn_block": 0, "fused_mlp_block": 0, "fused_attn_block_q": 0,
                     "fused_mlp_block_q": 0}
         log(f"launches over the {what} path: {launches} (expected {expected}: "
             f"{vis.layers - 1} full vision blocks per encode batch, {n_batches} batches; "
-            f"{cfg.text.layers - 1} full text blocks per text encode, {n_text} encodes)")
+            f"{cfg.text.layers} text blocks per TextSearcher dispatch, {len(QUERIES)} dispatches; "
+            f"{cfg.text.layers - 1} per negative-request text encode, {N_NEGATIVE_TEXTS} encodes)")
         for name, n in expected.items():
             check(launches[name] == n, f"{name}: {launches[name]} launches, expected {n}")
         if params_dtype == "int8":
@@ -3040,12 +3268,13 @@ def phase_main_path_vith(torch, np_params, params_dtype: str = "float32"):
     with tempfile.TemporaryDirectory() as tmp:
         emb, ctx, encode_s, request_ms, launches = serve_counted(
             torch, engine, frames, pathlib.Path(tmp), counted)
-        n_batches, n_text = -(-N_FRAMES // BATCH), len(QUERIES)
-        per_route = (cfg.vision.layers - 1) * n_batches + (cfg.text.layers - 1) * n_text
+        n_batches = -(-N_FRAMES // BATCH)
+        per_route = (cfg.vision.layers - 1) * n_batches + served_text_launches(cfg)
         expected = {fn.__name__: per_route if fn in route else 0 for fn in counted}
         log(f"launches over the {what} path: {launches} (expected {expected}: "
             f"{cfg.vision.layers - 1} full vision blocks per encode batch, {n_batches} batches; "
-            f"{cfg.text.layers - 1} full text blocks per text encode, {n_text} encodes)")
+            f"{cfg.text.layers} text blocks per TextSearcher dispatch, {len(QUERIES)} dispatches; "
+            f"{cfg.text.layers - 1} per negative-request text encode, {N_NEGATIVE_TEXTS} encodes)")
         for name, n in expected.items():
             check(launches[name] == n, f"{name}: {launches[name]} launches, expected {n}")
         if int8:
@@ -3351,6 +3580,258 @@ def phase_tiny(torch):
     return out
 
 
+# -- 13. checkpoints and the one-call searchers ------------------------------
+
+
+def band_violations(a, b, noise: float, k: int = SEARCH_K) -> int:
+    """Hold two paths' rankings of one query together: ``a`` and ``b`` are
+    (scores, rows) of at least k entries. A row in one path's top k and not
+    the other's must score, in the other path, within ``noise`` of that
+    path's k-th score; a row the other path did not return counts too."""
+    bad = 0
+    for (s_a, r_a), (s_b, r_b) in ((a, b), (b, a)):
+        top_b = set(r_b[:k].tolist())
+        score_b = dict(zip(r_b.tolist(), s_b.tolist()))
+        cut = float(s_b[k - 1])
+        for r in r_a[:k].tolist():
+            if r not in top_b:
+                bad += int(r not in score_b or abs(score_b[r] - cut) > noise)
+    return bad
+
+
+def ranking_check(got, ref, noise: float) -> tuple[int, float]:
+    """(band violations over every query, largest score difference on the
+    rows both return) of two [Q, n] (scores, rows) results."""
+    bad, diff = 0, 0.0
+    for i in range(len(ref[1])):
+        a, b = (got[0][i], got[1][i]), (ref[0][i], ref[1][i])
+        bad += band_violations(a, b, noise)
+        ref_score = dict(zip(b[1].tolist(), b[0].tolist()))
+        common = [abs(s - ref_score[r]) for s, r in zip(a[0].tolist(), a[1].tolist()) if r in ref_score]
+        diff = max([diff] + common)
+    return bad, diff
+
+
+def thread_round(searcher, queries) -> tuple[list, float, float]:
+    """Each query searched by its own thread, all released at once: (each
+    query's (scores, rows), p50 ms, queries per second from the first start
+    to the last return)."""
+    import threading
+
+    n = len(queries)
+    barrier, out = threading.Barrier(n), [None] * n
+    spans = [(0.0, 0.0)] * n
+    errors = []
+
+    def worker(i):
+        try:
+            barrier.wait()
+            t1 = time.perf_counter()
+            scores, rows = searcher.search(queries[i], SEARCH_FETCH)
+            out[i] = (scores[0], rows[0])
+            spans[i] = (t1, time.perf_counter())
+        except Exception as e:  # noqa: BLE001 - reported by the check below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads) and not errors, f"search threads: {errors[:3]}")
+    lat = [(e - b) * 1e3 for b, e in spans]
+    wall = max(e for _, e in spans) - min(b for b, _ in spans)
+    return out, statistics.median(lat), n / wall
+
+
+def phase_searchers(torch, engine, root: pathlib.Path, frames, one_noise: float, served_noise: float,
+                    what: str, counted, **ctx_kwargs) -> dict:
+    """The one-call searchers over a served data root (``ctx_kwargs``: its
+    index settings). ``TextSearcher`` against the two-step path
+    (``encode_texts`` then ``FrameIndex.search_raw``): under one query vector
+    within ``one_noise`` (scores within SEARCHER_SCORE_TOL on the rows both
+    return), with each path's own text vectors within ``served_noise``; the
+    uncached text-query p50 of both, in turns. N_THREADS threads with
+    distinct single queries, unbatched and under a BATCH_WINDOW_MS window
+    (``ServingContext(batch_window_ms=...)``): the batched dispatches fewer
+    than the queries and of bucket sizes, the batched rows within
+    ``one_noise`` of the unbatched ones, and the same check rejecting rows
+    handed to the wrong query; the p50 and queries per second of each. Then
+    ``ImageSearcher`` with N_IMAGE_QUERIES indexed frames as queries: each
+    frame's own row its top-1, in one dispatch through every vision block
+    (``counted``: the route's two kernels)."""
+    import threading
+
+    import numpy as np
+
+    from evr_tpu_torch.models.clip import encode_text
+    from evr_tpu_torch.serving import ServingContext
+
+    t0 = time.perf_counter()
+    ctx = ServingContext(root, engine=engine, **ctx_kwargs)
+    check(len(ctx.boot()) == N_VIDEOS, f"{what}: boot")
+    searcher, index = ctx.query_engine._searcher, ctx.index
+    check(searcher is not None and searcher._batcher is None, f"{what}: no one-call searcher")
+
+    # the one call against the two steps
+    one = searcher.search(list(QUERIES), SEARCH_FETCH)
+    with torch.inference_mode():
+        tokens = torch.from_numpy(engine.tokenizer(list(QUERIES))).cuda()
+        q_one = encode_text(engine.params, engine.cfg, tokens, dtype=engine.compute_dtype).float().cpu().numpy()
+    bad_one, diff_one = ranking_check(one, index.search_raw(q_one, SEARCH_FETCH), one_noise)
+    bad_own, diff_own = ranking_check(one, index.search_raw(engine.encode_texts(list(QUERIES)), SEARCH_FETCH),
+                                      served_noise)
+    log(f"{what}: TextSearcher vs the two-step path, top {SEARCH_K} of {len(QUERIES)} queries: one query "
+        f"vector: {bad_one} rows beyond {one_noise}, scores on common rows apart by {diff_one:.2e}; each "
+        f"path's own text vectors: {bad_own} rows beyond {served_noise}, largest difference {diff_own:.2e}")
+    check(bad_one == 0 and diff_one <= SEARCHER_SCORE_TOL,
+          f"{what}: TextSearcher vs the index search under one vector: {bad_one} rows, {diff_one}")
+    check(bad_own == 0, f"{what}: TextSearcher vs the two-step path: {bad_own} rows beyond {served_noise}")
+
+    # uncached text-query latency, the two paths in turns
+    lat = {"two_step": [], "one_call": []}
+    for i in range(P50_QUERIES):
+        for mode in (("two_step", "one_call") if i % 2 == 0 else ("one_call", "two_step")):
+            q = f"a {mode.replace('_', ' ')} query number {i} about a scene"
+            t1 = time.perf_counter()
+            if mode == "two_step":
+                index.search_raw(engine.encode_texts([q]), SEARCH_K)
+            else:
+                searcher.search(q, SEARCH_K)
+            lat[mode].append((time.perf_counter() - t1) * 1e3)
+    p50 = {m: statistics.median(v) for m, v in lat.items()}
+    log(f"{what}: uncached text query p50, {P50_QUERIES} each in turns: one call (TextSearcher) "
+        f"{p50['one_call']:.3f} ms, two steps (encode_texts + search_raw) {p50['two_step']:.3f} ms")
+
+    # N_THREADS concurrent single queries, without and with the window
+    batched_ctx = ServingContext(root, engine=engine, batch_window_ms=BATCH_WINDOW_MS, **ctx_kwargs)
+    batched_ctx.boot()
+    batched = batched_ctx.query_engine._searcher
+    check(batched._batcher is not None and batched._batcher.window_s == BATCH_WINDOW_MS / 1e3
+          and batched.max_batch == SEARCHER_MAX_BATCH, f"{what}: the window did not reach the searcher")
+    sizes, lock = [], threading.Lock()
+    dispatch = batched._dispatch
+
+    def recorded(queries, *args, **kwargs):
+        with lock:
+            sizes.append(len(queries))
+        return dispatch(queries, *args, **kwargs)
+
+    batched._dispatch = recorded
+    runs = {"unbatched": [], "batched": []}
+    for r in range(THREAD_ROUNDS + 1):  # round 0 warms each bucket shape up
+        queries = [f"{q}, take {r}" for q in THREAD_QUERIES]
+        order = (("unbatched", searcher), ("batched", batched))
+        for mode, s in (order if r % 2 == 0 else order[::-1]):
+            sizes.clear()
+            out, p50_t, qps = thread_round(s, queries)
+            runs[mode].append({"out": out, "p50_ms": p50_t, "qps": qps, "dispatches": list(sizes)})
+    bad_batched, bad_control = 0, 0
+    for plain, batch in zip(runs["unbatched"], runs["batched"]):
+        check(len(batch["dispatches"]) < N_THREADS and set(batch["dispatches"]) <= set(BUCKETS)
+              and sum(batch["dispatches"]) >= N_THREADS,
+              f"{what}: batched dispatches {batch['dispatches']}")
+        for i in range(N_THREADS):
+            bad_batched += band_violations(batch["out"][i], plain["out"][i], one_noise)
+            # the negative control: a flush that hands each query the next one's row
+            bad_control += band_violations(batch["out"][(i + 1) % N_THREADS], plain["out"][i], one_noise)
+    check(bad_batched == 0, f"{what}: batched rows beyond {one_noise} of the unbatched: {bad_batched}")
+    check(bad_control > 0, f"{what}: the check passes rows handed to the wrong query")
+    measured = {m: v[1:] for m, v in runs.items()}
+    summary = {m: {"p50_ms": statistics.median(x["p50_ms"] for x in v),
+                   "qps": statistics.median(x["qps"] for x in v)} for m, v in measured.items()}
+    log(f"{what}: {N_THREADS} threads of single queries, {THREAD_ROUNDS} rounds each after a warm-up: "
+        f"unbatched p50 {summary['unbatched']['p50_ms']:.3f} ms, {summary['unbatched']['qps']:.1f} queries/s; "
+        f"window {BATCH_WINDOW_MS} ms p50 {summary['batched']['p50_ms']:.3f} ms, "
+        f"{summary['batched']['qps']:.1f} queries/s, dispatch sizes "
+        f"{[x['dispatches'] for x in runs['batched']]} (round 0 the warm-up); batched rows within {one_noise} "
+        f"of the unbatched; the same check on rows handed to the next query: {bad_control} violations")
+
+    # ImageSearcher: indexed frames as queries find themselves
+    picks = np.linspace(0, N_FRAMES - 1, N_IMAGE_QUERIES).astype(int)
+    image = ctx.image_searcher
+    for fn in counted:
+        fn.launches = 0
+    scores, rows = image.search(frames[picks], 1)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"{what}: ImageSearcher, {N_IMAGE_QUERIES} indexed frames as queries: top-1 rows {rows[:, 0].tolist()} "
+        f"for frames {picks.tolist()}, scores {[round(float(x), 5) for x in scores[:, 0]]}; launches "
+        f"{launches} (expected {engine.cfg.vision.layers} each: one dispatch through every vision block)")
+    check(rows[:, 0].tolist() == picks.tolist(), f"{what}: an indexed frame's top-1 is another row")
+    check(all(n == engine.cfg.vision.layers for n in launches.values()), f"{what}: image launches {launches}")
+    log(f"{what}: the searcher phase took {time.perf_counter() - t0:.1f} s")
+    return {"p50_one_call_ms": p50["one_call"], "p50_two_step_ms": p50["two_step"],
+            "threads": summary, "dispatches": [x["dispatches"] for x in measured["batched"]]}
+
+
+def phase_checkpoint(torch, frames, path: pathlib.Path) -> dict:
+    """A ViT-B/32 reference checkpoint at full width: seeded params (seed
+    CKPT_SEED) and a seeded classifier head written by the port's
+    ``save_reference_checkpoint``, loaded by ``EmbeddingEngine.from_checkpoint``
+    with bf16 and with int8 weights; the N_FRAMES frames' embeddings bit-equal
+    to an engine built from the same params in memory, the route's kernel
+    launches counted, ``classify`` on the card against the plain head on the
+    CPU. Writes the file at ``path`` (``phase_index_tool`` queries with it)."""
+    import numpy as np
+
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.models import get_model_config, init_clip_params, params_from_numpy
+    from evr_tpu_torch.models.classifier import (
+        ClassifierConfig, classifier_forward, init_classifier_params,
+    )
+    from evr_tpu_torch.models.torch_export import save_reference_checkpoint
+    from evr_tpu_torch.ops import block_fused as bf
+
+    cfg = get_model_config(MODEL)
+    params = init_clip_params(CKPT_SEED, cfg)
+    head = init_classifier_params(CKPT_SEED + 1, ClassifierConfig(embed_dim=cfg.embed_dim))
+    t0 = time.perf_counter()
+    save_reference_checkpoint(path, params, head, epoch=1)
+    out = {"write_s": time.perf_counter() - t0, "bytes": path.stat().st_size}
+    for params_dtype, kernels in (("bfloat16", (bf.fused_attn_block, bf.fused_mlp_block)),
+                                  ("int8", (bf.fused_attn_block_q, bf.fused_mlp_block_q))):
+        t0 = time.perf_counter()
+        engine = EmbeddingEngine.from_checkpoint(path, MODEL, device="cuda", batch_size=BATCH,
+                                                 params_dtype=params_dtype)
+        total_s = time.perf_counter() - t0
+        check(engine.active_model == "finetuned", f"from_checkpoint left {engine.active_model!r} active")
+        t0 = time.perf_counter()
+        engine.load_finetuned(path, "reload")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del engine.models["reload"]
+        engine.encode_staged_images(frames[:BATCH])  # first call: kernel libraries load
+        torch.cuda.synchronize()
+        for fn in kernels:
+            fn.launches = 0
+        emb = engine.encode_staged_images(frames)
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        expected = (cfg.vision.layers - 1) * -(-N_FRAMES // BATCH)
+        in_memory = EmbeddingEngine(MODEL, params=params, device="cuda", batch_size=BATCH,
+                                    params_dtype=params_dtype)
+        ref = in_memory.encode_staged_images(frames)
+        unit = emb / np.linalg.norm(emb, axis=1, keepdims=True)
+        probs = engine.classify(unit)
+        with torch.inference_mode():
+            plain = torch.softmax(classifier_forward(
+                params_from_numpy(head), ClassifierConfig(embed_dim=cfg.embed_dim),
+                torch.from_numpy(unit)), dim=-1).numpy()
+        err = float(np.abs(probs - plain).max())
+        log(f"checkpoint {MODEL} ({out['bytes'] / 1e6:.1f} MB, written in {out['write_s']:.2f} s), "
+            f"{params_dtype} weights: from_checkpoint {total_s:.2f} s (with the random 'original' it also "
+            f"draws), the file to the card in the serving format {load_s:.2f} s; "
+            f"{N_FRAMES} frames bit-equal to the in-memory engine: {np.array_equal(emb, ref)}; launches "
+            f"{launches} (expected {expected} each); classify on the card vs the plain head on the CPU: "
+            f"max abs err {err:.2e}, classes {np.bincount(probs.argmax(1), minlength=3).tolist()}")
+        check(np.array_equal(emb, ref), f"checkpoint {params_dtype}: embeddings differ from the in-memory engine's")
+        check(all(n == expected for n in launches.values()), f"checkpoint {params_dtype}: launches {launches}")
+        check(probs.shape == (N_FRAMES, 3) and err <= CLASSIFY_TOL, f"classify: max abs err {err}")
+        out[params_dtype] = {"from_checkpoint_s": total_s, "load_s": load_s, "classify_err": err}
+        del engine, in_memory
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -3373,7 +3854,10 @@ def main() -> int:
     log(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    ckpt_dir = tempfile.TemporaryDirectory()
     try:
+        from evr_tpu_torch.ops import block_fused as bf
+
         phase_build()
         gemm = phase_gemm(torch)
         gemm_s8 = phase_gemm_s8(torch)
@@ -3389,8 +3873,15 @@ def main() -> int:
         vis = get_model_config(MODEL).vision
         frames = synthetic_frames(torch, N_FRAMES, vis.image_size, vis.patch_size)
         t0 = time.perf_counter()
-        main = phase_main_path(torch, frames, then=lambda e, r: phase_ann_serving(torch, e, r))
-        main_q = phase_main_path_int8(torch, frames)
+        main = phase_main_path(torch, frames, then=lambda e, r: {
+            "ann": phase_ann_serving(torch, e, r),
+            "searchers": phase_searchers(torch, e, r, frames, ONE_VECTOR_RANK_NOISE, SERVED_RANK_NOISE,
+                                         "bf16", [bf.fused_attn_block, bf.fused_mlp_block])})
+        main_q = phase_main_path_int8(torch, frames, then=lambda e, r: phase_searchers(
+            torch, e, r, frames, INT8_ONE_VECTOR_RANK_NOISE, INT8_SERVED_RANK_NOISE, "int8",
+            [bf.fused_attn_block_q, bf.fused_mlp_block_q], index_dtype="int8", search_impl="pallas"))
+        ckpt = pathlib.Path(ckpt_dir.name) / "vitb32.pt"
+        ckpt_run = phase_checkpoint(torch, frames, ckpt)
         train = phase_train(torch)
         times = phase_times(torch)
         times[("fused_topk", "vision")], topk_times = phase_times_topk(torch)
@@ -3410,7 +3901,7 @@ def main() -> int:
         worst["adc_list_scores"] = max(worst["adc_list_scores"], ann["max_abs_err"])
         times[("adc_list_scores", "vision")] = phase_times_adc(torch, ann.pop("index"), ann.pop("cids"),
                                                                ann.pop("tables"))
-        tool = phase_index_tool(torch)
+        tool = phase_index_tool(torch, ckpt)
         ann_s = time.perf_counter() - t1
         t2 = time.perf_counter()
         flash_cfg, flash_np = flash_params()
@@ -3432,10 +3923,24 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        ckpt_dir.cleanup()
     for tag, m in (("bf16", main), ("int8", main_q)):
         log(f"main path {tag}: encode {m['encode_frames_per_s']:.1f} frames/s "
             f"(batch {BATCH}, {N_FRAMES} frames), text query p50 "
             f"{m['text_query_p50_ms']:.2f} ms, /api/search p50 {m['request_p50_ms']:.2f} ms")
+    for tag, m in (("bf16", main["then"]["searchers"]), ("int8", main_q["then"])):
+        t = m["threads"]
+        log(f"searchers {tag}: uncached text query p50 one call {m['p50_one_call_ms']:.3f} ms, two steps "
+            f"{m['p50_two_step_ms']:.3f} ms; {N_THREADS} threads unbatched p50 {t['unbatched']['p50_ms']:.3f} ms "
+            f"{t['unbatched']['qps']:.1f} queries/s, window {BATCH_WINDOW_MS} ms p50 {t['batched']['p50_ms']:.3f} "
+            f"ms {t['batched']['qps']:.1f} queries/s, dispatch sizes {m['dispatches']}")
+    log(f"checkpoints: {MODEL} reference file ({ckpt_run['bytes'] / 1e6:.1f} MB) to the card "
+        f"{ckpt_run['bfloat16']['load_s']:.2f} s (bf16), {ckpt_run['int8']['load_s']:.2f} s (int8); "
+        f"from_checkpoint {ckpt_run['bfloat16']['from_checkpoint_s']:.2f} / "
+        f"{ckpt_run['int8']['from_checkpoint_s']:.2f} s; {TRAIN_MODEL} best_model.pt (EMA) to the card "
+        f"{train['served']['load_s']:.2f} s, from_checkpoint {train['served']['from_checkpoint_s']:.2f} s; "
+        f"classes of {TRAIN_SERVE_FRAMES} served frames {train['served']['classes']}")
     log(f"main path training: {TRAIN_MODEL}, batch {TRAIN_BATCH}, bf16: step {train['step_s']:.4f} s, "
         f"{train['samples_per_s']:.2f} samples/s; checkpoint saves {json.dumps(train['checkpoint_s'])} s; "
         f"kernel vs plain step: {json.dumps(train['compared'])}")
@@ -3459,8 +3964,8 @@ def main() -> int:
         f"{k7['library_ms']:.4f}); the parent's form, gather + kernel, {k7['parent_form_ms']:.4f} ms (device "
         f"{k7['parent_form_device_ms']:.4f}, the copy {k7['gather_copy_ms']:.4f}); query split "
         f"{json.dumps({k: round(v, 4) for k, v in ann['split'].items()})}")
-    log(f"ann tiers: /api/search p50 ivf {main['then']['ivf']:.2f} ms, ivfpq (host store) "
-        f"{main['then']['ivfpq']:.2f} ms; large IVF-PQ ({ANN_ROWS} x {ANN_DIM}, {ANN_LISTS} lists): "
+    log(f"ann tiers: /api/search p50 ivf {main['then']['ann']['ivf']:.2f} ms, ivfpq (host store) "
+        f"{main['then']['ann']['ivfpq']:.2f} ms; large IVF-PQ ({ANN_ROWS} x {ANN_DIM}, {ANN_LISTS} lists): "
         f"build {ann['build_s']:.2f} s, pool {ann['pool']} rows, recall@10 {ann['recall']:.4f} "
         f"(re-rank 50: {ann['recall_rerank']:.4f}), query p50 K7 {ann['p50_pallas']:.3f} ms / "
         f"gather-sum {ann['p50_xla']:.3f} ms at nprobe {ANN_NPROBE}, B {ANN_B} (in turns: "

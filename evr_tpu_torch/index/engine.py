@@ -9,10 +9,15 @@ registered and switched at run time.
 On the card the compute dtype is bfloat16 and every residual block but the
 last runs through the hand-written kernels K1 and K2 (K3 with int8 weights),
 or, under a ``cfg`` with ``attn_impl="flash"``, through K6 for its attention;
-on the CPU it is float32 and the blocks take the plain composition. The MoE
-towers, mesh sharding, orbax/.pt checkpoints, the classifier head, the
-exact-PIL host preprocessing and the native pipelined stager are not ported
-yet.
+on the CPU it is float32 and the blocks take the plain composition.
+
+Checkpoints: ``from_checkpoint`` and ``load_finetuned`` read a reference
+``.pt`` file (the OpenAI layout, ``models.torch_import``) or the port
+Trainer's own ``.pt`` file (``training.finetune``), told apart by their keys
+(``load_torch_checkpoint``); a fine-tuned model's classifier head serves
+through ``classify``. The JAX package's orbax directories need JAX and are
+refused. The MoE towers, mesh sharding, the exact-PIL host preprocessing and
+the native pipelined stager are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from evr_tpu_torch.models.classifier import ClassifierConfig, classifier_forward
 from evr_tpu_torch.models.clip import CLIPConfig, encode_staged_u8, encode_text, init_clip_params
 from evr_tpu_torch.models.convert import params_from_numpy
 from evr_tpu_torch.models.quant import quantize_clip_params
@@ -33,6 +39,42 @@ from evr_tpu_torch.utils.device import resolve_device
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 PARAMS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": None}
+# the keys of the port Trainer's checkpoint payload (``Trainer.save_checkpoint``)
+TRAINER_KEYS = ("params", "opt_state", "step")
+
+
+def load_torch_checkpoint(path, prefer_ema: bool = False) -> dict:
+    """A fine-tune checkpoint file for serving, whatever its kind, as
+    ``{"clip": params, "classifier": params or None}``:
+
+    - the port Trainer's ``.pt`` (``best_model.pt``, ``final_checkpoint.pt``:
+      a dict with the keys ``TRAINER_KEYS``), the counterpart of the JAX
+      package's orbax checkpoint: its params, or with ``prefer_ema=True`` its
+      EMA (``payload["ema"]``, written when training ran with
+      ``ema_decay > 0``) where it has one. The file is memory-mapped, so the
+      optimizer moments it also holds are never read;
+    - otherwise a reference ``.pt`` (``models.torch_import``), which holds no
+      EMA.
+
+    A directory (an orbax checkpoint of the JAX package) and a payload with a
+    ``moe`` entry raise."""
+    from evr_tpu_torch.models.torch_import import checkpoint_from_blob, read_torch_file
+
+    if pathlib.Path(path).is_dir():
+        raise NotImplementedError(
+            f"{path} is a directory: orbax checkpoints need JAX; the port reads torch "
+            "files only (ROADMAP items A14/A17)")
+    blob = read_torch_file(path)
+    if not (isinstance(blob, dict) and all(k in blob for k in TRAINER_KEYS)):
+        out = checkpoint_from_blob(blob)
+        return {"clip": out["clip"], "classifier": out["classifier"]}
+    if blob.get("moe"):
+        raise NotImplementedError(
+            f"{path}: MoE checkpoints are not ported yet (ROADMAP items A14/A17)")
+    params = blob["params"]
+    if prefer_ema and blob.get("ema") is not None:
+        params = blob["ema"]
+    return {"clip": params["clip"], "classifier": params.get("classifier")}
 
 
 class EmbeddingEngine:
@@ -84,9 +126,36 @@ class EmbeddingEngine:
             return quantize_clip_params(params)
         return params
 
+    @classmethod
+    def from_checkpoint(
+        cls, checkpoint_path, model_name: str = "ViT-B/32", name: str = "finetuned",
+        prefer_ema: bool = False, **engine_kwargs,
+    ) -> "EmbeddingEngine":
+        """An engine serving ``checkpoint_path`` (``load_torch_checkpoint``):
+        built for ``model_name``'s configuration (not the file's), the model
+        registered as ``name`` and made active."""
+        engine = cls(model_name, **engine_kwargs)
+        engine.load_finetuned(checkpoint_path, name, prefer_ema=prefer_ema)
+        engine.set_active_model(name)
+        return engine
+
     # -- model registry ---------------------------------------------------
-    def register_model(self, name: str, clip_params, classifier=None) -> None:
-        self.models[name] = {"clip": self._cast_params(clip_params), "classifier": classifier}
+    def register_model(self, name: str, clip_params, classifier=None,
+                       classifier_cfg: ClassifierConfig | None = None) -> None:
+        """The classifier head, where there is one, moves to the engine's
+        device in its own dtype: the serving weight format casts the towers
+        only."""
+        self.models[name] = {
+            "clip": self._cast_params(clip_params),
+            "classifier": None if classifier is None else params_from_numpy(classifier, self.device),
+            "classifier_cfg": classifier_cfg or ClassifierConfig(embed_dim=self.cfg.embed_dim),
+        }
+
+    def load_finetuned(self, checkpoint_path, name: str = "finetuned", prefer_ema: bool = False) -> None:
+        """Register a fine-tune checkpoint file as ``name`` (not made
+        active); ``prefer_ema``: see ``load_torch_checkpoint``."""
+        blob = load_torch_checkpoint(checkpoint_path, prefer_ema=prefer_ema)
+        self.register_model(name, blob["clip"], blob["classifier"])
 
     def set_active_model(self, name: str) -> bool:
         if name not in self.models:
@@ -208,3 +277,16 @@ class EmbeddingEngine:
         if normalise:
             emb = emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
         return emb.astype(np.float32), names
+
+    # -- classifier (violence/NSFW head) ----------------------------------
+    def classify(self, features: np.ndarray) -> np.ndarray | None:
+        """Class probabilities [N, num_classes] from the active model's
+        classifier head, or None when the active model has none."""
+        entry = self.models[self.active_model]
+        if entry.get("classifier") is None:
+            return None
+        cfg = entry.get("classifier_cfg") or ClassifierConfig(embed_dim=self.cfg.embed_dim)
+        x = torch.from_numpy(np.atleast_2d(np.asarray(features, np.float32))).to(self.device)
+        with torch.inference_mode():
+            logits = classifier_forward(entry["classifier"], cfg, x)
+            return torch.softmax(logits, dim=-1).cpu().numpy()

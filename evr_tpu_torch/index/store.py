@@ -335,6 +335,16 @@ class FrameIndex:
             scores, rows = topk(self._device_index, q, start, end, k, row_scales=self._row_scales)
         return scores.cpu().numpy(), rows.cpu().numpy()
 
+    def snapshot(self, video_name: str | None = None):
+        """A consistent view for the searchers (``index.fused_search``):
+        (device_index, row_scales, start, end, version), taken under the lock.
+        A rebuild replaces the tensors and an append writes rows past ``end``
+        only, so the view stays valid while a search runs over it."""
+        with self._lock:
+            self._ensure_built()
+            start, end = self._range_for(video_name)
+            return self._device_index, self._row_scales, start, end, self.version
+
     def resolve_row(self, row: int) -> tuple[str, str, int]:
         """global row → (video, frame_name, frame_index)."""
         with self._lock:

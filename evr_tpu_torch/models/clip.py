@@ -122,6 +122,49 @@ def init_clip_params(rng: np.random.Generator | int, cfg: CLIPConfig) -> dict:
     }
 
 
+# -- positional-embedding interpolation (ViT-L/14@336px and friends) ------
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = −0.5, at distances x ≥ 0."""
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return np.where(x >= 2.0, 0.0, np.where(x >= 1.0, far, near))
+
+
+def cubic_weight_mat(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] weights of a cubic resize along one axis, as
+    ``jax.image.resize(method="cubic")`` builds them: half-pixel centres, the
+    kernel widened by the scale when downsampling (antialias), each output's
+    weights divided by their sum over the inputs, and outputs whose sample
+    lies outside [−0.5, n_in − 0.5] zeroed. ``F.interpolate(mode="bicubic")``
+    differs (a = −0.75, indices clamped at the border)."""
+    inv_scale = n_in / n_out
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in)[:, None]) / max(inv_scale, 1.0)
+    w = _keys_cubic(x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0)
+
+
+def interpolate_pos_embedding(pos, new_grid: int) -> torch.Tensor:
+    """Resample the patch-position grid of a vision ``pos_embedding``
+    [1 + g², W] to ``new_grid``² positions (the class position kept), by the
+    JAX package's cubic resize: one weight matrix per axis, applied as two
+    products in float64. Loads 224px checkpoints into higher-resolution
+    towers such as ViT-L/14@336px."""
+    pos = torch.as_tensor(pos)
+    cls_tok, grid_tok = pos[:1], pos[1:]
+    old_grid = int(math.sqrt(grid_tok.shape[0]))
+    w = torch.from_numpy(cubic_weight_mat(old_grid, new_grid)).to(pos.device)
+    grid = grid_tok.reshape(old_grid, old_grid, -1).double()
+    resized = torch.einsum("ai,bj,abc->ijc", w, w, grid).to(pos.dtype)
+    return torch.cat([cls_tok, resized.reshape(new_grid * new_grid, -1)], dim=0)
+
+
 # -- forward --------------------------------------------------------------
 
 

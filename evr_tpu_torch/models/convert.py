@@ -15,7 +15,9 @@ import torch
 
 def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
     """Nested dict/list of numpy arrays → the same structure of tensors on
-    ``device``. ``dtype`` (optional) casts the floating-point leaves."""
+    ``device``, row-major (a checkpoint's transposed views are copied into
+    the layout the kernels read). ``dtype`` (optional) casts the
+    floating-point leaves."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -23,7 +25,7 @@ def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
     if isinstance(tree, torch.Tensor):
         t = tree
     else:
-        t = torch.from_numpy(np.array(tree, copy=True))
+        t = torch.from_numpy(np.array(tree, copy=True, order="C"))
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
-    return t.to(device)
+    return t.to(device).contiguous()

@@ -5,7 +5,7 @@ The serving path uses ViT-B/32 (`Backend/services/embedding_service.py:74`);
 the evaluation harness additionally loads ViT-B/16-class and large towers
 (`Backend/content/Test_compare_model/compare_models.py` model zoo). The @336
 variant reuses the L/14 weights via positional-embedding interpolation
-(``interpolate_pos_embedding`` in the JAX package; not ported yet).
+(``models.clip.interpolate_pos_embedding``, ``models.adapt``).
 """
 
 from __future__ import annotations

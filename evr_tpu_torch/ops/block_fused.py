@@ -64,6 +64,7 @@ they refuse inputs that require grad: differentiable blocks go through
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -673,6 +674,7 @@ def _check_heads(what: str, x: torch.Tensor, n_heads: int) -> None:
 
 
 _K_MAJOR = WeakIdKeyDictionary()  # int8 kernel -> (its version, its K-major copy)
+_K_MAJOR_LOCK = threading.Lock()
 
 
 def k_major(w: torch.Tensor) -> torch.Tensor:
@@ -684,18 +686,21 @@ def k_major(w: torch.Tensor) -> torch.Tensor:
     makes it anew; an inference tensor, which has no counter, gets a fresh
     copy each call). Made per call, the copies took 5.25 % of K3a and 2.35 %
     of K3b at ViT-B/32's serving shape (``chip_smoke.py``, H100 80GB HBM3).
-    The params keep their layout: the copy is derived and never saved."""
-    hit = _K_MAJOR.get(w)
-    if hit is not None and hit[0] == w._version:
-        return hit[1]
-    K, N = w.shape
-    w_t = torch.empty((N, K), dtype=torch.int8, device=w.device)
-    rc = build.load("block_quant").evr_transpose_s8(
-        w.data_ptr(), w_t.data_ptr(), K, N, torch.cuda.current_stream(w.device).cuda_stream)
-    _raise_rc(rc, "k_major", tuple(w.shape))
-    if not w.is_inference():
-        _K_MAJOR[w] = (w._version, w_t)
-    return w_t
+    The params keep their layout: the copy is derived and never saved. A
+    lock serialises the cache: serving threads (a micro-batch leader beside
+    the request threads) may reach one weight at once."""
+    with _K_MAJOR_LOCK:
+        hit = _K_MAJOR.get(w)
+        if hit is not None and hit[0] == w._version:
+            return hit[1]
+        K, N = w.shape
+        w_t = torch.empty((N, K), dtype=torch.int8, device=w.device)
+        rc = build.load("block_quant").evr_transpose_s8(
+            w.data_ptr(), w_t.data_ptr(), K, N, torch.cuda.current_stream(w.device).cuda_stream)
+        _raise_rc(rc, "k_major", tuple(w.shape))
+        if not w.is_inference():
+            _K_MAJOR[w] = (w._version, w_t)
+        return w_t
 
 
 def fused_attn_block_q(

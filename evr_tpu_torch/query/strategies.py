@@ -9,10 +9,15 @@ the serving path's text search dispatches:
 |               | negative query (normalise(q⁺ − w·q⁻)), events by score   |
 | text_adaptive | the same candidates kept where score ≥ threshold          |
 
-Candidates come from the cached text features and one ``FrameIndex.search``
-(the JAX package's fused one-dispatch text searcher is not ported yet; its
-result is the same top-k). The keyword, object, speech, temporal and
-video-level strategies are not ported yet.
+Candidates come, as in the JAX package, from the one-call text searcher
+(``index.fused_search.TextSearcher``: encode → normalise → GEMM → top-k,
+results cached per index version) over every exact tier. An ANN tier
+(``search_impl`` "ivf" or "ivfpq") probes its lists through
+``FrameIndex.search`` with the engine's cached text features, its global
+searches coalesced by a micro-batcher under ``batch_window_ms``. A negative
+query scores the composite direction through ``FrameIndex.search``. The
+keyword, object, speech, temporal and video-level strategies are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from .metadata import MetadataStore
 from .text import identity_preprocessor
 
 CANDIDATE_OVERFETCH = 3  # top_k × 3 candidates, as the reference over-fetches
+ANN_MAX_BATCH = 8  # the ANN tier's micro-batches: a probe scores 8 queries for about the cost of 1
 
 
 class QueryEngine:
@@ -36,17 +42,59 @@ class QueryEngine:
         embedding_engine,
         index: FrameIndex,
         metadata: MetadataStore,
+        batch_window_ms: float | None = None,
     ):
+        """``batch_window_ms``: concurrent single queries arriving within
+        the window coalesce into one dispatch (``serving.batcher``); None
+        disables."""
         self.engine = embedding_engine
         self.index = index
         self.metadata = metadata
         # the Vietnamese preprocessing pipeline is not ported yet
         self.preprocess = identity_preprocessor
+        ann = getattr(index, "search_impl", None) in ("ivf", "ivfpq")
+        # the one-call searcher scores the exact GEMM over the index snapshot;
+        # an ANN tier must probe its lists through FrameIndex.search. Engines
+        # without the full interface (test stubs) take the two-step path.
+        self._searcher = None
+        if hasattr(embedding_engine, "tokenizer") and hasattr(embedding_engine, "params") and not ann:
+            from evr_tpu_torch.index.fused_search import TextSearcher
+
+            self._searcher = TextSearcher(embedding_engine, index, batch_window_ms=batch_window_ms)
+        # the ANN tier keeps micro-batching: concurrent global searches share
+        # one probe (scoped searches run the small exact path per call)
+        self._ann_batcher = None
+        if self._searcher is None and batch_window_ms is not None and ann:
+            from evr_tpu_torch.serving.batcher import MicroBatcher, flush_padded
+
+            def _ann_batch(k, items):
+                return flush_padded(items, ANN_MAX_BATCH, lambda padded: self.index.search_raw(
+                    np.stack([np.asarray(v, np.float32).reshape(-1) for v in padded]), k))
+
+            self._ann_batcher = MicroBatcher(_ann_batch, max_batch=ANN_MAX_BATCH,
+                                             window_s=batch_window_ms / 1e3)
 
     # -- shared plumbing --------------------------------------------------
     def _candidates(self, processed_text: str, top_k: int, video_name: str | None) -> list[SearchHit]:
+        return self._candidates_n(processed_text, top_k * CANDIDATE_OVERFETCH, video_name)
+
+    def _hits(self, scores, rows) -> list[SearchHit]:
+        hits = []
+        for score, row in zip(scores, rows):
+            if not math.isfinite(float(score)):
+                continue
+            video, frame, fidx = self.index.resolve_row(int(row))
+            hits.append(SearchHit(video, frame, float(score), int(row), fidx))
+        return hits
+
+    def _candidates_n(self, processed_text: str, k: int, video_name: str | None) -> list[SearchHit]:
+        if self._searcher is not None:
+            scores, rows = self._searcher.search(processed_text, k, video_name)
+            return self._hits(scores[0], rows[0])
         vec = self.engine.get_text_features(processed_text)
-        return self.index.search(vec, top_k * CANDIDATE_OVERFETCH, video_name)[0]
+        if self._ann_batcher is not None and video_name is None:
+            return self._hits(*self._ann_batcher.submit(k, vec))
+        return self.index.search(vec, k, video_name)[0]
 
     def _negative_vec(self, processed_text: str, negative_query: str, weight: float):
         """Composite direction ``normalise(q⁺ − w·q⁻)``; both encodes hit the

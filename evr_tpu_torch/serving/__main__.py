@@ -3,12 +3,23 @@
 import argparse
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser(description="evr_tpu_torch serving API")
     parser.add_argument("--data-root", default="data")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=5000)
     parser.add_argument("--model", default="ViT-B/32")
+    parser.add_argument(
+        "--checkpoint", default=None,
+        help="a fine-tuned .pt checkpoint (a reference file or the port Trainer's "
+        "best_model.pt / final_checkpoint.pt), registered as model 'finetuned' beside "
+        "'original', which stays active",
+    )
+    parser.add_argument(
+        "--use-ema", action="store_true",
+        help="serve the EMA weights of a Trainer checkpoint (payload['ema'], written by "
+        "finetune --ema-decay); the raw params when it has none",
+    )
     parser.add_argument(
         "--device", default="cuda",
         help="torch device for the towers and the index (default cuda; "
@@ -44,8 +55,13 @@ def main():
         help="ivfpq: the device holds only the PQ codes; the re-rank rows live in "
         "host memory as int8",
     )
+    parser.add_argument(
+        "--batch-window-ms", type=float, default=None,
+        help="micro-batch window: concurrent text queries arriving within this many ms "
+        "coalesce into one device dispatch (off when unset)",
+    )
     parser.add_argument("--batch-size", type=int, default=256)
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     from werkzeug.serving import run_simple
 
@@ -62,10 +78,13 @@ def main():
         params_dtype="float32" if args.params_dtype == "auto" else args.params_dtype,
         batch_size=args.batch_size,
     )
+    if args.checkpoint:
+        engine.load_finetuned(args.checkpoint, prefer_ema=args.use_ema)
     ctx = ServingContext(
         args.data_root, engine=engine, index_dtype=args.index_dtype,
         search_impl=args.search_impl, ivf_nprobe=args.ivf_nprobe,
         ivf_clusters=args.ivf_clusters, ivfpq_host_store=args.ivfpq_host_store,
+        batch_window_ms=args.batch_window_ms,
     )
     loaded = ctx.boot()
     if args.params_dtype == "auto":

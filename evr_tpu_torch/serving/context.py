@@ -7,9 +7,12 @@ embedding model, the metadata store, the registry and the search cache;
 ``.npy`` embeddings, metadata JSON, ``video_mapping.json``), which is the
 JAX package's, so either package serves the other's data root.
 
-Not ported yet: ingest and upload jobs, image and hybrid search, ASR
-transcripts, and the Vietnamese preprocessing pipeline (queries take the
-identity preprocessor).
+Text search runs through each model's ``QueryEngine`` (the one-call
+``TextSearcher``; ``batch_window_ms`` coalesces concurrent queries), and
+``image_searcher`` builds each model's one-call ``ImageSearcher``. Not ported
+yet: ingest and upload jobs, the image and hybrid search routes (the image
+searcher has no route until then), ASR transcripts, and the Vietnamese
+preprocessing pipeline (queries take the identity preprocessor).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 
 from evr_tpu_torch.config import DataRootConfig
 from evr_tpu_torch.index import EmbeddingEngine, FrameIndex, VideoRegistry
+from evr_tpu_torch.index.fused_image_search import ImageSearcher
 from evr_tpu_torch.query.metadata import MetadataStore
 from evr_tpu_torch.query.strategies import QueryEngine
 
@@ -51,11 +55,14 @@ class ServingContext:
         ivf_clusters: int | None = None,
         ivfpq_host_store: bool = False,
         mesh=None,
+        batch_window_ms: float | None = None,
     ):
         """``index_dtype``, ``search_impl``, ``ivf_nprobe``, ``ivf_clusters``,
         ``ivfpq_host_store`` and ``mesh``: see ``FrameIndex``; applied to
         every per-model index. An invalid combination raises here, at boot,
-        not at the first request."""
+        not at the first request. ``batch_window_ms``: concurrent queries
+        arriving within the window coalesce into one device dispatch
+        (``serving.batcher``); None disables."""
         self.data_root = (
             data_root
             if isinstance(data_root, DataRootConfig)
@@ -66,6 +73,7 @@ class ServingContext:
         # scores embeddings M produced
         self._indexes: dict[str, FrameIndex] = {}
         self._query_engines: dict[str, QueryEngine] = {}
+        self._image_searchers: dict[str, ImageSearcher] = {}
         self.metadata = MetadataStore()
         self.registry = VideoRegistry(self.data_root.mapping_path)
         self.search_cache = TTLCache(default_ttl=3600.0)
@@ -74,6 +82,7 @@ class ServingContext:
         self.ivf_nprobe = ivf_nprobe
         self.ivf_clusters = ivf_clusters
         self.ivfpq_host_store = ivfpq_host_store
+        self.batch_window_ms = batch_window_ms
         # per-model indexes build lazily: fail fast on an invalid tier combo
         self._index_kwargs = dict(
             device_dtype=index_dtype, search_impl=search_impl, ivf_nprobe=ivf_nprobe,
@@ -123,9 +132,20 @@ class ServingContext:
         model = self.engine.active_model
         if model not in self._query_engines:
             self._query_engines[model] = QueryEngine(
-                self.engine, self.index_for(model), self.metadata
+                self.engine, self.index_for(model), self.metadata,
+                batch_window_ms=self.batch_window_ms,
             )
         return self._query_engines[model]
+
+    @property
+    def image_searcher(self) -> ImageSearcher:
+        """The active model's one-call image searcher over its index."""
+        model = self.engine.active_model
+        if model not in self._image_searchers:
+            self._image_searchers[model] = ImageSearcher(
+                self.engine, self.index_for(model), batch_window_ms=self.batch_window_ms
+            )
+        return self._image_searchers[model]
 
     # -- boot / durable state ---------------------------------------------
     def boot(self) -> list[str]:

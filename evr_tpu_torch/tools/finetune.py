@@ -5,13 +5,14 @@
 trainer's shape (``Backend/clip_finetune_correct.py``): combined caption
 datasets, CLIP + 3-class head, InfoNCE + CE, early stopping, best/final
 checkpoints and ``history.json`` under ``--save-dir``. The towers start from
-seeded random weights (``--seed``); ``--device`` defaults to ``cuda`` and
-``--device cpu`` runs on the CPU.
+``--init-checkpoint`` (a reference ``.pt`` in the OpenAI layout,
+``models.torch_import.load_checkpoint``) or from seeded random weights
+(``--seed``); the classifier head is always drawn from ``--seed`` + 1.
+``--device`` defaults to ``cuda`` and ``--device cpu`` runs on the CPU.
 
 The flags of the JAX package's CLI that the port does not honour yet are
 accepted by the parser and refused when set, naming the ROADMAP item they
-wait for: ``--init-checkpoint`` (A3, loading OpenAI/HF checkpoints),
-``--fsdp`` and ``--expert-parallel`` (A15, distributed training),
+wait for: ``--fsdp`` and ``--expert-parallel`` (A15, distributed training),
 ``--moe-*``, ``--lora-rank``/``--lora-alpha``, ``--optimizer muon`` and
 ``--muon-lr-scale``, ``--gradcache-chunks``, ``--remat`` and
 ``--patch-drop`` (A14, the trainer variants and levers). ``--no-mesh`` is
@@ -26,7 +27,6 @@ import pathlib
 
 # flag (argparse dest) → (default, ROADMAP item): refused when set otherwise
 UNPORTED_FLAGS = {
-    "init_checkpoint": (None, "A3"),
     "fsdp": (False, "A15"),
     "expert_parallel": (0, "A15"),
     "moe_experts": (0, "A14"),
@@ -73,8 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "resume with --resume-from autosave")
     parser.add_argument("--resume-from", default=None,
                         help="checkpoint name under --save-dir (e.g. autosave)")
+    parser.add_argument("--init-checkpoint", default=None,
+                        help="start the towers from this reference .pt checkpoint (OpenAI layout)")
     # accepted for the JAX CLI's command lines, refused when set (UNPORTED_FLAGS)
-    parser.add_argument("--init-checkpoint", default=None)
     parser.add_argument("--patch-drop", type=float, default=0.0)
     parser.add_argument("--gradcache-chunks", type=int, default=0)
     parser.add_argument("--remat", action="store_true")
@@ -110,7 +111,12 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     cfg = get_model_config(args.model)
-    clip_params = init_clip_params(args.seed, cfg)
+    if args.init_checkpoint:
+        from evr_tpu_torch.models.torch_import import load_checkpoint
+
+        clip_params = load_checkpoint(args.init_checkpoint)["clip"]
+    else:
+        clip_params = init_clip_params(args.seed, cfg)
     cls_params = init_classifier_params(
         args.seed + 1, ClassifierConfig(embed_dim=cfg.embed_dim, num_classes=args.num_classes)
     )

@@ -132,10 +132,11 @@ def cmd_query(args) -> None:
     elif args.query:
         from evr_tpu_torch.index import EmbeddingEngine
 
+        engine = EmbeddingEngine(args.model, device=args.device)
         if args.checkpoint:
-            raise SystemExit("--checkpoint: loading fine-tuned weights is not ported yet "
-                             "(ROADMAP item A3)")
-        q = EmbeddingEngine(args.model, device=args.device).encode_texts(list(args.query))
+            engine.load_finetuned(args.checkpoint)
+            engine.set_active_model("finetuned")
+        q = engine.encode_texts(list(args.query))
     else:
         raise SystemExit("provide --query-embeddings or --query")
 
@@ -188,7 +189,7 @@ def build_parser() -> argparse.ArgumentParser:
     qp.add_argument("--query", nargs="*", default=None, help="text queries")
     qp.add_argument("--query-embeddings", default=None, help=".npy [B, D]")
     qp.add_argument("--model", default="ViT-B/32")
-    qp.add_argument("--checkpoint", default=None, help="not ported yet (A3): refused")
+    qp.add_argument("--checkpoint", default=None, help="encode --query with this fine-tuned .pt checkpoint")
     qp.add_argument("--top-k", type=int, default=10)
     qp.add_argument("--nprobe", type=int, default=32)
     qp.add_argument("--rerank", type=int, default=None)
