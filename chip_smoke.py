@@ -76,11 +76,11 @@ package. Phases, each fatal on failure:
    encodes each, then ``FrameIndex.search``); the exact launch counts of K1
    and K2 over that run, and the kernel path's embeddings and top-10
    rankings against the plain versions' on the same frames and queries;
-   then phase 13's searchers over that root;
+   then phase 13's searchers and phase 14's routes over that root;
 5. main path, int8: the same with ``params_dtype="int8"`` (K3) and an int8
    index under ``search_impl="pallas"``: the launch counts of K3a and K3b,
    ``cosine_topk`` once per searcher dispatch and never in the index, K4
-   once per negative-query request; phase 13's searchers over that root;
+   once per negative-query request; phases 13 and 14 over that root;
    then ``auto_params_dtype`` gates a float32 engine over that data root;
 6. main path, training: ``python -m evr_tpu_torch.tools.finetune`` (its
    ``main``) fine-tunes ViT-L/14@336px at full width from
@@ -180,7 +180,27 @@ package. Phases, each fatal on failure:
    (fewer dispatches than queries, bucket sizes, rows within the bands of
    the unbatched ones, and the check rejecting rows handed to the wrong
    query), and ``ImageSearcher`` finding 8 indexed frames as their own
-   top-1 in one dispatch.
+   top-1 in one dispatch;
+14. every route of the app over phase 4's and phase 5's roots, seeded
+   metadata (OCR text with Vietnamese accents, objects, tags, captions) and a
+   transcript per video written over them: /api/search with every method of
+   ``SEARCH_METHODS`` and temporal, a Vietnamese query, a negative query (K4
+   on the int8 root), image queries (each indexed frame its own top-1) and a
+   hybrid query, each held to the same request through a twin engine on the
+   plain route within the served ranking bands (metadata-decided events the
+   same frames, metadata-only events equal), each check rejecting its
+   negative control, the ranked and the set check a near miss too (the text
+   vector turned to a row cosine of 0.999 toward the cut frame); the
+   launches of K1/K2 (bf16) and K3a/K3b and K4 (int8) over those requests
+   equal to what their dispatches imply; each method's p50 over 50
+   requests, the methods in turns, every cache emptied before each, under
+   50 ms, and the hybrid request's stages; the UI, a two-file SPA dist,
+   events, frame and video files with Range and a traversal attempt,
+   available videos, models and the active model, stats, transcribe (501,
+   then a ``CallableTranscriber``), upload (501); the UMAP route over the 1,024 frames, again from the cache
+   and again after the cache is emptied (the same bytes); ``viz.umap`` on
+   20,000 seeded clustered rows of 512 (the sparse tier), its share of
+   kept nearest neighbours above PCA's, a random layout's below.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -3832,6 +3852,540 @@ def phase_checkpoint(torch, frames, path: pathlib.Path) -> dict:
     return out
 
 
+# -- 14. every route ---------------------------------------------------------
+
+# seeded metadata written over the main paths' roots: OCR text (some with
+# Vietnamese accents), objects, tags, captions and a transcript per video
+ROUTE_OCR = ("LỐI THOÁT", "lối thoát hiểm", "Đường phố", "EXIT", "cấm vào", "bệnh viện", "xe máy")
+ROUTE_OBJECTS = ("person", "car", "dog", "knife", "motorbike")
+ROUTE_TAGS = ("night", "đám đông", "street")
+ROUTE_CAPTIONS = ("a red car on a street", "người đàn ông đang chạy", "a crowd at night")
+ROUTE_SPEECH = ("hãy chạy ra lối thoát", "the car is on fire", "đi đường này", "xin chào các bạn")
+ROUTE_SEED = 15
+# a top_k whose top_k×3 CLIP candidates cover every frame: the metadata filter
+# alone decides which frames a text_* strategy returns, so the kernel path's
+# set must equal the plain path's exactly
+ROUTE_TOP_ALL = N_FRAMES // 3 + 1
+# uncached /api/search requests per method for its p50, the methods in turns
+# after one round of warm-up; each p50 held under PERF.md §2's limit
+ROUTE_P50_RUNS, ROUTE_P50_LIMIT_MS = 50, 50.0
+# the near-miss control: the kernel path's text vector turned to this row
+# cosine with its own
+NEAR_COS = 0.999
+VI_QUERY, VI_PROCESSED = "đánh nhau trên đường", "fighting on the road"
+ROUTE_IMAGE_PICKS = (5, 300, 777)
+# viz.umap at the route's max_points cap, on the sparse tier: seeded unit rows
+# around UMAP_CENTRES centres, UMAP_NOISE a dimension (about 100 rows a cluster)
+UMAP_ROWS, UMAP_DIM, UMAP_CENTRES, UMAP_NOISE, UMAP_SEED, UMAP_K = 20_000, 512, 200, 0.02, 23, 10
+
+
+def write_route_metadata(root: pathlib.Path) -> dict:
+    """Overwrite each video's metadata JSON under ``root`` with seeded
+    detections, tags and captions (frame ids and file paths kept) and write
+    its transcript sidecar. Returns {video: records}."""
+    import numpy as np
+
+    from evr_tpu_torch.config import DataRootConfig
+    from evr_tpu_torch.index import VideoRegistry
+
+    cfg = DataRootConfig(root)
+    registry = VideoRegistry(cfg.mapping_path)
+    rng = np.random.default_rng(ROUTE_SEED)
+    out = {}
+    for name in registry.names():
+        meta = pathlib.Path(registry.get(name)["metadata_file"])
+        meta = meta if meta.is_absolute() else cfg.root / meta
+        records = json.loads(meta.read_text(encoding="utf-8"))
+
+        def dets(pool, p):
+            if rng.random() >= p:
+                return []
+            return [{"label": str(rng.choice(pool)), "confidence": float(np.round(rng.uniform(0.3, 1), 3)),
+                     "bounding_box": [0, 0, 1, 1]}]
+
+        for rec in records:
+            rec["text_detections"] = {"detections": dets(ROUTE_OCR, 0.3)}
+            rec["object_detections"] = {"detections": dets(ROUTE_OBJECTS, 0.3)}
+            rec["tags"] = [str(rng.choice(ROUTE_TAGS))] if rng.random() < 0.2 else []
+            rec["metadata"] = {"caption": str(rng.choice(ROUTE_CAPTIONS))} if rng.random() < 0.2 else {}
+        meta.write_text(json.dumps(records, ensure_ascii=False), encoding="utf-8")
+        seconds = len(records) / 25.0  # write_video's rate
+        starts = np.arange(0.0, seconds, 1.5)
+        segments = [{"start": float(s), "end": float(s + 1.2), "text": str(rng.choice(ROUTE_SPEECH))}
+                    for s in starts]
+        (meta.parent / f"{name}_transcript.json").write_text(
+            json.dumps({"segments": segments}, ensure_ascii=False), encoding="utf-8")
+        out[name] = records
+    return out
+
+
+def route_post(client, body) -> list:
+    resp = client.post("/api/search", json=body)
+    check(resp.status_code == 200, f"/api/search {body}: HTTP {resp.status_code} {resp.get_data()[:200]!r}")
+    events = json.loads(resp.get_data(as_text=True))["events"]
+    check(all(math.isfinite(e.get("clip_similarity", 0.0)) for e in events), f"{body}: non-finite score")
+    return events
+
+
+def _event_id(e):
+    return (e.get("videoId"), e.get("id"))
+
+
+def cut_violations(got, ref, key: str, noise: float) -> int:
+    """Two paths' events of one ranked request: a frame both return must
+    score within ``noise`` in both; a frame only one returns must score
+    within ``noise`` of the reference's last (cut) score."""
+    if not ref:
+        return len(got)
+    g, r = {_event_id(e): e[key] for e in got}, {_event_id(e): e[key] for e in ref}
+    cut = min(r.values())
+    bad = sum(abs(g[i] - r[i]) > noise for i in g.keys() & r.keys())
+    bad += sum(abs(s - cut) > noise for side in (g, r) for i, s in side.items() if i not in g.keys() & r.keys())
+    return bad + abs(len(got) - len(ref))
+
+
+def set_violations(got, ref, key: str, noise: float) -> int:
+    """Events decided by metadata over every frame: the same frames, each
+    one's score within ``noise`` in both paths."""
+    g, r = {_event_id(e): e[key] for e in got}, {_event_id(e): e[key] for e in ref}
+    return len(g.keys() ^ r.keys()) + sum(abs(g[i] - r[i]) > noise for i in g.keys() & r.keys())
+
+
+def chain_violations(got, ref, noise: float) -> int:
+    """Temporal chains: rank by rank the same video; the same frames with
+    each step's score within ``noise``, or, where a near tie changed the
+    chain, totals within ``noise`` a step."""
+    bad = abs(len(got) - len(ref))
+    for g, r in zip(got, ref):
+        steps = len(r["chain"])
+        if [_event_id(e) for e in g["chain"]] == [_event_id(e) for e in r["chain"]]:
+            bad += sum(abs(a["clip_similarity"] - b["clip_similarity"]) > noise
+                       for a, b in zip(g["chain"], r["chain"]))
+        else:
+            bad += int(abs(g["total_score"] - r["total_score"]) > noise * steps)
+    return bad
+
+
+def png_b64(frame) -> str:
+    import base64
+
+    import cv2
+    import numpy as np
+
+    ok, data = cv2.imencode(".png", np.ascontiguousarray(frame[:, :, ::-1]))
+    check(ok, "png encode")
+    return base64.b64encode(data.tobytes()).decode()
+
+
+def knn_overlap(torch, x, y, k: int = UMAP_K, device: str = "cuda") -> float:
+    """Mean share of each row's k nearest rows (cosine in ``x``) kept among
+    its k nearest in the layout ``y`` (euclidean), on the card by chunked
+    GEMMs, no sklearn."""
+    def neighbours(t, cosine: bool):
+        t = t.float()
+        if cosine:
+            t = t / t.norm(dim=1, keepdim=True)
+        sq = (t * t).sum(1)
+        out = []
+        for lo in range(0, len(t), 4096):
+            q = t[lo:lo + 4096]
+            d = -(q @ t.T) if cosine else sq[lo:lo + 4096, None] + sq[None, :] - 2 * (q @ t.T)
+            d[torch.arange(len(q), device=t.device), torch.arange(lo, lo + len(q), device=t.device)] = float("inf")
+            out.append(torch.topk(d, k, dim=1, largest=False).indices)
+        return torch.cat(out)
+
+    a = neighbours(torch.as_tensor(x, device=device), True)
+    b = neighbours(torch.as_tensor(y, device=device), False)
+    return float((a[:, :, None] == b[:, None, :]).any(2).float().mean())
+
+
+def phase_routes(torch, engine, root: pathlib.Path, frames, what: str, noise: float, counted,
+                 big_umap: bool = False, **ctx_kwargs) -> dict:
+    """Every route of the port's app over a main path's data root, on the
+    card: seeded metadata and transcripts written (``write_route_metadata``),
+    ``ServingContext`` booted with the same index settings (``ctx_kwargs``)
+    and the app driven through ``werkzeug.test.Client``. /api/search: every
+    method of ``SEARCH_METHODS`` plus temporal, a Vietnamese query through the
+    default ``VietnamesePreprocessor``, a negative query, image queries (PNG
+    base64 of indexed frames: each its own top-1) and a hybrid query; each
+    CLIP-backed request held to the same request through a twin engine on the
+    plain route (``attn_impl="plain"``, the same params; its index searched by
+    ``cosine_topk``): ranked events within ``noise`` of the plain path's cut,
+    metadata-decided events the same frames, metadata-only events equal, each
+    check also run on a negative control that it must reject (for the ranked
+    and the set check also a near miss, the text vector turned to a row
+    cosine of NEAR_COS). Each method's p50 over ROUTE_P50_RUNS requests in
+    turns, every cache emptied before each, under ROUTE_P50_LIMIT_MS; the
+    hybrid request's stages beside it. The kernels of
+    ``counted`` are counted over the kernel path's requests and held to the
+    count the dispatches imply. The other routes: UI, SPA dist, events,
+    frame and video files (Range, traversal), available videos, models and the
+    active model, stats, transcribe (501, then a ``CallableTranscriber``),
+    upload (501). UMAP: the route over every frame twice (the second from
+    the cache), then again after the cache is emptied (the same bytes);
+    ``big_umap``: ``viz.umap`` on UMAP_ROWS seeded clustered rows (sparse
+    tier), its kNN preservation against PCA's and a random layout's."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    from werkzeug.test import Client
+
+    import evr_tpu_torch.viz as viz
+    from evr_tpu_torch.query import SEARCH_METHODS
+    from evr_tpu_torch.serving import ServingContext, create_app
+    from evr_tpu_torch.serving.providers import CallableTranscriber
+
+    t0 = time.perf_counter()
+    write_route_metadata(root)
+    dist = root / "dist"
+    dist.mkdir(exist_ok=True)
+    (dist / "index.html").write_text("<html>spa</html>")
+    (dist / "app.js").write_text("console.log('spa')")
+    kc_ctx = ServingContext(root, engine=engine, **ctx_kwargs)
+    check(len(kc_ctx.boot()) == N_VIDEOS, f"{what} routes: boot")
+    check(all(kc_ctx.metadata.has_transcript(v) for v in kc_ctx.video_names()), f"{what}: transcripts")
+    kc = Client(create_app(kc_ctx, frontend_dist=str(dist)))
+    plain = copy.copy(engine)
+    plain.cfg = dataclasses.replace(engine.cfg, attn_impl="plain")
+    plain._text_cache = {}
+    pc_ctx = ServingContext(root, engine=plain, **{**ctx_kwargs, "search_impl": "xla"})
+    pc_ctx.boot()
+    pc = Client(create_app(pc_ctx))
+    qe = kc_ctx.query_engine
+    check(qe.preprocess(VI_QUERY) == VI_PROCESSED, f"{what}: preprocessor gave {qe.preprocess(VI_QUERY)!r}")
+
+    text = {"search_type": "text", "adaptive_threshold": -1.0, "text_confidence": 0.0,
+            "object_confidence": 0.0}
+    ranked = [  # (name, body, key): held within the noise band at the cut
+        ("text_clip", {**text, "search_method": "text_clip", "query": QUERIES[0], "top_k": 10}, "clip_similarity"),
+        ("text_adaptive", {**text, "search_method": "text_adaptive", "query": QUERIES[1], "top_k": 10},
+         "clip_similarity"),
+        ("vietnamese", {**text, "search_method": "text_clip", "query": VI_QUERY, "top_k": 10}, "clip_similarity"),
+        ("negative", {**text, "search_method": "text_clip", "query": QUERIES[3], "negative_query": QUERIES[4],
+                      "top_k": 10}, "clip_similarity"),
+        ("video", {**text, "search_method": "video", "query": QUERIES[2], "top_k": N_VIDEOS}, "video_score"),
+        ("hybrid", {"search_type": "hybrid", "image_url": png_b64(frames[ROUTE_IMAGE_PICKS[0]]), "query": "a red car",
+                    "image_weight": 0.5, "top_k": 10, "adaptive_threshold": -1.0}, "clip_similarity"),
+    ]
+    filtered = [  # every frame a candidate: the metadata filter decides
+        ("text_keyword", {**text, "search_method": "text_keyword", "query": "an exit", "keyword": "loi thoat"}),
+        ("text_object", {**text, "search_method": "text_object", "query": "a person", "object": "person"}),
+        ("text_object_keyword", {**text, "search_method": "text_object_keyword", "query": "street",
+                                 "keyword": "đường", "object": "car"}),
+        ("text_speech", {**text, "search_method": "text_speech", "query": "fire", "keyword": "fire"}),
+    ]
+    filtered = [(n, {**b, "top_k": ROUTE_TOP_ALL}) for n, b in filtered]
+    metadata_only = [
+        ("keyword_only", {**text, "search_method": "keyword_only", "query": "LOI THOAT", "top_k": 50}),
+        ("object_only", {**text, "search_method": "object_only", "query": "dam dong", "top_k": 50,
+                         "object_confidence": 0.5}),
+        ("speech_only", {**text, "search_method": "speech_only", "query": "chay", "top_k": 50}),
+    ]
+    temporal = [
+        ("temporal", {**text, "search_method": "temporal", "queries": list(QUERIES[:3]), "top_k": 3}),
+        ("temporal_gap", {**text, "search_method": "temporal", "queries": list(QUERIES[3:5]), "max_gap": 8,
+                          "top_k": 2}),
+    ]
+    images = [(f"image_{i}", {"search_type": "image", "image_url": png_b64(frames[i]), "top_k": 5,
+                              "adaptive_threshold": -1.0}) for i in ROUTE_IMAGE_PICKS]
+    methods = {b.get("search_method") for _, b, *_ in ranked + filtered + metadata_only + temporal}
+    check(methods >= set(SEARCH_METHODS) | {"temporal"}, f"{what}: methods not driven: "
+          f"{set(SEARCH_METHODS) - methods}")
+
+    # the kernel path: every request once, its launches counted against the
+    # dispatches they imply
+    calls = {"text_dispatch": 0, "encode_texts": 0, "encode_images": 0, "image_dispatch": 0}
+
+    def tally(obj, attr, key, per_call=lambda *a, **k: 1):
+        real = getattr(obj, attr)
+
+        def wrapped(*args, **kwargs):
+            calls[key] += per_call(*args, **kwargs)
+            return real(*args, **kwargs)
+
+        setattr(obj, attr, wrapped)
+
+    tally(engine, "encode_texts", "encode_texts")
+    tally(engine, "encode_staged_images", "encode_images", lambda x, *a, **k: -(-len(x) // engine.batch_size))
+    tally(qe._searcher, "_dispatch", "text_dispatch")
+    tally(kc_ctx.image_searcher, "_run_fused", "image_dispatch")
+    engine.clear_text_cache()
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    got = {}
+    for name, body, *_ in ranked + filtered + metadata_only + temporal + images:
+        got[name] = route_post(kc, body)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    for attr in ("encode_texts", "encode_staged_images"):
+        delattr(engine, attr)  # the class's methods again
+    layers_t, layers_v = engine.cfg.text.layers, engine.cfg.vision.layers
+    expected = (layers_t * calls["text_dispatch"] + (layers_t - 1) * calls["encode_texts"]
+                + (layers_v - 1) * calls["encode_images"] + layers_v * calls["image_dispatch"])
+    n_k4 = 2 if "pallas" == ctx_kwargs.get("search_impl") else 0  # the negative and the hybrid request
+    log(f"{what} routes: launches {launches} over {len(got)} requests (expected {expected} of each block "
+        f"kernel: {calls}; K4 {n_k4})")
+    for fn in counted:
+        want = n_k4 if fn.__name__ == "fused_topk" else expected
+        check(fn.launches == want and (want > 0 or fn.__name__ == "fused_topk"),
+              f"{what} routes: {fn.__name__} {fn.launches} launches, expected {want}")
+
+    # the plain path: the same requests
+    ref = {name: route_post(pc, body) for name, body, *_ in ranked + filtered + metadata_only + temporal + images}
+    bad = {}
+    for name, _, key in ranked:
+        bad[name] = cut_violations(got[name], ref[name], key, noise)
+    for name, _ in filtered:
+        bad[name] = set_violations(got[name], ref[name], "clip_similarity", noise)
+    for name, _ in metadata_only:
+        bad[name] = int(got[name] != ref[name])
+    for name, _ in temporal:
+        bad[name] = chain_violations(got[name], ref[name], noise)
+    per = N_FRAMES // N_VIDEOS
+
+    def own_top1(name, i) -> int:  # 0 when the request's top-1 is frame i
+        return int(_event_id(got[name][0]) != (f"video-video{i // per}", f"event-{i % per}"))
+
+    for (name, _), i in zip(images, ROUTE_IMAGE_PICKS):
+        bad[name] = cut_violations(got[name], ref[name], "clip_similarity", noise) + own_top1(name, i)
+    sizes = {n: len(e) for n, e in got.items()}
+    moved = {n: len({_event_id(e) for e in got[n]} ^ {_event_id(e) for e in ref[n]}) // 2
+             for n, *_ in ranked + filtered}
+    log(f"{what} routes: kernel path against the plain path (band {noise}): violations {bad}; events {sizes}; "
+        f"frames in one path's events only, each within the band of the cut: {moved}")
+    check(not any(bad.values()), f"{what} routes: {bad}")
+    check(all(sizes[n] > 0 for n in sizes), f"{what} routes: empty results {sizes}")
+
+    # negative controls: each check rejects what it must
+    controls = {
+        "ranked": cut_violations(got["text_clip"], ref["text_adaptive"], "clip_similarity", noise),
+        "filtered": set_violations(got["text_keyword"][1:], ref["text_keyword"], "clip_similarity", noise),
+        "temporal": chain_violations(got["temporal"], ref["temporal_gap"][:1] * len(got["temporal"]), noise),
+        "image": sum(own_top1(name, i) for (name, _), i in
+                     zip(images, ROUTE_IMAGE_PICKS[1:] + ROUTE_IMAGE_PICKS[:1])),
+    }
+    hit = ref["keyword_only"][0]  # the frame of the first keyword event, its folded label flipped
+    frame = kc_ctx.metadata.frame_by_idx(hit["videoId"][len("video-"):], int(hit["id"][len("event-"):]))
+    saved = list(frame.text_labels)
+    frame.text_labels[:] = [(low, "flipped", conf) for low, _, conf in saved]  # a flipped folded label
+    kc_ctx.search_cache.invalidate()
+    try:
+        controls["metadata"] = int(route_post(kc, metadata_only[0][1]) != ref["keyword_only"])
+    finally:
+        frame.text_labels[:] = saved
+        kc_ctx.search_cache.invalidate()
+
+    # near misses: the kernel path's text vector turned to a row cosine of
+    # NEAR_COS with its own, toward the frame at the plain path's cut (where
+    # the turn moves a score most), must fail the ranked and the set check;
+    # turned toward a seeded random direction, what the bands see is logged
+    import evr_tpu_torch.index.fused_search as fused_search
+
+    def frame_row(event):  # the unit index row of an event's frame
+        video, idx = event["videoId"][len("video-"):], event["id"][len("event-"):]
+        names = [n.rsplit(".", 1)[0] for n in kc_ctx.index.frame_names(video)]
+        return kc_ctx.index.get_embeddings(video)[names.index(idx)]
+
+    def turned(body, u):
+        real = fused_search.encode_text
+
+        def encode(*args, **kwargs):
+            t = real(*args, **kwargs)
+            t32 = t.float()
+            norm = t32.norm(dim=-1, keepdim=True)
+            t_hat = t32 / norm
+            v = torch.as_tensor(u, dtype=torch.float32, device=t.device)[None]
+            v = v - (t_hat * v).sum(-1, keepdim=True) * t_hat
+            v = v / v.norm(dim=-1, keepdim=True)
+            return ((NEAR_COS * t_hat + math.sqrt(1 - NEAR_COS ** 2) * v) * norm).to(t.dtype)
+
+        fused_search.encode_text = encode
+        kc_ctx.search_cache.invalidate()
+        qe._searcher.invalidate()
+        try:
+            return route_post(kc, body)
+        finally:
+            fused_search.encode_text = real
+            kc_ctx.search_cache.invalidate()
+            qe._searcher.invalidate()
+
+    body_of = dict((n, b) for n, b, *_ in ranked + filtered)
+    controls["ranked_near"] = cut_violations(
+        turned(body_of["text_clip"], frame_row(ref["text_clip"][-1])), ref["text_clip"], "clip_similarity", noise)
+    controls["filtered_near"] = set_violations(
+        turned(body_of["text_keyword"], frame_row(ref["text_keyword"][-1])), ref["text_keyword"],
+        "clip_similarity", noise)
+    u = np.random.default_rng(ROUTE_SEED).standard_normal(engine.cfg.embed_dim).astype(np.float32)
+    seen = {"ranked": cut_violations(turned(body_of["text_clip"], u), ref["text_clip"], "clip_similarity", noise),
+            "filtered": set_violations(turned(body_of["text_keyword"], u), ref["text_keyword"],
+                                       "clip_similarity", noise)}
+    log(f"{what} routes: negative controls (each must be nonzero): {controls}; the text vector turned to cosine "
+        f"{NEAR_COS} toward a random direction: violations {seen} (not held)")
+    check(all(v != 0 for v in controls.values()), f"{what}: a check passed its negative control: {controls}")
+
+    # /api/search p50 per method over the same request each round, the
+    # methods in turns, every cache emptied before each request (results,
+    # the searcher's, the text features: each text query encodes again); the
+    # hybrid request's stages timed beside it (each one ends on the host)
+    timed = ranked + filtered + metadata_only + temporal + images[:1]
+    ms = {name: [] for name, *_ in timed}
+    split, current = {}, [None]
+
+    def stage_timer(obj, attr, key):
+        real = getattr(obj, attr)
+
+        def wrapped(*args, **kwargs):
+            t1 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                if current[0] == "hybrid":
+                    split.setdefault(key, []).append((time.perf_counter() - t1) * 1e3)
+
+        setattr(obj, attr, wrapped)
+        return obj, attr
+
+    index = kc_ctx.index
+    patched = [stage_timer(kc_ctx, "load_image_source", "decode"), stage_timer(kc_ctx, "_stage", "stage"),
+               stage_timer(engine, "encode_staged_images", "image encode"),
+               stage_timer(engine, "get_text_features", "text encode"),
+               stage_timer(index, "search_raw", "search"), stage_timer(kc_ctx, "_events_from_rows", "events")]
+    try:
+        for i in range(ROUTE_P50_RUNS + 1):  # round 0 warms up
+            for name, body, *_ in timed:
+                kc_ctx.search_cache.invalidate()
+                qe._searcher.invalidate()
+                engine.clear_text_cache()
+                current[0] = name if i else None
+                t1 = time.perf_counter()
+                route_post(kc, body)
+                if i:
+                    ms[name].append((time.perf_counter() - t1) * 1e3)
+    finally:
+        current[0] = None
+        for obj, attr in patched:
+            delattr(obj, attr)
+    p50 = {name: statistics.median(v) for name, v in ms.items()}
+    hybrid_split = {key: statistics.median(v) for key, v in split.items()}
+    hybrid_split["rest (app, JSON)"] = p50["hybrid"] - sum(hybrid_split.values())
+    log(f"{what} routes: /api/search p50 ms, {ROUTE_P50_RUNS} uncached each, in turns: "
+        + ", ".join(f"{n} {v:.2f}" for n, v in p50.items()))
+    log(f"{what} routes: the hybrid request's stages, p50 ms each: "
+        + ", ".join(f"{n} {v:.2f}" for n, v in hybrid_split.items()))
+    check(max(p50.values()) < ROUTE_P50_LIMIT_MS, f"{what} routes: p50 over {ROUTE_P50_LIMIT_MS} ms: {p50}")
+
+    # the other routes
+    # a frame by name resolves in the first video that has it
+    frame_file = kc_ctx.resolve_path(kc_ctx.registry.get("video0")["frames_dir"]) / "7.jpg"
+    video_file = kc_ctx.resolve_path(kc_ctx.registry.get("video2")["video_path"])
+    resp = {
+        "/": kc.get("/"), "/app/": kc.get("/app/"), "/app/app.js": kc.get("/app/app.js"),
+        "events": kc.get("/api/video/video-1/events"),
+        "frame": kc.get(f"/api/frame/{frame_file.name}"),
+        "frame_range": kc.get(f"/api/frame/{frame_file.name}", headers={"Range": "bytes=10-109"}),
+        "video_range": kc.get(f"/api/video/{video_file.name}", headers={"Range": "bytes=0-63"}),
+        "traversal": kc.get("/api/frame/..%2F..%2F..%2F..%2Fetc%2Fpasswd"),
+        "available": kc.get("/api/videos/available"), "models": kc.get("/api/models"),
+        "active": kc.get("/api/models/active"),
+        "set_active": kc.post("/api/models/active", json={"model": "original"}),
+        "set_unknown": kc.post("/api/models/active", json={"model": "nope"}),
+        "stats": kc.get("/api/stats"),
+        "upload": kc.post("/api/upload-video"), "upload_status": kc.get("/api/upload-status/j1"),
+    }
+    import io
+
+    def voice():
+        return {"audio": (io.BytesIO(b"RIFF0000WAVE"), "voice.wav"), "language": "vi"}
+
+    resp["transcribe_off"] = kc.post("/api/transcribe-voice", data=voice())
+    kc_ctx.transcriber = CallableTranscriber(lambda path, lang: f"heard {lang}")
+    resp["transcribe"] = kc.post("/api/transcribe-voice", data=voice())
+    kc_ctx.transcriber = None
+    body = {n: r.get_data() for n, r in resp.items()}
+    js = {n: json.loads(b) for n, b in body.items()
+          if resp[n].mimetype == "application/json"}
+    route_checks = {
+        "/": resp["/"].status_code == 200 and b"<title>" in body["/"],
+        "/app/": body["/app/"] == b"<html>spa</html>" and body["/app/app.js"] == b"console.log('spa')",
+        "events": resp["events"].status_code == 200 and len(js["events"]) == min(20, N_FRAMES // N_VIDEOS),
+        "frame": body["frame"] == frame_file.read_bytes(),
+        "frame_range": resp["frame_range"].status_code == 206
+        and body["frame_range"] == frame_file.read_bytes()[10:110],
+        "video_range": resp["video_range"].status_code == 206
+        and body["video_range"] == video_file.read_bytes()[:64],
+        "traversal": resp["traversal"].status_code == 404,
+        "available": js["available"]["count"] == N_VIDEOS,
+        "models": [m["id"] for m in js["models"]] == engine.available_models(),
+        "active": js["active"]["active_model"] == engine.active_model,
+        "set_active": js["set_active"].get("success") is True and resp["set_unknown"].status_code == 400,
+        "stats": js["stats"]["index"]["frames"] == N_FRAMES and "search/text_clip" in js["stats"]["timings"],
+        "upload": resp["upload"].status_code == resp["upload_status"].status_code == 501
+        and "A11" in js["upload"]["error"],
+        "transcribe": resp["transcribe_off"].status_code == 501 and js["transcribe"]["text"] == "heard vi",
+    }
+    log(f"{what} routes: other routes {route_checks}")
+    check(all(route_checks.values()), f"{what}: routes failed {[n for n, ok in route_checks.items() if not ok]}")
+
+    # the UMAP route over every frame: twice (the second from the cache), then
+    # again after the cache is emptied (the same layout on the card)
+    real, builds = viz.generate_visualization, []
+    viz.generate_visualization = lambda *a, **k: builds.append(1) or real(*a, **k)
+    umap_body = {"video_names": None, "n_neighbors": 15, "min_dist": 0.1, "metric": "cosine"}
+    try:
+        umap_s = []
+        for i in range(3):
+            if i == 2:
+                kc_ctx.viz_cache.invalidate()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = kc.post("/api/visualization/umap", json=umap_body)
+            umap_s.append(time.perf_counter() - t1)
+            check(r.status_code == 200, f"umap route: HTTP {r.status_code}")
+            if i == 0:
+                layout = r.get_data()
+            else:
+                check(r.get_data() == layout, f"umap route call {i + 1}: another layout")
+    finally:
+        viz.generate_visualization = real
+    payload = json.loads(layout)
+    coords = np.asarray(payload["coordinates"])
+    check(coords.shape == (N_FRAMES, 2) and bool(np.isfinite(coords).all())
+          and payload["dimensionality_reduction"]["method"] == "umap", f"umap route: {coords.shape}")
+    check(len(builds) == 2, f"umap route: {len(builds)} builds over 3 calls (the second from the cache)")
+    log(f"{what} routes: UMAP route over {N_FRAMES} frames (dense tier): {umap_s[0]:.3f} s, cached "
+        f"{umap_s[1] * 1e3:.2f} ms, rebuilt after the cache emptied {umap_s[2]:.3f} s, bit-equal layout")
+    out = {"launches": launches, "expected": expected, "p50_ms": p50, "hybrid_split_ms": hybrid_split,
+           "umap_route_s": umap_s[0], "umap_cached_ms": umap_s[1] * 1e3, "umap_rebuilt_s": umap_s[2]}
+
+    if big_umap:
+        from evr_tpu_torch.viz.projection import pca
+        from evr_tpu_torch.viz.umap import umap
+
+        gen = torch.Generator(device="cuda").manual_seed(UMAP_SEED)
+        cents = torch.randn((UMAP_CENTRES, UMAP_DIM), generator=gen, device="cuda")
+        x = cents[torch.randint(0, UMAP_CENTRES, (UMAP_ROWS,), generator=gen, device="cuda")] / math.sqrt(UMAP_DIM)
+        x = x + UMAP_NOISE * torch.randn((UMAP_ROWS, UMAP_DIM), generator=gen, device="cuda")
+        x = (x / x.norm(dim=1, keepdim=True)).cpu().numpy()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y = umap(x, device="cuda")
+        big_s = time.perf_counter() - t1
+        check(y.shape == (UMAP_ROWS, 2) and bool(np.isfinite(y).all()), f"umap {UMAP_ROWS}: {y.shape}")
+        rand = np.random.default_rng(UMAP_SEED).normal(size=(UMAP_ROWS, 2)).astype(np.float32)
+        kept = {"umap": knn_overlap(torch, x, y), "pca": knn_overlap(torch, x, pca(x)),
+                "random": knn_overlap(torch, x, rand)}
+        log(f"viz.umap on {UMAP_ROWS} x {UMAP_DIM} clustered rows (sparse tier, 200 epochs): {big_s:.2f} s; "
+            f"share of {UMAP_K} nearest neighbours kept: {json.dumps({k: round(v, 4) for k, v in kept.items()})}")
+        check(kept["umap"] > kept["pca"], f"umap keeps fewer neighbours than PCA: {kept}")
+        check(kept["random"] < kept["pca"], f"the neighbour check passes a random layout: {kept}")
+        out.update(umap_big_s=big_s, knn_kept=kept)
+    log(f"{what} routes: the phase took {time.perf_counter() - t0:.1f} s")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -3857,6 +4411,7 @@ def main() -> int:
     ckpt_dir = tempfile.TemporaryDirectory()
     try:
         from evr_tpu_torch.ops import block_fused as bf
+        from evr_tpu_torch.ops.retrieval import fused_topk
 
         phase_build()
         gemm = phase_gemm(torch)
@@ -3876,10 +4431,16 @@ def main() -> int:
         main = phase_main_path(torch, frames, then=lambda e, r: {
             "ann": phase_ann_serving(torch, e, r),
             "searchers": phase_searchers(torch, e, r, frames, ONE_VECTOR_RANK_NOISE, SERVED_RANK_NOISE,
-                                         "bf16", [bf.fused_attn_block, bf.fused_mlp_block])})
-        main_q = phase_main_path_int8(torch, frames, then=lambda e, r: phase_searchers(
-            torch, e, r, frames, INT8_ONE_VECTOR_RANK_NOISE, INT8_SERVED_RANK_NOISE, "int8",
-            [bf.fused_attn_block_q, bf.fused_mlp_block_q], index_dtype="int8", search_impl="pallas"))
+                                         "bf16", [bf.fused_attn_block, bf.fused_mlp_block]),
+            "routes": phase_routes(torch, e, r, frames, "bf16", SERVED_RANK_NOISE,
+                                   [bf.fused_attn_block, bf.fused_mlp_block], big_umap=True)})
+        main_q = phase_main_path_int8(torch, frames, then=lambda e, r: {
+            "searchers": phase_searchers(
+                torch, e, r, frames, INT8_ONE_VECTOR_RANK_NOISE, INT8_SERVED_RANK_NOISE, "int8",
+                [bf.fused_attn_block_q, bf.fused_mlp_block_q], index_dtype="int8", search_impl="pallas"),
+            "routes": phase_routes(torch, e, r, frames, "int8", INT8_SERVED_RANK_NOISE,
+                                   [bf.fused_attn_block_q, bf.fused_mlp_block_q, fused_topk],
+                                   index_dtype="int8", search_impl="pallas")})
         ckpt = pathlib.Path(ckpt_dir.name) / "vitb32.pt"
         ckpt_run = phase_checkpoint(torch, frames, ckpt)
         train = phase_train(torch)
@@ -3929,7 +4490,7 @@ def main() -> int:
         log(f"main path {tag}: encode {m['encode_frames_per_s']:.1f} frames/s "
             f"(batch {BATCH}, {N_FRAMES} frames), text query p50 "
             f"{m['text_query_p50_ms']:.2f} ms, /api/search p50 {m['request_p50_ms']:.2f} ms")
-    for tag, m in (("bf16", main["then"]["searchers"]), ("int8", main_q["then"])):
+    for tag, m in (("bf16", main["then"]["searchers"]), ("int8", main_q["then"]["searchers"])):
         t = m["threads"]
         log(f"searchers {tag}: uncached text query p50 one call {m['p50_one_call_ms']:.3f} ms, two steps "
             f"{m['p50_two_step_ms']:.3f} ms; {N_THREADS} threads unbatched p50 {t['unbatched']['p50_ms']:.3f} ms "
@@ -4011,7 +4572,18 @@ def main() -> int:
         for tag, g in gemm.items()))
     log(f"everything after the parity phases {time.perf_counter() - t0:.1f} s, "
         f"the whole script {time.perf_counter() - start:.1f} s")
+    for tag, m in (("bf16", main["then"]["routes"]), ("int8", main_q["then"]["routes"])):
+        log(f"routes {tag}: launches {json.dumps(m['launches'])}; /api/search p50 ms "
+            f"{json.dumps({k: round(v, 3) for k, v in m['p50_ms'].items()})}; UMAP route over {N_FRAMES} frames "
+            f"{m['umap_route_s']:.3f} s (cached {m['umap_cached_ms']:.2f} ms); the phase {m['seconds']:.1f} s")
+    big = main["then"]["routes"]
+    log(f"viz.umap at {UMAP_ROWS} x {UMAP_DIM}: {big['umap_big_s']:.2f} s, neighbours kept "
+        f"{json.dumps(big['knn_kept'])}")
     launches = {**main["launches"], **main_q["launches"]}
+    # the routes phase's launches on its kernel paths (K1/K2 bf16, K3a/K3b and K4 int8)
+    for m in (main["then"]["routes"], main_q["then"]["routes"]):
+        for name, n in m["launches"].items():
+            launches[name] += n
     launches.update({k: train["launches"][k] for k in ("fused_attn_block_bwd", "fused_mlp_block_bwd")})
     launches["adc_list_scores"] = ann["launches"]
     launches.update({k: main_f["launches"][k] for k in FLASH_MAIN_SHAPE})

@@ -219,14 +219,18 @@ class EmbeddingEngine:
         pad = np.zeros((self.batch_size - n,) + arr.shape[1:], dtype=arr.dtype)
         return np.concatenate([arr, pad], axis=0), n
 
-    def encode_staged_images(self, staged_u8: np.ndarray, normalise: bool = False) -> np.ndarray:
+    def encode_staged_images(
+        self, staged_u8: np.ndarray, normalise: bool = False, pad: bool = True
+    ) -> np.ndarray:
         """uint8 [N, S, S, 3] (already resized/cropped) → [N, D] embeddings,
-        in batches padded to ``batch_size``."""
+        in batches of ``batch_size``, the last one padded to it unless ``pad``
+        is False (one query image encodes alone, not beside zero rows)."""
         staged_u8 = np.asarray(staged_u8)
         outs = []
         with torch.inference_mode():
             for i in range(0, len(staged_u8), self.batch_size):
-                batch, n = self._pad_batch(staged_u8[i : i + self.batch_size])
+                chunk = staged_u8[i : i + self.batch_size]
+                batch, n = self._pad_batch(chunk) if pad else (chunk, len(chunk))
                 x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
                 emb = encode_staged_u8(self.params, self.cfg, x, dtype=self.compute_dtype)
                 outs.append(emb.cpu().numpy()[:n])

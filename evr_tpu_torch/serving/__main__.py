@@ -2,6 +2,16 @@
 
 import argparse
 
+# the JAX CLI's flags that need a part not ported yet: dest → (the value that
+# keeps serving, ROADMAP item); any other value is refused at parse time
+UNPORTED_FLAGS = {
+    "model_family": ("clip", "A17"),  # SigLIP
+    "siglip_hf": (None, "A17"),
+    "siglip_tokenizer": (None, "A17"),
+    "shard_index": (False, "A15"),
+    "zeroshot_objects": (False, "A11"),  # annotates uploads: ingest (the annotator: A17)
+}
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="evr_tpu_torch serving API")
@@ -61,7 +71,32 @@ def main(argv=None):
         "coalesce into one device dispatch (off when unset)",
     )
     parser.add_argument("--batch-size", type=int, default=256)
+    parser.add_argument(
+        "--transcriber", choices=["none", "assemblyai"], default="none",
+        help="voice-transcription provider (assemblyai reads ASSEMBLYAI_API_KEY)",
+    )
+    parser.add_argument(
+        "--frontend-dist", default=None,
+        help="serve a built SPA (e.g. the reference React app's dist/) at /app/",
+    )
+    # accepted for the JAX CLI's command lines, refused when they ask for a part
+    # not ported yet (UNPORTED_FLAGS; --local-ocr on needs OCR at ingest)
+    parser.add_argument("--model-family", choices=["clip", "siglip"], default="clip")
+    parser.add_argument("--siglip-hf", default=None)
+    parser.add_argument("--siglip-tokenizer", default=None)
+    parser.add_argument("--shard-index", action="store_true")
+    parser.add_argument("--zeroshot-objects", action="store_true")
+    parser.add_argument("--local-ocr", default="auto", choices=("auto", "on", "off"),
+                        help="OCR of uploaded videos: not ported; auto and off serve without it")
     args = parser.parse_args(argv)
+    for dest, (default, item) in UNPORTED_FLAGS.items():
+        value = getattr(args, dest)
+        if value != default:
+            flag = "--" + dest.replace("_", "-") + ("" if isinstance(value, bool) else f" {value}")
+            parser.error(f"{flag} is not ported to evr_tpu_torch yet (ROADMAP {item})")
+    if args.local_ocr == "on":
+        parser.error("--local-ocr on is not ported to evr_tpu_torch yet (ROADMAP A11, "
+                     "its OCR annotator A17)")
 
     from werkzeug.serving import run_simple
 
@@ -80,11 +115,16 @@ def main(argv=None):
     )
     if args.checkpoint:
         engine.load_finetuned(args.checkpoint, prefer_ema=args.use_ema)
+    transcriber = None
+    if args.transcriber == "assemblyai":
+        from .providers import AssemblyAITranscriber
+
+        transcriber = AssemblyAITranscriber()
     ctx = ServingContext(
         args.data_root, engine=engine, index_dtype=args.index_dtype,
         search_impl=args.search_impl, ivf_nprobe=args.ivf_nprobe,
         ivf_clusters=args.ivf_clusters, ivfpq_host_store=args.ivfpq_host_store,
-        batch_window_ms=args.batch_window_ms,
+        batch_window_ms=args.batch_window_ms, transcriber=transcriber,
     )
     loaded = ctx.boot()
     if args.params_dtype == "auto":
@@ -94,7 +134,8 @@ def main(argv=None):
         len(loaded), sum(i.total_frames for i in ctx._indexes.values()),
         args.data_root, args.host, args.port, engine.device, engine.params_dtype,
     )
-    run_simple(args.host, args.port, create_app(ctx), threaded=True)
+    run_simple(args.host, args.port, create_app(ctx, frontend_dist=args.frontend_dist),
+               threaded=True)
 
 
 if __name__ == "__main__":

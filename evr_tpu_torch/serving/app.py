@@ -1,16 +1,15 @@
-"""HTTP API on a werkzeug WSGI app — the routes the port serves so far.
+"""HTTP API on a werkzeug WSGI app: the JAX app's routes, on the port.
 
-Counterpart of ``evr_tpu/serving/app.py``, with the same request validation
-and response payloads for:
+Counterpart of ``evr_tpu/serving/app.py``, with the same routes, request
+validation and response payloads: the built-in UI (``/``) and a built SPA
+(``/app/``), the video list and each video's events, ``/api/search`` with
+every method of ``SEARCH_METHODS`` plus ``temporal`` and the ``image`` and
+``hybrid`` search types, frame and video files (HTTP Range, no path outside
+the data root), voice transcription, the cached UMAP view, available videos,
+the models and the active model, stats and health.
 
-- ``GET /health``;
-- ``GET /api/videos``;
-- ``POST /api/search`` with ``search_type="text"`` and the ``text_clip`` or
-  ``text_adaptive`` method (``"text"``, the default label, is text_adaptive).
-
-Every other method and route answers 501 with a message naming it as not yet
-ported (a search type or method the JAX package serves and the port does not
-have yet, such as image search or upload, is a 501 too, not a 400).
+Upload and upload status need the ingest pipeline, which is not ported yet
+(ROADMAP A11): those two routes answer 501 and name it.
 
 Run: ``python -m evr_tpu_torch.serving --data-root data --port 5000``.
 """
@@ -18,14 +17,20 @@ Run: ``python -m evr_tpu_torch.serving --data-root data --port 5000``.
 from __future__ import annotations
 
 import json
+import pathlib
+import time
 
-from werkzeug.exceptions import HTTPException
-from werkzeug.routing import Map, Rule
+from werkzeug.exceptions import HTTPException, NotFound
+from werkzeug.routing import Map, RequestRedirect, Rule
+from werkzeug.utils import secure_filename
 from werkzeug.wrappers import Request, Response
+
+from evr_tpu_torch.query.events import format_event_for_frontend
+from evr_tpu_torch.utils import Timer
 
 from .context import ServingContext
 
-PORTED_METHODS = ("text_clip", "text_adaptive")
+INGEST_ITEM = "A11"
 
 
 def _json(payload, status: int = 200) -> Response:
@@ -38,8 +43,20 @@ def _json(payload, status: int = 200) -> Response:
     return resp
 
 
-def _not_ported(what: str) -> Response:
-    return _json({"error": f"{what} is not yet ported to evr_tpu_torch"}, 501)
+def _file(path, mimetype: str, environ) -> Response:
+    """A file with HTTP Range and conditional support (werkzeug's
+    ``send_file``): 206 + Content-Range for a partial request (a ``<video>``
+    seeking), ETag/304 revalidation, and Accept-Ranges on full 200s too."""
+    from werkzeug.exceptions import RequestedRangeNotSatisfiable
+    from werkzeug.utils import send_file
+
+    try:
+        resp = send_file(pathlib.Path(path), environ, mimetype=mimetype, conditional=True)
+    except RequestedRangeNotSatisfiable as e:
+        resp = e.get_response(environ)
+    resp.headers.setdefault("Accept-Ranges", "bytes")
+    resp.headers["Access-Control-Allow-Origin"] = "*"
+    return resp
 
 
 def _search_request(data: dict):
@@ -116,10 +133,6 @@ def _search_request(data: dict):
                 max_gap = int(max_gap)
             except (TypeError, ValueError):
                 return None, _json({"error": "max_gap must be an integer"}, 400)
-    if search_type != "text":
-        return None, _not_ported(f"search_type {search_type!r}")
-    if method not in PORTED_METHODS:
-        return None, _not_ported(f"search_method {search_method!r}")
     return {
         "search_type": search_type, "query": query, "image_url": image_url,
         "top_k": top_k, "adaptive_threshold": adaptive_threshold,
@@ -132,17 +145,57 @@ def _search_request(data: dict):
     }, None
 
 
-def create_app(ctx: ServingContext):
+def create_app(ctx: ServingContext, frontend_dist: str | None = None):
+    """``frontend_dist``: optional directory of a built SPA served at
+    ``/app/``; the JSON API stays under ``/api/``."""
     url_map = Map(
         [
-            Rule("/health", endpoint="health", methods=["GET"]),
+            Rule("/", endpoint="index", methods=["GET"]),
+            Rule("/app/", endpoint="frontend", defaults={"asset": "index.html"}, methods=["GET"]),
+            Rule("/app/<path:asset>", endpoint="frontend", methods=["GET"]),
             Rule("/api/videos", endpoint="videos", methods=["GET"]),
+            Rule("/api/video/<video_id>/events", endpoint="video_events", methods=["GET"]),
             Rule("/api/search", endpoint="search", methods=["POST"]),
+            Rule("/api/upload-video", endpoint="upload", methods=["POST"]),
+            Rule("/api/upload-status/<job_id>", endpoint="upload_status", methods=["GET"]),
+            Rule("/api/frame/<path:frame_path>", endpoint="frame", methods=["GET"]),
+            Rule("/api/video/<path:video_path>", endpoint="video_file", methods=["GET"]),
+            Rule("/api/transcribe-voice", endpoint="transcribe", methods=["POST"]),
+            Rule("/api/visualization/umap", endpoint="umap", methods=["POST"]),
+            Rule("/api/videos/available", endpoint="available", methods=["GET"]),
+            Rule("/health", endpoint="health", methods=["GET"]),
+            Rule("/api/models", endpoint="models", methods=["GET"]),
+            Rule("/api/models/active", endpoint="active_model", methods=["GET", "POST"]),
+            Rule("/api/stats", endpoint="stats", methods=["GET"]),
         ]
     )
 
     def ep_health(request):
         return _json({"status": "ok"})
+
+    def ep_index(request):
+        from .ui import INDEX_HTML
+
+        resp = Response(INDEX_HTML, mimetype="text/html")
+        resp.headers["Access-Control-Allow-Origin"] = "*"
+        return resp
+
+    def ep_frontend(request, asset):
+        import mimetypes
+
+        if frontend_dist is None:
+            return _json({"error": "no frontend dist configured (--frontend-dist)"}, 404)
+        root = pathlib.Path(frontend_dist).resolve()
+        target = (root / asset).resolve()
+        if not target.is_relative_to(root):
+            return _json({"error": "not found"}, 404)
+        if not target.is_file():
+            # SPA fallback: unknown client-side routes serve index.html
+            target = root / "index.html"
+            if not target.is_file():
+                return _json({"error": "not found"}, 404)
+        mimetype = mimetypes.guess_type(str(target))[0] or "application/octet-stream"
+        return _file(target, mimetype, request.environ)
 
     def ep_videos(request):
         ctx.prune_missing()
@@ -153,7 +206,75 @@ def create_app(ctx: ServingContext):
                 videos.append(summary)
         return _json(videos)
 
+    def ep_video_events(request, video_id):
+        name = ctx.video_name_from_id(video_id)
+        if name is None:
+            return _json({"error": f"Video with ID {video_id} not found"}, 404)
+        fps = ctx.metadata.fps(name)
+        events = [format_event_for_frontend(fr.raw, fps=fps) for fr in ctx.metadata.frames(name)]
+        if len(events) > 20:  # at most 20 timeline markers
+            step = len(events) // 20
+            events = [events[i] for i in range(0, len(events), step)][:20]
+        return _json(events)
+
+    def ep_stats(request):
+        return _json(
+            {
+                "timings": Timer.report(),
+                "index": {
+                    "videos": sum(len(i.videos) for i in ctx._indexes.values()),
+                    "frames": sum(i.total_frames for i in ctx._indexes.values()),
+                    "per_model": {
+                        m: {"videos": len(i.videos), "frames": i.total_frames}
+                        for m, i in ctx._indexes.items()
+                    },
+                    "version": ctx.index.version,
+                },
+                "caches": {"search": len(ctx.search_cache), "viz": len(ctx.viz_cache)},
+                "active_model": ctx.engine.active_model,
+            }
+        )
+
+    def _strategy(qe, req, video_name):
+        """The text search types' strategy call; "text", the default label,
+        and any unknown method fall back to text_adaptive, as in the JAX app."""
+        query, top_k, method = req["query"], req["top_k"], req["search_method"]
+        keyword = req["keyword"] or query
+        obj = req["object"] or query
+        threshold = req["adaptive_threshold"]
+        if method == "text_clip":
+            return qe.query_text_clip(
+                query, top_k, video_name, mmr_lambda=req["mmr_lambda"],
+                negative_query=req["negative_query"], negative_weight=req["negative_weight"])
+        if method == "video":
+            return qe.query_videos(query, top_k=top_k, video_name=video_name)
+        if method == "keyword_only":
+            return qe.query_keyword(keyword, req["text_confidence"], top_k, video_name)
+        if method == "text_keyword":
+            return qe.query_text_keyword(query, threshold, top_k, keyword=keyword,
+                                         text_confidence=req["text_confidence"],
+                                         video_name=video_name)
+        if method == "object_only":
+            return qe.query_object(obj, req["object_confidence"], top_k, video_name)
+        if method == "text_object":
+            return qe.query_text_object(query, threshold, top_k, object_keyword=obj,
+                                        object_confidence=req["object_confidence"],
+                                        video_name=video_name)
+        if method == "text_object_keyword":
+            return qe.query_text_object_keyword(
+                query, threshold, top_k, keyword=keyword, text_confidence=req["text_confidence"],
+                object_keyword=obj, object_confidence=req["object_confidence"],
+                video_name=video_name)
+        if method == "speech_only":
+            return qe.query_speech(keyword, top_k, video_name)
+        if method == "text_speech":
+            return qe.query_text_speech(query, threshold, top_k, keyword=keyword,
+                                        video_name=video_name)
+        return qe.query_text_adaptive(query, threshold, top_k, video_name,
+                                      mmr_lambda=req["mmr_lambda"])
+
     def ep_search(request):
+        start_time = time.time()
         data = request.get_json(silent=True) or {}
         if not isinstance(data, dict):
             return _json({"error": "request body must be a JSON object"}, 400)
@@ -173,21 +294,25 @@ def create_app(ctx: ServingContext):
         if cached is not None:
             return _json(cached)
 
-        qe = ctx.query_engine
+        search_type, image_url, top_k = req["search_type"], req["image_url"], req["top_k"]
+        threshold = req["adaptive_threshold"]
         results: list[dict] = []
-        top_k = req["top_k"]
-        if req["query"]:
-            if req["method"] == "text_clip":
-                results = qe.query_text_clip(
-                    req["query"], top_k, video_name, mmr_lambda=req["mmr_lambda"],
-                    negative_query=req["negative_query"],
-                    negative_weight=req["negative_weight"],
-                )
-            else:
-                results = qe.query_text_adaptive(
-                    req["query"], req["adaptive_threshold"], top_k, video_name,
-                    mmr_lambda=req["mmr_lambda"],
-                )
+        try:
+            if search_type == "image" and image_url:
+                results = ctx.search_by_image(image_url, threshold, top_k, video_name)
+            elif search_type == "hybrid":
+                if not (image_url and req["query"]):
+                    return _json({"error": "hybrid search needs both image_url and query"}, 400)
+                results = ctx.search_hybrid(image_url, req["query"], req["image_weight"],
+                                            threshold, top_k, video_name)
+        except ValueError as e:
+            return _json({"error": str(e)}, 400)
+        if search_type == "text" and req["search_method"] == "temporal":
+            results = ctx.query_engine.query_temporal(
+                list(req["queries"]), top_k=top_k, max_gap=req["max_gap"], video_name=video_name)
+        elif search_type == "text" and req["query"]:
+            results = _strategy(ctx.query_engine, req, video_name)
+
         for r in results:
             r.setdefault("text_confidence", 0.0)
             r.setdefault("object_confidence", 0.0)
@@ -199,16 +324,174 @@ def create_app(ctx: ServingContext):
                 if video_name in (r.get("videoId") or "")
                 or (r.get("videoId") or "").endswith(video_name)
             ]
-        # the default label "text" ranks by fused confidence, as the JAX app does
-        if req["search_method"] in PORTED_METHODS or req["enable_clip_similarity"]:
+        if (
+            search_type in ("image", "hybrid")
+            or req["search_method"] in ("text_clip", "text_adaptive")
+            or req["enable_clip_similarity"]
+        ):
             results.sort(key=lambda x: x.get("clip_similarity", 0), reverse=True)
         else:
             results.sort(key=lambda x: x.get("confidence", 0), reverse=True)
+        Timer.record(f"search/{req['search_method']}", time.time() - start_time)
         payload = {"events": results[:top_k]}
         ctx.search_cache.set(cache_key, payload)
         return _json(payload)
 
-    endpoints = {"health": ep_health, "videos": ep_videos, "search": ep_search}
+    def ep_not_ported(request, **_):
+        return _json({"error": f"{request.method} {request.path} needs the ingest pipeline, "
+                               f"which is not yet ported to evr_tpu_torch (ROADMAP {INGEST_ITEM})"},
+                     501)
+
+    def _safe_under_data_root(candidate: pathlib.Path) -> bool:
+        """Only files under the data root are served (no path traversal)."""
+        try:
+            resolved = candidate.resolve()
+        except OSError:
+            return False
+        return resolved.is_file() and resolved.is_relative_to(ctx.data_root.root.resolve())
+
+    def ep_frame(request, frame_path):
+        candidate = pathlib.Path(frame_path)
+        if _safe_under_data_root(candidate):
+            return _file(candidate.resolve(), "image/jpeg", request.environ)
+        # PureWindowsPath splits on / and \: metadata may carry Windows paths
+        frame_name = pathlib.PureWindowsPath(frame_path).name
+        for name in ctx.video_names():
+            frames_dir = (ctx.registry.get(name) or {}).get("frames_dir")
+            if frames_dir:
+                base = ctx.resolve_path(frames_dir)
+                p = (base / frame_name).resolve()
+                if p.is_file() and p.parent == base.resolve():
+                    return _file(p, "image/jpeg", request.environ)
+        return _json({"error": f"Frame {frame_path} not found"}, 404)
+
+    def ep_video_file(request, video_path):
+        candidate = pathlib.Path(video_path)
+        if _safe_under_data_root(candidate):
+            return _file(candidate.resolve(), "video/mp4", request.environ)
+        base = pathlib.PureWindowsPath(video_path).name
+        for name in ctx.video_names():
+            vp = (ctx.registry.get(name) or {}).get("video_path", "")
+            if name == base or pathlib.Path(vp).name == base:
+                resolved = ctx.resolve_path(vp) if vp else None
+                if resolved is not None and resolved.exists():
+                    return _file(resolved, "video/mp4", request.environ)
+        return _json({"error": f"Video {video_path} not found"}, 404)
+
+    def ep_transcribe(request):
+        if "audio" not in request.files:
+            return _json({"error": "No audio file provided"}, 400)
+        audio = request.files["audio"]
+        if not audio.filename:
+            return _json({"error": "No audio file selected"}, 400)
+        if ctx.transcriber is None:
+            return _json({"error": "no transcription backend configured on this deployment"}, 501)
+        language = request.form.get("language", "en_us")
+        tmp_name = secure_filename(f"voice_{int(time.time())}.audio")
+        tmp_path = ctx.data_root.root / "voice" / tmp_name
+        tmp_path.parent.mkdir(parents=True, exist_ok=True)
+        audio.save(str(tmp_path))
+        try:
+            text = ctx.transcriber(str(tmp_path), language)
+        except Exception as e:
+            return _json({"error": f"Transcription failed: {e}"}, 500)
+        return _json({"text": text, "audio_file": tmp_name})
+
+    def ep_umap(request):
+        from evr_tpu_torch.viz import generate_visualization
+
+        data = request.get_json(silent=True) or {}
+        if not isinstance(data, dict):
+            return _json({"error": "request body must be a JSON object"}, 400)
+        video_names = data.get("video_names")
+        if video_names is not None and (
+            not isinstance(video_names, list) or not all(isinstance(v, str) for v in video_names)
+        ):
+            return _json({"error": "video_names must be a list of strings"}, 400)
+        try:
+            n_neighbors = int(data.get("n_neighbors", 15))
+            min_dist = float(data.get("min_dist", 0.1))
+        except (TypeError, ValueError):
+            return _json({"error": "n_neighbors/min_dist must be numeric"}, 400)
+        metric = data.get("metric", "cosine")
+        method = data.get("method", "auto")
+        if not isinstance(metric, str) or not isinstance(method, str):
+            return _json({"error": "metric/method must be strings"}, 400)
+        key = ("-".join(sorted(video_names)) if video_names else "all", n_neighbors, min_dist,
+               metric, method)
+        cached = ctx.viz_cache.get(key)
+        if cached is not None:
+            return _json(cached)
+        result = generate_visualization(
+            ctx.index, ctx.metadata, video_names, method=method, n_neighbors=n_neighbors,
+            min_dist=min_dist, metric=metric, device=ctx.engine.device,
+        )
+        if result is None:
+            return _json({"error": "No embeddings found for visualization"}, 404)
+        ctx.viz_cache.set(key, result)
+        return _json(result)
+
+    def ep_available(request):
+        available = []
+        for name in ctx.video_names():
+            entry = ctx.registry.get(name) or {}
+            emb = entry.get("embeddings_file")
+            if not name.startswith("default") and emb and ctx.resolve_path(emb).exists():
+                available.append({"name": name, "embeddings_file": emb,
+                                  "video_path": entry.get("video_path", "")})
+        return _json({"available_videos": available, "count": len(available)})
+
+    def ep_models(request):
+        models = [{"id": "original", "name": f"CLIP Original ({ctx.engine.model_name})",
+                   "description": "Base CLIP model"}]
+        for name in ctx.engine.available_models():
+            if name != "original":
+                models.append({"id": name, "name": f"CLIP Fine-tuned ({name})",
+                               "description": "Fine-tuned CLIP checkpoint"})
+        return _json(models)
+
+    def ep_active_model(request):
+        if request.method == "GET":
+            # an index embedded with another model than the active one ranks worse
+            index_models = {
+                (ctx.registry.get(n) or {}).get("embedding_model", "original")
+                for n in ctx.video_names()
+            }
+            payload = {"active_model": ctx.engine.active_model}
+            if index_models and index_models - {ctx.engine.active_model}:
+                payload["warning"] = (
+                    f"index contains embeddings from models {sorted(index_models)}; "
+                    f"queries use {ctx.engine.active_model!r}"
+                )
+            return _json(payload)
+        data = request.get_json(silent=True) or {}
+        if not isinstance(data, dict):
+            return _json({"error": "request body must be a JSON object"}, 400)
+        model_name = data.get("model")
+        if not model_name or not isinstance(model_name, str):
+            return _json({"error": "Model name is required"}, 400)
+        if ctx.engine.set_active_model(model_name):
+            return _json({"success": True, "active_model": ctx.engine.active_model})
+        return _json({"success": False, "error": f"Failed to set model to {model_name}"}, 400)
+
+    endpoints = {
+        "health": ep_health,
+        "index": ep_index,
+        "frontend": ep_frontend,
+        "stats": ep_stats,
+        "videos": ep_videos,
+        "video_events": ep_video_events,
+        "search": ep_search,
+        "upload": ep_not_ported,
+        "upload_status": ep_not_ported,
+        "frame": ep_frame,
+        "video_file": ep_video_file,
+        "transcribe": ep_transcribe,
+        "umap": ep_umap,
+        "available": ep_available,
+        "models": ep_models,
+        "active_model": ep_active_model,
+    }
 
     @Request.application
     def app(request):
@@ -216,11 +499,14 @@ def create_app(ctx: ServingContext):
             return _json({})
         adapter = url_map.bind_to_environ(request.environ)
         try:
-            endpoint, values = adapter.match(method=request.method)
-        except HTTPException:  # no route or no method here: not ported yet
-            return _not_ported(f"{request.method} {request.path}")
-        try:
+            endpoint, values = adapter.match()
             return endpoints[endpoint](request, **values)
+        except RequestRedirect as e:
+            return e.get_response(request.environ)
+        except NotFound:
+            return _json({"error": "not found"}, 404)
+        except HTTPException as e:
+            return _json({"error": e.description}, e.code or 500)
         except Exception as e:  # blanket 500 with a structured body
             return _json({"error": str(e)}, 500)
 

@@ -1,10 +1,10 @@
-"""TTL cache for the serving tier's search results (the JAX package's
-``serving/cache.py``, without the per-video invalidation that only the
-upload path, not ported yet, needs).
+"""TTL cache for the serving tier (the JAX package's ``serving/cache.py``,
+without the per-key invalidation that only the upload path, not ported yet,
+needs).
 
 One generic lock-guarded TTL cache: the serving path keeps search results in
-it, keyed by the request semantics and the index version; text features are
-cached by the EmbeddingEngine.
+it, keyed by the request semantics and the index version, and the UMAP
+route's payloads (24 h); text features are cached by the EmbeddingEngine.
 """
 
 from __future__ import annotations
@@ -47,3 +47,10 @@ class TTLCache:
 
     def __len__(self) -> int:
         return len(self._data)
+
+    def invalidate(self) -> int:
+        """Remove every entry. Returns the number removed."""
+        with self._lock:
+            n = len(self._data)
+            self._data.clear()
+            return n

@@ -8,15 +8,20 @@ embedding model, the metadata store, the registry and the search cache;
 JAX package's, so either package serves the other's data root.
 
 Text search runs through each model's ``QueryEngine`` (the one-call
-``TextSearcher``; ``batch_window_ms`` coalesces concurrent queries), and
-``image_searcher`` builds each model's one-call ``ImageSearcher``. Not ported
-yet: ingest and upload jobs, the image and hybrid search routes (the image
-searcher has no route until then), ASR transcripts, and the Vietnamese
-preprocessing pipeline (queries take the identity preprocessor).
+``TextSearcher``; ``batch_window_ms`` coalesces concurrent queries), its
+queries through the Vietnamese preprocessing pipeline with the local
+dictionary translator unless another ``preprocessor`` is given. Image search
+runs through each model's one-call ``ImageSearcher``; a hybrid query encodes
+the image and the text apart and searches their blend through
+``FrameIndex.search_raw``, as the JAX package does. ``boot`` also loads each
+video's ASR transcript (speech search). Not ported yet: ingest and upload
+jobs, with their ``annotator`` and ``scene_threshold`` arguments (ROADMAP
+A11).
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import pathlib
 import time
@@ -26,10 +31,33 @@ import numpy as np
 from evr_tpu_torch.config import DataRootConfig
 from evr_tpu_torch.index import EmbeddingEngine, FrameIndex, VideoRegistry
 from evr_tpu_torch.index.fused_image_search import ImageSearcher
+from evr_tpu_torch.ops.preprocess import stage_array_fast
+from evr_tpu_torch.query.events import format_event_for_frontend
 from evr_tpu_torch.query.metadata import MetadataStore
 from evr_tpu_torch.query.strategies import QueryEngine
+from evr_tpu_torch.utils import get_logger
 
 from .cache import TTLCache
+
+
+def transcript_path_for(metadata_file, video_name: str) -> pathlib.Path:
+    """Sidecar convention: the transcript lives next to the metadata file as
+    ``{video}_transcript.json``."""
+    return pathlib.Path(metadata_file).parent / f"{video_name}_transcript.json"
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Encoded image bytes → uint8 RGB [H, W, 3] by cv2, as PIL's
+    ``Image.open(...).convert("RGB")`` reads them: alpha dropped, grey
+    replicated, EXIF orientation not applied. Raises ValueError when the
+    bytes are no image."""
+    import cv2
+
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8),
+                       cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+    if bgr is None:
+        raise ValueError("cannot decode image")
+    return np.ascontiguousarray(bgr[:, :, ::-1])
 
 
 def video_fps(video_path) -> float:
@@ -56,13 +84,18 @@ class ServingContext:
         ivfpq_host_store: bool = False,
         mesh=None,
         batch_window_ms: float | None = None,
+        transcriber=None,
+        preprocessor=None,
     ):
         """``index_dtype``, ``search_impl``, ``ivf_nprobe``, ``ivf_clusters``,
         ``ivfpq_host_store`` and ``mesh``: see ``FrameIndex``; applied to
         every per-model index. An invalid combination raises here, at boot,
         not at the first request. ``batch_window_ms``: concurrent queries
         arriving within the window coalesce into one device dispatch
-        (``serving.batcher``); None disables."""
+        (``serving.batcher``); None disables. ``transcriber``: a
+        ``serving.providers`` object for /api/transcribe-voice (None: the
+        route answers 501). ``preprocessor``: the query hook; None is the
+        Vietnamese pipeline with the zero-egress dictionary translator."""
         self.data_root = (
             data_root
             if isinstance(data_root, DataRootConfig)
@@ -77,6 +110,14 @@ class ServingContext:
         self.metadata = MetadataStore()
         self.registry = VideoRegistry(self.data_root.mapping_path)
         self.search_cache = TTLCache(default_ttl=3600.0)
+        self.viz_cache = TTLCache(default_ttl=24 * 3600.0)
+        self.transcriber = transcriber
+        if preprocessor is None:
+            from evr_tpu_torch.query.text import VietnamesePreprocessor
+            from evr_tpu_torch.query.translate import DictionaryTranslator
+
+            preprocessor = VietnamesePreprocessor(translator=DictionaryTranslator())
+        self.preprocessor = preprocessor
         self.index_dtype = index_dtype
         self.search_impl = search_impl
         self.ivf_nprobe = ivf_nprobe
@@ -133,7 +174,7 @@ class ServingContext:
         if model not in self._query_engines:
             self._query_engines[model] = QueryEngine(
                 self.engine, self.index_for(model), self.metadata,
-                batch_window_ms=self.batch_window_ms,
+                preprocessor=self.preprocessor, batch_window_ms=self.batch_window_ms,
             )
         return self._query_engines[model]
 
@@ -177,6 +218,17 @@ class ServingContext:
             if video_path and resolve(video_path).exists():
                 fps = video_fps(resolve(video_path))
             self.metadata.add_video(name, records, fps=fps)
+            # ASR transcript (speech search): the registry's file, else the
+            # `{video}_transcript.json` sidecar
+            tr_path = resolve(entry.get("transcript_file", ""))
+            if not (entry.get("transcript_file") and tr_path.exists()):
+                tr_path = transcript_path_for(meta_path, name)
+            if tr_path.exists():
+                try:
+                    self.metadata.load_transcript_json(name, tr_path)
+                except (ValueError, KeyError) as e:
+                    get_logger("evr_tpu_torch.serving").warning(
+                        "skipping unreadable transcript %s: %s", tr_path, e)
             loaded.append(name)
         return loaded
 
@@ -245,3 +297,89 @@ class ServingContext:
             "resolution": info["resolution"],
             "path": str(video_path),
         }
+
+    # -- image and hybrid search ------------------------------------------
+    def _stage(self, rgb: np.ndarray) -> np.ndarray:
+        """A query image staged with the engine's geometry: shorter-side
+        resize and centre crop (``ops.preprocess.stage_array_fast``)."""
+        return stage_array_fast(rgb, self.engine.cfg.vision.image_size)
+
+    def load_image_source(self, source: str) -> np.ndarray:
+        """An image search source (data URL, base64 or local path) → uint8
+        RGB [H, W, 3]. Remote URLs are not fetched. A string that cannot name
+        a file is read as base64 (the JAX package's ``Path.exists`` raises on
+        one with a component over 255 characters: an HTTP 500)."""
+        if source.startswith("data:"):
+            return decode_image(base64.b64decode(source.split(",", 1)[1]))
+        if source.startswith(("http://", "https://")):
+            raise ValueError(
+                "remote image URLs are not fetched in this deployment; "
+                "send base64 or a local path"
+            )
+        path = pathlib.Path(source)
+        try:
+            is_file = path.is_file()
+        except OSError:  # e.g. base64 with a run of over 255 characters between slashes
+            is_file = False
+        if is_file:
+            return decode_image(path.read_bytes())
+        try:
+            return decode_image(base64.b64decode(source))
+        except Exception:
+            raise ValueError(f"cannot resolve image source: {source[:64]}") from None
+
+    def search_by_image(
+        self, source: str, threshold: float, top_k: int, video_name: str | None = None
+    ) -> list[dict]:
+        """Frames like the image: one dispatch of the active model's
+        ``ImageSearcher`` (normalise → every vision block → GEMM → top-k)."""
+        staged = self._stage(self.load_image_source(source))
+        scores, rows = self.image_searcher.search(staged[None], top_k * 3, video_name)
+        return self._events_from_rows(scores[0], rows[0], threshold, top_k)
+
+    def _events_from_rows(self, scores, rows, threshold: float, top_k: int) -> list[dict]:
+        """Row hits → frontend events (image and hybrid search)."""
+        results = []
+        for score, row in zip(scores, rows):
+            score = float(score)
+            if not np.isfinite(score) or score < threshold:
+                continue
+            video, frame_name, _ = self.index.resolve_row(int(row))
+            try:
+                hit_frame = self.metadata.frame_by_idx(video, int(frame_name.rsplit(".", 1)[0]))
+            except ValueError:
+                hit_frame = None
+            if hit_frame is None:
+                continue
+            event = format_event_for_frontend(
+                {**hit_frame.raw, "clip_similarity": score}, fps=self.metadata.fps(video))
+            event["clip_similarity"] = score
+            results.append(event)
+        results.sort(key=lambda e: e.get("clip_similarity", 0), reverse=True)
+        return results[:top_k]
+
+    def search_hybrid(
+        self,
+        source: str,
+        query: str,
+        image_weight: float,
+        threshold: float,
+        top_k: int,
+        video_name: str | None = None,
+    ) -> list[dict]:
+        """Image + text: one composite direction ``normalise(α·v_image +
+        (1−α)·v_text)``, "frames like this image that also match this text".
+        The image (alone, unpadded) and the text encode in two dispatches; the
+        blend searches through ``FrameIndex.search_raw``, so every index tier
+        serves it."""
+        staged = self._stage(self.load_image_source(source))
+        v_img = np.asarray(
+            self.engine.encode_staged_images(staged[None], normalise=True, pad=False)[0],
+            np.float32)
+        v_txt = np.asarray(self.engine.get_text_features(self.query_engine.preprocess(query)),
+                           np.float32).reshape(-1)
+        v_txt = v_txt / max(float(np.linalg.norm(v_txt)), 1e-12)
+        v = image_weight * v_img + (1.0 - image_weight) * v_txt
+        v /= max(float(np.linalg.norm(v)), 1e-12)
+        scores, rows = self.index.search_raw(v[None], top_k * 3, video_name)
+        return self._events_from_rows(scores[0], rows[0], threshold, top_k)

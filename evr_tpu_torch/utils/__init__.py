@@ -1,4 +1,5 @@
 from .device import resolve_device
 from .logging import get_logger
+from .profiling import Timer
 
-__all__ = ["get_logger", "resolve_device"]
+__all__ = ["Timer", "get_logger", "resolve_device"]

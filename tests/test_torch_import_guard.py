@@ -27,10 +27,19 @@ names = [m.name for m in pkgutil.walk_packages(evr_tpu_torch.__path__, "evr_tpu_
 for name in names:
     importlib.import_module(name)
 # the ANN slice: K7's wrapper, the three tiers and the offline CLI; the
-# flash-attention slice: K6's wrapper; K8's wrapper
+# flash-attention slice: K6's wrapper; K8's wrapper; the query layer, the
+# views and the served routes
 for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.index.pq",
              "evr_tpu_torch.index.ivfpq", "evr_tpu_torch.tools.index_tool",
-             "evr_tpu_torch.ops.attention", "evr_tpu_torch.ops.layernorm"):
+             "evr_tpu_torch.ops.attention", "evr_tpu_torch.ops.layernorm",
+             "evr_tpu_torch.query.text", "evr_tpu_torch.query.translate",
+             "evr_tpu_torch.query.word_processing", "evr_tpu_torch.query.metadata",
+             "evr_tpu_torch.query.temporal", "evr_tpu_torch.query.strategies",
+             "evr_tpu_torch.viz", "evr_tpu_torch.viz.umap", "evr_tpu_torch.viz.tsne",
+             "evr_tpu_torch.viz.projection", "evr_tpu_torch.serving.providers",
+             "evr_tpu_torch.serving.ui", "evr_tpu_torch.serving.app",
+             "evr_tpu_torch.serving.context", "evr_tpu_torch.serving.__main__",
+             "evr_tpu_torch.utils.profiling"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)

@@ -3,7 +3,9 @@ what it has not ported yet.
 
 Both apps run over empty data roots (request validation happens before any
 search); a malformed ``/api/search`` body must give the JAX app's status and
-payload, and a route or search the port does not serve yet answers 501.
+payload, as must the requests that answered 501 before their routes and
+methods were ported; upload and upload status, which need the ingest
+pipeline, answer 501 and name its ROADMAP item (A11).
 """
 
 import json
@@ -59,13 +61,25 @@ def test_validation_errors_match(clients, body):
 @pytest.mark.parametrize("method,path,body", [
     ("POST", "/api/search", {"search_type": "image", "image_url": "x.jpg"}),
     ("POST", "/api/search", {"search_method": "keyword_only", "query": "exit"}),
-    ("POST", "/api/upload-video", None),
     ("GET", "/api/models", None),
     ("GET", "/api/video/video-1/events", None),
     ("GET", "/api/search", None),
 ])
-def test_unported_routes_answer_501(clients, method, path, body):
+def test_formerly_unported_requests_match_jax(clients, method, path, body):
+    jc, tc = clients
+    jr, tr = jc.open(path, method=method, json=body), tc.open(path, method=method, json=body)
+    assert tr.status_code == jr.status_code
+    assert _payload(tr) == _payload(jr)
+
+
+@pytest.mark.parametrize("method,path,kwargs", [
+    ("POST", "/api/upload-video", {}),
+    ("POST", "/api/upload-video", {"data": {"sync": "1"}}),
+    ("GET", "/api/upload-status/job-1", {}),
+])
+def test_unported_routes_answer_501(clients, method, path, kwargs):
     _, tc = clients
-    resp = tc.open(path, method=method, json=body)
+    resp = tc.open(path, method=method, **kwargs)
     assert resp.status_code == 501
-    assert "not yet ported" in _payload(resp)["error"]
+    error = _payload(resp)["error"]
+    assert "not yet ported" in error and "A11" in error
