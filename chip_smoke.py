@@ -197,10 +197,27 @@ package. Phases, each fatal on failure:
    50 ms, and the hybrid request's stages; the UI, a two-file SPA dist,
    events, frame and video files with Range and a traversal attempt,
    available videos, models and the active model, stats, transcribe (501,
-   then a ``CallableTranscriber``), upload (501); the UMAP route over the 1,024 frames, again from the cache
+   then a ``CallableTranscriber``), upload without a file (400) and the status
+   of an unknown job (404); the UMAP route over the 1,024 frames, again from the cache
    and again after the cache is emptied (the same bytes); ``viz.umap`` on
    20,000 seeded clustered rows of 512 (the sparse tier), its share of
-   kept nearest neighbours above PCA's, a random layout's below.
+   kept nearest neighbours above PCA's, a random layout's below;
+15. ingest and the upload routes at ViT-B/32's full width: seeded 1280 x 720,
+   25 fps videos written with cv2 (a two-minute one with a hard cut every
+   24-48 frames, two of 24 s) uploaded through the port's app on fresh data
+   roots, with bf16 weights (the long one async, its stages polled through
+   /api/upload-status/<id>; a short one with ``sync=1``) and with int8 weights
+   and an int8 index under ``search_impl="pallas"`` (async); after each
+   /api/search finds the new video, its rows are held to a plain-route twin
+   over the same saved frames (row cosine and ranking bands, each with a
+   control that must fail), and the launches of K1/K2 or K3a/K3b over the
+   upload equal 11 an encode batch; K4 once in a negative query on the int8
+   index; the long ingest split into decode + scene detection, frame
+   extraction, staging and encode; ``embed_folder`` over 4,096 saved 1280 x
+   720 JPEGs on the native pipelined path (an undecodable one skipped by
+   index), against the stager alone and ``encode_staged_images`` alone, its
+   rows equal to the latter's; cv2's JPEG decode against PIL's; an upload of
+   bytes that are no video ending its job in "error".
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -4021,7 +4038,7 @@ def phase_routes(torch, engine, root: pathlib.Path, frames, what: str, noise: fl
     count the dispatches imply. The other routes: UI, SPA dist, events,
     frame and video files (Range, traversal), available videos, models and the
     active model, stats, transcribe (501, then a ``CallableTranscriber``),
-    upload (501). UMAP: the route over every frame twice (the second from
+    upload without a file (400), an unknown job's status (404). UMAP: the route over every frame twice (the second from
     the cache), then again after the cache is emptied (the same bytes);
     ``big_umap``: ``viz.umap`` on UMAP_ROWS seeded clustered rows (sparse
     tier), its kNN preservation against PCA's and a random layout's."""
@@ -4321,8 +4338,8 @@ def phase_routes(torch, engine, root: pathlib.Path, frames, what: str, noise: fl
         "active": js["active"]["active_model"] == engine.active_model,
         "set_active": js["set_active"].get("success") is True and resp["set_unknown"].status_code == 400,
         "stats": js["stats"]["index"]["frames"] == N_FRAMES and "search/text_clip" in js["stats"]["timings"],
-        "upload": resp["upload"].status_code == resp["upload_status"].status_code == 501
-        and "A11" in js["upload"]["error"],
+        "upload": resp["upload"].status_code == 400 and js["upload"]["error"] == "No video uploaded"
+        and resp["upload_status"].status_code == 404,
         "transcribe": resp["transcribe_off"].status_code == 501 and js["transcribe"]["text"] == "heard vi",
     }
     log(f"{what} routes: other routes {route_checks}")
@@ -4387,6 +4404,377 @@ def phase_routes(torch, engine, root: pathlib.Path, frames, what: str, noise: fl
 
 
 # -- main --------------------------------------------------------------------
+
+
+# -- 15. ingest and the upload routes -----------------------------------------
+
+# Seeded 1280 x 720, 25 fps videos written with cv2 (mp4v): each scene a
+# random 16 x 9 colour grid with a white square moving across it, a hard cut
+# every INGEST_SCENE_LEN frames. The long one (two minutes) is uploaded with
+# bf16 weights (async, its stages polled); three short ones: a sync bf16
+# upload, an async int8 one, and bytes that are no video (the job must end in
+# "error").
+INGEST_SIZE, INGEST_FPS, INGEST_SCENE_LEN = (1280, 720), 25.0, (24, 49)
+INGEST_LONG_FRAMES, INGEST_SHORT_FRAMES = 3000, 600
+INGEST_SEED = 16
+# embed_folder over INGEST_FOLDER_FRAMES saved 1280 x 720 JPEGs (and one that
+# does not decode) on the native pipelined path at batch BATCH, against the
+# stager alone and encode_staged_images alone on the same frames
+INGEST_FOLDER_FRAMES = 4096
+# cv2's decode of the saved frames against PIL's (two libjpeg-turbo builds) on
+# INGEST_DECODE_SAMPLE of them: within INGEST_DECODE_LEVELS grey levels
+INGEST_DECODE_SAMPLE, INGEST_DECODE_LEVELS = 16, 2
+INGEST_POLL_S, INGEST_WAIT_S = 0.02, 600.0
+INGEST_STAGES = ("queued", "scene_detect", "embedding", "annotating", "registering", "done")
+
+
+def write_scene_video(path: pathlib.Path, n_frames: int, seed: int) -> list[int]:
+    """An INGEST_SIZE mp4v video at INGEST_FPS: a new random colour grid every
+    INGEST_SCENE_LEN frames, a white 64 x 64 square moving 8 pixels a frame.
+    Returns the cut frames."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w, h = INGEST_SIZE
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), INGEST_FPS, (w, h))
+    cuts, left, base = [], 0, None
+    for i in range(n_frames):
+        if left == 0:
+            if i:
+                cuts.append(i)
+            grid = rng.integers(0, 256, (9, 16, 3), dtype=np.uint8)
+            base = cv2.resize(grid, (w, h), interpolation=cv2.INTER_NEAREST)
+            left = int(rng.integers(*INGEST_SCENE_LEN))
+        frame = base.copy()
+        x = (i * 8) % (w - 64)
+        frame[h // 2 - 32:h // 2 + 32, x:x + 64] = 255
+        writer.write(frame)
+        left -= 1
+    writer.release()
+    return cuts
+
+
+def encode_batches(n: int, chunk: int) -> int:
+    """Encode batches of the pipelined embed_folder over n staged frames:
+    chunks of ``chunk`` frames, each padded to whole batches of BATCH."""
+    return sum(-(-min(chunk, n - s) // BATCH) for s in range(0, n, chunk))
+
+
+def poll_upload(client, job_id: str) -> tuple[dict, list, float]:
+    """Poll /api/upload-status/<id> until the job ends; returns the last
+    status, the stages seen in order with the seconds each was first seen,
+    and the seconds to the end."""
+    t0, seen = time.perf_counter(), []
+    while True:
+        resp = client.get(f"/api/upload-status/{job_id}")
+        check(resp.status_code == 200, f"upload status {job_id}: HTTP {resp.status_code}")
+        status = json.loads(resp.get_data(as_text=True))
+        t = time.perf_counter() - t0
+        if not seen or seen[-1][0] != status["stage"]:
+            seen.append((status["stage"], t))
+        if status["state"] in ("done", "error"):
+            return status, seen, t
+        check(t < INGEST_WAIT_S, f"upload {job_id} still {status['state']} after {INGEST_WAIT_S} s")
+        time.sleep(INGEST_POLL_S)
+
+
+def hold_ingested_rows(torch, engine, ctx, name: str, noise: float, what: str) -> dict:
+    """The rows an upload stored (the kernel route) against a twin engine on
+    the plain route (``attn_impl="plain"``, the same params) over the same
+    saved frames: unit rows within EMBED_MIN_COS; the top-10 (top half of a
+    short video's rows) of each text query within ``noise`` of the plain
+    path's cut, each path with its own
+    text vectors. Negative controls: rows off by row cosine EMBED_MIN_COS must
+    fail the row band, and the rows of two frames swapped (the plain path's
+    first and last under the first query) the ranking check."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    entry = ctx.registry.get(name)
+    rows = np.load(ctx.resolve_path(entry["embeddings_file"]))
+    plain = copy.copy(engine)
+    plain.cfg = dataclasses.replace(engine.cfg, attn_impl="plain")
+    plain._text_cache = {}
+    ref, names = plain.embed_folder(ctx.resolve_path(entry["frames_dir"]))
+    check(names == ctx.index.frame_names(name), f"{what}: the twin embedded {len(names)} frames")
+    cos = (rows * ref).sum(1)
+    k = min(SEARCH_K, len(rows) // 2)  # a short video holds a few dozen scenes
+    txt, txt_ref = engine.encode_texts(list(QUERIES)), plain.encode_texts(list(QUERIES))
+    bad, overlaps, band, diff = rank_check(rows, ref, txt, txt_ref, noise, k)
+    off = rows + np.random.default_rng(0).standard_normal(rows.shape).astype(np.float32) * math.sqrt(
+        (1 / EMBED_MIN_COS ** 2 - 1) / rows.shape[1])
+    off /= np.linalg.norm(off, axis=1, keepdims=True)
+    off_cos = float((off * ref).sum(1).min())
+    # rows handed to the wrong frames: the plain path's first and last frame
+    # under the first query swap rows
+    order = np.argsort(-(ref @ txt_ref[0]), kind="stable")
+    swapped = rows.copy()
+    swapped[[order[0], order[-1]]] = rows[[order[-1], order[0]]]
+    swap_bad = rank_check(swapped, ref, txt, txt_ref, noise, k)[0]
+    log(f"{what}: {len(rows)} ingested rows against the plain route: least row cosine {cos.min():.6f}; "
+        f"top-{k} overlap {overlaps}, frames within {noise} of the cut {band}, largest score difference "
+        f"{diff:.2e}, violations {bad}; controls: rows off by cosine {EMBED_MIN_COS} least {off_cos:.6f}, "
+        f"two rows swapped {swap_bad} violations")
+    check(float(cos.min()) >= EMBED_MIN_COS, f"{what}: ingested row cosine {cos.min()} < {EMBED_MIN_COS}")
+    check(bad == 0, f"{what}: {bad} top-{k} swaps wider than {noise}")
+    check(off_cos < EMBED_MIN_COS and swap_bad > 0,
+          f"{what}: a control passed (row {off_cos}, swapped rows {swap_bad} violations)")
+    return {"frame_cos": float(cos.min()), "score_diff": diff}
+
+
+def upload(client, path: pathlib.Path, **form):
+    import io
+
+    return client.post("/api/upload-video", data={
+        "video": (io.BytesIO(path.read_bytes()), path.name), **form})
+
+
+def search_video(client, ctx, name: str, what: str) -> int:
+    """/api/search for text in the new video only (``videoId``): events, every
+    one of that video."""
+    video_id = f"video-{ctx.video_names().index(name) + 1}"
+    events = route_post(client, {"query": QUERIES[0], "search_type": "text", "top_k": 10,
+                                 "adaptive_threshold": -1.0, "search_method": "text_clip",
+                                 "videoId": video_id})
+    check(bool(events) and all(e["videoId"] == f"video-{name}" for e in events),
+          f"{what}: /api/search of {video_id} gave {[e['videoId'] for e in events]}")
+    return len(events)
+
+
+def phase_ingest(torch) -> dict:
+    """Ingest and the upload routes at ViT-B/32's full width on the card:
+    seeded videos uploaded through the port's app (``POST
+    /api/upload-video``, async with ``/api/upload-status/<id>`` polled
+    through its stages, and ``sync=1``), with bf16 weights and again with
+    int8 weights and an int8 index under ``search_impl="pallas"``; after each
+    upload /api/search finds the new video, its stored rows are held to a
+    plain-route twin (``hold_ingested_rows``) and the launches of K1/K2 (bf16)
+    or K3a/K3b (int8) over the upload equal 11 a pipelined encode batch; K4
+    once in a negative query on the int8 index. The long video's ingest is
+    split into decode + scene detection, frame extraction, staging and encode;
+    embed_folder over INGEST_FOLDER_FRAMES saved JPEGs (one undecodable,
+    skipped by index) is timed against the stager alone and
+    encode_staged_images alone on the same frames, its rows equal to the
+    latter's; cv2's JPEG decode is held to PIL's within INGEST_DECODE_LEVELS.
+    An upload of bytes that are no video ends its job in "error"."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import numpy as np
+    from PIL import Image
+    from werkzeug.test import Client
+
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.ingest.scene import detect_scenes
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.ops.retrieval import fused_topk
+    from evr_tpu_torch.serving import ServingContext, create_app
+
+    out: dict = {"launches": {}}
+    launches = out["launches"]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        long_video = tmp / "long_video.mp4"
+        cuts = write_scene_video(long_video, INGEST_LONG_FRAMES, INGEST_SEED)
+        shorts = {}
+        for i, name in enumerate(("short_sync", "short_int8")):
+            shorts[name] = tmp / f"{name}.mp4"
+            write_scene_video(shorts[name], INGEST_SHORT_FRAMES, INGEST_SEED + 1 + i)
+        (tmp / "not_a_video.mp4").write_bytes(np.random.default_rng(1).bytes(4096))
+        log(f"ingest: wrote {INGEST_LONG_FRAMES} + 2 x {INGEST_SHORT_FRAMES} frames of "
+            f"{INGEST_SIZE[0]}x{INGEST_SIZE[1]} ({len(cuts)} cuts in the long one) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # bf16 weights: the long video async, a short one with sync=1
+        engine = EmbeddingEngine(MODEL, device="cuda", batch_size=BATCH, rng_seed=0)
+        size = engine.cfg.vision.image_size
+        engine.encode_staged_images(np.zeros((1, size, size, 3), np.uint8))  # kernel libraries load
+        ctx = ServingContext(tmp / "root_bf16", engine=engine)
+        ctx.data_root.ensure()
+        client = Client(create_app(ctx))
+        counted = [bf.fused_attn_block, bf.fused_mlp_block]
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        resp = upload(client, long_video)
+        check(resp.status_code == 202, f"async upload: HTTP {resp.status_code}")
+        job = json.loads(resp.get_data(as_text=True))
+        status, seen, total_s = poll_upload(client, job["job_id"])
+        got = {fn.__name__: fn.launches for fn in counted}
+        stages = [s for s, _ in seen]
+        check(status["state"] == "done", f"long upload: {status['state']} {status['error']}")
+        check(stages == [s for s in INGEST_STAGES if s in stages] and stages[-1] == "done"
+              and "scene_detect" in stages, f"long upload: stages seen {stages}")
+        n_long = status["video"]["frames"]
+        check(n_long == len(cuts) + 1 == status["frames_total"], f"long upload: {n_long} frames, "
+              f"{len(cuts) + 1} scenes")
+        expected = (engine.cfg.vision.layers - 1) * encode_batches(n_long, max(BATCH * 4, 256))
+        log(f"ingest bf16, long video: stages {[(s, round(t, 3)) for s, t in seen]}, {total_s:.2f} s; "
+            f"{n_long} frames; launches {got} (expected {expected} each)")
+        check(all(n == expected for n in got.values()), f"long upload launches {got}, expected {expected}")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        search_video(client, ctx, "long_video", "ingest bf16 long")
+        out["long"] = {"seconds": total_s, "frames": n_long, "video_frames": INGEST_LONG_FRAMES,
+                       "stages": seen, "rows": hold_ingested_rows(torch, engine, ctx, "long_video",
+                                                                 SERVED_RANK_NOISE, "ingest bf16 long")}
+
+        # the long video's split, each part alone: decode + scene detection,
+        # frame extraction (each scene's middle frame read and written as
+        # extract_scene_frames does; the same bytes as the upload's), staging
+        # and encode of the saved frames
+        t0 = time.perf_counter()
+        spans = detect_scenes(long_video)
+        detect_s = time.perf_counter() - t0
+        check(len(spans) == n_long, f"detect_scenes: {len(spans)} spans")
+        frames_dir = ctx.resolve_path(ctx.registry.get("long_video")["frames_dir"])
+        extracted = tmp / "extracted"
+        extracted.mkdir()
+        t0 = time.perf_counter()
+        cap = cv2.VideoCapture(str(long_video))
+        for start, end in spans:
+            cap.set(cv2.CAP_PROP_POS_FRAMES, (start + end) // 2)
+            ok, frame = cap.read()
+            check(ok, f"frame {(start + end) // 2} of the long video")
+            cv2.imwrite(str(extracted / f"{(start + end) // 2}.jpg"), frame)
+        cap.release()
+        extract_s = time.perf_counter() - t0
+        paths = sorted(frames_dir.iterdir(), key=lambda p: int(p.stem))
+        check([p.read_bytes() for p in paths] == [(extracted / p.name).read_bytes() for p in paths],
+              "the extracted frames differ from the upload's")
+        stager = engine._ensure_native_stager()
+        t0 = time.perf_counter()
+        staged, ok = stager.stage_batch(paths)
+        stage_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.encode_staged_images(staged[ok])
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        out["long"]["split"] = {"decode_scene_s": detect_s, "extract_s": extract_s, "stage_s": stage_s,
+                                "encode_s": encode_s,
+                                "rest_s": total_s - detect_s - extract_s - stage_s - encode_s}
+        log(f"ingest bf16, long video: {INGEST_LONG_FRAMES / total_s:.1f} video frames/s end to end; split s "
+            f"{json.dumps({k: round(v, 3) for k, v in out['long']['split'].items()})}")
+
+        for fn in counted:
+            fn.launches = 0
+        resp = upload(client, shorts["short_sync"], sync="1", model="original")
+        got = {fn.__name__: fn.launches for fn in counted}
+        check(resp.status_code == 200, f"sync upload: HTTP {resp.status_code} {resp.get_data()[:200]!r}")
+        body = json.loads(resp.get_data(as_text=True))
+        n_sync = body["video"]["frames"]
+        expected = (engine.cfg.vision.layers - 1) * encode_batches(n_sync, max(BATCH * 4, 256))
+        check(body["status"] == "success" and n_sync > 0 and all(n == expected for n in got.values()),
+              f"sync upload: {body['status']}, {n_sync} frames, launches {got} (expected {expected})")
+        for name, n in got.items():
+            launches[name] += n
+        search_video(client, ctx, "short_sync", "ingest bf16 sync")
+        out["sync"] = {"frames": n_sync, "rows": hold_ingested_rows(
+            torch, engine, ctx, "short_sync", SERVED_RANK_NOISE, "ingest bf16 sync")}
+
+        # an ingest that raises ends its job in "error"
+        resp = upload(client, tmp / "not_a_video.mp4")
+        status, _, _ = poll_upload(client, json.loads(resp.get_data(as_text=True))["job_id"])
+        log(f"ingest: bytes that are no video: state {status['state']}, error {status['error']!r}")
+        check(status["state"] == status["stage"] == "error" and "cannot open video" in (status["error"] or ""),
+              f"a failed ingest: {status}")
+
+        # embed_folder over saved 1280 x 720 JPEGs, one that does not decode
+        folder = tmp / "folder"
+        folder.mkdir()
+        rng = np.random.default_rng(INGEST_SEED)
+        grids = rng.integers(0, 256, (64, 9, 16, 3), dtype=np.uint8)
+
+        def write_frame(i):
+            frame = cv2.resize(grids[i % 64], INGEST_SIZE, interpolation=cv2.INTER_LINEAR)
+            x = (i * 8) % (INGEST_SIZE[0] - 64)
+            frame[INGEST_SIZE[1] // 2 - 32:INGEST_SIZE[1] // 2 + 32, x:x + 64] = 255
+            cv2.imwrite(str(folder / f"{i:05d}.jpg"), frame)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(write_frame, range(INGEST_FOLDER_FRAMES)))
+        (folder / "broken.jpg").write_bytes(b"\xff\xd8 not a jpeg")
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, names = engine.embed_folder(folder)
+        folder_s = time.perf_counter() - t0
+        check(len(names) == INGEST_FOLDER_FRAMES and "broken.jpg" not in names,
+              f"embed_folder: {len(names)} frames, broken skipped: {'broken.jpg' not in names}")
+        paths = [folder / n for n in names]
+        t0 = time.perf_counter()
+        staged, ok = stager.stage_batch(paths)
+        stage_s = time.perf_counter() - t0
+        check(ok == list(range(len(paths))), "the stager failed on a good frame")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = engine.encode_staged_images(staged, normalise=True)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        diff = float(np.abs(rows - enc).max())
+        check(diff <= 1e-6, f"embed_folder rows against encode_staged_images: {diff}")
+        levels = []
+        for p, s in zip(paths[::INGEST_FOLDER_FRAMES // INGEST_DECODE_SAMPLE], staged[::INGEST_FOLDER_FRAMES // INGEST_DECODE_SAMPLE]):
+            pil = np.asarray(Image.open(p).convert("RGB"))
+            bgr = cv2.imread(str(p), cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+            staged_pil = np.empty_like(s)
+            stager.stage_pixels(pil, staged_pil, bgr=False)
+            levels.append((int(np.abs(pil.astype(int) - bgr[:, :, ::-1]).max()),
+                           int(np.abs(staged_pil.astype(int) - s).max())))
+        out["folder"] = {"frames": len(names), "seconds": folder_s, "stage_s": stage_s, "encode_s": encode_s,
+                         "write_s": write_s, "max_diff": diff, "decode_levels": max(a for a, _ in levels),
+                         "staged_levels": max(b for _, b in levels)}
+        log(f"ingest: embed_folder over {len(names)} saved {INGEST_SIZE[0]}x{INGEST_SIZE[1]} JPEGs (batch "
+            f"{BATCH}, native pipelined): {len(names) / folder_s:.1f} frames/s; the stager alone "
+            f"{len(names) / stage_s:.1f} frames/s ({stager.n_threads} threads), encode_staged_images alone "
+            f"{len(names) / encode_s:.1f} frames/s; rows within {diff:.1e}; writing them took {write_s:.1f} s; "
+            f"cv2 against PIL decode, largest level difference {out['folder']['decode_levels']} (staged "
+            f"{out['folder']['staged_levels']}) over {len(levels)} frames")
+        check(out["folder"]["decode_levels"] <= INGEST_DECODE_LEVELS, f"decode levels {levels}")
+        del staged, enc, rows, engine, ctx, client
+        torch.cuda.empty_cache()
+
+        # int8 weights and an int8 index (K3a/K3b; K4 on a negative query)
+        engine = EmbeddingEngine(MODEL, device="cuda", batch_size=BATCH, rng_seed=0, params_dtype="int8")
+        engine.encode_staged_images(np.zeros((1, size, size, 3), np.uint8))
+        ctx = ServingContext(tmp / "root_int8", engine=engine, index_dtype="int8", search_impl="pallas")
+        ctx.data_root.ensure()
+        client = Client(create_app(ctx))
+        counted = [bf.fused_attn_block_q, bf.fused_mlp_block_q]
+        for fn in counted:
+            fn.launches = 0
+        resp = upload(client, shorts["short_int8"])
+        check(resp.status_code == 202, f"int8 upload: HTTP {resp.status_code}")
+        status, seen, int8_s = poll_upload(client, json.loads(resp.get_data(as_text=True))["job_id"])
+        got = {fn.__name__: fn.launches for fn in counted}
+        n_int8 = status["video"]["frames"] if status["state"] == "done" else 0
+        expected = (engine.cfg.vision.layers - 1) * encode_batches(n_int8, max(BATCH * 4, 256))
+        check(status["state"] == "done" and n_int8 > 0 and all(n == expected for n in got.values()),
+              f"int8 upload: {status['state']} {status['error']}, {n_int8} frames, launches {got} "
+              f"(expected {expected})")
+        launches.update(got)
+        search_video(client, ctx, "short_int8", "ingest int8")
+        fused_topk.launches = 0
+        events = route_post(client, {"query": QUERIES[3], "negative_query": QUERIES[4], "search_type": "text",
+                                     "top_k": 10, "adaptive_threshold": -1.0, "search_method": "text_clip"})
+        launches["fused_topk"] = fused_topk.launches
+        check(bool(events) and fused_topk.launches == 1, f"int8 negative query: {len(events)} events, "
+              f"K4 {fused_topk.launches} launches (expected 1)")
+        out["int8"] = {"frames": n_int8, "seconds": int8_s, "stages": seen, "rows": hold_ingested_rows(
+            torch, engine, ctx, "short_int8", INT8_SERVED_RANK_NOISE, "ingest int8")}
+        log(f"ingest int8: {n_int8} frames in {int8_s:.2f} s, stages {[s for s, _ in seen]}, launches {got} "
+            f"(expected {expected} each), K4 {launches['fused_topk']} in the negative query")
+        del engine, ctx, client
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def main() -> int:
@@ -4481,6 +4869,7 @@ def main() -> int:
         t4 = time.perf_counter()
         tiny = phase_tiny(torch)
         tiny_s = time.perf_counter() - t4
+        ingest = phase_ingest(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4576,6 +4965,17 @@ def main() -> int:
         log(f"routes {tag}: launches {json.dumps(m['launches'])}; /api/search p50 ms "
             f"{json.dumps({k: round(v, 3) for k, v in m['p50_ms'].items()})}; UMAP route over {N_FRAMES} frames "
             f"{m['umap_route_s']:.3f} s (cached {m['umap_cached_ms']:.2f} ms); the phase {m['seconds']:.1f} s")
+    lg, fo = ingest["long"], ingest["folder"]
+    log(f"ingest (phase 15, {ingest['seconds']:.1f} s): the long video, {lg['video_frames']} frames of "
+        f"{INGEST_SIZE[0]}x{INGEST_SIZE[1]} to {lg['frames']} scene frames, {lg['seconds']:.2f} s, "
+        f"{lg['video_frames'] / lg['seconds']:.1f} video frames/s; split s "
+        f"{json.dumps({k: round(v, 3) for k, v in lg['split'].items()})}; sync upload {ingest['sync']['frames']} "
+        f"frames, int8 upload {ingest['int8']['frames']} frames in {ingest['int8']['seconds']:.2f} s; launches "
+        f"{json.dumps(ingest['launches'])}; least ingested row cosines bf16 {lg['rows']['frame_cos']:.6f} / "
+        f"{ingest['sync']['rows']['frame_cos']:.6f}, int8 {ingest['int8']['rows']['frame_cos']:.6f}")
+    log(f"ingest: embed_folder {fo['frames']} JPEGs {fo['frames'] / fo['seconds']:.1f} frames/s, the stager "
+        f"alone {fo['frames'] / fo['stage_s']:.1f}, encode_staged_images alone {fo['frames'] / fo['encode_s']:.1f}; "
+        f"cv2 against PIL decode {fo['decode_levels']} levels")
     big = main["then"]["routes"]
     log(f"viz.umap at {UMAP_ROWS} x {UMAP_DIM}: {big['umap_big_s']:.2f} s, neighbours kept "
         f"{json.dumps(big['knn_kept'])}")
@@ -4584,6 +4984,9 @@ def main() -> int:
     for m in (main["then"]["routes"], main_q["then"]["routes"]):
         for name, n in m["launches"].items():
             launches[name] += n
+    # the ingest phase's uploads (K1/K2 bf16, K3a/K3b int8) and its negative query (K4)
+    for name, n in ingest["launches"].items():
+        launches[name] += n
     launches.update({k: train["launches"][k] for k in ("fused_attn_block_bwd", "fused_mlp_block_bwd")})
     launches["adc_list_scores"] = ann["launches"]
     launches.update({k: main_f["launches"][k] for k in FLASH_MAIN_SHAPE})

@@ -13,12 +13,16 @@ patch kernel), so weights carry across leaf by leaf
 - ``evr_tpu_torch.ops``        the fused block (forward and backward) and top-k
                                kernels (CUDA C++), top-k, staging
 - ``evr_tpu_torch.index``      the frame index and the embedding engine
+- ``evr_tpu_torch.ingest``     scene detection, frame extraction, frame records,
+                               the ingest pipeline
+- ``evr_tpu_torch.native``     the frame stager (C++ resize, built with g++)
 - ``evr_tpu_torch.query``      frame metadata, event formatting, strategies
-- ``evr_tpu_torch.serving``    the HTTP API
+- ``evr_tpu_torch.serving``    the HTTP API and the upload jobs
 - ``evr_tpu_torch.training``   contrastive fine-tuning (``Trainer``), its
                                losses, optimizer groups and caption data
 - ``evr_tpu_torch.parallel``   the contrastive losses (single device)
-- ``evr_tpu_torch.tools``      command-line tools (``tools.finetune``)
+- ``evr_tpu_torch.tools``      command-line tools (``tools.finetune``,
+                               ``tools.ingest``, ``tools.index_tool``, ...)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with no
 card and no explicit CPU request they raise. Subpackages import lazily.
@@ -29,8 +33,8 @@ import importlib
 __version__ = "0.1.0"
 
 _SUBPACKAGES = (
-    "models", "tokenizer", "ops", "index", "query", "serving", "utils", "training", "parallel",
-    "tools",
+    "models", "tokenizer", "ops", "index", "ingest", "native", "query", "serving", "utils",
+    "training", "parallel", "tools",
 )
 
 

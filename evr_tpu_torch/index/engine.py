@@ -16,8 +16,16 @@ Checkpoints: ``from_checkpoint`` and ``load_finetuned`` read a reference
 Trainer's own ``.pt`` file (``training.finetune``), told apart by their keys
 (``load_torch_checkpoint``); a fine-tuned model's classifier head serves
 through ``classify``. The JAX package's orbax directories need JAX and are
-refused. The MoE towers, mesh sharding, the exact-PIL host preprocessing and
-the native pipelined stager are not ported yet.
+refused. The MoE towers and mesh sharding are not ported yet.
+
+Image files: ``preprocess_mode="fast"`` stages a folder of JPEGs (what
+ingest writes) through the native stager (``evr_tpu_torch.native``: cv2
+decode, Pillow's two-pass bicubic resize in C++, the staging of the next
+chunk overlapped with the encode of this one) and any other folder or file
+list with cv2 (``ops.preprocess.stage_image_fast``); ``"pil"`` preprocesses
+on the host with PIL (``ops.preprocess.load_image_host``) and encodes the
+float pixels through ``models.clip.encode_image``. A stager that cannot be
+built raises; a file that cannot be decoded is skipped by index.
 """
 
 from __future__ import annotations
@@ -29,16 +37,23 @@ import numpy as np
 import torch
 
 from evr_tpu_torch.models.classifier import ClassifierConfig, classifier_forward
-from evr_tpu_torch.models.clip import CLIPConfig, encode_staged_u8, encode_text, init_clip_params
+from evr_tpu_torch.models.clip import (
+    CLIPConfig,
+    encode_image,
+    encode_staged_u8,
+    encode_text,
+    init_clip_params,
+)
 from evr_tpu_torch.models.convert import params_from_numpy
 from evr_tpu_torch.models.quant import quantize_clip_params
 from evr_tpu_torch.models.variants import get_model_config
-from evr_tpu_torch.ops.preprocess import stage_image_fast
+from evr_tpu_torch.ops.preprocess import load_image_host, stage_image_fast
 from evr_tpu_torch.tokenizer import get_default_tokenizer
 from evr_tpu_torch.utils.device import resolve_device
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 PARAMS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": None}
+PREPROCESS_MODES = ("fast", "pil")
 # the keys of the port Trainer's checkpoint payload (``Trainer.save_checkpoint``)
 TRAINER_KEYS = ("params", "opt_state", "step")
 
@@ -89,6 +104,7 @@ class EmbeddingEngine:
         rng_seed: int = 0,
         params_dtype: str = "float32",
         device=None,
+        preprocess_mode: str = "fast",
     ):
         """``params``: a nested dict of numpy arrays or tensors in the JAX
         package's layout; None draws random weights from ``rng_seed``.
@@ -96,11 +112,18 @@ class EmbeddingEngine:
         when None (pass one to serve another route, e.g. ``attn_impl="flash"``).
         ``device``: None means the card (raises without one); pass "cpu" to
         run on the CPU. ``params_dtype``: "float32", "bfloat16" or "int8"
-        serving weights (``_cast_params``)."""
+        serving weights (``_cast_params``). ``preprocess_mode``: "fast" or
+        "pil", how image files are staged (module docstring)."""
         if params_dtype not in PARAMS_DTYPES:
             raise ValueError(
                 f"unknown params_dtype {params_dtype!r} (supported: {sorted(PARAMS_DTYPES)})"
             )
+        if preprocess_mode not in PREPROCESS_MODES:
+            raise ValueError(
+                f"unknown preprocess_mode {preprocess_mode!r} (supported: {PREPROCESS_MODES})"
+            )
+        self.preprocess_mode = preprocess_mode
+        self._native_stager = None
         self.device = resolve_device(device)
         self.model_name = model_name
         self.cfg = cfg or get_model_config(model_name)
@@ -219,26 +242,70 @@ class EmbeddingEngine:
         pad = np.zeros((self.batch_size - n,) + arr.shape[1:], dtype=arr.dtype)
         return np.concatenate([arr, pad], axis=0), n
 
+    def _encode_batches(self, arr: np.ndarray, encode, normalise: bool, pad: bool = True) -> np.ndarray:
+        """``encode(params, cfg, x, dtype=)`` over ``arr`` in batches of
+        ``batch_size`` on the engine's device, the last one padded to it
+        unless ``pad`` is False → [N, D] float32 on the host."""
+        outs = []
+        with torch.inference_mode():
+            for i in range(0, len(arr), self.batch_size):
+                chunk = arr[i : i + self.batch_size]
+                batch, n = self._pad_batch(chunk) if pad else (chunk, len(chunk))
+                x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
+                outs.append(encode(self.params, self.cfg, x, dtype=self.compute_dtype).cpu().numpy()[:n])
+        out = (
+            np.concatenate(outs, axis=0)
+            if outs
+            else np.zeros((0, self.cfg.embed_dim), np.float32)
+        )
+        if normalise:
+            out = out / np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
+        return out
+
     def encode_staged_images(
         self, staged_u8: np.ndarray, normalise: bool = False, pad: bool = True
     ) -> np.ndarray:
         """uint8 [N, S, S, 3] (already resized/cropped) → [N, D] embeddings,
         in batches of ``batch_size``, the last one padded to it unless ``pad``
         is False (one query image encodes alone, not beside zero rows)."""
-        staged_u8 = np.asarray(staged_u8)
-        outs = []
-        with torch.inference_mode():
-            for i in range(0, len(staged_u8), self.batch_size):
-                chunk = staged_u8[i : i + self.batch_size]
-                batch, n = self._pad_batch(chunk) if pad else (chunk, len(chunk))
-                x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
-                emb = encode_staged_u8(self.params, self.cfg, x, dtype=self.compute_dtype)
-                outs.append(emb.cpu().numpy()[:n])
-        out = (
-            np.concatenate(outs, axis=0)
-            if outs
-            else np.zeros((0, self.cfg.embed_dim), np.float32)
-        )
+        return self._encode_batches(np.asarray(staged_u8), encode_staged_u8, normalise, pad)
+
+    def encode_pixels(self, pixels: np.ndarray, normalise: bool = False) -> np.ndarray:
+        """Preprocessed float pixels [N, S, S, 3] (``load_image_host``,
+        ``preprocess_batch``) → [N, D] through ``models.clip.encode_image``,
+        in padded batches of ``batch_size``."""
+        return self._encode_batches(np.asarray(pixels, np.float32), encode_image, normalise)
+
+    def _encode_array(self, arr: np.ndarray) -> np.ndarray:
+        """Encode a stacked batch that is either staged uint8 or
+        preprocessed float pixels."""
+        if arr.dtype == np.uint8:
+            return self.encode_staged_images(arr)
+        return self.encode_pixels(arr)
+
+    def _ensure_native_stager(self):
+        """The native stager (``evr_tpu_torch.native``), built at first use;
+        raises when it cannot be built or loaded."""
+        if self._native_stager is None:
+            from evr_tpu_torch.native import NativeStager
+
+            self._native_stager = NativeStager(self.cfg.vision.image_size)
+        return self._native_stager
+
+    def _stage_native(self, paths) -> tuple[np.ndarray, list[int]]:
+        """Stage image files through the native stager → (uint8 [N, S, S,
+        3], indices of the files that decoded)."""
+        return self._ensure_native_stager().stage_batch(paths)
+
+    def encode_image_files(self, paths, normalise: bool = False) -> np.ndarray:
+        """Image files → [N, D]: "pil" through ``load_image_host`` and
+        ``encode_pixels``, "fast" through ``stage_image_fast`` and
+        ``encode_staged_images``. A file that cannot be read raises."""
+        size = self.cfg.vision.image_size
+        if self.preprocess_mode == "pil":
+            out = self.encode_pixels(np.stack([load_image_host(p, size) for p in paths]))
+        else:
+            out = self.encode_staged_images(np.stack([stage_image_fast(p, size) for p in paths]))
         if normalise:
             out = out / np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
         return out
@@ -250,35 +317,85 @@ class EmbeddingEngine:
         progress: Callable[[int, int], None] | None = None,
     ) -> tuple[np.ndarray, list[str]]:
         """Embed every image in a folder, sorted by filename (the order that
-        aligns index rows with metadata frames). Unreadable frames are
-        skipped. Returns (embeddings, frame_names)."""
+        aligns index rows with metadata frames). Returns (embeddings,
+        frame_names). In "fast" mode a folder of JPEGs alone goes through
+        the native stager, pipelined (``_embed_folder_pipelined``); any other
+        folder, and "pil" mode, is staged file by file. Unreadable frames are
+        skipped: their rows are absent and ``frame_names`` stays aligned."""
         folder = pathlib.Path(folder)
         candidates = sorted(
             p.name for p in folder.iterdir() if p.suffix.lower() in IMAGE_EXTENSIONS
         )
+        if self.preprocess_mode == "fast" and all(
+            n.lower().endswith((".jpg", ".jpeg")) for n in candidates
+        ):
+            return self._embed_folder_pipelined(folder, candidates, normalise, progress)
+
         size = self.cfg.vision.image_size
         names: list[str] = []
         embs = []
         staged_buf: list[np.ndarray] = []
         for pos, name in enumerate(candidates):
             try:
-                staged_buf.append(stage_image_fast(folder / name, size))
+                if self.preprocess_mode == "pil":
+                    staged_buf.append(load_image_host(folder / name, size))
+                else:
+                    staged_buf.append(stage_image_fast(folder / name, size))
             except OSError:
                 continue
             names.append(name)
             if len(staged_buf) == self.batch_size:
-                embs.append(self.encode_staged_images(np.stack(staged_buf)))
+                embs.append(self._encode_array(np.stack(staged_buf)))
                 staged_buf.clear()
             if progress:
                 progress(pos + 1, len(candidates))
         if staged_buf:
-            embs.append(self.encode_staged_images(np.stack(staged_buf)))
+            embs.append(self._encode_array(np.stack(staged_buf)))
         emb = (
             np.concatenate(embs, axis=0)
             if embs
             else np.zeros((0, self.cfg.embed_dim), np.float32)
         )
         if normalise:
+            emb = emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
+        return emb.astype(np.float32), names
+
+    def _embed_folder_pipelined(
+        self,
+        folder: pathlib.Path,
+        candidates: list[str],
+        normalise: bool,
+        progress,
+        chunk_frames: int | None = None,
+    ) -> tuple[np.ndarray, list[str]]:
+        """Chunked, double-buffered: the native stager stages chunk k + 1 on
+        its thread pool while the card encodes chunk k, so host memory holds
+        about two chunks. Failed decodes are skipped by index."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        stager = self._ensure_native_stager()
+        chunk = chunk_frames or max(self.batch_size * 4, 256)
+        names: list[str] = []
+        embs: list[np.ndarray] = []
+        total = len(candidates)
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            fut = ex.submit(stager.stage_batch, [folder / n for n in candidates[:chunk]])
+            for start in range(0, total, chunk):
+                batch, ok = fut.result()
+                nxt = candidates[start + chunk : start + 2 * chunk]
+                if nxt:
+                    fut = ex.submit(stager.stage_batch, [folder / n for n in nxt])
+                if ok:
+                    embs.append(self.encode_staged_images(batch[ok]))
+                    names.extend(candidates[start + i] for i in ok)
+                if progress:
+                    progress(min(start + chunk, total), total)
+        emb = (
+            np.concatenate(embs, axis=0)
+            if embs
+            else np.zeros((0, self.cfg.embed_dim), np.float32)
+        )
+        if normalise and len(emb):
             emb = emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
         return emb.astype(np.float32), names
 

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
+from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD, cubic_weight_mat
 
 from .layers import Params, block_apply, final_block_cls, final_block_eot, layer_norm
 
@@ -123,31 +123,6 @@ def init_clip_params(rng: np.random.Generator | int, cfg: CLIPConfig) -> dict:
 
 
 # -- positional-embedding interpolation (ViT-L/14@336px and friends) ------
-
-
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    """Keys' cubic convolution kernel with a = −0.5, at distances x ≥ 0."""
-    near = ((1.5 * x - 2.5) * x) * x + 1.0
-    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
-    return np.where(x >= 2.0, 0.0, np.where(x >= 1.0, far, near))
-
-
-def cubic_weight_mat(n_in: int, n_out: int) -> np.ndarray:
-    """[n_in, n_out] weights of a cubic resize along one axis, as
-    ``jax.image.resize(method="cubic")`` builds them: half-pixel centres, the
-    kernel widened by the scale when downsampling (antialias), each output's
-    weights divided by their sum over the inputs, and outputs whose sample
-    lies outside [−0.5, n_in − 0.5] zeroed. ``F.interpolate(mode="bicubic")``
-    differs (a = −0.75, indices clamped at the border)."""
-    inv_scale = n_in / n_out
-    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
-    x = np.abs(sample[None, :] - np.arange(n_in)[:, None]) / max(inv_scale, 1.0)
-    w = _keys_cubic(x)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1.0), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0.0)
 
 
 def interpolate_pos_embedding(pos, new_grid: int) -> torch.Tensor:

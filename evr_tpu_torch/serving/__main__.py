@@ -9,7 +9,7 @@ UNPORTED_FLAGS = {
     "siglip_hf": (None, "A17"),
     "siglip_tokenizer": (None, "A17"),
     "shard_index": (False, "A15"),
-    "zeroshot_objects": (False, "A11"),  # annotates uploads: ingest (the annotator: A17)
+    "zeroshot_objects": (False, "A17"),  # the zero-shot object annotator of uploads
 }
 
 
@@ -71,6 +71,7 @@ def main(argv=None):
         "coalesce into one device dispatch (off when unset)",
     )
     parser.add_argument("--batch-size", type=int, default=256)
+
     parser.add_argument(
         "--transcriber", choices=["none", "assemblyai"], default="none",
         help="voice-transcription provider (assemblyai reads ASSEMBLYAI_API_KEY)",
@@ -80,14 +81,15 @@ def main(argv=None):
         help="serve a built SPA (e.g. the reference React app's dist/) at /app/",
     )
     # accepted for the JAX CLI's command lines, refused when they ask for a part
-    # not ported yet (UNPORTED_FLAGS; --local-ocr on needs OCR at ingest)
+    # not ported yet (UNPORTED_FLAGS; --local-ocr on needs the OCR annotator)
     parser.add_argument("--model-family", choices=["clip", "siglip"], default="clip")
     parser.add_argument("--siglip-hf", default=None)
     parser.add_argument("--siglip-tokenizer", default=None)
     parser.add_argument("--shard-index", action="store_true")
     parser.add_argument("--zeroshot-objects", action="store_true")
     parser.add_argument("--local-ocr", default="auto", choices=("auto", "on", "off"),
-                        help="OCR of uploaded videos: not ported; auto and off serve without it")
+                        help="OCR of uploaded videos: its annotator is not ported (ROADMAP "
+                        "A17); auto and off ingest uploads without it")
     args = parser.parse_args(argv)
     for dest, (default, item) in UNPORTED_FLAGS.items():
         value = getattr(args, dest)
@@ -95,8 +97,8 @@ def main(argv=None):
             flag = "--" + dest.replace("_", "-") + ("" if isinstance(value, bool) else f" {value}")
             parser.error(f"{flag} is not ported to evr_tpu_torch yet (ROADMAP {item})")
     if args.local_ocr == "on":
-        parser.error("--local-ocr on is not ported to evr_tpu_torch yet (ROADMAP A11, "
-                     "its OCR annotator A17)")
+        parser.error("--local-ocr on is not ported to evr_tpu_torch yet (ROADMAP A17: "
+                     "the OCR annotator)")
 
     from werkzeug.serving import run_simple
 

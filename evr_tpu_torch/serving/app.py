@@ -6,10 +6,10 @@ validation and response payloads: the built-in UI (``/``) and a built SPA
 every method of ``SEARCH_METHODS`` plus ``temporal`` and the ``image`` and
 ``hybrid`` search types, frame and video files (HTTP Range, no path outside
 the data root), voice transcription, the cached UMAP view, available videos,
-the models and the active model, stats and health.
-
-Upload and upload status need the ingest pipeline, which is not ported yet
-(ROADMAP A11): those two routes answer 501 and name it.
+the models and the active model, stats and health, and the upload of a
+video: ``POST /api/upload-video`` saves the file and queues its ingest as a
+background job (202 and a job id; ``sync=1`` waits and answers with the
+result), ``GET /api/upload-status/<job_id>`` reports the job's stage.
 
 Run: ``python -m evr_tpu_torch.serving --data-root data --port 5000``.
 """
@@ -29,8 +29,6 @@ from evr_tpu_torch.query.events import format_event_for_frontend
 from evr_tpu_torch.utils import Timer
 
 from .context import ServingContext
-
-INGEST_ITEM = "A11"
 
 
 def _json(payload, status: int = 200) -> Response:
@@ -337,10 +335,49 @@ def create_app(ctx: ServingContext, frontend_dist: str | None = None):
         ctx.search_cache.set(cache_key, payload)
         return _json(payload)
 
-    def ep_not_ported(request, **_):
-        return _json({"error": f"{request.method} {request.path} needs the ingest pipeline, "
-                               f"which is not yet ported to evr_tpu_torch (ROADMAP {INGEST_ITEM})"},
-                     501)
+    def ep_upload(request):
+        """Asynchronous by default: the request saves the file and queues a
+        background ingest job, answering 202 and the job id; the form field
+        ``sync=1`` waits for the job and answers with its payload."""
+        video_file = request.files.get("video")
+        if not video_file:
+            return _json({"error": "No video uploaded"}, 400)
+        filename = secure_filename(video_file.filename or "upload.mp4")
+        video_name = pathlib.Path(filename).stem
+        save_dir = ctx.data_root.video_dir / video_name
+        save_dir.mkdir(parents=True, exist_ok=True)
+        save_path = save_dir / filename
+        video_file.save(str(save_path))
+
+        model_name = request.form.get("model", "original")
+        if model_name != ctx.engine.active_model:
+            ctx.engine.set_active_model(model_name)
+
+        def run_ingest(progress):
+            result = ctx.ingest(save_path, video_name, progress=progress)
+            return ctx.upload_payload(save_path, video_name, model_name, result)
+
+        job_id = ctx.ingest_jobs.submit(video_name, run_ingest)
+        if request.form.get("sync", "").lower() in ("1", "true", "yes"):
+            job = ctx.ingest_jobs.wait(job_id)
+            if job.state == "error":
+                return _json({"error": f"Ingest failed: {job.error}"}, 500)
+            return _json(job.result)
+        return _json(
+            {
+                "status": "processing",
+                "job_id": job_id,
+                "video_name": video_name,
+                "status_url": f"/api/upload-status/{job_id}",
+            },
+            202,
+        )
+
+    def ep_upload_status(request, job_id):
+        status = ctx.ingest_jobs.status(job_id)
+        if status is None:
+            return _json({"error": f"Unknown upload job {job_id}"}, 404)
+        return _json(status)
 
     def _safe_under_data_root(candidate: pathlib.Path) -> bool:
         """Only files under the data root are served (no path traversal)."""
@@ -482,8 +519,8 @@ def create_app(ctx: ServingContext, frontend_dist: str | None = None):
         "videos": ep_videos,
         "video_events": ep_video_events,
         "search": ep_search,
-        "upload": ep_not_ported,
-        "upload_status": ep_not_ported,
+        "upload": ep_upload,
+        "upload_status": ep_upload_status,
         "frame": ep_frame,
         "video_file": ep_video_file,
         "transcribe": ep_transcribe,

@@ -14,9 +14,10 @@ dictionary translator unless another ``preprocessor`` is given. Image search
 runs through each model's one-call ``ImageSearcher``; a hybrid query encodes
 the image and the text apart and searches their blend through
 ``FrameIndex.search_raw``, as the JAX package does. ``boot`` also loads each
-video's ASR transcript (speech search). Not ported yet: ingest and upload
-jobs, with their ``annotator`` and ``scene_threshold`` arguments (ROADMAP
-A11).
+video's ASR transcript (speech search). ``ingest`` runs the ingest pipeline
+into the live state (``ingest.pipeline.ingest_video``) and empties the
+caches; ``ingest_jobs`` runs uploads in the background (``serving/jobs.py``),
+each ending in ``upload_payload``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import numpy as np
 from evr_tpu_torch.config import DataRootConfig
 from evr_tpu_torch.index import EmbeddingEngine, FrameIndex, VideoRegistry
 from evr_tpu_torch.index.fused_image_search import ImageSearcher
+from evr_tpu_torch.ingest.pipeline import ingest_video, video_fps
+from evr_tpu_torch.ingest.transcripts import transcript_path_for
 from evr_tpu_torch.ops.preprocess import stage_array_fast
 from evr_tpu_torch.query.events import format_event_for_frontend
 from evr_tpu_torch.query.metadata import MetadataStore
@@ -38,12 +41,6 @@ from evr_tpu_torch.query.strategies import QueryEngine
 from evr_tpu_torch.utils import get_logger
 
 from .cache import TTLCache
-
-
-def transcript_path_for(metadata_file, video_name: str) -> pathlib.Path:
-    """Sidecar convention: the transcript lives next to the metadata file as
-    ``{video}_transcript.json``."""
-    return pathlib.Path(metadata_file).parent / f"{video_name}_transcript.json"
 
 
 def decode_image(data: bytes) -> np.ndarray:
@@ -60,18 +57,6 @@ def decode_image(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(bgr[:, :, ::-1])
 
 
-def video_fps(video_path) -> float:
-    """Container fps, 25.0 when the file cannot be read."""
-    import cv2
-
-    cap = cv2.VideoCapture(str(video_path))
-    try:
-        fps = cap.get(cv2.CAP_PROP_FPS) if cap.isOpened() else 0.0
-    finally:
-        cap.release()
-    return fps if fps and fps > 0 else 25.0
-
-
 class ServingContext:
     def __init__(
         self,
@@ -86,6 +71,8 @@ class ServingContext:
         batch_window_ms: float | None = None,
         transcriber=None,
         preprocessor=None,
+        scene_threshold: float = 30.0,
+        annotator=None,
     ):
         """``index_dtype``, ``search_impl``, ``ivf_nprobe``, ``ivf_clusters``,
         ``ivfpq_host_store`` and ``mesh``: see ``FrameIndex``; applied to
@@ -95,7 +82,10 @@ class ServingContext:
         (``serving.batcher``); None disables. ``transcriber``: a
         ``serving.providers`` object for /api/transcribe-voice (None: the
         route answers 501). ``preprocessor``: the query hook; None is the
-        Vietnamese pipeline with the zero-egress dictionary translator."""
+        Vietnamese pipeline with the zero-egress dictionary translator.
+        ``scene_threshold``: the content threshold of an upload's scene
+        detection; ``annotator``: the default frame annotator of uploads
+        (``ingest.annotate``; None gives empty detections)."""
         self.data_root = (
             data_root
             if isinstance(data_root, DataRootConfig)
@@ -118,6 +108,9 @@ class ServingContext:
 
             preprocessor = VietnamesePreprocessor(translator=DictionaryTranslator())
         self.preprocessor = preprocessor
+        self.annotator = annotator
+        self.scene_threshold = scene_threshold
+        self._ingest_jobs = None
         self.index_dtype = index_dtype
         self.search_impl = search_impl
         self.ivf_nprobe = ivf_nprobe
@@ -296,6 +289,58 @@ class ServingContext:
             "size": f"{p.stat().st_size // (1024 * 1024)} MB",
             "resolution": info["resolution"],
             "path": str(video_path),
+        }
+
+    # -- ingest -------------------------------------------------------------
+    def ingest(self, video_path, video_name=None, annotator=None, progress=None):
+        """Ingest one video into the active model's index, the metadata store
+        and the registry (``ingest.pipeline.ingest_video``), then empty the
+        search and view caches."""
+        result = ingest_video(
+            video_path,
+            self.data_root,
+            self.engine,
+            index=self.index,
+            registry=self.registry,
+            metadata_store=self.metadata,
+            annotator=annotator if annotator is not None else self.annotator,
+            scene_threshold=self.scene_threshold,
+            video_name=video_name,
+            progress=progress,
+        )
+        self.search_cache.invalidate()
+        self.viz_cache.invalidate()
+        return result
+
+    @property
+    def ingest_jobs(self):
+        """The background ingest-job manager (``serving/jobs.py``), made at
+        first use."""
+        if self._ingest_jobs is None:
+            from .jobs import IngestJobManager
+
+            self._ingest_jobs = IngestJobManager()
+        return self._ingest_jobs
+
+    def upload_payload(self, save_path, video_name, model_name, result) -> dict:
+        """The upload response body: the synchronous upload's answer and an
+        async job's final payload."""
+        info = self.video_file_info(str(save_path))
+        return {
+            "status": "success",
+            "message": "Video processed successfully",
+            "video": {
+                "id": f"video-{int(time.time())}",
+                "title": video_name,
+                "thumbnail": self.first_frame(result.frames_dir),
+                "path": str(save_path),
+                "uploadDate": time.strftime("%Y-%m-%d"),
+                "size": f"{save_path.stat().st_size // (1024 * 1024)} MB",
+                "resolution": info["resolution"],
+                "duration": info["duration"],
+                "embedding_model": model_name,
+                "frames": result.n_frames,
+            },
         }
 
     # -- image and hybrid search ------------------------------------------

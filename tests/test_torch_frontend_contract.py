@@ -4,9 +4,9 @@
 React frontend sends or reads; each endpoint the port serves is replayed
 through the WSGI client and must carry them (the JAX package's
 ``tests/test_frontend_contract.py``, over a root written by
-``torch_route_root`` since the port has no ingest yet). Upload and upload
-status answer 501 naming ROADMAP A11. The UI checks are
-``tests/test_ui_contract.py``'s, on the port's page and the port's routes.
+``torch_route_root``; the upload routes ingest a cv2-written video into it).
+The UI checks are ``tests/test_ui_contract.py``'s, on the port's page and the
+port's routes.
 """
 
 import io
@@ -14,6 +14,7 @@ import json
 import pathlib
 import re
 
+import numpy as np
 import pytest
 
 cv2 = pytest.importorskip("cv2")
@@ -110,15 +111,41 @@ def test_transcribe_umap_and_binaries(client):
         assert part.status_code == 206 and part.get_data() == full.get_data()[:10]
 
 
+def _write_video(path, n=40):
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (64, 64))
+    for i in range(n):
+        frame = np.zeros((64, 64, 3), np.uint8)
+        frame[:, :, 0 if i < n // 2 else 2] = 200
+        writer.write(frame)
+    writer.release()
+    return path.read_bytes()
+
+
 def test_upload_routes_answer_501_naming_ingest(client, tmp_path):
-    video = tmp_path / "up.mp4"
-    video.write_bytes(b"\x00" * 64)
-    for resp in (client.post("/api/upload-video", data={"video": (io.BytesIO(video.read_bytes()), "up.mp4")}),
-                 client.post("/api/upload-video", data={"video": (io.BytesIO(b"x"), "up.mp4"), "sync": "1"}),
-                 client.get("/api/upload-status/abc123")):
-        assert resp.status_code == 501
-        assert "A11" in payload(resp)["error"]
-    assert not (client.application.ctx.data_root.video_dir / "up").exists()
+    """The upload routes, which answered 501 before ingest was ported, now
+    carry the contract's fields: the synchronous upload's payload, the async
+    202 and the upload status, whose final state carries the same payload."""
+    legacy = CONTRACT["POST /api/upload-video"]
+    resp = client.post("/api/upload-video", data={
+        "video": (io.BytesIO(_write_video(tmp_path / "up.mp4")), "up.mp4"), "sync": "1"})
+    assert resp.status_code == 200
+    data = payload(resp)
+    _fields(data, legacy["fields"], "upload response")
+    assert data["status"] == "success" and data["video"]["frames"] == 2
+    _fields(data["video"], legacy["video_fields"], "upload response .video")
+
+    resp = client.post("/api/upload-video", data={
+        "video": (io.BytesIO(_write_video(tmp_path / "up_async.mp4")), "up_async.mp4")})
+    assert resp.status_code == 202
+    data = payload(resp)
+    _fields(data, CONTRACT["POST /api/upload-video (async)"]["fields"], "async upload response")
+    job = client.application.ctx.ingest_jobs.wait(data["job_id"], timeout=120)
+    assert job.state == "done", job.error
+    status = payload(client.get(data["status_url"]))
+    _fields(status, CONTRACT["GET /api/upload-status/<id>"]["fields"], "upload status")
+    _fields(status, legacy["fields"], "final upload status")
+    _fields(status["video"], legacy["video_fields"], "final status .video")
+    assert client.get("/api/upload-status/abc123").status_code == 404
 
 
 def _document():

@@ -28,7 +28,8 @@ for name in names:
     importlib.import_module(name)
 # the ANN slice: K7's wrapper, the three tiers and the offline CLI; the
 # flash-attention slice: K6's wrapper; K8's wrapper; the query layer, the
-# views and the served routes
+# views and the served routes; the native stager, ingest, the upload jobs and
+# the ingest tools
 for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.index.pq",
              "evr_tpu_torch.index.ivfpq", "evr_tpu_torch.tools.index_tool",
              "evr_tpu_torch.ops.attention", "evr_tpu_torch.ops.layernorm",
@@ -39,7 +40,14 @@ for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.
              "evr_tpu_torch.viz.projection", "evr_tpu_torch.serving.providers",
              "evr_tpu_torch.serving.ui", "evr_tpu_torch.serving.app",
              "evr_tpu_torch.serving.context", "evr_tpu_torch.serving.__main__",
-             "evr_tpu_torch.utils.profiling"):
+             "evr_tpu_torch.utils.profiling", "evr_tpu_torch.native",
+             "evr_tpu_torch.native.loader", "evr_tpu_torch.index.stream",
+             "evr_tpu_torch.ingest", "evr_tpu_torch.ingest.scene", "evr_tpu_torch.ingest.frames",
+             "evr_tpu_torch.ingest.annotate", "evr_tpu_torch.ingest.annotators",
+             "evr_tpu_torch.ingest.best_frame", "evr_tpu_torch.ingest.transcripts",
+             "evr_tpu_torch.ingest.pipeline", "evr_tpu_torch.serving.jobs",
+             "evr_tpu_torch.tools.ingest", "evr_tpu_torch.tools.export_embeddings",
+             "evr_tpu_torch.tools.retrieve"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)
@@ -63,6 +71,7 @@ def test_port_imports_without_jax_or_evr_tpu():
 def _port_files():
     files = sorted((ROOT / "evr_tpu_torch").rglob("*.py"))
     files += sorted((ROOT / "evr_tpu_torch").rglob("*.cu*"))
+    files += sorted((ROOT / "evr_tpu_torch").rglob("*.cc"))
     return files + [ROOT / "chip_smoke.py"]
 
 

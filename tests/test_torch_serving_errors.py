@@ -4,8 +4,8 @@ what it has not ported yet.
 Both apps run over empty data roots (request validation happens before any
 search); a malformed ``/api/search`` body must give the JAX app's status and
 payload, as must the requests that answered 501 before their routes and
-methods were ported; upload and upload status, which need the ingest
-pipeline, answer 501 and name its ROADMAP item (A11).
+methods were ported (upload without a file, the status of an unknown upload
+job among them).
 """
 
 import json
@@ -64,22 +64,12 @@ def test_validation_errors_match(clients, body):
     ("GET", "/api/models", None),
     ("GET", "/api/video/video-1/events", None),
     ("GET", "/api/search", None),
+    ("POST", "/api/upload-video", {}),
+    ("POST", "/api/upload-video", {"sync": "1"}),
+    ("GET", "/api/upload-status/job-1", None),
 ])
 def test_formerly_unported_requests_match_jax(clients, method, path, body):
     jc, tc = clients
     jr, tr = jc.open(path, method=method, json=body), tc.open(path, method=method, json=body)
     assert tr.status_code == jr.status_code
     assert _payload(tr) == _payload(jr)
-
-
-@pytest.mark.parametrize("method,path,kwargs", [
-    ("POST", "/api/upload-video", {}),
-    ("POST", "/api/upload-video", {"data": {"sync": "1"}}),
-    ("GET", "/api/upload-status/job-1", {}),
-])
-def test_unported_routes_answer_501(clients, method, path, kwargs):
-    _, tc = clients
-    resp = tc.open(path, method=method, **kwargs)
-    assert resp.status_code == 501
-    error = _payload(resp)["error"]
-    assert "not yet ported" in error and "A11" in error

@@ -229,8 +229,8 @@ def test_cli_refuses_unported_flags(capsys):
     from evr_tpu_torch.serving.__main__ import main
 
     for argv, item in ((["--model-family", "siglip"], "A17"), (["--siglip-hf", "/x"], "A17"),
-                       (["--shard-index"], "A15"), (["--zeroshot-objects"], "A11"),
-                       (["--local-ocr", "on"], "A11"),
+                       (["--shard-index"], "A15"), (["--zeroshot-objects"], "A17"),
+                       (["--local-ocr", "on"], "A17"),
                        (["--frontend-dist", "dist", "--transcriber", "none", "--shard-index"], "A15")):
         with pytest.raises(SystemExit):
             main(argv)
