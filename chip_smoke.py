@@ -217,7 +217,27 @@ package. Phases, each fatal on failure:
    720 JPEGs on the native pipelined path (an undecodable one skipped by
    index), against the stager alone and ``encode_staged_images`` alone, its
    rows equal to the latter's; cv2's JPEG decode against PIL's; an upload of
-   bytes that are no video ending its job in "error".
+   bytes that are no video ending its job in "error";
+16. the benchmark harness and the trainer variants: ``tools.evaluate.main``
+   over 1,000 seeded 500 x 375 JPEGs with 5 captions each and a perturbed
+   ViT-B/32 reference file (bf16, K1/K2; JSON, CSV and the three-sheet
+   workbook, read back), each model's image and caption rows held to a
+   plain-route twin over the same staged pixels and tokens (row cosine, each
+   t2i / i2t rank within the served band of the twin's ground-truth score,
+   R@K and MRR within the share of queries with a candidate in the band;
+   rows off by cosine 0.999 and two images swapped must fail); ``--excel``
+   on a multi-GT test set (P@K), ``--classification-dirs`` over three class
+   folders of 128 JPEGs (the file's head, a probe, then ``--zeroshot``),
+   ``tools.ab_compare`` and ``tools.diagnose`` (exit 0), K1/K2 launches equal
+   to their encode batches; a ``ModelComparison`` over int8 weights
+   (K3a/K3b) against its plain twin in the int8 bands; ``ProgressiveTrainer``
+   at ViT-L/14@336px (both towers at full width, batch 32, bf16) through
+   phases 1-3, two steps each, and ``CatLIPTrainer`` there, against
+   ``plain_grad`` twins (losses, each phase's first step bit-still, each
+   trainable leaf's update by cosine, an update turned to cosine 0.99
+   rejected), K1/K2/K5a/K5b 24 launches a step in every phase; and
+   ``ProjectionTrainer`` at ViT-B/32 (frozen CLIP), its ``encode_projected``
+   through K1/K2 against a plain twin's rows.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -4504,10 +4524,7 @@ def hold_ingested_rows(torch, engine, ctx, name: str, noise: float, what: str) -
     k = min(SEARCH_K, len(rows) // 2)  # a short video holds a few dozen scenes
     txt, txt_ref = engine.encode_texts(list(QUERIES)), plain.encode_texts(list(QUERIES))
     bad, overlaps, band, diff = rank_check(rows, ref, txt, txt_ref, noise, k)
-    off = rows + np.random.default_rng(0).standard_normal(rows.shape).astype(np.float32) * math.sqrt(
-        (1 / EMBED_MIN_COS ** 2 - 1) / rows.shape[1])
-    off /= np.linalg.norm(off, axis=1, keepdims=True)
-    off_cos = float((off * ref).sum(1).min())
+    off_cos = float((rows_off_by(rows, EMBED_MIN_COS, 0) * ref).sum(1).min())
     # rows handed to the wrong frames: the plain path's first and last frame
     # under the first query swap rows
     order = np.argsort(-(ref @ txt_ref[0]), kind="stable")
@@ -4777,6 +4794,619 @@ def phase_ingest(torch) -> dict:
     return out
 
 
+# -- 16. the benchmark harness and the trainer variants ------------------------
+
+# The retrieval benchmark at ViT-B/32 (bf16 weights, K1/K2): HARNESS_IMAGES
+# seeded JPEGs of a Flickr30k image's size (the CLI's --max-images default),
+# HARNESS_CAPTIONS captions each, in the reference harness's caption CSV; an
+# Excel test set of HARNESS_EXCEL_ROWS rows with one to three ground-truth
+# images over the first HARNESS_EXCEL_IMAGES images; HARNESS_CLASS_IMAGES
+# JPEGs in each of three class folders; a reference .pt of the engines'
+# weights perturbed by HARNESS_PERTURB of each leaf's spread, with a 3-class
+# head. Each run's features are held to a twin engine on the plain route
+# over the same staged pixels and tokens: unit rows within EMBED_MIN_COS, and
+# each t2i / i2t rank off the twin's only by candidates the twin scores within
+# the served band (bf16 SERVED_RANK_NOISE, int8 INT8_SERVED_RANK_NOISE) of
+# the ground truth's twin score; R@K and MRR then differ by at most the share
+# of queries that have such a candidate.
+HARNESS_SEED = 17
+HARNESS_IMAGES, HARNESS_CAPTIONS = 1000, 5
+HARNESS_SIZE = (500, 375)  # width, height
+HARNESS_BLOCK = 25  # the seeded scenes' colour blocks, pixels
+HARNESS_EXCEL_IMAGES, HARNESS_EXCEL_ROWS = 200, 300
+HARNESS_CLASSES = ("Violence", "Sensitive", "NonViolence")
+HARNESS_CLASS_IMAGES = 128
+HARNESS_PERTURB = 0.05
+HARNESS_WORDS = ("a", "man", "woman", "red", "car", "crowd", "street", "dog", "boat", "sign", "night",
+                 "people", "running", "park", "fight", "water", "two", "on", "the", "bicycle")
+HARNESS_DIAG_BATCHES = (1, 8, 16, 32)  # tools.diagnose's default sweep
+# The trainer variants at ViT-L/14@336px (both towers at full width, batch
+# TRAIN_BATCH, bf16) against twins on attn_impl="plain_grad" from the same
+# params, batch and dropout seed: each step's loss within STEP_BF16_BANDS[0]
+# (relative); each phase's first step (rate 0) leaves every param bit-equal
+# and no frozen leaf ever moves; at each phase's second step (and each
+# CatLIP step) the gradients through ``gradients`` with the step's draw are
+# held as phase 6 holds a bf16 step (STEP_BF16_BANDS: the grad norm, and by
+# cosine each leaf of the vision blocks, which K5 computes, frozen or not; a
+# gradient turned to cosine 0.99 must fail). A leaf outside them moves with
+# the bf16 noise of the features (the heads' and the text tower's sums over
+# the batch nearly cancel: 0.9946 in a probe run). The updates are
+# reported, not held (``twin_steps``); the key third of each qkv bias is
+# left out of its leaf's update cosine: its gradient is zero in exact
+# arithmetic (the softmax ignores a shift shared by a query's keys).
+VARIANT_STEPS = 2  # steps per progressive phase; CatLIP and projection steps
+VARIANT_CLASSES = 3
+
+
+def quiet(fn, argv):
+    """``fn(argv)`` with its standard output captured: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(argv)
+    return result, buf.getvalue()
+
+
+def harness_images(torch, n: int, seed: int):
+    """uint8 [n, H, W, 3] seeded scenes of HARNESS_SIZE on the host: a
+    random colour per HARNESS_BLOCK block, a horizontal ramp and noise."""
+    w, h = HARNESS_SIZE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for lo in range(0, n, 200):
+        m = min(200, n - lo)
+        layout = torch.randint(0, 256, (m, h // HARNESS_BLOCK, w // HARNESS_BLOCK, 3), generator=gen,
+                               device="cuda").float()
+        layout = layout.repeat_interleave(HARNESS_BLOCK, 1).repeat_interleave(HARNESS_BLOCK, 2)
+        ramp = torch.linspace(-30, 30, w, device="cuda")
+        noise = torch.randn((m, h, w, 3), generator=gen, device="cuda") * 4
+        out.append((layout + ramp[None, None, :, None] + noise).clamp(0, 255).to(torch.uint8).cpu().numpy())
+    return out
+
+
+def write_jpegs(torch, folder: pathlib.Path, n: int, seed: int) -> list[str]:
+    import cv2
+
+    folder.mkdir(parents=True, exist_ok=True)
+    names = []
+    for chunk in harness_images(torch, n, seed):
+        for img in chunk:
+            name = f"{len(names):05d}.jpg"
+            cv2.imwrite(str(folder / name), img[:, :, ::-1])
+            names.append(name)
+    return names
+
+
+def write_harness_data(torch, root: pathlib.Path) -> dict:
+    """The harness's inputs under ``root``: images/ with captions.csv,
+    testset.xlsx (folder | caption | image, multi-GT rows over images/),
+    classes/<class>/ and ft.pt (the perturbed reference file)."""
+    import numpy as np
+
+    from evr_tpu_torch.models import get_model_config, init_clip_params
+    from evr_tpu_torch.models.classifier import ClassifierConfig, init_classifier_params
+    from evr_tpu_torch.models.torch_export import save_reference_checkpoint
+    from evr_tpu_torch.training.partition import map_with_paths
+    from evr_tpu_torch.utils.xlsx import write_xlsx
+
+    rng = np.random.default_rng(HARNESS_SEED)
+    names = write_jpegs(torch, root / "images", HARNESS_IMAGES, HARNESS_SEED)
+    rows = ["image_name| comment_number| comment"]
+    rows += [f"{n}| {c}| {' '.join(rng.choice(HARNESS_WORDS, size=7))}"
+             for n in names for c in range(HARNESS_CAPTIONS)]
+    (root / "captions.csv").write_text("\n".join(rows))
+    sheet = [["folder", "caption", "image"]]
+    for _ in range(HARNESS_EXCEL_ROWS):
+        picks = rng.choice(HARNESS_EXCEL_IMAGES, size=int(rng.integers(1, 4)), replace=False)
+        sheet.append(["images", " ".join(rng.choice(HARNESS_WORDS, size=6)),
+                      ";".join(names[i] for i in sorted(picks))])
+    write_xlsx(root / "testset.xlsx", {"Sheet1": sheet})
+    for i, c in enumerate(HARNESS_CLASSES):
+        write_jpegs(torch, root / "classes" / c, HARNESS_CLASS_IMAGES, HARNESS_SEED + 1 + i)
+    cfg = get_model_config(MODEL)
+
+    def perturb(_, leaf):
+        if leaf.size < 2:
+            return leaf
+        return leaf + HARNESS_PERTURB * leaf.std() * rng.standard_normal(leaf.shape, dtype=np.float32)
+
+    tuned = map_with_paths(init_clip_params(0, cfg), perturb)  # the engines' rng_seed 0 weights, moved
+    head = init_classifier_params(HARNESS_SEED, ClassifierConfig(embed_dim=cfg.embed_dim,
+                                                                  num_classes=len(HARNESS_CLASSES)))
+    save_reference_checkpoint(root / "ft.pt", tuned, head)
+    return {"images": root / "images", "captions": root / "captions.csv", "excel": root / "testset.xlsx",
+            "classes": root / "classes", "ckpt": root / "ft.pt"}
+
+
+def band_rank_check(torch, got, ref, gt, band: float) -> dict:
+    """Ranks of [Q, C] candidate scores, query by query: the rank of a query
+    is 1 + the count of candidates scoring strictly above its best
+    ground-truth candidate (``gt``, a [Q, C] mask). A candidate counted in
+    one of ``got`` / ``ref`` and not the other is a violation unless ``ref``
+    scores it within ``band`` of the query's best ground-truth score there.
+    Returns the violations, the queries with a candidate within the band,
+    and both rank vectors."""
+    neg = torch.tensor(float("-inf"), device=got.device)
+    m_got = torch.where(gt, got, neg).amax(1, keepdim=True)
+    m_ref = torch.where(gt, ref, neg).amax(1, keepdim=True)
+    above_got, above_ref = got > m_got, ref > m_ref
+    near = ((ref - m_ref).abs() <= band) & ~gt
+    return {"violations": int(((above_got ^ above_ref) & ~near).sum()), "uncertain": int(near.any(1).sum()),
+            "ranks": (1 + above_got.sum(1)).cpu().numpy(), "ref_ranks": (1 + above_ref.sum(1)).cpu().numpy()}
+
+
+def rows_off_by(rows, cos: float, seed: int):
+    """Unit rows turned by about ``cos`` away from ``rows`` (a control)."""
+    import numpy as np
+
+    off = rows + np.random.default_rng(seed).standard_normal(rows.shape).astype(np.float32) * math.sqrt(
+        (1 / cos ** 2 - 1) / rows.shape[1])
+    return off / np.linalg.norm(off, axis=1, keepdims=True)
+
+
+def hold_harness(torch, what: str, got, ref, dataset, results: dict, band: float) -> dict:
+    """One harness run's features (``got``: the kernel route's unit image
+    and caption rows, as the run ranked them) against a plain-route twin's
+    (``ref``) on the same dataset: rows, ranks within ``band``, R@K and MRR
+    within the share of queries with a candidate in the band, the run's own
+    ranks recomputed equal; and the two controls (image rows off by cosine
+    EMBED_MIN_COS; two images' rows swapped), which must fail."""
+    import numpy as np
+
+    from evr_tpu_torch.evaluation.retrieval import _similarity_matrix, metrics_from_ranks
+
+    (img, txt), (img_p, txt_p) = got, ref
+    row_cos = {"images": float((img * img_p).sum(1).min()), "captions": float((txt * txt_p).sum(1).min())}
+    row_of = {image_id: i for i, image_id in enumerate(dataset.image_ids)}
+    gt_row = torch.tensor([row_of[c] for c in dataset.caption_image_ids], device="cuda")
+    cap_gt = torch.nn.functional.one_hot(gt_row, len(img)).bool()  # [M, N]
+
+    def ranks_of(i, t, ip, tp):
+        s, sp = (torch.from_numpy(_similarity_matrix(a, b, "cuda")).cuda() for a, b in ((i, t), (ip, tp)))
+        return (band_rank_check(torch, s.T, sp.T, cap_gt, band),
+                band_rank_check(torch, s, sp, cap_gt.T, band))
+
+    t2i, i2t = ranks_of(img, txt, img_p, txt_p)
+    out = {"row_cos": row_cos, "violations": t2i["violations"] + i2t["violations"], "metric_gap": {},
+           "share": {}}
+    check(t2i["ranks"].tolist() == results["t2i_ranks"] and i2t["ranks"].tolist() == results["i2t_ranks"],
+          f"{what}: the captured features do not give the run's ranks")
+    for d, r in (("t2i", t2i), ("i2t", i2t)):
+        twin = metrics_from_ranks(r["ref_ranks"])
+        share = r["uncertain"] / len(r["ranks"])
+        gap = max(abs(results[d][k] - twin[k]) for k in ("R@1", "R@5", "R@10", "MRR"))
+        out["metric_gap"][d], out["share"][d] = gap, share
+        check(gap <= share, f"{what}: {d} R@K / MRR {gap} off the twin's, more than the share {share} "
+                            f"of queries with a candidate within {band}")
+    off_cos = float((rows_off_by(img, EMBED_MIN_COS, HARNESS_SEED) * img_p).sum(1).min())
+    a = 0
+    b = int(np.argmin(img_p @ txt_p[0]))  # image 0's first caption scores image b lowest
+    swapped = img.copy()
+    swapped[[a, b]] = img[[b, a]]
+    swap = sum(r["violations"] for r in ranks_of(swapped, txt, img_p, txt_p))
+    out["controls"] = {"rows_off_cos": off_cos, "swapped_violations": swap}
+    log(f"{what}: least row cosine images {row_cos['images']:.6f}, captions {row_cos['captions']:.6f} "
+        f"(band {EMBED_MIN_COS}); rank violations {out['violations']} (band {band}); R@K / MRR off the twin's "
+        f"by {json.dumps({k: round(v, 6) for k, v in out['metric_gap'].items()})}, queries with a candidate "
+        f"in the band {json.dumps({k: round(v, 4) for k, v in out['share'].items()})}; controls: rows off by "
+        f"cosine {EMBED_MIN_COS} least {off_cos:.6f}, images 0 and {b} swapped {swap} violations")
+    check(min(row_cos.values()) >= EMBED_MIN_COS, f"{what}: row cosine {row_cos} < {EMBED_MIN_COS}")
+    check(out["violations"] == 0, f"{what}: {out['violations']} ranks off the twin's beyond {band}")
+    check(off_cos < EMBED_MIN_COS and swap > 0,
+          f"{what}: a control passed (rows {off_cos}, swapped images {swap} violations)")
+    return out
+
+
+def twin_features(torch, engine, staged, tokens) -> tuple:
+    """Unit image and caption rows of ``engine`` from staged pixels and
+    tokens (``encode_texts`` after its tokenizer)."""
+    import numpy as np
+
+    from evr_tpu_torch.models.clip import encode_text
+
+    with torch.inference_mode():
+        txt = encode_text(engine.params, engine.cfg, torch.from_numpy(tokens).to(engine.device),
+                          dtype=engine.compute_dtype, eot_fast_final=True).cpu().numpy()
+    txt = txt / np.maximum(np.linalg.norm(txt, axis=-1, keepdims=True), 1e-12)
+    return engine.encode_staged_images(staged, normalise=True), txt
+
+
+def phase_harness(torch) -> dict:
+    """The retrieval and classification benchmark (A12) on the card. (a)
+    ``tools.evaluate.main`` over HARNESS_IMAGES JPEGs and their captions,
+    the base model and the fine-tuned reference file (bf16 weights, K1/K2),
+    its JSON / CSV / XLSX written (the workbook read back), each model's
+    features held to a plain-route twin (``hold_harness``); ``--excel`` on
+    the multi-GT test set (P@K); ``--classification-dirs`` through the
+    checkpoint's trained head and a probe, then ``--zeroshot``;
+    ``tools.ab_compare`` and ``tools.diagnose`` (exit 0). K1/K2 launches over
+    those runs equal to their encode batches. (b) A ``ModelComparison`` over
+    an int8 engine (K3a/K3b) held to its plain twin in the int8 bands."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from evr_tpu_torch.evaluation import EngineAdapter, ModelComparison
+    from evr_tpu_torch.evaluation import compare as compare_module
+    from evr_tpu_torch.evaluation.datasets import load_captions_csv
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.models import get_model_config
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.ops.preprocess import stage_image_fast
+    from evr_tpu_torch.tokenizer import get_default_tokenizer
+    from evr_tpu_torch.tools import ab_compare, diagnose, evaluate
+    from evr_tpu_torch.utils.xlsx import read_xlsx
+
+    cfg = get_model_config(MODEL)
+    v_launch, t_launch = cfg.vision.layers - 1, cfg.text.layers - 1
+    batches = lambda n: -(-n // BATCH)  # noqa: E731
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        data = write_harness_data(torch, root)
+        log(f"harness inputs: {HARNESS_IMAGES} JPEGs of {HARNESS_SIZE[0]} x {HARNESS_SIZE[1]}, "
+            f"{HARNESS_IMAGES * HARNESS_CAPTIONS} captions, {HARNESS_EXCEL_ROWS} Excel rows, "
+            f"{len(HARNESS_CLASSES)} x {HARNESS_CLASS_IMAGES} class JPEGs, ft.pt "
+            f"({data['ckpt'].stat().st_size / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s")
+        captured, real = [], compare_module.evaluate_retrieval
+
+        def recording(img, txt, *args, **kwargs):
+            captured.append((img, txt))
+            return real(img, txt, *args, **kwargs)
+
+        dev = ["--device", "cuda", "--model", MODEL]
+        ckpt = ["--checkpoint", str(data["ckpt"])]
+        classes = ["--classification-dirs", *(f"{c}={data['classes'] / c}" for c in HARNESS_CLASSES)]
+        runs, seconds, texts = {}, {}, {}
+        counted = [bf.fused_attn_block, bf.fused_mlp_block]
+        compare_module.evaluate_retrieval = recording
+        try:
+            for fn in counted:
+                fn.launches = 0
+            for name, fn, argv in (
+                ("captions", evaluate.main, ["--images-dir", str(data["images"]), "--captions-csv",
+                                             str(data["captions"]), "--output-dir", str(root / "out"), *ckpt]),
+                ("excel", evaluate.main, ["--images-dir", str(root), "--excel", str(data["excel"]),
+                                          "--output-dir", str(root / "out_excel")]),
+                ("classification", evaluate.main, [*classes, "--images-dir", str(data["images"]),
+                                                   "--output-dir", str(root / "out_cls"), *ckpt]),
+                ("zeroshot", evaluate.main, [*classes, "--zeroshot", "--images-dir", str(data["images"]),
+                                             "--output-dir", str(root / "out_zs"), *ckpt]),
+                ("ab_compare", ab_compare.main, ["--frames-dir", str(data["classes"] / HARNESS_CLASSES[0]),
+                                                 "--queries", *QUERIES, "--output", str(root / "ab.json"), *ckpt]),
+                ("diagnose", diagnose.main, ckpt),
+            ):
+                t0 = time.perf_counter()
+                runs[name], texts[name] = quiet(fn, argv + dev)
+                torch.cuda.synchronize()
+                seconds[name] = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+        finally:
+            compare_module.evaluate_retrieval = real
+        n_cls = len(HARNESS_CLASSES) * HARNESS_CLASS_IMAGES
+        excel_images = len(captured[2][0])  # captured: the two captions models, then the Excel run
+        expected = (2 * (batches(HARNESS_IMAGES) * v_launch + t_launch)  # captions: two models
+                    + batches(excel_images) * v_launch + t_launch  # excel: the base model
+                    + 2 * batches(n_cls) * v_launch  # classification
+                    + 2 * (batches(n_cls) * v_launch + t_launch)  # zero-shot: all prompts in one encode
+                    + 2 * (v_launch + t_launch * len(QUERIES))  # ab_compare: one folder batch, a query each
+                    + v_launch * (1 + len(HARNESS_DIAG_BATCHES)))  # diagnose: 8 frames, then the sweep
+        log(f"harness launches {json.dumps(launches)} (expected {expected} each); seconds "
+            f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
+        check(all(n == expected for n in launches.values()), f"harness launches {launches}, expected {expected}")
+
+        # (a) the captions run: outputs, speeds, the table, then the twin
+        results = runs["captions"]
+        book = read_xlsx(root / "out" / "comparison_results.xlsx")
+        saved = json.loads((root / "out" / "comparison_results.json").read_text())
+        check(list(book) == ["Text-to-Image", "Image-to-Text", "Mean Metrics"], f"workbook sheets {list(book)}")
+        for title, key in (("Text-to-Image", "t2i"), ("Image-to-Text", "i2t"), ("Mean Metrics", "mean")):
+            for row in book[title][1:]:
+                check(row[1:7] == [saved[row[0]][key][m] for m in ("R@1", "R@5", "R@10", "MRR", "Median_Rank",
+                                                                     "Mean_Rank")], f"workbook {title} {row}")
+        check((root / "out" / "comparison_results.csv").exists(), "no CSV report")
+        speeds = {}
+        for name, r in results.items():
+            speeds[name] = {"images_per_s": HARNESS_IMAGES / r["encode_image_seconds"],
+                            "captions_per_s": HARNESS_IMAGES * HARNESS_CAPTIONS / r["encode_text_seconds"]}
+        table = texts["captions"][texts["captions"].index("\nmodel") + 1:].split("wrote")[0].rstrip()
+        for line in table.splitlines():
+            log(f"  {line}")
+        log(f"harness encode rates (images include cv2 staging): {json.dumps({k: {m: round(x, 1) for m, x in v.items()} for k, v in speeds.items()})}")
+        check(results["clip_original"]["mean"] != results["clip_finetuned"]["mean"],
+              "the fine-tuned file ranks as the base model does")
+        dataset = load_captions_csv(data["captions"], data["images"], max_images=HARNESS_IMAGES)
+        staged = np.stack([stage_image_fast(p, cfg.vision.image_size) for p in dataset.ordered_paths])
+        tokens = get_default_tokenizer()(dataset.captions, context_length=cfg.text.context_length)
+        plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
+        held = {}
+        for i, (name, twin) in enumerate((
+            ("clip_original", lambda: EmbeddingEngine(MODEL, cfg=plain_cfg, device="cuda")),
+            ("clip_finetuned", lambda: EmbeddingEngine.from_checkpoint(data["ckpt"], MODEL, cfg=plain_cfg,
+                                                                     device="cuda")),
+        )):
+            held[name] = hold_harness(torch, f"harness bf16 {name}", captured[i],
+                                      twin_features(torch, twin(), staged, tokens), dataset, results[name],
+                                      SERVED_RANK_NOISE)
+        # --excel (P@K), classification, zero-shot, ab_compare, diagnose
+        multi = runs["excel"]["clip_original"]["multi_gt"]
+        log(f"harness --excel: {excel_images} images, {HARNESS_EXCEL_ROWS} rows: "
+            f"{json.dumps({k: round(v, 4) for k, v in multi.items()})}")
+        check(all(0.0 <= multi[f"P@{k}"] <= 1.0 for k in (1, 5, 10)) and math.isfinite(multi["MRR"]),
+              f"--excel multi-GT metrics {multi}")
+        modes = {tag: {m: (r["mode"], round(r["accuracy"], 4), round(r["f1_macro"], 4))
+                       for m, r in runs[tag].items()} for tag in ("classification", "zeroshot")}
+        log(f"harness classification over {n_cls} images (mode, accuracy, F1): {json.dumps(modes)}")
+        check(modes["classification"]["original"][0] == "linear_probe"
+              and modes["classification"]["finetuned"][0] == "trained_head"
+              and {m[0] for m in modes["zeroshot"].values()} == {"zeroshot"}, f"classification modes {modes}")
+        ab = json.loads((root / "ab.json").read_text())
+        check(set(ab) == {"original", "finetuned"} and all(
+            len(hits) == SEARCH_K and all(math.isfinite(h["similarity"]) for h in hits)
+            for per in ab.values() for hits in per.values()) and ab["original"] != ab["finetuned"],
+            "ab_compare results")
+        rc = runs["diagnose"]
+        report = json.loads(texts["diagnose"])
+        log(f"harness diagnose: exit {rc}, dtypes {report['dtype']['dtypes']}, freeze audit "
+            f"{report['freeze_audit']['tensor_counts_by_group']}, sweep "
+            f"{ {k: v.get('output_shape') for k, v in report['batch_size_sweep'].items() if isinstance(v, dict)} }")
+        check(rc == 0 and report["ok"], f"tools.diagnose exit {rc}: {texts['diagnose'][-2000:]}")
+
+        # (b) int8 weights through K3a/K3b against the int8 plain twin
+        engine = EmbeddingEngine(MODEL, device="cuda", params_dtype="int8")
+        comp = ModelComparison(output_dir=root / "out_int8", log=lambda *_: None, device="cuda")
+        comp.register("clip_int8", lambda: EngineAdapter(engine))
+        counted_q = [bf.fused_attn_block_q, bf.fused_mlp_block_q]
+        captured.clear()
+        compare_module.evaluate_retrieval = recording
+        try:
+            for fn in counted_q:
+                fn.launches = 0
+            res_q = comp.run_evaluation(dataset)["clip_int8"]
+            torch.cuda.synchronize()
+            launches_q = {fn.__name__: fn.launches for fn in counted_q}
+        finally:
+            compare_module.evaluate_retrieval = real
+        expected_q = batches(HARNESS_IMAGES) * v_launch + t_launch
+        log(f"harness int8: launches {json.dumps(launches_q)} (expected {expected_q} each); rsum "
+            f"{res_q['mean']['rsum']:.4f}")
+        check(all(n == expected_q for n in launches_q.values()), f"harness int8 launches {launches_q}")
+        plain_q = copy.copy(engine)
+        plain_q.cfg, plain_q._text_cache = plain_cfg, {}
+        held["int8"] = hold_harness(torch, "harness int8", captured[0],
+                                    twin_features(torch, plain_q, staged, tokens), dataset, res_q,
+                                    INT8_SERVED_RANK_NOISE)
+        del engine, plain_q, staged
+        torch.cuda.empty_cache()
+    for name, m in launches_q.items():
+        launches[name] = m
+    return {"launches": launches, "speeds": speeds, "held": held, "seconds": seconds,
+            "phase_s": time.perf_counter() - t_phase, "rsum": {k: r["mean"]["rsum"] for k, r in results.items()}}
+
+
+def update_vector(torch, key: str, after, before):
+    u = (after - before).float().flatten()
+    if key.endswith("attn/qkv/bias"):  # the key third: see VARIANT_STEPS
+        w = u.shape[0] // 3
+        u = torch.cat([u[:w], u[2 * w:]])
+    return u
+
+
+def update_cosines(torch, before_k, after_k, before_p, after_p, keys) -> dict:
+    """Each leaf's update (``keys``) through the kernels against the twin's,
+    by cosine: the least three. Leaves that neither route moves are left
+    out."""
+    cos = {}
+    for k in keys:
+        a, b = update_vector(torch, k, after_k[k], before_k[k]), update_vector(torch, k, after_p[k], before_p[k])
+        if a.norm().item() == 0.0 and b.norm().item() == 0.0:
+            continue
+        cos[k] = torch.nn.functional.cosine_similarity(a[None], b[None]).item()
+    return {"worst": [(k, round(c, 6)) for c, k in sorted((c, k) for k, c in cos.items())[:3]]}
+
+
+def snapshot(trainer_params) -> dict:
+    from evr_tpu_torch.training.finetune import flat_leaves
+
+    return {k: v.detach().clone() for k, v in flat_leaves(trainer_params).items()}
+
+
+def variant_batch(torch, cfg, n: int):
+    """n staged frames of the model's size, captions' tokens, labels."""
+    import numpy as np
+
+    from evr_tpu_torch.tokenizer import get_default_tokenizer
+
+    rng = np.random.default_rng(HARNESS_SEED)
+    captions = [" ".join(rng.choice(HARNESS_WORDS, size=7)) for _ in range(n)]
+    return captions, {"images": synthetic_frames(torch, n, cfg.vision.image_size, cfg.vision.patch_size),
+                      "tokens": get_default_tokenizer()(captions, context_length=cfg.text.context_length),
+                      "labels": np.arange(n) % VARIANT_CLASSES}
+
+
+def twin_steps(torch, what: str, kernel, twin, batch, counted, trainable, first_still: bool, grads_of=None):
+    """One step of ``kernel`` and one of ``twin`` on ``batch``: (the kernel
+    step's seconds and launches, the check's figures). With ``first_still``
+    the step must leave every param of both bit-equal. ``grads_of`` (a
+    predicate on leaf keys): first the gradients of both, through
+    ``gradients`` with the step's dropout draw, held on those leaves as
+    phase 6 holds a step (``step_compare``); those launches are the
+    comparison's, not the step's. The updates (after minus before) of the
+    trainable leaves are reported by cosine, towers and heads apart, and not
+    held: two steps into a phase, Adam divides each element by its own
+    root mean square, so an element whose gradient is small beside the bf16
+    noise of the step moves by a full step either way; the update cosines
+    sit well under the gradients' (0.967 against 0.9988 in a probe run)."""
+    out = {}
+    if grads_of is not None:
+        (m_k, g_k), (m_p, g_p) = kernel.gradients(batch), twin.gradients(batch)
+        m_k, m_p = ({"total_loss": m.get("total_loss", m.get("bce_loss"))} for m in (m_k, m_p))
+        out["grads"] = step_compare(torch, f"{what}: gradients, kernels vs plain", m_k, m_p, g_k, g_p, grads_of)
+        del g_k, g_p
+    bk, bp = snapshot(kernel.params), snapshot(twin.params)
+    start = {fn.__name__: fn.launches for fn in counted}
+    t0 = time.perf_counter()
+    mk = kernel.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches - start[fn.__name__] for fn in counted}
+    mp = twin.train_step(batch)
+    key = "total_loss" if "total_loss" in mk else "bce_loss"
+    out.update(loss=mk[key], loss_rel=abs(mk[key] - mp[key]) / abs(mp[key]))
+    ak, ap = snapshot(kernel.params), snapshot(twin.params)
+    if first_still:
+        out["still"] = all(torch.equal(ak[k], bk[k]) for k in bk) and all(torch.equal(ap[k], bp[k]) for k in bp)
+    else:
+        for part, keys in (("towers", [k for k in trainable if k.startswith("clip/")]),
+                           ("heads", [k for k in trainable if not k.startswith("clip/")])):
+            if keys:
+                out[f"update_cos_{part}"] = update_cosines(torch, bk, ak, bp, ap, keys)["worst"]
+        frozen = [k for k in bk if k not in trainable]
+        out["frozen_moved"] = sum(not torch.equal(ak[k], bk[k]) for k in frozen)
+    del bk, bp, ak, ap
+    return step_s, launches, out
+
+
+def variant_check(what: str, out: dict) -> None:
+    loss_band = STEP_BF16_BANDS[0]
+    check(math.isfinite(out["loss"]) and out["loss_rel"] <= loss_band,
+          f"{what}: losses apart by {out['loss_rel']} > {loss_band}")
+    if "grads" in out:
+        step_check(f"{what}: gradients", out["grads"], STEP_BF16_BANDS)
+    if "still" in out:
+        check(out["still"], f"{what}: a first step (rate 0) moved a param")
+    else:
+        check(out["frozen_moved"] == 0, f"{what}: {out['frozen_moved']} frozen leaves moved")
+
+
+def phase_variants(torch) -> dict:
+    """The trainer variants (``training.variants``) on the card. (c)
+    ``ProgressiveTrainer`` at ViT-L/14@336px through phases 1, 2 and 3,
+    VARIANT_STEPS steps each, against a ``plain_grad`` twin (see
+    VARIANT_STEPS for the bands); K1/K2 forward and K5a/K5b backward launch
+    once a vision block every step of every phase (the clip reads the frozen
+    towers' gradients too). (d) ``CatLIPTrainer`` there (vision only) against
+    its twin, and ``ProjectionTrainer`` at ViT-B/32 (frozen CLIP), whose
+    ``encode_projected`` runs K1/K2 and is held to a plain twin's rows."""
+    import dataclasses
+
+    import numpy as np
+
+    from evr_tpu_torch.models import get_model_config, init_clip_params
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.training.finetune import flat_leaves
+    from evr_tpu_torch.training.variants import (
+        CatLIPTrainConfig, CatLIPTrainer, ProgressiveTrainConfig, ProgressiveTrainer, ProjectionTrainConfig,
+        ProjectionTrainer, build_concept_vocab, concept_targets,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(TRAIN_MODEL)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="plain_grad")
+    blocks = cfg.vision.layers
+    counted = [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd]
+    totals = {fn.__name__: 0 for fn in counted}
+    params = init_clip_params(HARNESS_SEED, cfg)
+    captions, batch = variant_batch(torch, cfg, TRAIN_BATCH)
+    pcfg = ProgressiveTrainConfig(num_classes=VARIANT_CLASSES, steps_per_phase=VARIANT_STEPS,
+                                  compute_dtype="bfloat16")
+    kernel = ProgressiveTrainer(cfg, params, pcfg, seed=HARNESS_SEED, device="cuda")
+    twin = ProgressiveTrainer(plain_cfg, params, pcfg, seed=HARNESS_SEED, device="cuda")
+    progressive = {}
+    for phase in (1, 2, 3):
+        if phase > 1:
+            kernel.next_phase()
+            twin.next_phase()
+        labels = flat_leaves(kernel.labels_for_phase(phase))
+        trainable = [k for k, v in labels.items() if v != "frozen"]
+        rows = []
+        for s in range(VARIANT_STEPS):
+            # the second step holds the vision blocks' gradients (K5's, which
+            # the clip reads in every phase, frozen or not)
+            step_s, launches, out = twin_steps(
+                torch, f"progressive phase {phase} step {s}", kernel, twin, batch, counted, trainable,
+                first_still=s == 0, grads_of=vision_block_leaf if s == VARIANT_STEPS - 1 else None)
+            for k, n in launches.items():
+                totals[k] += n
+            rows.append({"step_s": step_s, "launches": launches, **out})
+            log(f"progressive phase {phase} step {s}: {step_s:.4f} s, launches {json.dumps(launches)}, "
+                f"{json.dumps(out)}")
+            check(all(n == blocks for n in launches.values()), f"progressive launches {launches}, expected {blocks}")
+            variant_check(f"progressive phase {phase} step {s}", out)
+        progressive[phase] = {"trainable": len(trainable), "steps": rows}
+    del kernel, twin
+    torch.cuda.empty_cache()
+
+    vocab = build_concept_vocab(captions, size=64, min_count=1)
+    cbatch = {"images": batch["images"], "targets": concept_targets(captions, vocab)}
+    kernel = CatLIPTrainer(cfg, params, vocab, CatLIPTrainConfig(), seed=HARNESS_SEED, device="cuda")
+    twin = CatLIPTrainer(plain_cfg, params, vocab, CatLIPTrainConfig(), seed=HARNESS_SEED, device="cuda")
+    trainable = [k for k in snapshot(kernel.params) if k.startswith(("clip/visual/", "head/"))]
+    text_before = snapshot(kernel.params["clip"]["text"])
+    catlip = []
+    for s in range(VARIANT_STEPS):
+        step_s, launches, out = twin_steps(torch, f"catlip step {s}", kernel, twin, cbatch, counted, trainable,
+                                           first_still=False, grads_of=vision_block_leaf)
+        for k, n in launches.items():
+            totals[k] += n
+        catlip.append({"step_s": step_s, "launches": launches, **out})
+        log(f"catlip step {s}: {step_s:.4f} s, launches {json.dumps(launches)}, {json.dumps(out)}")
+        check(all(n == blocks for n in launches.values()), f"catlip launches {launches}, expected {blocks}")
+        variant_check(f"catlip step {s}", out)
+    check(all(torch.equal(v, text_before[k]) for k, v in snapshot(kernel.params["clip"]["text"]).items()),
+          "catlip moved the text tower")
+    del kernel, twin, params, text_before
+    torch.cuda.empty_cache()
+
+    cfg_b = get_model_config(MODEL)
+    params_b = init_clip_params(HARNESS_SEED, cfg_b)
+    _, batch_b = variant_batch(torch, cfg_b, TRAIN_BATCH)
+    pr_cfg = ProjectionTrainConfig(num_classes=VARIANT_CLASSES)
+    proj = ProjectionTrainer(cfg_b, params_b, pr_cfg, seed=HARNESS_SEED, device="cuda")
+    clip_before, heads_before = snapshot(proj.params["clip"]), snapshot(proj.params["heads"])
+    t0 = time.perf_counter()
+    losses = [proj.train_step(batch_b)["total_loss"] for _ in range(VARIANT_STEPS)]
+    torch.cuda.synchronize()
+    proj_step_s = (time.perf_counter() - t0) / VARIANT_STEPS
+    check(all(math.isfinite(x) for x in losses), f"projection losses {losses}")
+    check(all(torch.equal(v, clip_before[k]) for k, v in snapshot(proj.params["clip"]).items()),
+          "the projection trainer moved the frozen CLIP")
+    check(all(not torch.equal(v, heads_before[k]) for k, v in snapshot(proj.params["heads"]).items()),
+          "a projection head did not move")
+    twin_b = ProjectionTrainer(dataclasses.replace(cfg_b, attn_impl="plain"), params_b, pr_cfg,
+                               seed=HARNESS_SEED, device="cuda")
+    twin_b.params["heads"] = {k: {kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict) else v.clone()
+                              for k, v in proj.params["heads"].items()}
+    counted_f = counted[:2]
+    for fn in counted_f:
+        fn.launches = 0
+    img, txt = proj.encode_projected(batch_b["images"], batch_b["tokens"])
+    torch.cuda.synchronize()
+    proj_launches = {fn.__name__: fn.launches for fn in counted_f}
+    img_p, txt_p = twin_b.encode_projected(batch_b["images"], batch_b["tokens"])
+    row_cos = float(min((img * img_p).sum(1).min(), (txt * txt_p).sum(1).min()))
+    off_cos = float((rows_off_by(img, EMBED_MIN_COS, HARNESS_SEED) * img_p).sum(1).min())
+    expected_f = cfg_b.vision.layers + cfg_b.text.layers
+    log(f"projection trainer ({MODEL}, batch {TRAIN_BATCH}, bf16): losses {[round(x, 6) for x in losses]}, "
+        f"{proj_step_s:.4f} s/step; encode_projected launches {json.dumps(proj_launches)} (expected "
+        f"{expected_f} each), least row cosine to the plain twin {row_cos:.6f}, control (rows off by "
+        f"{EMBED_MIN_COS}) {off_cos:.6f}")
+    check(all(n == expected_f for n in proj_launches.values()), f"encode_projected launches {proj_launches}")
+    check(row_cos >= EMBED_MIN_COS and off_cos < EMBED_MIN_COS,
+          f"encode_projected rows {row_cos}, control {off_cos} (band {EMBED_MIN_COS})")
+    for name, n in proj_launches.items():
+        totals[name] += n
+    del proj, twin_b, params_b
+    torch.cuda.empty_cache()
+    return {"launches": totals, "progressive": progressive, "catlip": catlip,
+            "projection": {"losses": losses, "step_s": proj_step_s, "row_cos": row_cos},
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     try:
         import torch
@@ -4870,6 +5500,8 @@ def main() -> int:
         tiny = phase_tiny(torch)
         tiny_s = time.perf_counter() - t4
         ingest = phase_ingest(torch)
+        harness = phase_harness(torch)
+        variants = phase_variants(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4976,6 +5608,25 @@ def main() -> int:
     log(f"ingest: embed_folder {fo['frames']} JPEGs {fo['frames'] / fo['seconds']:.1f} frames/s, the stager "
         f"alone {fo['frames'] / fo['stage_s']:.1f}, encode_staged_images alone {fo['frames'] / fo['encode_s']:.1f}; "
         f"cv2 against PIL decode {fo['decode_levels']} levels")
+    log(f"harness (phase 16, {harness['phase_s']:.1f} s): images/s and captions/s "
+        f"{json.dumps({k: {m: round(x, 1) for m, x in v.items()} for k, v in harness['speeds'].items()})}; rsum "
+        f"{json.dumps({k: round(v, 4) for k, v in harness['rsum'].items()})}; tool seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in harness['seconds'].items()})}; against the plain twins "
+        + "; ".join(f"{k}: rows {min(h['row_cos'].values()):.6f}, violations {h['violations']}, metric gap "
+                    f"{max(h['metric_gap'].values()):.6f} of share {min(h['share'].values()):.4f}"
+                    for k, h in harness["held"].items()))
+    pr = variants["progressive"]
+    log(f"trainer variants (phase 16, {variants['phase_s']:.1f} s), {TRAIN_MODEL}, batch {TRAIN_BATCH}, bf16: "
+        f"progressive s/step " + ", ".join(f"phase {ph} {[round(r['step_s'], 4) for r in pr[ph]['steps']]}"
+                                           for ph in pr)
+        + f"; K5a/K5b a step {pr[3]['steps'][-1]['launches']['fused_attn_block_bwd']} in every phase; the second "
+        f"steps' least gradient-leaf cosines {[round(pr[ph]['steps'][-1]['grads']['least_leaf_cos'], 6) for ph in pr]} "
+        f"(band {STEP_BF16_BANDS[2]}), losses apart by up to "
+        f"{max(r['loss_rel'] for ph in pr for r in pr[ph]['steps']):.2e}; "
+        f"catlip s/step {[round(r['step_s'], 4) for r in variants['catlip']]}, least gradient-leaf cosines "
+        f"{[round(r['grads']['least_leaf_cos'], 6) for r in variants['catlip']]}; projection ({MODEL}) "
+        f"{variants['projection']['step_s']:.4f} s/step, encode_projected row cosine "
+        f"{variants['projection']['row_cos']:.6f}")
     big = main["then"]["routes"]
     log(f"viz.umap at {UMAP_ROWS} x {UMAP_DIM}: {big['umap_big_s']:.2f} s, neighbours kept "
         f"{json.dumps(big['knn_kept'])}")
@@ -4988,6 +5639,11 @@ def main() -> int:
     for name, n in ingest["launches"].items():
         launches[name] += n
     launches.update({k: train["launches"][k] for k in ("fused_attn_block_bwd", "fused_mlp_block_bwd")})
+    # phase 16: the harness's runs (K1/K2 bf16, K3a/K3b int8) and the trainer
+    # variants (K1/K2 forward, K5a/K5b backward, encode_projected's K1/K2)
+    for m in (harness["launches"], variants["launches"]):
+        for name, n in m.items():
+            launches[name] += n
     launches["adc_list_scores"] = ann["launches"]
     launches.update({k: main_f["launches"][k] for k in FLASH_MAIN_SHAPE})
     # K8 and K9 have no caller on a serving path: their launches are those of

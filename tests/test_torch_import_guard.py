@@ -29,7 +29,8 @@ for name in names:
 # the ANN slice: K7's wrapper, the three tiers and the offline CLI; the
 # flash-attention slice: K6's wrapper; K8's wrapper; the query layer, the
 # views and the served routes; the native stager, ingest, the upload jobs and
-# the ingest tools
+# the ingest tools; the benchmark harness, its tools, the workbook module, the
+# test-set translation, the heads and the trainer variants
 for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.index.pq",
              "evr_tpu_torch.index.ivfpq", "evr_tpu_torch.tools.index_tool",
              "evr_tpu_torch.ops.attention", "evr_tpu_torch.ops.layernorm",
@@ -47,7 +48,15 @@ for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.
              "evr_tpu_torch.ingest.best_frame", "evr_tpu_torch.ingest.transcripts",
              "evr_tpu_torch.ingest.pipeline", "evr_tpu_torch.serving.jobs",
              "evr_tpu_torch.tools.ingest", "evr_tpu_torch.tools.export_embeddings",
-             "evr_tpu_torch.tools.retrieve"):
+             "evr_tpu_torch.tools.retrieve", "evr_tpu_torch.evaluation",
+             "evr_tpu_torch.evaluation.retrieval", "evr_tpu_torch.evaluation.datasets",
+             "evr_tpu_torch.evaluation.classification", "evr_tpu_torch.evaluation.zeroshot",
+             "evr_tpu_torch.evaluation.projection_align", "evr_tpu_torch.evaluation.compare",
+             "evr_tpu_torch.evaluation.hf_adapters", "evr_tpu_torch.evaluation.diagnostics",
+             "evr_tpu_torch.tools.evaluate", "evr_tpu_torch.tools.ab_compare",
+             "evr_tpu_torch.tools.diagnose", "evr_tpu_torch.utils.xlsx", "evr_tpu_torch.data_prep",
+             "evr_tpu_torch.data_prep.translate_testset", "evr_tpu_torch.models.heads",
+             "evr_tpu_torch.training.variants"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)
