@@ -237,7 +237,28 @@ package. Phases, each fatal on failure:
    trainable leaf's update by cosine, an update turned to cosine 0.99
    rejected), K1/K2/K5a/K5b 24 launches a step in every phase; and
    ``ProjectionTrainer`` at ViT-B/32 (frozen CLIP), its ``encode_projected``
-   through K1/K2 against a plain twin's rows.
+   through K1/K2 against a plain twin's rows;
+17. the trainer's levers at ViT-L/14@336px (both towers at full width,
+   batch 32, bf16, ``freeze_layers=8``), each against a ``plain_grad`` twin
+   from the same params, batch and generator seed, the gradients each step
+   feeds its optimizer held in phase 6's bf16 band (a gradient turned to
+   cosine 0.99 rejected), the updates reported: (a) gradient accumulation
+   over four calls (calls 1 and 3 bit-still, the emitted mean against the two
+   calls' own gradients), (d) remat (gradients equal to (a)'s without remat,
+   K1/K2 twice a block), (e) GradCache in 4 chunks (against the direct kernel
+   step and its twin), (b) Muon (the Newton-Schulz share), (c) LoRA rank 16
+   on both towers (the base bit-still, b held at step 1, a and b at step 2),
+   (f) patch drop 0.1 (T 519, the kernels), (g) patch drop 0.5 (T 289: no
+   kernel), (h) the projection trainer with its CLIP unfrozen and
+   accumulation, each call's launches exact and the peak memory of (a), (d)
+   and (e); (i) ``DistillationTrainer`` from ViT-L/14 (224 px) to ViT-B/32,
+   the KD term alone, against a twin whose teacher runs the plain route (the
+   teacher's rows, the KD loss and the student's gradients); then (j)
+   ``tools.finetune.main --lora-rank 16`` (its ``lora_merged.pt`` served
+   bit-equal to the merge in memory, its ``final_checkpoint.pt`` refused at
+   serve time), (k) ``tools.distill.main`` (its ``student.pt`` served the same
+   way) and (l) ``tools.train_sustained.main`` with its defaults but 64
+   steps over a pool of 16 batches (examples/s, R@1/5/10 before and after).
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1815,7 +1836,7 @@ def counting(fn):
 # -- 6. training -------------------------------------------------------------
 
 
-def write_caption_set(root: pathlib.Path, size: int, patch: int):
+def write_caption_set(root: pathlib.Path, size: int, patch: int, n_train: int = N_TRAIN, n_val: int = N_VAL):
     """A synthetic caption set in the reference trainer's layout: JPEGs of
     size² (seeded scenes, as ``synthetic_frames``) and two JSONs keyed by
     relative path with caption and category. Returns (train json, val json)."""
@@ -1823,7 +1844,7 @@ def write_caption_set(root: pathlib.Path, size: int, patch: int):
     import numpy as np
     import torch
 
-    frames = synthetic_frames(torch, N_TRAIN + N_VAL, size, patch)
+    frames = synthetic_frames(torch, n_train + n_val, size, patch)
     cats = ["Violence", "NonViolence", "Sensitive content"]
     rng = np.random.default_rng(11)
     meta = []
@@ -1833,7 +1854,7 @@ def write_caption_set(root: pathlib.Path, size: int, patch: int):
                             "people", "running", "park", "fight", "water"], size=6)
         meta.append((f"img{i}.jpg", {"caption": " ".join(words), "category": cats[i % 3]}))
     paths = []
-    for name, part in (("train.json", meta[:N_TRAIN]), ("val.json", meta[N_TRAIN:])):
+    for name, part in (("train.json", meta[:n_train]), ("val.json", meta[n_train:])):
         (root / name).write_text(json.dumps(dict(part)))
         paths.append(root / name)
     return paths
@@ -5407,6 +5428,634 @@ def phase_variants(torch) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+# -- 17. the trainer levers, distillation and their CLIs ----------------------
+
+LEVER_SEED = 18
+LEVER_LORA_RANK = 16
+LEVER_ACCUM, LEVER_CHUNKS = 2, 4
+# patch_drop 0.1 keeps T = 1 + 518 (the kernel route, T >= 512); 0.5 keeps
+# T = 1 + 288, which takes the plain composition in both packages
+LEVER_DROP_KERNEL, LEVER_DROP_PLAIN = 0.1, 0.5
+DISTILL_TEACHER, DISTILL_STUDENT, DISTILL_STEPS = "ViT-L/14", "ViT-B/32", 2
+LORA_CLI_TRAIN, DISTILL_CLI_IMAGES = 64, 64  # two steps of TRAIN_BATCH each
+# the distillation step against its twin (the teacher on attn_impl="plain"):
+# the teacher's unit rows by cosine, then the student's KD loss and gradients
+# (every student leaf: the student runs the plain composition in both, so
+# only the teacher's rows differ); bands about twice the gap measured on an
+# H100 80GB HBM3 (700 W), see PERF.md
+DISTILL_ROW_MIN_COS = 0.999
+DISTILL_BANDS = (3e-3, 5e-3, 0.999)
+# LoRA's factor gradients are rank-16 projections of the dense kernels'
+# (dB = aᵀ·dW, dA = dW·bᵀ): their bf16 noise against the plain twin measured
+# a least cosine of 0.99583 on an H100 80GB HBM3 (700 W), under the dense
+# leaves' 0.9968 band; the factors' band is about twice that gap (the
+# loss and norm bands are phase 6's)
+LORA_BANDS = (STEP_BF16_BANDS[0], STEP_BF16_BANDS[1], 0.992)
+# the projection trainer's loss (two linear heads and a hard-negative
+# InfoNCE over the towers' features) sits further from its twin's than the
+# fine-tune loss: 4.09e-4 measured on an H100 80GB HBM3 (700 W) with the
+# gradients in the step band; its band is about twice that
+PROJECTION_BANDS = (8e-4, STEP_BF16_BANDS[1], STEP_BF16_BANDS[2])
+# train_sustained at its defaults (ViT-B/32, batch 256) but 64 steps over a
+# pool of 16 batches (two cycles: one to warm up, one measured), cut from 320
+# steps over 32 to keep phase 17 in the script's time
+SUSTAINED_ARGV = ["--device", "cuda", "--steps", "64", "--pool", "16"]
+
+
+def lever_leaf(key: str) -> bool:
+    """The vision blocks' leaves (phase 6's band), LoRA's factors there too."""
+    return key.startswith(("clip/visual/blocks/", "lora/visual/blocks/"))
+
+
+def peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def lever_steps(torch, what: str, cfg, plain_cfg, tc, master, batch, calls: int, compare_at=(0,),
+                twin: bool = True, seed: int = LEVER_SEED, bands=STEP_BF16_BANDS):
+    """``calls`` calls of the kernel step (``make_train_step`` on ``cfg``) and
+    of its ``plain_grad`` twin from copies of the same params (``master``, a
+    tree on the card), batch and generator seed. Before each call in ``compare_at`` both gradients are taken at the
+    kernel step's current params with one fresh generator seed and compared
+    (``step_compare``, the vision blocks' leaves), held with ``bands`` (the
+    step band) and, at call 0, returned (``g0``) with their loss. Each call's
+    seconds, launches, the peak memory over the call and above the memory
+    before it, the params left bit-equal or not and, where they moved, the
+    least update cosines against the twin (reported, not held). Under
+    ``MultiSteps`` the mean each emitting call hands its inner optimizer is
+    kept (``emitted``)."""
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.training import MultiSteps, TrainState, make_grad_fn, make_optimizer, make_train_step
+    from evr_tpu_torch.training.partition import map_with_paths
+
+    counted = [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd]
+    cls_cfg = lever_classifier_cfg(cfg)
+    runs = {}
+    for tag, mcfg in (("kernel", cfg),) + ((("twin", plain_cfg),) if twin else ()):
+        params = map_with_paths(master, lambda _, t: t.clone())
+        opt = make_optimizer(tc, params, 1)
+        step, _ = make_train_step(mcfg, cls_cfg, tc, opt)
+        runs[tag] = {"state": TrainState(params=params, opt_state=opt.init(params), step=0), "step": step,
+                     "grad": make_grad_fn(mcfg, cls_cfg, tc), "opt": opt,
+                     "gen": torch.Generator(device="cuda").manual_seed(seed)}
+    emitted = []
+    opt_k = runs["kernel"]["opt"]
+    if isinstance(opt_k, MultiSteps):
+        inner_apply = opt_k.inner.apply
+        opt_k.inner.apply = lambda params, grads, state: emitted.append(grads) or inner_apply(params, grads, state)
+    out = {"calls": [], "emitted": emitted}
+    for c in range(calls):
+        if c in compare_at and twin:
+            params = runs["kernel"]["state"].params
+            m_k, g_k = runs["kernel"]["grad"](params, batch, torch.Generator(device="cuda").manual_seed(seed + 100))
+            m_p, g_p = runs["twin"]["grad"](params, batch, torch.Generator(device="cuda").manual_seed(seed + 100))
+            got = step_compare(torch, f"{what}: gradients before call {c + 1}, kernels vs plain", m_k, m_p, g_k, g_p,
+                               lever_leaf)
+            step_check(f"{what}: gradients before call {c + 1}", got, bands)
+            out.setdefault("grads", []).append(got)
+            if c == 0:
+                out["g0"], out["loss0"] = g_k, m_k["total_loss"]
+            del g_p
+        row = {}
+        befores = {tag: snapshot(r["state"].params) for tag, r in runs.items()}
+        for tag, r in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            start = {fn.__name__: fn.launches for fn in counted}
+            t0 = time.perf_counter()
+            r["state"], m = r["step"](r["state"], batch, r["gen"])
+            torch.cuda.synchronize()
+            row[f"{tag}_s"] = time.perf_counter() - t0
+            row[f"{tag}_loss"] = m["total_loss"].item()
+            row[f"{tag}_peak_gib"] = peak_gib(torch)
+            row[f"{tag}_extra_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            if tag == "kernel":
+                row["launches"] = {fn.__name__: fn.launches - start[fn.__name__] for fn in counted}
+        after = {tag: snapshot(r["state"].params) for tag, r in runs.items()}
+        row["still"] = {tag: all(torch.equal(after[tag][k], befores[tag][k]) for k in befores[tag]) for tag in runs}
+        if twin and not row["still"]["kernel"]:
+            keys = [k for k in after["kernel"] if not torch.equal(after["kernel"][k], befores["kernel"][k])]
+            row["update_cos_worst"] = update_cosines(torch, befores["kernel"], after["kernel"], befores["twin"],
+                                                     after["twin"], keys)["worst"]
+        if twin:
+            row["loss_rel"] = abs(row["kernel_loss"] - row["twin_loss"]) / abs(row["twin_loss"])
+        log(f"{what} call {c + 1}: {json.dumps(row)}")
+        check(math.isfinite(row["kernel_loss"]), f"{what} call {c + 1}: loss {row['kernel_loss']}")
+        if twin:
+            check(row["loss_rel"] <= STEP_BF16_BANDS[0], f"{what} call {c + 1}: losses apart by {row['loss_rel']}")
+        out["calls"].append(row)
+        del befores, after
+    out["runs"] = runs
+    return out
+
+
+def lever_classifier_cfg(cfg):
+    """The 3-class head the fine-tune CLI trains, with its dropout."""
+    from evr_tpu_torch.models.classifier import ClassifierConfig
+
+    return ClassifierConfig(embed_dim=cfg.embed_dim, num_classes=VARIANT_CLASSES)
+
+
+def check_launches(what: str, launches: dict, attn_mlp: int, bwd: int) -> None:
+    want = {"fused_attn_block": attn_mlp, "fused_mlp_block": attn_mlp,
+            "fused_attn_block_bwd": bwd, "fused_mlp_block_bwd": bwd}
+    check(launches == want, f"{what}: launches {launches}, expected {want}")
+
+
+def add_launches(totals: dict, run: dict) -> None:
+    for row in run["calls"]:
+        for k, n in row.get("launches", {}).items():
+            totals[k] = totals.get(k, 0) + n
+
+
+def lora_after_two_steps(torch, cfg, plain_cfg, base: dict, runs: dict, batch) -> dict:
+    """LoRA after two steps, a and b both non-zero. The factors' gradients
+    are the dense kernels' projected (dA = s·dW·bᵀ, dB = s·aᵀ·dW, s =
+    alpha / r). Two steps in, the classifier's and the temperature's Adam
+    steps have halved the gradient, so the kernels' bf16 noise weighs about
+    four times as much against it as at the initial point, where phase 6 set
+    its band: the merged kernels' gradients and the factors' against the
+    twin are reported, not held (PERF.md). Held: the LoRA step's loss
+    bit-equal to the merged dense step's, and the factors' gradients equal
+    to the chain rule of that dense gradient, which K5 computes."""
+    from evr_tpu_torch.training import TrainConfig, make_grad_fn, merge_lora
+    from evr_tpu_torch.training.finetune import flat_leaves
+    from evr_tpu_torch.training.partition import map_with_paths
+
+    kernel, twin = runs["kernel"], runs["twin"]
+    params = kernel["state"].params
+    alpha, rank = 16.0, LEVER_LORA_RANK
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(LEVER_SEED + 200)
+
+    m_lk, g_lk = kernel["grad"](params, batch, gen())
+    m_lp, g_lp = twin["grad"](params, batch, gen())
+    factors = step_compare(torch, "(c) lora after two steps: the factors, kernels vs plain (reported)", m_lk, m_lp,
+                           g_lk, g_lp, lever_leaf)
+    del g_lp
+    with torch.no_grad():
+        merged = merge_lora(params["clip"], params["lora"], alpha)
+        dense = {"clip": map_with_paths(merged, lambda _, t: t.detach().clone()),
+                 "classifier": map_with_paths(params["classifier"], lambda _, t: t.detach().clone())}
+    del merged
+    tc = TrainConfig(**dict(base, freeze_layers=0))  # every dense kernel's gradient
+    m_dk, g_dk = make_grad_fn(cfg, lever_classifier_cfg(cfg), tc)(dense, batch, gen())
+    dense_p = map_with_paths(dense, lambda _, t: t.detach().clone())
+    m_dp, g_dp = make_grad_fn(plain_cfg, lever_classifier_cfg(cfg), tc)(dense_p, batch, gen())
+    merged_cmp = step_compare(torch, "(c) lora after two steps: the merged kernels, kernels vs plain (reported)",
+                              m_dk, m_dp, g_dk, g_dp, vision_block_leaf)
+    del g_dp, dense_p
+    lora_p = flat_leaves(params["lora"])
+    chain = 0.0
+    for key, g in g_lk.items():
+        if not key.startswith("lora/visual/blocks/"):
+            continue
+        stem = key[len("lora/"):-2]  # "visual/blocks/<i>/<target path>"
+        dw = (alpha / rank) * g_dk[f"clip/{stem}/kernel"]
+        a, b = lora_p[stem + "/a"], lora_p[stem + "/b"]
+        want = dw @ b.T if key.endswith("/a") else a.T @ dw
+        chain = max(chain, ((g - want).abs().max() / want.abs().max()).item())
+    same_loss = m_lk["total_loss"].item() == m_dk["total_loss"].item()
+    log(f"(c) lora after two steps: loss {m_lk['total_loss'].item()!r}, the merged dense step's "
+        f"{m_dk['total_loss'].item()!r}; the factors' gradients against the chain rule of the merged kernels' "
+        f"(s dW b^T, s a^T dW): largest error {chain:.3e} of a leaf's largest entry")
+    check(same_loss, "(c) lora: the LoRA step's loss differs from the merged dense step's")
+    check(chain <= 1e-5, f"(c) lora: the factors' gradients off the chain rule by {chain}")
+    del g_lk, g_dk, dense
+    return {"factors": factors, "merged": merged_cmp, "chain_err": chain}
+
+
+def phase_levers(torch) -> dict:
+    """Phase 17's levers (a)-(h) at ViT-L/14@336px, batch 32, bf16,
+    ``freeze_layers=8``, each against a ``plain_grad`` twin: (a) gradient
+    accumulation over four calls, (b) Muon, (c) LoRA (rank 16, both towers),
+    (d) remat (its gradients bit-equal to (a)'s, its step timed alone), (e)
+    GradCache (4 chunks), (f) and (g) patch drop at T 519 (kernels) and 289
+    (the plain composition, timed alone), (h) the projection trainer with
+    its CLIP unfrozen and accumulation."""
+    import dataclasses
+
+    from evr_tpu_torch.models import get_model_config, init_clip_params
+    from evr_tpu_torch.models.classifier import init_classifier_params
+    from evr_tpu_torch.models.convert import params_from_numpy
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.training import TrainConfig, init_lora, make_grad_fn
+    from evr_tpu_torch.training.finetune import flat_leaves
+    from evr_tpu_torch.training.muon import muon_direction
+    from evr_tpu_torch.training.partition import map_with_paths
+    from evr_tpu_torch.training.variants import ProjectionTrainConfig, ProjectionTrainer
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(TRAIN_MODEL)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="plain_grad")
+    L = cfg.vision.layers
+    np_params = {"clip": init_clip_params(LEVER_SEED, cfg),
+                 "classifier": init_classifier_params(LEVER_SEED + 1, lever_classifier_cfg(cfg))}
+    master = params_from_numpy(np_params, "cuda")  # never updated: each run takes a copy
+
+    def fresh():
+        return map_with_paths(master, lambda _, t: t.clone())
+
+    _, batch = variant_batch(torch, cfg, TRAIN_BATCH)
+    base = dict(seed=LEVER_SEED, batch_size=TRAIN_BATCH, epochs=1, compute_dtype="bfloat16", freeze_layers=8)
+    totals: dict = {}
+    out = {}
+
+    # (a) gradient accumulation: calls 1 and 3 bit-still, the emitted mean
+    a = lever_steps(torch, "(a) accumulation", cfg, plain_cfg, TrainConfig(**base, grad_accumulation_steps=LEVER_ACCUM),
+                    master, batch, 4)
+    add_launches(totals, a)
+    for c, row in enumerate(a["calls"]):
+        check_launches(f"(a) call {c + 1}", row["launches"], L, L)
+        if c % 2 == 0:
+            check(all(row["still"].values()), f"(a) call {c + 1} moved a param: {row['still']}")
+        else:
+            check(not any(row["still"].values()), f"(a) call {c + 1} left the params still")
+    g1 = a.pop("g0")
+    loss1 = a["loss0"]
+    # the first emitted mean against the two calls' own gradients: call 2's
+    # generator state follows call 1's draw
+    r = a["runs"]["kernel"]
+    gen = torch.Generator(device="cuda").manual_seed(LEVER_SEED)
+    grad_k = r["grad"]
+    _, g_1 = grad_k(fresh(), batch, gen)
+    _, g_2 = grad_k(fresh(), batch, gen)
+    mean = a["emitted"][0]
+    errs = {k: (mean[k] - (g_1[k] + (g_2[k] - g_1[k]) / 2)).abs().max().item() / max(mean[k].abs().max().item(), 1e-30)
+            for k in mean}
+    mean_err = max(errs.values())
+    inexact = sorted(k for k, e in errs.items() if e > 0)
+    log(f"(a) the first emitted mean against the Welford mean of the two calls' own gradients: largest error "
+        f"{mean_err:.3e} of a leaf's largest entry; leaves not bit-equal {inexact}")
+    check(mean_err <= 1e-6, f"(a) emitted mean off by {mean_err}")
+    out["a"] = {"calls": a["calls"], "grads": a["grads"], "mean_err": mean_err}
+    del a, g_1, g_2, mean, r, grad_k
+    torch.cuda.empty_cache()
+
+    # (d) remat: bit-equal to (a)'s first call without remat; peak memory
+    rcfg = dataclasses.replace(cfg, remat=True)
+    tc_d = TrainConfig(**base, remat=True)
+    params = fresh()
+    m_r, g_r = make_grad_fn(rcfg, lever_classifier_cfg(cfg), tc_d)(params, batch,
+                                                                torch.Generator(device="cuda").manual_seed(LEVER_SEED + 100))
+    differ = sorted(k for k in g1 if not torch.equal(g_r[k], g1[k]))
+    worst = max([0.0] + [((g_r[k] - g1[k]).abs().max() / g1[k].abs().max()).item() for k in differ])
+    remat_equal = m_r["total_loss"].item() == loss1.item() and not differ
+    log(f"(d) remat: loss {m_r['total_loss'].item()!r} against {loss1.item()!r} without remat; gradients not "
+        f"bit-equal {differ} (largest error {worst:.3e} of a leaf's largest entry)")
+    check(m_r["total_loss"].item() == loss1.item() and not any(lever_leaf(k) for k in differ) and worst <= 1e-6,
+          f"(d) remat's gradients differ from the step's without remat: {differ}")
+    del params, g_r
+    torch.cuda.empty_cache()
+    # its gradients are held above, bit-equal to (a)'s: the step is timed alone
+    d = lever_steps(torch, "(d) remat", rcfg, None, tc_d, master, batch, 1, compare_at=(), twin=False)
+    add_launches(totals, d)
+    check_launches("(d)", d["calls"][0]["launches"], 2 * L, L)
+    out["d"] = {"calls": d["calls"], "bit_equal": remat_equal}
+    del d
+    torch.cuda.empty_cache()
+
+    # (e) GradCache: against the direct kernel step and its own twin
+    tc_e = TrainConfig(**base, gradcache_chunks=LEVER_CHUNKS)
+    params = fresh()
+    m_e, g_e = make_grad_fn(cfg, lever_classifier_cfg(cfg), tc_e)(params, batch,
+                                                               torch.Generator(device="cuda").manual_seed(LEVER_SEED + 100))
+    direct = step_compare(torch, "(e) GradCache vs the direct kernel step", m_e, {"total_loss": loss1}, g_e, g1,
+                          lever_leaf)
+    step_check("(e) GradCache vs the direct kernel step", direct, STEP_BF16_BANDS)
+    del params, g_e, g1
+    torch.cuda.empty_cache()
+    e = lever_steps(torch, "(e) GradCache", cfg, plain_cfg, tc_e, master, batch, 1)
+    add_launches(totals, e)
+    check_launches("(e)", e["calls"][0]["launches"], 2 * L * LEVER_CHUNKS, L * LEVER_CHUNKS)
+    out["e"] = {"calls": e["calls"], "grads": e["grads"], "direct": direct}
+    del e
+    torch.cuda.empty_cache()
+
+    # (b) Muon: the Newton-Schulz share of the step
+    tc_b = TrainConfig(**base, optimizer="muon")
+    b = lever_steps(torch, "(b) muon", cfg, plain_cfg, tc_b, master, batch, 2)
+    add_launches(totals, b)
+    for c, row in enumerate(b["calls"]):
+        check_launches(f"(b) call {c + 1}", row["launches"], L, L)
+    r = b["runs"]["kernel"]
+    muon_keys = [k for k, lab in r["opt"].labels.items() if lab.endswith(":muon")]
+    flat = flat_leaves(r["state"].params)
+    grads = {k: torch.randn_like(flat[k]) for k in muon_keys}
+    bufs = {k: torch.zeros_like(flat[k]) for k in muon_keys}
+    ns_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in muon_keys:
+            muon_direction(grads[k], bufs[k], tc_b.muon_momentum, True, tc_b.muon_ns_steps)
+        torch.cuda.synchronize()
+        ns_s.append(time.perf_counter() - t0)
+    step_s = b["calls"][-1]["kernel_s"]
+    log(f"(b) muon: {len(muon_keys)} Muon leaves; their Newton-Schulz directions {min(ns_s):.4f} s of the step's "
+        f"{step_s:.4f} s ({100 * min(ns_s) / step_s:.1f} %)")
+    out["b"] = {"calls": b["calls"], "grads": b["grads"], "ns_s": min(ns_s), "muon_leaves": len(muon_keys)}
+    del b, r, flat, grads, bufs
+    torch.cuda.empty_cache()
+
+    # (c) LoRA rank 16 on both towers: the base bit-still; b at step 1, a and b at step 2
+    lora = {**master, "lora": params_from_numpy(
+        init_lora(torch.Generator().manual_seed(LEVER_SEED + 1), np_params["clip"], LEVER_LORA_RANK), "cuda")}
+    c_run = lever_steps(torch, "(c) lora", cfg, plain_cfg, TrainConfig(**base, lora_rank=LEVER_LORA_RANK), lora, batch,
+                        2, bands=LORA_BANDS)
+    add_launches(totals, c_run)
+    for c, row in enumerate(c_run["calls"]):
+        check_launches(f"(c) call {c + 1}", row["launches"], L, L)
+    base_still = {}
+    for tag, r in c_run["runs"].items():
+        got, want = flat_leaves(r["state"].params["clip"]), flat_leaves(master["clip"])
+        base_still[tag] = all(torch.equal(got[k], want[k]) for k in want if k != "logit_scale")
+    zero_a = [k for k in c_run["g0"] if k.endswith("/a")]
+    a_zero = all(not c_run["g0"][k].any() for k in zero_a)
+    log(f"(c) lora: the base bit-still {base_still}; every a gradient exactly 0 at step 1: {a_zero} "
+        f"({len(zero_a)} factors); b held at step 1 ({c_run['grads'][0]['leaves']} leaves)")
+    check(all(base_still.values()), f"(c) lora moved the base: {base_still}")
+    check(a_zero and c_run["grads"][0]["leaves"] > 0, "(c) lora: the factors at step 1")
+    c_run.pop("g0")
+    c_after = lora_after_two_steps(torch, cfg, plain_cfg, base, c_run["runs"], batch)
+    out["c"] = {"calls": c_run["calls"], "grads": c_run["grads"], **c_after}
+    del c_run, lora
+    torch.cuda.empty_cache()
+
+    # (f) patch drop 0.1: T = 519 on the kernels; (g) 0.5: T = 289, no kernel
+    f = lever_steps(torch, "(f) patch_drop 0.1", cfg, plain_cfg, TrainConfig(**base, patch_drop=LEVER_DROP_KERNEL),
+                    master, batch, 1)
+    add_launches(totals, f)
+    check_launches("(f)", f["calls"][0]["launches"], L, L)
+    f.pop("g0")
+    out["f"] = {"calls": f["calls"], "grads": f["grads"]}
+    del f
+    g = lever_steps(torch, "(g) patch_drop 0.5", cfg, plain_cfg, TrainConfig(**base, patch_drop=LEVER_DROP_PLAIN),
+                    master, batch, 2, compare_at=(), twin=False)
+    add_launches(totals, g)
+    for c, row in enumerate(g["calls"]):
+        check_launches(f"(g) call {c + 1}", row["launches"], 0, 0)
+    out["g"] = {"calls": g["calls"]}
+    del g
+    torch.cuda.empty_cache()
+
+    # (h) the projection trainer, CLIP unfrozen (remat) with accumulation
+    pcfg = ProjectionTrainConfig(num_classes=VARIANT_CLASSES, freeze_clip=False, grad_accumulation_steps=LEVER_ACCUM)
+    kernel = ProjectionTrainer(cfg, master["clip"], pcfg, seed=LEVER_SEED, device="cuda")
+    twin = ProjectionTrainer(plain_cfg, master["clip"], pcfg, seed=LEVER_SEED, device="cuda")
+    check(kernel.model_cfg.remat and not kernel._infer_cfg.remat, "(h) the projection trainer's remat switch")
+    (m_k, g_k), (m_p, g_p) = kernel.gradients(batch), twin.gradients(batch)
+    h_grads = step_compare(torch, "(h) projection: gradients, kernels vs plain", m_k, m_p, g_k, g_p, lever_leaf)
+    step_check("(h) projection: gradients", h_grads, PROJECTION_BANDS)
+    del g_k, g_p
+    counted = [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd]
+    h_calls = []
+    for c in range(4):
+        before = snapshot(kernel.params), snapshot(twin.params)
+        start = {fn.__name__: fn.launches for fn in counted}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mk = kernel.train_step(batch)
+        torch.cuda.synchronize()
+        row = {"kernel_s": time.perf_counter() - t0,
+               "launches": {fn.__name__: fn.launches - start[fn.__name__] for fn in counted}}
+        t0 = time.perf_counter()
+        mp = twin.train_step(batch)
+        torch.cuda.synchronize()
+        row["twin_s"] = time.perf_counter() - t0
+        row["loss_rel"] = abs(mk["total_loss"] - mp["total_loss"]) / abs(mp["total_loss"])
+        after = snapshot(kernel.params), snapshot(twin.params)
+        row["still"] = [all(torch.equal(x[k], y[k]) for k in x) for x, y in zip(after, before)]
+        log(f"(h) projection call {c + 1}: {json.dumps(row)}")
+        check_launches(f"(h) call {c + 1}", row["launches"], 2 * L, L)
+        check(row["loss_rel"] <= PROJECTION_BANDS[0], f"(h) call {c + 1}: losses apart by {row['loss_rel']}")
+        check(all(row["still"]) == (c % 2 == 0) and any(row["still"]) == (c % 2 == 0),
+              f"(h) call {c + 1}: still {row['still']}")
+        for k, n in row["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        h_calls.append(row)
+        del before, after
+    out["h"] = {"calls": h_calls, "grads": [h_grads]}
+    del kernel, twin
+    torch.cuda.empty_cache()
+    out.update(launches=totals, phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def phase_distill(torch) -> dict:
+    """(i) ``DistillationTrainer`` from a ViT-L/14 teacher (224 px) to a
+    ViT-B/32 student, the KD term alone (embed dims 768 and 512), against a
+    twin whose teacher runs ``attn_impl="plain"``: the teacher's forward runs
+    K1/K2 (24 vision + 12 text launches a step) and no K5; the student takes
+    the plain composition (T 50 and 77) in both."""
+    import dataclasses
+
+    from evr_tpu_torch.models import get_model_config, init_clip_params
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.training import DistillationTrainer, DistillConfig
+
+    t_phase = time.perf_counter()
+    t_cfg, s_cfg = get_model_config(DISTILL_TEACHER), get_model_config(DISTILL_STUDENT)
+    teacher, student = init_clip_params(LEVER_SEED + 2, t_cfg), init_clip_params(LEVER_SEED + 3, s_cfg)
+    dcfg = DistillConfig(contrastive_weight=0.0, kd_weight=1.0, align_weight=0.0)
+    kernel = DistillationTrainer(s_cfg, student, t_cfg, teacher, dcfg, device="cuda")
+    twin = DistillationTrainer(s_cfg, student, dataclasses.replace(t_cfg, attn_impl="plain"), teacher, dcfg,
+                               device="cuda")
+    del teacher, student
+    _, batch = variant_batch(torch, s_cfg, TRAIN_BATCH)
+    batch = {"images": batch["images"], "tokens": batch["tokens"]}
+    ti_k, tt_k = (t.float().cpu().numpy() for t in kernel.teacher_features(batch))
+    ti_p, tt_p = (t.float().cpu().numpy() for t in twin.teacher_features(batch))
+    row_cos = float(min((ti_k * ti_p).sum(1).min(), (tt_k * tt_p).sum(1).min()))
+    off_cos = float((rows_off_by(ti_k, DISTILL_ROW_MIN_COS, LEVER_SEED) * ti_p).sum(1).min())
+    log(f"(i) distill: the teacher's unit rows, kernels vs plain: least cosine {row_cos:.7f}, control (rows off by "
+        f"{DISTILL_ROW_MIN_COS}) {off_cos:.7f}")
+    check(row_cos >= DISTILL_ROW_MIN_COS and off_cos < DISTILL_ROW_MIN_COS, f"(i) teacher rows {row_cos}, {off_cos}")
+    (m_k, g_k), (m_p, g_p) = kernel.gradients(batch), twin.gradients(batch)
+    m_k, m_p = ({"total_loss": m["kd_loss"]} for m in (m_k, m_p))
+    grads = step_compare(torch, "(i) distill: KD loss and student gradients, kernels vs plain", m_k, m_p,
+                         {f"clip/{k}": v for k, v in g_k.items()}, {f"clip/{k}": v for k, v in g_p.items()},
+                         lambda k: True)
+    step_check("(i) distill", grads, DISTILL_BANDS)
+    del g_k, g_p
+    counted = [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd]
+    totals = {fn.__name__: 0 for fn in counted}
+    steps = []
+    for s in range(DISTILL_STEPS):
+        start = {fn.__name__: fn.launches for fn in counted}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mk = kernel.train_step(batch)
+        torch.cuda.synchronize()
+        row = {"kernel_s": time.perf_counter() - t0,
+               "launches": {fn.__name__: fn.launches - start[fn.__name__] for fn in counted}}
+        t0 = time.perf_counter()
+        mp = twin.train_step(batch)
+        torch.cuda.synchronize()
+        row.update(twin_s=time.perf_counter() - t0, kd_loss=mk["kd_loss"],
+                   kd_rel=abs(mk["kd_loss"] - mp["kd_loss"]) / abs(mp["kd_loss"]))
+        log(f"(i) distill step {s + 1}: {json.dumps(row)}")
+        want = t_cfg.vision.layers + t_cfg.text.layers
+        check_launches(f"(i) step {s + 1}", row["launches"], want, 0)
+        # the first step from equal students; after it Adam's near-sign update
+        # has moved the two students apart, so later steps are reported
+        check(math.isfinite(mk["kd_loss"]) and (s > 0 or row["kd_rel"] <= DISTILL_BANDS[0]), f"(i) kd loss {row}")
+        for k, n in row["launches"].items():
+            totals[k] += n
+        steps.append(row)
+    del kernel, twin
+    torch.cuda.empty_cache()
+    return {"launches": totals, "steps": steps, "grads": grads, "row_cos": row_cos,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def served_bit_equal(torch, model: str, params, path: pathlib.Path, frames, counted) -> dict:
+    """An engine on ``params`` (in memory) and the same engine after
+    ``load_finetuned(path)``: their rows for ``frames`` (one batch) must be
+    bit-equal; the launches of both encodes."""
+    import numpy as np
+
+    from evr_tpu_torch.index import EmbeddingEngine
+
+    engine = EmbeddingEngine(model, params=params, device="cuda", batch_size=len(frames))
+    start = {fn.__name__: fn.launches for fn in counted}
+    ref = engine.encode_staged_images(frames)
+    engine.load_finetuned(path, "file")
+    check(engine.set_active_model("file"), f"{path.name}: not registered")
+    got = engine.encode_staged_images(frames)
+    launches = {fn.__name__: fn.launches - start[fn.__name__] for fn in counted}
+    equal = np.array_equal(got, ref)
+    log(f"serving {path.name}: {len(frames)} rows bit-equal to the in-memory engine's: {equal}; launches {launches}")
+    check(equal and np.isfinite(got).all(), f"{path.name}: served rows differ from the in-memory engine's")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lever_clis(torch) -> dict:
+    """(j) ``tools.finetune.main --lora-rank 16`` at ViT-L/14@336px (two
+    steps and a validation batch), its ``lora_merged.pt`` served bit-equal
+    to ``merge_lora`` of the final state in memory, the trainer's own
+    ``final_checkpoint.pt`` refused at serve time; (k) ``tools.distill.main``
+    ViT-L/14 → ViT-B/32, its ``student.pt`` served the same way; (l)
+    ``tools.train_sustained.main`` with its defaults but the steps
+    (``SUSTAINED_ARGV``)."""
+    from evr_tpu_torch.index.engine import load_torch_checkpoint
+    from evr_tpu_torch.models import get_model_config
+    from evr_tpu_torch.models.torch_import import read_torch_file
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.tools import distill as distill_cli
+    from evr_tpu_torch.tools import finetune as finetune_cli
+    from evr_tpu_torch.tools import train_sustained
+    from evr_tpu_torch.training import merge_lora
+
+    counted = [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd]
+    totals = {fn.__name__: 0 for fn in counted}
+    out = {}
+
+    def since(start):
+        return {fn.__name__: fn.launches - start[fn.__name__] for fn in counted}
+
+    def add(launches):
+        for k, n in launches.items():
+            totals[k] += n
+
+    cfg = get_model_config(TRAIN_MODEL)
+    L = cfg.vision.layers
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        train_json, val_json = write_caption_set(root, cfg.vision.image_size, cfg.vision.patch_size,
+                                                 n_train=LORA_CLI_TRAIN, n_val=TRAIN_BATCH)
+        save = root / "lora"
+        start = {fn.__name__: fn.launches for fn in counted}
+        t0 = time.perf_counter()
+        result, _ = quiet(finetune_cli.main, [
+            "--train-json", str(train_json), "--val-json", str(val_json), "--data-dir", str(root),
+            "--model", TRAIN_MODEL, "--batch-size", str(TRAIN_BATCH), "--epochs", "1", "--seed", str(LEVER_SEED),
+            "--save-dir", str(save), "--device", "cuda", "--lora-rank", str(LEVER_LORA_RANK)])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = since(start)
+        add(launches)
+        steps = LORA_CLI_TRAIN // TRAIN_BATCH
+        log(f"(j) LoRA CLI: {steps} steps + 1 validation batch in {fit_s:.1f} s, launches {launches}; "
+            f"history {json.dumps(result['history'][0])}")
+        check_launches("(j) LoRA CLI", launches, L * (steps + 1), L * steps)
+        check((save / "lora_merged.pt").exists(), "(j) no lora_merged.pt")
+        try:
+            load_torch_checkpoint(save / "final_checkpoint.pt")
+            check(False, "(j) the LoRA trainer's final_checkpoint.pt served")
+        except ValueError as e:
+            check("lora_merged.pt" in str(e), f"(j) refusal {e}")
+        final = read_torch_file(save / "final_checkpoint.pt")["params"]
+        with torch.no_grad():
+            merged = merge_lora(_to_cuda(torch, final["clip"]), _to_cuda(torch, final["lora"]), 16.0)
+        del final
+        frames = synthetic_frames(torch, TRAIN_BATCH, cfg.vision.image_size, cfg.vision.patch_size)
+        served = served_bit_equal(torch, TRAIN_MODEL, merged, save / "lora_merged.pt", frames, counted)
+        check(all(n == 2 * (L - 1) for k, n in served.items() if not k.endswith("_bwd")),
+              f"(j) serving launches {served}")
+        add(served)
+        del merged
+        out["lora_cli"] = {"fit_s": fit_s, "launches": launches, "served": served,
+                           "val_loss": result["history"][0].get("val_total_loss")}
+
+        t_cfg, s_cfg = get_model_config(DISTILL_TEACHER), get_model_config(DISTILL_STUDENT)
+        droot = root / "distill"
+        droot.mkdir()
+        d_json, _ = write_caption_set(droot, s_cfg.vision.image_size, s_cfg.vision.patch_size,
+                                      n_train=DISTILL_CLI_IMAGES, n_val=0)
+        start = {fn.__name__: fn.launches for fn in counted}
+        t0 = time.perf_counter()
+        history, _ = quiet(distill_cli.main, [
+            "--train-json", str(d_json), "--data-dir", str(droot), "--student-model", DISTILL_STUDENT,
+            "--teacher-model", DISTILL_TEACHER, "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
+            "--save-dir", str(droot / "out"), "--device", "cuda", "--seed", str(LEVER_SEED)])
+        torch.cuda.synchronize()
+        distill_s = time.perf_counter() - t0
+        launches = since(start)
+        add(launches)
+        d_steps = DISTILL_CLI_IMAGES // TRAIN_BATCH
+        log(f"(k) distill CLI: {d_steps} steps in {distill_s:.1f} s, launches {launches}; {json.dumps(history)}")
+        check_launches("(k) distill CLI", launches, d_steps * (t_cfg.vision.layers + t_cfg.text.layers), 0)
+        student = read_torch_file(droot / "out" / "student.pt")["params"]["clip"]
+        frames = synthetic_frames(torch, TRAIN_BATCH, s_cfg.vision.image_size, s_cfg.vision.patch_size)
+        served = served_bit_equal(torch, DISTILL_STUDENT, student, droot / "out" / "student.pt", frames, counted)
+        check(all(n == 2 * (s_cfg.vision.layers - 1) for k, n in served.items() if not k.endswith("_bwd")),
+              f"(k) serving launches {served}")
+        add(served)
+        out["distill_cli"] = {"seconds": distill_s, "launches": launches, "served": served,
+                              "kd_loss": history[-1]["kd_loss"]}
+
+    start = {fn.__name__: fn.launches for fn in counted}
+    t0 = time.perf_counter()
+    sustained, _ = quiet(train_sustained.main, SUSTAINED_ARGV)
+    torch.cuda.synchronize()
+    sustained_s = time.perf_counter() - t0
+    launches = since(start)
+    add(launches)
+    b = get_model_config("ViT-B/32")
+    holdout = 2 * (b.vision.layers + b.text.layers)
+    log(f"(l) train_sustained ({' '.join(SUSTAINED_ARGV)}: {sustained['steps']} steps, batch 256) in "
+        f"{sustained_s:.1f} s: "
+        f"{sustained['sustained_ex_per_s']:.1f} examples/s; R@K before {json.dumps(sustained['before'])}, after "
+        f"{json.dumps(sustained['after'])}; losses {sustained['first_loss']:.4f} -> {sustained['last_loss']:.4f}; "
+        f"launches {launches} (expected {holdout} of K1/K2: the holdout encodes before and after)")
+    check_launches("(l) train_sustained", launches, holdout, 0)
+    check(sustained["after"]["R@5"] > sustained["before"]["R@5"], f"(l) no R@5 lift: {sustained}")
+    out["sustained"] = {**sustained, "seconds": sustained_s, "launches": launches}
+    out["launches"] = totals
+    return out
+
+
+def _to_cuda(torch, tree):
+    from evr_tpu_torch.training.partition import map_with_paths
+
+    return map_with_paths(tree, lambda _, t: t.to("cuda"))
+
+
 def main() -> int:
     try:
         import torch
@@ -5502,6 +6151,11 @@ def main() -> int:
         ingest = phase_ingest(torch)
         harness = phase_harness(torch)
         variants = phase_variants(torch)
+        t5 = time.perf_counter()
+        levers = phase_levers(torch)
+        distill = phase_distill(torch)
+        lever_clis = phase_lever_clis(torch)
+        phase17_s = time.perf_counter() - t5
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5627,6 +6281,27 @@ def main() -> int:
         f"{[round(r['grads']['least_leaf_cos'], 6) for r in variants['catlip']]}; projection ({MODEL}) "
         f"{variants['projection']['step_s']:.4f} s/step, encode_projected row cosine "
         f"{variants['projection']['row_cos']:.6f}")
+    lv = {k: levers[k] for k in "abcdefgh"}
+    log(f"trainer levers (phase 17, {phase17_s:.1f} s: levers {levers['phase_s']:.1f}, distillation "
+        f"{distill['phase_s']:.1f}), {TRAIN_MODEL}, batch {TRAIN_BATCH}, bf16: s/step kernel / plain twin "
+        + ", ".join(f"({k}) {[round(r['kernel_s'], 4) for r in v['calls']]} / "
+                    f"{[round(r['twin_s'], 4) for r in v['calls'] if 'twin_s' in r]}" for k, v in lv.items())
+        + "; least vision-block gradient cosines "
+        + ", ".join(f"({k}) {[round(g['least_leaf_cos'], 6) for g in v['grads']]}" for k, v in lv.items() if "grads" in v)
+        + f" (band {STEP_BF16_BANDS[2]}); GradCache vs the direct step {levers['e']['direct']['least_leaf_cos']:.6f}; "
+        f"emitted mean error {levers['a']['mean_err']:.2e}; remat bit-equal {levers['d']['bit_equal']}; "
+        f"Newton-Schulz {levers['b']['ns_s']:.4f} s a step; peak memory GiB (the step's own above its start): "
+        f"(a) {lv['a']['calls'][0]['kernel_peak_gib']:.1f} ({lv['a']['calls'][0]['kernel_extra_gib']:.1f}), "
+        f"(d) remat {lv['d']['calls'][0]['kernel_peak_gib']:.1f} ({lv['d']['calls'][0]['kernel_extra_gib']:.1f}), "
+        f"(e) GradCache {lv['e']['calls'][0]['kernel_peak_gib']:.1f} ({lv['e']['calls'][0]['kernel_extra_gib']:.1f})")
+    ls = lever_clis["sustained"]
+    log(f"distillation ({DISTILL_TEACHER} -> {DISTILL_STUDENT}): teacher rows {distill['row_cos']:.7f}, KD loss "
+        f"rel {distill['grads']['loss_rel']:.2e}, student gradients norm rel {distill['grads']['norm_rel']:.2e}, "
+        f"least leaf cosine {distill['grads']['least_leaf_cos']:.7f} (bands {DISTILL_BANDS}); s/step "
+        f"{[round(r['kernel_s'], 4) for r in distill['steps']]} / {[round(r['twin_s'], 4) for r in distill['steps']]}; "
+        f"CLIs: LoRA fit {lever_clis['lora_cli']['fit_s']:.1f} s, distill {lever_clis['distill_cli']['seconds']:.1f} s; "
+        f"train_sustained {ls['steps']} steps {ls['sustained_ex_per_s']:.1f} examples/s, R@1/5/10 "
+        f"{[ls['before'][k] for k in ('R@1', 'R@5', 'R@10')]} -> {[ls['after'][k] for k in ('R@1', 'R@5', 'R@10')]}")
     big = main["then"]["routes"]
     log(f"viz.umap at {UMAP_ROWS} x {UMAP_DIM}: {big['umap_big_s']:.2f} s, neighbours kept "
         f"{json.dumps(big['knn_kept'])}")
@@ -5641,7 +6316,9 @@ def main() -> int:
     launches.update({k: train["launches"][k] for k in ("fused_attn_block_bwd", "fused_mlp_block_bwd")})
     # phase 16: the harness's runs (K1/K2 bf16, K3a/K3b int8) and the trainer
     # variants (K1/K2 forward, K5a/K5b backward, encode_projected's K1/K2)
-    for m in (harness["launches"], variants["launches"]):
+    # phase 17: the levers' steps, the distillation steps and the three CLIs
+    for m in (harness["launches"], variants["launches"], levers["launches"], distill["launches"],
+              lever_clis["launches"]):
         for name, n in m.items():
             launches[name] += n
     launches["adc_list_scores"] = ann["launches"]

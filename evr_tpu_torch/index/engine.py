@@ -54,8 +54,6 @@ from evr_tpu_torch.utils.device import resolve_device
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 PARAMS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": None}
 PREPROCESS_MODES = ("fast", "pil")
-# the keys of the port Trainer's checkpoint payload (``Trainer.save_checkpoint``)
-TRAINER_KEYS = ("params", "opt_state", "step")
 
 
 def load_torch_checkpoint(path, prefer_ema: bool = False) -> dict:
@@ -63,11 +61,17 @@ def load_torch_checkpoint(path, prefer_ema: bool = False) -> dict:
     ``{"clip": params, "classifier": params or None}``:
 
     - the port Trainer's ``.pt`` (``best_model.pt``, ``final_checkpoint.pt``:
-      a dict with the keys ``TRAINER_KEYS``), the counterpart of the JAX
-      package's orbax checkpoint: its params, or with ``prefer_ema=True`` its
+      a dict with ``params``, ``opt_state`` and ``step``), the counterpart of
+      the JAX package's orbax checkpoint: its params, or with ``prefer_ema=True`` its
       EMA (``payload["ema"]``, written when training ran with
       ``ema_decay > 0``) where it has one. The file is memory-mapped, so the
-      optimizer moments it also holds are never read;
+      optimizer moments it also holds are never read. A LoRA trainer's file
+      (its params hold ``lora``) raises ``ValueError``: its ``clip`` is the
+      untrained base, and the model it trained is in ``lora_merged.pt``;
+    - a dict whose ``params`` hold ``clip`` (``tools.distill``'s
+      ``student.pt``) or a bare CLIP tree (``tools.finetune``'s
+      ``lora_merged.pt``), as the JAX package's ``load_orbax_checkpoint``
+      reads such payloads;
     - otherwise a reference ``.pt`` (``models.torch_import``), which holds no
       EMA.
 
@@ -78,18 +82,26 @@ def load_torch_checkpoint(path, prefer_ema: bool = False) -> dict:
     if pathlib.Path(path).is_dir():
         raise NotImplementedError(
             f"{path} is a directory: orbax checkpoints need JAX; the port reads torch "
-            "files only (ROADMAP items A14/A17)")
+            "files only (ROADMAP item A17)")
     blob = read_torch_file(path)
-    if not (isinstance(blob, dict) and all(k in blob for k in TRAINER_KEYS)):
+    if isinstance(blob, dict) and blob.get("moe"):
+        raise NotImplementedError(f"{path}: MoE checkpoints are not ported yet (ROADMAP item A17)")
+    if not (isinstance(blob, dict) and isinstance(blob.get("params"), dict)):
         out = checkpoint_from_blob(blob)
         return {"clip": out["clip"], "classifier": out["classifier"]}
-    if blob.get("moe"):
-        raise NotImplementedError(
-            f"{path}: MoE checkpoints are not ported yet (ROADMAP items A14/A17)")
     params = blob["params"]
     if prefer_ema and blob.get("ema") is not None:
         params = blob["ema"]
-    return {"clip": params["clip"], "classifier": params.get("classifier")}
+    if "lora" in params:
+        raise ValueError(
+            f"{path} is a LoRA trainer checkpoint: its 'clip' params are the untrained base and "
+            "its adapters are unmerged; serve the merged model, <save-dir>/lora_merged.pt "
+            "(tools.finetune writes it), or Trainer.merged_clip_params()")
+    if "clip" in params:
+        return {"clip": params["clip"], "classifier": params.get("classifier")}
+    if all(k in params for k in ("visual", "text", "logit_scale")):
+        return {"clip": params, "classifier": None}
+    raise ValueError(f"{path}: 'params' holds neither 'clip' nor a CLIP tree")
 
 
 class EmbeddingEngine:

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD, cubic_weight_mat
 
@@ -66,6 +67,9 @@ class CLIPConfig:
     attn_impl: str = "auto"
     # "quick_gelu" (OpenAI CLIP) | "gelu" (OpenCLIP laion towers)
     activation: str = "quick_gelu"
+    # rematerialise each transformer block in the backward pass (memory ↔
+    # FLOPs trade for training): ``torch.utils.checkpoint`` under grad mode
+    remat: bool = False
 
 
 # -- init -----------------------------------------------------------------
@@ -144,21 +148,38 @@ def interpolate_pos_embedding(pos, new_grid: int) -> torch.Tensor:
 
 
 def _run_blocks(x, blocks, heads, causal, cfg: CLIPConfig):
+    """The block stack. With ``cfg.remat`` under grad mode each block runs
+    in ``torch.utils.checkpoint`` (non-reentrant, as ``jax.checkpoint``):
+    its activations are recomputed in the backward instead of stored, so a
+    block on the fused route runs its forward kernels twice a step."""
+    remat = cfg.remat and torch.is_grad_enabled()
     for bp in blocks:
-        x = block_apply(x, bp, heads, causal, cfg.attn_impl, cfg.activation)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                block_apply, x, bp, heads, causal, cfg.attn_impl, cfg.activation, use_reentrant=False
+            )
+        else:
+            x = block_apply(x, bp, heads, causal, cfg.attn_impl, cfg.activation)
     return x
 
 
-def _vision_transform(p, cfg: CLIPConfig, x, dtype, cls_fast_final=False) -> torch.Tensor:
-    """[B, grid², width] patch tokens → cls/pos/ln_pre → blocks → pooled
-    projection [B, embed_dim] in float32. ``cls_fast_final`` runs the last
-    block for the CLS row only (``layers.final_block_cls``)."""
+def _vision_transform(p, cfg: CLIPConfig, x, dtype, cls_fast_final=False, patch_keep=None) -> torch.Tensor:
+    """[B, grid², width] patch tokens → cls/pos (→ the kept patches) →
+    ln_pre → blocks → pooled projection [B, embed_dim] in float32.
+    ``cls_fast_final`` runs the last block for the CLS row only
+    (``layers.final_block_cls``), never under ``cfg.remat``.
+    ``patch_keep`` [B, K] int: the patch tokens kept (FLIP masking), gathered
+    after the positional add in the order given, the class token first."""
     v = cfg.vision
     B = x.shape[0]
     cls = p["class_embedding"].to(dtype).expand(B, 1, v.width)
     x = torch.cat([cls, x], dim=1) + p["pos_embedding"].to(dtype)
+    if patch_keep is not None:
+        idx = torch.as_tensor(patch_keep, device=x.device).long()
+        kept = torch.gather(x[:, 1:], 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+        x = torch.cat([x[:, :1], kept], dim=1)
     x = layer_norm(x, p["ln_pre"])
-    if cls_fast_final:
+    if cls_fast_final and not cfg.remat:
         x = _run_blocks(x, p["blocks"][:-1], v.heads, False, cfg)
         pooled = final_block_cls(x, p["blocks"][-1], v.heads, cfg.activation)
     else:
@@ -169,9 +190,16 @@ def _vision_transform(p, cfg: CLIPConfig, x, dtype, cls_fast_final=False) -> tor
 
 
 def encode_image(
-    params: Params, cfg: CLIPConfig, pixels: torch.Tensor, dtype: torch.dtype = torch.float32
+    params: Params,
+    cfg: CLIPConfig,
+    pixels: torch.Tensor,
+    dtype: torch.dtype = torch.float32,
+    patch_keep: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """pixels [B, H, W, 3] (preprocessed, NHWC) → [B, embed_dim], unnormalised."""
+    """pixels [B, H, W, 3] (preprocessed, NHWC) → [B, embed_dim], unnormalised.
+    ``patch_keep`` [B, K] int: the indices of the patch tokens to keep (FLIP
+    masking, training only): the blocks run on K + 1 tokens. None: every
+    token."""
     v = cfg.vision
     p = params["visual"]
     x = pixels.to(dtype).permute(0, 3, 1, 2)
@@ -179,7 +207,7 @@ def encode_image(
     x = torch.nn.functional.conv2d(x, kernel, stride=v.patch_size)
     B = x.shape[0]
     x = x.permute(0, 2, 3, 1).reshape(B, v.grid * v.grid, v.width)
-    return _vision_transform(p, cfg, x, dtype)
+    return _vision_transform(p, cfg, x, dtype, patch_keep=patch_keep)
 
 
 def encode_staged_u8(
@@ -235,13 +263,14 @@ def encode_text(
 ) -> torch.Tensor:
     """tokens [B, 77] int → [B, embed_dim] (unnormalised), pooled at the EOT
     position (argmax token id). ``eot_fast_final`` runs the last block for
-    the EOT row only (``layers.final_block_eot``), the serving path."""
+    the EOT row only (``layers.final_block_eot``), the serving path; never
+    under ``cfg.remat``."""
     t = cfg.text
     p = params["text"]
     tokens = tokens.long()
     eot_pos = tokens.argmax(dim=-1)
     x = text_tokens(params, cfg, tokens, dtype)
-    if eot_fast_final:
+    if eot_fast_final and not cfg.remat:
         x = _run_blocks(x, p["blocks"][:-1], t.heads, True, cfg)
         pooled = final_block_eot(x, p["blocks"][-1], t.heads, eot_pos, cfg.activation)
     else:

@@ -10,13 +10,15 @@ checkpoints and ``history.json`` under ``--save-dir``. The towers start from
 (``--seed``); the classifier head is always drawn from ``--seed`` + 1.
 ``--device`` defaults to ``cuda`` and ``--device cpu`` runs on the CPU.
 
-The flags of the JAX package's CLI that the port does not honour yet are
-accepted by the parser and refused when set, naming the ROADMAP item they
-wait for: ``--fsdp`` and ``--expert-parallel`` (A15, distributed training),
-``--moe-*``, ``--lora-rank``/``--lora-alpha``, ``--optimizer muon`` and
-``--muon-lr-scale``, ``--gradcache-chunks``, ``--remat`` and
-``--patch-drop`` (A14, the trainer variants and levers). ``--no-mesh`` is
-accepted: the port has no mesh.
+The trainer's levers: ``--lora-rank``/``--lora-alpha`` (after a run that was
+not preempted, ``<save-dir>/lora_merged.pt`` holds ``{"params": merged CLIP
+tree}``, the payload the JAX CLI writes to orbax, which ``EmbeddingEngine``
+serves), ``--optimizer muon`` and ``--muon-lr-scale``, ``--gradcache-chunks``,
+``--remat`` and ``--patch-drop``. The flags of the JAX package's CLI that the
+port does not honour yet are accepted by the parser and refused when set,
+naming the ROADMAP item they wait for: ``--fsdp`` and ``--expert-parallel``
+(A15, distributed training) and ``--moe-*`` (A17, with ``models/moe.py``).
+``--no-mesh`` is accepted: the port has no mesh.
 """
 
 from __future__ import annotations
@@ -29,18 +31,11 @@ import pathlib
 UNPORTED_FLAGS = {
     "fsdp": (False, "A15"),
     "expert_parallel": (0, "A15"),
-    "moe_experts": (0, "A14"),
-    "moe_router_k": (2, "A14"),
-    "moe_every": (2, "A14"),
-    "moe_capacity": (1.25, "A14"),
-    "moe_aux_weight": (1e-2, "A14"),
-    "lora_rank": (0, "A14"),
-    "lora_alpha": (16.0, "A14"),
-    "optimizer": ("adamw", "A14"),
-    "muon_lr_scale": (10.0, "A14"),
-    "gradcache_chunks": (0, "A14"),
-    "remat": (False, "A14"),
-    "patch_drop": (0.0, "A14"),
+    "moe_experts": (0, "A17"),
+    "moe_router_k": (2, "A17"),
+    "moe_every": (2, "A17"),
+    "moe_capacity": (1.25, "A17"),
+    "moe_aux_weight": (1e-2, "A17"),
 }
 
 
@@ -75,14 +70,23 @@ def build_parser() -> argparse.ArgumentParser:
                         help="checkpoint name under --save-dir (e.g. autosave)")
     parser.add_argument("--init-checkpoint", default=None,
                         help="start the towers from this reference .pt checkpoint (OpenAI layout)")
-    # accepted for the JAX CLI's command lines, refused when set (UNPORTED_FLAGS)
-    parser.add_argument("--patch-drop", type=float, default=0.0)
-    parser.add_argument("--gradcache-chunks", type=int, default=0)
-    parser.add_argument("--remat", action="store_true")
-    parser.add_argument("--lora-rank", type=int, default=0)
+    parser.add_argument("--patch-drop", type=float, default=0.0,
+                        help="FLIP random patch masking fraction during training (arxiv 2212.00794)")
+    parser.add_argument("--gradcache-chunks", type=int, default=0,
+                        help="GradCache (arxiv 2101.06983): the batch encoded in N chunks, the "
+                        "contrastive negatives still the full batch; 0 disables")
+    parser.add_argument("--remat", action="store_true",
+                        help="rematerialise the transformer blocks in the backward pass")
+    parser.add_argument("--lora-rank", type=int, default=0,
+                        help="LoRA (arxiv 2106.09685): rank-r adapters on the block linears, base "
+                        "frozen; a merged checkpoint is written to <save-dir>/lora_merged.pt")
     parser.add_argument("--lora-alpha", type=float, default=16.0)
-    parser.add_argument("--optimizer", choices=["adamw", "muon"], default="adamw")
-    parser.add_argument("--muon-lr-scale", type=float, default=10.0)
+    parser.add_argument("--optimizer", choices=["adamw", "muon"], default="adamw",
+                        help="muon: Newton-Schulz-orthogonalized momentum on the hidden 2-D "
+                        "weights, AdamW elsewhere (training/muon.py)")
+    parser.add_argument("--muon-lr-scale", type=float, default=10.0,
+                        help="Muon lr = lr * group scale * this")
+    # accepted for the JAX CLI's command lines, refused when set (UNPORTED_FLAGS)
     parser.add_argument("--fsdp", action="store_true")
     parser.add_argument("--moe-experts", type=int, default=0)
     parser.add_argument("--moe-router-k", type=int, default=2)
@@ -131,6 +135,9 @@ def main(argv=None) -> dict:
         freeze_layers=args.freeze_layers, save_dir=args.save_dir, ema_decay=args.ema_decay,
         warmup_steps=args.warmup_steps, adam_mu_dtype=args.adam_mu_dtype,
         contrastive_loss=args.loss, save_every_steps=args.save_every_steps,
+        patch_drop=args.patch_drop, remat=args.remat, gradcache_chunks=args.gradcache_chunks,
+        optimizer=args.optimizer, muon_lr_scale=args.muon_lr_scale,
+        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
     )
     trainer = Trainer(
         cfg, clip_params, tc, classifier_params=cls_params,
@@ -148,6 +155,13 @@ def main(argv=None) -> dict:
     out = pathlib.Path(args.save_dir) / "history.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=2))
+    if args.lora_rank > 0 and not result.get("preempted"):
+        # the adapters folded in: an ordinary CLIP tree every surface serves
+        import torch
+
+        path = pathlib.Path(args.save_dir).absolute() / "lora_merged.pt"
+        torch.save({"params": trainer.merged_clip_params()}, path)
+        print(f"merged LoRA checkpoint -> {path}")
     print(f"best val loss {result['best_val_loss']:.4f} @ epoch {result['best_epoch']}")
     return result
 

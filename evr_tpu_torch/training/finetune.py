@@ -23,12 +23,36 @@ adamw})), max_consecutive_nonfinite)``:
   get no update, no decay and no moments, and never enter the norm;
 - ``adam_mu_dtype="bfloat16"`` stores mu in bf16 (the update runs in fp32).
 
+The levers follow the JAX trainer:
+
+- ``grad_accumulation_steps`` = k > 1: ``optax.MultiSteps`` outside the
+  finite guard (``MultiSteps``): a running mean of the gradients
+  (``acc + (g − acc) / (n + 1)``), the inner optimizer applied, and its
+  state kept, on every k-th call only; the other calls leave the params
+  bit-equal. The step count and the EMA advance on every call;
+- ``optimizer="muon"``: each trainable leaf is labelled
+  ``"<group>:<muon|adamw>"`` (``muon.muon_param_labels``); Muon leaves take
+  the orthogonalized Nesterov momentum at ``lr · group scale ·
+  muon_lr_scale`` with no weight decay, the others AdamW;
+- ``patch_drop``: ``n_keep = max(1, round(grid² · (1 − patch_drop)))``
+  patch tokens kept per example, an argsort of uniforms drawn from the
+  step's generator before the classifier's dropout (``draw_patch_keep``);
+  the evaluation step runs the full sequence;
+- ``remat``: the Trainer switches ``CLIPConfig.remat`` on;
+- ``lora_rank`` > 0: adapters drawn at ``seed + 1`` (``lora.init_lora``),
+  merged into the dense kernels inside the forward, the base frozen;
+  ``Trainer.merged_clip_params`` is the tree that serves;
+- ``gradcache_chunks`` > 1: the chunked exact gradient of
+  ``gradcache.gradcache_value_and_grad`` (refused with moe, LoRA or
+  ``patch_drop``, ``ValueError``).
+
 Where the JAX step donates its buffers, the port updates the params and the
 moments in place. The vision tower of ViT-L/14@336px (T = 577) runs its
 blocks through the fused kernels K1/K2 forward and K5b/K5a backward
 (``attn_impl="auto_grad"``, as the JAX trainer pins); shorter towers take the
-plain composition under autograd. Levers the port does not honour yet raise
-``NotImplementedError`` naming their ROADMAP item (``check_supported``).
+plain composition under autograd, and so does a vision tower that
+``patch_drop`` cuts below T = 512. The MoE lever waits for ROADMAP item A17
+and raises ``NotImplementedError`` naming it (``check_supported``).
 """
 
 from __future__ import annotations
@@ -50,7 +74,10 @@ from evr_tpu_torch.models.convert import params_from_numpy
 from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
 from evr_tpu_torch.utils.device import resolve_device
 
+from .gradcache import gradcache_value_and_grad
+from .lora import init_lora, merge_lora
 from .losses import combined_clip_loss
+from .muon import muon_direction, muon_param_labels
 from .partition import iter_paths, map_with_paths, param_group_labels
 
 
@@ -100,18 +127,7 @@ class TrainConfig:
 # TrainConfig fields the port does not honour yet: (the value it takes, the
 # ROADMAP item the lever waits for). Any other value raises.
 UNPORTED_FIELDS = {
-    "grad_accumulation_steps": ((1,), "A14"),
-    "optimizer": (("adamw",), "A14"),
-    "muon_lr_scale": ((10.0,), "A14"),
-    "muon_momentum": ((0.95,), "A14"),
-    "muon_ns_steps": ((5,), "A14"),
-    "patch_drop": ((0.0,), "A14"),
-    "remat": ((False,), "A14"),
-    "lora_rank": ((0,), "A14"),
-    "lora_alpha": ((16.0,), "A14"),
-    "lora_targets": ((("attn.qkv", "attn.out", "mlp.fc", "mlp.proj"),), "A14"),
-    "moe": ((None,), "A14"),
-    "gradcache_chunks": ((0, 1), "A14"),
+    "moe": ((None,), "A17"),
 }
 
 
@@ -125,6 +141,8 @@ def check_supported(cfg: TrainConfig) -> None:
                 f"TrainConfig.{name}={value!r} is not ported yet (ROADMAP item {item}); "
                 f"the port takes {' or '.join(repr(a) for a in allowed)}"
             )
+    if cfg.optimizer not in ("adamw", "muon"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     if cfg.adam_mu_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"adam_mu_dtype {cfg.adam_mu_dtype!r}")
     if cfg.contrastive_loss not in ("infonce", "siglip"):
@@ -174,7 +192,11 @@ class GroupedAdamW:
     """AdamW in four learning-rate groups over the trainable leaves, with
     clipping by global norm and the finite-update guard (see the module
     docstring for the optax chain it follows). ``labels`` maps a leaf's path
-    key to its group: "visual", "text", "classifier", "other" or "frozen"."""
+    key to its group: "visual", "text", "classifier", "other" or "frozen";
+    under ``optimizer="muon"`` a trainable leaf's label is
+    ``"<group>:<muon|adamw>"`` and its Muon leaves take ``muon_direction``
+    (momentum ``cfg.muon_momentum``, Nesterov, ``cfg.muon_ns_steps``) at the
+    group's rate times ``cfg.muon_lr_scale``, with no weight decay."""
 
     def __init__(self, cfg: TrainConfig, labels: dict[str, str], steps_per_epoch: int = 1):
         self.cfg = cfg
@@ -189,23 +211,38 @@ class GroupedAdamW:
     def trainable(self, flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         return {k: v for k, v in flat.items() if self.labels[k] != "frozen"}
 
+    def is_muon(self, key: str) -> bool:
+        return self.labels[key].endswith(":muon")
+
     def init(self, params) -> dict:
         train = self.trainable(flat_leaves(params))
-        return {
+        adam = {k: v for k, v in train.items() if not self.is_muon(k)}
+        state = {
             "count": 0,  # the inner AdamW / schedule count
             "notfinite_count": 0,
             "last_finite": True,
             "total_notfinite": 0,
-            "mu": {k: torch.zeros_like(v, dtype=self.mu_dtype or v.dtype) for k, v in train.items()},
-            "nu": {k: torch.zeros_like(v) for k, v in train.items()},
+            "mu": {k: torch.zeros_like(v, dtype=self.mu_dtype or v.dtype) for k, v in adam.items()},
+            "nu": {k: torch.zeros_like(v) for k, v in adam.items()},
         }
+        if self.cfg.optimizer == "muon":
+            state["momentum"] = {k: torch.zeros_like(v) for k, v in train.items() if self.is_muon(k)}
+        return state
 
     def learning_rates(self, count: int) -> dict[str, torch.Tensor]:
-        """Each group's learning rate at optimizer count ``count``."""
-        return {
+        """Each group's learning rate at optimizer count ``count`` (and each
+        group's Muon rate, "<group>:muon", under ``optimizer="muon"``)."""
+        lrs = {
             g: schedule_lr(self.cfg, self.steps_per_epoch, self.cfg.lr * s, count)
             for g, s in self.group_scales.items()
         }
+        if self.cfg.optimizer == "muon":
+            lrs.update({
+                f"{g}:muon": schedule_lr(self.cfg, self.steps_per_epoch,
+                                         self.cfg.lr * s * self.cfg.muon_lr_scale, count)
+                for g, s in self.group_scales.items()
+            })
+        return lrs
 
     @torch.no_grad()
     def apply(self, params, grads: dict[str, torch.Tensor], state: dict) -> bool:
@@ -232,6 +269,12 @@ class GroupedAdamW:
         c2 = 1.0 - _f32(b2) ** (count + 1)
         for (key, p), grad in zip(flat.items(), g):
             dev = p.device
+            label = self.labels[key]
+            if self.is_muon(key):
+                u, state["momentum"][key] = muon_direction(
+                    grad, state["momentum"][key], cfg.muon_momentum, True, cfg.muon_ns_steps)
+                p.add_(u * (-lrs[label]).to(dev))
+                continue
             # as the JAX trainer's compiled step computes it: b1, a weak scalar,
             # takes mu's dtype (bf16 for a bf16 mu); the product and the sum
             # with (1 - b1) g are fp32
@@ -241,11 +284,48 @@ class GroupedAdamW:
             nu = (1 - b2) * (grad * grad) + b2 * state["nu"][key]
             u = (mu / c1.to(dev, mu.dtype)) / (torch.sqrt(nu / c2.to(dev)) + cfg.eps)
             u = u + cfg.weight_decay * p
-            p.add_(u * (-lrs[self.labels[key]]).to(dev))
+            p.add_(u * (-lrs[label.split(":")[0]]).to(dev))
             state["mu"][key] = mu.to(self.mu_dtype or mu.dtype)
             state["nu"][key] = nu
         state["count"] = count + 1
         return True
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k)``: each call folds its gradients
+    into a running mean, ``acc + (g − acc) / (n + 1)`` with n the calls
+    since the last update (Welford, as optax computes it); every
+    ``every_k``-th call hands the mean to ``inner`` (an optimizer with
+    ``init``/``apply``), whose state changes on those calls only, and
+    resets the mean to zeros. The other calls leave the params untouched.
+    State: ``mini_step``, ``gradient_step`` (updates made), ``acc_grads``
+    and ``inner_opt_state``."""
+
+    def __init__(self, inner, every_k: int):
+        self.inner = inner
+        self.every_k = every_k
+
+    def init(self, params) -> dict:
+        """``params``: what ``inner.init`` takes (a params tree for
+        ``GroupedAdamW``, a dict of leaves for ``variants.AdamW``)."""
+        leaves = self.inner.trainable(flat_leaves(params)) if hasattr(self.inner, "trainable") else params
+        return {"mini_step": 0, "gradient_step": 0,
+                "acc_grads": {k: torch.zeros_like(v) for k, v in leaves.items()},
+                "inner_opt_state": self.inner.init(params)}
+
+    @torch.no_grad()
+    def apply(self, params, grads: dict[str, torch.Tensor], state: dict):
+        """Fold ``grads`` in; on an emitting call, the inner optimizer's
+        ``apply`` of the mean (its result returned). Otherwise False."""
+        n = state["mini_step"]
+        acc = {k: a + (grads[k] - a) / (n + 1) for k, a in state["acc_grads"].items()}
+        state["mini_step"] = (n + 1) % self.every_k
+        if n != self.every_k - 1:
+            state["acc_grads"] = acc
+            return False
+        state["gradient_step"] += 1
+        state["acc_grads"] = {k: torch.zeros_like(a) for k, a in acc.items()}
+        return self.inner.apply(params, acc, state["inner_opt_state"])
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -253,13 +333,38 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
-def make_optimizer(cfg: TrainConfig, params, steps_per_epoch: int = 1) -> GroupedAdamW:
+def make_optimizer(cfg: TrainConfig, params, steps_per_epoch: int = 1):
+    """The JAX trainer's optimizer over ``params`` (``{"clip", "classifier",
+    "lora"}``): ``GroupedAdamW``, under ``MultiSteps`` when
+    ``grad_accumulation_steps`` > 1."""
     check_supported(cfg)
     labels = flat_leaves(param_group_labels(params, cfg.freeze_layers))
-    return GroupedAdamW(cfg, labels, steps_per_epoch)
+    if cfg.optimizer == "muon":
+        # flat combined labels "<group>:<muon|adamw>", as the JAX trainer's
+        kinds = flat_leaves(muon_param_labels(params))
+        labels = {k: g if g == "frozen" else f"{g}:{kinds[k]}" for k, g in labels.items()}
+    opt = GroupedAdamW(cfg, labels, steps_per_epoch)
+    if cfg.grad_accumulation_steps > 1:
+        return MultiSteps(opt, cfg.grad_accumulation_steps)
+    return opt
 
 
 # -- the step -------------------------------------------------------------------
+
+
+def patch_keep_count(model_cfg: CLIPConfig, patch_drop: float) -> tuple[int, int]:
+    """(patch tokens, patch tokens kept): ``max(1, round(grid² · (1 −
+    patch_drop)))`` with Python's round, as the JAX trainer counts them."""
+    n_patches = model_cfg.vision.grid ** 2
+    return n_patches, max(1, int(round(n_patches * (1.0 - patch_drop))))
+
+
+def draw_patch_keep(generator, batch: int, n_patches: int, n_keep: int, device) -> torch.Tensor:
+    """FLIP's keep mask: per example the first ``n_keep`` indices of an
+    argsort of ``n_patches`` uniforms drawn from ``generator`` (unsorted,
+    as the JAX trainer's)."""
+    u = torch.rand((batch, n_patches), generator=generator, device=device)
+    return torch.argsort(u, dim=-1, stable=True)[:, :n_keep]
 
 
 def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: TrainConfig):
@@ -269,32 +374,39 @@ def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: T
     reach). Frozen leaves (``param_group_labels``) are set not to require
     grad before the forward, so they get none and their blocks' backward
     skips their products. ``batch``: uint8 images [B, S, S, 3], int tokens
-    [B, 77] and int labels [B], numpy or tensors."""
+    [B, 77] and int labels [B], numpy or tensors. With ``params["lora"]``
+    the adapters are merged into the towers' kernels inside the forward;
+    ``cfg.patch_drop`` (train only) draws the keep mask first from
+    ``generator``, then the classifier's dropout draws; with
+    ``cfg.gradcache_chunks`` > 1 the gradient is GradCache's."""
     check_supported(cfg)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     if model_cfg.attn_impl == "auto":
         model_cfg = dataclasses.replace(model_cfg, attn_impl="auto_grad")
+    n_patches, n_keep = patch_keep_count(model_cfg, cfg.patch_drop)
+    use_gradcache = cfg.gradcache_chunks > 1
+    if use_gradcache and (cfg.moe is not None or cfg.lora_rank > 0 or cfg.patch_drop > 0.0):
+        raise ValueError("gradcache_chunks > 1 is unsupported with moe/lora/patch_drop")
 
-    def forward(params, batch, generator, train):
-        clip_p = params["clip"]
-        dev = clip_p["logit_scale"].device
-        images = torch.as_tensor(batch["images"], device=dev)
+    def clip_of(params):
+        if "lora" in params:
+            return merge_lora(params["clip"], params["lora"], cfg.lora_alpha)
+        return params["clip"]
+
+    def pixels(images, dev):
         mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev)
         std = torch.tensor(CLIP_STD, dtype=torch.float32, device=dev)
-        x = (images.float() / 255.0 - mean) / std
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        img = encode_image(clip_p, model_cfg, x, dtype=dtype)
-        txt = encode_text(clip_p, model_cfg, tokens, dtype=dtype)
+        return (torch.as_tensor(images, device=dev).float() / 255.0 - mean) / std
+
+    def head(params, clip_p, img, txt, labels, generator, train):
         img_n = img / img.norm(dim=-1, keepdim=True)
         txt_n = txt / txt.norm(dim=-1, keepdim=True)
-        cls_logits = labels = None
+        cls_logits = None
         if cls_cfg is not None and params.get("classifier") is not None:
             cls_logits = classifier_forward(
                 params["classifier"], cls_cfg, img_n, deterministic=not train,
                 generator=generator,
             )
-        if batch.get("labels") is not None:
-            labels = torch.as_tensor(batch["labels"], device=dev).long()
         return combined_clip_loss(
             img_n, txt_n, clip_p["logit_scale"],
             class_logits=cls_logits, class_labels=labels,
@@ -304,6 +416,40 @@ def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: T
             contrastive_impl=cfg.contrastive_loss,
             logit_bias=clip_p.get("logit_bias"),
         )
+
+    def labels_of(batch, dev):
+        if batch.get("labels") is None:
+            return None
+        return torch.as_tensor(batch["labels"], device=dev).long()
+
+    def forward(params, batch, generator, train):
+        clip_p = clip_of(params)
+        dev = clip_p["logit_scale"].device
+        x = pixels(batch["images"], dev)
+        patch_keep = None
+        if train and cfg.patch_drop > 0.0:
+            patch_keep = draw_patch_keep(generator, x.shape[0], n_patches, n_keep, dev)
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        img = encode_image(clip_p, model_cfg, x, dtype=dtype, patch_keep=patch_keep)
+        txt = encode_text(clip_p, model_cfg, tokens, dtype=dtype)
+        return head(params, clip_p, img, txt, labels_of(batch, dev), generator, train)
+
+    def gradcache_grads(params, batch, generator, leaves):
+        clip_p = params["clip"]
+        dev = clip_p["logit_scale"].device
+
+        def encode_fn(cb):
+            return {"img": encode_image(clip_p, model_cfg, pixels(cb["images"], dev), dtype=dtype),
+                    "txt": encode_text(clip_p, model_cfg, cb["tokens"], dtype=dtype)}
+
+        def head_fn(emb, aux):
+            return head(params, clip_p, emb["img"], emb["txt"], aux["labels"], aux["generator"], True)
+
+        vag = gradcache_value_and_grad(encode_fn, head_fn, cfg.gradcache_chunks)
+        chunked = {"images": torch.as_tensor(batch["images"], device=dev),
+                   "tokens": torch.as_tensor(batch["tokens"], device=dev)}
+        (_, metrics), grads = vag(chunked, {"labels": labels_of(batch, dev), "generator": generator}, leaves)
+        return metrics, grads
 
     def fn(params, batch, generator=None, train: bool = True):
         if not train:
@@ -315,6 +461,8 @@ def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: T
         for k, leaf in flat.items():
             leaf.requires_grad_(labels[k] != "frozen")
         train_keys = [k for k in flat if labels[k] != "frozen"]
+        if use_gradcache:
+            return gradcache_grads(params, batch, generator, {k: flat[k] for k in train_keys})
         with torch.enable_grad():
             loss, metrics = forward(params, batch, generator, True)
             grads = torch.autograd.grad(loss, [flat[k] for k in train_keys], allow_unused=True)
@@ -331,13 +479,15 @@ def make_train_step(
     model_cfg: CLIPConfig,
     cls_cfg: ClassifierConfig | None,
     cfg: TrainConfig,
-    optimizer: GroupedAdamW,
+    optimizer: GroupedAdamW | MultiSteps,
 ) -> tuple[Callable, Callable]:
     """``(step, eval_step)``: ``step(state, batch, generator) -> (state,
-    metrics)`` runs the loss, its gradients and one optimizer update (params
-    and moments updated in place) and adds ``grad_norm``, the raw norm over
-    the trainable leaves before clipping; ``eval_step(state, batch) ->
-    metrics`` is the deterministic forward (no dropout)."""
+    metrics)`` runs the loss, its gradients and one optimizer call (params
+    and moments updated in place; under ``MultiSteps`` an update on every
+    k-th call) and adds ``grad_norm``, the raw norm over the trainable
+    leaves before clipping; the step count and the EMA advance on every
+    call. ``eval_step(state, batch) -> metrics`` is the deterministic
+    forward (no dropout, no patch drop)."""
     grad_fn = make_grad_fn(model_cfg, cls_cfg, cfg)
 
     def step(state: TrainState, batch, generator=None):
@@ -402,6 +552,8 @@ class Trainer:
         self.cfg = cfg or TrainConfig()
         check_supported(self.cfg)
         self.device = resolve_device(device)
+        if self.cfg.remat and not model_cfg.remat:
+            model_cfg = dataclasses.replace(model_cfg, remat=True)
         self.model_cfg = model_cfg
         self.cls_cfg = cls_cfg or (
             ClassifierConfig(embed_dim=model_cfg.embed_dim)
@@ -415,6 +567,11 @@ class Trainer:
         if self.cfg.contrastive_loss == "siglip" and "logit_bias" not in params["clip"]:
             # SigLIP's learnable bias, init -10 (arxiv 2303.15343 §3)
             params["clip"]["logit_bias"] = torch.tensor(-10.0, device=self.device)
+        if self.cfg.lora_rank > 0:
+            # drawn on the CPU from seed + 1, then moved (the same draw on every device)
+            params["lora"] = _to_device(init_lora(
+                torch.Generator().manual_seed(self.cfg.seed + 1), params["clip"], self.cfg.lora_rank,
+                targets=self.cfg.lora_targets), self.device)
         self.optimizer = make_optimizer(self.cfg, params, steps_per_epoch)
         self.state = TrainState(
             params=params,
@@ -429,6 +586,39 @@ class Trainer:
         self.history: list[dict] = []
         self.checkpoint_seconds: list[tuple[str, float]] = []
         self._preempted = False
+
+    def merged_clip_params(self):
+        """The CLIP params the model serves: with LoRA, the adapters folded
+        into the dense kernels (``lora.merge_lora``, detached); the base
+        params otherwise."""
+        params = self.state.params
+        with torch.no_grad():
+            if "lora" in params:
+                return _detached(merge_lora(params["clip"], params["lora"], self.cfg.lora_alpha))
+            return _detached(params["clip"])
+
+    def evaluate_retrieval(self, batches) -> dict:
+        """Retrieval validation over ``batches`` (R@1/5/10 and MRR both
+        directions, ``evaluation.retrieval.evaluate_retrieval``) of the
+        served params (``merged_clip_params``), in the compute dtype, row i
+        of the images against row i of the captions."""
+        from evr_tpu_torch.evaluation.retrieval import evaluate_retrieval
+
+        dtype = torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else torch.float32
+        mean = np.asarray(CLIP_MEAN, np.float32)
+        std = np.asarray(CLIP_STD, np.float32)
+        clip_p = self.merged_clip_params()
+        imgs, txts = [], []
+        with torch.no_grad():
+            for batch in batches:
+                x = (np.asarray(batch["images"], np.float32) / 255.0 - mean) / std
+                x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+                imgs.append(encode_image(clip_p, self.model_cfg, x, dtype=dtype).cpu().numpy())
+                tokens = torch.as_tensor(batch["tokens"], device=self.device)
+                txts.append(encode_text(clip_p, self.model_cfg, tokens, dtype=dtype).cpu().numpy())
+        img, txt = np.concatenate(imgs), np.concatenate(txts)
+        ids = list(range(len(img)))
+        return evaluate_retrieval(img, txt, ids, ids, device=self.device)
 
     def install_preemption_autosave(self, signals=None) -> None:
         """SIGTERM sets a flag the train loop checks per batch: the next
@@ -445,7 +635,9 @@ class Trainer:
 
     def save_checkpoint(self, name: str, epoch: int, metrics: dict, extra: dict | None = None) -> None:
         """One torch file ``<save_dir>/<name>.pt`` with the JAX trainer's
-        payload keys: params, opt_state, step, epoch, metrics (and ema).
+        payload keys: params (with ``lora`` under LoRA), opt_state (Muon's
+        momentum; under accumulation the mini step, the gradient step and
+        the accumulated gradients), step, epoch, metrics (and ema).
         Written to a temporary name, then renamed."""
         t0 = time.perf_counter()
         path = self.checkpoint_path(name)
@@ -468,8 +660,9 @@ class Trainer:
         self.log(f"checkpoint {name}: {path.stat().st_size / 1e9:.2f} GB in {seconds:.1f} s")
 
     def restore_checkpoint(self, name: str) -> dict:
-        """Full-state restore: params, optimizer moments and counts, step,
-        and the EMA (restarted from the params when the file has none)."""
+        """Full-state restore: params (LoRA's adapters too), optimizer
+        moments, momentum, counts and accumulator, step, and the EMA
+        (restarted from the params when the file has none)."""
         payload = torch.load(self.checkpoint_path(name), map_location=self.device, weights_only=True)
         ema = None
         if self.cfg.ema_decay > 0.0:

@@ -38,9 +38,12 @@ trainers pin them (``attn_impl="auto_grad"``: the fused kernels K1/K2 forward
 and K5b/K5a backward at T ≥ 512, the plain composition below); inference
 (``encode_projected``) keeps the configuration it was given ("auto": K1/K2 on
 the card). The fusion dropout draws from a ``torch.Generator`` (per step,
-seeded with the step's index unless one is passed). Levers the port does not
-honour yet raise ``NotImplementedError`` naming their ROADMAP item: gradient
-accumulation and an unfrozen projection trainer (A14), a mesh (A15).
+seeded with the step's index unless one is passed). The projection trainer's
+levers follow the JAX trainer: ``grad_accumulation_steps`` > 1 runs its AdamW
+under ``finetune.MultiSteps`` (optax ``MultiSteps``), and ``freeze_clip=False``
+trains the whole CLIP with rematerialised blocks (``CLIPConfig.remat``) while
+``encode_projected`` keeps the configuration it was given. A mesh raises
+``NotImplementedError`` naming ROADMAP item A15.
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ from evr_tpu_torch.models.layers import linear
 from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
 from evr_tpu_torch.utils.device import resolve_device
 
-from .finetune import _f32, _to_device, flat_leaves, global_norm
+from .finetune import MultiSteps, _f32, _to_device, flat_leaves, global_norm
 from .losses import softmax_cross_entropy
 from .partition import map_with_paths
 
@@ -320,9 +323,10 @@ class ProjectionTrainConfig:
 
 
 class ProjectionTrainer:
-    """Frozen CLIP with a trained projection pair. ``seed`` (or a
-    ``torch.Generator``) draws the heads' init on the CPU; ``device``: None
-    means the card (raises without one), "cpu" on request."""
+    """Frozen (or, with ``freeze_clip=False``, rematerialised and trained)
+    CLIP with a trained projection pair. ``seed`` (or a ``torch.Generator``)
+    draws the heads' init on the CPU; ``device``: None means the card
+    (raises without one), "cpu" on request."""
 
     def __init__(
         self,
@@ -337,17 +341,11 @@ class ProjectionTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "ProjectionTrainer(mesh=...): data-parallel training is not ported yet (ROADMAP item A15)")
-        if not self.cfg.freeze_clip:
-            raise NotImplementedError(
-                "ProjectionTrainConfig.freeze_clip=False needs rematerialised towers, which are not "
-                "ported yet (ROADMAP item A14)")
-        if self.cfg.grad_accumulation_steps > 1:
-            raise NotImplementedError(
-                f"ProjectionTrainConfig.grad_accumulation_steps={self.cfg.grad_accumulation_steps} "
-                "(optax.MultiSteps) is not ported yet (ROADMAP item A14)")
         self.device = resolve_device(device)
         self._infer_cfg = model_cfg  # forward-only paths keep the fused kernels
         self.model_cfg = _training_cfg(model_cfg)
+        if not self.cfg.freeze_clip:
+            self.model_cfg = dataclasses.replace(self.model_cfg, remat=True)
         gen = _generator(seed)
         heads = init_projection_params(gen, ProjectionConfig(model_cfg.embed_dim, self.cfg.proj_dim))
         if self.cfg.num_classes > 0:
@@ -358,15 +356,20 @@ class ProjectionTrainer:
             }
         self.params = _to_device({"clip": clip_params, "heads": heads}, self.device)
         self.optimizer = AdamW(self.cfg.lr, weight_decay=self.cfg.weight_decay)
+        if self.cfg.grad_accumulation_steps > 1:
+            self.optimizer = MultiSteps(self.optimizer, self.cfg.grad_accumulation_steps)
         self.opt_state = self.optimizer.init(self._trainable())
 
     def _trainable(self) -> dict[str, torch.Tensor]:
-        return flat_leaves({"heads": self.params["heads"]})
+        if self.cfg.freeze_clip:
+            return flat_leaves({"heads": self.params["heads"]})
+        return flat_leaves(self.params)
 
     def _loss(self, batch):
         cfg = self.cfg
         dtype = _compute_dtype(cfg.compute_dtype)
-        with torch.no_grad():  # the frozen towers (stop_gradient)
+        # frozen towers (stop_gradient) run without grad
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not cfg.freeze_clip):
             x = _pixels(batch["images"], self.device)
             img = encode_image(self.params["clip"], self.model_cfg, x, dtype=dtype)
             tokens = torch.as_tensor(batch["tokens"], device=self.device)

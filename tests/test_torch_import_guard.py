@@ -30,7 +30,8 @@ for name in names:
 # flash-attention slice: K6's wrapper; K8's wrapper; the query layer, the
 # views and the served routes; the native stager, ingest, the upload jobs and
 # the ingest tools; the benchmark harness, its tools, the workbook module, the
-# test-set translation, the heads and the trainer variants
+# test-set translation, the heads and the trainer variants; the trainer's
+# levers, distillation and their tools
 for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.index.pq",
              "evr_tpu_torch.index.ivfpq", "evr_tpu_torch.tools.index_tool",
              "evr_tpu_torch.ops.attention", "evr_tpu_torch.ops.layernorm",
@@ -56,7 +57,10 @@ for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.
              "evr_tpu_torch.tools.evaluate", "evr_tpu_torch.tools.ab_compare",
              "evr_tpu_torch.tools.diagnose", "evr_tpu_torch.utils.xlsx", "evr_tpu_torch.data_prep",
              "evr_tpu_torch.data_prep.translate_testset", "evr_tpu_torch.models.heads",
-             "evr_tpu_torch.training.variants"):
+             "evr_tpu_torch.training.variants", "evr_tpu_torch.training.lora",
+             "evr_tpu_torch.training.muon", "evr_tpu_torch.training.gradcache",
+             "evr_tpu_torch.training.distill", "evr_tpu_torch.tools.distill",
+             "evr_tpu_torch.tools.train_sustained"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)

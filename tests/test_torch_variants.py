@@ -344,8 +344,6 @@ def test_catlip_trainer_matches_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(cfg=dict(grad_accumulation_steps=2)), "A14"),
-    (dict(cfg=dict(freeze_clip=False)), "A14"),
     (dict(mesh=object()), "A15"),
 ])
 def test_unported_levers_are_refused(kw, item):
