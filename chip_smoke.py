@@ -192,7 +192,7 @@ package. Phases, each fatal on failure:
    negative control, the ranked and the set check a near miss too (the text
    vector turned to a row cosine of 0.999 toward the cut frame); the
    launches of K1/K2 (bf16) and K3a/K3b and K4 (int8) over those requests
-   equal to what their dispatches imply; each method's p50 over 50
+   equal to what their dispatches imply; each method's p50 over 25
    requests, the methods in turns, every cache emptied before each, under
    50 ms, and the hybrid request's stages; the UI, a two-file SPA dist,
    events, frame and video files with Range and a traversal attempt,
@@ -213,13 +213,13 @@ package. Phases, each fatal on failure:
    control that must fail), and the launches of K1/K2 or K3a/K3b over the
    upload equal 11 an encode batch; K4 once in a negative query on the int8
    index; the long ingest split into decode + scene detection, frame
-   extraction, staging and encode; ``embed_folder`` over 4,096 saved 1280 x
+   extraction, staging and encode; ``embed_folder`` over 2,048 saved 1280 x
    720 JPEGs on the native pipelined path (an undecodable one skipped by
    index), against the stager alone and ``encode_staged_images`` alone, its
    rows equal to the latter's; cv2's JPEG decode against PIL's; an upload of
    bytes that are no video ending its job in "error";
 16. the benchmark harness and the trainer variants: ``tools.evaluate.main``
-   over 1,000 seeded 500 x 375 JPEGs with 5 captions each and a perturbed
+   over 500 seeded 500 x 375 JPEGs with 5 captions each and a perturbed
    ViT-B/32 reference file (bf16, K1/K2; JSON, CSV and the three-sheet
    workbook, read back), each model's image and caption rows held to a
    plain-route twin over the same staged pixels and tokens (row cosine, each
@@ -227,7 +227,7 @@ package. Phases, each fatal on failure:
    R@K and MRR within the share of queries with a candidate in the band;
    rows off by cosine 0.999 and two images swapped must fail); ``--excel``
    on a multi-GT test set (P@K), ``--classification-dirs`` over three class
-   folders of 128 JPEGs (the file's head, a probe, then ``--zeroshot``),
+   folders of 64 JPEGs (the file's head, a probe, then ``--zeroshot``),
    ``tools.ab_compare`` and ``tools.diagnose`` (exit 0), K1/K2 launches equal
    to their encode batches; a ``ModelComparison`` over int8 weights
    (K3a/K3b) against its plain twin in the int8 bands; ``ProgressiveTrainer``
@@ -257,8 +257,29 @@ package. Phases, each fatal on failure:
    ``tools.finetune.main --lora-rank 16`` (its ``lora_merged.pt`` served
    bit-equal to the merge in memory, its ``final_checkpoint.pt`` refused at
    serve time), (k) ``tools.distill.main`` (its ``student.pt`` served the same
-   way) and (l) ``tools.train_sustained.main`` with its defaults but 64
-   steps over a pool of 16 batches (examples/s, R@1/5/10 before and after).
+   way) and (l) ``tools.train_sustained.main`` with its defaults but 32
+   steps over a pool of 8 batches (examples/s, R@1/5/10 before and after);
+18. the data axis: (a) ``FrameIndex(mesh=<4 slots of the card>)`` over
+   100,000 seeded unit rows of 512, bf16 and int8, under ``search_impl=
+   "pallas"`` (K4 on each slot, 4 launches a query batch) and ``"xla"``, rows
+   equal to the one-device index's and scores within 1e-5, over the corpus
+   and two videos (the first ends two rows into a shard), a shard moved by
+   one row rejected, the p50 of a query at 1 and 4 slots; (b)
+   ``EmbeddingEngine(mesh=<2 slots>)`` at ViT-B/32 through K1/K2 and on int8
+   weights through K3a/K3b, unit rows against the one-device engine,
+   ``ServingContext(mesh=)`` and ``python -m evr_tpu_torch.serving
+   --shard-index`` (every local card; a child process on a localhost port) serving
+   ``/api/search`` within the served bands of the one-device context; (c)
+   ViT-L/14@336px, batch 32, bf16, ``freeze_layers=8``: the gradients over 2
+   slots against 1 slot in the step bands (a 0.99 control rejected), K5a/K5b
+   2 x 24 a step, then timed steps at 1 and 2 slots and under FSDP (its
+   first loss and its updates against data parallelism's, the bytes a slot
+   holds); (d) two processes on the card through ``tools.pod_launch`` (this
+   script's ``--mesh-worker`` mode, Gloo), their gradients against (c)'s
+   2-slot step, a failed run failing the phase; (e)
+   ``tools.finetune.main --fsdp`` over the default mesh, two steps with
+   autosaves, then a run resumed from the first autosave whose loss equals
+   the saved run's second step.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -3926,7 +3947,7 @@ ROUTE_SEED = 15
 ROUTE_TOP_ALL = N_FRAMES // 3 + 1
 # uncached /api/search requests per method for its p50, the methods in turns
 # after one round of warm-up; each p50 held under PERF.md §2's limit
-ROUTE_P50_RUNS, ROUTE_P50_LIMIT_MS = 50, 50.0
+ROUTE_P50_RUNS, ROUTE_P50_LIMIT_MS = 25, 50.0  # runs cut from 50 for the script's time
 # the near-miss control: the kernel path's text vector turned to this row
 # cosine with its own
 NEAR_COS = 0.999
@@ -4461,7 +4482,7 @@ INGEST_SEED = 16
 # embed_folder over INGEST_FOLDER_FRAMES saved 1280 x 720 JPEGs (and one that
 # does not decode) on the native pipelined path at batch BATCH, against the
 # stager alone and encode_staged_images alone on the same frames
-INGEST_FOLDER_FRAMES = 4096
+INGEST_FOLDER_FRAMES = 2048  # cut from 4,096 for the script's time
 # cv2's decode of the saved frames against PIL's (two libjpeg-turbo builds) on
 # INGEST_DECODE_SAMPLE of them: within INGEST_DECODE_LEVELS grey levels
 INGEST_DECODE_SAMPLE, INGEST_DECODE_LEVELS = 16, 2
@@ -4818,7 +4839,7 @@ def phase_ingest(torch) -> dict:
 # -- 16. the benchmark harness and the trainer variants ------------------------
 
 # The retrieval benchmark at ViT-B/32 (bf16 weights, K1/K2): HARNESS_IMAGES
-# seeded JPEGs of a Flickr30k image's size (the CLI's --max-images default),
+# seeded JPEGs of a Flickr30k image's size (half the CLI's --max-images default),
 # HARNESS_CAPTIONS captions each, in the reference harness's caption CSV; an
 # Excel test set of HARNESS_EXCEL_ROWS rows with one to three ground-truth
 # images over the first HARNESS_EXCEL_IMAGES images; HARNESS_CLASS_IMAGES
@@ -4831,12 +4852,12 @@ def phase_ingest(torch) -> dict:
 # the ground truth's twin score; R@K and MRR then differ by at most the share
 # of queries that have such a candidate.
 HARNESS_SEED = 17
-HARNESS_IMAGES, HARNESS_CAPTIONS = 1000, 5
+HARNESS_IMAGES, HARNESS_CAPTIONS = 500, 5  # images cut from 1,000 for the script's time
 HARNESS_SIZE = (500, 375)  # width, height
 HARNESS_BLOCK = 25  # the seeded scenes' colour blocks, pixels
 HARNESS_EXCEL_IMAGES, HARNESS_EXCEL_ROWS = 200, 300
 HARNESS_CLASSES = ("Violence", "Sensitive", "NonViolence")
-HARNESS_CLASS_IMAGES = 128
+HARNESS_CLASS_IMAGES = 64  # cut from 128 for the script's time
 HARNESS_PERTURB = 0.05
 HARNESS_WORDS = ("a", "man", "woman", "red", "car", "crowd", "street", "dog", "boat", "sign", "night",
                  "people", "running", "park", "fight", "water", "two", "on", "the", "bicycle")
@@ -5456,10 +5477,10 @@ LORA_BANDS = (STEP_BF16_BANDS[0], STEP_BF16_BANDS[1], 0.992)
 # fine-tune loss: 4.09e-4 measured on an H100 80GB HBM3 (700 W) with the
 # gradients in the step band; its band is about twice that
 PROJECTION_BANDS = (8e-4, STEP_BF16_BANDS[1], STEP_BF16_BANDS[2])
-# train_sustained at its defaults (ViT-B/32, batch 256) but 64 steps over a
-# pool of 16 batches (two cycles: one to warm up, one measured), cut from 320
-# steps over 32 to keep phase 17 in the script's time
-SUSTAINED_ARGV = ["--device", "cuda", "--steps", "64", "--pool", "16"]
+# train_sustained at its defaults (ViT-B/32, batch 256) but 32 steps over a
+# pool of 8 batches (four cycles), cut from 320 steps over 32 (64 over 16
+# until phase 18 came) to keep the script in its time
+SUSTAINED_ARGV = ["--device", "cuda", "--steps", "32", "--pool", "8"]
 
 
 def lever_leaf(key: str) -> bool:
@@ -6050,6 +6071,603 @@ def phase_lever_clis(torch) -> dict:
     return out
 
 
+# -- 18. the data axis: the sharded search, the mesh engine and sharded serving,
+# data-parallel and FSDP steps, two processes on one card, the FSDP CLI ------
+
+MESH_SEED = 19
+MESH_ROWS, MESH_DIM, MESH_Q, MESH_K = 100_000, 512, 8, 10
+MESH_SEARCH_SLOTS, MESH_TRAIN_SLOTS = 4, 2
+MESH_STEPS_TIMED = 2
+MESH_CLI_IMAGES = 80  # the CLI keeps 64 for training (two steps of 32) and 16 for validation
+MESH_SCORE_TOL = 1e-5
+# FSDP against data parallelism, update by update: the same gradients and an
+# elementwise AdamW, so equal but for the atomics of plain backward ops
+MESH_UPDATE_COS = 0.9999
+
+
+def mesh_launch_counters():
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.ops.retrieval import fused_topk
+
+    return [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_q, bf.fused_mlp_block_q, fused_topk,
+            bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd]
+
+
+def launches_since(start: dict) -> dict:
+    return {fn.__name__: fn.launches - start[fn.__name__] for fn in mesh_launch_counters()}
+
+
+def launches_now() -> dict:
+    return {fn.__name__: fn.launches for fn in mesh_launch_counters()}
+
+
+def add_into(totals: dict, launches: dict) -> None:
+    for k, n in launches.items():
+        totals[k] = totals.get(k, 0) + n
+
+
+def check_step_launches(what: str, launches: dict, n: int) -> None:
+    """K1, K2, K5a and K5b ``n`` times each; K3 and K4 never."""
+    want = {k: (n if k.endswith(("attn_block", "mlp_block", "_bwd")) else 0) for k in launches}
+    check(launches == want, f"{what}: launches {launches}, expected {want}")
+
+
+def phase_mesh_search(torch) -> dict:
+    """(a) ``FrameIndex(mesh=<4 slots>)`` over MESH_ROWS seeded unit rows of
+    512 in bf16 and in int8 with per-row scales, searched under
+    ``search_impl="pallas"`` (K4 on each slot: 4 launches a query batch) and
+    ``"xla"``, held to the one-device index on the card: rows equal, scores
+    within MESH_SCORE_TOL, globally and over two videos, the first of which
+    ends two rows into the second shard (fewer than k of that shard's rows in
+    range). A shard whose row offset is moved by one must fail. The p50 of a
+    one-query search at 1 and 4 slots."""
+    import numpy as np
+
+    from evr_tpu_torch.index.store import FrameIndex
+    from evr_tpu_torch.ops.retrieval import fused_topk
+    from evr_tpu_torch.parallel import get_mesh
+    from evr_tpu_torch.parallel.sharded_search import ShardedIndex, sharded_cosine_topk
+
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    rows = torch.randn((MESH_ROWS, MESH_DIM), generator=gen, device="cuda")
+    rows = (rows / rows.norm(dim=1, keepdim=True)).cpu().numpy()
+    q = torch.randn((MESH_Q, MESH_DIM), generator=gen, device="cuda").cpu().numpy()
+    mesh = get_mesh(MESH_SEARCH_SLOTS)
+    per = -(-MESH_ROWS // MESH_SEARCH_SLOTS)
+    per = -(-per // 128) * 128  # FrameIndex pads a shard to whole 128-row tiles
+    videos = {"v0": rows[:per + 2], "v1": rows[per + 2:]}
+    out = {"launches": {"fused_topk": 0}, "p50_ms": {}, "cases": 0}
+    for dtype in ("bfloat16", "int8"):
+        one, sharded = {}, {}
+        for impl in ("pallas", "xla"):
+            one[impl] = FrameIndex(embed_dim=MESH_DIM, device_dtype=dtype, search_impl=impl, device="cuda")
+            sharded[impl] = FrameIndex(embed_dim=MESH_DIM, device_dtype=dtype, search_impl=impl, mesh=mesh)
+            for ix in (one[impl], sharded[impl]):
+                for name, emb in videos.items():
+                    ix.add_video(name, emb)
+                ix.build()
+            shards = sharded[impl]._device_index
+            check(isinstance(shards, ShardedIndex) and shards.n_shards == MESH_SEARCH_SLOTS
+                  and shards.rows_per_shard == per, f"(a) {dtype}: the index is not split {MESH_SEARCH_SLOTS} x {per}")
+            for video in (None, "v0", "v1"):
+                s1, r1 = one[impl].search_raw(q, MESH_K, video)
+                start = fused_topk.launches
+                s4, r4 = sharded[impl].search_raw(q, MESH_K, video)
+                n = fused_topk.launches - start
+                out["launches"]["fused_topk"] += n
+                want = MESH_SEARCH_SLOTS if impl == "pallas" else 0
+                check(n == want, f"(a) {dtype} {impl} {video}: {n} K4 launches, expected {want}")
+                check(np.array_equal(r4, r1), f"(a) {dtype} {impl} {video}: rows differ from the one-device index")
+                diff = float(np.abs(s4 - s1).max())
+                check(diff <= MESH_SCORE_TOL and np.isfinite(s4).all(),
+                      f"(a) {dtype} {impl} {video}: scores apart by {diff}")
+                check(all(len(set(r.tolist())) == MESH_K for r in r4), f"(a) {dtype} {impl} {video}: a row twice")
+                out["cases"] += 1
+                log(f"(a) sharded search {dtype} {impl} {video or 'all'}: rows equal to the one-device index's, "
+                    f"scores within {diff:.2e}, K4 launches {n}")
+            # p50 of one query at 1 and 4 slots, in turns
+            lat = {"1 slot": [], f"{MESH_SEARCH_SLOTS} slots": []}
+            for _ in range(20):
+                for tag, ix in (("1 slot", one[impl]), (f"{MESH_SEARCH_SLOTS} slots", sharded[impl])):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ix.search_raw(q[:1], MESH_K)
+                    lat[tag].append((time.perf_counter() - t0) * 1e3)
+            out["p50_ms"][f"{dtype} {impl}"] = {t: statistics.median(v) for t, v in lat.items()}
+        # the negative control: shard 1 holds the rows one place further on
+        ix = sharded["pallas"]._device_index
+        full, scales = ix.gathered()
+        moved = [full[s * per + (s == 1):(s + 1) * per + (s == 1)].contiguous() for s in range(MESH_SEARCH_SLOTS)]
+        moved_sc = None if scales is None else [scales[s * per + (s == 1):(s + 1) * per + (s == 1)].contiguous()
+                                                for s in range(MESH_SEARCH_SLOTS)]
+        moved[-1] = full[(MESH_SEARCH_SLOTS - 1) * per:].contiguous()
+        if moved_sc is not None:
+            moved_sc[-1] = scales[(MESH_SEARCH_SLOTS - 1) * per:].contiguous()
+        with torch.inference_mode():
+            _, r_bad = sharded_cosine_topk(mesh, moved, torch.from_numpy(q).cuda(), 0, MESH_ROWS, MESH_K,
+                                           row_scales=moved_sc, impl="pallas")
+        _, r1 = one["pallas"].search_raw(q, MESH_K)
+        moved_ok = bool(np.array_equal(r_bad.cpu().numpy(), r1))
+        log(f"(a) {dtype}: a shard's row offset moved by one: rows equal to the one-device index's: {moved_ok}")
+        check(not moved_ok, f"(a) {dtype}: the row check passes a shard moved by one row")
+        del one, sharded, ix, full, scales, moved, moved_sc
+        torch.cuda.empty_cache()
+    return out
+
+
+def served_band_violations(got, ref, noise: float) -> int:
+    """Two servers' events of the same queries (``served_events``): an event
+    in one top-10 and not the other must score within ``noise`` of the
+    reference's 10th score; common events within ``noise`` of each other."""
+    bad = 0
+    for g, r in zip(got, ref):
+        cut = r[min(9, len(r) - 1)][2]
+        rs = {(v, i): sc for v, i, sc in r}
+        gs = {(v, i): sc for v, i, sc in g}
+        for key in set(rs) ^ set(gs):
+            bad += int(abs(rs.get(key, gs.get(key)) - cut) > noise)
+        for key in set(rs) & set(gs):
+            bad += int(abs(rs[key] - gs[key]) > noise)
+    return bad
+
+
+def shard_index_server(root: pathlib.Path, queries) -> tuple[list, str]:
+    """``python -m evr_tpu_torch.serving --shard-index`` (a mesh of every
+    local card) on the card, in a child process on a free localhost port: its events for
+    ``queries`` (``/api/search``, text_clip, top 10) and its output. The
+    child is stopped before this returns."""
+    import socket
+    import urllib.request
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logf = root / "server.log"
+    with open(logf, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "evr_tpu_torch.serving", "--data-root", str(root), "--device", "cuda",
+             "--model", MODEL, "--batch-size", str(BATCH), "--port", str(port), "--params-dtype", "bfloat16",
+             "--shard-index"],
+            stdout=fh, stderr=subprocess.STDOUT, cwd=str(pathlib.Path(__file__).resolve().parent))
+    try:
+        base = f"http://127.0.0.1:{port}"
+        deadline = time.time() + 180
+        while True:
+            try:
+                with urllib.request.urlopen(base + "/health", timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            check(proc.poll() is None, f"(b) the --shard-index server exited: {logf.read_text()[-2000:]}")
+            check(time.time() < deadline, "(b) the --shard-index server did not come up")
+            time.sleep(0.5)
+        events = []
+        for qt in queries:
+            body = json.dumps({"query": qt, "search_type": "text", "search_method": "text_clip",
+                               "top_k": 10}).encode()
+            req = urllib.request.Request(base + "/api/search", data=body,
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                check(r.status == 200, f"(b) --shard-index /api/search {qt!r}: HTTP {r.status}")
+                got = json.loads(r.read())["events"]
+            check(len(got) > 0, f"(b) --shard-index /api/search {qt!r}: no events")
+            events.append([(e["videoId"], e["id"], e["clip_similarity"]) for e in got])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return events, logf.read_text()
+
+
+def phase_mesh_engine(torch, frames) -> dict:
+    """(b) ``EmbeddingEngine(mesh=<2 slots>)`` at ViT-B/32 through K1/K2 (bf16)
+    and K3a/K3b (int8 weights): every encode batch split over the slots, the
+    launches counted, unit rows (frames and texts) against the one-device
+    engine's within EMBED_MIN_COS (rows off by that cosine rejected), and
+    ``ServingContext(mesh=)`` over a data root of the one-device embeddings
+    serving ``/api/search`` within the served bands of the one-device
+    context; then ``python -m evr_tpu_torch.serving --shard-index`` in a child
+    process, its six requests' events within the same bands."""
+    import numpy as np
+    from werkzeug.test import Client
+
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.parallel import get_mesh
+    from evr_tpu_torch.serving import ServingContext, create_app
+
+    mesh = get_mesh(MESH_TRAIN_SLOTS)
+    out = {"launches": {}}
+    names = [f"video{v}" for v in range(N_VIDEOS)]
+    per = N_FRAMES // N_VIDEOS
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype, halves, noise in (("bfloat16", (bf.fused_attn_block, bf.fused_mlp_block), SERVED_RANK_NOISE),
+                                     ("int8", (bf.fused_attn_block_q, bf.fused_mlp_block_q),
+                                      INT8_SERVED_RANK_NOISE)):
+            one = EmbeddingEngine(MODEL, device="cuda", params_dtype=dtype, batch_size=BATCH)
+            two = EmbeddingEngine(MODEL, device="cuda", params_dtype=dtype, batch_size=BATCH, mesh=mesh)
+            ref = one.encode_staged_images(frames, normalise=True)
+            ref_t = one.encode_texts(list(QUERIES))
+            two.encode_staged_images(frames[:BATCH])  # the replicas and libraries load
+            start = launches_now()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = two.encode_staged_images(frames, normalise=True)
+            torch.cuda.synchronize()
+            encode_s = time.perf_counter() - t0
+            got_t = two.encode_texts(list(QUERIES))
+            launches = launches_since(start)
+            add_into(out["launches"], launches)
+            cfg = one.cfg
+            want = (N_FRAMES // BATCH) * MESH_TRAIN_SLOTS * (cfg.vision.layers - 1) + \
+                MESH_TRAIN_SLOTS * (cfg.text.layers - 1)
+            for fn in halves:
+                check(launches[fn.__name__] == want,
+                      f"(b) {dtype}: {fn.__name__} launched {launches[fn.__name__]} times, expected {want}")
+            cos = float((got * ref).sum(1).min())
+            tcos = float((got_t * ref_t).sum(1).min())
+            noise_rows = np.random.default_rng(3).standard_normal(got.shape).astype(np.float32)
+            off = got + noise_rows * math.sqrt((1 / EMBED_MIN_COS**2 - 1) / got.shape[1])
+            off /= np.linalg.norm(off, axis=1, keepdims=True)
+            off_cos = float((off * ref).sum(1).min())  # the statistic the row check holds
+            log(f"(b) mesh engine {dtype}, {MESH_TRAIN_SLOTS} slots: {N_FRAMES} frames in {encode_s:.3f} s "
+                f"({N_FRAMES / encode_s:.1f} frames/s), launches {launches} (expected {want} of each half); "
+                f"least unit-row cosine against the one-device engine: frames {cos:.7f}, texts {tcos:.7f}; "
+                f"rows off by {EMBED_MIN_COS}: least {off_cos:.5f}")
+            check(min(cos, tcos) >= EMBED_MIN_COS, f"(b) {dtype}: row cosine {min(cos, tcos)}")
+            check(off_cos < EMBED_MIN_COS, f"(b) {dtype}: the row band passes rows off by {EMBED_MIN_COS}")
+            root = pathlib.Path(tmp) / dtype
+            write_data_root(root, names, [ref[v * per:(v + 1) * per] for v in range(N_VIDEOS)],
+                            [frames[v * per:(v + 1) * per] for v in range(N_VIDEOS)])
+            plain_ctx = ServingContext(root, engine=one)
+            plain_ctx.boot()
+            ref_events, _ = served_events(Client(create_app(plain_ctx)), QUERIES)
+            mesh_ctx = ServingContext(root, engine=two, mesh=mesh)
+            mesh_ctx.boot()
+            check(mesh_ctx.index.mesh is mesh, f"(b) {dtype}: the served index is not on the mesh")
+            start = launches_now()
+            got_events, ms = served_events(Client(create_app(mesh_ctx)), QUERIES)
+            served = launches_since(start)
+            add_into(out["launches"], served)
+            bad = served_band_violations(got_events, ref_events, noise)
+            log(f"(b) sharded serving {dtype}: /api/search events against the one-device context's: {bad} "
+                f"outside the {noise} band; p50 {statistics.median(ms):.2f} ms; launches {served}")
+            check(bad == 0, f"(b) {dtype}: {bad} served events outside the band")
+            want_t = cfg.text.layers * len(QUERIES)
+            for fn in halves:
+                check(served[fn.__name__] == want_t, f"(b) {dtype} serving: {fn.__name__} {served[fn.__name__]}")
+            out[dtype] = {"frame_cos": cos, "text_cos": tcos, "encode_frames_per_s": N_FRAMES / encode_s,
+                          "served_p50_ms": statistics.median(ms)}
+            if dtype == "bfloat16":
+                t0 = time.perf_counter()
+                cli_events, text = shard_index_server(root, QUERIES)
+                bad = served_band_violations(cli_events, ref_events, noise)
+                booted = f"sharding over {{'data': {torch.cuda.device_count()}}} mesh" in text
+                log(f"(b) python -m evr_tpu_torch.serving --shard-index: booted {booted}, "
+                    f"{len(cli_events)} requests, {bad} events outside the {noise} band, "
+                    f"{time.perf_counter() - t0:.1f} s with its start")
+                check(booted and bad == 0, f"(b) --shard-index server: booted {booted}, {bad} off the band")
+            del one, two, plain_ctx, mesh_ctx
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_setup(torch):
+    """(config, classifier config, params on the card, batch, TrainConfig)
+    of phase 18's steps: ViT-L/14@336px from MESH_SEED, batch 32, bf16,
+    ``freeze_layers=8``, the 3-class head with its dropout."""
+    from evr_tpu_torch.models import get_model_config, init_clip_params
+    from evr_tpu_torch.models.classifier import init_classifier_params
+    from evr_tpu_torch.models.convert import params_from_numpy
+    from evr_tpu_torch.training import TrainConfig
+
+    cfg = get_model_config(TRAIN_MODEL)
+    cls_cfg = lever_classifier_cfg(cfg)
+    master = params_from_numpy({"clip": init_clip_params(MESH_SEED, cfg),
+                                "classifier": init_classifier_params(MESH_SEED + 1, cls_cfg)}, "cuda")
+    _, batch = variant_batch(torch, cfg, TRAIN_BATCH)
+    tc = TrainConfig(seed=MESH_SEED, batch_size=TRAIN_BATCH, epochs=1, compute_dtype="bfloat16", freeze_layers=8)
+    return cfg, cls_cfg, master, batch, tc
+
+
+def phase_mesh_steps(torch, cfg, cls_cfg, master, batch, tc) -> dict:
+    """(c) the gradients of one step over 2 slots (each 16 rows of the global
+    batch of 32) against the 1-slot step from the same params, batch and
+    generator (the step bands; a gradient turned to cosine 0.99 rejected),
+    K1/K2 and K5a/K5b 24 launches a slot; then timed steps with the
+    optimizer at 1 and 2 slots and under FSDP over 2 slots (its first loss
+    that of data parallelism within 1e-6, its updates after the steps within
+    cosine MESH_UPDATE_COS of data parallelism's leaf by leaf, the bytes a
+    slot holds against the replicated state's)."""
+    from evr_tpu_torch.parallel import get_mesh
+    from evr_tpu_torch.parallel.fsdp import fsdp_state_shardings, gather_tree, shard_tree, sharded_bytes_per_device
+    from evr_tpu_torch.training import TrainState, make_optimizer, make_train_step
+    from evr_tpu_torch.training.finetune import flat_leaves, make_grad_fn
+    from evr_tpu_torch.training.partition import map_with_paths
+
+    L = cfg.vision.layers
+    out = {"launches": {}}
+    grads = {}
+    for n in (1, MESH_TRAIN_SLOTS):
+        mesh = get_mesh(n)
+        fn = make_grad_fn(cfg, cls_cfg, tc, mesh)
+        start = launches_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, g = fn({mesh.local_devices[0]: master}, batch, torch.Generator(device="cuda").manual_seed(MESH_SEED))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launches_since(start)
+        add_into(out["launches"], launches)
+        log(f"(c) gradients over {n} slot(s): {secs:.3f} s, launches {launches}, loss {m['total_loss'].item():.6f}")
+        check_step_launches(f"(c) {n} slot(s)", launches, n * L)
+        grads[n] = (m, g)
+    (m1, g1), (m2, g2) = grads[1], grads[MESH_TRAIN_SLOTS]
+    got = step_compare(torch, f"(c) {MESH_TRAIN_SLOTS} slots vs 1 slot", m2, m1, g2, g1, vision_block_leaf)
+    step_check(f"(c) {MESH_TRAIN_SLOTS} slots vs 1 slot", got, STEP_BF16_BANDS)
+    out["grads"] = got
+    ref = {"metrics": {k: v.item() for k, v in m2.items()}, "norm": global_norm_of(torch, g2),
+           "vision": {k: v for k, v in g2.items() if vision_block_leaf(k)}}
+    del grads, g1, g2
+    torch.cuda.empty_cache()
+
+    finals, out["s_per_step"], out["loss_first"] = {}, {}, {}
+    for tag, n, fsdp in (("1 slot", 1, False), (f"{MESH_TRAIN_SLOTS} slots", MESH_TRAIN_SLOTS, False),
+                         (f"fsdp {MESH_TRAIN_SLOTS} slots", MESH_TRAIN_SLOTS, True)):
+        mesh = get_mesh(n)
+        params = map_with_paths(master, lambda _, t: t.clone())
+        opt = make_optimizer(tc, params)
+        sh = None
+        if fsdp:
+            sh = fsdp_state_shardings(params, opt, mesh)
+            whole = sum(t.numel() * t.element_size() for t in list(flat_leaves(params).values())
+                        + [v for v in flat_leaves(opt.init(params)).values() if hasattr(v, "numel")])
+            state = TrainState(shard_tree(params, sh.params), shard_tree(opt.init(params), sh.opt_state), 0)
+            del params
+            slot_bytes = sharded_bytes_per_device((state.params, state.opt_state))
+            out["bytes"] = {"slot": slot_bytes, "replicated": whole}
+            log(f"(c) FSDP over {n} slots: {slot_bytes / 2**30:.3f} GiB of params and AdamW moments a slot "
+                f"(sharded_bytes_per_device) against {whole / 2**30:.3f} GiB replicated")
+            check(slot_bytes < 0.75 * whole, f"(c) FSDP holds {slot_bytes} of {whole} bytes a slot")
+        else:
+            state = TrainState(params, opt.init(params), 0)
+        step, _ = make_train_step(cfg, cls_cfg, tc, opt, mesh=mesh, state_shardings=sh)
+        gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+        secs = []
+        start = launches_now()
+        for i in range(MESH_STEPS_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, gen)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                out["loss_first"][tag] = m["total_loss"].item()
+            check(math.isfinite(m["total_loss"].item()), f"(c) {tag} step {i + 1}: loss {m['total_loss'].item()}")
+        launches = launches_since(start)
+        add_into(out["launches"], launches)
+        check_step_launches(f"(c) {tag} steps", launches, MESH_STEPS_TIMED * n * L)
+        out["s_per_step"][tag] = secs
+        log(f"(c) {tag}: s/step {[round(s, 4) for s in secs]}, first loss {out['loss_first'][tag]:.6f}, "
+            f"launches {launches}")
+        if n == MESH_TRAIN_SLOTS:
+            after = flat_leaves(gather_tree(state.params) if fsdp else state.params)
+            before = flat_leaves(master)
+            finals[tag] = {k: (after[k] - before[k]).float() for k in after}
+        del state, step, opt
+        torch.cuda.empty_cache()
+    dp, fs = finals[f"{MESH_TRAIN_SLOTS} slots"], finals[f"fsdp {MESH_TRAIN_SLOTS} slots"]
+    equal = sum(bool(torch.equal(dp[k], fs[k])) for k in dp)
+    cos = leaf_cosines(torch, fs, dp)
+    worst = min(cos.values())
+    loss_rel = abs(out["loss_first"][f"fsdp {MESH_TRAIN_SLOTS} slots"] - out["loss_first"][f"{MESH_TRAIN_SLOTS} slots"]) \
+        / abs(out["loss_first"][f"{MESH_TRAIN_SLOTS} slots"])
+    log(f"(c) FSDP against data parallelism: first losses apart by {loss_rel:.2e}; after {MESH_STEPS_TIMED} steps "
+        f"{equal} of {len(dp)} leaves' updates bit-equal, the least update cosine {worst:.7f}")
+    check(loss_rel <= 1e-6, f"(c) FSDP's first loss apart from data parallelism's by {loss_rel}")
+    check(worst >= MESH_UPDATE_COS, f"(c) an FSDP update at cosine {worst} to data parallelism's")
+    out["fsdp_vs_dp"] = {"loss_rel": loss_rel, "bit_equal_leaves": equal, "leaves": len(dp), "least_update_cos": worst}
+    del finals, dp, fs
+    torch.cuda.empty_cache()
+    out["ref"] = ref
+    return out
+
+
+def global_norm_of(torch, grads: dict) -> float:
+    from evr_tpu_torch.training.finetune import global_norm
+
+    return global_norm(grads.values()).item()
+
+
+def mesh_worker(workdir: pathlib.Path) -> int:
+    """One process of phase 18 (d), started by ``tools.pod_launch``: joins the
+    group (``multihost.bootstrap``), takes its rows of the global batch and
+    runs the gradients of one step over the global mesh (one slot a process,
+    both on this card); the coordinator writes the gradients of the vision
+    blocks (rounded to bf16 for the file), the metrics and the norm of every
+    leaf to ``workdir``."""
+    import numpy as np
+    import torch
+
+    from evr_tpu_torch.models import get_model_config
+    from evr_tpu_torch.models.convert import params_from_numpy
+    from evr_tpu_torch.parallel import multihost as mh
+    from evr_tpu_torch.training import TrainConfig
+    from evr_tpu_torch.training.finetune import make_grad_fn
+
+    pid, n = mh.bootstrap(device="cuda")
+    mesh = mh.global_mesh()
+    dev = mesh.local_devices[0]
+    print(f"process {pid} of {n}: backend {mh.backend()}, mesh {mesh.shape}, device {dev}", flush=True)
+    cfg = get_model_config(TRAIN_MODEL)
+    cls_cfg = lever_classifier_cfg(cfg)
+    params = params_from_numpy(torch.load(workdir / "params.pt", mmap=True, weights_only=True), dev)
+    with np.load(workdir / "batch.npz") as f:
+        batch = {k: f[k] for k in f.files}
+    rows = mh.process_slice(len(batch["images"]))
+    local = {k: v[rows] for k, v in batch.items()}
+    tc = TrainConfig(seed=MESH_SEED, batch_size=TRAIN_BATCH, epochs=1, compute_dtype="bfloat16", freeze_layers=8)
+    fn = make_grad_fn(cfg, cls_cfg, tc, mesh)
+    start = launches_now()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, g = fn({dev: params}, local, torch.Generator(device=dev).manual_seed(MESH_SEED))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launches_since(start)
+    if mh.is_coordinator():
+        torch.save({"metrics": {k: v.item() for k, v in m.items()}, "norm": global_norm_of(torch, g),
+                    "vision": {k: v.to(torch.bfloat16).cpu() for k, v in g.items() if vision_block_leaf(k)}},
+                   workdir / "result.pt")
+    mh.barrier()
+    print("MESHWORKER " + json.dumps({"process": pid, "processes": n, "backend": mh.backend(),
+                                      "seconds": secs, "launches": launches}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_mesh_processes(torch, master, batch, ref) -> dict:
+    """(d) two processes on the one card through ``tools.pod_launch`` (each
+    one slot, half of the global batch of 32; Gloo, as NCCL refuses two
+    ranks on one card): their step's gradients held to (c)'s 2-slot step in
+    the step bands. A failed run fails the phase."""
+    import numpy as np
+
+    from evr_tpu_torch.models import get_model_config
+    from evr_tpu_torch.training.partition import map_with_paths
+
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        torch.save(map_with_paths(master, lambda _, t: t.detach().cpu()), work / "params.pt")
+        np.savez(work / "batch.npz", **{k: np.asarray(v) for k, v in batch.items()})
+        n, want = 2, ref
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "evr_tpu_torch.tools.pod_launch", "-n", str(n), "--",
+             sys.executable, str(pathlib.Path(__file__).resolve()), "--mesh-worker", str(work)],
+            capture_output=True, text=True, timeout=600, cwd=str(pathlib.Path(__file__).resolve().parent))
+        secs = time.perf_counter() - t0
+        lines = [json.loads(line.split("MESHWORKER ", 1)[1]) for line in proc.stdout.splitlines()
+                 if "MESHWORKER " in line]
+        for line in proc.stdout.splitlines():
+            if "backend" in line and "MESHWORKER" not in line:
+                log(f"(d) {line.strip()}")
+        check(proc.returncode == 0 and len(lines) == n,
+              f"(d) {n} processes on the card failed (exit {proc.returncode}): "
+              f"{(proc.stdout + proc.stderr)[-3000:]}")
+        out["processes"], out["backend"], out["seconds"] = n, lines[0]["backend"], secs
+        for row in lines:
+            add_into(out["launches"], row["launches"])
+            check_step_launches(f"(d) process {row['process']}", row["launches"],
+                                get_model_config(TRAIN_MODEL).vision.layers)
+        res = torch.load(work / "result.pt", weights_only=True)
+    vision = {k: v.cuda().float() for k, v in res["vision"].items()}
+    metrics = {k: torch.tensor(v) for k, v in res["metrics"].items()}
+    ref_metrics = {k: torch.tensor(v) for k, v in want["metrics"].items()}
+    got = step_compare(torch, f"(d) {n} processes vs the 2-slot step", metrics,
+                       ref_metrics, vision, want["vision"], vision_block_leaf)
+    norm_rel = abs(res["norm"] - want["norm"]) / want["norm"]
+    got["norm_rel"] = max(got["norm_rel"], norm_rel)
+    log(f"(d) {n} processes, backend {out['backend']}: {secs:.1f} s with the launch; every leaf's norm "
+        f"apart by {norm_rel:.2e}; launches {out['launches']}")
+    step_check(f"(d) {n} processes", got, STEP_BF16_BANDS)
+    out["grads"] = got
+    return out
+
+
+def phase_mesh_cli(torch) -> dict:
+    """(e) ``tools.finetune.main --fsdp`` at ViT-L/14@336px over the default
+    mesh (every local card): two steps of 32 with an autosave after each;
+    then a run resumed from the autosave of the first step, whose first step
+    is the saved run's second: its contrastive loss (no dropout in it) equal
+    bit for bit."""
+    import shutil
+
+    from evr_tpu_torch.models import get_model_config
+    from evr_tpu_torch.tools import finetune as finetune_cli
+    from evr_tpu_torch.training import finetune as ft
+
+    cfg = get_model_config(TRAIN_MODEL)
+    L = cfg.vision.layers
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        train_json, _ = write_caption_set(root, cfg.vision.image_size, cfg.vision.patch_size,
+                                          n_train=MESH_CLI_IMAGES, n_val=0)
+        save = root / "ck"
+        losses, make = [], ft.make_train_step
+
+        def recording(*args, **kwargs):
+            step, eval_step = make(*args, **kwargs)
+
+            def recorded(state, batch, generator=None):
+                if len(losses) == 1 and (save / "autosave.pt").exists():
+                    shutil.copy(save / "autosave.pt", save / "resume.pt")  # the autosave of step 1
+                state, m = step(state, batch, generator)
+                losses.append(m["contrastive_loss"].item())
+                return state, m
+
+            return recorded, eval_step
+
+        argv = ["--train-json", str(train_json), "--data-dir", str(root), "--model", TRAIN_MODEL,
+                "--batch-size", str(TRAIN_BATCH), "--epochs", "1", "--seed", str(MESH_SEED),
+                "--save-dir", str(save), "--device", "cuda", "--fsdp"]
+        ft.make_train_step = recording
+        try:
+            start = launches_now()
+            t0 = time.perf_counter()
+            _, text_a = quiet(finetune_cli.main, argv + ["--save-every-steps", "1"])
+            torch.cuda.synchronize()
+            out["run_s"] = time.perf_counter() - t0
+            saved = list(losses)
+            t0 = time.perf_counter()
+            _, text_b = quiet(finetune_cli.main, argv + ["--resume-from", "resume"])
+            torch.cuda.synchronize()
+            out["resume_s"] = time.perf_counter() - t0
+            launches = launches_since(start)
+        finally:
+            ft.make_train_step = make
+        add_into(out["launches"], launches)
+        resumed = losses[len(saved):]
+        mesh_line = [line for line in text_a.splitlines() if line.startswith("mesh ")]
+        log(f"(e) tools.finetune --fsdp: {mesh_line}; run {out['run_s']:.1f} s, contrastive losses {saved}; "
+            f"resumed from step 1's autosave {out['resume_s']:.1f} s, losses {resumed}; launches {launches}")
+        check(bool(mesh_line) and mesh_line[0].endswith("fsdp"), f"(e) no FSDP mesh: {text_a[-1500:]}")
+        check(len(saved) == 2 and len(resumed) == 1, f"(e) steps {saved} then {resumed}")
+        check("resumed from resume mid-epoch 0 (skipping 1 consumed batches)" in text_b, f"(e) {text_b[-1500:]}")
+        check(resumed[0] == saved[1], f"(e) the resumed step's loss {resumed[0]} is not the saved run's {saved[1]}")
+        check_step_launches("(e) tools.finetune --fsdp", launches, 3 * L)
+        out["losses"] = {"run": saved, "resumed": resumed}
+    return out
+
+
+def phase_mesh(torch, frames) -> dict:
+    """Phase 18, the data axis: (a) the sharded exact search, (b) the mesh
+    engine and sharded serving, (c) data-parallel and FSDP steps, (d) two
+    processes on the card, (e) the FSDP CLI with its resume."""
+    t0 = time.perf_counter()
+    out = {"launches": {}}
+    search = phase_mesh_search(torch)
+    engine = phase_mesh_engine(torch, frames)
+    cfg, cls_cfg, master, batch, tc = mesh_train_setup(torch)
+    steps = phase_mesh_steps(torch, cfg, cls_cfg, master, batch, tc)
+    ref = steps.pop("ref")
+    procs = phase_mesh_processes(torch, master, batch, ref)
+    del master, ref
+    torch.cuda.empty_cache()
+    cli = phase_mesh_cli(torch)
+    for part in (search, engine, steps, procs, cli):
+        add_into(out["launches"], part["launches"])
+    out.update(search=search, engine=engine, steps=steps, processes=procs, cli=cli,
+               seconds=time.perf_counter() - t0)
+    return out
+
+
 def _to_cuda(torch, tree):
     from evr_tpu_torch.training.partition import map_with_paths
 
@@ -6057,6 +6675,8 @@ def _to_cuda(torch, tree):
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-worker":  # phase 18 (d)'s processes
+        return mesh_worker(pathlib.Path(sys.argv[2]))
     try:
         import torch
     except ImportError:
@@ -6156,6 +6776,7 @@ def main() -> int:
         distill = phase_distill(torch)
         lever_clis = phase_lever_clis(torch)
         phase17_s = time.perf_counter() - t5
+        mesh = phase_mesh(torch, frames)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6302,6 +6923,17 @@ def main() -> int:
         f"CLIs: LoRA fit {lever_clis['lora_cli']['fit_s']:.1f} s, distill {lever_clis['distill_cli']['seconds']:.1f} s; "
         f"train_sustained {ls['steps']} steps {ls['sustained_ex_per_s']:.1f} examples/s, R@1/5/10 "
         f"{[ls['before'][k] for k in ('R@1', 'R@5', 'R@10')]} -> {[ls['after'][k] for k in ('R@1', 'R@5', 'R@10')]}")
+    st, eng = mesh["steps"], mesh["engine"]
+    log(f"mesh (phase 18, {mesh['seconds']:.1f} s; {card}): sharded search p50 ms, one query, 1 slot / "
+        f"{MESH_SEARCH_SLOTS} slots, {MESH_ROWS} x {MESH_DIM}: "
+        + json.dumps({k: {t: round(v, 3) for t, v in d.items()} for k, d in mesh["search"]["p50_ms"].items()})
+        + f"; mesh engine ({MESH_TRAIN_SLOTS} slots, {MODEL}) bf16 {eng['bfloat16']['encode_frames_per_s']:.1f} / "
+        f"int8 {eng['int8']['encode_frames_per_s']:.1f} frames/s; {TRAIN_MODEL}, batch {TRAIN_BATCH}, bf16, s/step "
+        + json.dumps({k: [round(s, 4) for s in v] for k, v in st["s_per_step"].items()})
+        + f"; FSDP {st['bytes']['slot'] / 2**30:.3f} GiB a slot of {st['bytes']['replicated'] / 2**30:.3f} GiB; "
+        f"{MESH_TRAIN_SLOTS} slots vs 1: {json.dumps(st['grads'])}; {mesh['processes']['processes']} process(es) "
+        f"({mesh['processes']['backend']}) vs the step: {json.dumps(mesh['processes']['grads'])}; the FSDP CLI run "
+        f"{mesh['cli']['run_s']:.1f} s, resumed {mesh['cli']['resume_s']:.1f} s; launches {json.dumps(mesh['launches'])}")
     big = main["then"]["routes"]
     log(f"viz.umap at {UMAP_ROWS} x {UMAP_DIM}: {big['umap_big_s']:.2f} s, neighbours kept "
         f"{json.dumps(big['knn_kept'])}")
@@ -6317,8 +6949,10 @@ def main() -> int:
     # phase 16: the harness's runs (K1/K2 bf16, K3a/K3b int8) and the trainer
     # variants (K1/K2 forward, K5a/K5b backward, encode_projected's K1/K2)
     # phase 17: the levers' steps, the distillation steps and the three CLIs
+    # phase 18: the sharded search (K4), the mesh engine and its serving (K1/K2,
+    # K3a/K3b), the mesh steps, the two processes and the FSDP CLI (K1/K2, K5)
     for m in (harness["launches"], variants["launches"], levers["launches"], distill["launches"],
-              lever_clis["launches"]):
+              lever_clis["launches"], mesh["launches"]):
         for name, n in m.items():
             launches[name] += n
     launches["adc_list_scores"] = ann["launches"]

@@ -20,7 +20,8 @@ patch kernel), so weights carry across leaf by leaf
 - ``evr_tpu_torch.serving``    the HTTP API and the upload jobs
 - ``evr_tpu_torch.training``   contrastive fine-tuning (``Trainer``), its
                                losses, optimizer groups and caption data
-- ``evr_tpu_torch.parallel``   the contrastive losses (single device)
+- ``evr_tpu_torch.parallel``   meshes, the contrastive losses (one device and
+                               global), the sharded search, FSDP, processes
 - ``evr_tpu_torch.tools``      command-line tools (``tools.finetune``,
                                ``tools.ingest``, ``tools.index_tool``, ...)
 

@@ -16,7 +16,14 @@ Checkpoints: ``from_checkpoint`` and ``load_finetuned`` read a reference
 Trainer's own ``.pt`` file (``training.finetune``), told apart by their keys
 (``load_torch_checkpoint``); a fine-tuned model's classifier head serves
 through ``classify``. The JAX package's orbax directories need JAX and are
-refused. The MoE towers and mesh sharding are not ported yet.
+refused. The MoE towers are not ported yet.
+
+With a ``mesh`` (``parallel.mesh``, one process) every encode batch is split
+evenly over the slots of ``mesh_axis``: each slot encodes its rows on its
+device (K1/K2, or K3a/K3b on int8 weights, on the card) with the params of
+that device, held once per distinct device, and the rows come back in slot
+order. ``batch_size`` must divide over the axis, as in the JAX package; a
+text batch is padded with empty rows to a multiple of the slots.
 
 Image files: ``preprocess_mode="fast"`` stages a folder of JPEGs (what
 ingest writes) through the native stager (``evr_tpu_torch.native``: cv2
@@ -117,6 +124,8 @@ class EmbeddingEngine:
         params_dtype: str = "float32",
         device=None,
         preprocess_mode: str = "fast",
+        mesh=None,
+        mesh_axis: str = "data",
     ):
         """``params``: a nested dict of numpy arrays or tensors in the JAX
         package's layout; None draws random weights from ``rng_seed``.
@@ -125,7 +134,9 @@ class EmbeddingEngine:
         ``device``: None means the card (raises without one); pass "cpu" to
         run on the CPU. ``params_dtype``: "float32", "bfloat16" or "int8"
         serving weights (``_cast_params``). ``preprocess_mode``: "fast" or
-        "pil", how image files are staged (module docstring)."""
+        "pil", how image files are staged (module docstring). ``mesh``: split
+        each encode batch over the slots of ``mesh_axis`` (module docstring);
+        ``device`` is then the first slot's."""
         if params_dtype not in PARAMS_DTYPES:
             raise ValueError(
                 f"unknown params_dtype {params_dtype!r} (supported: {sorted(PARAMS_DTYPES)})"
@@ -136,6 +147,18 @@ class EmbeddingEngine:
             )
         self.preprocess_mode = preprocess_mode
         self._native_stager = None
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self._replicas: dict = {}
+        if mesh is not None:
+            n_shards = mesh.check_covers(mesh_axis)
+            if mesh.process_count > 1:
+                raise NotImplementedError("EmbeddingEngine(mesh=...) takes a one-process mesh")
+            if batch_size % n_shards != 0:
+                raise ValueError(
+                    f"batch_size {batch_size} must divide evenly over the "
+                    f"{n_shards}-way '{mesh_axis}' mesh axis")
+            device = mesh.slot_devices[mesh.local_slots[0]]
         self.device = resolve_device(device)
         self.model_name = model_name
         self.cfg = cfg or get_model_config(model_name)
@@ -227,11 +250,8 @@ class EmbeddingEngine:
         if isinstance(texts, str):
             texts = [texts]
         tokens = self.tokenizer(texts, context_length=self.cfg.text.context_length)
-        with torch.inference_mode():
-            out = encode_text(
-                self.params, self.cfg, torch.from_numpy(tokens).to(self.device),
-                dtype=self.compute_dtype, eot_fast_final=True,
-            ).cpu().numpy()
+        out = self._encode(
+            lambda p, cfg, x, dtype: encode_text(p, cfg, x, dtype=dtype, eot_fast_final=True), tokens)
         if normalise:
             out = out / np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
         return out
@@ -259,12 +279,10 @@ class EmbeddingEngine:
         ``batch_size`` on the engine's device, the last one padded to it
         unless ``pad`` is False → [N, D] float32 on the host."""
         outs = []
-        with torch.inference_mode():
-            for i in range(0, len(arr), self.batch_size):
-                chunk = arr[i : i + self.batch_size]
-                batch, n = self._pad_batch(chunk) if pad else (chunk, len(chunk))
-                x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
-                outs.append(encode(self.params, self.cfg, x, dtype=self.compute_dtype).cpu().numpy()[:n])
+        for i in range(0, len(arr), self.batch_size):
+            chunk = arr[i : i + self.batch_size]
+            batch, n = self._pad_batch(chunk) if pad else (chunk, len(chunk))
+            outs.append(self._encode(encode, batch)[:n])
         out = (
             np.concatenate(outs, axis=0)
             if outs
@@ -273,6 +291,38 @@ class EmbeddingEngine:
         if normalise:
             out = out / np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
         return out
+
+    def _params_on(self, device: torch.device):
+        """The active model's params on ``device``: the registry's own on the
+        engine's device, a copy for each other distinct device, made again
+        when the active params change."""
+        if device == self.device:
+            return self.params
+        held = self._replicas.get(device)
+        if held is None or held[0] is not self.params:
+            held = self._replicas[device] = (self.params, params_from_numpy(self.params, device))
+        return held[1]
+
+    def _encode(self, encode, batch: np.ndarray) -> np.ndarray:
+        """``encode(params, cfg, x, dtype=)`` over ``batch`` → [n, D] float32
+        on the host: on the engine's device, or split over the mesh's slots
+        (rows padded to a multiple of them) and gathered in slot order."""
+        with torch.inference_mode():
+            if self.mesh is None:
+                x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
+                return encode(self.params, self.cfg, x, dtype=self.compute_dtype).cpu().numpy()
+            slots = self.mesh.local_slots
+            n = len(batch)
+            per = -(-n // len(slots))
+            if per * len(slots) != n:
+                pad = np.zeros((per * len(slots) - n,) + batch.shape[1:], dtype=batch.dtype)
+                batch = np.concatenate([batch, pad])
+            outs = []
+            for i, s in enumerate(slots):
+                dev = self.mesh.slot_devices[s]
+                x = torch.from_numpy(np.ascontiguousarray(batch[i * per:(i + 1) * per])).to(dev)
+                outs.append(encode(self._params_on(dev), self.cfg, x, dtype=self.compute_dtype))
+            return torch.cat([o.cpu() for o in outs]).numpy()[:n]
 
     def encode_staged_images(
         self, staged_u8: np.ndarray, normalise: bool = False, pad: bool = True

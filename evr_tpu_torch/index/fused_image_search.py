@@ -19,6 +19,7 @@ import torch
 from evr_tpu_torch.models.clip import encode_image
 from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
 from evr_tpu_torch.ops.topk import cosine_topk
+from evr_tpu_torch.parallel.sharded_search import ShardedIndex
 
 from .fused_search import fetch_topk, pad_to_k
 
@@ -74,4 +75,6 @@ class ImageSearcher:
             x = torch.from_numpy(np.ascontiguousarray(staged_u8)).to(self.engine.device)
             x = (x.float() / 255.0 - self._mean) / self._std
             img = encode_image(params, self.engine.cfg, x, dtype=self.engine.compute_dtype)
-            return fetch_topk(*cosine_topk(device_index, img, start, end, k, row_scales))
+            return fetch_topk(*(device_index.topk(img, start, end, k)
+                                if isinstance(device_index, ShardedIndex)
+                                else cosine_topk(device_index, img, start, end, k, row_scales)))

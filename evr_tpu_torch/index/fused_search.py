@@ -21,6 +21,7 @@ import torch
 
 from evr_tpu_torch.models.clip import encode_text
 from evr_tpu_torch.ops.topk import cosine_topk
+from evr_tpu_torch.parallel.sharded_search import ShardedIndex
 
 RESULT_CACHE_SIZE = 4096  # entries; the cache is cleared when it grows past this
 
@@ -71,8 +72,11 @@ class TextSearcher:
             txt = encode_text(engine.params if params is None else params, engine.cfg, tokens,
                               dtype=engine.compute_dtype)
             # cosine_topk takes every storage dtype (int8 rows rescaled after
-            # the GEMM), masks rows outside [start, end) and normalises the query
-            return fetch_topk(*cosine_topk(device_index, txt, start, end, k, row_scales))
+            # the GEMM), masks rows outside [start, end) and normalises the
+            # query; a sharded snapshot searches shard by shard and merges
+            return fetch_topk(*(device_index.topk(txt, start, end, k)
+                                if isinstance(device_index, ShardedIndex)
+                                else cosine_topk(device_index, txt, start, end, k, row_scales)))
 
     def _search_group(self, key, items: list) -> list:
         """MicroBatcher flush: the coalesced queries of one group as one

@@ -18,8 +18,14 @@ and always re-ranks ``max(50, 4k)`` candidates exactly.
 Storage: float32 (exact), bfloat16, or int8 with symmetric per-row scales
 applied after the GEMM. ``save``/``load`` write the JAX package's layout
 (``embedding/{video}_embeddings.npy`` + ``metadata/{video}_frames.json``), so
-each package loads the other's index. Mesh sharding (ROADMAP item A15) is not
-ported yet.
+each package loads the other's index.
+
+With a ``mesh`` the exact tiers split the rows over ``mesh_axis``, one shard
+a slot (``parallel.sharded_search.ShardedIndex``): the rows are padded to a
+multiple of 128 a shard, at least ``shards × 128``, and a search with more
+than one shard and k within a shard scores each shard on its slot and merges
+the slots' top k (``sharded_cosine_topk``, K4 on each slot under
+``search_impl="pallas"``). The ANN tiers under a mesh are ROADMAP item A21.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from evr_tpu_torch.index.ivf import IVFIndex
 from evr_tpu_torch.index.ivfpq import IVFPQIndex, quantize_host_store
 from evr_tpu_torch.ops.retrieval import fused_topk
 from evr_tpu_torch.ops.topk import cosine_topk
+from evr_tpu_torch.parallel.sharded_search import ShardedIndex, place_rows
 from evr_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
@@ -75,6 +82,7 @@ class FrameIndex:
         ivfpq_host_store: bool = False,
         mesh=None,
         device=None,
+        mesh_axis: str = "data",
     ):
         """``pad_multiple``: device rows are allocated in multiples of this.
         ``search_impl``: "xla" (GEMM + sort, ``cosine_topk``) or "pallas"
@@ -86,20 +94,29 @@ class FrameIndex:
         max(50, 4k) candidates; float32/bfloat16 storage only).
         ``ivfpq_host_store`` (ivfpq only): the re-rank rows live in host
         memory as int8 with per-row scales and the device keeps only the PQ
-        codes; appended rows join the store with their ids. ``mesh``:
-        sharding is not ported (ROADMAP item A15) and raises."""
+        codes; appended rows join the store with their ids. ``mesh``: the
+        exact tiers' rows split over ``mesh_axis`` (module docstring);
+        ``device`` is then the first slot's."""
         if device_dtype not in _DTYPES:
             raise ValueError(f"unknown device_dtype {device_dtype!r}")
         if search_impl not in _SEARCH_IMPLS:
             raise ValueError(f"unknown search_impl {search_impl!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "FrameIndex(mesh=...): mesh sharding, and with it the sharded IVF / "
-                "IVF-PQ tiers, is not ported yet (ROADMAP item A15)"
-            )
         if search_impl == "ivfpq" and device_dtype == "int8":
             # PQ already compresses to S bytes a row; int8 originals buy nothing
             raise ValueError("search_impl='ivfpq' supports float32/bfloat16 storage only")
+        if search_impl == "ivf" and mesh is not None and device_dtype == "int8":
+            raise ValueError(
+                "mesh-sharded IVF stores float32/bfloat16 shards; use "
+                "single-device IVF for the int8 inverted-file tier")
+        if mesh is not None and search_impl in _ANN_IMPLS:
+            raise NotImplementedError(
+                f"FrameIndex(mesh=..., search_impl={search_impl!r}): the sharded IVF / IVF-PQ "
+                "tiers are not ported yet (ROADMAP item A21)")
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        if mesh is not None:
+            mesh.check_covers(mesh_axis)
+            device = mesh.slot_devices[mesh.local_slots[0]]
         if ivfpq_host_store and search_impl != "ivfpq":
             raise ValueError("ivfpq_host_store requires search_impl='ivfpq'")
         self.embed_dim = embed_dim
@@ -163,7 +180,7 @@ class FrameIndex:
         ):
             return False
         n = len(emb)
-        if self._total + n > self._device_index.shape[0]:
+        if self.mesh is not None or self._total + n > self._device_index.shape[0]:
             return False
         # centroids and codebooks do not move on append: past 1.5x the rows
         # they were trained on, rebuild so the lists re-balance
@@ -220,8 +237,13 @@ class FrameIndex:
 
     # -- device build -----------------------------------------------------
     def _padded_rows(self, n: int) -> int:
-        # 25% headroom so uploads append in place
         m = self.pad_multiple
+        if self.mesh is not None:
+            # whole 128-row tiles a shard, the total divisible by the shards
+            shards = self.mesh.axis_size(self.mesh_axis)
+            per = -(-max(n, 1) // shards)
+            return ((per + 127) // 128) * 128 * shards
+        # 25% headroom so uploads append in place
         n = int(n * 1.25)
         return max(m, ((n + m - 1) // m) * m)
 
@@ -250,12 +272,18 @@ class FrameIndex:
             max_abs = np.maximum(np.abs(full).max(axis=1), 1e-12)
             scales = (max_abs / 127.0).astype(np.float32)
             quant = np.clip(np.round(full / scales[:, None]), -127, 127).astype(np.int8)
-            self._device_index = torch.from_numpy(quant).to(self.device)
-            self._row_scales = torch.from_numpy(scales).to(self.device)
+            rows, self._row_scales = torch.from_numpy(quant), torch.from_numpy(scales)
         else:
-            self._device_index = torch.from_numpy(full).to(self.device).to(
-                _DTYPES[self.device_dtype]
-            )
+            rows = torch.from_numpy(full).to(_DTYPES[self.device_dtype])
+        if self.mesh is not None:
+            self._device_index = ShardedIndex(
+                self.mesh, self.mesh_axis, place_rows(self.mesh, rows, self.mesh_axis),
+                place_rows(self.mesh, self._row_scales, self.mesh_axis))
+            self._row_scales = None  # the shards carry theirs
+        else:
+            self._device_index = rows.to(self.device)
+            if self._row_scales is not None:
+                self._row_scales = self._row_scales.to(self.device)
         self._total = total
         self._dirty = False
         self.version += 1
@@ -330,9 +358,12 @@ class FrameIndex:
                 rows = np.pad(rows, pad, constant_values=-1)
             return scores, rows
         q = torch.from_numpy(np.atleast_2d(np.asarray(queries, np.float32))).to(self.device)
-        topk = fused_topk if self.search_impl == "pallas" else cosine_topk
         with torch.inference_mode():
-            scores, rows = topk(self._device_index, q, start, end, k, row_scales=self._row_scales)
+            if self.mesh is not None:
+                scores, rows = self._device_index.topk(q, start, end, k, impl=self.search_impl)
+            else:
+                topk = fused_topk if self.search_impl == "pallas" else cosine_topk
+                scores, rows = topk(self._device_index, q, start, end, k, row_scales=self._row_scales)
         return scores.cpu().numpy(), rows.cpu().numpy()
 
     def snapshot(self, video_name: str | None = None):

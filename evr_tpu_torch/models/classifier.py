@@ -47,13 +47,17 @@ def classifier_forward(
     *,
     deterministic: bool = True,
     generator: torch.Generator | None = None,
+    keep_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """features [B, embed_dim] → logits [B, num_classes]. With
     ``deterministic=False`` and dropout > 0, each hidden unit is kept with
-    probability 1 − dropout (mask from ``generator``) and scaled by 1/keep."""
+    probability 1 − dropout (mask from ``generator``, or ``keep_mask`` [B,
+    hidden] where given: a mesh step draws the global batch's mask and hands
+    each slot its rows) and scaled by 1/keep."""
     h = torch.relu(linear(features, params["fc1"]))
     if not deterministic and cfg.dropout > 0.0:
         keep = 1.0 - cfg.dropout
-        mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+        mask = (torch.rand(h.shape, generator=generator, device=h.device) < keep
+                if keep_mask is None else keep_mask)
         h = torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
     return linear(h, params["fc2"])

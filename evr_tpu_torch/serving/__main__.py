@@ -8,7 +8,6 @@ UNPORTED_FLAGS = {
     "model_family": ("clip", "A17"),  # SigLIP
     "siglip_hf": (None, "A17"),
     "siglip_tokenizer": (None, "A17"),
-    "shard_index": (False, "A15"),
     "zeroshot_objects": (False, "A17"),  # the zero-shot object annotator of uploads
 }
 
@@ -71,6 +70,10 @@ def main(argv=None):
         "coalesce into one device dispatch (off when unset)",
     )
     parser.add_argument("--batch-size", type=int, default=256)
+    parser.add_argument(
+        "--shard-index", action="store_true",
+        help="shard the frame index and the encode batches over a mesh of every local card",
+    )
 
     parser.add_argument(
         "--transcriber", choices=["none", "assemblyai"], default="none",
@@ -85,7 +88,6 @@ def main(argv=None):
     parser.add_argument("--model-family", choices=["clip", "siglip"], default="clip")
     parser.add_argument("--siglip-hf", default=None)
     parser.add_argument("--siglip-tokenizer", default=None)
-    parser.add_argument("--shard-index", action="store_true")
     parser.add_argument("--zeroshot-objects", action="store_true")
     parser.add_argument("--local-ocr", default="auto", choices=("auto", "on", "off"),
                         help="OCR of uploaded videos: its annotator is not ported (ROADMAP "
@@ -110,10 +112,16 @@ def main(argv=None):
     from .context import ServingContext
 
     log = get_logger("evr_tpu_torch.serving")
+    mesh = None
+    if args.shard_index:
+        from evr_tpu_torch.parallel import get_mesh
+
+        mesh = get_mesh(device=args.device)
+        print(f"sharding over {mesh.shape} mesh", flush=True)
     engine = EmbeddingEngine(
         args.model, device=args.device,
         params_dtype="float32" if args.params_dtype == "auto" else args.params_dtype,
-        batch_size=args.batch_size,
+        batch_size=args.batch_size, mesh=mesh,
     )
     if args.checkpoint:
         engine.load_finetuned(args.checkpoint, prefer_ema=args.use_ema)
@@ -126,7 +134,7 @@ def main(argv=None):
         args.data_root, engine=engine, index_dtype=args.index_dtype,
         search_impl=args.search_impl, ivf_nprobe=args.ivf_nprobe,
         ivf_clusters=args.ivf_clusters, ivfpq_host_store=args.ivfpq_host_store,
-        batch_window_ms=args.batch_window_ms, transcriber=transcriber,
+        batch_window_ms=args.batch_window_ms, transcriber=transcriber, mesh=mesh,
     )
     loaded = ctx.boot()
     if args.params_dtype == "auto":

@@ -75,8 +75,8 @@ class ServingContext:
         annotator=None,
     ):
         """``index_dtype``, ``search_impl``, ``ivf_nprobe``, ``ivf_clusters``,
-        ``ivfpq_host_store`` and ``mesh``: see ``FrameIndex``; applied to
-        every per-model index. An invalid combination raises here, at boot,
+        ``ivfpq_host_store`` and ``mesh`` (the exact tiers' rows split over
+        its slots): see ``FrameIndex``; applied to every per-model index. An invalid combination raises here, at boot,
         not at the first request. ``batch_window_ms``: concurrent queries
         arriving within the window coalesce into one device dispatch
         (``serving.batcher``); None disables. ``transcriber``: a
@@ -92,6 +92,7 @@ class ServingContext:
             else DataRootConfig(pathlib.Path(data_root))
         )
         self.engine = engine or EmbeddingEngine()
+        self.mesh = mesh
         # one index per embedding model: a text query with model M only ever
         # scores embeddings M produced
         self._indexes: dict[str, FrameIndex] = {}
@@ -121,7 +122,7 @@ class ServingContext:
         self._index_kwargs = dict(
             device_dtype=index_dtype, search_impl=search_impl, ivf_nprobe=ivf_nprobe,
             ivf_clusters=ivf_clusters, ivfpq_host_store=ivfpq_host_store, mesh=mesh,
-            device=self.engine.device,
+            device=None if mesh is not None else self.engine.device,
         )
         FrameIndex(embed_dim=1, **self._index_kwargs)
 

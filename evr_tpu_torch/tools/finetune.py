@@ -1,4 +1,4 @@
-"""Fine-tune CLI on one device.
+"""Fine-tune CLI: one device, a mesh of local slots, or several processes.
 
 ``python -m evr_tpu_torch.tools.finetune --train-json a.json b.json
 --data-dir images/ --model ViT-L/14@336px --epochs 10`` runs the reference
@@ -16,9 +16,18 @@ tree}``, the payload the JAX CLI writes to orbax, which ``EmbeddingEngine``
 serves), ``--optimizer muon`` and ``--muon-lr-scale``, ``--gradcache-chunks``,
 ``--remat`` and ``--patch-drop``. The flags of the JAX package's CLI that the
 port does not honour yet are accepted by the parser and refused when set,
-naming the ROADMAP item they wait for: ``--fsdp`` and ``--expert-parallel``
-(A15, distributed training) and ``--moe-*`` (A17, with ``models/moe.py``).
-``--no-mesh`` is accepted: the port has no mesh.
+naming the ROADMAP item they wait for: ``--expert-parallel`` and ``--moe-*``
+(A17, with ``models/moe.py``).
+
+As in the JAX CLI the trainer runs over a mesh of every local card
+(``parallel.get_mesh``; ``EVR_TPU_CPU_DEVICES`` CPU slots with ``--device
+cpu``), and ``--no-mesh`` runs on one device (a mesh of one slot takes
+the same step). ``--fsdp`` shards the params, the AdamW
+moments and the EMA over the mesh. Under ``tools.pod_launch`` each process
+joins the group (``parallel.multihost.bootstrap``), the mesh spans every
+process's slots, ``--batch-size`` is the global batch and each process
+loads its share; the coordinator alone writes ``history.json`` and the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -27,10 +36,11 @@ import argparse
 import json
 import pathlib
 
+import torch
+
 # flag (argparse dest) → (default, ROADMAP item): refused when set otherwise
 UNPORTED_FLAGS = {
-    "fsdp": (False, "A15"),
-    "expert_parallel": (0, "A15"),
+    "expert_parallel": (0, "A17"),
     "moe_experts": (0, "A17"),
     "moe_router_k": (2, "A17"),
     "moe_every": (2, "A17"),
@@ -53,7 +63,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--freeze-layers", type=int, default=8)
     parser.add_argument("--save-dir", default="checkpoints")
     parser.add_argument("--num-classes", type=int, default=3)
-    parser.add_argument("--no-mesh", action="store_true", help="single-device run (always, here)")
+    parser.add_argument("--no-mesh", action="store_true",
+                        help="single-device run (default: a mesh over every local card)")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="shard params + AdamW moments over the mesh (ZeRO-3)")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--loss", choices=["infonce", "siglip"], default="infonce",
                         help="contrastive objective: InfoNCE or SigLIP pairwise sigmoid")
@@ -87,7 +100,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--muon-lr-scale", type=float, default=10.0,
                         help="Muon lr = lr * group scale * this")
     # accepted for the JAX CLI's command lines, refused when set (UNPORTED_FLAGS)
-    parser.add_argument("--fsdp", action="store_true")
     parser.add_argument("--moe-experts", type=int, default=0)
     parser.add_argument("--moe-router-k", type=int, default=2)
     parser.add_argument("--moe-every", type=int, default=2)
@@ -110,10 +122,21 @@ def main(argv=None) -> dict:
 
     from evr_tpu_torch.models import get_model_config, init_clip_params
     from evr_tpu_torch.models.classifier import ClassifierConfig, init_classifier_params
+    from evr_tpu_torch.parallel import get_mesh, multihost
     from evr_tpu_torch.training import CaptionDataset, TrainConfig, Trainer
     from evr_tpu_torch.utils.device import resolve_device
 
+    # joins the process group when EVR_TPU_COORDINATOR & co. are set
+    process_index, process_count = multihost.bootstrap(device=args.device)
     device = resolve_device(args.device)
+    mesh = None
+    if not args.no_mesh:
+        mesh = (multihost.global_mesh(device=device) if process_count > 1
+                else get_mesh(device=device))
+    if args.batch_size % process_count:
+        raise SystemExit(f"--batch-size {args.batch_size} (global) must divide over "
+                         f"{process_count} processes")
+    per_proc_bs = args.batch_size // process_count
     cfg = get_model_config(args.model)
     if args.init_checkpoint:
         from evr_tpu_torch.models.torch_import import load_checkpoint
@@ -142,26 +165,31 @@ def main(argv=None) -> dict:
     trainer = Trainer(
         cfg, clip_params, tc, classifier_params=cls_params,
         cls_cfg=ClassifierConfig(embed_dim=cfg.embed_dim, num_classes=args.num_classes),
-        steps_per_epoch=steps_per_epoch, device=device,
+        steps_per_epoch=steps_per_epoch, device=device, mesh=mesh, fsdp=args.fsdp,
     )
+    if mesh is not None:
+        print(f"mesh {mesh.shape} over {mesh.process_count} process(es)"
+              + (", fsdp" if args.fsdp else ""))
     if args.save_every_steps:
         trainer.install_preemption_autosave()
     size = cfg.vision.image_size
+    shard = dict(process_index=process_index, process_count=process_count)
     result = trainer.fit(
-        lambda e: train_ds.batches(args.batch_size, size, epoch=e, seed=args.seed),
-        lambda e: val_ds.batches(args.batch_size, size, shuffle=False),
+        lambda e: train_ds.batches(per_proc_bs, size, epoch=e, seed=args.seed, **shard),
+        lambda e: val_ds.batches(per_proc_bs, size, shuffle=False, **shard),
         resume_from=args.resume_from,
     )
-    out = pathlib.Path(args.save_dir) / "history.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(result, indent=2))
-    if args.lora_rank > 0 and not result.get("preempted"):
-        # the adapters folded in: an ordinary CLIP tree every surface serves
-        import torch
-
-        path = pathlib.Path(args.save_dir).absolute() / "lora_merged.pt"
-        torch.save({"params": trainer.merged_clip_params()}, path)
-        print(f"merged LoRA checkpoint -> {path}")
+    merged = (trainer.merged_clip_params()
+              if args.lora_rank > 0 and not result.get("preempted") else None)
+    if process_index == 0:  # one writer: every process holds the same results
+        out = pathlib.Path(args.save_dir) / "history.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(result, indent=2))
+        if merged is not None:
+            # the adapters folded in: an ordinary CLIP tree every surface serves
+            path = pathlib.Path(args.save_dir).absolute() / "lora_merged.pt"
+            torch.save({"params": merged}, path)
+            print(f"merged LoRA checkpoint -> {path}")
     print(f"best val loss {result['best_val_loss']:.4f} @ epoch {result['best_epoch']}")
     return result
 

@@ -101,15 +101,27 @@ class CaptionDataset:
 
     def batches(self, batch_size: int, image_size: int = 224, shuffle: bool = True,
                 seed: int = 42, drop_remainder: bool = True, epoch: int = 0,
-                tokenizer=None) -> Iterator[dict[str, np.ndarray]]:
+                tokenizer=None, process_index: int = 0,
+                process_count: int = 1) -> Iterator[dict[str, np.ndarray]]:
         """Yield {'images': uint8 [B,S,S,3], 'tokens': int32 [B,77],
         'labels': int32 [B]} with static shapes: the epoch's order is
         shuffled with seed + epoch; an unreadable image is skipped and its
-        batch padded back up by repetition."""
+        batch padded back up by repetition.
+
+        Several processes: pass this process's ``(process_index,
+        process_count)`` and the per-process ``batch_size``. Every process
+        shuffles the same order and takes a disjoint equal-length stride of
+        it, dropping the trailing items that would leave one process a batch
+        more than another (its peers would wait for it in a collective)."""
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} not in [0, {process_count})")
         tokenizer = tokenizer or get_default_tokenizer()
         order = np.arange(len(self.items))
         if shuffle:
             np.random.default_rng(seed + epoch).shuffle(order)
+        if process_count > 1:
+            per = len(order) // process_count
+            order = order[process_index * per : (process_index + 1) * per]
         end = len(order) - (len(order) % batch_size) if drop_remainder else len(order)
         for i in range(0, end, batch_size):
             images, captions, labels = [], [], []

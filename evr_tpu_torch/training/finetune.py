@@ -1,4 +1,4 @@
-"""Contrastive fine-tuning on one device (PyTorch).
+"""Contrastive fine-tuning on one device or over a mesh (PyTorch).
 
 Counterpart of ``evr_tpu/training/finetune.py`` (parity target: the
 production trainer ``Backend/clip_finetune_correct.py``): CLIP + 3-class
@@ -53,6 +53,17 @@ blocks through the fused kernels K1/K2 forward and K5b/K5a backward
 plain composition under autograd, and so does a vision tower that
 ``patch_drop`` cuts below T = 512. The MoE lever waits for ROADMAP item A17
 and raises ``NotImplementedError`` naming it (``check_supported``).
+
+Over a mesh (``parallel.mesh``; ``make_train_step(mesh=)``, ``Trainer(mesh=,
+fsdp=)``) the step equals the one-device step on the global batch: every
+random draw is made for the global batch and split, the loss is the global
+batch's (``losses.combined_clip_loss`` with ``axis``), and the gradients are
+summed over the slots in slot order, then over the processes
+(``parallel.multihost``). One gradient function (``make_grad_fn``) serves
+both layouts: one device is the one-slot case. Data parallelism keeps the params once per
+distinct device; FSDP (``parallel.fsdp``) keeps each slot's shard of the
+params, the AdamW moments and the EMA, gathers the whole params once per
+device for the step and updates each shard where it lives.
 """
 
 from __future__ import annotations
@@ -245,23 +256,34 @@ class GroupedAdamW:
         return lrs
 
     @torch.no_grad()
-    def apply(self, params, grads: dict[str, torch.Tensor], state: dict) -> bool:
+    def grad_stats(self, g: list[torch.Tensor]) -> tuple[bool, torch.Tensor | None]:
+        """(whether every gradient is finite, their global norm where
+        clipping is on): what ``apply`` decides by. Under FSDP they come from
+        the whole gradients, and each slot's update of its shard takes them."""
+        finite = True
+        if self.cfg.skip_nonfinite_updates:
+            finite = bool(torch.stack([torch.isfinite(t).all() for t in g]).all().item())
+        return finite, global_norm(g) if self.cfg.grad_clip > 0 else None
+
+    @torch.no_grad()
+    def apply(self, params, grads: dict[str, torch.Tensor], state: dict, stats=None) -> bool:
         """One update of ``params`` (in place) from ``grads`` (path key →
-        gradient of every trainable leaf). Returns whether it was applied."""
+        gradient of every trainable leaf). Returns whether it was applied.
+        ``stats``: ``grad_stats`` of the whole gradients, where ``params`` and
+        ``grads`` are one slot's shards."""
         cfg = self.cfg
         flat = self.trainable(flat_leaves(params))
         g = [grads[k] for k in flat]
+        finite, norm = self.grad_stats(g) if stats is None else stats
         if cfg.skip_nonfinite_updates:
-            finite = bool(torch.stack([torch.isfinite(t).all() for t in g]).all().item())
             state["notfinite_count"] = 0 if finite else state["notfinite_count"] + 1
             state["last_finite"] = finite
             state["total_notfinite"] += 0 if finite else 1
             if not (finite or state["notfinite_count"] > cfg.max_consecutive_nonfinite):
                 return False
         if cfg.grad_clip > 0:
-            norm = global_norm(g)
             if not bool(norm < cfg.grad_clip):
-                g = [(t / norm) * cfg.grad_clip for t in g]
+                g = [(t / norm.to(t.device)) * cfg.grad_clip for t in g]
         count = state["count"]
         lrs = self.learning_rates(count)
         b1, b2 = cfg.betas
@@ -367,112 +389,211 @@ def draw_patch_keep(generator, batch: int, n_patches: int, n_keep: int, device) 
     return torch.argsort(u, dim=-1, stable=True)[:, :n_keep]
 
 
-def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: TrainConfig):
+def _pixels(images, dev) -> torch.Tensor:
+    """uint8 [B, S, S, 3] → CLIP-normalised float pixels on ``dev``."""
+    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev)
+    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=dev)
+    return (torch.as_tensor(images, device=dev).float() / 255.0 - mean) / std
+
+
+def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: TrainConfig,
+                 mesh=None, axis: str = "data"):
     """``fn(params, batch, generator, train=True) -> (metrics, grads)``:
     the loss of one batch and, with ``train``, the gradient of every
     trainable leaf (path key → tensor; zeros for a leaf the loss does not
-    reach). Frozen leaves (``param_group_labels``) are set not to require
-    grad before the forward, so they get none and their blocks' backward
-    skips their products. ``batch``: uint8 images [B, S, S, 3], int tokens
-    [B, 77] and int labels [B], numpy or tensors. With ``params["lora"]``
-    the adapters are merged into the towers' kernels inside the forward;
-    ``cfg.patch_drop`` (train only) draws the keep mask first from
-    ``generator``, then the classifier's dropout draws; with
-    ``cfg.gradcache_chunks`` > 1 the gradient is GradCache's."""
+    reach). ``batch``: uint8 images [B, S, S, 3], int tokens [B, 77] and int
+    labels [B], numpy or tensors. Without ``mesh`` ``params`` is one tree
+    and the batch runs on its device, one slot. With ``mesh`` ``params``
+    maps each of this process's distinct devices to its tree, and ``batch``
+    holds this process's rows of the global batch, split evenly over its
+    slots of ``axis``.
+
+    Every random draw is made for the global batch in one order (the
+    patch-drop keep sets of ``cfg.patch_drop``, then the classifier's
+    dropout mask) and each slot takes its rows. Each slot encodes its rows
+    with its own detached aliases of its device's params, the frozen leaves
+    (``param_group_labels``) not requiring grad, so their blocks' backward
+    skips their products. With ``params["lora"]`` the adapters are merged
+    into the towers' kernels inside the forward. The loss is the global
+    batch's (``losses.combined_clip_loss``, with ``axis`` over more than one
+    slot); the gradients are summed over the local slots in slot order on
+    the first slot's device, then over the processes. Over several slots
+    the result equals the one-slot step's on the global batch up to the
+    order of those sums. ``cfg.gradcache_chunks`` > 1 takes GradCache's
+    gradient, on one slot only (over several: ROADMAP item A21)."""
     check_supported(cfg)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     if model_cfg.attn_impl == "auto":
         model_cfg = dataclasses.replace(model_cfg, attn_impl="auto_grad")
     n_patches, n_keep = patch_keep_count(model_cfg, cfg.patch_drop)
+    n_slots = 1 if mesh is None else mesh.check_covers(axis)
     use_gradcache = cfg.gradcache_chunks > 1
     if use_gradcache and (cfg.moe is not None or cfg.lora_rank > 0 or cfg.patch_drop > 0.0):
         raise ValueError("gradcache_chunks > 1 is unsupported with moe/lora/patch_drop")
+    if use_gradcache and n_slots > 1:
+        raise NotImplementedError("gradcache_chunks > 1 over a mesh is not ported yet (ROADMAP item A21)")
+    across = mesh is not None and mesh.process_count > 1
 
     def clip_of(params):
         if "lora" in params:
             return merge_lora(params["clip"], params["lora"], cfg.lora_alpha)
         return params["clip"]
 
-    def pixels(images, dev):
-        mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev)
-        std = torch.tensor(CLIP_STD, dtype=torch.float32, device=dev)
-        return (torch.as_tensor(images, device=dev).float() / 255.0 - mean) / std
-
-    def head(params, clip_p, img, txt, labels, generator, train):
-        img_n = img / img.norm(dim=-1, keepdim=True)
-        txt_n = txt / txt.norm(dim=-1, keepdim=True)
-        cls_logits = None
-        if cls_cfg is not None and params.get("classifier") is not None:
-            cls_logits = classifier_forward(
-                params["classifier"], cls_cfg, img_n, deterministic=not train,
-                generator=generator,
-            )
+    def loss(imgs, txts, clip_ps, logits, labels):
+        kw = dict(contrastive_weight=cfg.contrastive_weight,
+                  classification_weight=cfg.classification_weight,
+                  label_smoothing=cfg.label_smoothing, contrastive_impl=cfg.contrastive_loss)
+        with_labels = bool(logits) and labels[0] is not None
+        if n_slots == 1:
+            return combined_clip_loss(
+                imgs[0], txts[0], clip_ps[0]["logit_scale"],
+                class_logits=logits[0] if with_labels else None,
+                class_labels=labels[0] if with_labels else None,
+                logit_bias=clip_ps[0].get("logit_bias"), **kw)
+        biases = [c.get("logit_bias") for c in clip_ps]
         return combined_clip_loss(
-            img_n, txt_n, clip_p["logit_scale"],
-            class_logits=cls_logits, class_labels=labels,
-            contrastive_weight=cfg.contrastive_weight,
-            classification_weight=cfg.classification_weight,
-            label_smoothing=cfg.label_smoothing,
-            contrastive_impl=cfg.contrastive_loss,
-            logit_bias=clip_p.get("logit_bias"),
-        )
+            imgs, txts, [c["logit_scale"] for c in clip_ps],
+            class_logits=logits if with_labels else None,
+            class_labels=labels if with_labels else None,
+            logit_bias=None if biases[0] is None else biases, axis=axis, mesh=mesh, **kw)
 
-    def labels_of(batch, dev):
-        if batch.get("labels") is None:
-            return None
-        return torch.as_tensor(batch["labels"], device=dev).long()
+    def unit(x):
+        return x / x.norm(dim=-1, keepdim=True)
 
-    def forward(params, batch, generator, train):
-        clip_p = clip_of(params)
-        dev = clip_p["logit_scale"].device
-        x = pixels(batch["images"], dev)
-        patch_keep = None
-        if train and cfg.patch_drop > 0.0:
-            patch_keep = draw_patch_keep(generator, x.shape[0], n_patches, n_keep, dev)
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        img = encode_image(clip_p, model_cfg, x, dtype=dtype, patch_keep=patch_keep)
-        txt = encode_text(clip_p, model_cfg, tokens, dtype=dtype)
-        return head(params, clip_p, img, txt, labels_of(batch, dev), generator, train)
-
-    def gradcache_grads(params, batch, generator, leaves):
+    def gradcache_grads(params, images, tokens, labels, generator, leaves):
         clip_p = params["clip"]
         dev = clip_p["logit_scale"].device
 
         def encode_fn(cb):
-            return {"img": encode_image(clip_p, model_cfg, pixels(cb["images"], dev), dtype=dtype),
+            return {"img": encode_image(clip_p, model_cfg, _pixels(cb["images"], dev), dtype=dtype),
                     "txt": encode_text(clip_p, model_cfg, cb["tokens"], dtype=dtype)}
 
         def head_fn(emb, aux):
-            return head(params, clip_p, emb["img"], emb["txt"], aux["labels"], aux["generator"], True)
+            img, txt = unit(emb["img"]), unit(emb["txt"])
+            logits = []
+            if cls_cfg is not None and params.get("classifier") is not None:
+                logits = [classifier_forward(params["classifier"], cls_cfg, img, deterministic=False,
+                                             generator=aux["generator"])]
+            return loss([img], [txt], [clip_p], logits, [aux["labels"]])
 
         vag = gradcache_value_and_grad(encode_fn, head_fn, cfg.gradcache_chunks)
-        chunked = {"images": torch.as_tensor(batch["images"], device=dev),
-                   "tokens": torch.as_tensor(batch["tokens"], device=dev)}
-        (_, metrics), grads = vag(chunked, {"labels": labels_of(batch, dev), "generator": generator}, leaves)
-        return metrics, grads
-
-    def fn(params, batch, generator=None, train: bool = True):
-        if not train:
-            with torch.no_grad():
-                _, metrics = forward(params, batch, generator, False)
-            return {k: v.detach() for k, v in metrics.items()}, None
-        labels = flat_leaves(param_group_labels(params, cfg.freeze_layers))
-        flat = flat_leaves(params)
-        for k, leaf in flat.items():
-            leaf.requires_grad_(labels[k] != "frozen")
-        train_keys = [k for k in flat if labels[k] != "frozen"]
-        if use_gradcache:
-            return gradcache_grads(params, batch, generator, {k: flat[k] for k in train_keys})
-        with torch.enable_grad():
-            loss, metrics = forward(params, batch, generator, True)
-            grads = torch.autograd.grad(loss, [flat[k] for k in train_keys], allow_unused=True)
-        grads = {
-            k: torch.zeros_like(flat[k]) if gr is None else gr
-            for k, gr in zip(train_keys, grads)
-        }
+        chunked = {"images": images.to(dev), "tokens": tokens.to(dev)}
+        aux = {"labels": None if labels is None else labels.to(dev), "generator": generator}
+        (_, metrics), grads = vag(chunked, aux, leaves)
         return {k: v.detach() for k, v in metrics.items()}, grads
 
+    def fn(params, batch, generator=None, train: bool = True):
+        replicas = params if mesh is not None else {flat_leaves(params)["clip/logit_scale"].device: params}
+        if mesh is not None:
+            slots, devices = mesh.local_slots, mesh.slot_devices
+        else:
+            slots, devices = [0], list(replicas)
+        images = torch.as_tensor(batch["images"])
+        tokens = torch.as_tensor(batch["tokens"])
+        labels = None if batch.get("labels") is None else torch.as_tensor(batch["labels"]).long()
+        if images.shape[0] % len(slots):
+            raise ValueError(f"{images.shape[0]} rows do not split over {len(slots)} local slots")
+        b = images.shape[0] // len(slots)
+        dev0 = devices[slots[0]]
+        some = replicas[dev0]
+        with_cls = cls_cfg is not None and some.get("classifier") is not None
+        gen_dev = generator.device if generator is not None else dev0
+        keep = mask = None
+        if train and cfg.patch_drop > 0.0:
+            keep = draw_patch_keep(generator, b * n_slots, n_patches, n_keep, gen_dev)
+        group = flat_leaves(param_group_labels(some, cfg.freeze_layers))
+        train_keys = [k for k, g in group.items() if g != "frozen"]
+        aliases = [map_with_paths(replicas[devices[g]], lambda path, t: t.detach().requires_grad_(
+            train and group[_path_key(path)] != "frozen")) for g in slots]
+        per_slot = [flat_leaves(a) for a in aliases]
+        if train and use_gradcache:
+            return gradcache_grads(aliases[0], images, tokens, labels, generator,
+                                   {k: per_slot[0][k] for k in train_keys})
+        if train and with_cls and cls_cfg.dropout > 0.0:
+            mask = torch.rand((b * n_slots, cls_cfg.hidden_dim), generator=generator,
+                              device=gen_dev) < 1.0 - cls_cfg.dropout
+        imgs, txts, clip_ps, logits, lbls = [], [], [], [], []
+        with torch.enable_grad() if train else torch.no_grad():
+            for i, g in enumerate(slots):
+                dev = devices[g]
+                clip_p = clip_of(aliases[i])
+                rows, grows = slice(i * b, (i + 1) * b), slice(g * b, (g + 1) * b)
+                pk = None if keep is None else keep[grows].to(dev)
+                img = encode_image(clip_p, model_cfg, _pixels(images[rows], dev), dtype=dtype,
+                                   patch_keep=pk)
+                txt = encode_text(clip_p, model_cfg, tokens[rows].to(dev), dtype=dtype)
+                img = unit(img)
+                imgs.append(img)
+                txts.append(unit(txt))
+                clip_ps.append(clip_p)
+                if with_cls:
+                    logits.append(classifier_forward(
+                        aliases[i]["classifier"], cls_cfg, img, deterministic=not train,
+                        keep_mask=None if mask is None else mask[grows].to(dev)))
+                    lbls.append(None if labels is None else labels[rows].to(dev))
+            total, metrics = loss(imgs, txts, clip_ps, logits, lbls)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if not train:
+                return metrics, None
+            inputs = [leaves[k] for leaves in per_slot for k in train_keys]
+            grads = torch.autograd.grad(total, inputs, allow_unused=True)
+        out = {}
+        for j, k in enumerate(train_keys):
+            acc = None
+            for i in range(len(slots)):  # slot order
+                gr = grads[i * len(train_keys) + j]
+                gr = torch.zeros_like(per_slot[i][k]) if gr is None else gr
+                acc = gr if acc is None else acc + gr.to(dev0)
+            out[k] = acc
+        return metrics, _sum_grads_over_processes(out) if across else out
+
     return fn
+
+
+def _sum_grads_over_processes(grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Every process's gradients summed (one ``all_reduce`` a dtype over the
+    flattened leaves)."""
+    from evr_tpu_torch.parallel import multihost
+
+    out = dict(grads)
+    for dtype in {g.dtype for g in grads.values()}:
+        keys = [k for k, g in grads.items() if g.dtype == dtype]
+        flat = multihost.sum_over_processes(torch.cat([grads[k].reshape(-1) for k in keys]))
+        for k, part in zip(keys, flat.split([grads[k].numel() for k in keys])):
+            out[k] = part.view(grads[k].shape)
+    return out
+
+
+def _ema_update(cfg: TrainConfig, ema, params) -> None:
+    """ema = d·ema + (1 − d)·params in fp32, leaf by leaf (shard by shard
+    for ``ShardedTensor`` leaves)."""
+    from evr_tpu_torch.parallel.fsdp import ShardedTensor
+
+    d = _f32(cfg.ema_decay)
+    with torch.no_grad():
+        for e, p in zip(flat_leaves(ema).values(), flat_leaves(params).values()):
+            pairs = zip(e.shards, p.shards) if isinstance(e, ShardedTensor) else [(e, p)]
+            for es, ps in pairs:
+                dd = d.to(es.device)
+                es.copy_((es.float() * dd + ps.float() * (1.0 - dd)).to(es.dtype))
+
+
+def _fsdp_apply(optimizer, state: TrainState, grads: dict[str, torch.Tensor], mesh) -> None:
+    """Each local slot's update of its shards: its shard of the whole
+    gradients, the clip and finite decisions from the whole gradients, the
+    AdamW update of its shard of the params and moments."""
+    from evr_tpu_torch.parallel.fsdp import shard_of, slot_view, write_back
+
+    stats = optimizer.grad_stats([grads[k] for k in grads])
+    flat = flat_leaves(state.params)
+    slots = mesh.local_slots
+    views = [slot_view(state.opt_state, i) for i in range(len(slots))]
+    for i, g in enumerate(slots):
+        dev = mesh.slot_devices[g]
+        shard_grads = {k: shard_of(v, flat[k].sharding, g).to(dev) for k, v in grads.items()}
+        optimizer.apply(slot_view(state.params, i), shard_grads, views[i], stats=stats)
+    for i, view in enumerate(views):
+        state.opt_state = write_back(state.opt_state, view, i)
 
 
 def make_train_step(
@@ -480,6 +601,9 @@ def make_train_step(
     cls_cfg: ClassifierConfig | None,
     cfg: TrainConfig,
     optimizer: GroupedAdamW | MultiSteps,
+    mesh=None,
+    axis: str = "data",
+    state_shardings=None,
 ) -> tuple[Callable, Callable]:
     """``(step, eval_step)``: ``step(state, batch, generator) -> (state,
     metrics)`` runs the loss, its gradients and one optimizer call (params
@@ -487,25 +611,50 @@ def make_train_step(
     k-th call) and adds ``grad_norm``, the raw norm over the trainable
     leaves before clipping; the step count and the EMA advance on every
     call. ``eval_step(state, batch) -> metrics`` is the deterministic
-    forward (no dropout, no patch drop)."""
-    grad_fn = make_grad_fn(model_cfg, cls_cfg, cfg)
+    forward (no dropout, no patch drop).
+
+    With ``mesh`` the batch (this process's rows of the global batch) is
+    split over the slots of ``axis`` (``make_grad_fn``) and the step
+    equals the one-device step on the global batch. Data parallelism keeps
+    the params once, on the first slot's device, with a copy on each other
+    distinct device. With ``state_shardings`` (``parallel.fsdp.
+    fsdp_state_shardings``) the state is a tree of ``ShardedTensor``s: the
+    whole params are gathered once per distinct device for the gradients and
+    each slot updates its own shards (``_fsdp_apply``); AdamW only (Muon's
+    orthogonalisation and accumulation under FSDP are ROADMAP item A21)."""
+    grad_fn = make_grad_fn(model_cfg, cls_cfg, cfg, mesh, axis)
+    if state_shardings is not None and not isinstance(optimizer, GroupedAdamW):
+        raise NotImplementedError("FSDP with gradient accumulation is not ported yet (ROADMAP item A21)")
+    if state_shardings is not None and cfg.optimizer == "muon":
+        raise NotImplementedError("FSDP with Muon is not ported yet (ROADMAP item A21)")
+
+    def params_of(state):
+        """The params tree, or over a mesh the params once per distinct local
+        device."""
+        if mesh is None:
+            return state.params
+        if state_shardings is not None:
+            from evr_tpu_torch.parallel.fsdp import gather_tree
+
+            return {d: gather_tree(state.params, d) for d in mesh.local_devices}
+        master = state.params
+        home = flat_leaves(master)["clip/logit_scale"].device
+        return {d: master if d == home else _to_device(master, d) for d in mesh.local_devices}
 
     def step(state: TrainState, batch, generator=None):
-        metrics, grads = grad_fn(state.params, batch, generator, True)
+        metrics, grads = grad_fn(params_of(state), batch, generator, True)
         metrics["grad_norm"] = global_norm(grads.values())
-        optimizer.apply(state.params, grads, state.opt_state)
+        if state_shardings is not None:
+            _fsdp_apply(optimizer, state, grads, mesh)
+        else:
+            optimizer.apply(state.params, grads, state.opt_state)
         if cfg.ema_decay > 0.0 and state.ema_params is not None:
-            d = _f32(cfg.ema_decay)
-            with torch.no_grad():
-                for e, p in zip(flat_leaves(state.ema_params).values(),
-                                flat_leaves(state.params).values()):
-                    dd = d.to(e.device)
-                    e.copy_((e.float() * dd + p.float() * (1.0 - dd)).to(e.dtype))
+            _ema_update(cfg, state.ema_params, state.params)
         state.step += 1
         return state, metrics
 
     def eval_step(state: TrainState, batch):
-        return grad_fn(state.params, batch, None, False)[0]
+        return grad_fn(params_of(state), batch, None, False)[0]
 
     return step, eval_step
 
@@ -534,9 +683,14 @@ def _detached(tree):
 
 
 class Trainer:
-    """End-to-end fine-tune loop on one device: epochs, validation, early
-    stopping, best/final checkpoints, resume (epoch-level and mid-epoch
-    autosave). Runs on ``cuda`` unless ``device="cpu"`` is asked for."""
+    """End-to-end fine-tune loop: epochs, validation, early stopping,
+    best/final checkpoints, resume (epoch-level and mid-epoch autosave).
+    Runs on ``cuda`` unless ``device="cpu"`` is asked for, or over ``mesh``
+    (``parallel.mesh``): data parallelism, or with ``fsdp=True`` the params,
+    the AdamW moments and the EMA sharded over the slots
+    (``parallel.fsdp``). Across processes (``parallel.multihost``) each
+    process feeds its rows of the global batch; only the coordinator writes
+    checkpoints, whole trees gathered from the shards."""
 
     def __init__(
         self,
@@ -548,10 +702,24 @@ class Trainer:
         steps_per_epoch: int = 1,
         log_fn: Callable[[str], None] = print,
         device=None,
+        mesh=None,
+        fsdp: bool = False,
     ):
+        """``device``: without a mesh (None = the card). ``mesh``: the
+        trainer runs on its slots and ``device`` is its first local slot's;
+        ``fsdp`` needs one."""
         self.cfg = cfg or TrainConfig()
         check_supported(self.cfg)
-        self.device = resolve_device(device)
+        if fsdp and mesh is None:
+            raise ValueError("fsdp=True requires a mesh")
+        if fsdp and "expert" in mesh.axis_names:
+            raise ValueError(
+                "fsdp=True with an 'expert' mesh axis is unsupported — pick one state layout "
+                "(ZeRO-3 over data, or experts over expert)")
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.slot_devices[mesh.local_slots[0]])
+        self._multihost = mesh is not None and mesh.process_count > 1
         if self.cfg.remat and not model_cfg.remat:
             model_cfg = dataclasses.replace(model_cfg, remat=True)
         self.model_cfg = model_cfg
@@ -573,14 +741,28 @@ class Trainer:
                 torch.Generator().manual_seed(self.cfg.seed + 1), params["clip"], self.cfg.lora_rank,
                 targets=self.cfg.lora_targets), self.device)
         self.optimizer = make_optimizer(self.cfg, params, steps_per_epoch)
-        self.state = TrainState(
-            params=params,
-            opt_state=self.optimizer.init(params),
-            step=0,
-            ema_params=_to_device(params, self.device) if self.cfg.ema_decay > 0.0 else None,
-        )
+        ema_on = self.cfg.ema_decay > 0.0
+        self._state_shardings = None
+        if fsdp:
+            from evr_tpu_torch.parallel.fsdp import fsdp_state_shardings, shard_tree
+
+            self._state_shardings = sh = fsdp_state_shardings(params, self.optimizer, mesh, ema=ema_on)
+            self.state = TrainState(
+                params=shard_tree(params, sh.params),
+                opt_state=shard_tree(self.optimizer.init(params), sh.opt_state),
+                step=0,
+                ema_params=shard_tree(params, sh.params) if ema_on else None,
+            )
+        else:
+            self.state = TrainState(
+                params=params,
+                opt_state=self.optimizer.init(params),
+                step=0,
+                ema_params=_to_device(params, self.device) if ema_on else None,
+            )
         self.train_step, self.eval_step = make_train_step(
-            model_cfg, self.cls_cfg, self.cfg, self.optimizer
+            model_cfg, self.cls_cfg, self.cfg, self.optimizer, mesh,
+            state_shardings=self._state_shardings,
         )
         self.generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         self.history: list[dict] = []
@@ -591,7 +773,7 @@ class Trainer:
         """The CLIP params the model serves: with LoRA, the adapters folded
         into the dense kernels (``lora.merge_lora``, detached); the base
         params otherwise."""
-        params = self.state.params
+        params = self._whole(self.state.params)
         with torch.no_grad():
             if "lora" in params:
                 return _detached(merge_lora(params["clip"], params["lora"], self.cfg.lora_alpha))
@@ -629,6 +811,15 @@ class Trainer:
         for s in signals or (_signal.SIGTERM,):
             _signal.signal(s, lambda signum, frame: setattr(self, "_preempted", True))
 
+    def _whole(self, tree):
+        """``tree`` itself, or under FSDP gathered from its shards onto the
+        trainer's device (a collective: every process calls it)."""
+        if self._state_shardings is None or tree is None:
+            return tree
+        from evr_tpu_torch.parallel.fsdp import gather_tree
+
+        return gather_tree(tree, self.device)
+
     # -- checkpointing ----------------------------------------------------
     def checkpoint_path(self, name: str) -> pathlib.Path:
         return pathlib.Path(self.cfg.save_dir).absolute() / f"{name}.pt"
@@ -638,23 +829,29 @@ class Trainer:
         payload keys: params (with ``lora`` under LoRA), opt_state (Muon's
         momentum; under accumulation the mini step, the gradient step and
         the accumulated gradients), step, epoch, metrics (and ema).
-        Written to a temporary name, then renamed."""
+        Written to a temporary name, then renamed. Under FSDP the trees are
+        gathered whole first; across processes only the coordinator writes,
+        and every process waits for the file."""
+        from evr_tpu_torch.parallel import multihost
+
         t0 = time.perf_counter()
         path = self.checkpoint_path(name)
         path.parent.mkdir(parents=True, exist_ok=True)
         payload = {
-            "params": _detached(self.state.params),
-            "opt_state": self.state.opt_state,
+            "params": _detached(self._whole(self.state.params)),
+            "opt_state": self._whole(self.state.opt_state),
             "step": int(self.state.step),
             "epoch": int(epoch),
             "metrics": {k: float(v) for k, v in metrics.items()},
             **(extra or {}),
         }
         if self.state.ema_params is not None:
-            payload["ema"] = self.state.ema_params
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+            payload["ema"] = self._whole(self.state.ema_params)
+        if multihost.is_coordinator():
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        multihost.barrier("evr-ckpt")
         seconds = time.perf_counter() - t0
         self.checkpoint_seconds.append((name, seconds))
         self.log(f"checkpoint {name}: {path.stat().st_size / 1e9:.2f} GB in {seconds:.1f} s")
@@ -667,9 +864,17 @@ class Trainer:
         ema = None
         if self.cfg.ema_decay > 0.0:
             ema = _to_device(payload.get("ema", payload["params"]), self.device)
+        params, opt_state = payload["params"], payload["opt_state"]
+        if self._state_shardings is not None:
+            # each slot takes its slice of the whole restored trees
+            from evr_tpu_torch.parallel.fsdp import shard_tree
+
+            sh = self._state_shardings
+            params = shard_tree(params, sh.params)
+            opt_state = shard_tree(opt_state, sh.opt_state)
+            ema = None if ema is None else shard_tree(ema, sh.params)
         self.state = TrainState(
-            params=payload["params"], opt_state=payload["opt_state"],
-            step=int(payload["step"]), ema_params=ema,
+            params=params, opt_state=opt_state, step=int(payload["step"]), ema_params=ema,
         )
         return payload
 

@@ -42,8 +42,8 @@ seeded with the step's index unless one is passed). The projection trainer's
 levers follow the JAX trainer: ``grad_accumulation_steps`` > 1 runs its AdamW
 under ``finetune.MultiSteps`` (optax ``MultiSteps``), and ``freeze_clip=False``
 trains the whole CLIP with rematerialised blocks (``CLIPConfig.remat``) while
-``encode_projected`` keeps the configuration it was given. A mesh raises
-``NotImplementedError`` naming ROADMAP item A15.
+``encode_projected`` keeps the configuration it was given. Over a mesh its
+tower encodes are split over the slots (``ProjectionTrainer``).
 """
 
 from __future__ import annotations
@@ -326,7 +326,12 @@ class ProjectionTrainer:
     """Frozen (or, with ``freeze_clip=False``, rematerialised and trained)
     CLIP with a trained projection pair. ``seed`` (or a ``torch.Generator``)
     draws the heads' init on the CPU; ``device``: None means the card
-    (raises without one), "cpu" on request."""
+    (raises without one), "cpu" on request. ``mesh`` (one process): each
+    batch's tower encodes are split evenly over the slots, each on its
+    device, and the features gathered onto the first slot's device in slot
+    order, where the heads and the loss run on the whole batch (the JAX
+    trainer's step on the same batch); a tower being trained takes its
+    gradients back through the copies."""
 
     def __init__(
         self,
@@ -338,9 +343,12 @@ class ProjectionTrainer:
         device=None,
     ):
         self.cfg = cfg or ProjectionTrainConfig()
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "ProjectionTrainer(mesh=...): data-parallel training is not ported yet (ROADMAP item A15)")
+            mesh.check_covers("data" if "data" in mesh.axis_names else mesh.axis_names)
+            if mesh.process_count > 1:
+                raise NotImplementedError("ProjectionTrainer(mesh=...) takes a one-process mesh")
+            device = mesh.slot_devices[mesh.local_slots[0]]
         self.device = resolve_device(device)
         self._infer_cfg = model_cfg  # forward-only paths keep the fused kernels
         self.model_cfg = _training_cfg(model_cfg)
@@ -365,15 +373,33 @@ class ProjectionTrainer:
             return flat_leaves({"heads": self.params["heads"]})
         return flat_leaves(self.params)
 
+    def _towers(self, encode, x: torch.Tensor, cfg, dtype) -> torch.Tensor:
+        """``encode(params, cfg, x, dtype=)`` on the trainer's device, or
+        over the mesh's slots (rows split evenly, features back on the
+        trainer's device in slot order)."""
+        clip = self.params["clip"]
+        if self.mesh is None:
+            return encode(clip, cfg, x.to(self.device), dtype=dtype)
+        slots = self.mesh.local_slots
+        if x.shape[0] % len(slots):
+            raise ValueError(f"{x.shape[0]} rows do not split over {len(slots)} slots")
+        b = x.shape[0] // len(slots)
+        outs = []
+        for i, s in enumerate(slots):
+            dev = self.mesh.slot_devices[s]
+            p = clip if dev == self.device else map_with_paths(clip, lambda _, t: t.to(dev))
+            outs.append(encode(p, cfg, x[i * b:(i + 1) * b].to(dev), dtype=dtype).to(self.device))
+        return torch.cat(outs)
+
     def _loss(self, batch):
         cfg = self.cfg
         dtype = _compute_dtype(cfg.compute_dtype)
         # frozen towers (stop_gradient) run without grad
         with torch.set_grad_enabled(torch.is_grad_enabled() and not cfg.freeze_clip):
-            x = _pixels(batch["images"], self.device)
-            img = encode_image(self.params["clip"], self.model_cfg, x, dtype=dtype)
-            tokens = torch.as_tensor(batch["tokens"], device=self.device)
-            txt = encode_text(self.params["clip"], self.model_cfg, tokens, dtype=dtype)
+            x = _pixels(batch["images"], "cpu" if self.mesh is not None else self.device)
+            img = self._towers(encode_image, x, self.model_cfg, dtype)
+            tokens = torch.as_tensor(batch["tokens"])
+            txt = self._towers(encode_text, tokens, self.model_cfg, dtype)
         heads = self.params["heads"]
         img_p, txt_p = project_features(heads, _unit(img), _unit(txt))
         loss = hard_negative_infonce(img_p, txt_p, heads["logit_scale"])
@@ -403,11 +429,10 @@ class ProjectionTrainer:
         dtype = _compute_dtype(self.cfg.compute_dtype)
         img = txt = None
         if staged_images is not None:
-            x = _pixels(staged_images, self.device)
-            img = _unit(encode_image(self.params["clip"], self._infer_cfg, x, dtype=dtype))
+            x = _pixels(staged_images, "cpu" if self.mesh is not None else self.device)
+            img = _unit(self._towers(encode_image, x, self._infer_cfg, dtype))
         if tokens is not None:
-            t = torch.as_tensor(tokens, device=self.device)
-            txt = _unit(encode_text(self.params["clip"], self._infer_cfg, t, dtype=dtype))
+            txt = _unit(self._towers(encode_text, torch.as_tensor(tokens), self._infer_cfg, dtype))
         img_p, txt_p = project_features(self.params["heads"], img, txt)
         return tuple(None if v is None else v.cpu().numpy() for v in (img_p, txt_p))
 

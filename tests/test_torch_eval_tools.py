@@ -29,6 +29,7 @@ from evr_tpu_torch.tools import ab_compare as t_ab
 from evr_tpu_torch.tools import diagnose as t_diag
 from evr_tpu_torch.tools import evaluate as t_eval
 from evr_tpu_torch.utils.xlsx import read_xlsx, write_xlsx
+from torch_threads import one_torch_thread  # noqa: F401
 
 MODEL = "ViT-Tiny-Test"
 TOL = 1e-5

@@ -6,7 +6,7 @@ kernel results out of autograd.
   from a mid-epoch autosave, each held bit for bit to an uninterrupted run;
 - ``python -m evr_tpu_torch.tools.finetune`` on a synthetic caption JSON
   with ``ViT-Tiny-Test`` and ``--device cpu``; the flags and TrainConfig
-  values the port does not honour yet (MoE, A17; the mesh, A15) are refused,
+  values the port does not honour yet (MoE and expert parallelism, A17) are refused,
   naming their ROADMAP item;
 - the kernel wrappers refuse inputs that require grad, and a differentiable
   block never comes back detached.
@@ -162,7 +162,8 @@ def test_cli_trains_on_a_caption_json(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--fsdp"], "A15"), (["--moe-experts", "4"], "A17"), (["--expert-parallel", "2"], "A15"),
+    # --fsdp runs since the mesh was ported (tests/test_torch_fsdp.py)
+    (["--moe-router-k", "1"], "A17"), (["--moe-experts", "4"], "A17"), (["--expert-parallel", "2"], "A17"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"not ported yet.*ROADMAP item {item}"):

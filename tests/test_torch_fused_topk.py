@@ -112,7 +112,7 @@ def test_search_impl_values():
     ix = TFrameIndex(embed_dim=8, search_impl="pallas", device="cpu")
     assert ix.search_impl == "pallas" and ix.pad_multiple == 1024
     assert TFrameIndex(embed_dim=8, device="cpu").search_impl == "xla"
-    # the ANN tiers construct and search; a mesh is not ported (A15)
+    # the ANN tiers construct and search; under a mesh they are not ported (A21)
     emb = np.random.default_rng(0).normal(size=(300, 8)).astype(np.float32)
     for impl in ("ivf", "ivfpq"):
         ann = TFrameIndex(embed_dim=8, search_impl=impl, ivf_clusters=4, ivf_nprobe=4,
@@ -120,7 +120,7 @@ def test_search_impl_values():
         ann.add_video("v", emb)
         s, r = ann.search_raw(emb[:2], 3)
         assert r.shape == (2, 3) and (r[:, 0] == [0, 1]).all() and np.isfinite(s).all()
-        with pytest.raises(NotImplementedError, match="A15"):
+        with pytest.raises(NotImplementedError, match="A21"):
             TFrameIndex(embed_dim=8, search_impl=impl, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown search_impl"):
         TFrameIndex(embed_dim=8, search_impl="faiss", device="cpu")

@@ -19,6 +19,7 @@ from evr_tpu_torch.training import TrainConfig, chunk_batch, gradcache_value_and
 from torch_trainer_twins import (
     TCLS, assert_close_rel, cfgs, jax_gradients, jax_steps, np_params, port_gradients, port_steps, tiny_batch,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(batch_size=8, epochs=2, compute_dtype="float32", freeze_layers=8)
 

@@ -31,7 +31,8 @@ for name in names:
 # views and the served routes; the native stager, ingest, the upload jobs and
 # the ingest tools; the benchmark harness, its tools, the workbook module, the
 # test-set translation, the heads and the trainer variants; the trainer's
-# levers, distillation and their tools
+# levers, distillation and their tools; the mesh, the sharded search, FSDP,
+# the process group, the sharded checkpoints and the launcher
 for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.index.pq",
              "evr_tpu_torch.index.ivfpq", "evr_tpu_torch.tools.index_tool",
              "evr_tpu_torch.ops.attention", "evr_tpu_torch.ops.layernorm",
@@ -60,7 +61,10 @@ for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.
              "evr_tpu_torch.training.variants", "evr_tpu_torch.training.lora",
              "evr_tpu_torch.training.muon", "evr_tpu_torch.training.gradcache",
              "evr_tpu_torch.training.distill", "evr_tpu_torch.tools.distill",
-             "evr_tpu_torch.tools.train_sustained"):
+             "evr_tpu_torch.tools.train_sustained", "evr_tpu_torch.parallel.mesh",
+             "evr_tpu_torch.parallel.sharded_search", "evr_tpu_torch.parallel.fsdp",
+             "evr_tpu_torch.parallel.multihost", "evr_tpu_torch.training.sharded_ckpt",
+             "evr_tpu_torch.tools.pod_launch"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)

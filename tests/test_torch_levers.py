@@ -32,6 +32,7 @@ from torch_trainer_twins import (
     JCLS, TCLS, _capture, assert_close_rel, cfgs, jax_gradients, jax_steps, np_params, port_gradients, port_steps,
     tiny_batch, to_np, updates, without_key_bias,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEP = dict(lr=1e-3, batch_size=8, epochs=2, compute_dtype="float32", freeze_layers=8)
 
@@ -259,7 +260,9 @@ def test_moe_is_the_one_lever_left_unported():
     with pytest.raises(NotImplementedError, match="TrainConfig.moe.*ROADMAP item A17"):
         check_supported(TrainConfig(moe=object()))
     _, tcfg = cfgs()
-    with pytest.raises(NotImplementedError, match="A15"):
-        tv.ProjectionTrainer(tcfg, np_params()["clip"], mesh=object(), device="cpu")
+    # the mesh, refused until it was ported, now builds the trainer over its slots
+    from evr_tpu_torch.parallel import get_mesh
+
+    assert tv.ProjectionTrainer(tcfg, np_params()["clip"], mesh=get_mesh(2, device="cpu")).mesh.size == 2
     make_grad_fn(tcfg, TCLS, TrainConfig(lora_rank=4, optimizer="muon", remat=True, patch_drop=0.5,
                                          grad_accumulation_steps=4))

@@ -200,10 +200,10 @@ def test_index_tool_text_query_and_refusals(setup, tmp_path):
     assert [h["row"] for h in lines[0]["hits"]] == want.tolist()
     with pytest.raises(SystemExit, match="query-embeddings"):
         _run_tool(["query", "--index", str(tmp_path / "i.npz"), "--type", "ivf"])
-    # invalid tier combinations fail at boot, and a mesh names its item
+    # invalid tier combinations fail at boot, and an ANN tier under a mesh names its item
     with pytest.raises(ValueError, match="ivfpq_host_store requires"):
         TContext(TRoot(tmp_path), engine=teng, ivfpq_host_store=True)
     with pytest.raises(ValueError, match="float32/bfloat16"):
         TContext(TRoot(tmp_path), engine=teng, search_impl="ivfpq", index_dtype="int8")
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(NotImplementedError, match="A21"):
         TContext(TRoot(tmp_path), engine=teng, search_impl="ivf", mesh=object())

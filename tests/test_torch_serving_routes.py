@@ -228,10 +228,12 @@ def test_stats_and_protocol_answers(clients):
 def test_cli_refuses_unported_flags(capsys):
     from evr_tpu_torch.serving.__main__ import main
 
+    # --shard-index boots since the mesh was ported (tests/test_torch_mesh.py)
     for argv, item in ((["--model-family", "siglip"], "A17"), (["--siglip-hf", "/x"], "A17"),
-                       (["--shard-index"], "A15"), (["--zeroshot-objects"], "A17"),
+                       (["--siglip-tokenizer", "/x"], "A17"), (["--zeroshot-objects"], "A17"),
                        (["--local-ocr", "on"], "A17"),
-                       (["--frontend-dist", "dist", "--transcriber", "none", "--shard-index"], "A15")):
+                       (["--frontend-dist", "dist", "--transcriber", "none", "--zeroshot-objects"],
+                        "A17")):
         with pytest.raises(SystemExit):
             main(argv)
         assert item in capsys.readouterr().err, argv

@@ -26,6 +26,7 @@ from evr_tpu_torch.index import FrameIndex as TIndex
 from evr_tpu_torch.query import MetadataStore as TStore
 from evr_tpu_torch.viz import projection as tproj
 from evr_tpu_torch.viz import tsne as ttsne
+from torch_threads import one_torch_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 TOL = 1e-5

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from evr_tpu.viz import umap_jax as J
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = importlib.import_module("evr_tpu_torch.viz.umap")
 torch = pytest.importorskip("torch")

@@ -33,6 +33,7 @@ from evr_tpu_torch.models.convert import params_from_numpy
 from evr_tpu_torch.training import variants as tv
 from evr_tpu_torch.training.finetune import flat_leaves
 from evr_tpu_torch.training.partition import map_with_paths
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 5e-3
 STEPS = 2  # steps per progressive phase
@@ -344,10 +345,30 @@ def test_catlip_trainer_matches_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A15"),
+    (dict(slots=4), "mesh"),
 ])
 def test_unported_levers_are_refused(kw, item):
-    _, tcfg = cfgs()
-    with pytest.raises(NotImplementedError, match=item):
-        tv.ProjectionTrainer(tcfg, init_clip_params(0, tcfg), tv.ProjectionTrainConfig(**kw.get("cfg", {})),
-                             mesh=kw.get("mesh"), device="cpu")
+    """No projection-trainer lever is refused any more: the mesh, refused
+    until it was ported, splits the tower encodes over its slots, and a step
+    over 4 CPU slots matches the JAX trainer's (which takes a mesh too)."""
+    from evr_tpu.parallel import get_mesh as jget_mesh
+    from evr_tpu_torch.parallel import get_mesh
+
+    jcfg, tcfg = cfgs(layers=2)
+    np_params = init_clip_params(2, tcfg)
+    batch = tiny_batch(np.random.default_rng(9))
+    cfg_kw = dict(proj_dim=16, lr=1e-3, compute_dtype="float32")
+    jtr = jv.ProjectionTrainer(jcfg, jax.tree.map(jnp.asarray, np_params), jv.ProjectionTrainConfig(**cfg_kw),
+                               mesh=jget_mesh())
+    ttr = tv.ProjectionTrainer(tcfg, np_params, tv.ProjectionTrainConfig(**cfg_kw),
+                               **{item: get_mesh(kw["slots"], device="cpu")})
+    assert ttr.device.type == "cpu" and ttr.mesh.size == kw["slots"]
+    ttr.params["heads"] = params_from_numpy(jax.tree.map(np.asarray, jtr.params["heads"]))
+    before_t, before_j = _np(ttr.params["heads"]), _np(jtr.params["heads"])
+    jm, tm = jtr.train_step(batch), ttr.train_step(batch)
+    for k in jm:
+        np.testing.assert_allclose(tm[k], jm[k], rtol=TOL, err_msg=k)
+    _assert_updates_close(before_t, _np(ttr.params["heads"]), before_j, _np(jtr.params["heads"]), "heads")
+    img_t, _ = ttr.encode_projected(batch["images"])
+    img_j, _ = jtr.encode_projected(batch["images"])
+    np.testing.assert_allclose(img_t, img_j, atol=1e-5)
