@@ -6087,10 +6087,11 @@ MESH_UPDATE_COS = 0.9999
 
 def mesh_launch_counters():
     from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.ops.adc import adc_list_scores
     from evr_tpu_torch.ops.retrieval import fused_topk
 
     return [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_q, bf.fused_mlp_block_q, fused_topk,
-            bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd]
+            bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd, adc_list_scores]
 
 
 def launches_since(start: dict) -> dict:
@@ -6107,7 +6108,7 @@ def add_into(totals: dict, launches: dict) -> None:
 
 
 def check_step_launches(what: str, launches: dict, n: int) -> None:
-    """K1, K2, K5a and K5b ``n`` times each; K3 and K4 never."""
+    """K1, K2, K5a and K5b ``n`` times each; K3, K4 and K7 never."""
     want = {k: (n if k.endswith(("attn_block", "mlp_block", "_bwd")) else 0) for k in launches}
     check(launches == want, f"{what}: launches {launches}, expected {want}")
 
@@ -6668,6 +6669,564 @@ def phase_mesh(torch, frames) -> dict:
     return out
 
 
+# -- 19. the other mesh axes: the sharded IVF / IVF-PQ tiers (K7), pipelined
+# encodes (K1/K2, K3a/K3b), sequence parallelism, tensor-parallel steps
+# (K1/K2, K5), GradCache, Muon and accumulation over a mesh, checkpoints ------
+
+AXES_SEED = 20
+AXES_SLOTS = 4
+# IVF at a full probe over 128 lists a shard; IVF-PQ with ~sqrt(rows a shard)
+# lists (as FrameIndex sizes them: 316 at 1 slot, 158 at 4); its exact check
+# re-ranks the whole candidate depth of a full probe (every row: on these
+# random rows a 2,000-deep re-rank missed true top-10 rows, scores 8.4e-3 off)
+AXES_LISTS, AXES_NPROBE, AXES_RERANK, AXES_TIMED = 128, 32, MESH_ROWS, 20
+AXES_SERVE_LISTS = 8  # the served data root: 1,024 rows over 4 slots, probed whole
+AXES_MICRO = 4
+AXES_SP_BATCH, AXES_SP_SLOTS = 8, (2, 4)
+AXES_ADC_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def turned_rows(np, rows, cos: float, seed: int):
+    """Unit rows each turned by a random direction to cosine ``cos`` of
+    themselves (the negative control of a row band)."""
+    noise = np.random.default_rng(seed).standard_normal(rows.shape).astype(np.float32)
+    off = rows + noise * math.sqrt((1 / cos**2 - 1) / rows.shape[1])
+    return off / np.linalg.norm(off, axis=1, keepdims=True)
+
+
+def unit(np, x):
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def phase_axes_ann(torch, frames) -> dict:
+    """(a) The sharded ANN tiers over AXES_SLOTS slots of the card, on phase
+    18's 100,000 x 512 unit rows: ``ShardedIVFIndex`` at a full probe against
+    the one-device exact search (rows equal, scores within
+    MESH_SCORE_TOL); ``ShardedIVFPQIndex`` at a full probe re-ranking the
+    whole candidate depth (exact rows); its ADC search at nprobe
+    AXES_NPROBE through K7 (``adc_impl="pallas"``) against the gather-sum
+    (same rows, scores within AXES_ADC_TOL); a shard's row offset moved by
+    one must fail; the p50 at nprobe AXES_NPROBE at 1 and 4 slots, and
+    recall@10; then ``ServingContext(mesh=, search_impl="ivfpq")`` at a full
+    probe, its events within the served band of the one-device exact
+    context's."""
+    import numpy as np
+    from werkzeug.test import Client
+
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.index.ivfpq import probe_step
+    from evr_tpu_torch.ops.adc import adc_list_scores
+    from evr_tpu_torch.ops.topk import cosine_topk
+    from evr_tpu_torch.parallel import get_mesh
+    from evr_tpu_torch.parallel.sharded_ann import ShardedIVFIndex, ShardedIVFPQIndex
+    from evr_tpu_torch.serving import ServingContext, create_app
+
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    x = torch.randn((MESH_ROWS, MESH_DIM), generator=gen, device="cuda")
+    x = x / x.norm(dim=1, keepdim=True)
+    rows = x.cpu().numpy()
+    q = perturbed(torch, x, list(range(0, MESH_ROWS, MESH_ROWS // MESH_Q))[:MESH_Q], 0.05, AXES_SEED)
+    with torch.inference_mode():
+        es, er = cosine_topk(x, torch.from_numpy(q).cuda(), 0, MESH_ROWS, MESH_K)
+    es, er = es.cpu().numpy(), er.cpu().numpy()
+    mesh = get_mesh(AXES_SLOTS)
+    out = {"launches": {}, "seconds": {}}
+    start = launches_now()
+    t0 = time.perf_counter()
+    ivf = ShardedIVFIndex(mesh).build(rows, n_clusters=AXES_LISTS, seed=AXES_SEED)
+    out["seconds"]["ivf_build"] = time.perf_counter() - t0
+    s, r = ivf.search(q, MESH_K, nprobe=AXES_LISTS)
+    diff = float(np.abs(s - es).max())
+    log(f"(a) ShardedIVFIndex over {AXES_SLOTS} slots, {MESH_ROWS} x {MESH_DIM}, {AXES_LISTS} lists a shard "
+        f"(built in {out['seconds']['ivf_build']:.2f} s): full probe rows equal to the exact search's "
+        f"{np.array_equal(r, er)}, scores within {diff:.2e}")
+    check(np.array_equal(r, er) and diff <= MESH_SCORE_TOL, f"(a) sharded IVF at a full probe: rows or {diff}")
+    want = np.arange(ivf.offsets[1] + 5, ivf.offsets[1] + 5 + MESH_Q)  # self-queries of shard 1
+    ivf.offsets[1] += 1
+    _, r_bad = ivf.search(rows[want], 1, nprobe=AXES_LISTS)
+    ivf.offsets[1] -= 1
+    _, r_ok = ivf.search(rows[want], 1, nprobe=AXES_LISTS)
+    log(f"(a) a shard's row offset moved by one: self-queries found {int((r_bad[:, 0] == want).sum())} of "
+        f"{MESH_Q} (restored: {int((r_ok[:, 0] == want).sum())})")
+    check(not np.array_equal(r_bad[:, 0], want) and np.array_equal(r_ok[:, 0], want),
+          "(a) the row check passes a shard offset moved by one")
+    del ivf
+    pq = {}
+    for n in (1, AXES_SLOTS):
+        t0 = time.perf_counter()
+        pq[n] = ShardedIVFPQIndex(get_mesh(n)).build(rows, n_clusters=int(round(math.sqrt(MESH_ROWS / n))),
+                                                     seed=AXES_SEED)
+        out["seconds"][f"ivfpq_build_{n}"] = time.perf_counter() - t0
+    sharded = pq[AXES_SLOTS]
+    s, r = sharded.search(q, MESH_K, nprobe=sharded.n_clusters, rerank=AXES_RERANK)
+    diff = float(np.abs(s - es).max())
+    log(f"(a) ShardedIVFPQIndex over {AXES_SLOTS} slots (built in {out['seconds'][f'ivfpq_build_{AXES_SLOTS}']:.2f}"
+        f" s): full probe + re-rank {AXES_RERANK} rows equal to the exact search's {np.array_equal(r, er)}, "
+        f"scores within {diff:.2e}")
+    check(np.array_equal(r, er) and diff <= MESH_SCORE_TOL, f"(a) sharded IVF-PQ re-ranked: rows or {diff}")
+    k7 = adc_list_scores.launches
+    sp_, rp = sharded.search(q, MESH_K, nprobe=AXES_NPROBE, adc_impl="pallas")
+    k7 = adc_list_scores.launches - k7
+    sx, rx = sharded.search(q, MESH_K, nprobe=AXES_NPROBE, adc_impl="xla")
+    same = bool(np.array_equal(rp, rx)) and bool(np.allclose(sp_, sx, **AXES_ADC_TOL))
+    log(f"(a) K7 (adc_impl='pallas') against the gather-sum at nprobe {AXES_NPROBE}: rows equal "
+        f"{np.array_equal(rp, rx)}, scores within {float(np.abs(sp_ - sx).max()):.2e}; K7 launches {k7} a "
+        f"search of {MESH_Q} queries")
+    nprobe = max(1, min(AXES_NPROBE, sharded.n_clusters))
+    planned = sum(math.ceil(nprobe / probe_step("pallas", MESH_Q, sub._capacity, sub.codebooks.shape[0]))
+                  for sub in sharded.shards)  # one launch a shard and probe chunk
+    check(same and k7 == planned, f"(a) K7 against the gather-sum: same {same}, {k7} launches of {planned} planned")
+    out["k7_launches_per_search"] = k7
+    recall = {}
+    for tag, kw in (("adc", {}), ("rerank 50", {"rerank": 50})):
+        _, rr = sharded.search(q, MESH_K, nprobe=AXES_NPROBE, adc_impl="pallas", **kw)
+        recall[tag] = float(np.mean([len(set(a) & set(b)) / MESH_K for a, b in zip(rr, er)]))
+    lat = {f"{n} slot(s)": [] for n in pq}
+    for _ in range(AXES_TIMED):
+        for n, ix in pq.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ix.search(q[:1], MESH_K, nprobe=AXES_NPROBE, adc_impl="pallas")
+            lat[f"{n} slot(s)"].append((time.perf_counter() - t0) * 1e3)
+    out["p50_ms"] = {k: statistics.median(v) for k, v in lat.items()}
+    out["recall@10"] = recall
+    log(f"(a) IVF-PQ p50, one query at nprobe {AXES_NPROBE} through K7: "
+        + json.dumps({k: round(v, 3) for k, v in out["p50_ms"].items()}) + f"; recall@10 {json.dumps(recall)}")
+    del pq, sharded
+    torch.cuda.empty_cache()
+
+    # the served tier: a data root of the bf16 engine's frame embeddings
+    one = EmbeddingEngine(MODEL, device="cuda", params_dtype="bfloat16", batch_size=BATCH)
+    ref = one.encode_staged_images(frames, normalise=True)
+    names = [f"video{v}" for v in range(N_VIDEOS)]
+    per = N_FRAMES // N_VIDEOS
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        write_data_root(root, names, [ref[v * per:(v + 1) * per] for v in range(N_VIDEOS)],
+                        [frames[v * per:(v + 1) * per] for v in range(N_VIDEOS)])
+        plain_ctx = ServingContext(root, engine=one)
+        plain_ctx.boot()
+        ref_events, _ = served_events(Client(create_app(plain_ctx)), QUERIES)
+        ctx = ServingContext(root, engine=one, mesh=mesh, search_impl="ivfpq", ivf_clusters=AXES_SERVE_LISTS,
+                             ivf_nprobe=AXES_SERVE_LISTS)
+        ctx.boot()
+        got_events, ms = served_events(Client(create_app(ctx)), QUERIES)
+        tier = type(ctx.index._ivf).__name__
+    bad = served_band_violations(got_events, ref_events, SERVED_RANK_NOISE)
+    log(f"(a) ServingContext(mesh=<{AXES_SLOTS} slots>, search_impl='ivfpq') over {N_FRAMES} rows, "
+        f"{AXES_SERVE_LISTS} lists a shard probed whole: tier {tier}, /api/search events {bad} outside the "
+        f"{SERVED_RANK_NOISE} band of the one-device exact context's, p50 {statistics.median(ms):.2f} ms")
+    check(tier == "ShardedIVFPQIndex" and bad == 0, f"(a) served ivfpq tier {tier}: {bad} events off the band")
+    out["served_p50_ms"] = statistics.median(ms)
+    out["launches"] = launches_since(start)
+    del one, plain_ctx, ctx
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_axes_pp(torch, frames) -> dict:
+    """(b) Pipelined encodes at ViT-B/32's full width, batch BATCH: 4 stages x
+    AXES_MICRO microbatches and a (data 2, stage 2) mesh, the image and the
+    text tower, bf16 weights (K1/K2) and int8 weights (K3a/K3b), each against
+    the one-device ``encode_image`` / ``encode_text`` with every block full:
+    unit rows at cosine >= EMBED_MIN_COS (rows turned to that cosine
+    rejected), 12 blocks x microbatches launches of each half an encode
+    (x data groups); frames/s at 1 stage (the one-device encode) and at 4."""
+    import numpy as np
+
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.models.clip import encode_image, encode_text
+    from evr_tpu_torch.ops import block_fused as bf
+    from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
+    from evr_tpu_torch.parallel import get_mesh, pp
+    from evr_tpu_torch.tokenizer import get_default_tokenizer
+
+    out = {"launches": {}, "frames_per_s": {}, "least_cos": {}}
+    staged = torch.from_numpy(frames[:BATCH]).cuda()
+    mean = torch.tensor(CLIP_MEAN, device="cuda")
+    std = torch.tensor(CLIP_STD, device="cuda")
+    pixels = (staged.float() / 255.0 - mean) / std
+    texts = [QUERIES[i % len(QUERIES)] + f" {i}" for i in range(BATCH)]
+    layouts = (("4 stages", get_mesh(4, ("stage",)), None),
+               ("data 2 x stage 2", get_mesh(4, ("data", "stage"), (2, 2)), "data"))
+    for dtype, halves in (("bfloat16", (bf.fused_attn_block, bf.fused_mlp_block)),
+                          ("int8", (bf.fused_attn_block_q, bf.fused_mlp_block_q))):
+        eng = EmbeddingEngine(MODEL, device="cuda", params_dtype=dtype, batch_size=BATCH)
+        cfg, params = eng.cfg, eng.params
+        tokens = get_default_tokenizer()(texts, context_length=cfg.text.context_length)
+        tokens = torch.as_tensor(tokens).cuda()
+        with torch.inference_mode():
+            ref = {"image": unit(np, encode_image(params, cfg, pixels, dtype=torch.bfloat16).cpu().numpy()),
+                   "text": unit(np, encode_text(params, cfg, tokens, dtype=torch.bfloat16).cpu().numpy())}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                encode_image(params, cfg, pixels, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            out["frames_per_s"][f"{dtype} 1 stage"] = 3 * BATCH / (time.perf_counter() - t0)
+        for tag, mesh, data_axis in layouts:
+            rest, v_st, t_st = pp.stage_params(mesh, params)
+            enc_i = pp.make_pipelined_image_encode(mesh, cfg, AXES_MICRO, torch.bfloat16, data_axis=data_axis,
+                                                   presplit=True)
+            enc_t = pp.make_pipelined_text_encode(mesh, cfg, AXES_MICRO, torch.bfloat16, data_axis=data_axis,
+                                                  presplit=True)
+            groups = 2 if data_axis else 1
+            with torch.inference_mode():
+                enc_i(rest, v_st, pixels[:8 * groups * AXES_MICRO])  # the libraries and K-major copies
+                for tower, fn, stacked, x in (("image", enc_i, v_st, pixels), ("text", enc_t, t_st, tokens)):
+                    start = launches_now()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = fn(rest, stacked, x)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    launches = launches_since(start)
+                    add_into(out["launches"], launches)
+                    got = unit(np, got.cpu().numpy())
+                    cos = float((got * ref[tower]).sum(1).min())
+                    equal = bool(np.array_equal(got, ref[tower]))
+                    off_cos = float((turned_rows(np, got, EMBED_MIN_COS, 3) * ref[tower]).sum(1).min())
+                    want = groups * AXES_MICRO * (cfg.vision.layers if tower == "image" else cfg.text.layers)
+                    log(f"(b) pipelined {tower} encode, {dtype}, {tag} x {AXES_MICRO} microbatches: {BATCH} rows in "
+                        f"{secs:.4f} s, least unit-row cosine {cos:.7f} (bit-equal {equal}), rows turned to "
+                        f"{EMBED_MIN_COS}: {off_cos:.5f}; launches {launches} (expected {want} of each half)")
+                    check(cos >= EMBED_MIN_COS and off_cos < EMBED_MIN_COS,
+                          f"(b) {tower} {dtype} {tag}: cosine {cos}, control {off_cos}")
+                    for h in halves:
+                        check(launches[h.__name__] == want, f"(b) {tower} {dtype} {tag}: {h.__name__} "
+                              f"{launches[h.__name__]}, expected {want}")
+                    out["least_cos"][f"{tower} {dtype} {tag}"] = cos
+                    if tower == "image":
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        for _ in range(3):
+                            fn(rest, stacked, x)
+                        torch.cuda.synchronize()
+                        out["frames_per_s"][f"{dtype} {tag}"] = 3 * BATCH / (time.perf_counter() - t0)
+            del rest, v_st, t_st
+        del eng, params
+        torch.cuda.empty_cache()
+    log("(b) pipelined encode frames/s (4 stages and the data x stage mesh on one card run in turn): "
+        + json.dumps({k: round(v, 1) for k, v in out["frames_per_s"].items()}))
+    return out
+
+
+def phase_axes_sp(torch, cfg, master) -> dict:
+    """(c) Sequence parallelism at ViT-L/14@336px (T 577, padded), bf16, batch
+    AXES_SP_BATCH, over 2 and 4 ``seq`` slots, against the one-device plain
+    route (``attn_impl="xla"``): unit rows >= EMBED_MIN_COS; the causal text
+    tower over 4 slots (77 padded to 80); no kernel launches; the peak
+    memory above the start of each encode."""
+    import dataclasses
+
+    import numpy as np
+
+    from evr_tpu_torch.models.clip import encode_image, encode_text
+    from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
+    from evr_tpu_torch.parallel import get_mesh, sp
+    from evr_tpu_torch.tokenizer import get_default_tokenizer
+
+    plain = dataclasses.replace(cfg, attn_impl="xla")
+    clip = master["clip"]
+    staged = torch.from_numpy(synthetic_frames(torch, AXES_SP_BATCH, cfg.vision.image_size,
+                                               cfg.vision.patch_size)).cuda()
+    pixels = (staged.float() / 255.0 - torch.tensor(CLIP_MEAN, device="cuda")) / torch.tensor(CLIP_STD, device="cuda")
+    tokens = torch.as_tensor(get_default_tokenizer()(list(QUERIES[:AXES_SP_BATCH]) * 2,
+                                                     context_length=cfg.text.context_length)[:AXES_SP_BATCH]).cuda()
+    out = {"peak_gib": {}, "least_cos": {}, "launches": {}}
+    start = launches_now()
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            y = fn()
+        torch.cuda.synchronize()
+        return unit(np, y.float().cpu().numpy()), (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    ref_i, out["peak_gib"]["image 1 slot (plain route)"] = peak(
+        lambda: encode_image(clip, plain, pixels, dtype=torch.bfloat16))
+    ref_t, out["peak_gib"]["text 1 slot (plain route)"] = peak(
+        lambda: encode_text(clip, plain, tokens, dtype=torch.bfloat16))
+    cases = [("image", n, sp.make_sp_image_encode, pixels, ref_i) for n in AXES_SP_SLOTS]
+    cases.append(("text", 4, sp.make_sp_text_encode, tokens, ref_t))
+    for tower, n, make, x, ref in cases:
+        enc = make(get_mesh(n, ("seq",)), cfg, torch.bfloat16)
+        got, gib = peak(lambda: enc(clip, x))
+        cos = float((got * ref).sum(1).min())
+        off = float((turned_rows(np, got, EMBED_MIN_COS, 4) * ref).sum(1).min())
+        key = f"{tower} {n} slots"
+        out["peak_gib"][key], out["least_cos"][key] = gib, cos
+        tcfg = cfg.vision if tower == "image" else cfg.text
+        t_pad = -(-tcfg.seq_len // n) * n if tower == "image" else -(-tcfg.context_length // n) * n
+        scores_gib = AXES_SP_BATCH * tcfg.heads * (t_pad // n) * t_pad * 4 / 2**30
+        log(f"(c) sequence-parallel {tower} encode over {n} seq slots (T padded to {t_pad}): least unit-row cosine "
+            f"{cos:.7f} against the one-device plain route (rows turned to {EMBED_MIN_COS}: {off:.5f}); peak "
+            f"{gib:.3f} GiB above the start, one slot's fp32 scores {scores_gib:.3f} GiB")
+        check(cos >= EMBED_MIN_COS and off < EMBED_MIN_COS, f"(c) {key}: cosine {cos}, control {off}")
+    out["launches"] = launches_since(start)
+    check(all(v == 0 for v in out["launches"].values()), f"(c) sequence parallelism launched {out['launches']}")
+    log(f"(c) peak memory GiB {json.dumps({k: round(v, 3) for k, v in out['peak_gib'].items()})}; launches "
+        f"{out['launches']} (none expected: plain products, as in the JAX module)")
+    return out
+
+
+def phase_axes_tp(torch, cfg, cls_cfg, master, batch, tc) -> dict:
+    """(d) Tensor parallelism at ViT-L/14@336px, batch 32, bf16,
+    ``freeze_layers=8``: the gradients over (data 1, model 2) and (data 2,
+    model 2) against the one-slot gradients (the step bands; a gradient
+    turned to cosine 0.99 rejected), K1/K2/K5 24 launches a data group;
+    then 2 timed steps with the optimizer at one slot and each layout, and
+    the bytes of params and AdamW moments a slot holds."""
+    from evr_tpu_torch.parallel import get_mesh
+    from evr_tpu_torch.parallel.fsdp import shard_tree, sharded_bytes_per_device
+    from evr_tpu_torch.parallel.tp import clip_param_shardings, lazy_tree, tp_state_shardings
+    from evr_tpu_torch.training import TrainState, make_optimizer, make_train_step
+    from evr_tpu_torch.training.finetune import flat_leaves, make_grad_fn
+    from evr_tpu_torch.training.partition import map_with_paths
+
+    L = cfg.vision.layers
+    dev = torch.device("cuda", 0)
+    out = {"launches": {}, "grads": {}, "s_per_step": {}, "bytes": {}}
+    m1, g1 = make_grad_fn(cfg, cls_cfg, tc, get_mesh(1))({dev: master}, batch,
+                                                         torch.Generator(device="cuda").manual_seed(AXES_SEED))
+    layouts = (("data 1 x model 2", (1, 2)), ("data 2 x model 2", (2, 2)))
+    for tag, shape in layouts:
+        mesh = get_mesh(shape[0] * shape[1], ("data", "model"), shape)
+        tree = shard_tree(master, clip_param_shardings(mesh, master))
+        fn = make_grad_fn(cfg, cls_cfg, tc, mesh)
+        start = launches_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, g = fn({dev: lazy_tree(tree, dev, "data")}, batch, torch.Generator(device="cuda").manual_seed(AXES_SEED))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launches_since(start)
+        add_into(out["launches"], launches)
+        log(f"(d) tensor-parallel gradients over {tag}: {secs:.3f} s, launches {launches}")
+        check_step_launches(f"(d) {tag}", launches, shape[0] * L)
+        got = step_compare(torch, f"(d) {tag} vs 1 slot", m, m1, g, g1, vision_block_leaf)
+        step_check(f"(d) {tag} vs 1 slot", got, STEP_BF16_BANDS)
+        out["grads"][tag] = got
+        del tree, m, g
+        torch.cuda.empty_cache()
+    del g1
+    for tag, shape in (("1 slot", None),) + layouts:
+        params = map_with_paths(master, lambda _, t: t.clone())
+        opt = make_optimizer(tc, params)
+        whole = sum(t.numel() * t.element_size() for t in list(flat_leaves(params).values())
+                    + [v for v in flat_leaves(opt.init(params)).values() if hasattr(v, "numel")])
+        if shape is None:
+            mesh, sh = None, None
+            state = TrainState(params, opt.init(params), 0)
+        else:
+            mesh = get_mesh(shape[0] * shape[1], ("data", "model"), shape)
+            sh = tp_state_shardings(params, opt, mesh)
+            state = TrainState(shard_tree(params, sh.params), shard_tree(opt.init(params), sh.opt_state), 0)
+            slot = sharded_bytes_per_device((state.params, state.opt_state))
+            out["bytes"][tag] = {"slot": slot, "replicated": whole}
+            check(slot < 0.75 * whole, f"(d) {tag}: a slot holds {slot} of {whole} bytes")
+        del params
+        step, _ = make_train_step(cfg, cls_cfg, tc, opt, mesh=mesh, state_shardings=sh)
+        gen = torch.Generator(device="cuda").manual_seed(AXES_SEED)
+        secs = []
+        start = launches_now()
+        for i in range(MESH_STEPS_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, gen)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            check(math.isfinite(m["total_loss"].item()), f"(d) {tag} step {i + 1}: loss {m['total_loss'].item()}")
+        launches = launches_since(start)
+        add_into(out["launches"], launches)
+        out["s_per_step"][tag] = secs
+        log(f"(d) {tag}: s/step {[round(s, 4) for s in secs]}, launches {launches}"
+            + (f", a slot holds {out['bytes'][tag]['slot'] / 2**30:.3f} of {whole / 2**30:.3f} GiB of params and "
+               f"AdamW moments" if tag in out["bytes"] else ""))
+        del state, step, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_axes_levers(torch, cfg, cls_cfg, master, batch, tc) -> dict:
+    """(e) The levers over a mesh at ViT-L/14@336px, batch 32, bf16: GradCache
+    (2 chunks of the global batch) over 2 slots against the 2-slot direct
+    gradients (the step bands); Muon under FSDP against Muon under data
+    parallelism and accumulation 2 under FSDP against data parallelism's
+    (2 steps each, 2 slots: updates bit-equal, held at MESH_UPDATE_COS leaf
+    by leaf)."""
+    import dataclasses
+
+    from evr_tpu_torch.parallel import get_mesh
+    from evr_tpu_torch.parallel.fsdp import fsdp_state_shardings, gather_tree, shard_tree
+    from evr_tpu_torch.training import TrainState, make_optimizer, make_train_step
+    from evr_tpu_torch.training.finetune import flat_leaves, make_grad_fn
+    from evr_tpu_torch.training.partition import map_with_paths
+
+    L = cfg.vision.layers
+    dev = torch.device("cuda", 0)
+    mesh = get_mesh(MESH_TRAIN_SLOTS)
+    out = {"launches": {}, "s": {}}
+    grads = {}
+    for tag, t in (("direct", tc), ("gradcache", dataclasses.replace(tc, gradcache_chunks=2))):
+        start = launches_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads[tag] = make_grad_fn(cfg, cls_cfg, t, mesh)({dev: master}, batch,
+                                                         torch.Generator(device="cuda").manual_seed(AXES_SEED))
+        torch.cuda.synchronize()
+        out["s"][tag] = time.perf_counter() - t0
+        launches = launches_since(start)
+        add_into(out["launches"], launches)
+        log(f"(e) {tag} gradients over {MESH_TRAIN_SLOTS} slots: {out['s'][tag]:.3f} s, launches {launches}")
+    n = MESH_TRAIN_SLOTS * L
+    check(out["launches"]["fused_attn_block_bwd"] == 2 * n and out["launches"]["fused_attn_block"] == 3 * n,
+          f"(e) launches {out['launches']}: GradCache encodes each chunk twice, the direct step once")
+    (md, gd), (mc, gc) = grads["direct"], grads["gradcache"]
+    got = step_compare(torch, "(e) GradCache over 2 slots vs the direct step", mc, md, gc, gd, vision_block_leaf)
+    step_check("(e) GradCache over 2 slots vs the direct step", got, STEP_BF16_BANDS)
+    out["gradcache"] = got
+    del grads, gd, gc
+    torch.cuda.empty_cache()
+    for lever, t in (("muon", dataclasses.replace(tc, optimizer="muon")),
+                     ("accumulation 2", dataclasses.replace(tc, grad_accumulation_steps=2))):
+        finals = {}
+        for layout in ("data parallel", "fsdp"):
+            params = map_with_paths(master, lambda _, x: x.clone())
+            opt = make_optimizer(t, params)
+            sh = None
+            if layout == "fsdp":
+                sh = fsdp_state_shardings(params, opt, mesh)
+                state = TrainState(shard_tree(params, sh.params), shard_tree(opt.init(params), sh.opt_state), 0)
+                del params
+            else:
+                state = TrainState(params, opt.init(params), 0)
+            step, _ = make_train_step(cfg, cls_cfg, t, opt, mesh=mesh, state_shardings=sh)
+            gen = torch.Generator(device="cuda").manual_seed(AXES_SEED)
+            secs = []
+            start = launches_now()
+            for _ in range(MESH_STEPS_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch, gen)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                check(math.isfinite(m["total_loss"].item()), f"(e) {lever} {layout}: loss")
+            launches = launches_since(start)
+            add_into(out["launches"], launches)
+            check_step_launches(f"(e) {lever} {layout}", launches, MESH_STEPS_TIMED * n)
+            after = flat_leaves(gather_tree(state.params) if sh is not None else state.params)
+            before = flat_leaves(master)
+            finals[layout] = {k: (after[k] - before[k]).float() for k in after}
+            out["s"][f"{lever} {layout}"] = secs
+            log(f"(e) {lever} {layout}: s/step {[round(s, 4) for s in secs]}, launches {launches}")
+            del state, step, opt, after
+            torch.cuda.empty_cache()
+        dp, fs = finals["data parallel"], finals["fsdp"]
+        equal = sum(bool(torch.equal(dp[k], fs[k])) for k in dp)
+        moved = [k for k in dp if dp[k].abs().max().item() > 0]
+        worst = min(leaf_cosines(torch, {k: fs[k] for k in moved}, {k: dp[k] for k in moved}).values())
+        log(f"(e) {lever} under FSDP against data parallelism after {MESH_STEPS_TIMED} steps: {equal} of {len(dp)} "
+            f"leaves' updates bit-equal, the least update cosine {worst:.7f} ({len(moved)} leaves moved)")
+        check(worst >= MESH_UPDATE_COS and moved, f"(e) {lever}: an FSDP update at cosine {worst}")
+        out[lever] = {"bit_equal_leaves": equal, "leaves": len(dp), "least_update_cos": worst}
+        del finals, dp, fs
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_axes_ckpt(torch) -> dict:
+    """(f) Checkpoints on the card, ViT-B/32's params: the tensor-parallel tree
+    over (data 1, model 2) and the stage-stacked tree over 4 stages
+    round-trip bit-equal with their placement; the tp 2 checkpoint restores
+    over (data 1, model 4) and replicated, bit-equal."""
+    from evr_tpu_torch.models import get_model_config, init_clip_params
+    from evr_tpu_torch.models.convert import params_from_numpy
+    from evr_tpu_torch.parallel import get_mesh, pp
+    from evr_tpu_torch.parallel.fsdp import gather_tree
+    from evr_tpu_torch.parallel.mesh import Sharding
+    from evr_tpu_torch.parallel.tp import clip_param_shardings
+    from evr_tpu_torch.training.finetune import flat_leaves
+    from evr_tpu_torch.training.partition import map_with_paths
+    from evr_tpu_torch.training.sharded_ckpt import restore_sharded, save_sharded
+
+    cfg = get_model_config(MODEL)
+    mesh2 = get_mesh(2, ("data", "model"), (1, 2))
+    params = params_from_numpy(init_clip_params(AXES_SEED, cfg), "cuda")
+    tree = params_from_numpy(init_clip_params(AXES_SEED, cfg), shardings=clip_param_shardings(mesh2, params))
+    out = {"seconds": {}}
+
+    def equal(a, b) -> int:
+        fa, fb = flat_leaves(gather_tree(a)), flat_leaves(gather_tree(b))
+        return sum(not torch.equal(fa[k].cpu(), fb[k].cpu()) for k in fb)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_sharded(pathlib.Path(tmp) / "tp2", tree)
+        out["seconds"]["save tp2"] = time.perf_counter() - t0
+        rep = Sharding(get_mesh(2), ())
+        targets = (("tp 2", clip_param_shardings(mesh2, params)),
+                   ("tp 4", clip_param_shardings(get_mesh(4, ("data", "model"), (1, 4)), params)),
+                   ("replicated", map_with_paths(params, lambda _, t: rep)))
+        bad = {}
+        for tag, target in targets:
+            t0 = time.perf_counter()
+            got = restore_sharded(pathlib.Path(tmp) / "tp2", target)
+            out["seconds"][f"restore {tag}"] = time.perf_counter() - t0
+            bad[tag] = equal(got, params)
+            qkv = got["visual"]["blocks"][0]["attn"]["qkv"]["kernel"]
+            check(qkv.shards[0].shape == qkv.sharding.shard_shape(qkv.shape) and qkv.shards[0].is_cuda,
+                  f"(f) {tag}: shard {tuple(qkv.shards[0].shape)}")
+            del got
+        stage_mesh = get_mesh(4, ("stage",))
+        _, v_st, _ = pp.stage_params(stage_mesh, params)
+        save_sharded(pathlib.Path(tmp) / "pp4", v_st)
+        got = restore_sharded(pathlib.Path(tmp) / "pp4", pp.stage_shardings(stage_mesh, v_st))
+        bad["pp 4"] = equal(got, pp.stack_blocks(params["visual"]["blocks"]))
+    log(f"(f) checkpoints: leaves not bit-equal after the round trips {json.dumps(bad)}; seconds "
+        + json.dumps({k: round(v, 3) for k, v in out["seconds"].items()}))
+    check(all(v == 0 for v in bad.values()), f"(f) checkpoints: {bad}")
+    out["bad"] = bad
+    return out
+
+
+def phase_axes(torch, frames) -> dict:
+    """Phase 19, the other mesh axes: (a) the sharded ANN tiers (K7), (b)
+    pipelined encodes (K1/K2, K3a/K3b), (c) sequence parallelism, (d)
+    tensor-parallel steps (K1/K2, K5), (e) GradCache, Muon and accumulation
+    over a mesh, (f) checkpoints."""
+    t0 = time.perf_counter()
+    out = {"launches": {}, "seconds": {}}
+    parts = {}
+    for name, fn in (("ann", lambda: phase_axes_ann(torch, frames)), ("pp", lambda: phase_axes_pp(torch, frames))):
+        t1 = time.perf_counter()
+        parts[name] = fn()
+        out["seconds"][name] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cfg, cls_cfg, master, batch, tc = mesh_train_setup(torch)
+    out["seconds"]["setup"] = time.perf_counter() - t1
+    for name, fn in (("sp", lambda: phase_axes_sp(torch, cfg, master)),
+                     ("tp", lambda: phase_axes_tp(torch, cfg, cls_cfg, master, batch, tc)),
+                     ("levers", lambda: phase_axes_levers(torch, cfg, cls_cfg, master, batch, tc))):
+        t1 = time.perf_counter()
+        parts[name] = fn()
+        out["seconds"][name] = time.perf_counter() - t1
+    del master
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    parts["ckpt"] = phase_axes_ckpt(torch)
+    out["seconds"]["ckpt"] = time.perf_counter() - t1
+    for part in parts.values():
+        add_into(out["launches"], part.get("launches", {}))
+    out.update(parts)
+    out["seconds"]["phase"] = time.perf_counter() - t0
+    log(f"phase 19 seconds {json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})}; launches "
+        f"{json.dumps(out['launches'])}")
+    return out
+
+
 def _to_cuda(torch, tree):
     from evr_tpu_torch.training.partition import map_with_paths
 
@@ -6777,6 +7336,7 @@ def main() -> int:
         lever_clis = phase_lever_clis(torch)
         phase17_s = time.perf_counter() - t5
         mesh = phase_mesh(torch, frames)
+        axes = phase_axes(torch, frames)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6934,6 +7494,16 @@ def main() -> int:
         f"{MESH_TRAIN_SLOTS} slots vs 1: {json.dumps(st['grads'])}; {mesh['processes']['processes']} process(es) "
         f"({mesh['processes']['backend']}) vs the step: {json.dumps(mesh['processes']['grads'])}; the FSDP CLI run "
         f"{mesh['cli']['run_s']:.1f} s, resumed {mesh['cli']['resume_s']:.1f} s; launches {json.dumps(mesh['launches'])}")
+    an, ppr, spr, tpr, lvr = axes["ann"], axes["pp"], axes["sp"], axes["tp"], axes["levers"]
+    log(f"other mesh axes (phase 19, {axes['seconds']['phase']:.1f} s; {card}): sharded IVF-PQ p50 ms at nprobe "
+        f"{AXES_NPROBE} {json.dumps({k: round(v, 3) for k, v in an['p50_ms'].items()})}, recall@10 "
+        f"{json.dumps(an['recall@10'])}, served ivfpq p50 {an['served_p50_ms']:.2f} ms; pipelined frames/s "
+        f"{json.dumps({k: round(v, 1) for k, v in ppr['frames_per_s'].items()})}; sp peak GiB "
+        f"{json.dumps({k: round(v, 3) for k, v in spr['peak_gib'].items()})}; tp s/step "
+        + json.dumps({k: [round(x, 4) for x in v] for k, v in tpr["s_per_step"].items()})
+        + f", bytes a slot {json.dumps({k: round(v['slot'] / 2**30, 3) for k, v in tpr['bytes'].items()})} GiB; "
+        f"levers s {json.dumps({k: (round(v, 4) if isinstance(v, float) else [round(x, 4) for x in v]) for k, v in lvr['s'].items()})}; "
+        f"launches {json.dumps(axes['launches'])}")
     big = main["then"]["routes"]
     log(f"viz.umap at {UMAP_ROWS} x {UMAP_DIM}: {big['umap_big_s']:.2f} s, neighbours kept "
         f"{json.dumps(big['knn_kept'])}")
@@ -6951,11 +7521,15 @@ def main() -> int:
     # phase 17: the levers' steps, the distillation steps and the three CLIs
     # phase 18: the sharded search (K4), the mesh engine and its serving (K1/K2,
     # K3a/K3b), the mesh steps, the two processes and the FSDP CLI (K1/K2, K5)
+    # phase 19: the pipelined encodes (K1/K2, K3a/K3b), the tensor-parallel
+    # steps and the levers over a mesh (K1/K2, K5), the served ivfpq tier's
+    # encodes (K1/K2) and the sharded IVF-PQ searches (K7)
     for m in (harness["launches"], variants["launches"], levers["launches"], distill["launches"],
-              lever_clis["launches"], mesh["launches"]):
+              lever_clis["launches"], mesh["launches"], axes["launches"]):
         for name, n in m.items():
-            launches[name] += n
-    launches["adc_list_scores"] = ann["launches"]
+            if name != "adc_list_scores":  # K7's: phase 13's large tier and phase 19's, below
+                launches[name] += n
+    launches["adc_list_scores"] = ann["launches"] + axes["launches"]["adc_list_scores"]
     launches.update({k: main_f["launches"][k] for k in FLASH_MAIN_SHAPE})
     # K8 and K9 have no caller on a serving path: their launches are those of
     # their own phases, through the entry points the ops package exports

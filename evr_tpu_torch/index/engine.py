@@ -151,7 +151,7 @@ class EmbeddingEngine:
         self.mesh_axis = mesh_axis
         self._replicas: dict = {}
         if mesh is not None:
-            n_shards = mesh.check_covers(mesh_axis)
+            n_shards = mesh.axis_size(mesh_axis)
             if mesh.process_count > 1:
                 raise NotImplementedError("EmbeddingEngine(mesh=...) takes a one-process mesh")
             if batch_size % n_shards != 0:
@@ -311,7 +311,7 @@ class EmbeddingEngine:
             if self.mesh is None:
                 x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
                 return encode(self.params, self.cfg, x, dtype=self.compute_dtype).cpu().numpy()
-            slots = self.mesh.local_slots
+            slots = self.mesh.leaders(self.mesh_axis)
             n = len(batch)
             per = -(-n // len(slots))
             if per * len(slots) != n:

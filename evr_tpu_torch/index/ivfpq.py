@@ -117,6 +117,14 @@ def quantize_host_store(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return quant, scales
 
 
+def probe_step(adc_impl: str, b: int, capacity: int, n_subspaces: int) -> int:
+    """Probed lists a chunk of the packed search takes for ``b`` queries over
+    lists of ``capacity`` rows: the chunk's transient within
+    ``ivf.CHUNK_BYTES``, 17 bytes a row under K7 (``"pallas"``), 8 a
+    subspace under the gather-sum. K7 launches once a chunk."""
+    return chunk_rows((17 if adc_impl == "pallas" else 8 * n_subspaces) * b * capacity)
+
+
 class IVFPQIndex:
     """Probed, compressed cosine top-k: ``build`` once, then
     ``search(queries, top_k, nprobe, rerank=, adc_impl=)``."""
@@ -626,8 +634,7 @@ class IVFPQIndex:
         _, cvals, cids = probe_lists(q, cents, nprobe)
         blocks_all = codes_lists.view(k, capacity, s)                 # paired: the same bytes
         ids_all = id_lists.view(k, capacity)
-        row_bytes = 17 if adc_impl == "pallas" else 8 * s
-        step = chunk_rows(row_bytes * b * capacity)
+        step = probe_step(adc_impl, b, capacity, s)
         sco, ids = [], []
         for lo in range(0, nprobe, step):
             c = cids[:, lo : lo + step]                                # [B, n]

@@ -25,7 +25,10 @@ a slot (``parallel.sharded_search.ShardedIndex``): the rows are padded to a
 multiple of 128 a shard, at least ``shards × 128``, and a search with more
 than one shard and k within a shard scores each shard on its slot and merges
 the slots' top k (``sharded_cosine_topk``, K4 on each slot under
-``search_impl="pallas"``). The ANN tiers under a mesh are ROADMAP item A21.
+``search_impl="pallas"``). The ANN tiers under a mesh build one sub-index a
+shard (``parallel.sharded_ann``) once the corpus holds at least two rows a
+shard, sized as the JAX package sizes them (~√(N/S) lists, at most the
+smallest shard's rows); a smaller corpus takes the one-device tier.
 """
 
 from __future__ import annotations
@@ -95,8 +98,9 @@ class FrameIndex:
         ``ivfpq_host_store`` (ivfpq only): the re-rank rows live in host
         memory as int8 with per-row scales and the device keeps only the PQ
         codes; appended rows join the store with their ids. ``mesh``: the
-        exact tiers' rows split over ``mesh_axis`` (module docstring);
-        ``device`` is then the first slot's."""
+        exact tiers' rows split over ``mesh_axis``, the ANN tiers built a
+        shard a group of it (module docstring); ``device`` is then the first
+        slot's."""
         if device_dtype not in _DTYPES:
             raise ValueError(f"unknown device_dtype {device_dtype!r}")
         if search_impl not in _SEARCH_IMPLS:
@@ -108,14 +112,9 @@ class FrameIndex:
             raise ValueError(
                 "mesh-sharded IVF stores float32/bfloat16 shards; use "
                 "single-device IVF for the int8 inverted-file tier")
-        if mesh is not None and search_impl in _ANN_IMPLS:
-            raise NotImplementedError(
-                f"FrameIndex(mesh=..., search_impl={search_impl!r}): the sharded IVF / IVF-PQ "
-                "tiers are not ported yet (ROADMAP item A21)")
         self.mesh = mesh
         self.mesh_axis = mesh_axis
         if mesh is not None:
-            mesh.check_covers(mesh_axis)
             device = mesh.slot_devices[mesh.local_slots[0]]
         if ivfpq_host_store and search_impl != "ivfpq":
             raise ValueError("ivfpq_host_store requires search_impl='ivfpq'")
@@ -294,8 +293,33 @@ class FrameIndex:
         capacity factor 1.3, 6 k-means iterations; int8 IVF storage through
         ``build_device``; IVF-PQ with the largest subspace count ≤ 64 that
         divides D and the fp32 originals (or the int8 host store) for its
-        re-rank."""
+        re-rank. Under a mesh with at least two rows a shard: the sharded
+        tier (~√(N/S) lists, at most the smallest shard's rows; IVF-PQ's
+        ``n_centroids`` at most the smallest shard's rows too)."""
         total = rows.shape[0]
+        self._ivf_built_rows = total
+        n_shards = self.mesh.axis_size(self.mesh_axis) if self.mesh is not None else 0
+        if self.mesh is not None and total >= 2 * n_shards:
+            from evr_tpu_torch.parallel.sharded_ann import ShardedIVFIndex, ShardedIVFPQIndex
+
+            # the sharded tiers: one sub-index a shard (parallel.sharded_ann);
+            # the smallest of the balanced shards holds floor(N / S) rows
+            smallest = max(1, total // n_shards)
+            k = self.ivf_clusters or max(1, int(round((total / n_shards) ** 0.5)))
+            k = max(1, min(k, smallest))
+            if self.search_impl == "ivf":
+                self._ivf = ShardedIVFIndex(self.mesh, self.mesh_axis).build(
+                    rows, n_clusters=k, capacity_factor=1.3, iters=6,
+                    dtype="bfloat16" if self.device_dtype == "bfloat16" else "float32")
+            else:
+                sub = next(s for s in (64, 32, 16, 8, 4, 2, 1) if self.embed_dim % s == 0)
+                self._ivf = ShardedIVFPQIndex(self.mesh, self.mesh_axis).build(
+                    rows, n_clusters=k, n_subspaces=sub, n_centroids=min(256, smallest),
+                    capacity_factor=1.3, coarse_iters=6, pq_iters=6,
+                    keep_originals=not self.ivfpq_host_store)
+                if self.ivfpq_host_store:
+                    self._ivf.attach_host_store(*quantize_host_store(rows))
+            return
         k = min(self.ivf_clusters or max(1, int(round(total**0.5))), total)
         if self.search_impl == "ivf" and self.device_dtype == "int8":
             self._ivf = IVFIndex().build_device(
@@ -317,7 +341,6 @@ class FrameIndex:
             )
             if self.ivfpq_host_store:
                 self._ivf.attach_host_store(*quantize_host_store(rows))
-        self._ivf_built_rows = total
 
     def _ensure_built(self):
         with self._lock:
@@ -360,7 +383,8 @@ class FrameIndex:
         q = torch.from_numpy(np.atleast_2d(np.asarray(queries, np.float32))).to(self.device)
         with torch.inference_mode():
             if self.mesh is not None:
-                scores, rows = self._device_index.topk(q, start, end, k, impl=self.search_impl)
+                impl = "pallas" if self.search_impl == "pallas" else "xla"  # the ANN tiers' scoped searches
+                scores, rows = self._device_index.topk(q, start, end, k, impl=impl)
             else:
                 topk = fused_topk if self.search_impl == "pallas" else cosine_topk
                 scores, rows = topk(self._device_index, q, start, end, k, row_scales=self._row_scales)

@@ -163,13 +163,11 @@ def _run_blocks(x, blocks, heads, causal, cfg: CLIPConfig):
     return x
 
 
-def _vision_transform(p, cfg: CLIPConfig, x, dtype, cls_fast_final=False, patch_keep=None) -> torch.Tensor:
+def _vision_prefix(p, cfg: CLIPConfig, x, dtype, patch_keep=None) -> torch.Tensor:
     """[B, grid², width] patch tokens → cls/pos (→ the kept patches) →
-    ln_pre → blocks → pooled projection [B, embed_dim] in float32.
-    ``cls_fast_final`` runs the last block for the CLS row only
-    (``layers.final_block_cls``), never under ``cfg.remat``.
-    ``patch_keep`` [B, K] int: the patch tokens kept (FLIP masking), gathered
-    after the positional add in the order given, the class token first."""
+    ln_pre: the block stack's input. ``patch_keep`` [B, K] int: the patch
+    tokens kept (FLIP masking), gathered after the positional add in the
+    order given, the class token first."""
     v = cfg.vision
     B = x.shape[0]
     cls = p["class_embedding"].to(dtype).expand(B, 1, v.width)
@@ -178,7 +176,16 @@ def _vision_transform(p, cfg: CLIPConfig, x, dtype, cls_fast_final=False, patch_
         idx = torch.as_tensor(patch_keep, device=x.device).long()
         kept = torch.gather(x[:, 1:], 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
         x = torch.cat([x[:, :1], kept], dim=1)
-    x = layer_norm(x, p["ln_pre"])
+    return layer_norm(x, p["ln_pre"])
+
+
+def _vision_transform(p, cfg: CLIPConfig, x, dtype, cls_fast_final=False, patch_keep=None) -> torch.Tensor:
+    """[B, grid², width] patch tokens → ``_vision_prefix`` → blocks →
+    pooled projection [B, embed_dim] in float32. ``cls_fast_final`` runs the
+    last block for the CLS row only (``layers.final_block_cls``), never
+    under ``cfg.remat``."""
+    v = cfg.vision
+    x = _vision_prefix(p, cfg, x, dtype, patch_keep)
     if cls_fast_final and not cfg.remat:
         x = _run_blocks(x, p["blocks"][:-1], v.heads, False, cfg)
         pooled = final_block_cls(x, p["blocks"][-1], v.heads, cfg.activation)
@@ -187,6 +194,16 @@ def _vision_transform(p, cfg: CLIPConfig, x, dtype, cls_fast_final=False, patch_
         pooled = x[:, 0]
     pooled = layer_norm(pooled, p["ln_post"])
     return (pooled @ p["proj"].to(dtype)).float()
+
+
+def _patch_tokens(p, cfg: CLIPConfig, pixels: torch.Tensor, dtype) -> torch.Tensor:
+    """pixels [B, H, W, 3] → [B, grid², width] by the bias-free patch conv."""
+    v = cfg.vision
+    x = pixels.to(dtype).permute(0, 3, 1, 2)
+    kernel = p["patch_embed"]["kernel"].to(dtype).permute(3, 2, 0, 1)  # HWIO → OIHW
+    x = torch.nn.functional.conv2d(x, kernel, stride=v.patch_size)
+    B = x.shape[0]
+    return x.permute(0, 2, 3, 1).reshape(B, v.grid * v.grid, v.width)
 
 
 def encode_image(
@@ -200,14 +217,28 @@ def encode_image(
     ``patch_keep`` [B, K] int: the indices of the patch tokens to keep (FLIP
     masking, training only): the blocks run on K + 1 tokens. None: every
     token."""
-    v = cfg.vision
     p = params["visual"]
-    x = pixels.to(dtype).permute(0, 3, 1, 2)
-    kernel = p["patch_embed"]["kernel"].to(dtype).permute(3, 2, 0, 1)  # HWIO → OIHW
-    x = torch.nn.functional.conv2d(x, kernel, stride=v.patch_size)
-    B = x.shape[0]
-    x = x.permute(0, 2, 3, 1).reshape(B, v.grid * v.grid, v.width)
-    return _vision_transform(p, cfg, x, dtype, patch_keep=patch_keep)
+    return _vision_transform(p, cfg, _patch_tokens(p, cfg, pixels, dtype), dtype, patch_keep=patch_keep)
+
+
+def vision_tokens(params: Params, cfg: CLIPConfig, pixels: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The vision stem alone: pixels [B, H, W, 3] → [B, T, width], the block
+    stack's input (patch conv, cls/pos, ln_pre). With ``vision_pool`` it
+    splits ``encode_image`` into stem → blocks → pool, the split that
+    ``parallel.pp`` pipelines over stages and ``parallel.sp`` shards by
+    token."""
+    p = params["visual"]
+    return _vision_prefix(p, cfg, _patch_tokens(p, cfg, pixels, dtype), dtype)
+
+
+def vision_pool(params: Params, cfg: CLIPConfig, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The block stack's output [B, T, width] → [B, embed_dim] float32: the
+    CLS row, ln_post, the projection."""
+    p = params["visual"]
+    pooled = layer_norm(x[:, 0], p["ln_post"])
+    return (pooled @ p["proj"].to(dtype)).float()
 
 
 def encode_staged_u8(
@@ -252,6 +283,18 @@ def text_tokens(params: Params, cfg: CLIPConfig, tokens: torch.Tensor, dtype=tor
     """tokens [B, 77] → [B, 77, width] token plus positional embeddings."""
     p = params["text"]
     return p["token_embedding"].to(dtype)[tokens] + p["pos_embedding"].to(dtype)
+
+
+def text_pool(params: Params, cfg: CLIPConfig, x: torch.Tensor, tokens: torch.Tensor,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The causal block stack's output [B, 77, width] → [B, embed_dim]
+    float32: the row at the EOT position (argmax token id), ln_final, the
+    projection."""
+    p = params["text"]
+    eot_pos = tokens.long().argmax(dim=-1)
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot_pos.to(x.device)]
+    pooled = layer_norm(pooled, p["ln_final"])
+    return (pooled @ p["text_projection"].to(dtype)).float()
 
 
 def encode_text(

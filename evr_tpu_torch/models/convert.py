@@ -13,11 +13,18 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
+def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None, shardings=None):
     """Nested dict/list of numpy arrays → the same structure of tensors on
     ``device``, row-major (a checkpoint's transposed views are copied into
     the layout the kernels read). ``dtype`` (optional) casts the
-    floating-point leaves."""
+    floating-point leaves. ``shardings`` (optional, a tree of
+    ``parallel.mesh.Sharding``s such as ``parallel.tp.
+    clip_param_shardings``): each leaf placed on the mesh as a
+    ``parallel.fsdp.ShardedTensor``, each slot holding its part."""
+    if shardings is not None:
+        from evr_tpu_torch.parallel.fsdp import shard_tree
+
+        return shard_tree(params_from_numpy(tree, "cpu", dtype), shardings)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

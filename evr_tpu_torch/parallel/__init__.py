@@ -1,15 +1,17 @@
-"""Meshes, data parallelism and the sharded exact search (PyTorch).
+"""Meshes and every parallel layout but experts (PyTorch).
 
-Counterpart of ``evr_tpu/parallel``'s data axis: ``mesh`` (named grids of
-device slots), ``contrastive`` (the single-device and global-batch losses),
-``sharded_search`` (the exact top-k over a row-sharded index), ``fsdp``
-(params and optimizer state sharded over the slots) and ``multihost`` (the
-process group and its collectives). The model, stage and sequence axes
-(``tp``, ``pp``, ``sp``) and the sharded ANN tiers are ROADMAP item A21;
-``ep`` is A17's.
+Counterpart of ``evr_tpu/parallel``: ``mesh`` (named grids of device slots,
+every axis holding slots), ``contrastive`` (the single-device and
+global-batch losses), ``sharded_search`` (the exact top-k over a row-sharded
+index), ``sharded_ann`` (the IVF and IVF-PQ tiers a sub-index a shard),
+``fsdp`` (params and optimizer state sharded over the data axis), ``tp``
+(block weights split over a ``model`` axis), ``pp`` (GPipe stages over a
+``stage`` axis), ``sp`` (token shards over a ``seq`` axis) and
+``multihost`` (the process group and its collectives). ``ep`` is ROADMAP
+item A17's.
 """
 
-from . import fsdp, multihost
+from . import fsdp, multihost, pp, sharded_ann, sp, tp
 from .contrastive import (
     global_infonce_loss,
     global_siglip_loss,
@@ -31,6 +33,10 @@ __all__ = [
     "local_device_count",
     "make_sharded_infonce",
     "multihost",
+    "pp",
+    "sharded_ann",
+    "sp",
+    "tp",
     "sharded_cosine_topk",
     "siglip_loss_single",
 ]

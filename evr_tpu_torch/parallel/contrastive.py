@@ -89,8 +89,8 @@ def global_infonce_loss(
     """InfoNCE over the global batch: each slot's rows against every global
     column, labels offset by the slot's position, the slots' losses averaged.
     The same value as ``infonce_loss_single`` on the whole batch."""
-    n = mesh.check_covers(axis)
-    slots = mesh.local_slots
+    n = mesh.axis_size(axis)
+    slots = mesh.leaders(axis)
     d = image_features[0].shape[1]
     both = gather_features([torch.cat([i, t], dim=1) for i, t in zip(image_features, text_features)])
     scales = _per_slot(logit_scale, len(slots))
@@ -98,7 +98,7 @@ def global_infonce_loss(
     for s, img, txt, scale in zip(slots, image_features, text_features, scales):
         b, dev = img.shape[0], img.device
         every = both.to(dev)
-        labels = s * b + torch.arange(b, device=dev)
+        labels = mesh.axis_index(s, axis) * b + torch.arange(b, device=dev)
         scale = scale.to(dev).exp()
         logits_i = scale * img @ every[:, d:].T
         logits_t = scale * txt @ every[:, :d].T
@@ -118,8 +118,8 @@ def global_siglip_loss(
     """SigLIP over the global batch: every (i, j) pair appears once in the
     image-rows × all-texts products, so gathering the text features and
     averaging the slots' row means gives the single-device loss."""
-    n = mesh.check_covers(axis)
-    slots = mesh.local_slots
+    n = mesh.axis_size(axis)
+    slots = mesh.leaders(axis)
     all_txt = gather_features(list(text_features))
     scales = _per_slot(logit_scale, len(slots))
     biases = _per_slot(logit_bias, len(slots))
@@ -128,16 +128,16 @@ def global_siglip_loss(
         b, dev = img.shape[0], img.device
         txt = all_txt.to(dev)
         logits = scale.to(dev).exp() * img @ txt.T + bias.to(dev)
-        pos = torch.arange(txt.shape[0], device=dev)[None, :] == (s * b + torch.arange(b, device=dev))[:, None]
+        pos = torch.arange(txt.shape[0], device=dev)[None, :] == (mesh.axis_index(s, axis) * b + torch.arange(b, device=dev))[:, None]
         z = torch.where(pos, 1.0, -1.0)
         local.append(-F.logsigmoid(z * logits.float()).sum(-1).mean())
     return slot_mean(local, n)
 
 
-def split_rows(mesh, x: torch.Tensor) -> list[torch.Tensor]:
-    """This process's rows of a global batch split evenly over its slots,
-    each on its slot's device."""
-    slots = mesh.local_slots
+def split_rows(mesh, x: torch.Tensor, axis: str = "data") -> list[torch.Tensor]:
+    """This process's rows of a global batch split evenly over its groups of
+    ``axis``, each on its leader slot's device."""
+    slots = mesh.leaders(axis)
     if x.shape[0] % len(slots):
         raise ValueError(f"{x.shape[0]} rows do not split over {len(slots)} local slots")
     b = x.shape[0] // len(slots)
@@ -148,9 +148,8 @@ def split_rows(mesh, x: torch.Tensor) -> list[torch.Tensor]:
 def make_sharded_infonce(mesh, axis: str = "data"):
     """``fn(img, txt, logit_scale)``: ``global_infonce_loss`` over this
     process's rows of the global batch, split over its slots."""
-    mesh.check_covers(axis)
-
     def fn(img, txt, logit_scale):
-        return global_infonce_loss(split_rows(mesh, img), split_rows(mesh, txt), logit_scale, mesh, axis)
+        return global_infonce_loss(split_rows(mesh, img, axis), split_rows(mesh, txt, axis), logit_scale,
+                                   mesh, axis)
 
     return fn

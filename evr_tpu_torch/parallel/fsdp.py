@@ -70,7 +70,7 @@ def _map2(tree, other, fn):
 def fsdp_shardings(tree: Any, mesh: Mesh, axis: str = "data", min_size: int = DEFAULT_MIN_SIZE) -> Any:
     """Every array leaf (tensor, numpy array or meta tensor) mapped to its
     ``Sharding``; other leaves (counts, flags) to a replicated one."""
-    n = mesh.check_covers(axis)
+    n = mesh.axis_size(axis)
 
     def to_sharding(leaf):
         shape = tuple(leaf.shape) if _is_array(leaf) else ()
@@ -116,12 +116,16 @@ class ShardedTensor:
 
     def full(self, device=None) -> torch.Tensor:
         """The whole tensor on ``device`` (default: the first shard's),
-        gathered in slot order (across processes too)."""
+        gathered in shard order (across processes too): one slot of each
+        shard, the first local slot that holds it."""
         device = self.shards[0].device if device is None else device
         d = self.sharding.dim
         if d is None:
             return self.shards[0].to(device)
-        local = torch.cat([s.to(device) for s in self.shards], dim=d)
+        pick: dict[int, torch.Tensor] = {}
+        for i, s in enumerate(self.sharding.mesh.local_slots):
+            pick.setdefault(self.sharding.shard_index(s), self.shards[i])
+        local = torch.cat([pick[j].to(device) for j in sorted(pick)], dim=d)
         return torch.cat(multihost.all_gather(local), dim=d)
 
     def __repr__(self) -> str:
@@ -129,12 +133,13 @@ class ShardedTensor:
 
 
 def shard_of(t: torch.Tensor, sharding: Sharding, slot: int) -> torch.Tensor:
-    """Global slot ``slot``'s part of the whole tensor ``t`` (a view)."""
+    """Global slot ``slot``'s part of the whole tensor ``t`` (a view): its
+    shard along the split axis, the whole tensor where it is replicated."""
     d = sharding.dim
     if d is None:
         return t
-    per = t.shape[d] // sharding.mesh.axis_size(sharding.spec[d])
-    return t.narrow(d, slot * per, per)
+    per = t.shape[d] // sharding.n_shards
+    return t.narrow(d, sharding.shard_index(slot) * per, per)
 
 
 def shard_tensor(t, sharding: Sharding) -> ShardedTensor:

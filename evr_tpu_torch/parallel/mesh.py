@@ -8,6 +8,11 @@ of the CPU, and one card can hold a 4-slot mesh. Code that works over a mesh
 keeps its params once per distinct device, not once per slot, and runs each
 slot's share of the work in slot order, so a run repeats bit for bit.
 
+Every axis holds slots. Work split over one axis (a batch over ``data``,
+blocks over ``stage``, tokens over ``seq``, weight columns over ``model``)
+runs once per group of that axis (``leaders``, ``group``); a leaf not split
+over an axis is replicated over it.
+
 Across processes (``parallel.multihost``) a mesh also records which process
 owns each slot; a process computes on its own slots only, and the processes
 meet in ``torch.distributed`` collectives (NCCL between cards, Gloo on the
@@ -72,16 +77,39 @@ class Mesh:
         names = (axis,) if isinstance(axis, str) else tuple(axis)
         return math.prod(self.shape[a] for a in names)
 
-    def check_covers(self, axis) -> int:
-        """The slot count of ``axis``, which must span the whole mesh: the
-        port runs data parallelism only over axes that cover every slot (the
-        model, stage and sequence axes are ROADMAP item A21)."""
-        n = self.axis_size(axis)
-        if n != self.size:
-            raise NotImplementedError(
-                f"axis {axis!r} spans {n} of the mesh's {self.size} slots: sharding over the "
-                "other axes (tensor, pipeline and sequence parallelism) is ROADMAP item A21")
-        return n
+    def axis_index(self, slot: int, axis) -> int:
+        """Global slot ``slot``'s position along ``axis`` (a name, or a tuple
+        of names taken jointly, row-major in the order given)."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        coords = np.unravel_index(slot, self.devices.shape)
+        pos = 0
+        for a in names:
+            i = self.axis_names.index(a)
+            pos = pos * self.devices.shape[i] + int(coords[i])
+        return pos
+
+    def leaders(self, axis) -> list[int]:
+        """This process's slots that lead a group of ``axis``: their position
+        on every other axis is 0. Work split over ``axis`` (a batch, index
+        rows) runs once per group, on its leader; the group's other slots
+        hold replicas (or, for a leaf split over another axis, the other
+        shards). In order of their position along ``axis``."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        others = [i for i, a in enumerate(self.axis_names) if a not in names]
+        out = [s for s in self.local_slots
+               if all(np.unravel_index(s, self.devices.shape)[i] == 0 for i in others)]
+        return sorted(out, key=lambda s: self.axis_index(s, names))
+
+    def group(self, slot: int, axis) -> list[int]:
+        """The slots that differ from ``slot`` only along ``axis`` (``slot``
+        included), in order of their position along it: the shards of a leaf
+        split over ``axis`` that one slot's work gathers."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        here = np.unravel_index(slot, self.devices.shape)
+        keep = [i for i, a in enumerate(self.axis_names) if a not in names]
+        out = [s for s in range(self.size)
+               if all(np.unravel_index(s, self.devices.shape)[i] == here[i] for i in keep)]
+        return sorted(out, key=lambda s: self.axis_index(s, names))
 
     @property
     def slot_devices(self) -> list[torch.device]:
@@ -113,8 +141,10 @@ class Mesh:
 @dataclass(frozen=True)
 class Sharding:
     """A placement over a mesh (JAX's ``NamedSharding``): ``spec`` holds, for
-    each dimension, the mesh axis it is split over or None; ``()``
-    replicates."""
+    each dimension, the mesh axis it is split over or None (``(None,
+    "model")`` splits the columns over ``model``); ``()`` replicates. One
+    dimension at most is split; every axis the spec does not name
+    replicates the leaf."""
 
     mesh: Mesh
     spec: tuple = ()
@@ -127,13 +157,26 @@ class Sharding:
                 return i
         return None
 
+    @property
+    def axis(self):
+        """The mesh axis (or axes) the split dimension runs over, or None."""
+        d = self.dim
+        return None if d is None else self.spec[d]
+
+    @property
+    def n_shards(self) -> int:
+        return 1 if self.dim is None else self.mesh.axis_size(self.axis)
+
+    def shard_index(self, slot: int) -> int:
+        """Which shard global slot ``slot`` holds (0 for a replicated leaf)."""
+        return 0 if self.dim is None else self.mesh.axis_index(slot, self.axis)
+
     def shard_shape(self, shape) -> tuple[int, ...]:
         shape = tuple(shape)
         d = self.dim
         if d is None:
             return shape
-        n = self.mesh.axis_size(self.spec[d])
-        return shape[:d] + (shape[d] // n,) + shape[d + 1:]
+        return shape[:d] + (shape[d] // self.n_shards,) + shape[d + 1:]
 
 
 def cpu_device_count() -> int:

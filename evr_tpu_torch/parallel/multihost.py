@@ -141,8 +141,8 @@ def process_slice(
 def make_global_batch(mesh: Mesh, batch, axis: str = "data"):
     """This process's rows of a global batch (its ``process_slice``) as the
     mesh step takes them: tensors, rows split evenly over this process's
-    slots of ``axis``. The step itself gathers what crosses processes."""
-    local = len(mesh.local_slots)
+    groups of ``axis``. The step itself gathers what crosses processes."""
+    local = len(mesh.leaders(axis))
 
     def convert(x):
         x = torch.as_tensor(np.asarray(x))

@@ -36,16 +36,17 @@ from .mesh import Mesh
 
 def place_rows(mesh: Mesh, x: torch.Tensor | None, axis: str = "data") -> list | None:
     """``x`` [N, ...] split into equal row shards over ``axis``: this
-    process's shards, each on its slot's device, in slot order. N must
-    divide by the axis's slot count."""
+    process's shards, each on its group leader's device (``Mesh.leaders``),
+    in order along the axis. N must divide by the axis's slot count."""
     if x is None:
         return None
-    n = mesh.check_covers(axis)
+    n = mesh.axis_size(axis)
     if x.shape[0] % n:
         raise ValueError(f"{x.shape[0]} rows do not split over {n} shards")
     per = x.shape[0] // n
     devices = mesh.slot_devices
-    return [x[s * per:(s + 1) * per].to(devices[s]).contiguous() for s in mesh.local_slots]
+    return [x[j * per:(j + 1) * per].to(devices[s]).contiguous()
+            for s in mesh.leaders(axis) for j in [mesh.axis_index(s, axis)]]
 
 
 def shard_route(impl: str, rows_per_shard: int, d: int, n_queries: int, k: int) -> str:
@@ -72,12 +73,12 @@ def sharded_cosine_topk(
     ``place_rows`` first."""
     if impl not in ("xla", "pallas"):
         raise ValueError(f"unknown impl {impl!r}")
-    n_shards = mesh.check_covers(axis)
+    n_shards = mesh.axis_size(axis)
     if isinstance(index, torch.Tensor):
         index = place_rows(mesh, index, axis)
     if isinstance(row_scales, torch.Tensor):
         row_scales = place_rows(mesh, row_scales, axis)
-    slots = mesh.local_slots
+    slots = mesh.leaders(axis)
     if len(index) != len(slots):
         raise ValueError(f"{len(index)} shards for {len(slots)} local slots")
     rows = index[0].shape[0]
@@ -89,7 +90,7 @@ def sharded_cosine_topk(
     scores, idx = [], []
     for i, s in enumerate(slots):
         shard = index[i]
-        row0 = s * rows
+        row0 = mesh.axis_index(s, axis) * rows
         lo = min(max(start - row0, 0), rows)
         hi = min(max(end - row0, 0), rows)
         q = queries.to(shard.device)
@@ -115,7 +116,7 @@ class ShardedIndex:
         self.axis = axis
         self.shards = shards
         self.row_scales = row_scales
-        self.n_shards = mesh.check_covers(axis)
+        self.n_shards = mesh.axis_size(axis)
         self.rows_per_shard = shards[0].shape[0]
 
     @property

@@ -75,8 +75,8 @@ class ServingContext:
         annotator=None,
     ):
         """``index_dtype``, ``search_impl``, ``ivf_nprobe``, ``ivf_clusters``,
-        ``ivfpq_host_store`` and ``mesh`` (the exact tiers' rows split over
-        its slots): see ``FrameIndex``; applied to every per-model index. An invalid combination raises here, at boot,
+        ``ivfpq_host_store`` and ``mesh`` (the index split over its
+        slots, every tier): see ``FrameIndex``; applied to every per-model index. An invalid combination raises here, at boot,
         not at the first request. ``batch_window_ms``: concurrent queries
         arriving within the window coalesce into one device dispatch
         (``serving.batcher``); None disables. ``transcriber``: a

@@ -1,8 +1,8 @@
 """Contrastive fine-tuning of the CLIP towers: the trainer and its levers
 (gradient accumulation, Muon, LoRA, remat, GradCache, FLIP patch drop), on
-one device or over a mesh (data parallelism, FSDP, several processes), the
-sharded checkpoints, the trainer variants and distillation. MoE waits for
-ROADMAP item A17; the model, stage and sequence axes for A21."""
+one device or over a mesh (data parallelism, FSDP, tensor parallelism,
+several processes), the sharded checkpoints, the trainer variants and
+distillation. MoE waits for ROADMAP item A17."""
 
 from .data import CaptionDataset, prefetch_batches
 from .distill import DistillationTrainer, DistillConfig, embed_align_loss, similarity_kd_loss

@@ -43,8 +43,9 @@ The levers follow the JAX trainer:
   merged into the dense kernels inside the forward, the base frozen;
   ``Trainer.merged_clip_params`` is the tree that serves;
 - ``gradcache_chunks`` > 1: the chunked exact gradient of
-  ``gradcache.gradcache_value_and_grad`` (refused with moe, LoRA or
-  ``patch_drop``, ``ValueError``).
+  ``gradcache.gradcache_parts`` (refused with moe, LoRA or
+  ``patch_drop``, ``ValueError``); over a mesh the chunks are of the global
+  batch, each chunk's rows encoded on the slots that hold them.
 
 Where the JAX step donates its buffers, the port updates the params and the
 moments in place. The vision tower of ViT-L/14@336px (T = 577) runs its
@@ -62,8 +63,15 @@ summed over the slots in slot order, then over the processes
 (``parallel.multihost``). One gradient function (``make_grad_fn``) serves
 both layouts: one device is the one-slot case. Data parallelism keeps the params once per
 distinct device; FSDP (``parallel.fsdp``) keeps each slot's shard of the
-params, the AdamW moments and the EMA, gathers the whole params once per
-device for the step and updates each shard where it lives.
+params, the optimizer state and the EMA, gathers the whole params once per
+device for the step and updates each shard where it lives; Muon's
+Newton–Schulz takes the whole matrix (its momentum gathered, each slot
+taking its shard of the update) and accumulation the whole running mean's
+clip and finite decisions. On a ``("data", "model")`` mesh tensor
+parallelism (``parallel.tp``) keeps each model slot's shard of the block
+weights, gathers a block's weights whole where the block runs, and each slot
+updates its shard. The batch splits over the groups of the data axis
+(``Mesh.leaders``); the other axes' slots of a group share its rows.
 """
 
 from __future__ import annotations
@@ -83,9 +91,10 @@ from evr_tpu_torch.models.classifier import ClassifierConfig, classifier_forward
 from evr_tpu_torch.models.clip import CLIPConfig, encode_image, encode_text
 from evr_tpu_torch.models.convert import params_from_numpy
 from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
+from evr_tpu_torch.parallel.tp import lazy_aliases, lazy_tree, splits_over
 from evr_tpu_torch.utils.device import resolve_device
 
-from .gradcache import gradcache_value_and_grad
+from .gradcache import gradcache_parts
 from .lora import init_lora, merge_lora
 from .losses import combined_clip_loss
 from .muon import muon_direction, muon_param_labels
@@ -265,12 +274,25 @@ class GroupedAdamW:
             finite = bool(torch.stack([torch.isfinite(t).all() for t in g]).all().item())
         return finite, global_norm(g) if self.cfg.grad_clip > 0 else None
 
+    def clipped(self, g: list[torch.Tensor], norm: torch.Tensor | None) -> list[torch.Tensor]:
+        """``g`` scaled to the clip where their global ``norm`` reaches it."""
+        if self.cfg.grad_clip > 0 and not bool(norm < self.cfg.grad_clip):
+            return [(t / norm.to(t.device)) * self.cfg.grad_clip for t in g]
+        return g
+
+    def muon(self, grad: torch.Tensor, momentum: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """A Muon leaf's (update direction, new momentum) from its clipped
+        gradient: Nesterov momentum, then Newton–Schulz."""
+        return muon_direction(grad, momentum, self.cfg.muon_momentum, True, self.cfg.muon_ns_steps)
+
     @torch.no_grad()
-    def apply(self, params, grads: dict[str, torch.Tensor], state: dict, stats=None) -> bool:
+    def apply(self, params, grads: dict[str, torch.Tensor], state: dict, stats=None,
+              muon_fn=None) -> bool:
         """One update of ``params`` (in place) from ``grads`` (path key →
         gradient of every trainable leaf). Returns whether it was applied.
         ``stats``: ``grad_stats`` of the whole gradients, where ``params`` and
-        ``grads`` are one slot's shards."""
+        ``grads`` are one slot's shards; ``muon_fn(key, norm)`` then gives a
+        Muon leaf's (update, momentum) shards, from the whole matrix."""
         cfg = self.cfg
         flat = self.trainable(flat_leaves(params))
         g = [grads[k] for k in flat]
@@ -281,9 +303,7 @@ class GroupedAdamW:
             state["total_notfinite"] += 0 if finite else 1
             if not (finite or state["notfinite_count"] > cfg.max_consecutive_nonfinite):
                 return False
-        if cfg.grad_clip > 0:
-            if not bool(norm < cfg.grad_clip):
-                g = [(t / norm.to(t.device)) * cfg.grad_clip for t in g]
+        g = self.clipped(g, norm)
         count = state["count"]
         lrs = self.learning_rates(count)
         b1, b2 = cfg.betas
@@ -293,8 +313,10 @@ class GroupedAdamW:
             dev = p.device
             label = self.labels[key]
             if self.is_muon(key):
-                u, state["momentum"][key] = muon_direction(
-                    grad, state["momentum"][key], cfg.muon_momentum, True, cfg.muon_ns_steps)
+                if muon_fn is not None:
+                    u, state["momentum"][key] = muon_fn(key, norm)
+                else:
+                    u, state["momentum"][key] = self.muon(grad, state["momentum"][key])
                 p.add_(u * (-lrs[label]).to(dev))
                 continue
             # as the JAX trainer's compiled step computes it: b1, a weak scalar,
@@ -336,18 +358,27 @@ class MultiSteps:
                 "inner_opt_state": self.inner.init(params)}
 
     @torch.no_grad()
-    def apply(self, params, grads: dict[str, torch.Tensor], state: dict):
+    def apply(self, params, grads: dict[str, torch.Tensor], state: dict, **inner_kw):
         """Fold ``grads`` in; on an emitting call, the inner optimizer's
-        ``apply`` of the mean (its result returned). Otherwise False."""
+        ``apply`` of the mean (its result returned). Otherwise False.
+        ``inner_kw`` go to the inner ``apply`` (under FSDP ``GroupedAdamW``'s
+        ``stats`` and ``muon_fn``, of the whole mean, where ``grads`` are one
+        slot's shards)."""
         n = state["mini_step"]
-        acc = {k: a + (grads[k] - a) / (n + 1) for k, a in state["acc_grads"].items()}
+        acc = self.mean(state["acc_grads"], grads, n)
         state["mini_step"] = (n + 1) % self.every_k
         if n != self.every_k - 1:
             state["acc_grads"] = acc
             return False
         state["gradient_step"] += 1
         state["acc_grads"] = {k: torch.zeros_like(a) for k, a in acc.items()}
-        return self.inner.apply(params, acc, state["inner_opt_state"])
+        return self.inner.apply(params, acc, state["inner_opt_state"], **inner_kw)
+
+    @staticmethod
+    def mean(acc: dict[str, torch.Tensor], grads: dict[str, torch.Tensor], n: int) -> dict[str, torch.Tensor]:
+        """The running mean after its (n + 1)-th call: ``acc + (g − acc) /
+        (n + 1)``, each ``g`` taken to its mean's device."""
+        return {k: a + (grads[k].to(a.device) - a) / (n + 1) for k, a in acc.items()}
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -420,31 +451,40 @@ def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: T
     the first slot's device, then over the processes. Over several slots
     the result equals the one-slot step's on the global batch up to the
     order of those sums. ``cfg.gradcache_chunks`` > 1 takes GradCache's
-    gradient, on one slot only (over several: ROADMAP item A21)."""
+    gradient: over several slots the chunks are of the global batch, each
+    chunk's rows encoded by the slots that hold them, the head over the
+    whole batch's embeddings on the first slot's device.
+
+    ``params`` may hold ``ShardedTensor`` leaves split over another mesh axis
+    (tensor parallelism, ``parallel.tp.lazy_tree``): each slot then gathers
+    a block's weights where the block runs, and the gradient of each is the
+    whole gradient."""
     check_supported(cfg)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     if model_cfg.attn_impl == "auto":
         model_cfg = dataclasses.replace(model_cfg, attn_impl="auto_grad")
     n_patches, n_keep = patch_keep_count(model_cfg, cfg.patch_drop)
-    n_slots = 1 if mesh is None else mesh.check_covers(axis)
+    n_slots = 1 if mesh is None else mesh.axis_size(axis)
     use_gradcache = cfg.gradcache_chunks > 1
     if use_gradcache and (cfg.moe is not None or cfg.lora_rank > 0 or cfg.patch_drop > 0.0):
         raise ValueError("gradcache_chunks > 1 is unsupported with moe/lora/patch_drop")
-    if use_gradcache and n_slots > 1:
-        raise NotImplementedError("gradcache_chunks > 1 over a mesh is not ported yet (ROADMAP item A21)")
     across = mesh is not None and mesh.process_count > 1
+    if use_gradcache and across:
+        raise ValueError("gradcache_chunks > 1 runs over the slots of one process")
 
     def clip_of(params):
         if "lora" in params:
             return merge_lora(params["clip"], params["lora"], cfg.lora_alpha)
         return params["clip"]
 
-    def loss(imgs, txts, clip_ps, logits, labels):
+    def loss(imgs, txts, clip_ps, logits, labels, whole=False):
+        """The global batch's loss: from one slot's rows (``whole``: the
+        whole batch's rows on one device), or from each slot's rows."""
         kw = dict(contrastive_weight=cfg.contrastive_weight,
                   classification_weight=cfg.classification_weight,
                   label_smoothing=cfg.label_smoothing, contrastive_impl=cfg.contrastive_loss)
         with_labels = bool(logits) and labels[0] is not None
-        if n_slots == 1:
+        if n_slots == 1 or whole:
             return combined_clip_loss(
                 imgs[0], txts[0], clip_ps[0]["logit_scale"],
                 class_logits=logits[0] if with_labels else None,
@@ -460,32 +500,45 @@ def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: T
     def unit(x):
         return x / x.norm(dim=-1, keepdim=True)
 
-    def gradcache_grads(params, images, tokens, labels, generator, leaves):
-        clip_p = params["clip"]
-        dev = clip_p["logit_scale"].device
+    def gradcache_grads(aliases, per_slot, slots, devices, images, tokens, labels, generator, train_keys):
+        """GradCache (``gradcache.gradcache_parts``) over the slots: chunk c
+        is rows [c·B/C, (c+1)·B/C) of the global batch, and each slot encodes
+        the part of it that it holds (rows [i·b, (i+1)·b)). The head (the
+        loss of the whole batch, its gradients for the embeddings and the
+        loss-side leaves) runs on the first slot's device."""
+        n_chunks = cfg.gradcache_chunks
+        total = images.shape[0]
+        if total % n_chunks:
+            raise ValueError(f"gradcache: batch size {total} not divisible by {n_chunks} chunks")
+        b, c = total // len(slots), total // n_chunks
+        dev0 = devices[slots[0]]
+        clips = [a["clip"] for a in aliases]
 
-        def encode_fn(cb):
-            return {"img": encode_image(clip_p, model_cfg, _pixels(cb["images"], dev), dtype=dtype),
-                    "txt": encode_text(clip_p, model_cfg, cb["tokens"], dtype=dtype)}
+        def encoder(i, lo, hi):
+            dev = devices[slots[i]]
+            return lambda: {"img": encode_image(clips[i], model_cfg, _pixels(images[lo:hi], dev), dtype=dtype),
+                            "txt": encode_text(clips[i], model_cfg, tokens[lo:hi].to(dev), dtype=dtype)}
 
-        def head_fn(emb, aux):
+        chunks = [[(i, encoder(i, max(lo, i * b), min(lo + c, (i + 1) * b))) for i in range(len(slots))
+                   if max(lo, i * b) < min(lo + c, (i + 1) * b)] for lo in range(0, total, c)]
+
+        def head_fn(emb, _):
             img, txt = unit(emb["img"]), unit(emb["txt"])
             logits = []
-            if cls_cfg is not None and params.get("classifier") is not None:
-                logits = [classifier_forward(params["classifier"], cls_cfg, img, deterministic=False,
-                                             generator=aux["generator"])]
-            return loss([img], [txt], [clip_p], logits, [aux["labels"]])
+            if cls_cfg is not None and aliases[0].get("classifier") is not None:
+                logits = [classifier_forward(aliases[0]["classifier"], cls_cfg, img, deterministic=False,
+                                             generator=generator)]
+            return loss([img], [txt], [clips[0]], logits, [None if labels is None else labels.to(dev0)],
+                        whole=True)
 
-        vag = gradcache_value_and_grad(encode_fn, head_fn, cfg.gradcache_chunks)
-        chunked = {"images": images.to(dev), "tokens": tokens.to(dev)}
-        aux = {"labels": None if labels is None else labels.to(dev), "generator": generator}
-        (_, metrics), grads = vag(chunked, aux, leaves)
-        return {k: v.detach() for k, v in metrics.items()}, grads
+        (_, metrics), grads = gradcache_parts(chunks, head_fn, None,
+                                              [{k: leaves[k] for k in train_keys} for leaves in per_slot])
+        return metrics, grads
 
     def fn(params, batch, generator=None, train: bool = True):
         replicas = params if mesh is not None else {flat_leaves(params)["clip/logit_scale"].device: params}
         if mesh is not None:
-            slots, devices = mesh.local_slots, mesh.slot_devices
+            slots, devices = mesh.leaders(axis), mesh.slot_devices
         else:
             slots, devices = [0], list(replicas)
         images = torch.as_tensor(batch["images"])
@@ -503,12 +556,18 @@ def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: T
             keep = draw_patch_keep(generator, b * n_slots, n_patches, n_keep, gen_dev)
         group = flat_leaves(param_group_labels(some, cfg.freeze_layers))
         train_keys = [k for k, g in group.items() if g != "frozen"]
-        aliases = [map_with_paths(replicas[devices[g]], lambda path, t: t.detach().requires_grad_(
-            train and group[_path_key(path)] != "frozen")) for g in slots]
-        per_slot = [flat_leaves(a) for a in aliases]
+        if splits_over(some, axis):
+            # tensor parallelism: block weights gathered where each block runs
+            built = [lazy_aliases(replicas[devices[g]], devices[g],
+                                  lambda key: train and group[key] != "frozen") for g in slots]
+            aliases, per_slot = [a for a, _ in built], [r for _, r in built]
+        else:
+            aliases = [map_with_paths(replicas[devices[g]], lambda path, t: t.detach().requires_grad_(
+                train and group[_path_key(path)] != "frozen")) for g in slots]
+            per_slot = [flat_leaves(a) for a in aliases]
         if train and use_gradcache:
-            return gradcache_grads(aliases[0], images, tokens, labels, generator,
-                                   {k: per_slot[0][k] for k in train_keys})
+            return gradcache_grads(aliases, per_slot, slots, devices, images, tokens, labels, generator,
+                                   train_keys)
         if train and with_cls and cls_cfg.dropout > 0.0:
             mask = torch.rand((b * n_slots, cls_cfg.hidden_dim), generator=generator,
                               device=gen_dev) < 1.0 - cls_cfg.dropout
@@ -517,7 +576,8 @@ def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: T
             for i, g in enumerate(slots):
                 dev = devices[g]
                 clip_p = clip_of(aliases[i])
-                rows, grows = slice(i * b, (i + 1) * b), slice(g * b, (g + 1) * b)
+                row0 = mesh.axis_index(g, axis) * b if mesh is not None else 0
+                rows, grows = slice(i * b, (i + 1) * b), slice(row0, row0 + b)
                 pk = None if keep is None else keep[grows].to(dev)
                 img = encode_image(clip_p, model_cfg, _pixels(images[rows], dev), dtype=dtype,
                                    patch_keep=pk)
@@ -580,18 +640,46 @@ def _ema_update(cfg: TrainConfig, ema, params) -> None:
 
 def _fsdp_apply(optimizer, state: TrainState, grads: dict[str, torch.Tensor], mesh) -> None:
     """Each local slot's update of its shards: its shard of the whole
-    gradients, the clip and finite decisions from the whole gradients, the
-    AdamW update of its shard of the params and moments."""
-    from evr_tpu_torch.parallel.fsdp import shard_of, slot_view, write_back
+    gradients (under ``MultiSteps``, of the whole running mean), the clip and
+    finite decisions from the whole ones, the AdamW update of its shard of
+    the params and moments; a Muon leaf's Newton–Schulz runs once on the
+    whole matrix (the momentum gathered from the slots) and each slot takes
+    its shard of the update and of the new momentum."""
+    from evr_tpu_torch.parallel.fsdp import ShardedTensor, shard_of, slot_view, write_back
 
-    stats = optimizer.grad_stats([grads[k] for k in grads])
     flat = flat_leaves(state.params)
+    opt_state, inner, whole = state.opt_state, optimizer, grads
+    emitting = True
+    if isinstance(optimizer, MultiSteps):
+        n = opt_state["mini_step"]
+        emitting = n == optimizer.every_k - 1
+        acc = {k: a.full() if isinstance(a, ShardedTensor) else a for k, a in opt_state["acc_grads"].items()}
+        whole = optimizer.mean(acc, grads, n)
+        inner, opt_state = optimizer.inner, opt_state["inner_opt_state"]
+    stats = inner.grad_stats([whole[k] for k in whole]) if emitting else None
+    muon = emitting and inner.cfg.optimizer == "muon"
+    if muon:
+        done = {}
+
+        def whole_muon(key, norm):
+            if key not in done:
+                (g,) = inner.clipped([whole[key]], norm)
+                buf = opt_state["momentum"][key]
+                done[key] = inner.muon(g, buf.full(g.device) if isinstance(buf, ShardedTensor) else buf)
+            return done[key]
+
     slots = mesh.local_slots
     views = [slot_view(state.opt_state, i) for i in range(len(slots))]
     for i, g in enumerate(slots):
         dev = mesh.slot_devices[g]
         shard_grads = {k: shard_of(v, flat[k].sharding, g).to(dev) for k, v in grads.items()}
-        optimizer.apply(slot_view(state.params, i), shard_grads, views[i], stats=stats)
+        fn = None
+        if muon:
+            def fn(key, norm, g=g, dev=dev):
+                u, buf = whole_muon(key, norm)
+                sh = flat[key].sharding
+                return shard_of(u, sh, g).to(dev), shard_of(buf, sh, g).to(dev).clone()
+        optimizer.apply(slot_view(state.params, i), shard_grads, views[i], stats=stats, muon_fn=fn)
     for i, view in enumerate(views):
         state.opt_state = write_back(state.opt_state, view, i)
 
@@ -617,16 +705,15 @@ def make_train_step(
     split over the slots of ``axis`` (``make_grad_fn``) and the step
     equals the one-device step on the global batch. Data parallelism keeps
     the params once, on the first slot's device, with a copy on each other
-    distinct device. With ``state_shardings`` (``parallel.fsdp.
-    fsdp_state_shardings``) the state is a tree of ``ShardedTensor``s: the
-    whole params are gathered once per distinct device for the gradients and
-    each slot updates its own shards (``_fsdp_apply``); AdamW only (Muon's
-    orthogonalisation and accumulation under FSDP are ROADMAP item A21)."""
+    distinct device. With ``state_shardings`` the state is a tree of
+    ``ShardedTensor``s and each slot updates its own shards
+    (``_fsdp_apply``; AdamW or Muon, with or without ``MultiSteps``):
+    ``parallel.fsdp.fsdp_state_shardings`` splits over ``axis`` and the
+    whole params are gathered once per distinct device for the gradients;
+    ``parallel.tp.tp_state_shardings`` splits the block weights over the
+    model axis of a ``("data", "model")`` mesh, and each slot gathers a
+    block's weights where the block runs (``parallel.tp.lazy_tree``)."""
     grad_fn = make_grad_fn(model_cfg, cls_cfg, cfg, mesh, axis)
-    if state_shardings is not None and not isinstance(optimizer, GroupedAdamW):
-        raise NotImplementedError("FSDP with gradient accumulation is not ported yet (ROADMAP item A21)")
-    if state_shardings is not None and cfg.optimizer == "muon":
-        raise NotImplementedError("FSDP with Muon is not ported yet (ROADMAP item A21)")
 
     def params_of(state):
         """The params tree, or over a mesh the params once per distinct local
@@ -634,9 +721,7 @@ def make_train_step(
         if mesh is None:
             return state.params
         if state_shardings is not None:
-            from evr_tpu_torch.parallel.fsdp import gather_tree
-
-            return {d: gather_tree(state.params, d) for d in mesh.local_devices}
+            return {d: lazy_tree(state.params, d, axis) for d in mesh.local_devices}
         master = state.params
         home = flat_leaves(master)["clip/logit_scale"].device
         return {d: master if d == home else _to_device(master, d) for d in mesh.local_devices}
@@ -687,8 +772,9 @@ class Trainer:
     best/final checkpoints, resume (epoch-level and mid-epoch autosave).
     Runs on ``cuda`` unless ``device="cpu"`` is asked for, or over ``mesh``
     (``parallel.mesh``): data parallelism, or with ``fsdp=True`` the params,
-    the AdamW moments and the EMA sharded over the slots
-    (``parallel.fsdp``). Across processes (``parallel.multihost``) each
+    the optimizer state and the EMA sharded over the slots
+    (``parallel.fsdp``); a mesh with a ``model`` axis of more than one slot
+    shards the block weights over it (``parallel.tp``). Across processes (``parallel.multihost``) each
     process feeds its rows of the global batch; only the coordinator writes
     checkpoints, whole trees gathered from the shards."""
 
@@ -716,6 +802,10 @@ class Trainer:
             raise ValueError(
                 "fsdp=True with an 'expert' mesh axis is unsupported — pick one state layout "
                 "(ZeRO-3 over data, or experts over expert)")
+        tensor_parallel = mesh is not None and mesh.shape.get("model", 1) > 1
+        if fsdp and tensor_parallel:
+            raise ValueError("fsdp=True with a 'model' mesh axis is unsupported — pick one state layout "
+                             "(ZeRO-3 over data, or tensor parallelism over model)")
         self.mesh = mesh
         self.device = (resolve_device(device) if mesh is None
                        else mesh.slot_devices[mesh.local_slots[0]])
@@ -743,10 +833,12 @@ class Trainer:
         self.optimizer = make_optimizer(self.cfg, params, steps_per_epoch)
         ema_on = self.cfg.ema_decay > 0.0
         self._state_shardings = None
-        if fsdp:
+        if fsdp or tensor_parallel:
             from evr_tpu_torch.parallel.fsdp import fsdp_state_shardings, shard_tree
+            from evr_tpu_torch.parallel.tp import tp_state_shardings
 
-            self._state_shardings = sh = fsdp_state_shardings(params, self.optimizer, mesh, ema=ema_on)
+            plan = tp_state_shardings if tensor_parallel else fsdp_state_shardings
+            self._state_shardings = sh = plan(params, self.optimizer, mesh, ema=ema_on)
             self.state = TrainState(
                 params=shard_tree(params, sh.params),
                 opt_state=shard_tree(self.optimizer.init(params), sh.opt_state),

@@ -84,7 +84,7 @@ def combined_clip_loss(
 def _global_clip_loss(image_features, text_features, logit_scale, class_logits, class_labels,
                       contrastive_weight, classification_weight, label_smoothing,
                       contrastive_impl, logit_bias, axis, mesh):
-    n = mesh.check_covers(axis)
+    n = mesh.axis_size(axis)
     if contrastive_impl == "siglip":
         if logit_bias is None:
             logit_bias = torch.tensor(-10.0, device=image_features[0].device)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 from typing import Any
 
-Path = tuple[str, ...]
+from evr_tpu_torch.utils.tree import Path, iter_paths, map_with_paths
 
 _BLOCK_ORDER = (
     ("attn", "qkv", "kernel"),
@@ -74,27 +74,6 @@ def freeze_paths(clip_params: dict, freeze_layers: int) -> set[Path]:
     frozen = set(_visual_tensor_order(nv)[:freeze_layers])
     frozen |= set(_text_tensor_order(nt)[:freeze_layers])
     return frozen
-
-
-def iter_paths(tree: Any, prefix: Path = ()):  # leaves of nested dict/list
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from iter_paths(v, prefix + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from iter_paths(v, prefix + (str(i),))
-    else:
-        yield prefix, tree
-
-
-def map_with_paths(tree: Any, fn, prefix: Path = ()):
-    if isinstance(tree, dict):
-        return {k: map_with_paths(v, fn, prefix + (str(k),)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [
-            map_with_paths(v, fn, prefix + (str(i),)) for i, v in enumerate(tree)
-        ]
-    return fn(prefix, tree)
 
 
 def param_group_labels(params: dict, freeze_layers: int = 0) -> Any:

@@ -1,11 +1,15 @@
 """Checkpoints of sharded trees, written shard by shard (PyTorch).
 
-Counterpart of ``evr_tpu/training/sharded_ckpt.py`` for the data-parallel
-and FSDP trees (``parallel.fsdp.ShardedTensor`` leaves). Orbax needs JAX, so
-the port's format is its own: a checkpoint is a directory holding
+Counterpart of ``evr_tpu/training/sharded_ckpt.py`` for every layout of
+``parallel.fsdp.ShardedTensor`` leaves: data-parallel and FSDP trees,
+tensor-parallel ones (``parallel.tp.clip_param_shardings``: columns or rows
+split over ``model``) and stage-stacked ones (``parallel.pp.stage_params``:
+the layer axis split over ``stage``). Orbax needs JAX, so the port's format
+is its own: a checkpoint is a directory holding
 
-- ``slot-<n>.pt``: a dict path → tensor of the shards global slot n owns
-  (written by the process that owns the slot);
+- ``slot-<n>.pt``: a dict path → tensor of shard n of every split leaf
+  (written once, by the process owning the first slot that holds it; on a
+  one-axis mesh shard n is slot n's);
 - ``replicated.pt``: the leaves that are whole (plain tensors and replicated
   ``ShardedTensor``s), written by the coordinator;
 - ``index.json``: for every leaf its path, shape, dtype, split dimension and
@@ -17,8 +21,8 @@ tree (a ``ShardedTensor`` leaf gives its sharding, a tensor its device). The
 files are memory-mapped, so a slot reads the saved shards that overlap its
 own slice. An overwrite writes ``<path>.tmp`` in full, then removes the old
 checkpoint and renames; a crash in that window leaves the complete ``.tmp``,
-which ``restore_sharded`` falls back to. The tensor- and pipeline-parallel
-layouts are ROADMAP item A21.
+which ``restore_sharded`` falls back to. A checkpoint is topology-free:
+saved over ``model`` 2, it restores whole, replicated, or over ``model`` 4.
 """
 
 from __future__ import annotations
@@ -50,9 +54,8 @@ def _dtype(name: str) -> torch.dtype:
 
 def _describe(leaf) -> dict:
     if isinstance(leaf, ShardedTensor):
-        d = leaf.sharding.dim
-        n = 1 if d is None else leaf.sharding.mesh.axis_size(leaf.sharding.spec[d])
-        return {"shape": list(leaf.shape), "dtype": str(leaf.dtype), "dim": d, "shards": n}
+        sh = leaf.sharding
+        return {"shape": list(leaf.shape), "dtype": str(leaf.dtype), "dim": sh.dim, "shards": sh.n_shards}
     if isinstance(leaf, torch.Tensor):
         return {"shape": list(leaf.shape), "dtype": str(leaf.dtype), "dim": None, "shards": 1}
     return {"value": leaf}
@@ -74,8 +77,14 @@ def save_sharded(path, tree: Any) -> None:
         key = _key(p)
         index[key] = _describe(leaf)
         if isinstance(leaf, ShardedTensor) and leaf.sharding.dim is not None:
-            for i, s in enumerate(leaf.sharding.mesh.local_slots):
-                per_slot.setdefault(s, {})[key] = leaf.shards[i].detach().cpu()
+            sh = leaf.sharding
+            first = {}  # shard → the first global slot holding it
+            for t in range(sh.mesh.size):
+                first.setdefault(sh.shard_index(t), t)
+            for i, s in enumerate(sh.mesh.local_slots):
+                j = sh.shard_index(s)
+                if first[j] == s:
+                    per_slot.setdefault(j, {})[key] = leaf.shards[i].detach().cpu()
         elif isinstance(leaf, ShardedTensor):
             replicated[key] = leaf.shards[0].detach().cpu()
         elif isinstance(leaf, torch.Tensor):
@@ -158,8 +167,9 @@ def restore_sharded(path, target: Any) -> Any:
             if d is None:
                 part = reader.slice(key, None, 0, 0)
             else:
-                per = meta["shape"][d] // sharding.mesh.axis_size(sharding.spec[d])
-                part = reader.slice(key, d, s * per, (s + 1) * per)
+                per = meta["shape"][d] // sharding.n_shards
+                j = sharding.shard_index(s)
+                part = reader.slice(key, d, j * per, (j + 1) * per)
             shards.append(part.to(device=devices[s], dtype=dtype).clone())
         return ShardedTensor(shards, sharding, tuple(meta["shape"]))
 

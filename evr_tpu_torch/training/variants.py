@@ -345,7 +345,6 @@ class ProjectionTrainer:
         self.cfg = cfg or ProjectionTrainConfig()
         self.mesh = mesh
         if mesh is not None:
-            mesh.check_covers("data" if "data" in mesh.axis_names else mesh.axis_names)
             if mesh.process_count > 1:
                 raise NotImplementedError("ProjectionTrainer(mesh=...) takes a one-process mesh")
             device = mesh.slot_devices[mesh.local_slots[0]]
@@ -380,7 +379,7 @@ class ProjectionTrainer:
         clip = self.params["clip"]
         if self.mesh is None:
             return encode(clip, cfg, x.to(self.device), dtype=dtype)
-        slots = self.mesh.local_slots
+        slots = self.mesh.leaders("data" if "data" in self.mesh.axis_names else self.mesh.axis_names)
         if x.shape[0] % len(slots):
             raise ValueError(f"{x.shape[0]} rows do not split over {len(slots)} slots")
         b = x.shape[0] // len(slots)

@@ -200,7 +200,8 @@ def test_mesh_step_draws_for_the_global_batch():
 def test_multislice_training_step(monkeypatch):
     """``tests/test_multislice.py``: rows over a (replica 2 × data 4) mesh,
     both axes jointly, give the single-device global-batch loss; the layout
-    needs 8 slots."""
+    needs 8 slots. Over ``data`` alone the replica axis's slots share their
+    group's rows, and the loss is the same."""
     monkeypatch.setenv("EVR_TPU_CPU_DEVICES", "8")
     mesh = get_multislice_mesh(2, 4, device="cpu")
     assert mesh.shape == {"replica": 2, "data": 4}
@@ -211,8 +212,9 @@ def test_multislice_training_step(monkeypatch):
     m1, _, _ = _steps(tc_kw, batch)
     m8, _, _ = _steps(tc_kw, batch, mesh=mesh, axis=("replica", "data"))
     np.testing.assert_allclose(m8["contrastive_loss"], m1["contrastive_loss"], rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="A21"):
-        make_grad_fn(cfgs()[1], TCLS, TrainConfig(), mesh, "data")
+    assert mesh.leaders("data") == [0, 1, 2, 3] and mesh.leaders(("replica", "data")) == list(range(8))
+    m4, _, p4 = _steps(tc_kw, batch, mesh=mesh, axis="data")
+    np.testing.assert_allclose(m4["contrastive_loss"], m1["contrastive_loss"], rtol=1e-5)
 
 
 def test_trainer_mesh_fit_equals_one_device_fit(tmp_path):
@@ -238,15 +240,17 @@ def test_trainer_mesh_fit_equals_one_device_fit(tmp_path):
 
 
 def test_mesh_refusals():
-    """What the port's data axis does not take raises before a step:
-    GradCache over a mesh and an axis that leaves slots out (the model axis)
-    name ROADMAP item A21; rows that do not split over the slots raise."""
+    """GradCache over a mesh and a mesh whose model axis holds slots (data
+    parallelism over its data groups) run, each with the one-device loss;
+    rows that do not split over the slots raise before a step."""
     mesh = get_mesh(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A21"):
-        make_grad_fn(cfgs()[1], TCLS, TrainConfig(gradcache_chunks=2), mesh)
-    with pytest.raises(NotImplementedError, match="A21"):
-        make_grad_fn(cfgs()[1], TCLS, TrainConfig(),
-                          get_mesh(4, ("data", "model"), (2, 2), device="cpu"))
+    batch = tiny_batch(np.random.default_rng(0), 8)
+    dev = torch.device("cpu")
+    ref = make_grad_fn(cfgs()[1], TCLS, TrainConfig(compute_dtype="float32"))(params_from_numpy(np_params()), batch)[0]
+    for tc, m in ((TrainConfig(gradcache_chunks=2, compute_dtype="float32"), mesh),
+                  (TrainConfig(compute_dtype="float32"), get_mesh(4, ("data", "model"), (2, 2), device="cpu"))):
+        got = make_grad_fn(cfgs()[1], TCLS, tc, m)({dev: params_from_numpy(np_params())}, batch)[0]
+        np.testing.assert_allclose(float(got["total_loss"]), float(ref["total_loss"]), rtol=1e-5)
     fn = make_grad_fn(cfgs()[1], TCLS, TrainConfig(compute_dtype="float32"), mesh)
     with pytest.raises(ValueError, match="do not split"):
         fn({torch.device("cpu"): params_from_numpy(np_params())}, tiny_batch(np.random.default_rng(0), 6))

@@ -211,8 +211,9 @@ def test_trainer_fsdp_fit_and_resume(tmp_path):
 
 def test_fsdp_refusals():
     """The JAX trainer's refusals (FSDP without a mesh; with an ``expert``
-    axis) and the port's: Muon and gradient accumulation under FSDP are
-    ROADMAP item A21."""
+    axis) and the port's (with a ``model`` axis: one state layout); Muon and
+    gradient accumulation under FSDP build, their moments, momentum and
+    accumulator split as their params."""
     p = np_params()
     tcfg = cfgs()[1]
     with pytest.raises(ValueError, match="requires a mesh"):
@@ -220,10 +221,15 @@ def test_fsdp_refusals():
     with pytest.raises(ValueError, match="expert"):
         Trainer(tcfg, p["clip"], TrainConfig(), fsdp=True,
                 mesh=get_mesh(4, ("data", "expert"), (2, 2), device="cpu"))
-    for kw in (dict(optimizer="muon"), dict(grad_accumulation_steps=2)):
-        with pytest.raises(NotImplementedError, match="A21"):
-            Trainer(tcfg, p["clip"], TrainConfig(compute_dtype="float32", **kw), fsdp=True,
-                    mesh=get_mesh(2, device="cpu"), log_fn=lambda s: None)
+    with pytest.raises(ValueError, match="model"):
+        Trainer(tcfg, p["clip"], TrainConfig(), fsdp=True,
+                mesh=get_mesh(4, ("data", "model"), (2, 2), device="cpu"))
+    for kw, key in ((dict(optimizer="muon"), "momentum"), (dict(grad_accumulation_steps=2), "acc_grads")):
+        tr = Trainer(tcfg, p["clip"], TrainConfig(compute_dtype="float32", freeze_layers=0, **kw), fsdp=True,
+                     mesh=get_mesh(2, device="cpu"), log_fn=lambda s: None)
+        leaf = tr.state.opt_state[key]["clip/text/token_embedding" if key == "acc_grads" else
+                                       "clip/visual/blocks/1/mlp/fc/kernel"]
+        assert isinstance(leaf, ShardedTensor) and len(leaf.shards) == 2
 
 
 def test_cli_fsdp_runs(tmp_path, monkeypatch, capsys):

@@ -22,6 +22,7 @@ from evr_tpu.ops.retrieval_pallas import fused_topk as jfused_topk
 from evr_tpu_torch.index import FrameIndex as TFrameIndex
 from evr_tpu_torch.ops import retrieval
 from evr_tpu_torch.ops.topk import cosine_topk
+from evr_tpu_torch.parallel import get_mesh
 
 SCORE_TOL = {"float32": 1e-5, "bfloat16": 1e-3, "int8": 1e-3}
 N, D, Q = 3072, 64, 5
@@ -112,7 +113,7 @@ def test_search_impl_values():
     ix = TFrameIndex(embed_dim=8, search_impl="pallas", device="cpu")
     assert ix.search_impl == "pallas" and ix.pad_multiple == 1024
     assert TFrameIndex(embed_dim=8, device="cpu").search_impl == "xla"
-    # the ANN tiers construct and search; under a mesh they are not ported (A21)
+    # the ANN tiers construct and search, on one device and under a mesh
     emb = np.random.default_rng(0).normal(size=(300, 8)).astype(np.float32)
     for impl in ("ivf", "ivfpq"):
         ann = TFrameIndex(embed_dim=8, search_impl=impl, ivf_clusters=4, ivf_nprobe=4,
@@ -120,8 +121,10 @@ def test_search_impl_values():
         ann.add_video("v", emb)
         s, r = ann.search_raw(emb[:2], 3)
         assert r.shape == (2, 3) and (r[:, 0] == [0, 1]).all() and np.isfinite(s).all()
-        with pytest.raises(NotImplementedError, match="A21"):
-            TFrameIndex(embed_dim=8, search_impl=impl, mesh=object(), device="cpu")
+        sharded = TFrameIndex(embed_dim=8, search_impl=impl, ivf_clusters=4, ivf_nprobe=4,
+                              mesh=get_mesh(2, device="cpu"))
+        sharded.add_video("v", emb)
+        assert (sharded.search_raw(emb[:2], 3)[1][:, 0] == [0, 1]).all()
     with pytest.raises(ValueError, match="unknown search_impl"):
         TFrameIndex(embed_dim=8, search_impl="faiss", device="cpu")
     # rows are padded to pad_multiple with 25% headroom

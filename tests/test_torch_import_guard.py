@@ -64,7 +64,9 @@ for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.
              "evr_tpu_torch.tools.train_sustained", "evr_tpu_torch.parallel.mesh",
              "evr_tpu_torch.parallel.sharded_search", "evr_tpu_torch.parallel.fsdp",
              "evr_tpu_torch.parallel.multihost", "evr_tpu_torch.training.sharded_ckpt",
-             "evr_tpu_torch.tools.pod_launch"):
+             "evr_tpu_torch.tools.pod_launch", "evr_tpu_torch.parallel.tp",
+             "evr_tpu_torch.parallel.pp", "evr_tpu_torch.parallel.sp",
+             "evr_tpu_torch.parallel.sharded_ann"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)

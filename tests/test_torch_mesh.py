@@ -153,7 +153,8 @@ def test_shard_index_cli_boots_and_serves(ingested_root, monkeypatch, capsys):
 def test_frame_index_mesh_layout_and_refusals():
     """Rows padded as the JAX package pads them under a mesh (whole 128-row
     tiles a shard); the int8 × ivf × mesh refusal is JAX's; the ANN tiers
-    under a mesh name ROADMAP item A21."""
+    under a mesh build a sub-index a shard (``tests/test_torch_sharded_ann.py``
+    holds them to JAX's)."""
     from evr_tpu.index.store import FrameIndex as JFrameIndex
 
     mesh, jmesh = get_mesh(4, device="cpu"), jget_mesh(4)
@@ -162,8 +163,11 @@ def test_frame_index_mesh_layout_and_refusals():
             JFrameIndex(embed_dim=8, mesh=jmesh)._padded_rows(n), n
     with pytest.raises(ValueError, match="mesh-sharded IVF"):
         FrameIndex(embed_dim=8, mesh=mesh, search_impl="ivf", device_dtype="int8")
+    rows = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
     for impl in ("ivf", "ivfpq"):
-        with pytest.raises(NotImplementedError, match="A21"):
-            FrameIndex(embed_dim=8, mesh=mesh, search_impl=impl)
+        ann = FrameIndex(embed_dim=8, mesh=mesh, search_impl=impl, ivf_clusters=4, ivf_nprobe=4)
+        ann.add_video("v", rows)
+        s, r = ann.search_raw(rows[:2], 3)
+        assert type(ann._ivf).__name__.startswith("Sharded") and (r[:, 0] == [0, 1]).all()
     ix = FrameIndex(embed_dim=8, mesh=mesh)
     assert ix.device == torch.device("cpu") and ix.mesh_axis == "data"

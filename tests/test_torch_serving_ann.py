@@ -200,10 +200,17 @@ def test_index_tool_text_query_and_refusals(setup, tmp_path):
     assert [h["row"] for h in lines[0]["hits"]] == want.tolist()
     with pytest.raises(SystemExit, match="query-embeddings"):
         _run_tool(["query", "--index", str(tmp_path / "i.npz"), "--type", "ivf"])
-    # invalid tier combinations fail at boot, and an ANN tier under a mesh names its item
+    # invalid tier combinations fail at boot; an ANN tier under a mesh boots sharded
     with pytest.raises(ValueError, match="ivfpq_host_store requires"):
         TContext(TRoot(tmp_path), engine=teng, ivfpq_host_store=True)
     with pytest.raises(ValueError, match="float32/bfloat16"):
         TContext(TRoot(tmp_path), engine=teng, search_impl="ivfpq", index_dtype="int8")
-    with pytest.raises(NotImplementedError, match="A21"):
-        TContext(TRoot(tmp_path), engine=teng, search_impl="ivf", mesh=object())
+    from evr_tpu_torch.parallel import get_mesh
+    from evr_tpu_torch.parallel.sharded_ann import ShardedIVFIndex
+
+    sharded = TContext(TRoot(setup[2]), engine=teng, search_impl="ivf", ivf_clusters=LISTS, ivf_nprobe=LISTS,
+                       mesh=get_mesh(4, device="cpu"))
+    sharded.boot()
+    _, got = sharded.index.search_raw(rows[:3], 5)
+    assert isinstance(sharded.index._ivf, ShardedIVFIndex)
+    assert got.tolist() == np.argsort(-(rows[:3] @ rows.T), axis=1, kind="stable")[:, :5].tolist()

@@ -4,8 +4,11 @@ FSDP trees: a tree saved shard by shard from 4 slots restores bit for bit
 onto 2 slots, 1 slot or a data-parallel (whole) layout; params, AdamW
 moments and the step round-trip; an overwrite is crash-safe; a template tree
 serves as the target. The JAX package writes orbax (JAX only), so the
-port's format is its own and is compared with the tree it saved. The JAX
-file's tensor- and pipeline-parallel cases are ROADMAP item A21."""
+port's format is its own and is compared with the tree it saved. The
+tensor-parallel trees (``parallel.tp.clip_param_shardings`` over a (data 4,
+model 2) mesh) round-trip with their placement and restore replicated and
+over model 4; the stage-stacked trees (``parallel.pp.stage_params``)
+round-trip with theirs."""
 
 import json
 
@@ -17,7 +20,9 @@ from evr_tpu_torch.models.clip import CLIPConfig, TextConfig, VisionConfig, init
 from evr_tpu_torch.models.convert import params_from_numpy
 from evr_tpu_torch.parallel import get_mesh
 from evr_tpu_torch.parallel.fsdp import ShardedTensor, fsdp_shardings, fsdp_state_shardings, gather_tree, shard_tree
+from evr_tpu_torch.parallel import pp
 from evr_tpu_torch.parallel.mesh import Sharding
+from evr_tpu_torch.parallel.tp import clip_param_shardings
 from evr_tpu_torch.training import TrainConfig, make_optimizer
 from evr_tpu_torch.training.finetune import flat_leaves
 from evr_tpu_torch.training.sharded_ckpt import (
@@ -128,3 +133,60 @@ def test_template_array_target(small_params, tmp_path):
     assert a.sharding == b.sharding and a.shards[1].shape == b.shards[1].shape
     save_sharded(tmp_path / "dp", params)  # whole tensors, as data parallelism holds them
     _assert_trees_equal(restore_sharded(tmp_path / "dp", sharded), params)
+
+
+def test_tp_sharded_roundtrip(small_params, tmp_path):
+    """``tests/test_sharded_ckpt.py::test_tp_sharded_roundtrip``: a (data 4,
+    model 2) tree saves each model shard once (two files, the data replicas
+    not written again) and restores bit-equal with its placement."""
+    _, params = small_params
+    mesh = get_mesh(8, ("data", "model"), (4, 2), device="cpu")
+    shardings = clip_param_shardings(mesh, params)
+    save_sharded(tmp_path / "ckpt", shard_tree(params, shardings))
+    files = sorted(p.name for p in (tmp_path / "ckpt").iterdir())
+    assert files == ["index.json", "replicated.pt", "slot-0.pt", "slot-1.pt"]
+    restored = restore_sharded(tmp_path / "ckpt", shardings)
+    _assert_trees_equal(restored, params)
+    leaf = restored["visual"]["blocks"][0]["attn"]["qkv"]["kernel"]
+    assert leaf.sharding.spec == (None, "model")
+    assert leaf.sharding.shard_shape(leaf.shape)[1] == leaf.shape[1] // 2
+    assert [tuple(t.shape) for t in leaf.shards] == [(64, 96)] * 8
+    assert torch.equal(leaf.shards[3], params["visual"]["blocks"][0]["attn"]["qkv"]["kernel"][:, 96:])
+
+
+def test_cross_topology_restore_tp(small_params, tmp_path):
+    """``tests/test_sharded_ckpt.py::test_cross_topology_restore``'s tensor-
+    parallel case: saved over model 2, restored replicated over a data mesh
+    and over (data 2, model 4), bit-equal both times."""
+    _, params = small_params
+    mesh2 = get_mesh(8, ("data", "model"), (4, 2), device="cpu")
+    save_sharded(tmp_path / "ckpt", shard_tree(params, clip_param_shardings(mesh2, params)))
+    rep = Sharding(get_mesh(8, device="cpu"), ())
+    _assert_trees_equal(restore_sharded(tmp_path / "ckpt", map_tree(params, lambda _: rep)), params)
+    mesh4 = get_mesh(8, ("data", "model"), (2, 4), device="cpu")
+    restored = restore_sharded(tmp_path / "ckpt", clip_param_shardings(mesh4, params))
+    _assert_trees_equal(restored, params)
+    leaf = restored["visual"]["blocks"][0]["mlp"]["fc"]["kernel"]
+    assert leaf.sharding.shard_shape(leaf.shape)[1] == leaf.shape[1] // 4 == leaf.shards[5].shape[1]
+
+
+def test_pp_stage_sharded_roundtrip(small_params, tmp_path):
+    """``tests/test_sharded_ckpt.py::test_pp_stage_sharded_roundtrip``: the
+    stage-stacked vision blocks save and restore with their stage
+    placement, bit-equal to the stacked blocks."""
+    _, params = small_params
+    mesh = get_mesh(4, ("stage",), device="cpu")
+    _, v_stacked, _ = pp.stage_params(mesh, params)
+    save_sharded(tmp_path / "v", v_stacked)
+    restored = restore_sharded(tmp_path / "v", pp.stage_shardings(mesh, v_stacked))
+    _assert_trees_equal(restored, pp.stack_blocks(params["visual"]["blocks"]))
+    leaf = restored["attn"]["qkv"]["kernel"]
+    assert leaf.sharding.shard_shape(leaf.shape)[0] == leaf.shape[0] // 4 == leaf.shards[2].shape[0]
+
+
+def map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(v, fn) for v in tree]
+    return fn(tree)
