@@ -279,7 +279,24 @@ package. Phases, each fatal on failure:
    2-slot step, a failed run failing the phase; (e)
    ``tools.finetune.main --fsdp`` over the default mesh, two steps with
    autosaves, then a run resumed from the first autosave whose loss equals
-   the saved run's second step.
+   the saved run's second step;
+19. the other mesh axes: the sharded IVF and IVF-PQ tiers over 4 slots (K7),
+   pipelined ViT-B/32 encodes (K1/K2, K3a/K3b), sequence-parallel
+   ViT-L/14@336px encodes, tensor-parallel steps (K1/K2, K5), GradCache,
+   Muon and accumulation over a mesh, and the tp and pp checkpoints
+   (``phase_axes``);
+20. the frame annotators at ViT-B/32's full width (``phase_annotators``): the
+   local OCR's ``LocalOCRAnnotator(device="cuda")`` against
+   ``device="cpu"`` on 1280 x 720 JPEGs with drawn lines of text (boxes and
+   texts equal, logits within OCR_LOGIT_BAND, also under a caller's TF32,
+   two crops swapped rejected), the held-out accuracy where the machine has
+   the DejaVu fonts; the first OCR training step on the card against the
+   CPU's and ``train_ocr`` for 200 steps; ``ZeroShotObjectAnnotator.
+   annotate_batch`` over 64 frames (1,216 crops) with bf16 and int8 weights,
+   K1/K2 and K3a/K3b launched exactly 11 an encode batch, the similarities
+   within the served bands of a plain-route twin's, two regions swapped
+   rejected; an upload with ``sync=1`` annotated by both, its records one a
+   frame, found by ``keyword_only`` and ``object_only``.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -287,6 +304,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -7227,6 +7245,543 @@ def phase_axes(torch, frames) -> dict:
     return out
 
 
+# -- 20. the frame annotators ---------------------------------------------------
+
+# The local OCR and the zero-shot object annotator at ViT-B/32's full width, on
+# INGEST_SIZE JPEG frames (the file type ingest writes). Lines of text are
+# drawn with the DejaVu fonts where the machine has them (ocr.FONT_PATHS) and
+# with cv2.putText where it has none; the OCR's training and held-out renders
+# then come from puttext_line, and the accuracy gate (OCR_ACC_BAR, the JAX
+# test's) runs only with the fonts. (a) LocalOCRAnnotator on the card against
+# the CPU on the same files: boxes and texts equal, the card's logits within
+# OCR_LOGIT_BAND of the CPU's (both fp32, TF32 off; about twice the gap
+# measured on an H100), two crops' logits swapped rejected; (b) the first
+# training step on the card against the CPU (the loss OCR_LOSS_REL relative,
+# each leaf's gradient within OCR_GRAD_TOL of its largest entry, under a
+# caller's TF32 within OCR_TF32_GRAD_BAND, the module's fp32 pin taken out
+# rejected, a gradient turned to cosine 0.99 rejected), then train_ocr for OCR_TRAIN_STEPS steps
+# under OCR_LOSS_BAR (the JAX CPU test's bar after 40); (c) the zero-shot
+# annotator over ANNOT_ZS_FRAMES frames (19 regions each) with bf16 and int8
+# weights: K1/K2 (K3a/K3b) launched exactly 11 an encode batch (crops and the
+# classifier's two text encodes), the similarities within the served bands of
+# a plain-route twin's, each region's decisions equal where the twin's margin
+# exceeds what the band can move (also under a wide-margin classifier made of
+# the twin's centred crop features, where some regions are held, a swap of two
+# rejected), two regions' rows swapped rejected; (d) an
+# upload with sync=1 annotated by both, searched by keyword_only and
+# object_only.
+ANNOT_SEED = 21
+ANNOT_WORDS = ("fire warning", "police arrive", "breaking news", "exit now", "danger zone", "live camera",
+               "road closed", "hello world")
+ANNOT_OCR_FRAMES = 16  # and one blank frame
+ANNOT_ZS_FRAMES = 64
+ANNOT_UPLOAD_WORDS = ("fire warning", "police arrive", "exit now")
+ANNOT_UPLOAD_SCENE = 25  # frames a scene, one word a scene
+OCR_LOGIT_BAND = 2e-4  # twice the gap an H100 gave (8.39e-5 on logits up to 180)
+OCR_LOSS_REL, OCR_GRAD_TOL = 1e-5, 5e-3
+# the first step's gradients under a caller's TF32: the module's pin must hold
+# them near the TF32-off gap (9.26e-6 of a leaf's largest entry on an H100, the
+# backward's sum order not fixed); the pin taken out gave 1.22e-3 there, inside
+# OCR_GRAD_TOL, so this band, not OCR_GRAD_TOL, is what sees TF32
+OCR_TF32_GRAD_BAND = 5e-5
+OCR_TRAIN_STEPS, OCR_TRAIN_BATCH, OCR_TRAIN_SET, OCR_LOSS_BAR = 200, 64, 1024, 85.0
+OCR_ACC_BAR, OCR_EVAL_N = 0.7, 256
+OCR_TIMED_STEPS = 20
+# accept-everything thresholds: random weights have no semantics (the JAX
+# package's end-to-end test uses the same)
+ZS_ACCEPT_ALL = dict(sim_threshold=-1.0, bg_margin=-10.0)
+
+
+def puttext_line(text: str, rng):
+    """``ocr.render_line`` without font files: the text drawn with
+    cv2.putText (the Hershey fonts draw ASCII only, so accents are folded
+    away; the label keeps them) at a random font, scale, weight and pad, then
+    staged and augmented as render_line stages its renders."""
+    import unicodedata
+
+    import cv2
+    import numpy as np
+
+    from evr_tpu_torch.ingest import ocr
+
+    folded = unicodedata.normalize("NFD", text).encode("ascii", "ignore").decode() or "?"
+    font = (cv2.FONT_HERSHEY_SIMPLEX, cv2.FONT_HERSHEY_DUPLEX)[int(rng.integers(2))]
+    scale, thick, pad = float(rng.uniform(0.6, 1.0)), int(rng.integers(1, 3)), int(rng.integers(2, 8))
+    (w, h), base = cv2.getTextSize(folded, font, scale, thick)
+    img = np.zeros((h + base + 2 * pad, w + 2 * pad), np.uint8)
+    cv2.putText(img, folded, (pad, pad + h), font, scale, 255, thick, cv2.LINE_AA)
+    return ocr.stage_crop(img.astype(np.float32) / 255.0, rng)
+
+
+def text_frame(word: str, background):
+    """An INGEST_SIZE BGR frame: ``background`` with one white line of text,
+    in DejaVu Sans where the machine has it, else cv2's Hershey simplex."""
+    import cv2
+    import numpy as np
+
+    from evr_tpu_torch.ingest import ocr
+
+    frame = np.ascontiguousarray(background)
+    if ocr.FONT_PATHS:
+        from PIL import Image, ImageDraw, ImageFont
+
+        img = Image.fromarray(frame[:, :, ::-1])
+        ImageDraw.Draw(img).text((100, 560), word, fill=(255, 255, 255),
+                                 font=ImageFont.truetype(ocr.FONT_PATHS[0], 64))
+        return np.ascontiguousarray(np.asarray(img)[:, :, ::-1])
+    cv2.putText(frame, word, (100, 600), cv2.FONT_HERSHEY_SIMPLEX, 2.0, (255, 255, 255), 3, cv2.LINE_AA)
+    return frame
+
+
+def scene_background(rng):
+    """A smooth seeded INGEST_SIZE background (blurred noise, camera-like)."""
+    import cv2
+
+    w, h = INGEST_SIZE
+    return cv2.GaussianBlur(rng.integers(10, 90, (h, w, 3)).astype("uint8"), (31, 31), 0)
+
+
+@contextlib.contextmanager
+def caller_tf32(torch):
+    """TF32 allowed for matmuls and cuDNN, as a caller may leave it."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def phase_annot_ocr(torch, tmp: pathlib.Path, device: str) -> dict:
+    """(a): OCR on the card (``device``) against the CPU plain path on the
+    same JPEGs."""
+    import cv2
+    import numpy as np
+
+    from evr_tpu_torch.ingest import ocr
+
+    fonts = bool(ocr.FONT_PATHS)
+    log(f"annotators: ocr.FONT_PATHS {list(ocr.FONT_PATHS) if fonts else 'is empty (no DejaVu fonts here): '}"
+        + ("" if fonts else "lines drawn with cv2.putText, renders by puttext_line, no accuracy gate"))
+    folder = tmp / "ocr_frames"
+    folder.mkdir()
+    rng = np.random.default_rng(ANNOT_SEED)
+    paths = []
+    for i in range(ANNOT_OCR_FRAMES):
+        paths.append(folder / f"{i:03d}.jpg")
+        cv2.imwrite(str(paths[-1]), text_frame(ANNOT_WORDS[i % len(ANNOT_WORDS)], scene_background(rng)))
+    paths.append(folder / "999.jpg")
+    cv2.imwrite(str(paths[-1]), np.full((INGEST_SIZE[1], INGEST_SIZE[0], 3), 90, np.uint8))
+    card, cpu = ocr.LocalOCRAnnotator(device=device), ocr.LocalOCRAnnotator(device="cpu")
+    grays = [cv2.imread(str(p), cv2.IMREAD_GRAYSCALE) for p in paths]
+    t0 = time.perf_counter()
+    boxes = [ocr.detect_text_regions(g) for g in grays]
+    detect_ms = 1e3 * (time.perf_counter() - t0) / len(grays)
+    card.annotate_batch(paths[:1])  # first call: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = card.annotate_batch(paths)
+    torch.cuda.synchronize()
+    annotate_s = time.perf_counter() - t0
+    ref = cpu.annotate_batch(paths)
+    spans, crops = card.frame_crops(paths)
+    check([s[2] for s in spans] == boxes == [s[2] for s in cpu.frame_crops(paths)[0]],
+          "ocr: the frames' boxes differ between calls")
+    logits_k = ocr._batched_logits(card.params, crops)
+    logits_p = ocr._batched_logits(cpu.params, crops)
+    gap = float(np.abs(logits_k - logits_p).max())
+    # the module pins fp32 itself: a caller that allows TF32 changes nothing
+    with caller_tf32(torch):
+        logits_tf32 = ocr._batched_logits(card.params, crops)
+    tf32_gap = float(np.abs(logits_tf32 - logits_p).max())
+    texts_k, conf_k = ocr.ctc_greedy_decode(logits_k)
+    texts_p, conf_p = ocr.ctc_greedy_decode(logits_p)
+    pair = next(j for j in range(1, len(texts_p)) if texts_p[j] != texts_p[0])
+    swapped = logits_k.copy()
+    swapped[[0, pair]] = logits_k[[pair, 0]]
+    swap_gap = float(np.abs(swapped - logits_p).max())
+    labels = [[d["label"] for d in o["text_detections"]] for o in got]
+    log(f"ocr (a): {len(paths)} frames, {len(crops)} line crops; card logits against the CPU's: largest gap "
+        f"{gap:.3e} (band {OCR_LOGIT_BAND}, |logits| up to {float(np.abs(logits_p).max()):.1f}), confidences "
+        f"{float(np.abs(conf_k - conf_p).max()):.2e}; under a caller's TF32 {tf32_gap:.3e} (bit-equal "
+        f"{bool(np.array_equal(logits_tf32, logits_k))}); control: two crops swapped {swap_gap:.3e}; texts "
+        f"equal {texts_k == texts_p}; read {labels}")
+    check(max(gap, tf32_gap) <= OCR_LOGIT_BAND,
+          f"ocr: card logits {gap} (under TF32 {tf32_gap}) from the CPU's, band {OCR_LOGIT_BAND}")
+    check(swap_gap > OCR_LOGIT_BAND, f"ocr: two crops' logits swapped pass the band ({swap_gap})")
+    check(texts_k == texts_p, "ocr: the card decodes other texts than the CPU")
+    for g, r in zip(got, ref):
+        check([(d["label"], d["bounding_box"]) for d in g["text_detections"]]
+              == [(d["label"], d["bounding_box"]) for d in r["text_detections"]],
+              f"ocr: the card's detections {g} against the CPU's {r}")
+    check(all(labels[:-1]) and labels[-1] == [], f"ocr: a text frame read empty or the blank one not: {labels}")
+    # the recogniser alone on the card: crops/s over the held-out renders
+    render = None if fonts else puttext_line
+    held = ocr.make_dataset(OCR_EVAL_N, seed=ANNOT_SEED + 99, render=render)[0]
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ocr._batched_logits(card.params, held)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out = {"frames": len(paths), "crops": len(crops), "logit_gap": gap, "tf32_gap": tf32_gap, "swap_gap": swap_gap,
+           "detect_ms_per_frame": detect_ms, "annotate_frames_per_s": len(paths) / annotate_s,
+           "recogniser_crops_per_s": OCR_EVAL_N / statistics.median(times), "fonts": fonts}
+    if fonts:
+        out["acc"] = ocr.eval_ocr(card.params, n=OCR_EVAL_N, seed=ANNOT_SEED + 99)
+        check(out["acc"] >= OCR_ACC_BAR, f"ocr: held-out exact match {out['acc']} < {OCR_ACC_BAR}")
+    else:  # reported, not held: the checkpoint learnt the DejaVu fonts
+        out["acc_puttext"] = ocr.eval_ocr(card.params, n=OCR_EVAL_N, seed=ANNOT_SEED + 99, render=render)
+    log(f"ocr (a): detector {detect_ms:.2f} ms a {INGEST_SIZE[0]}x{INGEST_SIZE[1]} frame (host); annotate_batch "
+        f"{out['annotate_frames_per_s']:.1f} frames/s; the recogniser {out['recogniser_crops_per_s']:.1f} crops/s "
+        f"(batch {card.batch}); held-out exact match "
+        + (f"{out['acc']:.4f} (bar {OCR_ACC_BAR})" if fonts else f"on putText renders {out['acc_puttext']:.4f} "
+           "(not held: no fonts here)"))
+    return out
+
+
+def phase_annot_ocr_train(torch, device: str) -> dict:
+    """(b): the first OCR step on the card against the CPU plain step, then
+    train_ocr on the card."""
+    import numpy as np
+
+    from evr_tpu_torch.ingest import ocr
+
+    render = None if ocr.FONT_PATHS else puttext_line
+    params0 = ocr.init_ocr_params(torch.Generator().manual_seed(ANNOT_SEED))
+    batch = ocr.make_dataset(OCR_TRAIN_BATCH, seed=ANNOT_SEED, render=render)[:3]
+    on_card = [torch.from_numpy(a).to(device) for a in batch]
+    loss_k, grads_k = ocr.grads_of(ocr.params_to(params0, device), *on_card)
+    loss_p, grads_p = ocr.grads_of(ocr.params_to(params0, "cpu"), *(torch.from_numpy(a) for a in batch))
+    # the module pins fp32 over the forward and the backward: a caller that
+    # allows TF32 changes nothing; with the pin taken out (a control) TF32 runs
+    with caller_tf32(torch):
+        loss_t, grads_t = ocr.grads_of(ocr.params_to(params0, device), *on_card)
+        pin, ocr.full_fp32 = ocr.full_fp32, contextlib.nullcontext
+        try:
+            loss_u, grads_u = ocr.grads_of(ocr.params_to(params0, device), *on_card)
+        finally:
+            ocr.full_fp32 = pin
+
+    def rel(loss):
+        return abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+
+    def worst(grads):
+        return max(float((grads[k].cpu() - g).abs().max() / g.abs().max()) for k, g in grads_p.items())
+
+    loss_rel, tf32_loss_rel = rel(loss_k), rel(loss_t)
+    tf32_err, unpinned_err = worst(grads_t), worst(grads_u)
+    tf32_same = all(torch.equal(grads_t[k], grads_k[k]) for k in grads_k)
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    off = {}
+    for k, g in grads_k.items():  # each leaf turned to cosine 0.99 (a control)
+        noise = torch.randn(g.shape, generator=gen, device=g.device)
+        noise -= (noise.flatten() @ g.flatten()) / max(g.norm().item() ** 2, 1e-30) * g
+        off[k] = g + noise * (g.norm() * math.tan(math.acos(0.99)) / max(noise.norm().item(), 1e-30))
+    grad_err, off_err = worst(grads_k), worst(off)
+    log(f"ocr (b): first step, batch {OCR_TRAIN_BATCH}: loss card {loss_k.item():.6f} / CPU {loss_p.item():.6f} "
+        f"(rel {loss_rel:.2e}, band {OCR_LOSS_REL}); worst leaf gradient error {grad_err:.2e} of its largest "
+        f"entry (band {OCR_GRAD_TOL}); control: turned to cosine 0.99 {off_err:.2e}; under a caller's TF32: loss "
+        f"rel {tf32_loss_rel:.2e}, gradients {tf32_err:.2e} (bit-equal to TF32 off {tf32_same}); with the module's "
+        f"pin taken out: loss rel {rel(loss_u):.2e}, gradients {unpinned_err:.2e} (band {OCR_TF32_GRAD_BAND})")
+    check(max(loss_rel, tf32_loss_rel) <= OCR_LOSS_REL, f"ocr step: loss rel {loss_rel} (under TF32 {tf32_loss_rel})")
+    check(max(grad_err, tf32_err) <= OCR_GRAD_TOL, f"ocr step: gradient error {grad_err} (under TF32 {tf32_err})")
+    check(tf32_err <= OCR_TF32_GRAD_BAND < unpinned_err,
+          f"ocr step: under a caller's TF32 gradients {tf32_err}, with the pin taken out {unpinned_err}, band "
+          f"{OCR_TF32_GRAD_BAND}")
+    check(off_err > OCR_GRAD_TOL, f"ocr step: a gradient turned to cosine 0.99 passes ({off_err})")
+    # the step train_ocr runs, timed alone on the card
+    params = ocr.params_to(params0, device)
+    opt = ocr.OCROptimizer(OCR_TRAIN_STEPS, 1e-3)
+    state = opt.init(params)
+    x, y, yp = (torch.from_numpy(a).to(device) for a in batch)
+    for i in range(OCR_TIMED_STEPS + 5):
+        if i == 5:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        opt.apply(params, ocr.grads_of(params, x, y, yp)[1], state)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / OCR_TIMED_STEPS
+    t0 = time.perf_counter()
+    _, metrics = ocr.train_ocr(steps=OCR_TRAIN_STEPS, batch=OCR_TRAIN_BATCH, dataset_size=OCR_TRAIN_SET,
+                               seed=ANNOT_SEED, device=device, render=render)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    log(f"ocr (b): train_ocr {OCR_TRAIN_STEPS} steps, batch {OCR_TRAIN_BATCH}, {OCR_TRAIN_SET} renders"
+        f"{'' if render is None else ' (puttext_line)'}: last-chunk loss {metrics['loss']:.4f} (bar {OCR_LOSS_BAR}), "
+        f"held-out exact match {metrics['acc']:.4f}, {train_s:.2f} s with rendering; a step {step_s * 1e3:.2f} ms")
+    check(np.isfinite(metrics["loss"]) and metrics["loss"] < OCR_LOSS_BAR,
+          f"ocr: train_ocr's loss {metrics['loss']} after {OCR_TRAIN_STEPS} steps")
+    return {"loss_rel": loss_rel, "grad_err": grad_err, "off_err": off_err, "tf32_loss_rel": tf32_loss_rel,
+            "tf32_grad_err": tf32_err, "tf32_bit_equal": tf32_same, "unpinned_loss_rel": rel(loss_u),
+            "unpinned_grad_err": unpinned_err, "step_s": step_s,
+            "train_s": train_s, **metrics}
+
+
+def region_decisions(np, sims, n_cls: int, threshold: float, margin: float):
+    """Per region: the best class, its margin over the second, and whether
+    it passes the threshold and the background rule, with their margins."""
+    obj, bg = sims[:, :n_cls], sims[:, n_cls:]
+    order = np.argsort(-obj, axis=1, kind="stable")
+    rows = np.arange(len(sims))
+    best, second = obj[rows, order[:, 0]], obj[rows, order[:, 1]]
+    over_bg = best - bg.max(axis=1) - margin
+    return {"best": order[:, 0], "gap": best - second, "pass": (best >= threshold) & (over_bg > 0),
+            "gap_threshold": np.abs(best - threshold), "gap_bg": np.abs(over_bg)}
+
+
+def keep_features(engine, store: dict, key: str) -> None:
+    """``engine.encode_staged_images`` wrapped on the instance to keep its
+    last output in ``store[key]`` (``del engine.encode_staged_images`` ends it)."""
+    encode = engine.encode_staged_images
+
+    def kept(*args, **kwargs):
+        store[key] = encode(*args, **kwargs)
+        return store[key]
+
+    engine.encode_staged_images = kept
+
+
+def phase_annot_zeroshot(torch, paths, params_dtype: str, counted, band: float, device: str) -> dict:
+    """(c): the zero-shot annotator's main-path call, launches counted, held
+    to a plain-route twin."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.ingest.zeroshot import ZeroShotObjectAnnotator
+
+    what = f"zero-shot {params_dtype}"
+    engine = EmbeddingEngine(MODEL, device=device, batch_size=BATCH, rng_seed=0, params_dtype=params_dtype)
+    size = engine.cfg.vision.image_size
+    engine.encode_staged_images(np.zeros((1, size, size, 3), np.uint8))  # kernel libraries load
+    twin = copy.copy(engine)
+    twin.cfg = dataclasses.replace(engine.cfg, attn_impl="plain")
+    twin._text_cache = {}
+    ann = ZeroShotObjectAnnotator(engine, **ZS_ACCEPT_ALL)
+    captured, feats = {}, {}
+    score = ann._score_crops
+    ann._score_crops = lambda staged: captured.setdefault("sims", score(staged))
+    keep_features(engine, feats, "card")
+    n_crops = len(paths) * len(ann.regions)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = ann._classifier()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = ann.annotate_batch(paths)
+    torch.cuda.synchronize()
+    annotate_s = time.perf_counter() - t0
+    got = {fn.__name__: fn.launches for fn in counted}
+    del ann._score_crops, engine.encode_staged_images
+    # the two text encodes of the classifier (its prompts, the background
+    # prompts) and the crops' encode batches, 11 pooled blocks each
+    expected = (engine.cfg.text.layers - 1) * 2 + (engine.cfg.vision.layers - 1) * -(-n_crops // BATCH)
+    check(all(n == expected for n in got.values()), f"{what}: launches {got}, expected {expected} each")
+    sims = captured["sims"]
+    t0 = time.perf_counter()
+    staged = ann.stage_frames(paths)[1]
+    stage_s = time.perf_counter() - t0
+    twin_ann = ZeroShotObjectAnnotator(twin, **ZS_ACCEPT_ALL)
+    keep_features(twin, feats, "twin")
+    ref = twin_ann._score_crops(staged)
+    check(sims.shape == ref.shape == (n_crops, len(w)) and np.isfinite(sims).all(), f"{what}: sims {sims.shape}")
+    unit = {k: f / np.maximum(np.linalg.norm(f, axis=-1, keepdims=True), 1e-6)
+            for k, f in ((k, np.asarray(f, np.float32)) for k, f in feats.items())}
+    check(np.array_equal(unit["card"] @ w.T, sims) and np.array_equal(unit["twin"] @ twin_ann._classifier().T, ref),
+          f"{what}: the kept features are not the ones scored")
+    gap = float(np.abs(sims - ref).max())
+    w_cos = float((w * twin_ann._classifier()).sum(1).min())
+    far = int(np.abs(ref - ref[0]).max(axis=1).argmax())
+    swapped = sims.copy()
+    swapped[[0, far]] = sims[[far, 0]]
+    swap_gap = float(np.abs(swapped - ref).max())
+    n_cls = len(ann.classnames)
+    flips, held = {}, {}
+    for name, (thr, margin) in (("accept_all", (-1.0, -10.0)), ("default", (0.22, 0.0))):
+        k, r = region_decisions(np, sims, n_cls, thr, margin), region_decisions(np, ref, n_cls, thr, margin)
+        # a region's class can move only where the twin's best-to-second gap
+        # is within what two scores each off by the band can close
+        sure = r["gap"] > 2 * band
+        sure_pass = (r["gap_threshold"] > band) & (r["gap_bg"] > 2 * band)
+        flips[name] = int((k["best"] != r["best"])[sure].sum() + (k["pass"] != r["pass"])[sure_pass].sum())
+        held[name] = (int(sure.sum()), int(sure_pass.sum()))
+        widest = float(r["gap"].max())
+    # random towers score the 80 classes within a few thousandths, under what
+    # the band can move, so the class check above holds no region. A classifier
+    # with wide margins: the twin's own features of the full-frame crop of every
+    # fourth frame, centred on the mean crop feature and made unit, then the
+    # background rows; some class decisions then clear twice the band
+    rows = np.arange(0, n_crops, len(ann.regions) * 4)
+    centred = unit["twin"][rows] - unit["twin"].mean(0)
+    w_wide = np.concatenate([centred / np.linalg.norm(centred, axis=1, keepdims=True), w[n_cls:]])
+    sims_wide, ref_wide = unit["card"] @ w_wide.T, unit["twin"] @ w_wide.T
+    wide_gap = float(np.abs(sims_wide - ref_wide).max())
+    r = region_decisions(np, ref_wide, len(rows), -1.0, -10.0)
+    sure = np.flatnonzero(r["gap"] > 2 * band)
+
+    def class_flips(card_sims):
+        return int((region_decisions(np, card_sims, len(rows), -1.0, -10.0)["best"] != r["best"])[sure].sum())
+
+    # control: the card's rows of two held regions with different classes swapped
+    i = sure[0] if len(sure) else 0
+    j = next((x for x in sure if r["best"][x] != r["best"][i]), i)
+    swapped_wide = sims_wide.copy()
+    swapped_wide[[i, j]] = sims_wide[[j, i]]
+    wide = {"gap": wide_gap, "held": len(sure), "flips": class_flips(sims_wide),
+            "control_flips": class_flips(swapped_wide),
+            "least_held_margin": float(r["gap"][sure].min()) if len(sure) else None}
+    default = ZeroShotObjectAnnotator(engine)
+    n_default = sum(len(default._detect(sims[i * len(ann.regions):(i + 1) * len(ann.regions)]))
+                    for i in range(len(paths)))
+    log(f"{what}: {len(paths)} frames, {n_crops} crops, launches {got} (expected {expected} each); sims against "
+        f"the plain twin: largest gap {gap:.3e} (band {band}), classifier rows least cosine {w_cos:.7f}; control: "
+        f"two regions swapped {swap_gap:.3e}; region decisions flipped {flips} over (class, pass) regions held "
+        f"{held} (the twin's widest best-to-second class gap {widest:.2e}); a wide-margin classifier of "
+        f"{len(rows)} centred twin crop features: sims {wide_gap:.3e} from the twin's, class decisions flipped "
+        f"{wide['flips']} over {wide['held']} regions held (least twin margin held {wide['least_held_margin']}), "
+        f"control: regions {i} and {j} swapped flips {wide['control_flips']}; detections at accept-everything "
+        f"thresholds {sum(len(o['object_detections']) for o in out)}, at the defaults {n_default} (reported); "
+        f"classifier build {build_s:.3f} s, annotate_batch "
+        f"{len(paths) / annotate_s:.1f} frames/s, {n_crops / annotate_s:.1f} crops/s (staging alone {stage_s:.2f} s)")
+    check(gap <= band, f"{what}: sims {gap} from the plain twin's, band {band}")
+    check(swap_gap > band, f"{what}: two regions' rows swapped pass the band ({swap_gap})")
+    check(all(v == 0 for v in flips.values()), f"{what}: region decisions flipped {flips}")
+    check(wide_gap <= band, f"{what}: wide-margin sims {wide_gap} from the twin's, band {band}")
+    check(wide["held"] > 0 and wide["flips"] == 0 and wide["control_flips"] > 0,
+          f"{what}: wide-margin class decisions {wide}")
+    check(all(o["object_detections"] and o["text_detections"] == [] for o in out),
+          f"{what}: a frame without detections at accept-everything thresholds")
+    return {"launches": got, "gap": gap, "swap_gap": swap_gap, "w_cos": w_cos, "flips": flips, "held": held,
+            "wide": wide,
+            "build_s": build_s, "annotate_s": annotate_s, "stage_s": stage_s, "frames_per_s": len(paths) / annotate_s,
+            "crops_per_s": n_crops / annotate_s, "default_detections": n_default, "engine": engine,
+            "annotator": ann}
+
+
+def phase_annot_upload(torch, tmp: pathlib.Path, engine, zero_shot, counted, device: str) -> dict:
+    """(d): an upload with sync=1 through the port's app, annotated by the
+    zero-shot annotator and the OCR on the card, then searched."""
+    import cv2
+    import numpy as np
+    from werkzeug.test import Client
+
+    from evr_tpu_torch.ingest import ocr
+    from evr_tpu_torch.ingest.annotators import CompositeAnnotator
+    from evr_tpu_torch.serving import ServingContext, create_app
+
+    video = tmp / "annotated.mp4"
+    writer = cv2.VideoWriter(str(video), cv2.VideoWriter_fourcc(*"mp4v"), INGEST_FPS, INGEST_SIZE)
+    rng = np.random.default_rng(ANNOT_SEED + 1)
+    # dark, bright red (BGR), dark: each cut's HSV content change is far above
+    # the detector's threshold, so each word's scene gives one frame
+    for word, colour in zip(ANNOT_UPLOAD_WORDS, ((0, 0, 0), (0, 0, 150), (0, 0, 0))):
+        frame = text_frame(word, scene_background(rng) + np.asarray(colour, np.uint8))
+        for _ in range(ANNOT_UPLOAD_SCENE):
+            writer.write(frame)
+    writer.release()
+    ctx = ServingContext(tmp / "root_annot", engine=engine,
+                         annotator=CompositeAnnotator(zero_shot, ocr.LocalOCRAnnotator(device=device)))
+    ctx.data_root.ensure()
+    client = Client(create_app(ctx))
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    resp = upload(client, video, sync="1")
+    upload_s = time.perf_counter() - t0
+    got = {fn.__name__: fn.launches for fn in counted}
+    check(resp.status_code == 200, f"annotated upload: HTTP {resp.status_code} {resp.get_data()[:200]!r}")
+    n = json.loads(resp.get_data(as_text=True))["video"]["frames"]
+    layers = engine.cfg.vision.layers - 1
+    expected = layers * (encode_batches(n, max(BATCH * 4, 256)) + -(-n * len(zero_shot.regions) // BATCH))
+    check(n == len(ANNOT_UPLOAD_WORDS) and all(v == expected for v in got.values()),
+          f"annotated upload: {n} frames, launches {got} (expected {expected})")
+    entry = ctx.registry.get("annotated")
+    records = json.loads(ctx.resolve_path(entry["metadata_file"]).read_text())
+    check(len(records) == n and all(r["object_detections"]["detections"] for r in records),
+          f"annotated upload: {len(records)} records of {n} frames, object detections "
+          f"{[len(r['object_detections']['detections']) for r in records]}")
+    frames_dir = ctx.resolve_path(entry["frames_dir"])
+    paths = sorted(frames_dir.glob("*.jpg"), key=lambda p: int(p.stem))
+    read = ocr.LocalOCRAnnotator(device="cpu").annotate_batch(paths)
+    word, frame_idx = next((d["label"].split()[0], int(p.stem)) for p, o in zip(paths, read)
+                           for d in o["text_detections"])
+    text = {"search_type": "text", "adaptive_threshold": -1.0, "text_confidence": 0.0, "object_confidence": 0.0,
+            "top_k": 50}
+    kw = route_post(client, {**text, "search_method": "keyword_only", "query": word})
+    label = records[0]["object_detections"]["detections"][0]["label"]
+    obj = route_post(client, {**text, "search_method": "object_only", "query": label})
+    with_label = {f"event-{r['frameidx']}" for r in records
+                  if label in [d["label"] for d in r["object_detections"]["detections"]]}
+    log(f"annotated upload (sync=1): {n} frames in {upload_s:.2f} s, launches {got} (expected {expected} each); "
+        f"stored text {[[d['label'] for d in r['text_detections']['detections']] for r in records]}; keyword_only "
+        f"{word!r} (the CPU's read of frame {frame_idx}) → {[e['id'] for e in kw]}; object_only {label!r} → "
+        f"{len(obj)} events")
+    check(f"event-{frame_idx}" in [e["id"] for e in kw], f"keyword_only {word!r}: {[e['id'] for e in kw]}")
+    check(bool(obj) and {e["id"] for e in obj} <= with_label and all(e["object_confidence"] > 0 for e in obj),
+          f"object_only {label!r}: {[e['id'] for e in obj]}, frames with the label {sorted(with_label)}")
+    return {"frames": n, "seconds": upload_s, "launches": got}
+
+
+def phase_annotators(torch, device: str = "cuda") -> dict:
+    """Phase 20, the frame annotators: (a) OCR on the card against the CPU,
+    (b) OCR training, (c) the zero-shot annotator with bf16 and int8 weights,
+    (d) an annotated upload. ``device`` is the card (the CPU only to rehearse
+    the phase's control flow: no kernel launches there)."""
+    import cv2
+    import numpy as np
+
+    from evr_tpu_torch.ops import block_fused as bf
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "seconds": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        out["ocr"] = phase_annot_ocr(torch, tmp, device)
+        out["seconds"]["ocr"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["train"] = phase_annot_ocr_train(torch, device)
+        out["seconds"]["train"] = time.perf_counter() - t0
+        folder = tmp / "zs_frames"
+        folder.mkdir()
+        rng = np.random.default_rng(ANNOT_SEED + 2)
+        grids = rng.integers(0, 256, (ANNOT_ZS_FRAMES, 9, 16, 3), dtype=np.uint8)
+        paths = []
+        for i, grid in enumerate(grids):  # colour grids with a white square, as phase 15's frames
+            frame = cv2.resize(grid, INGEST_SIZE, interpolation=cv2.INTER_NEAREST)
+            x = (i * 16) % (INGEST_SIZE[0] - 128)
+            frame[INGEST_SIZE[1] // 2 - 64:INGEST_SIZE[1] // 2 + 64, x:x + 128] = 255
+            paths.append(folder / f"{i:05d}.jpg")
+            cv2.imwrite(str(paths[-1]), frame)
+        for dtype, counted, band in (("float32", [bf.fused_attn_block, bf.fused_mlp_block], SERVED_RANK_NOISE),
+                                     ("int8", [bf.fused_attn_block_q, bf.fused_mlp_block_q], INT8_SERVED_RANK_NOISE)):
+            t0 = time.perf_counter()
+            zs = phase_annot_zeroshot(torch, paths, dtype, counted, band, device)
+            engine, ann = zs.pop("engine"), zs.pop("annotator")
+            add_into(out["launches"], zs["launches"])
+            out[f"zeroshot_{dtype}"] = zs
+            if dtype == "float32":
+                t1 = time.perf_counter()
+                out["upload"] = phase_annot_upload(torch, tmp, engine, ann, counted, device)
+                add_into(out["launches"], out["upload"]["launches"])
+                out["seconds"]["upload"] = time.perf_counter() - t1
+            del engine, ann
+            torch.cuda.empty_cache()
+            out["seconds"][f"zeroshot_{dtype}"] = time.perf_counter() - t0
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"phase 20 seconds {json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})}; launches "
+        f"{json.dumps(out['launches'])}")
+    return out
+
+
 def _to_cuda(torch, tree):
     from evr_tpu_torch.training.partition import map_with_paths
 
@@ -7337,6 +7892,7 @@ def main() -> int:
         phase17_s = time.perf_counter() - t5
         mesh = phase_mesh(torch, frames)
         axes = phase_axes(torch, frames)
+        annot = phase_annotators(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7504,6 +8060,16 @@ def main() -> int:
         + f", bytes a slot {json.dumps({k: round(v['slot'] / 2**30, 3) for k, v in tpr['bytes'].items()})} GiB; "
         f"levers s {json.dumps({k: (round(v, 4) if isinstance(v, float) else [round(x, 4) for x in v]) for k, v in lvr['s'].items()})}; "
         f"launches {json.dumps(axes['launches'])}")
+    ao, at, zb, zq = annot["ocr"], annot["train"], annot["zeroshot_float32"], annot["zeroshot_int8"]
+    log(f"frame annotators (phase 20, {annot['seconds']['phase']:.1f} s; {card}): OCR logits card against CPU "
+        f"{ao['logit_gap']:.3e} (band {OCR_LOGIT_BAND}), detector {ao['detect_ms_per_frame']:.2f} ms a frame, "
+        f"recogniser {ao['recogniser_crops_per_s']:.1f} crops/s, annotate_batch {ao['annotate_frames_per_s']:.1f} "
+        f"frames/s, fonts {ao['fonts']}; OCR step {at['step_s'] * 1e3:.2f} ms, loss rel {at['loss_rel']:.2e}, "
+        f"gradients {at['grad_err']:.2e}, train_ocr loss {at['loss']:.4f} in {at['train_s']:.2f} s; zero-shot "
+        + "; ".join(f"{tag}: sims gap {z['gap']:.3e}, {z['crops_per_s']:.1f} crops/s, {z['frames_per_s']:.1f} "
+                    f"frames/s, classifier {z['build_s']:.3f} s, launches {json.dumps(z['launches'])}"
+                    for tag, z in (("bf16", zb), ("int8", zq)))
+        + f"; annotated upload {annot['upload']['frames']} frames in {annot['upload']['seconds']:.2f} s")
     big = main["then"]["routes"]
     log(f"viz.umap at {UMAP_ROWS} x {UMAP_DIM}: {big['umap_big_s']:.2f} s, neighbours kept "
         f"{json.dumps(big['knn_kept'])}")
@@ -7524,8 +8090,10 @@ def main() -> int:
     # phase 19: the pipelined encodes (K1/K2, K3a/K3b), the tensor-parallel
     # steps and the levers over a mesh (K1/K2, K5), the served ivfpq tier's
     # encodes (K1/K2) and the sharded IVF-PQ searches (K7)
+    # phase 20: the zero-shot annotator's crops and classifier (K1/K2 bf16,
+    # K3a/K3b int8) and the annotated upload (K1/K2)
     for m in (harness["launches"], variants["launches"], levers["launches"], distill["launches"],
-              lever_clis["launches"], mesh["launches"], axes["launches"]):
+              lever_clis["launches"], mesh["launches"], axes["launches"], annot["launches"]):
         for name, n in m.items():
             if name != "adc_list_scores":  # K7's: phase 13's large tier and phase 19's, below
                 launches[name] += n

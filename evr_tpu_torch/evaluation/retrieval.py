@@ -23,25 +23,12 @@ JAX package does, so its tie order is numpy's.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
-from evr_tpu_torch.utils.device import resolve_device
+from evr_tpu_torch.utils.device import full_fp32, resolve_device
 
 METRIC_KEYS = ("R@1", "R@5", "R@10", "MRR", "Median_Rank", "Mean_Rank")
-
-
-@contextlib.contextmanager
-def _full_fp32():
-    """Matmuls in full fp32 (no TF32) for the duration of the block."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _similarity_matrix(image_features: np.ndarray, text_features: np.ndarray, device) -> np.ndarray:
@@ -52,7 +39,7 @@ def _similarity_matrix(image_features: np.ndarray, text_features: np.ndarray, de
     txt = torch.from_numpy(np.ascontiguousarray(text_features, np.float32)).to(dev)
     img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
     txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
-    with _full_fp32():
+    with full_fp32():
         return (img @ txt.T).cpu().numpy()
 
 

@@ -4,7 +4,9 @@ Counterpart of ``evr_tpu/ingest/annotators.py``: EasyOCR and Ultralytics
 YOLO stay third-party host-side models; these adapters wrap them into the
 ``Annotator`` protocol with normalised bounding boxes and raise
 ``ImportError`` when their packages are absent. ``CompositeAnnotator``
-merges several annotators' outputs into one detection dict.
+merges several annotators' outputs into one detection dict;
+``build_annotator`` makes the frame annotator the ingest and serving CLIs
+run.
 """
 
 from __future__ import annotations
@@ -98,3 +100,24 @@ class CompositeAnnotator:
                 out["text_detections"] += list(result.get("text_detections", []))
                 out["object_detections"] += list(result.get("object_detections", []))
         return merged
+
+
+def build_annotator(engine, zeroshot_objects: bool = False, local_ocr: str = "auto", device=None):
+    """The CLIs' frame annotator, as the JAX CLIs build it: the zero-shot
+    object annotator over ``engine`` when ``zeroshot_objects``, then the
+    local OCR annotator on ``device`` when ``local_ocr`` is "on", or "auto"
+    and its checkpoint exists; merged by ``CompositeAnnotator`` when there
+    are two, None when there is none."""
+    annotators = []
+    if zeroshot_objects:
+        from .zeroshot import ZeroShotObjectAnnotator
+
+        annotators.append(ZeroShotObjectAnnotator(engine))
+    if local_ocr != "off":
+        from .ocr import DEFAULT_CHECKPOINT, LocalOCRAnnotator
+
+        if local_ocr == "on" or DEFAULT_CHECKPOINT.exists():
+            annotators.append(LocalOCRAnnotator(device=device))
+    if not annotators:
+        return None
+    return annotators[0] if len(annotators) == 1 else CompositeAnnotator(*annotators)

@@ -8,7 +8,6 @@ UNPORTED_FLAGS = {
     "model_family": ("clip", "A17"),  # SigLIP
     "siglip_hf": (None, "A17"),
     "siglip_tokenizer": (None, "A17"),
-    "zeroshot_objects": (False, "A17"),  # the zero-shot object annotator of uploads
 }
 
 
@@ -83,28 +82,32 @@ def main(argv=None):
         "--frontend-dist", default=None,
         help="serve a built SPA (e.g. the reference React app's dist/) at /app/",
     )
+    parser.add_argument(
+        "--zeroshot-objects", action="store_true",
+        help="annotate uploaded videos' object_detections zero-shot with the serving "
+        "CLIP towers (COCO-80 vocabulary; ingest/zeroshot.py)",
+    )
+    parser.add_argument(
+        "--local-ocr", default="auto", choices=("auto", "on", "off"),
+        help="annotate uploaded videos' text_detections with the zero-egress OCR "
+        "(ingest/ocr.py, on --device); auto = on when the package's checkpoint exists",
+    )
     # accepted for the JAX CLI's command lines, refused when they ask for a part
-    # not ported yet (UNPORTED_FLAGS; --local-ocr on needs the OCR annotator)
+    # not ported yet (UNPORTED_FLAGS)
     parser.add_argument("--model-family", choices=["clip", "siglip"], default="clip")
     parser.add_argument("--siglip-hf", default=None)
     parser.add_argument("--siglip-tokenizer", default=None)
-    parser.add_argument("--zeroshot-objects", action="store_true")
-    parser.add_argument("--local-ocr", default="auto", choices=("auto", "on", "off"),
-                        help="OCR of uploaded videos: its annotator is not ported (ROADMAP "
-                        "A17); auto and off ingest uploads without it")
     args = parser.parse_args(argv)
     for dest, (default, item) in UNPORTED_FLAGS.items():
         value = getattr(args, dest)
         if value != default:
             flag = "--" + dest.replace("_", "-") + ("" if isinstance(value, bool) else f" {value}")
             parser.error(f"{flag} is not ported to evr_tpu_torch yet (ROADMAP {item})")
-    if args.local_ocr == "on":
-        parser.error("--local-ocr on is not ported to evr_tpu_torch yet (ROADMAP A17: "
-                     "the OCR annotator)")
 
     from werkzeug.serving import run_simple
 
     from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.ingest.annotators import build_annotator
     from evr_tpu_torch.models.quant_gate import auto_params_dtype
     from evr_tpu_torch.utils import get_logger
 
@@ -130,11 +133,13 @@ def main(argv=None):
         from .providers import AssemblyAITranscriber
 
         transcriber = AssemblyAITranscriber()
+    annotator = build_annotator(engine, args.zeroshot_objects, args.local_ocr, device=args.device)
     ctx = ServingContext(
         args.data_root, engine=engine, index_dtype=args.index_dtype,
         search_impl=args.search_impl, ivf_nprobe=args.ivf_nprobe,
         ivf_clusters=args.ivf_clusters, ivfpq_host_store=args.ivfpq_host_store,
         batch_window_ms=args.batch_window_ms, transcriber=transcriber, mesh=mesh,
+        annotator=annotator,
     )
     loaded = ctx.boot()
     if args.params_dtype == "auto":

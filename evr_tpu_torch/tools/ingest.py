@@ -7,9 +7,11 @@ Counterpart of ``evr_tpu/tools/ingest.py``::
 writes the {name}_embeddings.npy / {name}_metadata.json / video_mapping.json
 layout the serving tier boots from (either package's). ``--uniform N``
 samples N frames per video besides the scene frames. ``--device`` picks the
-torch device (default cuda; ``--device cpu`` runs on the CPU).
-``--zeroshot-objects`` and ``--local-ocr on`` need annotators not ported yet
-(ROADMAP A17) and are refused; ``--local-ocr auto`` ingests without OCR.
+torch device (default cuda; ``--device cpu`` runs on the CPU) of the towers,
+the index and the OCR recogniser. ``--zeroshot-objects`` fills each frame's
+``object_detections`` (``ingest/zeroshot.py``); ``--local-ocr`` fills
+``text_detections`` (``ingest/ocr.py``): ``auto`` (the default) when the
+package's checkpoint exists, ``on`` always, ``off`` never.
 """
 
 from __future__ import annotations
@@ -37,22 +39,23 @@ def main(argv=None):
         help="torch device of the towers and the index (default cuda; fails without a "
         "card unless cpu is given)",
     )
-    parser.add_argument("--zeroshot-objects", action="store_true",
-                        help="the zero-shot object annotator: not ported (ROADMAP A17)")
-    parser.add_argument("--local-ocr", default="auto", choices=("auto", "on", "off"),
-                        help="the local OCR annotator: not ported (ROADMAP A17); auto and off "
-                        "ingest without it")
+    parser.add_argument(
+        "--zeroshot-objects", action="store_true",
+        help="fill object_detections with zero-shot CLIP region classification "
+        "(COCO-80 vocabulary; ingest/zeroshot.py) instead of YOLO",
+    )
+    parser.add_argument(
+        "--local-ocr", default="auto", choices=("auto", "on", "off"),
+        help="fill text_detections with the zero-egress OCR (ingest/ocr.py; a CTC "
+        "recogniser over host-detected line boxes); auto = on when the package's "
+        "checkpoint exists (it ships with the repo)",
+    )
     args = parser.parse_args(argv)
-    if args.zeroshot_objects:
-        parser.error("--zeroshot-objects is not ported to evr_tpu_torch yet (ROADMAP A17: "
-                     "the zero-shot object annotator)")
-    if args.local_ocr == "on":
-        parser.error("--local-ocr on is not ported to evr_tpu_torch yet (ROADMAP A17: "
-                     "the OCR annotator)")
 
     from evr_tpu_torch.config import DataRootConfig
     from evr_tpu_torch.index import EmbeddingEngine, FrameIndex, VideoRegistry
     from evr_tpu_torch.ingest import extract_uniform_frames, ingest_video
+    from evr_tpu_torch.ingest.annotators import build_annotator
     from evr_tpu_torch.query.metadata import MetadataStore
 
     if args.checkpoint:
@@ -64,13 +67,14 @@ def main(argv=None):
     registry = VideoRegistry(data_root.mapping_path)
     index = FrameIndex(embed_dim=engine.cfg.embed_dim, device=engine.device)
     store = MetadataStore()
+    annotator = build_annotator(engine, args.zeroshot_objects, args.local_ocr, device=args.device)
 
     for video in args.videos:
         if args.uniform:
             extract_uniform_frames(video, data_root.frames_dir / pathlib.Path(video).stem, args.uniform)
         result = ingest_video(
             video, data_root, engine, index, registry, store,
-            scene_threshold=args.scene_threshold,
+            annotator=annotator, scene_threshold=args.scene_threshold,
         )
         print(f"{result.video_name}: {result.n_frames} frames, fps={result.fps:.2f} → "
               f"{result.embeddings_file}")

@@ -177,12 +177,14 @@ def hard_negative_infonce(
 # -- the optimizers -----------------------------------------------------------
 
 
-def warmup_cosine_decay(peak: float, warmup_steps: int, decay_steps: int) -> Callable[[int], torch.Tensor]:
+def warmup_cosine_decay(peak: float, warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0) -> Callable[[int], torch.Tensor]:
     """``optax.warmup_cosine_decay_schedule(0.0, peak, warmup_steps,
-    decay_steps)`` as a function of the count, in float32: a linear ramp
-    from 0 (exactly 0 at count 0), then a cosine from ``peak`` to 0 over
-    ``decay_steps - warmup_steps``."""
+    decay_steps, end_value)`` as a function of the count, in float32: a
+    linear ramp from 0 (exactly 0 at count 0), then a cosine from ``peak`` to
+    ``end_value`` over ``decay_steps - warmup_steps``."""
     cosine_steps = decay_steps - warmup_steps
+    alpha = 0.0 if peak == 0.0 else end_value / peak
 
     def lr(count: int) -> torch.Tensor:
         if count < warmup_steps:
@@ -190,7 +192,7 @@ def warmup_cosine_decay(peak: float, warmup_steps: int, decay_steps: int) -> Cal
             return (0.0 - peak) * frac + peak
         c = _f32(min(count - warmup_steps, cosine_steps))
         cosine = 0.5 * (1 + torch.cos(math.pi * c / cosine_steps))
-        return peak * ((1 - 0.0) * cosine ** 1.0 + 0.0)
+        return peak * ((1 - alpha) * cosine ** 1.0 + alpha)
 
     return lr
 

@@ -32,7 +32,8 @@ for name in names:
 # the ingest tools; the benchmark harness, its tools, the workbook module, the
 # test-set translation, the heads and the trainer variants; the trainer's
 # levers, distillation and their tools; the mesh, the sharded search, FSDP,
-# the process group, the sharded checkpoints and the launcher
+# the process group, the sharded checkpoints and the launcher; the frame
+# annotators (OCR, its trainer and CLI, the zero-shot object annotator)
 for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.index.pq",
              "evr_tpu_torch.index.ivfpq", "evr_tpu_torch.tools.index_tool",
              "evr_tpu_torch.ops.attention", "evr_tpu_torch.ops.layernorm",
@@ -66,7 +67,8 @@ for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.
              "evr_tpu_torch.parallel.multihost", "evr_tpu_torch.training.sharded_ckpt",
              "evr_tpu_torch.tools.pod_launch", "evr_tpu_torch.parallel.tp",
              "evr_tpu_torch.parallel.pp", "evr_tpu_torch.parallel.sp",
-             "evr_tpu_torch.parallel.sharded_ann"):
+             "evr_tpu_torch.parallel.sharded_ann", "evr_tpu_torch.ingest.ocr",
+             "evr_tpu_torch.ingest.zeroshot", "evr_tpu_torch.tools.train_ocr"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)

@@ -1,8 +1,12 @@
 """The port's ingest, export and retrieval CLIs against the JAX package's,
 on the CPU, from one reference-format checkpoint of ViT-Tiny-Test params
 (with a classifier head): the same artefacts, embeddings within the fp32
-encode bound, the same ranked frames. The JAX ingest CLI runs with
-``--local-ocr off`` (its OCR annotator is ROADMAP A17's)."""
+encode bound, the same ranked frames, and the same frame metadata: both
+CLIs run their OCR annotator by default (``--local-ocr auto`` with each
+package's committed checkpoint), and with ``--zeroshot-objects`` their
+zero-shot object annotator, whose detections must agree (labels and boxes
+equal, confidences within 1e-4: OCR rounds them to 4 places, the
+zero-shot softmax is fp32)."""
 
 import json
 
@@ -31,6 +35,26 @@ def _tree(root):
     return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
 
 
+def _same_metadata(got_root, ref_root, name):
+    """Both data roots' metadata JSON of ``name``: the same frames, fields and
+    detections (the record ids are fresh uuids; the paths name each root)."""
+    got, ref = (json.loads((r / "metadata" / f"{name}_metadata.json").read_text())
+                for r in (got_root, ref_root))
+    assert [g["frameid"] for g in got] == [r["frameid"] for r in ref]
+    counts = {"text_detections": 0, "object_detections": 0}
+    for g, r in zip(got, ref):
+        assert set(g) == set(r)
+        for key in ("media_type", "tags", "metadata", "frameid", "frameidx"):
+            assert g[key] == r[key], key
+        assert g["filepath"].endswith(r["filepath"].split(str(ref_root))[-1])
+        for key in counts:
+            gd, rd = g[key]["detections"], r[key]["detections"]
+            assert [(d["label"], d["bounding_box"]) for d in gd] == [(d["label"], d["bounding_box"]) for d in rd]
+            assert all(abs(a["confidence"] - b["confidence"]) <= 1e-4 for a, b in zip(gd, rd))
+            counts[key] += len(gd)
+    return counts
+
+
 def test_ingest_cli_matches_jax(ckpt, tmp_path, capsys):
     from evr_tpu.tools import ingest as jtool
     from evr_tpu_torch.tools import ingest as ttool
@@ -42,17 +66,21 @@ def test_ingest_cli_matches_jax(ckpt, tmp_path, capsys):
     common = ["--checkpoint", str(ckpt), "--model", MODEL]
     ttool.main(videos + ["--data-root", str(tmp_path / "t"), "--device", "cpu"] + common)
     out = capsys.readouterr().out
-    jtool.main(videos + ["--data-root", str(tmp_path / "j"), "--local-ocr", "off"] + common)
+    jtool.main(videos + ["--data-root", str(tmp_path / "j")] + common)
     assert out.splitlines()[-1] == capsys.readouterr().out.splitlines()[-1]
     assert _tree(tmp_path / "t") == _tree(tmp_path / "j")
     for i in range(2):
         got, ref = (np.load(tmp_path / r / "embedding" / f"v{i}_embeddings.npy") for r in "tj")
         np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+        _same_metadata(tmp_path / "t", tmp_path / "j", f"v{i}")
     mappings = [json.loads((tmp_path / r / "metadata" / "video_mapping.json").read_text()) for r in "tj"]
     assert mappings[0] == mappings[1] and mappings[0]["v0"]["embedding_model"] == "finetuned"
 
 
-def test_ingest_cli_uniform_and_refusals(tmp_path, capsys):
+def test_ingest_cli_uniform_and_refusals(ckpt, tmp_path):
+    """``--uniform``; then the flags the port once refused (``--zeroshot-objects``,
+    ``--local-ocr on``) ingest on the CPU as the JAX CLI does."""
+    from evr_tpu.tools import ingest as jtool
     from evr_tpu_torch.tools import ingest as ttool
 
     write_video(tmp_path / "u.mp4", n_frames=40, size=(64, 64), seed=3)
@@ -62,10 +90,32 @@ def test_ingest_cli_uniform_and_refusals(tmp_path, capsys):
     saved = sorted(int(p.stem) for p in (tmp_path / "d" / "frames" / "u").glob("*.jpg"))
     assert saved == [0, 7, 15, 20, 23, 31, 39]
     assert np.load(tmp_path / "d" / "embedding" / "u_embeddings.npy").shape == (7, 32)
-    for flags in (["--zeroshot-objects"], ["--local-ocr", "on"]):
-        with pytest.raises(SystemExit):
-            ttool.main([str(tmp_path / "u.mp4"), "--device", "cpu"] + flags)
-        assert "A17" in capsys.readouterr().err
+    video = tmp_path / "w.mp4"
+    _write_text_video(video, ("fire warning", "police arrive", "exit now"))
+    flags = [str(video), "--checkpoint", str(ckpt), "--model", MODEL, "--zeroshot-objects",
+             "--local-ocr", "on"]
+    ttool.main(flags + ["--data-root", str(tmp_path / "t"), "--device", "cpu"])
+    jtool.main(flags + ["--data-root", str(tmp_path / "j")])
+    counts = _same_metadata(tmp_path / "t", tmp_path / "j", "w")
+    assert counts["object_detections"] > 0 and counts["text_detections"] >= 3, counts
+
+
+def _write_text_video(path, words, size=(320, 180), scene_len=20):
+    """An mp4v video of one flat scene a word (a hard cut between them), the
+    word drawn in a DejaVu font, the OCR's training fonts."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    from evr_tpu.ingest.ocr import FONT_PATHS
+
+    font = ImageFont.truetype(FONT_PATHS[0], 30)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25.0, size)
+    for i, word in enumerate(words):
+        img = Image.new("RGB", size, ((200, 40, 40), (40, 160, 40), (40, 40, 200))[i % 3])
+        ImageDraw.Draw(img).text((20, 110), word, fill=(255, 255, 255), font=font)
+        frame = np.ascontiguousarray(np.asarray(img)[:, :, ::-1])
+        for _ in range(scene_len):
+            writer.write(frame)
+    writer.release()
 
 
 @pytest.fixture(scope="module")

@@ -225,15 +225,46 @@ def test_stats_and_protocol_answers(clients):
     assert tr.headers["Access-Control-Allow-Origin"] == "*"
 
 
-def test_cli_refuses_unported_flags(capsys):
+def _annotator_kinds(ann):
+    """The annotator a CLI built, by class names (a composite's in order)."""
+    if ann is None:
+        return None
+    children = getattr(ann, "annotators", None)
+    return [type(a).__name__ for a in children] if children else type(ann).__name__
+
+
+def test_cli_refuses_unported_flags(capsys, tmp_path, monkeypatch):
+    """The SigLIP flags are refused naming their ROADMAP item; the annotator
+    flags build the annotators the JAX CLI builds."""
+    import sys
+
+    import werkzeug.serving
+
+    from evr_tpu.serving import __main__ as jcli
     from evr_tpu_torch.serving.__main__ import main
 
     # --shard-index boots since the mesh was ported (tests/test_torch_mesh.py)
     for argv, item in ((["--model-family", "siglip"], "A17"), (["--siglip-hf", "/x"], "A17"),
-                       (["--siglip-tokenizer", "/x"], "A17"), (["--zeroshot-objects"], "A17"),
-                       (["--local-ocr", "on"], "A17"),
-                       (["--frontend-dist", "dist", "--transcriber", "none", "--zeroshot-objects"],
-                        "A17")):
+                       (["--siglip-tokenizer", "/x"], "A17"),
+                       (["--frontend-dist", "dist", "--transcriber", "none", "--zeroshot-objects",
+                         "--siglip-hf", "/x"], "A17")):
         with pytest.raises(SystemExit):
             main(argv)
         assert item in capsys.readouterr().err, argv
+    apps = []
+    monkeypatch.setattr(werkzeug.serving, "run_simple", lambda host, port, app, **kw: apps.append(app))
+    common = ["--data-root", str(tmp_path / "root"), "--model", "ViT-Tiny-Test"]
+    for flags, want in (([], "LocalOCRAnnotator"), (["--local-ocr", "off"], None),
+                        (["--local-ocr", "on"], "LocalOCRAnnotator"),
+                        (["--zeroshot-objects", "--local-ocr", "off"], "ZeroShotObjectAnnotator"),
+                        (["--zeroshot-objects"], ["ZeroShotObjectAnnotator", "LocalOCRAnnotator"])):
+        main(common + flags + ["--device", "cpu"])
+        monkeypatch.setattr(sys, "argv", ["evr_tpu.serving"] + common + flags)
+        jcli.main()
+        (tctx, jctx), apps[:] = (a.ctx for a in apps), []
+        assert _annotator_kinds(tctx.annotator) == _annotator_kinds(jctx.annotator) == want, flags
+        for a in getattr(tctx.annotator, "annotators", [tctx.annotator]):
+            if type(a).__name__ == "LocalOCRAnnotator":
+                assert a.device.type == "cpu"
+            elif a is not None:
+                assert a.engine is tctx.engine
