@@ -192,7 +192,7 @@ package. Phases, each fatal on failure:
    negative control, the ranked and the set check a near miss too (the text
    vector turned to a row cosine of 0.999 toward the cut frame); the
    launches of K1/K2 (bf16) and K3a/K3b and K4 (int8) over those requests
-   equal to what their dispatches imply; each method's p50 over 25
+   equal to what their dispatches imply; each method's p50 over 15
    requests, the methods in turns, every cache emptied before each, under
    50 ms, and the hybrid request's stages; the UI, a two-file SPA dist,
    events, frame and video files with Range and a traversal attempt,
@@ -203,7 +203,7 @@ package. Phases, each fatal on failure:
    20,000 seeded clustered rows of 512 (the sparse tier), its share of
    kept nearest neighbours above PCA's, a random layout's below;
 15. ingest and the upload routes at ViT-B/32's full width: seeded 1280 x 720,
-   25 fps videos written with cv2 (a two-minute one with a hard cut every
+   25 fps videos written with cv2 (a one-minute one with a hard cut every
    24-48 frames, two of 24 s) uploaded through the port's app on fresh data
    roots, with bf16 weights (the long one async, its stages polled through
    /api/upload-status/<id>; a short one with ``sync=1``) and with int8 weights
@@ -213,13 +213,13 @@ package. Phases, each fatal on failure:
    control that must fail), and the launches of K1/K2 or K3a/K3b over the
    upload equal 11 an encode batch; K4 once in a negative query on the int8
    index; the long ingest split into decode + scene detection, frame
-   extraction, staging and encode; ``embed_folder`` over 2,048 saved 1280 x
+   extraction, staging and encode; ``embed_folder`` over 1,024 saved 1280 x
    720 JPEGs on the native pipelined path (an undecodable one skipped by
    index), against the stager alone and ``encode_staged_images`` alone, its
    rows equal to the latter's; cv2's JPEG decode against PIL's; an upload of
    bytes that are no video ending its job in "error";
 16. the benchmark harness and the trainer variants: ``tools.evaluate.main``
-   over 500 seeded 500 x 375 JPEGs with 5 captions each and a perturbed
+   over 250 seeded 500 x 375 JPEGs with 5 captions each and a perturbed
    ViT-B/32 reference file (bf16, K1/K2; JSON, CSV and the three-sheet
    workbook, read back), each model's image and caption rows held to a
    plain-route twin over the same staged pixels and tokens (row cosine, each
@@ -296,7 +296,30 @@ package. Phases, each fatal on failure:
    K1/K2 and K3a/K3b launched exactly 11 an encode batch, the similarities
    within the served bands of a plain-route twin's, two regions swapped
    rejected; an upload with ``sync=1`` annotated by both, its records one a
-   frame, found by ``keyword_only`` and ``object_only``.
+   frame, found by ``keyword_only`` and ``object_only``;
+21. the model families, no kernel of ``ops`` (every launch counter read
+   before and after; ``phase_families``): (a) SigLIP base-224 on the card
+   against the CPU (fp32, TF32 off): features and ``siglip_forward``'s
+   logits; (b) SigLIP so400m-384 (width 1152, 27 layers, head dim 72, 729
+   tokens) served through ``serving.__main__``'s engine construction with
+   ``--model-family siglip``: 256 frames encoded with bf16 and int8 weights
+   (the int8 product exact in float64) and by an fp32 reference, each booted
+   from its own data root; /api/search text queries (the fallback
+   tokenizer), image, hybrid and /api/models; rows and served top-10s held to
+   the fp32 path's, encode frames/s, the text query's p50 and a profiler
+   split; (c) ``fit_siglip`` at base-224, batch 32, fp32: the first step's
+   loss and gradients on 4 pairs and Adam's first update against the CPU's,
+   one step over a 2-slot data mesh against one slot in the fp32 step bands,
+   three steps (the loss falls, both towers and ``logit_bias`` move); (d)
+   Whisper large-v3 (seeded params drawn on the card, the decoder spread)
+   over two 30 s windows of seeded audio, ``max_len`` 64: the KV-cached
+   greedy decode's ids equal to a full re-run's and its logits within a band
+   that a decode with a zeroed cache row fails, bf16 teacher-forced logits
+   against fp32, Whisper base on the card against the CPU (log-mel and
+   logits), tokens/s; (e) ``tools.transcribe.main --random-init --size
+   large-v3 --raw-ids --segments-out`` into a served root's metadata, the
+   root booted again and a ``speech_only`` query returning the transcribed
+   videos only, ``LocalWhisperTranscriber`` answering /api/transcribe-voice.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -3965,7 +3988,7 @@ ROUTE_SEED = 15
 ROUTE_TOP_ALL = N_FRAMES // 3 + 1
 # uncached /api/search requests per method for its p50, the methods in turns
 # after one round of warm-up; each p50 held under PERF.md §2's limit
-ROUTE_P50_RUNS, ROUTE_P50_LIMIT_MS = 25, 50.0  # runs cut from 50 for the script's time
+ROUTE_P50_RUNS, ROUTE_P50_LIMIT_MS = 15, 50.0  # runs cut from 50 (then 25) for the script's time
 # the near-miss control: the kernel path's text vector turned to this row
 # cosine with its own
 NEAR_COS = 0.999
@@ -4495,12 +4518,12 @@ def phase_routes(torch, engine, root: pathlib.Path, frames, what: str, noise: fl
 # upload, an async int8 one, and bytes that are no video (the job must end in
 # "error").
 INGEST_SIZE, INGEST_FPS, INGEST_SCENE_LEN = (1280, 720), 25.0, (24, 49)
-INGEST_LONG_FRAMES, INGEST_SHORT_FRAMES = 3000, 600
+INGEST_LONG_FRAMES, INGEST_SHORT_FRAMES = 1500, 600  # the long one cut from 3,000 for the script's time
 INGEST_SEED = 16
 # embed_folder over INGEST_FOLDER_FRAMES saved 1280 x 720 JPEGs (and one that
 # does not decode) on the native pipelined path at batch BATCH, against the
 # stager alone and encode_staged_images alone on the same frames
-INGEST_FOLDER_FRAMES = 2048  # cut from 4,096 for the script's time
+INGEST_FOLDER_FRAMES = 1024  # cut from 4,096 (then 2,048) for the script's time
 # cv2's decode of the saved frames against PIL's (two libjpeg-turbo builds) on
 # INGEST_DECODE_SAMPLE of them: within INGEST_DECODE_LEVELS grey levels
 INGEST_DECODE_SAMPLE, INGEST_DECODE_LEVELS = 16, 2
@@ -4870,7 +4893,7 @@ def phase_ingest(torch) -> dict:
 # the ground truth's twin score; R@K and MRR then differ by at most the share
 # of queries that have such a candidate.
 HARNESS_SEED = 17
-HARNESS_IMAGES, HARNESS_CAPTIONS = 500, 5  # images cut from 1,000 for the script's time
+HARNESS_IMAGES, HARNESS_CAPTIONS = 250, 5  # images cut from 1,000 (then 500) for the script's time
 HARNESS_SIZE = (500, 375)  # width, height
 HARNESS_BLOCK = 25  # the seeded scenes' colour blocks, pixels
 HARNESS_EXCEL_IMAGES, HARNESS_EXCEL_ROWS = 200, 300
@@ -7782,6 +7805,566 @@ def phase_annotators(torch, device: str = "cuda") -> dict:
     return out
 
 
+# -- 21. the model families: SigLIP and Whisper -------------------------------
+
+FAMILY_SEED = 22
+# phase 21's configurations (a CPU rehearsal of the phase registers tiny ones
+# under these names); for the script's time large-v3's max_len is cut from
+# WhisperASR's 224 to 64 and so400m's served frames from 512 to 256
+FAMILY = dict(
+    siglip_parity="siglip-base-patch16-224", siglip_serve="siglip-so400m-patch14-384",
+    siglip_train="siglip-base-patch16-224", whisper="large-v3", whisper_parity="base",
+    frames=256, videos=4, batch=64, parity_pairs=4, train_batch=32, train_steps=3, grad_pairs=4,
+    windows=2, max_len=64,
+)
+FAMILY_QUERIES = ("a red car on the street", "a crowd at night", "a dog running on grass", "a boat on a river",
+                  "người đàn ông đang đi bộ", "a burning building", "two people talking", "an empty road")
+# Whisper's decode check spreads the random decoder (token embedding x10,
+# positions x300, as tests/test_torch_whisper.py does) so that its greedy
+# ids vary and stay far from ties; the un-spread CLI weights repeat one id
+WHISPER_SPREAD = (10.0, 300.0)
+# Bands, each about twice what the same check measured on an H100 80GB HBM3
+# at 700 W in this phase's first development run (PERF.md §6; the
+# measurement in each comment). Relative errors are max |card − reference|
+# over each row's (or leaf's) largest |reference|; each band comes with a
+# negative control that must fail it (rows turned to FAMILY_CONTROL_COS,
+# gradients and updates to 0.99, a zeroed cache row, ranks 41-50).
+FAMILY_F32_REL = 3e-6  # fp32 (TF32 off), card against CPU: SigLIP features 1.2e-6, logits 9.6e-8; Whisper base 1.3e-6
+FAMILY_MEL_TOL = 5e-5  # the log-mel, card against CPU, max abs: 2.6e-5 (cuFFT against pocketfft, then log10)
+FAMILY_GRAD_REL = 1e-3  # the first SigLIP step's gradients, card against CPU: 4.8e-4 (a scalar leaf)
+FAMILY_UPDATE_COS = 0.9998  # Adam's first update, card against CPU, per leaf: 0.99990
+FAMILY_ROW_COS = {"bfloat16": 0.99965, "int8": 0.9992}  # served rows against the fp32 path's: 0.99983, 0.99961
+FAMILY_SERVED_NOISE = {"bfloat16": 3.5e-3, "int8": 5e-3}  # the top-10 cut band: scores apart up to 1.7e-3, 2.3e-3
+FAMILY_DECODE_REL = 4e-6  # the cached decode's logits against the full re-run's, fp32: 1.9e-6
+FAMILY_BF16_LOGIT_COS = 0.9997  # bf16 teacher-forced logits against fp32, per row: 0.99985
+FAMILY_CONTROL_COS = 0.999  # the rows of the negative controls
+
+
+def family_counters():
+    """Every launch counter of the ops package: K1-K9 and the kernels their
+    wrappers also launch alone."""
+    from evr_tpu_torch.ops import adc, attention, layernorm, retrieval
+    from evr_tpu_torch.ops import block_fused as bf
+
+    return [bf.fused_attn_block, bf.fused_mlp_block, bf.fused_attn_block_q, bf.fused_mlp_block_q,
+            retrieval.fused_topk, bf.fused_attn_block_bwd, bf.fused_mlp_block_bwd, adc.adc_list_scores,
+            attention.flash_attention_full, attention.flash_attention_blocked, layernorm.fused_layer_norm,
+            bf.fused_block_merged, bf.gemm_bf16, bf.gemm_s8, bf.attn_forward, bf.attn_backward]
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rows_of(torch, x):
+    x = torch.as_tensor(x).detach().float().cpu()
+    return x.reshape(-1, x.shape[-1]) if x.dim() else x.reshape(1, 1)
+
+
+def rel_err(torch, got, ref) -> float:
+    """max |got − ref| over each row's largest |ref|, the largest over rows."""
+    g, r = rows_of(torch, got), rows_of(torch, ref)
+    return ((g - r).abs().amax(-1) / r.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def leaf_err(torch, got, ref) -> float:
+    """max |got − ref| over the leaf's largest |ref|."""
+    g, r = rows_of(torch, got).reshape(-1), rows_of(torch, ref).reshape(-1)
+    return ((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+
+
+def least_cos(torch, got, ref) -> float:
+    return torch.nn.functional.cosine_similarity(rows_of(torch, got), rows_of(torch, ref), dim=-1).min().item()
+
+
+def turned(torch, x, cos: float, seed: int):
+    """``x``'s rows each turned to exactly cosine ``cos`` of themselves,
+    norms kept (float32 on the CPU): the negative control of a band."""
+    r = rows_of(torch, x)
+    noise = torch.randn(r.shape, generator=torch.Generator().manual_seed(seed))
+    noise = noise - (noise * r).sum(-1, keepdim=True) / (r * r).sum(-1, keepdim=True).clamp_min(1e-30) * r
+    noise = noise / noise.norm(dim=-1, keepdim=True) * r.norm(dim=-1, keepdim=True)
+    return r * cos + noise * math.sqrt(1.0 - cos * cos)
+
+
+def held(what: str, value: float, ok, control: float) -> dict:
+    """``value`` within its band (``ok``) and the negative control's outside."""
+    check(ok(value), f"{what}: {value:.3e} outside its band")
+    check(not ok(control), f"{what}: the negative control ({control:.3e}) passed the band")
+    return {"value": value, "control": control}
+
+
+def device_split(torch, fn) -> dict:
+    """``fn()`` once under ``torch.profiler`` (CPU and CUDA): its wall ms, the
+    ms its CUDA kernels took on the device (their sum) and the five kernels
+    of most device time. A trace without device events gives None (not
+    measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall, "device_ms": busy or None,
+            "top": [(name[:70], round(ms, 3)) for name, ms in top]}
+
+
+def family_frames(torch, n: int, size: int, device, seed: int):
+    """Seeded uint8 frames [n, size, size, 3]: a random colour on an 8 x 8
+    grid, a gradient and pixel noise, each frame its own scene."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cells = torch.randint(0, 256, (n, 8, 8, 3), generator=gen, device=device).float()
+    frames = torch.nn.functional.interpolate(cells.permute(0, 3, 1, 2), size=(size, size), mode="nearest")
+    frames = frames.permute(0, 2, 3, 1) + torch.linspace(-25, 25, size, device=device)[None, :, None, None]
+    frames = frames + torch.randn(frames.shape, generator=gen, device=device) * 2.0
+    return frames.clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def family_audio(n_samples: int, rate: int, seed: int):
+    """Seeded float32 speech-band audio: a tone whose pitch changes every
+    half second, under noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    freq = np.repeat(rng.uniform(120, 900, -(-n_samples // (rate // 2))), rate // 2)[:n_samples]
+    x = 0.3 * np.sin(2 * np.pi * np.cumsum(freq) / rate) + 0.02 * rng.standard_normal(n_samples)
+    return x.astype(np.float32)
+
+
+def write_wav(path: pathlib.Path, audio, rate: int) -> None:
+    import wave
+
+    import numpy as np
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((np.clip(audio, -1, 1) * 32767).astype(np.int16).tobytes())
+
+
+def family_siglip_parity(torch, device) -> dict:
+    """(a) SigLIP at FAMILY["siglip_parity"], the port's seeded params: image
+    and text features and ``siglip_forward``'s logits on the card (fp32,
+    TF32 off) against the CPU, through the same port code."""
+    from evr_tpu_torch.models import siglip as sig
+    from evr_tpu_torch.models.convert import params_from_numpy
+    from evr_tpu_torch.tokenizer import SiglipFallbackTokenizer
+    from evr_tpu_torch.utils.device import full_fp32
+
+    cfg = sig.get_siglip_config(FAMILY["siglip_parity"])
+    params = sig.init_siglip_params(FAMILY_SEED, cfg, device)
+    host = params_from_numpy(params, "cpu")
+    n = FAMILY["parity_pairs"]
+    staged = torch.from_numpy(family_frames(torch, n, cfg.vision.image_size, device, FAMILY_SEED))
+    tokens = torch.from_numpy(SiglipFallbackTokenizer(cfg.text.context_length, cfg.text.vocab_size)(
+        FAMILY_QUERIES[:n]).astype("int64"))
+    outs = []
+    with torch.no_grad(), full_fp32():
+        for p, dev in ((params, device), (host, "cpu")):
+            pixels, toks = sig.stage_pixels(staged.to(dev)), tokens.to(dev)
+            outs.append({"image": sig.encode_image(p, cfg, pixels), "text": sig.encode_text(p, cfg, toks),
+                         "logits": sig.siglip_forward(p, cfg, pixels, toks)["logits_per_image"]})
+    card, cpu = outs
+    out = {}
+    for key in ("image", "text", "logits"):
+        ok = lambda v: v <= FAMILY_F32_REL  # noqa: E731
+        out[key] = held(f"21a SigLIP {key}, card against CPU", rel_err(torch, card[key], cpu[key]), ok,
+                        rel_err(torch, turned(torch, cpu[key], FAMILY_CONTROL_COS, 1), cpu[key]))
+    return out
+
+
+def served_siglip(torch, device, root: pathlib.Path, dtype: str, frames, names):
+    """The SigLIP engine of ``serving.__main__`` for ``--params-dtype dtype``
+    (float32: the fp32 reference, compute in fp32), its encode of
+    ``frames`` into a data root, and the booted context and app."""
+    from werkzeug.test import Client
+
+    from evr_tpu_torch.index.siglip_engine import SiglipEngine
+    from evr_tpu_torch.models.siglip import get_siglip_config
+    from evr_tpu_torch.serving import ServingContext, create_app
+    from evr_tpu_torch.serving.__main__ import build_engine, parse_args
+
+    batch = FAMILY["batch"]
+    if dtype == "float32":
+        engine = SiglipEngine(get_siglip_config(FAMILY["siglip_serve"]), compute_dtype="float32", device=device,
+                              batch_size=batch)
+    else:
+        engine = build_engine(parse_args([
+            "--model-family", "siglip", "--model", FAMILY["siglip_serve"], "--device", str(device),
+            "--params-dtype", dtype, "--batch-size", str(batch), "--data-root", str(root)]))
+    check(type(engine).__name__ == "SiglipEngine" and engine.params_dtype == dtype, f"21b engine {dtype}")
+    engine.encode_staged_images(frames[:batch])  # warm-up
+    sync(torch, device)
+    t0 = time.perf_counter()
+    emb = engine.encode_staged_images(frames)
+    encode_s = time.perf_counter() - t0
+    per = len(frames) // len(names)
+    write_data_root(root, names, [emb[i * per:(i + 1) * per] for i in range(len(names))],
+                    [frames[i * per:(i + 1) * per] for i in range(len(names))])
+    ctx = ServingContext(root, engine=engine)
+    check(ctx.boot() == list(names), f"21b {dtype}: boot")
+    return engine, ctx, Client(create_app(ctx)), emb, encode_s
+
+
+def family_siglip_serving(torch, device, tmp: pathlib.Path) -> dict:
+    """(b) SigLIP served at FAMILY["siglip_serve"]: FAMILY["frames"] frames
+    encoded with bf16 and int8 weights (``serving.__main__``'s engine) and
+    by the fp32 reference, each into its own data root; /api/search's text
+    queries (the fallback tokenizer), the image and hybrid routes and
+    /api/models; the served rankings and rows held to the fp32 path's."""
+    import numpy as np
+
+    from evr_tpu_torch.models.siglip import get_siglip_config
+    from evr_tpu_torch.utils.device import full_fp32
+
+    cfg = get_siglip_config(FAMILY["siglip_serve"])
+    frames = family_frames(torch, FAMILY["frames"], cfg.vision.image_size, device, FAMILY_SEED + 1)
+    names = [f"sig{v}" for v in range(FAMILY["videos"])]
+    per = len(frames) // len(names)
+    out, served = {}, {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        with full_fp32() if dtype == "float32" else contextlib.nullcontext():
+            engine, ctx, client, emb, encode_s = served_siglip(torch, device, tmp / f"siglip_{dtype}", dtype,
+                                                               frames, names)
+            events, ms = served_events(client, FAMILY_QUERIES)
+            hybrid = route_post(client, {"search_type": "hybrid", "image_url": png_b64(frames[per + 3]),
+                                         "query": FAMILY_QUERIES[0], "image_weight": 0.7, "top_k": 10,
+                                         "adaptive_threshold": -1.0})
+            if dtype == "float32":  # ranks 41-50 of each query: the ranking check's negative control
+                deep = [[(e["videoId"], e["id"], e["clip_similarity"]) for e in route_post(client, {
+                    "query": q, "search_type": "text", "search_method": "text_clip", "top_k": 50})[40:50]]
+                    for q in FAMILY_QUERIES]
+        served[dtype] = {"emb": emb, "events": events, "hybrid": hybrid}
+        out[dtype] = {"encode_frames_per_s": len(frames) / encode_s, "request_p50_ms": statistics.median(ms)}
+        if dtype == "bfloat16":
+            images = []
+            for v, i in ((0, 5), (1, 3 * per // 5), (2, 0), (3, per - 1)):
+                hit = route_post(client, {"search_type": "image", "image_url": png_b64(frames[v * per + i]),
+                                          "top_k": 1, "adaptive_threshold": -1.0})
+                images.append(hit[0]["id"] == f"event-{i}" and hit[0]["videoId"] == f"video-{names[v]}")
+            check(all(images), f"21b image route: indexed frames found themselves {images}")
+            models = json.loads(client.get("/api/models").get_data(as_text=True))
+            check("siglip" in models[0]["name"], f"21b /api/models {models}")
+            engine.clear_text_cache()
+            text_ms = []
+            for q in FAMILY_QUERIES * 3:
+                engine.clear_text_cache()
+                t0 = time.perf_counter()
+                engine.get_text_features(q)
+                text_ms.append((time.perf_counter() - t0) * 1e3)
+            out[dtype]["text_query_p50_ms"] = statistics.median(text_ms)
+            keep = (engine, ctx)
+        else:
+            del engine, ctx, client
+    ref = served["float32"]
+    for dtype in ("bfloat16", "int8"):
+        got = served[dtype]
+        noise = FAMILY_SERVED_NOISE[dtype]
+        out[dtype]["rows"] = held(f"21b {dtype} rows against fp32", least_cos(torch, got["emb"], ref["emb"]),
+                                  lambda v: v >= FAMILY_ROW_COS[dtype],  # noqa: B023
+                                  least_cos(torch, turned(torch, ref["emb"], FAMILY_CONTROL_COS, 2), ref["emb"]))
+        out[dtype]["ranking"] = held(f"21b {dtype} served top-10 against fp32",
+                                     served_band_violations(got["events"], ref["events"], noise), lambda v: v == 0,
+                                     served_band_violations(deep, ref["events"], noise))
+        both = [[(e["videoId"], e["id"], e["clip_similarity"]) for e in got["hybrid"]],
+                [(e["videoId"], e["id"], e["clip_similarity"]) for e in ref["hybrid"]]]
+        check(both[0] and served_band_violations(both[:1], both[1:], noise) == 0, f"21b {dtype} hybrid route")
+        common = [abs(a[2] - b[2]) for qa, qb in zip(got["events"], ref["events"]) for a in qa for b in qb
+                  if a[:2] == b[:2]]
+        out[dtype]["score_diff"] = max(common) if common else 0.0
+    del served
+    return out, keep, names
+
+
+def family_siglip_train(torch, device) -> dict:
+    """(c) ``fit_siglip`` at FAMILY["siglip_train"], batch
+    FAMILY["train_batch"], fp32 on the card: the first step's loss and
+    gradients on FAMILY["grad_pairs"] pairs and Adam's first update against
+    the CPU's; one step over a 2-slot data mesh against one slot; then
+    FAMILY["train_steps"] steps (the loss falls, both towers and logit_bias
+    move)."""
+    from evr_tpu_torch.models import siglip as sig
+    from evr_tpu_torch.models.convert import params_from_numpy
+    from evr_tpu_torch.parallel import get_mesh
+    from evr_tpu_torch.tokenizer import SiglipFallbackTokenizer
+    from evr_tpu_torch.training import siglip_train as st
+    from evr_tpu_torch.training.finetune import flat_leaves
+    from evr_tpu_torch.utils.device import full_fp32
+
+    cfg = sig.get_siglip_config(FAMILY["siglip_train"])
+    params = sig.init_siglip_params(FAMILY_SEED + 2, cfg, device)
+    n, b = FAMILY["grad_pairs"], FAMILY["train_batch"]
+    captions = [f"{FAMILY_QUERIES[i % len(FAMILY_QUERIES)]} {i}" for i in range(b)]
+    batch = {"images": family_frames(torch, b, cfg.vision.image_size, device, FAMILY_SEED + 2),
+             "tokens": SiglipFallbackTokenizer(cfg.text.context_length, cfg.text.vocab_size)(captions)}
+    tc = st.SiglipTrainConfig(lr=1e-4)
+    out = {}
+    with full_fp32():
+        small = {k: v[:n] for k, v in batch.items()}
+        host = params_from_numpy(params, "cpu")
+        (loss_c, g_c), (loss_h, g_h) = (st.siglip_grads(p, cfg, small) for p in (params, host))
+        out["loss_rel"] = abs(loss_c.item() - loss_h.item()) / abs(loss_h.item())
+        check(out["loss_rel"] <= FAMILY_F32_REL, f"21c first loss card {loss_c.item()} CPU {loss_h.item()}")
+        worst = max(g_h, key=lambda k: leaf_err(torch, g_c[k], g_h[k]))
+        big = "visual/blocks/0/mlp/fc/kernel"  # the controls' leaf (a scalar leaf cannot be turned)
+        out["grads"] = held("21c first-step gradients, card against CPU", leaf_err(torch, g_c[worst], g_h[worst]),
+                            lambda v: v <= FAMILY_GRAD_REL,
+                            leaf_err(torch, turned(torch, g_h[big].reshape(1, -1), 0.99, 3), g_h[big]))
+        out["grads_worst_leaf"] = worst
+        updates = []
+        for p, g in ((params, g_c), (host, g_h)):
+            before = flat_leaves(p)
+            fresh = {k: v.clone() for k, v in before.items()}
+            opt = st.make_siglip_optimizer(tc)
+            opt.apply(fresh, g, opt.init(fresh))
+            updates.append({k: (fresh[k] - before[k]).cpu() for k in fresh})
+        cos = {k: least_cos(torch, updates[0][k].reshape(1, -1), updates[1][k].reshape(1, -1)) for k in g_h}
+        worst = min(cos, key=cos.get)
+        out["updates"] = held("21c Adam's first update, card against CPU", cos[worst],
+                              lambda v: v >= FAMILY_UPDATE_COS,
+                              least_cos(torch, turned(torch, updates[1][big].reshape(1, -1), 0.99, 4),
+                                        updates[1][big].reshape(1, -1)))
+        del host, g_h, updates
+        # the port's fp32 step bands (STEP_FP32_BANDS: loss, gradient norm, least leaf cosine)
+        (l1, g1), (l2, g2) = (st.siglip_grads(params, cfg, batch, mesh=m)
+                              for m in (None, get_mesh(2, device=device)))
+        norms = [math.sqrt(sum(g.double().square().sum().item() for g in gs.values())) for gs in (g1, g2)]
+        out["mesh"] = {"loss_rel": abs(l2.item() - l1.item()) / abs(l1.item()),
+                       "norm_rel": abs(norms[1] - norms[0]) / norms[0]}
+        check(out["mesh"]["loss_rel"] <= STEP_FP32_BANDS[0] and out["mesh"]["norm_rel"] <= STEP_FP32_BANDS[1],
+              f"21c 2 slots against 1: {out['mesh']}")
+        out["mesh"]["leaf_cos"] = held("21c 2-slot gradients against one slot, least leaf cosine",
+                                       min(leaf_cosines(torch, g2, g1).values()),
+                                       lambda v: v >= STEP_FP32_BANDS[2],
+                                       least_cos(torch, turned(torch, g1[big].reshape(1, -1), 0.99, 5),
+                                                 g1[big].reshape(1, -1)))
+        del g1, g2
+        sync(torch, device)
+        t0 = time.perf_counter()
+        trained, losses = st.fit_siglip(params, cfg, [batch] * FAMILY["train_steps"], tc, device=device)
+        out["step_s"] = (time.perf_counter() - t0) / FAMILY["train_steps"]
+    out["losses"] = losses
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"21c losses {losses}")
+    for tower in ("visual", "text"):
+        key = flat_leaves(trained)[f"{tower}/blocks/0/mlp/fc/kernel"]
+        check(not torch.equal(key, flat_leaves(params)[f"{tower}/blocks/0/mlp/fc/kernel"]), f"21c {tower} moved")
+    check(trained["logit_bias"].item() != params["logit_bias"].item(), "21c logit_bias moved")
+    return out
+
+
+def family_whisper(torch, device) -> dict:
+    """(d) Whisper at FAMILY["whisper"], the port's seeded params drawn on
+    the device (the decoder spread by WHISPER_SPREAD), FAMILY["windows"]
+    windows of seeded audio, fp32 (TF32 off): the KV-cached greedy decode's
+    ids equal to a full re-run's and its logits within FAMILY_DECODE_REL (a
+    decode with cache row 0 zeroed fails); bf16 teacher-forced logits
+    against fp32 by row cosine; FAMILY["whisper_parity"] on the card against
+    the CPU through fp32 teacher-forced logits on one window."""
+    from evr_tpu_torch.models import whisper as wh
+    from evr_tpu_torch.models.convert import params_from_numpy
+    from evr_tpu_torch.utils.device import full_fp32
+
+    cfg = wh.WHISPER_SIZES[FAMILY["whisper"]]
+    params = wh.init_whisper_params(FAMILY_SEED + 3, cfg, device)
+    params["decoder"]["token_embedding"].mul_(WHISPER_SPREAD[0])
+    params["decoder"]["pos"].mul_(WHISPER_SPREAD[1])
+    asr = wh.WhisperASR(params, cfg, [cfg.sot_id], max_len=FAMILY["max_len"], device=device)
+    audio = family_audio(FAMILY["windows"] * cfg.n_samples, cfg.sampling_rate, FAMILY_SEED + 3)
+    windows = wh.pad_or_trim(audio.reshape(FAMILY["windows"], -1), cfg.n_samples)
+    max_len, out = asr.max_len, {}
+    with torch.inference_mode(), full_fp32():
+        mel = wh.log_mel_spectrogram(torch.from_numpy(windows).to(device), asr.filters, cfg.n_fft, cfg.hop_length)
+        wh.greedy_decode(params, cfg, mel, [cfg.sot_id], 4)  # warm-up
+        sync(torch, device)
+        t0 = time.perf_counter()
+        ids, logits = wh.greedy_decode(params, cfg, mel, [cfg.sot_id], max_len, return_logits=True)
+        sync(torch, device)
+        decode_s = time.perf_counter() - t0
+        enc = wh.encoder_forward(params, cfg, mel)
+        seq, done, oracle = ids[:, :1], torch.zeros(len(ids), dtype=torch.bool, device=ids.device), []
+        for _ in range(max_len - 1):
+            last = wh.decoder_forward(params, cfg, seq, enc)[:, -1]
+            oracle.append(last)
+            nxt = torch.where(done, torch.full_like(seq[:, 0], cfg.eos_id), last.argmax(-1))
+            done = done | (nxt == cfg.eos_id)
+            seq = torch.cat([seq, nxt[:, None]], dim=1)
+        oracle = torch.stack(oracle, dim=1)
+        check(torch.equal(ids, seq), f"21d cached decode ids {ids.tolist()} against the full re-run {seq.tolist()}")
+        top2 = torch.topk(logits, 2, dim=-1).values
+        out["least_top2_gap"] = (top2[..., 0] - top2[..., 1]).min().item()
+        out["distinct_ids"] = len(set(ids[:, 1:].reshape(-1).tolist()))
+        original = wh._mha_cached
+
+        def row_zeroed(x_row, p, n_heads, k_cache, v_cache, pos):
+            if pos > 0:
+                k_cache[:, 0] = 0
+                v_cache[:, 0] = 0
+            return original(x_row, p, n_heads, k_cache, v_cache, pos)
+
+        wh._mha_cached = row_zeroed
+        try:
+            bad_ids, bad_logits = wh.greedy_decode(params, cfg, mel, [cfg.sot_id], max_len, return_logits=True)
+        finally:
+            wh._mha_cached = original
+        out["decode"] = held("21d cached decode logits against the full re-run", rel_err(torch, logits, oracle),
+                             lambda v: v <= FAMILY_DECODE_REL, rel_err(torch, bad_logits, oracle))
+        out["control_ids_differ"] = not torch.equal(bad_ids, ids)
+        enc16 = wh.encoder_forward(params, cfg, mel, torch.bfloat16)
+        lg16 = wh.decoder_forward(params, cfg, ids[:, :-1], enc16, torch.bfloat16)
+        lg32 = wh.decoder_forward(params, cfg, ids[:, :-1], enc)
+        out["bf16"] = held("21d bf16 teacher-forced logits against fp32", least_cos(torch, lg16, lg32),
+                           lambda v: v >= FAMILY_BF16_LOGIT_COS,
+                           least_cos(torch, turned(torch, lg32, FAMILY_CONTROL_COS, 6), lg32))
+        del enc16, lg16, lg32, enc
+        bcfg = wh.WHISPER_SIZES[FAMILY["whisper_parity"]]
+        host = wh.init_whisper_params(FAMILY_SEED + 4, bcfg, "cpu")
+        card = params_from_numpy(host, device)
+        one = wh.pad_or_trim(audio[None, :bcfg.n_samples], bcfg.n_samples)
+        tokens = torch.randint(0, bcfg.vocab_size, (1, 16), generator=torch.Generator().manual_seed(FAMILY_SEED))
+        filters = torch.from_numpy(wh.mel_filter_bank(1 + bcfg.n_fft // 2, bcfg.num_mel_bins, bcfg.sampling_rate))
+        res = []
+        for p, dev in ((card, device), (host, "cpu")):
+            m = wh.log_mel_spectrogram(torch.from_numpy(one).to(dev), filters.to(dev), bcfg.n_fft, bcfg.hop_length)
+            res.append((m, wh.decoder_forward(p, bcfg, tokens, wh.encoder_forward(p, bcfg, m))))
+        shifted = torch.roll(res[1][0], 1, dims=-1)  # the CPU's frames one hop late: the control
+        out["mel"] = held("21d log-mel, card against CPU", (res[0][0].cpu() - res[1][0]).abs().max().item(),
+                          lambda v: v <= FAMILY_MEL_TOL, (shifted - res[1][0]).abs().max().item())
+        out["base"] = held(f"21d {FAMILY['whisper_parity']} logits, card against CPU", rel_err(torch, *[r[1] for r in res]),
+                           lambda v: v <= FAMILY_F32_REL,
+                           rel_err(torch, turned(torch, res[1][1], FAMILY_CONTROL_COS, 7), res[1][1]))
+    out["decode_tokens_per_s"] = ids.shape[0] * (max_len - 1) / decode_s
+    out["decode_s"] = decode_s
+    return out, asr
+
+
+def family_transcription(torch, device, tmp: pathlib.Path, engine, root: pathlib.Path, names, asr) -> dict:
+    """(e) ``python -m evr_tpu_torch.tools.transcribe --random-init --size
+    FAMILY["whisper"] --max-len FAMILY["max_len"] --raw-ids --segments-out
+    <root's metadata dir>`` over two videos' WAVs (the fallback text of the
+    random weights is empty: their ids lie past the byte range), the root
+    booted again with the transcripts, a speech query through /api/search
+    returning the transcribed videos only; ``LocalWhisperTranscriber``
+    answering /api/transcribe-voice."""
+    import io
+
+    from werkzeug.test import Client
+
+    from evr_tpu_torch.config import DataRootConfig
+    from evr_tpu_torch.models.whisper import WHISPER_SIZES
+    from evr_tpu_torch.serving import ServingContext, create_app
+    from evr_tpu_torch.serving.providers import LocalWhisperTranscriber
+    from evr_tpu_torch.tools import transcribe
+    from evr_tpu_torch.utils.device import full_fp32
+
+    cfg = WHISPER_SIZES[FAMILY["whisper"]]
+    wavs = tmp / "wavs"
+    wavs.mkdir()
+    spoken = names[:2]
+    for i, name in enumerate(spoken):  # two windows, then one
+        write_wav(wavs / f"{name}.wav", family_audio((2 - i) * cfg.n_samples, cfg.sampling_rate, FAMILY_SEED + 5 + i),
+                  cfg.sampling_rate)
+    meta = DataRootConfig(root).metadata_dir
+    t0 = time.perf_counter()
+    with full_fp32():
+        results, _ = quiet(transcribe.main, [str(wavs / f"{n}.wav") for n in spoken] + [
+            "--random-init", "--size", FAMILY["whisper"], "--max-len", str(FAMILY["max_len"]), "--raw-ids",
+            "--segments-out", str(meta), "--device", str(device)])
+    out = {"cli_s": time.perf_counter() - t0}
+    for i, name in enumerate(spoken):
+        segs = json.loads((meta / f"{name}_transcript.json").read_text())["segments"]
+        check(len(segs) == 2 - i and all(s["text"] for s in segs), f"21e {name} transcript {segs}")
+    keyword = json.loads((meta / f"{spoken[0]}_transcript.json").read_text())["segments"][0]["text"].split()[0]
+    ctx = ServingContext(root, engine=engine, transcriber=LocalWhisperTranscriber(asr))
+    check(ctx.boot() == list(names), "21e boot with the transcripts")
+    client = Client(create_app(ctx))
+    events = route_post(client, {"search_method": "speech_only", "keyword": keyword, "query": keyword,
+                                 "top_k": 10})
+    videos = {e["videoId"] for e in events}
+    check(f"video-{spoken[0]}" in videos and videos <= {f"video-{n}" for n in spoken},
+          f"21e speech query {keyword!r}: videos {videos}")
+    out["speech_videos"] = sorted(videos)
+    write_wav(wavs / "voice.wav", family_audio(10 * cfg.sampling_rate, cfg.sampling_rate, FAMILY_SEED + 7),
+              cfg.sampling_rate)
+    t0 = time.perf_counter()
+    with full_fp32():
+        resp = client.post("/api/transcribe-voice",
+                           data={"audio": (io.BytesIO((wavs / "voice.wav").read_bytes()), "voice.wav")})
+    out["voice_s"] = time.perf_counter() - t0
+    text = json.loads(resp.get_data(as_text=True)).get("text")
+    check(resp.status_code == 200 and isinstance(text, str) and text, f"21e transcribe route {resp.status_code}")
+    return out
+
+
+def family_splits(torch, engine, asr) -> dict:
+    """Profiler splits (``device_split``), taken last in phase 21 (a trace
+    slows the launches after it): 8 frames through the bf16 so400m engine,
+    one text query, and two steps of large-v3's decode over one window."""
+    from evr_tpu_torch.models import whisper as wh
+
+    frames = family_frames(torch, 8, engine.cfg.vision.image_size, engine.device, FAMILY_SEED + 8)
+    cfg = asr.cfg
+    audio = family_audio(cfg.n_samples, cfg.sampling_rate, FAMILY_SEED + 8)
+    with torch.inference_mode():
+        mel = wh.log_mel_spectrogram(torch.from_numpy(audio[None]).to(asr.device), asr.filters, cfg.n_fft,
+                                     cfg.hop_length)
+        return {"encode_8": device_split(torch, lambda: engine.encode_staged_images(frames)),
+                "text_query": device_split(torch, lambda: engine.encode_texts(FAMILY_QUERIES[:1])),
+                "decode_2": device_split(torch, lambda: wh.greedy_decode(asr.params, cfg, mel, [cfg.sot_id], 3))}
+
+
+def phase_families(torch, device: str = "cuda") -> dict:
+    """Phase 21, the model families: (a) SigLIP card against CPU, (b)
+    SigLIP served at so400m's full width (bf16, int8, the fp32 reference),
+    (c) SigLIP fine-tuned, (d) Whisper large-v3's decode and base card
+    against CPU, (e) transcription end to end. No kernel of ``ops`` runs:
+    every launch counter is read before and after (``device``: the card,
+    the CPU only to rehearse the phase's control flow)."""
+    t_phase = time.perf_counter()
+    before = {fn.__name__: fn.launches for fn in family_counters()}
+    out = {"seconds": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        out["parity"] = family_siglip_parity(torch, device)
+        out["seconds"]["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["serving"], (engine, ctx), names = family_siglip_serving(torch, device, tmp)
+        out["seconds"]["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["train"] = family_siglip_train(torch, device)
+        out["seconds"]["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["whisper"], asr = family_whisper(torch, device)
+        out["seconds"]["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["transcription"] = family_transcription(torch, device, tmp, engine, ctx.data_root.root, names, asr)
+        out["seconds"]["e"] = time.perf_counter() - t0
+        if torch.device(device).type == "cuda":
+            t0 = time.perf_counter()
+            out["split"] = family_splits(torch, engine, asr)
+            out["seconds"]["split"] = time.perf_counter() - t0
+        del engine, ctx, asr
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    moved = {fn.__name__: fn.launches - before[fn.__name__] for fn in family_counters()
+             if fn.launches != before[fn.__name__]}
+    check(not moved, f"phase 21 launched kernels of ops: {moved}")
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"phase 21 seconds {json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})}; "
+        f"no ops kernel launched ({len(before)} counters)")
+    return out
+
+
 def _to_cuda(torch, tree):
     from evr_tpu_torch.training.partition import map_with_paths
 
@@ -7893,6 +8476,7 @@ def main() -> int:
         mesh = phase_mesh(torch, frames)
         axes = phase_axes(torch, frames)
         annot = phase_annotators(torch)
+        families = phase_families(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -8070,6 +8654,26 @@ def main() -> int:
                     f"frames/s, classifier {z['build_s']:.3f} s, launches {json.dumps(z['launches'])}"
                     for tag, z in (("bf16", zb), ("int8", zq)))
         + f"; annotated upload {annot['upload']['frames']} frames in {annot['upload']['seconds']:.2f} s")
+    fs, ft, fw = families["serving"], families["train"], families["whisper"]
+    log(f"model families (phase 21, {families['seconds']['phase']:.1f} s; {card}): SigLIP "
+        f"{FAMILY['siglip_parity']} card against CPU " + ", ".join(
+            f"{k} {v['value']:.2e}" for k, v in families["parity"].items())
+        + f"; {FAMILY['siglip_serve']} encode frames/s " + ", ".join(
+            f"{d} {fs[d]['encode_frames_per_s']:.1f}" for d in ("float32", "bfloat16", "int8"))
+        + f", /api/search p50 ms " + ", ".join(f"{d} {fs[d]['request_p50_ms']:.2f}" for d in fs)
+        + f", text query p50 {fs['bfloat16']['text_query_p50_ms']:.2f} ms (bf16), rows against fp32 "
+        + ", ".join(f"{d} {fs[d]['rows']['value']:.6f} (scores apart up to {fs[d]['score_diff']:.2e})"
+                    for d in ("bfloat16", "int8"))
+        + f"; fit_siglip {FAMILY['siglip_train']} batch {FAMILY['train_batch']} fp32 {ft['step_s']:.3f} s/step, "
+        f"losses {[round(x, 4) for x in ft['losses']]}, gradients card against CPU {ft['grads']['value']:.2e}, "
+        f"updates cos {ft['updates']['value']:.6f}, 2 slots against 1 {json.dumps(ft['mesh'], default=str)}; Whisper "
+        f"{FAMILY['whisper']} decode {fw['decode_tokens_per_s']:.1f} tokens/s ({FAMILY['windows']} windows, "
+        f"max_len {FAMILY['max_len']}), against the full re-run {fw['decode']['value']:.2e} (row zeroed "
+        f"{fw['decode']['control']:.2e}), least top-2 gap {fw['least_top2_gap']:.3f}, bf16 logits cos "
+        f"{fw['bf16']['value']:.6f}, {FAMILY['whisper_parity']} card against CPU {fw['base']['value']:.2e}; "
+        f"transcribe CLI {families['transcription']['cli_s']:.1f} s, voice route "
+        f"{families['transcription']['voice_s']:.2f} s; profiler splits (wall under the trace, device ms, top "
+        f"kernels) {json.dumps(families['split'])}")
     big = main["then"]["routes"]
     log(f"viz.umap at {UMAP_ROWS} x {UMAP_DIM}: {big['umap_big_s']:.2f} s, neighbours kept "
         f"{json.dumps(big['knn_kept'])}")

@@ -89,7 +89,7 @@ def load_torch_checkpoint(path, prefer_ema: bool = False) -> dict:
     if pathlib.Path(path).is_dir():
         raise NotImplementedError(
             f"{path} is a directory: orbax checkpoints need JAX; the port reads torch "
-            "files only (ROADMAP item A17)")
+            "files only (a reference .pt or the port Trainer's)")
     blob = read_torch_file(path)
     if isinstance(blob, dict) and blob.get("moe"):
         raise NotImplementedError(f"{path}: MoE checkpoints are not ported yet (ROADMAP item A17)")

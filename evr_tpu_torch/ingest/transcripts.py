@@ -9,8 +9,8 @@ and the ``speech_only`` / ``text_speech`` strategies search it. Schema::
 
 The transcriber is pluggable: any callable ``(audio_f32_16kHz) ->
 [{"start", "end", "text"}, ...]``. ``WhisperSegmentTranscriber`` adapts any
-object with ``transcribe_segments(audio, prompt_ids=...)`` (the Whisper model
-itself is ROADMAP A17). Audio comes from PCM WAV sidecars (``read_wav``).
+object with ``transcribe_segments(audio, prompt_ids=...)``, such as
+``models.whisper.WhisperASR``. Audio comes from PCM WAV sidecars (``read_wav``).
 """
 
 from __future__ import annotations

@@ -246,13 +246,16 @@ def encode_staged_u8(
     cfg: CLIPConfig,
     staged_u8: torch.Tensor,
     dtype: torch.dtype = torch.float32,
+    mean=None,
+    std=None,
     cls_fast_final: bool = True,
 ) -> torch.Tensor:
     """uint8 staged frames [B, S, S, 3] → [B, embed_dim], the serving path.
 
-    The patches are unfolded in uint8 and the CLIP normalisation is folded
-    into the patch GEMM, ``(x/255 − m)/s · K = x · K/(255 s) − Σ (m/s) K``,
-    exactly as the JAX package does it (same casts, same order)."""
+    The patches are unfolded in uint8 and the normalisation is folded into
+    the patch GEMM, ``(x/255 − m)/s · K = x · K/(255 s) − Σ (m/s) K``,
+    exactly as the JAX package does it (same casts, same order). ``mean``
+    and ``std`` (per channel) default to CLIP's."""
     v = cfg.vision
     p = params["visual"]
     B, S = staged_u8.shape[0], staged_u8.shape[1]
@@ -263,8 +266,8 @@ def encode_staged_u8(
         )
     g, P = v.grid, v.patch_size
     dev = staged_u8.device
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev)
-    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=dev)
+    mean = torch.as_tensor(CLIP_MEAN if mean is None else mean, dtype=torch.float32, device=dev)
+    std = torch.as_tensor(CLIP_STD if std is None else std, dtype=torch.float32, device=dev)
 
     # unfold in uint8: [B,S,S,3] → [B,g,P,g,P,3] → [B,g,g,P,P,3] → [B,g²,P²·3]
     patches = staged_u8.reshape(B, g, P, g, P, 3).permute(0, 1, 3, 2, 4, 5)

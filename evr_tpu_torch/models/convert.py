@@ -3,7 +3,8 @@
 ``evr_tpu`` keeps params as nested dicts (and lists of blocks) of arrays:
 linear kernels ``[in, out]``, the patch-embedding conv kernel HWIO. The port
 uses the same layout, so carrying weights across is a leaf-by-leaf copy; no
-transposes. A JAX params tree becomes numpy with ``jax.tree.map(np.asarray,
+transposes. Any such tree carries across: CLIP's, SigLIP's (0-d
+``logit_scale``/``logit_bias`` included) and Whisper's. A JAX params tree becomes numpy with ``jax.tree.map(np.asarray,
 params)`` on the caller's side.
 """
 

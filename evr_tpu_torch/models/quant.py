@@ -78,3 +78,10 @@ def quantize_clip_params(params: Params) -> Params:
             tp["blocks"] = [_quantize_block(b) for b in tp["blocks"]]
             out[tower] = tp
     return out
+
+
+# SigLIP towers keep the block layout ({attn: {qkv, out}, mlp: {fc, proj}}
+# under visual/text.blocks), so the same quantiser applies; the MAP head, the
+# patch stem, the embeddings and the text head stay in floating point
+# (models/siglip.py routes block linears through layers.linear).
+quantize_siglip_params = quantize_clip_params

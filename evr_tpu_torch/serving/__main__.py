@@ -2,16 +2,48 @@
 
 import argparse
 
-# the JAX CLI's flags that need a part not ported yet: dest → (the value that
-# keeps serving, ROADMAP item); any other value is refused at parse time
-UNPORTED_FLAGS = {
-    "model_family": ("clip", "A17"),  # SigLIP
-    "siglip_hf": (None, "A17"),
-    "siglip_tokenizer": (None, "A17"),
-}
+
+def build_engine(args, mesh=None):
+    """The serving engine of ``parse_args``'s ``args``: an
+    ``EmbeddingEngine`` (CLIP; its encode batches split over ``mesh``), or
+    with ``--model-family siglip`` a ``SiglipEngine`` of ``--model`` (a
+    SigLIP registry name) or of the local HF directory ``--siglip-hf``,
+    tokenised by ``--siglip-tokenizer``'s local files or the zero-egress
+    fallback. Unlike the JAX CLI, the SigLIP engine takes
+    ``--params-dtype`` (the JAX CLI drops it)."""
+    if args.model_family == "siglip":
+        from evr_tpu_torch.index.siglip_engine import SiglipEngine
+        from evr_tpu_torch.models.siglip import get_siglip_config
+
+        tokenize_fn = None
+        if args.siglip_tokenizer:
+            from transformers import SiglipTokenizer
+
+            tok = SiglipTokenizer.from_pretrained(args.siglip_tokenizer, local_files_only=True)
+
+            def tokenize_fn(texts):
+                return tok(texts, padding="max_length", truncation=True, return_tensors="np")["input_ids"]
+
+        kw = dict(tokenize_fn=tokenize_fn, params_dtype=args.params_dtype, device=args.device,
+                  batch_size=args.batch_size)
+        if args.siglip_hf:
+            return SiglipEngine.from_hf(args.siglip_hf, **kw)
+        return SiglipEngine(cfg=get_siglip_config(args.model), **kw)
+    from evr_tpu_torch.index import EmbeddingEngine
+
+    engine = EmbeddingEngine(
+        args.model, device=args.device,
+        params_dtype="float32" if args.params_dtype == "auto" else args.params_dtype,
+        batch_size=args.batch_size, mesh=mesh,
+    )
+    if args.checkpoint:
+        engine.load_finetuned(args.checkpoint, prefer_ema=args.use_ema)
+    return engine
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The CLI's arguments; a combination no engine serves exits at parse
+    time (``--params-dtype auto`` and ``--checkpoint`` are CLIP's only)."""
     parser = argparse.ArgumentParser(description="evr_tpu_torch serving API")
     parser.add_argument("--data-root", default="data")
     parser.add_argument("--host", default="127.0.0.1")
@@ -92,21 +124,29 @@ def main(argv=None):
         help="annotate uploaded videos' text_detections with the zero-egress OCR "
         "(ingest/ocr.py, on --device); auto = on when the package's checkpoint exists",
     )
-    # accepted for the JAX CLI's command lines, refused when they ask for a part
-    # not ported yet (UNPORTED_FLAGS)
-    parser.add_argument("--model-family", choices=["clip", "siglip"], default="clip")
-    parser.add_argument("--siglip-hf", default=None)
-    parser.add_argument("--siglip-tokenizer", default=None)
+    parser.add_argument(
+        "--model-family", choices=["clip", "siglip"], default="clip",
+        help="clip (EmbeddingEngine, --model a CLIP name) or siglip (SiglipEngine, --model a "
+        "SigLIP registry name such as siglip-base-patch16-224, or --siglip-hf)",
+    )
+    parser.add_argument("--siglip-hf", default=None,
+                        help="a local HF SiglipModel directory (read without network)")
+    parser.add_argument("--siglip-tokenizer", default=None,
+                        help="a local HF SiglipTokenizer directory (default: the byte-level fallback)")
     args = parser.parse_args(argv)
-    for dest, (default, item) in UNPORTED_FLAGS.items():
-        value = getattr(args, dest)
-        if value != default:
-            flag = "--" + dest.replace("_", "-") + ("" if isinstance(value, bool) else f" {value}")
-            parser.error(f"{flag} is not ported to evr_tpu_torch yet (ROADMAP {item})")
+    if args.model_family == "siglip":
+        if args.params_dtype == "auto":
+            parser.error("--params-dtype auto is CLIP-only; use int8/bfloat16 explicitly for siglip")
+        if args.checkpoint:
+            parser.error("--checkpoint is CLIP-only: there is no SigLIP checkpoint format")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     from werkzeug.serving import run_simple
 
-    from evr_tpu_torch.index import EmbeddingEngine
     from evr_tpu_torch.ingest.annotators import build_annotator
     from evr_tpu_torch.models.quant_gate import auto_params_dtype
     from evr_tpu_torch.utils import get_logger
@@ -116,18 +156,12 @@ def main(argv=None):
 
     log = get_logger("evr_tpu_torch.serving")
     mesh = None
-    if args.shard_index:
+    if args.shard_index:  # the index over every local card (and, for CLIP, the encodes)
         from evr_tpu_torch.parallel import get_mesh
 
         mesh = get_mesh(device=args.device)
         print(f"sharding over {mesh.shape} mesh", flush=True)
-    engine = EmbeddingEngine(
-        args.model, device=args.device,
-        params_dtype="float32" if args.params_dtype == "auto" else args.params_dtype,
-        batch_size=args.batch_size, mesh=mesh,
-    )
-    if args.checkpoint:
-        engine.load_finetuned(args.checkpoint, prefer_ema=args.use_ema)
+    engine = build_engine(args, mesh)
     transcriber = None
     if args.transcriber == "assemblyai":
         from .providers import AssemblyAITranscriber

@@ -346,8 +346,12 @@ class ServingContext:
 
     # -- image and hybrid search ------------------------------------------
     def _stage(self, rgb: np.ndarray) -> np.ndarray:
-        """A query image staged with the engine's geometry: shorter-side
-        resize and centre crop (``ops.preprocess.stage_array_fast``)."""
+        """A query image staged with the engine's geometry: the engine's own
+        stager where it has one (SigLIP squashes, no crop), else CLIP's
+        shorter-side resize and centre crop (``ops.preprocess.stage_array_fast``)."""
+        stage = getattr(self.engine, "stage_array", None)
+        if stage is not None:
+            return stage(rgb)
         return stage_array_fast(rgb, self.engine.cfg.vision.image_size)
 
     def load_image_source(self, source: str) -> np.ndarray:
@@ -378,8 +382,15 @@ class ServingContext:
         self, source: str, threshold: float, top_k: int, video_name: str | None = None
     ) -> list[dict]:
         """Frames like the image: one dispatch of the active model's
-        ``ImageSearcher`` (normalise → every vision block → GEMM → top-k)."""
+        ``ImageSearcher`` (normalise → every vision block → GEMM → top-k).
+        An engine without ``models`` (``SiglipEngine``) takes two steps
+        through its own preprocessing: the engine's encode, then
+        ``FrameIndex.search_raw``."""
         staged = self._stage(self.load_image_source(source))
+        if not hasattr(self.engine, "models"):
+            v = np.asarray(self.engine.encode_staged_images(staged[None], normalise=True))[0]
+            scores, rows = self.index.search_raw(v[None], top_k * 3, video_name)
+            return self._events_from_rows(scores[0], rows[0], threshold, top_k)
         scores, rows = self.image_searcher.search(staged[None], top_k * 3, video_name)
         return self._events_from_rows(scores[0], rows[0], threshold, top_k)
 

@@ -72,16 +72,29 @@ class AssemblyAITranscriber:
 
 
 class LocalWhisperTranscriber:
-    """On-card Whisper transcription: not ported yet (ROADMAP A17, the model
-    families). Construction raises; wire an ``AssemblyAITranscriber`` or a
-    ``CallableTranscriber`` instead, or leave the provider unset (the route
-    answers 501)."""
+    """On-card Whisper transcription (``models.whisper``): the zero-egress
+    replacement of the reference's AssemblyAI network call
+    (`Backend/app.py:766-850`).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LocalWhisperTranscriber needs the Whisper model, which is not yet ported to "
-            "evr_tpu_torch (ROADMAP A17)"
-        )
+    Wraps a ``WhisperASR`` (its params, config and detokenizer are
+    deployment assets; without them, leave the provider unset and the route
+    answers 501). ``language_prompts`` maps the route's language codes
+    (e.g. ``"en_us"``, ``"vi"``) to forced header id lists; an unknown code
+    takes the ASR's default prompt. Input: PCM WAV read by the standard
+    library; a webm or ogg upload needs a host decoder ahead of it."""
+
+    def __init__(self, asr, language_prompts: dict[str, list[int]] | None = None):
+        self.asr = asr
+        self.language_prompts = language_prompts or {}
+
+    def __call__(self, audio_path: str, language: str = "en_us") -> str:
+        from evr_tpu_torch.models.whisper import read_wav
+
+        audio = read_wav(audio_path, self.asr.cfg.sampling_rate)
+        (out,) = self.asr.transcribe(audio, prompt_ids=self.language_prompts.get(language))
+        if isinstance(out, list):  # no detokenizer wired: the ids as text
+            return " ".join(str(i) for i in out)
+        return out
 
 
 class CallableTranscriber:

@@ -386,6 +386,15 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float) -> dict[str, torch.Tensor]:
+    """``optax.clip_by_global_norm``: every gradient scaled by ``max_norm /
+    norm`` where their global norm reaches ``max_norm``, else as given."""
+    norm = global_norm(list(grads.values()))
+    if bool(norm < max_norm):
+        return grads
+    return {k: (g / norm.to(g.device)) * max_norm for k, g in grads.items()}
+
+
 def make_optimizer(cfg: TrainConfig, params, steps_per_epoch: int = 1):
     """The JAX trainer's optimizer over ``params`` (``{"clip", "classifier",
     "lora"}``): ``GroupedAdamW``, under ``MultiSteps`` when

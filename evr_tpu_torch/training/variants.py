@@ -71,7 +71,7 @@ from evr_tpu_torch.models.layers import linear
 from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
 from evr_tpu_torch.utils.device import resolve_device
 
-from .finetune import MultiSteps, _f32, _to_device, flat_leaves, global_norm
+from .finetune import MultiSteps, _f32, _to_device, clip_by_global_norm, flat_leaves
 from .losses import softmax_cross_entropy
 from .partition import map_with_paths
 
@@ -256,9 +256,7 @@ class PhaseOptimizer:
     @torch.no_grad()
     def apply(self, params, grads: dict[str, torch.Tensor], state: dict) -> None:
         flat = flat_leaves(params)
-        norm = global_norm([grads[k] for k in flat])
-        if not bool(norm < self.max_norm):
-            grads = {k: (g / norm) * self.max_norm for k, g in grads.items()}
+        grads = clip_by_global_norm({k: grads[k] for k in flat}, self.max_norm)
         for label, tx in self.transforms.items():
             tx.apply(self._of(flat, label), grads, state[label])
 

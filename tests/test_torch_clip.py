@@ -149,3 +149,17 @@ def test_init_params_layout_matches_jax():
     # the same seed gives the same weights
     tp2 = tclip.init_clip_params(0, _tcfg())
     assert all(np.array_equal(a, b) for a, b in zip(tl, jax.tree.leaves(tp2)))
+
+
+def test_encode_staged_u8_mean_std_matches_jax(params):
+    """A non-CLIP normalisation (SigLIP's mean = std = 0.5) folded into the
+    patch GEMM, as the JAX package folds it."""
+    jp, tp = params
+    size = jcfg("ViT-Tiny-Test").vision.image_size
+    staged = np.random.default_rng(7).integers(0, 256, (3, size, size, 3), dtype=np.uint8)
+    half = (0.5, 0.5, 0.5)
+    ref = jclip.encode_staged_u8(jp, jcfg("ViT-Tiny-Test"), jnp.asarray(staged), mean=half, std=half)
+    got = tclip.encode_staged_u8(tp, _tcfg(), torch.from_numpy(staged), mean=half, std=half)
+    _close(got.numpy(), ref)
+    clip_default = tclip.encode_staged_u8(tp, _tcfg(), torch.from_numpy(staged))
+    assert not np.allclose(got.numpy(), clip_default.numpy(), atol=ATOL)

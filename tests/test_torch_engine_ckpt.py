@@ -113,7 +113,7 @@ def test_classify_and_active_model_match_jax(tmp_path, trees):
 @pytest.mark.parametrize("what", ["directory", "moe"])
 def test_unreadable_checkpoints_raise(tmp_path, trees, what):
     if what == "directory":
-        path, match = tmp_path, "orbax checkpoints need JAX.*torch files only.*A17"
+        path, match = tmp_path, "orbax checkpoints need JAX.*torch files only"
     else:
         path = write_checkpoint(tmp_path, "trainer", trees)
         payload = torch.load(path, weights_only=True)

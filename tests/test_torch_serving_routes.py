@@ -160,8 +160,28 @@ def test_transcribe_voice(clients):
     finally:
         for client in clients:
             client.application.ctx.transcriber = None
-    with pytest.raises(NotImplementedError, match="A17"):
-        LocalWhisperTranscriber(object())
+    # the on-card provider wraps a WhisperASR (tests/test_torch_whisper_serving.py holds it to JAX's)
+    class Ids:
+        cfg = type("Cfg", (), {"sampling_rate": 16000})
+
+        def transcribe(self, audio, prompt_ids=None):
+            return [[len(audio), *(prompt_ids or [])]]
+
+    wav = io.BytesIO()
+    import wave
+
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(np.zeros(160, np.int16).tobytes())
+    clients[1].application.ctx.transcriber = LocalWhisperTranscriber(Ids(), {"vi": [7]})
+    try:
+        tr = clients[1].post("/api/transcribe-voice",
+                             data={"audio": (io.BytesIO(wav.getvalue()), "voice.wav"), "language": "vi"})
+        assert tr.status_code == 200 and payload(tr)["text"] == "160 7"
+    finally:
+        clients[1].application.ctx.transcriber = None
 
 
 def test_umap_route_and_its_cache(clients):
@@ -234,8 +254,11 @@ def _annotator_kinds(ann):
 
 
 def test_cli_refuses_unported_flags(capsys, tmp_path, monkeypatch):
-    """The SigLIP flags are refused naming their ROADMAP item; the annotator
-    flags build the annotators the JAX CLI builds."""
+    """The flag combinations no engine serves are refused at parse time
+    (``--params-dtype auto`` and ``--checkpoint`` with SigLIP; the SigLIP
+    flags themselves serve since A17's SigLIP part,
+    tests/test_torch_siglip_engine.py); the annotator flags build the
+    annotators the JAX CLI builds."""
     import sys
 
     import werkzeug.serving
@@ -244,13 +267,14 @@ def test_cli_refuses_unported_flags(capsys, tmp_path, monkeypatch):
     from evr_tpu_torch.serving.__main__ import main
 
     # --shard-index boots since the mesh was ported (tests/test_torch_mesh.py)
-    for argv, item in ((["--model-family", "siglip"], "A17"), (["--siglip-hf", "/x"], "A17"),
-                       (["--siglip-tokenizer", "/x"], "A17"),
+    for argv, said in ((["--model-family", "siglip", "--params-dtype", "auto"], "CLIP-only"),
+                       (["--model-family", "siglip", "--checkpoint", "ft.pt"], "CLIP-only"),
                        (["--frontend-dist", "dist", "--transcriber", "none", "--zeroshot-objects",
-                         "--siglip-hf", "/x"], "A17")):
+                         "--model-family", "siglip", "--siglip-hf", "/x", "--params-dtype", "auto"],
+                        "CLIP-only")):
         with pytest.raises(SystemExit):
             main(argv)
-        assert item in capsys.readouterr().err, argv
+        assert said in capsys.readouterr().err, argv
     apps = []
     monkeypatch.setattr(werkzeug.serving, "run_simple", lambda host, port, app, **kw: apps.append(app))
     common = ["--data-root", str(tmp_path / "root"), "--model", "ViT-Tiny-Test"]
