@@ -16,7 +16,15 @@ Checkpoints: ``from_checkpoint`` and ``load_finetuned`` read a reference
 Trainer's own ``.pt`` file (``training.finetune``), told apart by their keys
 (``load_torch_checkpoint``); a fine-tuned model's classifier head serves
 through ``classify``. The JAX package's orbax directories need JAX and are
-refused. The MoE towers are not ported yet.
+refused.
+
+``moe`` (a ``models.moe.MoEConfig``) switches every encode to the sparse
+MoE towers, as in the JAX engine: staged frames are normalised and encoded
+by ``encode_image_moe`` (no folded stem), text by ``encode_text_moe``, the
+last block in full; on the card each block's attention half runs K1 and
+each dense block's MLP half K2. A self-describing MoE trainer file
+(``payload["moe"]``) builds such an engine through ``from_checkpoint``;
+int8 weights with MoE raise.
 
 With a ``mesh`` (``parallel.mesh``, one process) every encode batch is split
 evenly over the slots of ``mesh_axis``: each slot encodes its rows on its
@@ -46,17 +54,27 @@ import torch
 from evr_tpu_torch.models.classifier import ClassifierConfig, classifier_forward
 from evr_tpu_torch.models.clip import (
     CLIPConfig,
-    encode_image,
     encode_staged_u8,
     encode_text,
     init_clip_params,
 )
 from evr_tpu_torch.models.convert import params_from_numpy
+from evr_tpu_torch.models.moe import MoEConfig, image_features, init_moe_clip_params, text_features
 from evr_tpu_torch.models.quant import quantize_clip_params
 from evr_tpu_torch.models.variants import get_model_config
-from evr_tpu_torch.ops.preprocess import load_image_host, stage_image_fast
+from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD, load_image_host, stage_image_fast
 from evr_tpu_torch.tokenizer import get_default_tokenizer
 from evr_tpu_torch.utils.device import resolve_device
+
+
+def normalise_u8(staged_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 frames → CLIP-normalised fp32 pixels, as the JAX engine computes
+    them: x / 255, minus the mean, over the std."""
+    dev = staged_u8.device
+    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev)
+    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=dev)
+    return (staged_u8.float() / 255.0 - mean) / std
+
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 PARAMS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": None}
@@ -65,7 +83,9 @@ PREPROCESS_MODES = ("fast", "pil")
 
 def load_torch_checkpoint(path, prefer_ema: bool = False) -> dict:
     """A fine-tune checkpoint file for serving, whatever its kind, as
-    ``{"clip": params, "classifier": params or None}``:
+    ``{"clip": params, "classifier": params or None, "moe": MoEConfig or
+    None}`` (``moe`` rebuilt from a self-describing MoE trainer file's
+    ``payload["moe"]``, every field of it):
 
     - the port Trainer's ``.pt`` (``best_model.pt``, ``final_checkpoint.pt``:
       a dict with ``params``, ``opt_state`` and ``step``), the counterpart of
@@ -82,8 +102,7 @@ def load_torch_checkpoint(path, prefer_ema: bool = False) -> dict:
     - otherwise a reference ``.pt`` (``models.torch_import``), which holds no
       EMA.
 
-    A directory (an orbax checkpoint of the JAX package) and a payload with a
-    ``moe`` entry raise."""
+    A directory (an orbax checkpoint of the JAX package) raises."""
     from evr_tpu_torch.models.torch_import import checkpoint_from_blob, read_torch_file
 
     if pathlib.Path(path).is_dir():
@@ -91,11 +110,12 @@ def load_torch_checkpoint(path, prefer_ema: bool = False) -> dict:
             f"{path} is a directory: orbax checkpoints need JAX; the port reads torch "
             "files only (a reference .pt or the port Trainer's)")
     blob = read_torch_file(path)
-    if isinstance(blob, dict) and blob.get("moe"):
-        raise NotImplementedError(f"{path}: MoE checkpoints are not ported yet (ROADMAP item A17)")
     if not (isinstance(blob, dict) and isinstance(blob.get("params"), dict)):
         out = checkpoint_from_blob(blob)
-        return {"clip": out["clip"], "classifier": out["classifier"]}
+        return {"clip": out["clip"], "classifier": out["classifier"], "moe": None}
+    moe = None
+    if blob.get("moe"):
+        moe = MoEConfig(**{k: type(getattr(MoEConfig(), k))(v) for k, v in blob["moe"].items()})
     params = blob["params"]
     if prefer_ema and blob.get("ema") is not None:
         params = blob["ema"]
@@ -105,9 +125,9 @@ def load_torch_checkpoint(path, prefer_ema: bool = False) -> dict:
             "its adapters are unmerged; serve the merged model, <save-dir>/lora_merged.pt "
             "(tools.finetune writes it), or Trainer.merged_clip_params()")
     if "clip" in params:
-        return {"clip": params["clip"], "classifier": params.get("classifier")}
+        return {"clip": params["clip"], "classifier": params.get("classifier"), "moe": moe}
     if all(k in params for k in ("visual", "text", "logit_scale")):
-        return {"clip": params, "classifier": None}
+        return {"clip": params, "classifier": None, "moe": moe}
     raise ValueError(f"{path}: 'params' holds neither 'clip' nor a CLIP tree")
 
 
@@ -126,9 +146,11 @@ class EmbeddingEngine:
         preprocess_mode: str = "fast",
         mesh=None,
         mesh_axis: str = "data",
+        moe: MoEConfig | None = None,
     ):
         """``params``: a nested dict of numpy arrays or tensors in the JAX
-        package's layout; None draws random weights from ``rng_seed``.
+        package's layout; None draws random weights from ``rng_seed`` (MoE
+        towers under ``moe``, ``models.moe.init_moe_clip_params``).
         ``cfg``: the model's configuration, ``get_model_config(model_name)``
         when None (pass one to serve another route, e.g. ``attn_impl="flash"``).
         ``device``: None means the card (raises without one); pass "cpu" to
@@ -136,7 +158,10 @@ class EmbeddingEngine:
         serving weights (``_cast_params``). ``preprocess_mode``: "fast" or
         "pil", how image files are staged (module docstring). ``mesh``: split
         each encode batch over the slots of ``mesh_axis`` (module docstring);
-        ``device`` is then the first slot's."""
+        ``device`` is then the first slot's. ``moe``: encode through the
+        MoE towers (module docstring)."""
+        if moe is not None and params_dtype == "int8":
+            raise NotImplementedError("int8 serving weights are not supported for MoE towers")
         if params_dtype not in PARAMS_DTYPES:
             raise ValueError(
                 f"unknown params_dtype {params_dtype!r} (supported: {sorted(PARAMS_DTYPES)})"
@@ -166,8 +191,10 @@ class EmbeddingEngine:
         self.batch_size = batch_size
         self.tokenizer = get_default_tokenizer()
         self.params_dtype = params_dtype
+        self.moe = moe
         if params is None:
-            params = init_clip_params(np.random.default_rng(rng_seed), self.cfg)
+            params = (init_moe_clip_params(rng_seed, self.cfg, moe) if moe is not None
+                      else init_clip_params(rng_seed, self.cfg))
         self.models: dict[str, dict] = {
             "original": {"clip": self._cast_params(params), "classifier": None}
         }
@@ -191,9 +218,15 @@ class EmbeddingEngine:
     ) -> "EmbeddingEngine":
         """An engine serving ``checkpoint_path`` (``load_torch_checkpoint``):
         built for ``model_name``'s configuration (not the file's), the model
-        registered as ``name`` and made active."""
-        engine = cls(model_name, **engine_kwargs)
-        engine.load_finetuned(checkpoint_path, name, prefer_ema=prefer_ema)
+        registered as ``name`` and made active. A self-describing MoE file
+        builds the engine with its ``MoEConfig`` (its params also the
+        "original" model, as in the JAX engine)."""
+        blob = load_torch_checkpoint(checkpoint_path, prefer_ema=prefer_ema)
+        if blob["moe"] is not None:
+            engine = cls(model_name, params=blob["clip"], moe=blob["moe"], **engine_kwargs)
+        else:
+            engine = cls(model_name, **engine_kwargs)
+        engine._register_blob(name, blob)
         engine.set_active_model(name)
         return engine
 
@@ -211,8 +244,17 @@ class EmbeddingEngine:
 
     def load_finetuned(self, checkpoint_path, name: str = "finetuned", prefer_ema: bool = False) -> None:
         """Register a fine-tune checkpoint file as ``name`` (not made
-        active); ``prefer_ema``: see ``load_torch_checkpoint``."""
-        blob = load_torch_checkpoint(checkpoint_path, prefer_ema=prefer_ema)
+        active); ``prefer_ema``: see ``load_torch_checkpoint``. An MoE file
+        needs an engine built with its config (``from_checkpoint``), and a
+        dense file a dense engine: either mismatch raises ``ValueError``."""
+        self._register_blob(name, load_torch_checkpoint(checkpoint_path, prefer_ema=prefer_ema))
+
+    def _register_blob(self, name: str, blob: dict) -> None:
+        if blob["moe"] is not None and self.moe is None:
+            raise ValueError("MoE checkpoint: build the engine with its config "
+                             "(EmbeddingEngine.from_checkpoint, or EmbeddingEngine(moe=...))")
+        if blob["moe"] != self.moe:
+            raise ValueError(f"checkpoint MoEConfig {blob['moe']} != engine's {self.moe}")
         self.register_model(name, blob["clip"], blob["classifier"])
 
     def set_active_model(self, name: str) -> bool:
@@ -231,6 +273,8 @@ class EmbeddingEngine:
         a float format (quantization discards precision) and raises."""
         if params_dtype not in PARAMS_DTYPES:
             raise ValueError(f"unknown params_dtype {params_dtype!r}")
+        if self.moe is not None and params_dtype == "int8":
+            raise NotImplementedError("int8 serving weights are not supported for MoE towers")
         if self.params_dtype == "int8" and params_dtype != "int8":
             raise ValueError(
                 f"cannot widen int8 weights back to {params_dtype}; "
@@ -250,8 +294,11 @@ class EmbeddingEngine:
         if isinstance(texts, str):
             texts = [texts]
         tokens = self.tokenizer(texts, context_length=self.cfg.text.context_length)
-        out = self._encode(
-            lambda p, cfg, x, dtype: encode_text(p, cfg, x, dtype=dtype, eot_fast_final=True), tokens)
+        if self.moe is not None:
+            out = self._encode(lambda p, cfg, x, dtype: text_features(p, cfg, self.moe, x, dtype)[0], tokens)
+        else:
+            out = self._encode(
+                lambda p, cfg, x, dtype: encode_text(p, cfg, x, dtype=dtype, eot_fast_final=True), tokens)
         if normalise:
             out = out / np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
         return out
@@ -330,13 +377,31 @@ class EmbeddingEngine:
         """uint8 [N, S, S, 3] (already resized/cropped) → [N, D] embeddings,
         in batches of ``batch_size``, the last one padded to it unless ``pad``
         is False (one query image encodes alone, not beside zero rows)."""
-        return self._encode_batches(np.asarray(staged_u8), encode_staged_u8, normalise, pad)
+        encode = encode_staged_u8 if self.moe is None else self._encode_staged_moe
+        return self._encode_batches(np.asarray(staged_u8), encode, normalise, pad)
+
+    def _encode_staged_moe(self, params, cfg, staged_u8, dtype):
+        """The JAX MoE engine's staged encode: x / 255, normalised, then the
+        MoE vision tower (no folded stem)."""
+        return image_features(params, cfg, self.moe, normalise_u8(staged_u8), dtype)[0]
+
+    def text_tower(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Token ids on the device → unnormalised text features, every block
+        in full (the one-call searchers' encode), on the engine's towers."""
+        return text_features(params, self.cfg, self.moe, tokens, self.compute_dtype)[0]
+
+    def image_tower(self, params, pixels: torch.Tensor) -> torch.Tensor:
+        """Preprocessed pixels on the device → unnormalised image features,
+        on the engine's towers."""
+        return image_features(params, self.cfg, self.moe, pixels, self.compute_dtype)[0]
 
     def encode_pixels(self, pixels: np.ndarray, normalise: bool = False) -> np.ndarray:
         """Preprocessed float pixels [N, S, S, 3] (``load_image_host``,
         ``preprocess_batch``) → [N, D] through ``models.clip.encode_image``,
         in padded batches of ``batch_size``."""
-        return self._encode_batches(np.asarray(pixels, np.float32), encode_image, normalise)
+        return self._encode_batches(np.asarray(pixels, np.float32),
+                                    lambda p, cfg, x, dtype: image_features(p, cfg, self.moe, x, dtype)[0],
+                                    normalise)
 
     def _encode_array(self, arr: np.ndarray) -> np.ndarray:
         """Encode a stacked batch that is either staged uint8 or

@@ -2,7 +2,7 @@
 
 Counterpart of ``evr_tpu/index/fused_image_search.py`` and the image-query
 mirror of ``fused_search.TextSearcher``: a staged uint8 image goes up once,
-``(u8/255 − mean)/std`` → ``encode_image`` → ``ops.topk.cosine_topk`` run with
+``(u8/255 − mean)/std`` → ``engine.image_tower`` → ``ops.topk.cosine_topk`` run with
 no host synchronisation between them, and the k-sized result comes back by
 one copy. The normalisation is explicit here, where the engine's frame encode
 folds it into the patch GEMM (``encode_staged_u8``), so the two differ in
@@ -16,7 +16,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from evr_tpu_torch.models.clip import encode_image
 from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
 from evr_tpu_torch.ops.topk import cosine_topk
 from evr_tpu_torch.parallel.sharded_search import ShardedIndex
@@ -74,7 +73,7 @@ class ImageSearcher:
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(staged_u8)).to(self.engine.device)
             x = (x.float() / 255.0 - self._mean) / self._std
-            img = encode_image(params, self.engine.cfg, x, dtype=self.engine.compute_dtype)
+            img = self.engine.image_tower(params, x)
             return fetch_topk(*(device_index.topk(img, start, end, k)
                                 if isinstance(device_index, ShardedIndex)
                                 else cosine_topk(device_index, img, start, end, k, row_scales)))

@@ -1,7 +1,8 @@
 """Text → top-k search in one call: tokens up once, results down once.
 
 Counterpart of ``evr_tpu/index/fused_search.py``. The serving hot path is
-tokenize (host) → ``encode_text`` → normalise → GEMM → top-k. ``TextSearcher``
+tokenize (host) → ``engine.text_tower`` (``encode_text``, or the MoE tower)
+→ normalise → GEMM → top-k. ``TextSearcher``
 uploads the tokens once, runs the encode and ``ops.topk.cosine_topk`` with no
 host synchronisation between them, and copies the k-sized result back with
 one ``.cpu()``. The text encode runs every block in full, as the JAX
@@ -19,7 +20,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from evr_tpu_torch.models.clip import encode_text
 from evr_tpu_torch.ops.topk import cosine_topk
 from evr_tpu_torch.parallel.sharded_search import ShardedIndex
 
@@ -69,8 +69,7 @@ class TextSearcher:
         tokens = engine.tokenizer(list(queries), context_length=engine.cfg.text.context_length)
         with torch.inference_mode():
             tokens = torch.from_numpy(tokens).to(engine.device)
-            txt = encode_text(engine.params if params is None else params, engine.cfg, tokens,
-                              dtype=engine.compute_dtype)
+            txt = engine.text_tower(engine.params if params is None else params, tokens)
             # cosine_topk takes every storage dtype (int8 rows rescaled after
             # the GEMM), masks rows outside [start, end) and normalises the
             # query; a sharded snapshot searches shard by shard and merges

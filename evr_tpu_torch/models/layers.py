@@ -162,6 +162,46 @@ def _final_block_row(x, p, n_heads, row_idx, activation):
     return xc + linear(h, p["mlp"]["proj"])
 
 
+def block_apply_cached(
+    x_new: torch.Tensor,
+    p: Params,
+    n_heads: int,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    activation: str = "quick_gelu",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One causal block over new rows with a KV cache (JAX
+    ``layers.block_apply_cached``): ``x_new`` [B, S, W] holds absolute
+    positions ``pos .. pos+S-1``; their K/V are written into rows ``pos ..
+    pos+S-1`` of ``k_cache``/``v_cache`` [B, T_max, heads, head_dim] (new
+    tensors are returned; the caller's are not written), key t is visible
+    to new row s iff t ≤ pos + s (later rows masked with −1e9, so stale rows
+    are inert). Row for row the math of ``block_apply(causal=True)``'s plain
+    composition: fp32 scores and softmax, the weights rounded to x's dtype.
+    Plain PyTorch on every device, as in the JAX package. Returns ``(y_new,
+    k_cache, v_cache)``."""
+    B, S, W = x_new.shape
+    d = W // n_heads
+    ap = p["attn"]
+    T_max = k_cache.shape[1]
+    q, k, v = linear(layer_norm(x_new, p["ln_1"]), ap["qkv"]).split(W, dim=-1)
+    q = q.reshape(B, S, n_heads, d)
+    k_cache = torch.cat([k_cache[:, :pos], k.reshape(B, S, n_heads, d).to(k_cache.dtype),
+                         k_cache[:, pos + S:]], dim=1)
+    v_cache = torch.cat([v_cache[:, :pos], v.reshape(B, S, n_heads, d).to(v_cache.dtype),
+                         v_cache[:, pos + S:]], dim=1)
+    logits = torch.einsum("bshd,bthd->bhst", q, k_cache).float() * (1.0 / math.sqrt(d))
+    dev = x_new.device
+    valid = torch.arange(T_max, device=dev)[None, :] <= pos + torch.arange(S, device=dev)[:, None]
+    logits = torch.where(valid[None, None], logits, torch.tensor(-1e9, device=dev))
+    w = torch.softmax(logits, dim=-1).to(x_new.dtype)
+    o = torch.einsum("bhst,bthd->bshd", w, v_cache.to(x_new.dtype))
+    xc = x_new + linear(o.reshape(B, S, W), ap["out"])
+    h = ACTIVATIONS[activation](linear(layer_norm(xc, p["ln_2"]), p["mlp"]["fc"]))
+    return xc + linear(h, p["mlp"]["proj"]), k_cache, v_cache
+
+
 def block_apply(
     x: torch.Tensor,
     p: Params,

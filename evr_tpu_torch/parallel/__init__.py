@@ -1,4 +1,4 @@
-"""Meshes and every parallel layout but experts (PyTorch).
+"""Meshes and every parallel layout (PyTorch).
 
 Counterpart of ``evr_tpu/parallel``: ``mesh`` (named grids of device slots,
 every axis holding slots), ``contrastive`` (the single-device and
@@ -6,12 +6,12 @@ global-batch losses), ``sharded_search`` (the exact top-k over a row-sharded
 index), ``sharded_ann`` (the IVF and IVF-PQ tiers a sub-index a shard),
 ``fsdp`` (params and optimizer state sharded over the data axis), ``tp``
 (block weights split over a ``model`` axis), ``pp`` (GPipe stages over a
-``stage`` axis), ``sp`` (token shards over a ``seq`` axis) and
-``multihost`` (the process group and its collectives). ``ep`` is ROADMAP
-item A17's.
+``stage`` axis), ``sp`` (token shards over a ``seq`` axis), ``ep`` (MoE
+experts over an ``expert`` axis, tokens sent to their experts' slots) and
+``multihost`` (the process group and its collectives).
 """
 
-from . import fsdp, multihost, pp, sharded_ann, sp, tp
+from . import ep, fsdp, multihost, pp, sharded_ann, sp, tp
 from .contrastive import (
     global_infonce_loss,
     global_siglip_loss,
@@ -24,6 +24,7 @@ from .sharded_search import sharded_cosine_topk
 
 __all__ = [
     "Mesh",
+    "ep",
     "fsdp",
     "get_mesh",
     "get_multislice_mesh",

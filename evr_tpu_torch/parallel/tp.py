@@ -32,6 +32,7 @@ import torch
 
 from evr_tpu_torch.utils.tree import iter_paths, map_with_paths
 
+from .ep import EXPERT_AXIS, expert_aliases
 from .fsdp import ShardedTensor
 from .mesh import Mesh, Sharding
 
@@ -118,14 +119,17 @@ class LazyBlocks(Sequence):
     it: its split leaves gathered whole on ``device`` (detached, requiring
     grad as ``requires_grad(key)`` says) and entered in ``registry`` under
     their path keys, so the step can differentiate them afterwards. Each
-    block is built once."""
+    block is built once. A leaf split over the expert axis is not gathered:
+    data slot ``slot`` reads it as the shards of its expert group
+    (``parallel.ep.ExpertShards``), and the MoE layer sends them tokens."""
 
-    def __init__(self, blocks: list, prefix: str, device, requires_grad, registry: dict):
+    def __init__(self, blocks: list, prefix: str, device, requires_grad, registry: dict, slot=None):
         self._blocks = blocks
         self._prefix = prefix
         self._device = device
         self._requires_grad = requires_grad
         self._registry = registry
+        self._slot = slot
         self._built: dict[int, dict] = {}
 
     def __len__(self) -> int:
@@ -138,6 +142,11 @@ class LazyBlocks(Sequence):
         if i not in self._built:
             def build(path, leaf):
                 key = f"{self._prefix}/{i}/" + "/".join(path)
+                if (isinstance(leaf, ShardedTensor) and leaf.sharding.axis == EXPERT_AXIS
+                        and self._slot is not None):
+                    t = expert_aliases(leaf, self._slot, self._requires_grad(key))
+                    self._registry[key] = t
+                    return t
                 t = leaf.full(self._device) if isinstance(leaf, ShardedTensor) else leaf.to(self._device)
                 t = t.detach().requires_grad_(self._requires_grad(key))
                 self._registry[key] = t
@@ -147,11 +156,11 @@ class LazyBlocks(Sequence):
         return self._built[i]
 
 
-def lazy_aliases(tree: Any, device, requires_grad) -> tuple[Any, dict]:
-    """(the tree a slot's step reads, the registry of its leaves by path
-    key). Whole leaves become detached aliases at once; every tower whose
-    blocks hold ``ShardedTensor`` leaves gets ``LazyBlocks``, whose leaves
-    enter the registry as the forward reaches them."""
+def lazy_aliases(tree: Any, device, requires_grad, slot=None) -> tuple[Any, dict]:
+    """(the tree data slot ``slot``'s step reads, the registry of its leaves
+    by path key). Whole leaves become detached aliases at once; every tower
+    whose blocks hold ``ShardedTensor`` leaves gets ``LazyBlocks``, whose
+    leaves enter the registry as the forward reaches them."""
     registry: dict[str, torch.Tensor] = {}
 
     def walk(node, prefix: tuple):
@@ -161,7 +170,7 @@ def lazy_aliases(tree: Any, device, requires_grad) -> tuple[Any, dict]:
                 path = prefix + (str(k),)
                 if k == "blocks" and isinstance(v, (list, tuple)) and any(
                         isinstance(leaf, ShardedTensor) for _, leaf in iter_paths(v)):
-                    out[k] = LazyBlocks(list(v), "/".join(path), device, requires_grad, registry)
+                    out[k] = LazyBlocks(list(v), "/".join(path), device, requires_grad, registry, slot)
                 else:
                     out[k] = walk(v, path)
             return out

@@ -10,7 +10,10 @@ def build_engine(args, mesh=None):
     SigLIP registry name) or of the local HF directory ``--siglip-hf``,
     tokenised by ``--siglip-tokenizer``'s local files or the zero-egress
     fallback. Unlike the JAX CLI, the SigLIP engine takes
-    ``--params-dtype`` (the JAX CLI drops it)."""
+    ``--params-dtype`` (the JAX CLI drops it). ``--checkpoint`` registers
+    the file as "finetuned"; a self-describing MoE trainer file builds the
+    engine on its ``MoEConfig`` and towers (the JAX CLI refuses such a
+    file), which "original" then serves too."""
     if args.model_family == "siglip":
         from evr_tpu_torch.index.siglip_engine import SiglipEngine
         from evr_tpu_torch.models.siglip import get_siglip_config
@@ -30,14 +33,19 @@ def build_engine(args, mesh=None):
             return SiglipEngine.from_hf(args.siglip_hf, **kw)
         return SiglipEngine(cfg=get_siglip_config(args.model), **kw)
     from evr_tpu_torch.index import EmbeddingEngine
+    from evr_tpu_torch.index.engine import load_torch_checkpoint
 
+    blob = load_torch_checkpoint(args.checkpoint, prefer_ema=args.use_ema) if args.checkpoint else None
     engine = EmbeddingEngine(
         args.model, device=args.device,
         params_dtype="float32" if args.params_dtype == "auto" else args.params_dtype,
         batch_size=args.batch_size, mesh=mesh,
+        # a self-describing MoE trainer file: the engine's towers are its own
+        params=None if blob is None or blob["moe"] is None else blob["clip"],
+        moe=None if blob is None else blob["moe"],
     )
-    if args.checkpoint:
-        engine.load_finetuned(args.checkpoint, prefer_ema=args.use_ema)
+    if blob is not None:
+        engine.register_model("finetuned", blob["clip"], blob["classifier"])
     return engine
 
 

@@ -14,10 +14,12 @@ The trainer's levers: ``--lora-rank``/``--lora-alpha`` (after a run that was
 not preempted, ``<save-dir>/lora_merged.pt`` holds ``{"params": merged CLIP
 tree}``, the payload the JAX CLI writes to orbax, which ``EmbeddingEngine``
 serves), ``--optimizer muon`` and ``--muon-lr-scale``, ``--gradcache-chunks``,
-``--remat`` and ``--patch-drop``. The flags of the JAX package's CLI that the
-port does not honour yet are accepted by the parser and refused when set,
-naming the ROADMAP item they wait for: ``--expert-parallel`` and ``--moe-*``
-(A17, with ``models/moe.py``).
+``--remat`` and ``--patch-drop``, and Mixture-of-Experts: ``--moe-experts`` >
+0 Sparse-Upcycles the dense start to that many experts per MoE layer
+(``--moe-router-k``, ``--moe-every``, ``--moe-capacity``,
+``--moe-aux-weight``; ``models.moe``) and ``--expert-parallel E`` splits the
+experts and their moments over an E-way ``expert`` axis of the mesh, the
+remaining slots forming ``data`` (``parallel.ep``).
 
 As in the JAX CLI the trainer runs over a mesh of every local card
 (``parallel.get_mesh``; ``EVR_TPU_CPU_DEVICES`` CPU slots with ``--device
@@ -37,17 +39,6 @@ import json
 import pathlib
 
 import torch
-
-# flag (argparse dest) → (default, ROADMAP item): refused when set otherwise
-UNPORTED_FLAGS = {
-    "expert_parallel": (0, "A17"),
-    "moe_experts": (0, "A17"),
-    "moe_router_k": (2, "A17"),
-    "moe_every": (2, "A17"),
-    "moe_capacity": (1.25, "A17"),
-    "moe_aux_weight": (1e-2, "A17"),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="contrastive CLIP fine-tune (PyTorch)")
@@ -99,38 +90,54 @@ def build_parser() -> argparse.ArgumentParser:
                         "weights, AdamW elsewhere (training/muon.py)")
     parser.add_argument("--muon-lr-scale", type=float, default=10.0,
                         help="Muon lr = lr * group scale * this")
-    # accepted for the JAX CLI's command lines, refused when set (UNPORTED_FLAGS)
-    parser.add_argument("--moe-experts", type=int, default=0)
-    parser.add_argument("--moe-router-k", type=int, default=2)
-    parser.add_argument("--moe-every", type=int, default=2)
-    parser.add_argument("--moe-capacity", type=float, default=1.25)
-    parser.add_argument("--moe-aux-weight", type=float, default=1e-2)
-    parser.add_argument("--expert-parallel", type=int, default=0, metavar="E")
+    parser.add_argument("--moe-experts", type=int, default=0,
+                        help="Mixture-of-Experts fine-tune (models.moe): > 0 upcycles the dense start "
+                        "to this many experts per MoE layer; 0 = dense")
+    parser.add_argument("--moe-router-k", type=int, default=2, help="top-k routing (1 Switch, 2 GShard)")
+    parser.add_argument("--moe-every", type=int, default=2,
+                        help="every Nth block (from the tower's end) gets an MoE MLP")
+    parser.add_argument("--moe-capacity", type=float, default=1.25, help="expert capacity factor")
+    parser.add_argument("--moe-aux-weight", type=float, default=1e-2,
+                        help="Switch load-balance aux loss weight")
+    parser.add_argument("--expert-parallel", type=int, default=0, metavar="E",
+                        help="split the experts (and their moments) over an E-way 'expert' mesh axis; "
+                        "the remaining slots form the 'data' axis")
     return parser
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    for dest, (default, item) in UNPORTED_FLAGS.items():
-        if getattr(args, dest) != default:
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP item {item})")
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
 
     from evr_tpu_torch.models import get_model_config, init_clip_params
     from evr_tpu_torch.models.classifier import ClassifierConfig, init_classifier_params
-    from evr_tpu_torch.parallel import get_mesh, multihost
+    from evr_tpu_torch.parallel import get_mesh, local_device_count, multihost
     from evr_tpu_torch.training import CaptionDataset, TrainConfig, Trainer
     from evr_tpu_torch.utils.device import resolve_device
 
     # joins the process group when EVR_TPU_COORDINATOR & co. are set
     process_index, process_count = multihost.bootstrap(device=args.device)
     device = resolve_device(args.device)
+    moe_cfg = None
+    if args.moe_experts > 0:
+        from evr_tpu_torch.models.moe import MoEConfig
+
+        moe_cfg = MoEConfig(n_experts=args.moe_experts, router_k=args.moe_router_k,
+                            capacity_factor=args.moe_capacity, moe_every=args.moe_every,
+                            aux_weight=args.moe_aux_weight)
     mesh = None
-    if not args.no_mesh:
+    if not args.no_mesh and args.expert_parallel > 0:
+        if moe_cfg is None:
+            raise SystemExit("--expert-parallel requires --moe-experts > 0")
+        if args.moe_experts % args.expert_parallel:
+            raise SystemExit(f"--moe-experts {args.moe_experts} must divide over the "
+                             f"{args.expert_parallel}-way expert axis")
+        n_dev = local_device_count(device)
+        if process_count > 1 or n_dev % args.expert_parallel:
+            raise SystemExit(f"{n_dev} local slot(s) of {process_count} process(es) don't divide into an "
+                             f"{args.expert_parallel}-way expert axis")
+        mesh = get_mesh(n_dev, ("data", "expert"), (n_dev // args.expert_parallel, args.expert_parallel),
+                        device=device)
+    elif not args.no_mesh:
         mesh = (multihost.global_mesh(device=device) if process_count > 1
                 else get_mesh(device=device))
     if args.batch_size % process_count:
@@ -160,7 +167,7 @@ def main(argv=None) -> dict:
         contrastive_loss=args.loss, save_every_steps=args.save_every_steps,
         patch_drop=args.patch_drop, remat=args.remat, gradcache_chunks=args.gradcache_chunks,
         optimizer=args.optimizer, muon_lr_scale=args.muon_lr_scale,
-        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
+        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha, moe=moe_cfg,
     )
     trainer = Trainer(
         cfg, clip_params, tc, classifier_params=cls_params,

@@ -1,8 +1,9 @@
 """Contrastive fine-tuning of the CLIP towers: the trainer and its levers
-(gradient accumulation, Muon, LoRA, remat, GradCache, FLIP patch drop), on
-one device or over a mesh (data parallelism, FSDP, tensor parallelism,
-several processes), the sharded checkpoints, the trainer variants and
-distillation. MoE waits for ROADMAP item A17."""
+(gradient accumulation, Muon, LoRA, remat, GradCache, FLIP patch drop,
+Mixture-of-Experts), on one device or over a mesh (data parallelism, FSDP,
+tensor and expert parallelism, several processes), the sharded
+checkpoints, the trainer variants, distillation, and SCST of the prefix
+captioner (``scst``)."""
 
 from .data import CaptionDataset, prefetch_batches
 from .distill import DistillationTrainer, DistillConfig, embed_align_loss, similarity_kd_loss

@@ -52,8 +52,21 @@ moments in place. The vision tower of ViT-L/14@336px (T = 577) runs its
 blocks through the fused kernels K1/K2 forward and K5b/K5a backward
 (``attn_impl="auto_grad"``, as the JAX trainer pins); shorter towers take the
 plain composition under autograd, and so does a vision tower that
-``patch_drop`` cuts below T = 512. The MoE lever waits for ROADMAP item A17
-and raises ``NotImplementedError`` naming it (``check_supported``).
+``patch_drop`` cuts below T = 512.
+
+``moe`` (a ``models.moe.MoEConfig``) trains the sparse towers
+(``models.moe.encode_image_slots`` / ``encode_text_slots``) and adds
+``moe.aux_weight`` × the load-balance term to the loss (metrics ``moe_aux``
+and ``total_loss``); a dense start is Sparse-Upcycled at ``seed + 2``
+(``models.moe.upcycle_clip_params``). LoRA with MoE raises. On a mesh with
+an ``expert`` axis the expert-stacked leaves, their AdamW moments and the
+EMA split over it (``parallel.ep``); FSDP with an ``expert`` axis raises.
+Over several data slots each MoE layer routes the token groups the
+one-device step forms over the global batch (the same capacity and the
+same drops), each group on the slot that holds its first token: a group
+that crosses into the next slot takes those rows over and hands their
+outputs back (``models.moe.moe_mlp_slots``), so the step equals the
+one-device step. Across processes each process must hold whole groups.
 
 Over a mesh (``parallel.mesh``; ``make_train_step(mesh=)``, ``Trainer(mesh=,
 fsdp=)``) the step equals the one-device step on the global batch: every
@@ -90,7 +103,12 @@ import torch
 from evr_tpu_torch.models.classifier import ClassifierConfig, classifier_forward
 from evr_tpu_torch.models.clip import CLIPConfig, encode_image, encode_text
 from evr_tpu_torch.models.convert import params_from_numpy
+from evr_tpu_torch.models.moe import (
+    encode_image_slots, encode_text_slots, has_moe, image_features, text_features, upcycle_clip_params,
+)
 from evr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
+from evr_tpu_torch.parallel.contrastive import slot_mean
+from evr_tpu_torch.parallel.ep import input_parts, whole_grad
 from evr_tpu_torch.parallel.tp import lazy_aliases, lazy_tree, splits_over
 from evr_tpu_torch.utils.device import resolve_device
 
@@ -144,23 +162,8 @@ class TrainConfig:
     gradcache_chunks: int = 0
 
 
-# TrainConfig fields the port does not honour yet: (the value it takes, the
-# ROADMAP item the lever waits for). Any other value raises.
-UNPORTED_FIELDS = {
-    "moe": ((None,), "A17"),
-}
-
-
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a field set
-    to a value the port does not honour yet."""
-    for name, (allowed, item) in UNPORTED_FIELDS.items():
-        value = getattr(cfg, name)
-        if value not in allowed:
-            raise NotImplementedError(
-                f"TrainConfig.{name}={value!r} is not ported yet (ROADMAP item {item}); "
-                f"the port takes {' or '.join(repr(a) for a in allowed)}"
-            )
+    """Raise ``ValueError`` for a value no lever takes."""
     if cfg.optimizer not in ("adamw", "muon"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     if cfg.adam_mu_dtype not in ("float32", "bfloat16"):
@@ -568,7 +571,7 @@ def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: T
         if splits_over(some, axis):
             # tensor parallelism: block weights gathered where each block runs
             built = [lazy_aliases(replicas[devices[g]], devices[g],
-                                  lambda key: train and group[key] != "frozen") for g in slots]
+                                  lambda key: train and group[key] != "frozen", slot=g) for g in slots]
             aliases, per_slot = [a for a, _ in built], [r for _, r in built]
         else:
             aliases = [map_with_paths(replicas[devices[g]], lambda path, t: t.detach().requires_grad_(
@@ -580,38 +583,49 @@ def make_grad_fn(model_cfg: CLIPConfig, cls_cfg: ClassifierConfig | None, cfg: T
         if train and with_cls and cls_cfg.dropout > 0.0:
             mask = torch.rand((b * n_slots, cls_cfg.hidden_dim), generator=generator,
                               device=gen_dev) < 1.0 - cls_cfg.dropout
-        imgs, txts, clip_ps, logits, lbls = [], [], [], [], []
+        row0s = [mesh.axis_index(g, axis) * b if mesh is not None else 0 for g in slots]
+        imgs, txts, logits, lbls = [], [], [], []
         with torch.enable_grad() if train else torch.no_grad():
+            clip_ps = [clip_of(a) for a in aliases]
+            # the towers over the slots (an MoE layer on the global batch's
+            # token groups, as on one device: models.moe.run_blocks_moe_slots)
+            feats, aux_i = encode_image_slots(
+                clip_ps, model_cfg, cfg.moe, [_pixels(images[i * b:(i + 1) * b], devices[g])
+                                              for i, g in enumerate(slots)], dtype,
+                None if keep is None else [keep[r:r + b].to(devices[g]) for r, g in zip(row0s, slots)],
+                row0s, b * n_slots)
+            txt_feats, aux_t = encode_text_slots(
+                clip_ps, model_cfg, cfg.moe, [tokens[i * b:(i + 1) * b].to(devices[g]) for i, g in enumerate(slots)],
+                dtype, row0s, b * n_slots)
             for i, g in enumerate(slots):
-                dev = devices[g]
-                clip_p = clip_of(aliases[i])
-                row0 = mesh.axis_index(g, axis) * b if mesh is not None else 0
-                rows, grows = slice(i * b, (i + 1) * b), slice(row0, row0 + b)
-                pk = None if keep is None else keep[grows].to(dev)
-                img = encode_image(clip_p, model_cfg, _pixels(images[rows], dev), dtype=dtype,
-                                   patch_keep=pk)
-                txt = encode_text(clip_p, model_cfg, tokens[rows].to(dev), dtype=dtype)
-                img = unit(img)
+                img = unit(feats[i])
                 imgs.append(img)
-                txts.append(unit(txt))
-                clip_ps.append(clip_p)
+                txts.append(unit(txt_feats[i]))
                 if with_cls:
                     logits.append(classifier_forward(
                         aliases[i]["classifier"], cls_cfg, img, deterministic=not train,
-                        keep_mask=None if mask is None else mask[grows].to(dev)))
-                    lbls.append(None if labels is None else labels[rows].to(dev))
+                        keep_mask=None if mask is None else mask[row0s[i]:row0s[i] + b].to(devices[g])))
+                    lbls.append(None if labels is None else labels[i * b:(i + 1) * b].to(devices[g]))
             total, metrics = loss(imgs, txts, clip_ps, logits, lbls)
+            if cfg.moe is not None:
+                # the Switch term of the global batch, the mean over every
+                # token group: the sum of each slot's share (slot_mean over 1)
+                aux = slot_mean([(a + t.to(a.device)).to(dev0) for a, t in zip(aux_i, aux_t)], 1)
+                total = total + _f32(cfg.moe.aux_weight).to(dev0) * aux
+                metrics = {**metrics, "total_loss": total, "moe_aux": aux}
             metrics = {k: v.detach() for k, v in metrics.items()}
             if not train:
                 return metrics, None
-            inputs = [leaves[k] for leaves in per_slot for k in train_keys]
-            grads = torch.autograd.grad(total, inputs, allow_unused=True)
+            leaves = [(i, k, per_slot[i][k]) for i in range(len(slots)) for k in train_keys]
+            flat = iter(torch.autograd.grad(total, [t for _, _, leaf in leaves for t in input_parts(leaf)],
+                                            allow_unused=True))
+            grads = {(i, k): whole_grad(leaf, [next(flat) for _ in input_parts(leaf)], dev0)
+                     for i, k, leaf in leaves}
         out = {}
-        for j, k in enumerate(train_keys):
+        for k in train_keys:
             acc = None
             for i in range(len(slots)):  # slot order
-                gr = grads[i * len(train_keys) + j]
-                gr = torch.zeros_like(per_slot[i][k]) if gr is None else gr
+                gr = grads[(i, k)]
                 acc = gr if acc is None else acc + gr.to(dev0)
             out[k] = acc
         return metrics, _sum_grads_over_processes(out) if across else out
@@ -811,7 +825,11 @@ class Trainer:
             raise ValueError(
                 "fsdp=True with an 'expert' mesh axis is unsupported — pick one state layout "
                 "(ZeRO-3 over data, or experts over expert)")
+        if self.cfg.moe is not None and self.cfg.lora_rank > 0:
+            raise ValueError("lora_rank > 0 with cfg.moe is unsupported: LoRA targets the dense mlp "
+                             "kernels MoE replaces with expert stacks")
         tensor_parallel = mesh is not None and mesh.shape.get("model", 1) > 1
+        expert_parallel = self.cfg.moe is not None and mesh is not None and "expert" in mesh.axis_names
         if fsdp and tensor_parallel:
             raise ValueError("fsdp=True with a 'model' mesh axis is unsupported — pick one state layout "
                              "(ZeRO-3 over data, or tensor parallelism over model)")
@@ -827,6 +845,12 @@ class Trainer:
             if classifier_params is not None else None
         )
         self.log = log_fn
+        if self.cfg.moe is not None and not has_moe(clip_params):
+            # Sparse Upcycling: every expert starts as the dense MLP
+            clip_params = upcycle_clip_params(torch.Generator().manual_seed(self.cfg.seed + 2), clip_params,
+                                              model_cfg, self.cfg.moe)
+            log_fn(f"moe: sparse-upcycled dense init to {self.cfg.moe.n_experts} experts "
+                   f"(top-{self.cfg.moe.router_k})")
         params = {"clip": clip_params}
         if classifier_params is not None:
             params["classifier"] = classifier_params
@@ -842,11 +866,14 @@ class Trainer:
         self.optimizer = make_optimizer(self.cfg, params, steps_per_epoch)
         ema_on = self.cfg.ema_decay > 0.0
         self._state_shardings = None
-        if fsdp or tensor_parallel:
+        if fsdp or tensor_parallel or expert_parallel:
+            from evr_tpu_torch.parallel.ep import ep_state_shardings
             from evr_tpu_torch.parallel.fsdp import fsdp_state_shardings, shard_tree
             from evr_tpu_torch.parallel.tp import tp_state_shardings
 
-            plan = tp_state_shardings if tensor_parallel else fsdp_state_shardings
+            # experts and their moments over the expert axis, the batch over data
+            plan = (tp_state_shardings if tensor_parallel else
+                    ep_state_shardings if expert_parallel else fsdp_state_shardings)
             self._state_shardings = sh = plan(params, self.optimizer, mesh, ema=ema_on)
             self.state = TrainState(
                 params=shard_tree(params, sh.params),
@@ -896,9 +923,11 @@ class Trainer:
             for batch in batches:
                 x = (np.asarray(batch["images"], np.float32) / 255.0 - mean) / std
                 x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-                imgs.append(encode_image(clip_p, self.model_cfg, x, dtype=dtype).cpu().numpy())
                 tokens = torch.as_tensor(batch["tokens"], device=self.device)
-                txts.append(encode_text(clip_p, self.model_cfg, tokens, dtype=dtype).cpu().numpy())
+                img = image_features(clip_p, self.model_cfg, self.cfg.moe, x, dtype)[0]
+                txt = text_features(clip_p, self.model_cfg, self.cfg.moe, tokens, dtype)[0]
+                imgs.append(img.cpu().numpy())
+                txts.append(txt.cpu().numpy())
         img, txt = np.concatenate(imgs), np.concatenate(txts)
         ids = list(range(len(img)))
         return evaluate_retrieval(img, txt, ids, ids, device=self.device)
@@ -929,10 +958,11 @@ class Trainer:
         """One torch file ``<save_dir>/<name>.pt`` with the JAX trainer's
         payload keys: params (with ``lora`` under LoRA), opt_state (Muon's
         momentum; under accumulation the mini step, the gradient step and
-        the accumulated gradients), step, epoch, metrics (and ema).
-        Written to a temporary name, then renamed. Under FSDP the trees are
-        gathered whole first; across processes only the coordinator writes,
-        and every process waits for the file."""
+        the accumulated gradients), step, epoch, metrics (and ema; under
+        MoE ``moe``, the ``MoEConfig`` as a dict). Written to a temporary
+        name, then renamed. Under FSDP the trees are gathered whole first;
+        across processes only the coordinator writes, and every process
+        waits for the file."""
         from evr_tpu_torch.parallel import multihost
 
         t0 = time.perf_counter()
@@ -946,6 +976,9 @@ class Trainer:
             "metrics": {k: float(v) for k, v in metrics.items()},
             **(extra or {}),
         }
+        if self.cfg.moe is not None:
+            # self-describing: serving rebuilds the MoEConfig from the file
+            payload["moe"] = dataclasses.asdict(self.cfg.moe)
         if self.state.ema_params is not None:
             payload["ema"] = self._whole(self.state.ema_params)
         if multihost.is_coordinator():

@@ -112,16 +112,33 @@ def test_classify_and_active_model_match_jax(tmp_path, trees):
 
 @pytest.mark.parametrize("what", ["directory", "moe"])
 def test_unreadable_checkpoints_raise(tmp_path, trees, what):
+    """A directory (an orbax checkpoint) raises. A self-describing MoE
+    trainer file loads and serves: ``from_checkpoint`` builds the MoE
+    engine on the file's config, whose frames equal the JAX MoE engine's on
+    the same params; the dense engine's ``load_finetuned`` refuses it."""
     if what == "directory":
-        path, match = tmp_path, "orbax checkpoints need JAX.*torch files only"
-    else:
-        path = write_checkpoint(tmp_path, "trainer", trees)
-        payload = torch.load(path, weights_only=True)
-        payload["moe"] = {"n_experts": 4}
-        torch.save(payload, path)
-        match = "MoE checkpoints are not ported yet.*A17"
-    with pytest.raises(NotImplementedError, match=match):
-        EmbeddingEngine.from_checkpoint(path, MODEL, device="cpu")
+        with pytest.raises(NotImplementedError, match="orbax checkpoints need JAX.*torch files only"):
+            EmbeddingEngine.from_checkpoint(tmp_path, MODEL, device="cpu")
+        return
+    from evr_tpu.models import moe as jm
+    from evr_tpu_torch.models import moe as tm
+
+    clip, head, _ = trees
+    moe = tm.MoEConfig(n_experts=4, router_k=2, capacity_factor=2.0)
+    tc = TrainConfig(batch_size=4, save_dir=str(tmp_path), moe=moe)
+    trainer = Trainer(get_model_config(MODEL), clip, tc, classifier_params=head, log_fn=lambda *_: None,
+                      device="cpu")
+    trainer.save_checkpoint("final_checkpoint", 0, {})
+    path = trainer.checkpoint_path("final_checkpoint")
+    engine = EmbeddingEngine.from_checkpoint(path, MODEL, device="cpu", batch_size=4)
+    assert engine.moe == moe and engine.active_model == "finetuned"
+    served = jax.tree.map(lambda t: t.numpy(), torch.load(path, weights_only=True)["params"]["clip"])
+    jengine = JEngine(MODEL, params=served, moe=jm.MoEConfig(**dataclasses.asdict(moe)), batch_size=4)
+    staged = (np.random.default_rng(6).random((5, 64, 64, 3)) * 255).astype(np.uint8)
+    np.testing.assert_allclose(engine.encode_staged_images(staged), jengine.encode_staged_images(staged),
+                               rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="MoE checkpoint"):
+        EmbeddingEngine(MODEL, device="cpu", batch_size=4).load_finetuned(path)
 
 
 def test_finetune_init_checkpoint_starts_from_the_file(tmp_path):

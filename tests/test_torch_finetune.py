@@ -162,17 +162,31 @@ def test_cli_trains_on_a_caption_json(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    # --fsdp runs since the mesh was ported (tests/test_torch_fsdp.py)
-    (["--moe-router-k", "1"], "A17"), (["--moe-experts", "4"], "A17"), (["--expert-parallel", "2"], "A17"),
+    # --fsdp runs since the mesh was ported (tests/test_torch_fsdp.py); the
+    # MoE flags since the MoE towers were: (flags, experts in the checkpoint)
+    (["--moe-router-k", "1"], 0), (["--moe-experts", "4"], 4),
+    (["--moe-experts", "2", "--expert-parallel", "2"], 2),
 ])
-def test_cli_refuses_unported_flags(tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=f"not ported yet.*ROADMAP item {item}"):
-        cli.main(["--train-json", "x.json", "--data-dir", str(tmp_path), "--device", "cpu", *flags])
+def test_cli_refuses_unported_flags(tmp_path, monkeypatch, flags, item):
+    """No flag of the JAX CLI is refused now: ``--moe-router-k`` alone
+    trains the dense towers (as the JAX CLI), ``--moe-experts`` the MoE
+    towers, ``--expert-parallel`` over a (data, expert) mesh of 2 CPU slots."""
+    monkeypatch.setenv("EVR_TPU_CPU_DEVICES", "2")
+    js = _caption_set(tmp_path, 6)
+    cli.main(["--train-json", str(js), "--data-dir", str(tmp_path), "--model", "ViT-Tiny-Test",
+              "--device", "cpu", "--batch-size", "4", "--epochs", "1", "--save-dir", str(tmp_path / "c"), *flags])
+    payload = torch.load(tmp_path / "c" / "final_checkpoint.pt", weights_only=True)
+    assert (payload["moe"]["n_experts"] if "moe" in payload else 0) == item
 
 
 def test_unported_train_config_values_raise():
-    for name, value in (("moe", object()),):
-        with pytest.raises(NotImplementedError, match=f"TrainConfig.{name}.*ROADMAP item A17"):
+    """Every ``TrainConfig`` lever is ported: ``moe`` takes an ``MoEConfig``;
+    values the trainer cannot take still raise."""
+    from evr_tpu_torch.models.moe import MoEConfig
+
+    check_supported(dataclasses.replace(TrainConfig(), moe=MoEConfig()))
+    for name, value in (("optimizer", "sgd"), ("adam_mu_dtype", "float16"), ("contrastive_loss", "ce")):
+        with pytest.raises(ValueError, match=name.split("_")[0]):
             check_supported(dataclasses.replace(TrainConfig(), **{name: value}))
     check_supported(TrainConfig(gradcache_chunks=1))
 

@@ -35,7 +35,8 @@ for name in names:
 # the process group, the sharded checkpoints and the launcher; the frame
 # annotators (OCR, its trainer and CLI, the zero-shot object annotator); the
 # second model family (SigLIP, its engine and trainer) and Whisper with its CLI
-# and the zero-egress tokenizers
+# and the zero-egress tokenizers; the MoE towers and expert parallelism, the
+# prefix captioner, SCST, its CLI and the captioners of data prep
 for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.index.pq",
              "evr_tpu_torch.index.ivfpq", "evr_tpu_torch.tools.index_tool",
              "evr_tpu_torch.ops.attention", "evr_tpu_torch.ops.layernorm",
@@ -73,7 +74,10 @@ for name in ("evr_tpu_torch.ops.adc", "evr_tpu_torch.index.ivf", "evr_tpu_torch.
              "evr_tpu_torch.ingest.zeroshot", "evr_tpu_torch.tools.train_ocr",
              "evr_tpu_torch.tokenizer.fallbacks", "evr_tpu_torch.models.siglip",
              "evr_tpu_torch.index.siglip_engine", "evr_tpu_torch.training.siglip_train",
-             "evr_tpu_torch.models.whisper", "evr_tpu_torch.tools.transcribe"):
+             "evr_tpu_torch.models.whisper", "evr_tpu_torch.tools.transcribe",
+             "evr_tpu_torch.models.moe", "evr_tpu_torch.parallel.ep", "evr_tpu_torch.models.captioner",
+             "evr_tpu_torch.training.scst", "evr_tpu_torch.tools.train_captioner",
+             "evr_tpu_torch.data_prep.captioning"):
     assert name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "evr_tpu") for m in sys.modules)
@@ -88,8 +92,9 @@ def test_port_imports_without_jax_or_evr_tpu():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     # every module of the port was imported: 50 by slice 5, 128 with the six
-    # of the SigLIP and Whisper slice (named above)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 128
+    # of the SigLIP and Whisper slice, 134 with the six of the MoE and
+    # captioner slice (named above)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 134
 
 
 def _port_files():

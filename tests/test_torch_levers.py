@@ -254,11 +254,14 @@ def test_evaluate_retrieval_matches_jax():
 
 
 def test_moe_is_the_one_lever_left_unported():
-    from evr_tpu_torch.training.finetune import UNPORTED_FIELDS, check_supported
+    """No lever is left unported: an MoE config passes ``check_supported``
+    and builds the step beside the other levers."""
+    from evr_tpu_torch.models.moe import MoEConfig
+    from evr_tpu_torch.training.finetune import check_supported
 
-    assert UNPORTED_FIELDS == {"moe": ((None,), "A17")}
-    with pytest.raises(NotImplementedError, match="TrainConfig.moe.*ROADMAP item A17"):
-        check_supported(TrainConfig(moe=object()))
+    check_supported(TrainConfig(moe=MoEConfig()))
+    make_grad_fn(cfgs()[1], TCLS, TrainConfig(moe=MoEConfig(n_experts=4), remat=True, patch_drop=0.5,
+                                              grad_accumulation_steps=4))
     _, tcfg = cfgs()
     # the mesh, refused until it was ported, now builds the trainer over its slots
     from evr_tpu_torch.parallel import get_mesh
